@@ -1,0 +1,25 @@
+"""chan_vese_tpu_torch: Chan-Vese segmentation in PyTorch with hand-written
+CUDA kernels for NVIDIA Hopper.
+
+The port of ``chan_vese_tpu`` (the JAX reference, which stays beside it).
+This package covers the scalar grayscale main path: the plain PyTorch ops
+and the scalar drivers (``segment``, ``segment_fixed``), the per-iteration
+fused driver over K1 and the banded drivers over K2/K3. CPU tensors run
+the plain PyTorch versions of the kernels; CUDA tensors launch the kernels
+in ``csrc/``, built with nvcc at first use. It never imports jax.
+"""
+
+from .params import CVParams, DEFAULTS
+from .models.scalar import SegResult, SegTrace, segment, segment_fixed, step
+from .models.fused import segment_fused, segment_fused_fixed
+from .models.banded import (auto_config, segment_banded,
+                            segment_banded_fixed)
+
+__all__ = [
+    "CVParams", "DEFAULTS",
+    "segment", "segment_fixed", "step", "SegResult", "SegTrace",
+    "segment_fused", "segment_fused_fixed",
+    "auto_config", "segment_banded", "segment_banded_fixed",
+]
+
+__version__ = "0.1.0"

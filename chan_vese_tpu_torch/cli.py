@@ -1,0 +1,124 @@
+"""Command-line interface: the scalar subset of ``chan_vese_tpu/cli.py``.
+
+    python -m chan_vese_tpu_torch image.npy -o mask.npy
+    python -m chan_vese_tpu_torch image.npy --iters 100 --device cpu
+
+Flag names and defaults follow the reference. ``--device`` picks the torch
+device (default ``cuda``; it raises when no GPU is present rather than
+falling back). On a CUDA device with ``--order redblack`` the tolerance
+run takes the banded driver (K2/K3 kernels); otherwise the plain driver.
+``--iters`` runs exactly that many iterations of the plain driver, as the
+reference does.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+
+from .params import CVParams
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="chan_vese_tpu_torch",
+        description="Chan-Vese active-contour segmentation (PyTorch/CUDA)")
+    ap.add_argument("input", help="input image (npy/npz; png/jpg need "
+                                  "Pillow)")
+    ap.add_argument("-o", "--output", default=None,
+                    help="output mask (npy, or png with Pillow)")
+    d = CVParams()
+    ap.add_argument("--mu", type=float, default=d.mu,
+                    help=f"length penalty (default {d.mu:g}; for [0,255] "
+                         "intensities)")
+    ap.add_argument("--nu", type=float, default=d.nu, help="area penalty")
+    ap.add_argument("--lambda1", type=float, default=d.lambda1,
+                    help="inside fit weight")
+    ap.add_argument("--lambda2", type=float, default=d.lambda2,
+                    help="outside fit weight")
+    ap.add_argument("--dt", type=float, default=d.dt, help="time step")
+    ap.add_argument("--eps", type=float, default=d.eps,
+                    help="Heaviside/Dirac regularization width")
+    ap.add_argument("--tol", type=float, default=d.tol,
+                    help="per-pixel convergence tolerance")
+    ap.add_argument("--max-iter", type=int, default=d.max_iter)
+    ap.add_argument("--iters", type=int, default=None,
+                    help="run EXACTLY this many iterations (fixed mode)")
+    ap.add_argument("--init", default=d.init,
+                    choices=("checkerboard", "circle", "rect", "disk",
+                             "small-disk"))
+    ap.add_argument("--order", choices=("redblack", "jacobi", "wavefront"),
+                    default=d.order,
+                    help="sweep ordering (wavefront == sequential raster "
+                         "Gauss-Seidel; parity mode)")
+    ap.add_argument("--no-fused", action="store_true",
+                    help="skip the kernel drivers even on a GPU")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain "
+                         "PyTorch versions of the kernels)")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+
+    import torch
+
+    from .models.banded import segment_banded
+    from .models.scalar import segment, segment_fixed
+    from .utils import image_io
+
+    if args.iters is not None and args.iters < 1:
+        print("error: --iters must be positive", file=sys.stderr)
+        return 2
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but torch finds no CUDA device; "
+                           "pass --device cpu to run on the CPU")
+    try:
+        img = image_io.load_image(args.input)
+    except FileNotFoundError:
+        print(f"error: cannot open input image {args.input!r}",
+              file=sys.stderr)
+        return 2
+    if img.ndim != 2:
+        print("error: color images are not ported yet (ROADMAP M6)",
+              file=sys.stderr)
+        return 2
+    u0 = torch.from_numpy(np.ascontiguousarray(img)).to(device)
+
+    p = CVParams(mu=args.mu, nu=args.nu, lambda1=args.lambda1,
+                 lambda2=args.lambda2, dt=args.dt, eps=args.eps,
+                 tol=args.tol, max_iter=args.max_iter, init=args.init,
+                 order=args.order)
+
+    if args.iters is not None:
+        tr = segment_fixed(u0, p, iters=args.iters)
+        mask, iters, c1, c2 = tr.mask, args.iters, tr.c1[-1], tr.c2[-1]
+    else:
+        if (not args.no_fused and device.type == "cuda"
+                and args.order == "redblack"):
+            # the kernels implement red-black only; the banded driver
+            # falls back to the fused kernel, then the plain path, off
+            # its envelope
+            res = segment_banded(u0, p)
+        else:
+            res = segment(u0, p)
+        mask, iters, c1, c2 = res.mask, res.iters, res.c1, res.c2
+
+    c1, c2 = float(c1), float(c2)
+    if not (np.isfinite(c1) and np.isfinite(c2)):
+        print(f"DIVERGED after {iters} iters (non-finite level set - "
+              f"check the input for NaN/Inf and the parameter scales); "
+              f"no outputs written", file=sys.stderr)
+        return 1
+    print(f"converged in {iters} iters; c1={c1}, c2={c2}", file=sys.stderr)
+    if args.output:
+        image_io.save_mask(args.output, mask.cpu().numpy())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

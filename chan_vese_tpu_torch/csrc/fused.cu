@@ -1,0 +1,29 @@
+// K1: one red-black iteration plus the partials the next iteration needs.
+//
+// Replaces chan_vese_tpu/ops/pallas_sweep.py::_fused_band_kernel (whole-
+// image mode, reached through fused_iteration). The body is the shared
+// chunk kernel of redblack.cuh at k = 1: a tile with a 4-row/col halo up
+// and left and 2 down and right, one red and one black half-sweep in
+// shared memory, partials of the transition.
+//
+// Bound on the card: device memory. Each iteration reads phi and u0 and
+// writes phi (12 B/pixel, plus the halo overlap of 1.1x at 64 x 128
+// tiles), so at 4K one call moves about 110 MB; the design keeps f, the
+// half-sweep state and the partials on chip so nothing else touches DRAM.
+
+#include "redblack.cuh"
+
+extern "C" cudaError_t cv_fused_iteration(
+    const float* phi, const float* u0, const float* cc, float* out,
+    double* block_parts, float* parts, int H, int W, int TH, int TW,
+    int cap, float mu, float nu, float l1, float l2, float eta2, float gdt,
+    float eps, float eps2, float inv_pi, void* stream) {
+  const cv::Params P{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi};
+  return cv::launch_chunk<false>(phi, u0, cc, out, block_parts, parts, H, W,
+                                 1, TH, TW, cap, P, (cudaStream_t)stream);
+}
+
+// Name of a CUDA error code, for the Python wrappers' exceptions.
+extern "C" const char* cv_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

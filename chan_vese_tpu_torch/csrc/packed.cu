@@ -1,0 +1,26 @@
+// K3: the K2 chunk on parity planes P[a][b][r, c] = phi[2r + a, 2c + b],
+// stored as (2, 2, H/2, W/2).
+//
+// Replaces chan_vese_tpu/ops/pallas_packed.py::_packed_banded_kernel and
+// _packed_banded_kernel_fusej (whole-image entry packed_banded_chunk). The
+// plane layout existed because Mosaic cannot lower stride-2 lane access;
+// Hopper has no such limit, so this kernel runs the same body as K2
+// (redblack.cuh) and differs only in the global load/store address:
+// element (i, j) lives at planes[i & 1][j & 1][i >> 1][j >> 1].
+//
+// Bound on the card: as K2 (shared memory and rsqrt/divide). The strided
+// plane addressing halves the coalescing of the once-per-chunk global
+// loads and stores (neighboring threads alternate between two planes), a
+// cost paid once per k iterations.
+
+#include "redblack.cuh"
+
+extern "C" cudaError_t cv_packed_banded_chunk(
+    const float* phi, const float* u0, const float* cc, float* out,
+    double* block_parts, float* parts, int H, int W, int k, int TH, int TW,
+    int cap, float mu, float nu, float l1, float l2, float eta2, float gdt,
+    float eps, float eps2, float inv_pi, void* stream) {
+  const cv::Params P{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi};
+  return cv::launch_chunk<true>(phi, u0, cc, out, block_parts, parts, H, W,
+                                k, TH, TW, cap, P, (cudaStream_t)stream);
+}

@@ -1,0 +1,244 @@
+// Shared device code of the Hopper red-black kernels (K1 fused.cu, K2
+// banded.cu, K3 packed.cu): one body, three launchers.
+//
+// What a launch computes: k red-black semi-implicit iterations with the
+// region means c1/c2 frozen (k = 1 for the fused kernel), then the 8-slot
+// partials [s_uH, s_H, s_dphi2, flips, s_absdphi, 0, 0, 0] of the LAST
+// iteration's transition, summed over the image. This is the contract of
+// chan_vese_tpu/ops/pallas_banded.py::_banded_kernel (and, at k = 1, of
+// ops/pallas_sweep.py::_fused_band_kernel).
+//
+// Tiling. A block owns a TH x TW output tile and loads a window of phi
+// clipped to the image and extended by 4k rows/cols up/left and 2k
+// rows/cols down/right (the reach of k iterations; the red half-sweep at a
+// window edge is wrong because its neighbor read clamps there, and the
+// error front moves one cell per half-sweep, so 2k each way would do).
+// Neighbor reads clamp at the window bounds: where a bound is an image
+// edge that is exact replica-eval Neumann, elsewhere the wrong values stay
+// in the halo. Clamped replicas are never stored as cells.
+//
+// Per chunk the block computes f = -nu - l1 (u0-c1)^2 + l2 (u0-c2)^2 once
+// into shared memory, then runs k x (red, black) half-sweeps there. A
+// half-sweep computes the active color's new values into a half-size
+// buffer from the current window, then writes them back: the red update
+// reads its diagonal (red) neighbors through the backward coefficients, so
+// an in-place update would race. Each thread handles one horizontal cell
+// pair, exactly one of which is active, so no warp lane idles on color.
+// Window columns start at an even global column, which the wrapper
+// guarantees by requiring even H and W.
+//
+// Bound on the card: shared-memory traffic and the rsqrt/divide pipe. Per
+// iteration each cell reads its 3x3 neighborhood (8 loads) and evaluates
+// 4 rsqrt and 1 divide; device memory is read and written once per chunk
+// (12 B/pixel per k iterations plus the halo overlap), so at k = 8 DRAM is
+// far from the limit. The halo costs (TH + 6k)(TW + 6k) / (TH TW) of
+// redundant compute (2.4x at k = 8 with 64 x 128 tiles).
+//
+// Partials come from owned cells only and compare each cell's value after
+// the last iteration with its value before it: the write-back of the last
+// iteration sees both. Each block writes its five sums (f64) to a
+// (nblocks, 8) scratch; a second one-block kernel sums them in a fixed
+// order in f64, so the result is deterministic.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cv {
+// Internal linkage: every .cu that includes this header gets its own copy,
+// so the three launchers link into one library without clashes.
+namespace {
+
+constexpr int kThreads = 512;
+
+struct Params {
+  float mu, nu, l1, l2, eta2;
+  float gdt;     // dt * eps / pi, computed on the host in double
+  float eps, eps2, inv_pi;
+};
+
+// Offset of image element (i, j): flat row-major, or parity planes
+// P[i & 1][j & 1][i >> 1][j >> 1] of shape (2, 2, H/2, W/2).
+template <bool PACKED>
+__device__ __forceinline__ int64_t gaddr(int i, int j, int H, int W) {
+  if (PACKED) {
+    const int64_t hp = H >> 1, wp = W >> 1;
+    const int64_t plane = (i & 1) * 2 + (j & 1);
+    return (plane * hp + (i >> 1)) * wp + (j >> 1);
+  }
+  return (int64_t)i * W + j;
+}
+
+__device__ __forceinline__ float face(float mu, float eta2, float a,
+                                      float b) {
+  return mu * rsqrtf(eta2 + a * a + b * b);
+}
+
+// Semi-implicit update of window cell (r, c) from the window state s.
+// Counterpart of chan_vese_tpu/ops/pallas_sweep.py::_update_all: forward
+// coefficients A, B at the cell; backward ones A- = A(r-1, c) and
+// B- = B(r, c-1) evaluated with clamped reads, which at a window's first
+// row/col gives the replica-eval value (am0/bm0 of the reference). The
+// Dirac factor uses the cell's value before the iteration: the active
+// color is still old when its half-sweep runs.
+__device__ __forceinline__ float update_cell(const float* s, const float* f,
+                                             int r, int c, int wh, int ww,
+                                             const Params& P) {
+  const int rn = max(r - 1, 0), rs = min(r + 1, wh - 1);
+  const int cw = max(c - 1, 0), ce = min(c + 1, ww - 1);
+  const float x = s[r * ww + c];
+  const float n = s[rn * ww + c], so = s[rs * ww + c];
+  const float w = s[r * ww + cw], e = s[r * ww + ce];
+  const float nw = s[rn * ww + cw], ne = s[rn * ww + ce];
+  const float sw = s[rs * ww + cw];
+  const float A = face(P.mu, P.eta2, so - x, 0.5f * (e - w));
+  const float Am = face(P.mu, P.eta2, x - n, 0.5f * (ne - nw));
+  const float B = face(P.mu, P.eta2, 0.5f * (so - n), e - x);
+  const float Bm = face(P.mu, P.eta2, 0.5f * (sw - nw), x - w);
+  const float g = P.gdt / (P.eps2 + x * x);
+  const float num = x + g * (A * so + Am * n + B * e + Bm * w + f[r * ww + c]);
+  const float den = 1.0f + g * (A + Am + B + Bm);
+  return num / den;
+}
+
+// Sum v over the block in a fixed order (warp shuffles, then warp 0).
+__device__ __forceinline__ double block_sum(double v, double* scratch) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  v = 0.0;
+  if (warp == 0) {
+    if (lane < (int)(blockDim.x >> 5)) v = scratch[lane];
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  }
+  __syncthreads();
+  return v;  // valid in thread 0
+}
+
+// cap: window capacity in floats, min(H, TH + 6k) * min(W, TW + 6k).
+// Dynamic shared memory: cur[cap] | f[cap] | half[cap / 2] = 10 cap bytes.
+template <bool PACKED>
+__global__ void __launch_bounds__(kThreads)
+chunk_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
+             const float* __restrict__ cc, float* __restrict__ out,
+             double* __restrict__ block_parts, int H, int W, int k, int TH,
+             int TW, int cap, Params P) {
+  extern __shared__ float smem[];
+  __shared__ double red_scratch[kThreads / 32];
+  float* cur = smem;
+  float* f = smem + cap;
+  float* half = smem + 2 * cap;
+
+  const int tr0 = blockIdx.y * TH, tc0 = blockIdx.x * TW;
+  const int tr1 = min(tr0 + TH, H), tc1 = min(tc0 + TW, W);
+  const int wr0 = max(tr0 - 4 * k, 0), wr1 = min(tr1 + 2 * k, H);
+  const int wc0 = max(tc0 - 4 * k, 0), wc1 = min(tc1 + 2 * k, W);
+  const int wh = wr1 - wr0, ww = wc1 - wc0, hw = ww >> 1;
+
+  const float c1 = cc[0], c2 = cc[1];
+  for (int idx = threadIdx.x; idx < wh * ww; idx += blockDim.x) {
+    const int r = idx / ww, c = idx - r * ww;
+    const int64_t g = gaddr<PACKED>(wr0 + r, wc0 + c, H, W);
+    const float u = u0[g];
+    const float d1 = u - c1, d2 = u - c2;
+    cur[idx] = phi[g];
+    f[idx] = -P.nu - P.l1 * (d1 * d1) + P.l2 * (d2 * d2);
+  }
+  __syncthreads();
+
+  double acc[5] = {0.0, 0.0, 0.0, 0.0, 0.0};
+  for (int it = 0; it < k; ++it) {
+    const bool last = it == k - 1;
+    for (int color = 0; color < 2; ++color) {  // 0 = red: (i + j) even
+      for (int idx = threadIdx.x; idx < wh * hw; idx += blockDim.x) {
+        const int r = idx / hw, q = idx - r * hw;
+        const int c = 2 * q + ((wr0 + r + color) & 1);
+        half[idx] = update_cell(cur, f, r, c, wh, ww, P);
+      }
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < wh * hw; idx += blockDim.x) {
+        const int r = idx / hw, q = idx - r * hw;
+        const int c = 2 * q + ((wr0 + r + color) & 1);
+        const float nv = half[idx];
+        if (last) {
+          const int gi = wr0 + r, gj = wc0 + c;
+          if (gi >= tr0 && gi < tr1 && gj >= tc0 && gj < tc1) {
+            const float old = cur[r * ww + c];
+            const float h = 0.5f + P.inv_pi * atanf(nv / P.eps);
+            const float d = nv - old;
+            acc[0] += (double)(u0[gaddr<PACKED>(gi, gj, H, W)] * h);
+            acc[1] += (double)h;
+            acc[2] += (double)(d * d);
+            acc[3] += ((nv >= 0.0f) != (old >= 0.0f)) ? 1.0 : 0.0;
+            acc[4] += (double)fabsf(d);
+          }
+        }
+        cur[r * ww + c] = nv;
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int idx = threadIdx.x; idx < (tr1 - tr0) * (tc1 - tc0);
+       idx += blockDim.x) {
+    const int orow = idx / (tc1 - tc0), ocol = idx - orow * (tc1 - tc0);
+    const int gi = tr0 + orow, gj = tc0 + ocol;
+    out[gaddr<PACKED>(gi, gj, H, W)] = cur[(gi - wr0) * ww + (gj - wc0)];
+  }
+
+  const int bid = blockIdx.y * gridDim.x + blockIdx.x;
+  for (int t = 0; t < 5; ++t) {
+    const double s = block_sum(acc[t], red_scratch);
+    if (threadIdx.x == 0) block_parts[(int64_t)bid * 8 + t] = s;
+  }
+}
+
+// Sums the (nblocks, 8) per-block partials in a fixed order in f64.
+__global__ void __launch_bounds__(256)
+reduce_parts_kernel(const double* __restrict__ block_parts, int nblocks,
+                    float* __restrict__ parts) {
+  __shared__ double s[256];
+  for (int t = 0; t < 8; ++t) {
+    double a = 0.0;
+    if (t < 5) {
+      for (int b = threadIdx.x; b < nblocks; b += blockDim.x)
+        a += block_parts[(int64_t)b * 8 + t];
+    }
+    s[threadIdx.x] = a;
+    __syncthreads();
+    for (int w = blockDim.x / 2; w > 0; w >>= 1) {
+      if ((int)threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) parts[t] = (float)s[0];
+    __syncthreads();
+  }
+}
+
+// Host side: launch one chunk plus the partials reduction on `stream`.
+// The caller (chan_vese_tpu_torch/ops/_cuda.py) chooses TH, TW and cap and
+// allocates out, block_parts ((nblocks, 8) f64) and parts (8 f32).
+template <bool PACKED>
+cudaError_t launch_chunk(const float* phi, const float* u0, const float* cc,
+                         float* out, double* block_parts, float* parts,
+                         int H, int W, int k, int TH, int TW, int cap,
+                         Params P, cudaStream_t stream) {
+  const size_t smem = (size_t)cap * 10;
+  cudaError_t err = cudaFuncSetAttribute(
+      chunk_kernel<PACKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
+  chunk_kernel<PACKED><<<grid, kThreads, smem, stream>>>(
+      phi, u0, cc, out, block_parts, H, W, k, TH, TW, cap, P);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  reduce_parts_kernel<<<1, 256, 0, stream>>>(block_parts,
+                                             (int)(grid.x * grid.y), parts);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace cv

@@ -1,0 +1,170 @@
+"""Banded multi-iteration drivers (K2, K3): the scalar main path.
+
+Counterpart of ``chan_vese_tpu/models/banded.py``. A run is a host loop of
+chunks; each chunk is one kernel launch doing k red-black iterations with
+c1/c2 frozen, and the next chunk's means come from its partials
+(frozen-means-per-chunk trajectory class; k = 1 is the fused driver's
+schedule). The schedule is the reference's: full k-chunks, then one
+remainder chunk, so the max_iter cap is exact.
+
+Convergence and divergence are evaluated at chunk boundaries from the last
+in-chunk iteration's partials; ``patience`` is iteration-denominated (a
+below-tol chunk credits its full size to the streak). The tolerance loop
+reads the chunk's delta back once per chunk.
+
+Routing follows the reference exactly (``auto_config``, ``_supported``): a
+call takes the same route, and so the same trajectory class, as in
+``chan_vese_tpu`` at every shape. Off the banded envelope it runs the
+fused driver (K1), which itself falls back to the plain path.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..ops import banded_kernel, packed_kernel
+from ..ops.reductions import means_from_sums, region_means
+from ..params import CVParams
+from .fused import _delta_from_partials, _fold_scalar_lambdas
+from .scalar import SegResult, _check_ported, _phi0
+
+
+def _supported(u0, p: CVParams, k: int) -> bool:
+    # vector inputs and reinit already raised in _check_ported
+    return (banded_kernel.supports_banded(*u0.shape, k)
+            and p.order == "redblack")
+
+
+def auto_config(H, W, k=None, unroll=None, packed=None, fuse=None):
+    """Resolve (k, unroll, packed, fuse) exactly as the reference does.
+
+    The reference's choices were measured on its own hardware; they are
+    kept unchanged here so that routing (flat vs packed, k) and hence the
+    trajectory class agree with ``chan_vese_tpu``. Re-deriving them for
+    the H100 is ROADMAP M4 follow-up work. ``unroll`` and ``fuse`` do not
+    change values and the Hopper kernels ignore them.
+    """
+    if k is None:
+        k = 8
+    if packed is None:
+        packed = (H * W >= 2160 * 3840
+                  and packed_kernel.supports_packed_banded(H, W, k))
+    if unroll is None:
+        if packed:
+            bp, _, _ = packed_kernel.band_rows_packed(H, W, k)
+            will_fuse = (fuse is True
+                         or (fuse is None and k <= 8
+                             and H * W >= 2160 * 3840))
+            unroll = 4 if (will_fuse and k % 4 == 0 and bp <= 96) else 1
+        else:
+            unroll = 4
+    if fuse is None:
+        fuse = unroll == 4 and k <= 8 and H * W >= 2160 * 3840
+    return k, unroll, packed, fuse
+
+
+class _Chunker:
+    """State shared by both drivers: the (optionally packed) iterate, the
+    per-run sums behind the means, and the chunk launch."""
+
+    def __init__(self, u0, p, phi0, k, unroll, packed, fuse):
+        H, W = u0.shape
+        self.p, self.unroll, self.fuse = p, unroll, fuse
+        self.n_pix = torch.tensor(H * W, dtype=u0.dtype, device=u0.device)
+        self.sum_u = torch.sum(u0)
+        self.c1, self.c2 = region_means(u0, phi0, p.eps)
+        self.packed = packed and packed_kernel.supports_packed_banded(H, W, k)
+        if self.packed:
+            self.phi = packed_kernel._pack(phi0)
+            self.u0 = packed_kernel._pack(u0)
+        else:
+            self.phi, self.u0 = phi0, u0
+
+    def run(self, size: int):
+        """One chunk of ``size`` iterations; returns its partials."""
+        un = self.unroll if size % self.unroll == 0 else 1
+        op = (packed_kernel.packed_banded_chunk if self.packed
+              else banded_kernel.banded_chunk)
+        self.phi, parts = op(self.phi, self.u0, self.c1, self.c2, self.p,
+                             size, unroll=un, fuse=self.fuse)
+        self.c1, self.c2 = means_from_sums(parts[0], parts[1], self.sum_u,
+                                           self.n_pix)
+        return parts
+
+    def image(self):
+        return packed_kernel._unpack(self.phi) if self.packed else self.phi
+
+
+def segment_banded_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
+                         k: Optional[int] = None,
+                         phi0: Optional[torch.Tensor] = None,
+                         lambda1=None, lambda2=None,
+                         unroll: Optional[int] = None,
+                         packed: Optional[bool] = None,
+                         fuse: Optional[bool] = None):
+    """Fixed-iteration banded run: full k-chunks plus one remainder chunk.
+    Returns (phi, mask). Off the banded envelope it runs
+    :func:`.fused.segment_fused_fixed`."""
+    _check_ported(u0, p)
+    k, unroll, packed, fuse = auto_config(*u0.shape, k, unroll, packed,
+                                          fuse)
+    p = _fold_scalar_lambdas(p, lambda1, lambda2)
+    if not _supported(u0, p, k) or iters < 1:
+        from .fused import segment_fused_fixed
+        return segment_fused_fixed(u0, p, iters, phi0)
+    ch = _Chunker(u0, p, _phi0(u0, p, phi0), k, unroll, packed, fuse)
+    for _ in range(iters // k):
+        ch.run(k)
+    if iters % k:
+        ch.run(iters % k)
+    phi = ch.image()
+    return phi, phi >= 0
+
+
+def segment_banded(u0, p: CVParams = CVParams(),
+                   phi0: Optional[torch.Tensor] = None,
+                   k: Optional[int] = None,
+                   lambda1=None, lambda2=None,
+                   unroll: Optional[int] = None,
+                   packed: Optional[bool] = None,
+                   fuse: Optional[bool] = None) -> SegResult:
+    """Tolerance-mode banded segmentation (chunk-granular convergence).
+    Off the banded envelope it runs :func:`.fused.segment_fused`."""
+    _check_ported(u0, p)
+    k, unroll, packed, fuse = auto_config(*u0.shape, k, unroll, packed,
+                                          fuse)
+    p = _fold_scalar_lambdas(p, lambda1, lambda2)
+    if not _supported(u0, p, k):
+        from .fused import segment_fused
+        return segment_fused(u0, p, phi0)
+    # validate conv_norm before any work (same contract as the reference)
+    _delta_from_partials(torch.zeros(8, dtype=u0.dtype), 1.0, p)
+    ch = _Chunker(u0, p, _phi0(u0, p, phi0), k, unroll, packed, fuse)
+    n, streak = 0, 0
+    delta = torch.tensor(math.inf, dtype=u0.dtype, device=u0.device)
+
+    def not_stopped():
+        done = streak >= p.patience and n >= p.min_iter
+        diverged = n > 0 and not math.isfinite(float(delta))
+        return not (done or diverged)
+
+    def run_chunk(size):
+        nonlocal n, delta, streak
+        parts = ch.run(size)
+        delta = _delta_from_partials(parts, ch.n_pix, p)
+        # a below-tol chunk credits its full size: patience stays
+        # iteration-denominated across drivers
+        streak = streak + size if bool(delta < p.tol) else 0
+        n += size
+
+    full = (p.max_iter // k) * k
+    while n < full and not_stopped():
+        run_chunk(k)
+    rem = p.max_iter - full
+    if rem and n < p.max_iter and not_stopped():
+        run_chunk(rem)
+    phi = ch.image()
+    return SegResult(phi, phi >= 0, n, delta, ch.c1, ch.c2)

@@ -1,0 +1,77 @@
+"""Launch path shared by the three red-black kernels (K1-K3).
+
+Checks the inputs, chooses the tile geometry, allocates the outputs and
+scratch, and calls the kernel library (``_build.library()``) on PyTorch's
+current stream. Nothing here synchronizes with the device. A refused
+launch raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+# output tiles (rows, cols), largest first; 512 threads per block
+TILES = ((64, 128), (32, 128), (32, 64), (16, 64), (16, 32))
+# H100 shared memory per block (232,448 B) less room for the static part
+SMEM_LIMIT = 232448 - 1024
+
+
+def tile_geometry(h: int, w: int, k: int):
+    """(TH, TW, cap) for k iterations per launch: the largest tile whose
+    window (tile + 6k rows/cols of halo, clipped to the image) fits in
+    shared memory at 10 bytes per window cell (phi, f, half a buffer)."""
+    for th, tw in TILES:
+        cap = min(h, th + 6 * k) * min(w, tw + 6 * k)
+        if 10 * cap <= SMEM_LIMIT:
+            return th, tw, cap
+    raise ValueError(f"k={k} needs more shared memory than a block has "
+                     f"(window of the smallest tile exceeds {SMEM_LIMIT} B)")
+
+
+def _check_inputs(phi, u0):
+    if phi.device.type != "cuda":
+        raise ValueError(f"kernel launch needs CUDA tensors, got {phi.device}")
+    for name, t in (("phi", phi), ("u0", u0)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != phi.device:
+            raise ValueError(f"{name} is on {t.device}, phi on {phi.device}")
+    if u0.shape != phi.shape:
+        raise ValueError(f"u0 {tuple(u0.shape)} vs phi {tuple(phi.shape)}")
+
+
+def launch_chunk(symbol: str, phi, u0, c1, c2, p, k, h: int, w: int):
+    """Run kernel ``symbol`` on image geometry (h, w); phi/u0 hold it flat
+    or as parity planes. Returns (phi_new, partials (8,) f32)."""
+    from .._build import library
+
+    _check_inputs(phi, u0)
+    if h % 2 or w % 2:
+        raise ValueError(f"the kernels need even H and W, got {(h, w)}")
+    if k is not None and k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    th, tw, cap = tile_geometry(h, w, 1 if k is None else k)
+    dev = phi.device
+    out = torch.empty_like(phi)
+    nblocks = math.ceil(h / th) * math.ceil(w / tw)
+    block_parts = torch.empty((nblocks, 8),
+                              dtype=torch.float64, device=dev)
+    parts = torch.empty(8, dtype=torch.float32, device=dev)
+    cc = torch.stack([torch.as_tensor(c1, device=dev),
+                      torch.as_tensor(c2, device=dev)]).to(torch.float32)
+    params = (p.mu, p.nu, p.lambda1, p.lambda2, p.eta2,
+              p.dt * p.eps / math.pi, p.eps, p.eps * p.eps, 1.0 / math.pi)
+    ptrs = (phi.data_ptr(), u0.data_ptr(), cc.data_ptr(), out.data_ptr(),
+            block_parts.data_ptr(), parts.data_ptr())
+    ks = () if k is None else (k,)
+    lib = library()
+    err = getattr(lib, symbol)(*ptrs, h, w, *ks, th, tw, cap, *params,
+                               torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{symbol} launch failed: "
+                           f"{lib.cv_error_string(err).decode()} ({err})")
+    return out, parts

@@ -1,0 +1,85 @@
+"""K1: one fused red-black iteration plus next-iteration partials.
+
+Counterpart of ``chan_vese_tpu/ops/pallas_sweep.py`` (whole-image mode of
+``_fused_band_kernel``). On a CUDA tensor :func:`fused_iteration` launches
+the hand-written kernel ``csrc/fused.cu``; on a CPU tensor it runs
+:func:`fused_iteration_reference`, the plain PyTorch version.
+
+Partials layout (8,): [s_uH, s_H, s_dphi2, flips, s_absdphi, 0, 0, 0],
+taken over the transition phi -> phi_new.
+
+``supports`` and ``band_rows`` are the reference's routing predicates, kept
+as pure integer functions of the shape so that a call takes the same
+route (and trajectory class) as in ``chan_vese_tpu``. The VMEM and
+alignment terms inside them are the reference's routing, not limits of the
+Hopper kernel, which takes any even H and W.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..params import CVParams
+from . import _cuda
+from .numerics import heaviside
+from .reductions import data_term
+from .sweep import redblack_step
+
+# routing constants of chan_vese_tpu/ops/pallas_sweep.py
+_VMEM_LIMIT = 96 * 1024 * 1024
+_TILES = 24
+_HALO = 16
+
+
+def band_rows(h: int, w: int) -> int:
+    """The reference's band height (routing predicate only)."""
+    per_row = w * 4 * _TILES
+    b = max(8, (_VMEM_LIMIT // per_row) // 8 * 8)
+    return min(b, max(8, ((h - _HALO) // 8) * 8))
+
+
+def supports(h: int, w: int) -> bool:
+    """Whether the reference routes (h, w) to its fused kernel."""
+    return (w % 128 == 0 and h % 8 == 0 and h >= 24
+            and band_rows(h, w) + _HALO <= h)
+
+
+def chunk_reference(phi, u0, c1, c2, p: CVParams, k: int):
+    """k red-black iterations with frozen means, then the partials of the
+    last iteration: the plain version of every red-black kernel."""
+    f = data_term(u0, c1, c2, p.nu, p.lambda1, p.lambda2)
+    for _ in range(k - 1):
+        phi = redblack_step(phi, f, p)
+    prev = phi
+    phi = redblack_step(phi, f, p)
+    h = heaviside(phi, p.eps)
+    d = phi - prev
+    zero = torch.zeros((), dtype=phi.dtype, device=phi.device)
+    parts = torch.stack([
+        torch.sum(u0 * h), torch.sum(h), torch.sum(d * d),
+        torch.sum(((phi >= 0) != (prev >= 0)).to(phi.dtype)),
+        torch.sum(torch.abs(d)), zero, zero, zero])
+    return phi, parts
+
+
+def fused_iteration_reference(phi, u0, c1, c2, p: CVParams):
+    """Plain PyTorch version of :func:`fused_iteration`."""
+    return chunk_reference(phi, u0, c1, c2, p, 1)
+
+
+def fused_iteration(phi, u0, c1, c2, p: CVParams):
+    """One red-black iteration; returns (phi_new, partials (8,)).
+
+    CPU tensors run the plain version; CUDA tensors (float32, contiguous,
+    even H and W) launch ``csrc/fused.cu`` or raise.
+    """
+    if phi.device.type == "cpu":
+        return fused_iteration_reference(phi, u0, c1, c2, p)
+    h, w = phi.shape
+    out = _cuda.launch_chunk("cv_fused_iteration", phi, u0, c1, c2, p,
+                             None, h, w)
+    fused_iteration.launches += 1
+    return out
+
+
+fused_iteration.launches = 0

@@ -1,0 +1,105 @@
+"""Global reductions: region means, energy, convergence norms.
+
+Plain PyTorch counterparts of ``chan_vese_tpu/ops/reductions.py``. The
+vector-valued (H, W, C) energy and data term belong to ROADMAP item M6 and
+raise here.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .numerics import dirac, grad_forward, heaviside
+
+_VECTOR = "vector-valued (H, W, C) input is not ported yet (ROADMAP M6)"
+
+
+def region_sums(u0, phi, eps: float):
+    """(sum_uH, sum_H, sum_u, n) with H = H_eps(phi).
+
+    c1 = sum_uH / sum_H ; c2 = (sum_u - sum_uH) / (n - sum_H). For
+    (H, W, C) u0 the per-channel sums have shape (C,).
+    """
+    h = heaviside(phi, eps)
+    if u0.ndim == phi.ndim + 1:
+        dims = tuple(range(phi.ndim))
+        sum_uh = torch.sum(u0 * h[..., None], dim=dims)
+        sum_u = torch.sum(u0, dim=dims)
+    else:
+        sum_uh = torch.sum(u0 * h)
+        sum_u = torch.sum(u0)
+    sum_h = torch.sum(h)
+    n = torch.tensor(phi.numel(), dtype=phi.dtype, device=phi.device)
+    return sum_uh, sum_h, sum_u, n
+
+
+def means_from_sums(sum_uh, sum_h, sum_u, n):
+    """c1, c2 from region sums (safe against empty regions)."""
+    c1 = sum_uh / torch.clamp_min(sum_h, 1e-30)
+    c2 = (sum_u - sum_uh) / torch.clamp_min(n - sum_h, 1e-30)
+    return c1, c2
+
+
+def region_means(u0, phi, eps: float):
+    """Region averages c1 (inside, phi >= 0 side) and c2 (outside)."""
+    return means_from_sums(*region_sums(u0, phi, eps))
+
+
+def data_term(u0, c1, c2, nu: float, lambda1, lambda2):
+    """Pointwise data-fitting force
+    f = -nu - lambda1 (u0 - c1)^2 + lambda2 (u0 - c2)^2 (scalar image)."""
+    if u0.ndim == 3:
+        raise NotImplementedError(_VECTOR)
+    return -nu - lambda1 * (u0 - c1) ** 2 + lambda2 * (u0 - c2) ** 2
+
+
+def energy(u0, phi, c1, c2, p, lambda1=None, lambda2=None):
+    """Chan-Vese energy F = mu sum delta|grad phi| + nu sum H
+    + lambda1 sum (u0-c1)^2 H + lambda2 sum (u0-c2)^2 (1-H)."""
+    if u0.ndim == 3:
+        raise NotImplementedError(_VECTOR)
+    l1 = p.lambda1 if lambda1 is None else lambda1
+    l2 = p.lambda2 if lambda2 is None else lambda2
+    h = heaviside(phi, p.eps)
+    gx, gy = grad_forward(phi)
+    length = torch.sum(dirac(phi, p.eps) * torch.sqrt(gx * gx + gy * gy))
+    area = torch.sum(h)
+    fit1 = torch.sum((u0 - c1) ** 2 * h)
+    fit2 = torch.sum((u0 - c2) ** 2 * (1.0 - h))
+    return p.mu * length + p.nu * area + l1 * fit1 + l2 * fit2
+
+
+def delta_norm(phi_new, phi_old, kind: str = "flips"):
+    """Per-pixel convergence metric of the update.
+
+    'flips' is the fraction of pixels whose mask sign changed. It is
+    NaN-poisoned: comparisons against a NaN phi are all False, so
+    0 * sum(d) turns the metric NaN when phi went non-finite, which
+    :func:`loop_continue` treats as divergence.
+    """
+    d = phi_new - phi_old
+    if kind == "flips":
+        flipped = (phi_new >= 0) != (phi_old >= 0)
+        return torch.mean(flipped.to(phi_new.dtype)) + 0.0 * torch.sum(d)
+    if kind == "rms":
+        return torch.sqrt(torch.mean(d * d))
+    if kind == "mean_abs":
+        return torch.mean(torch.abs(d))
+    raise ValueError(f"unknown conv_norm {kind!r}")
+
+
+def loop_continue(n: int, delta: float, streak: int, p,
+                  max_iter=None) -> bool:
+    """Shared tolerance-loop predicate of the drivers (host values).
+
+    Continue while under the cap, not converged (``streak`` >=
+    ``p.patience`` below-tol iterations and ``n`` >= ``p.min_iter``) and
+    not diverged (a non-finite delta after iteration 0; the initial delta
+    is +inf by convention).
+    """
+    cap = p.max_iter if max_iter is None else max_iter
+    done = streak >= p.patience and n >= p.min_iter
+    diverged = n > 0 and not math.isfinite(delta)
+    return n < cap and not (done or diverged)
