@@ -2,24 +2,29 @@
 CUDA kernels for NVIDIA Hopper.
 
 The port of ``chan_vese_tpu`` (the JAX reference, which stays beside it).
-This package covers the scalar grayscale main path: the plain PyTorch ops
-and the scalar drivers (``segment``, ``segment_fixed``), the per-iteration
-fused driver over K1 and the banded drivers over K2/K3. CPU tensors run
-the plain PyTorch versions of the kernels; CUDA tensors launch the kernels
-in ``csrc/``, built with nvcc at first use. It never imports jax.
+This package covers the grayscale and the vector-valued (RGB) main paths:
+the plain PyTorch ops and drivers (``segment``, ``segment_fixed``,
+``segment_vector``, ``segment_vector_fixed``), the per-iteration fused
+driver over K1 (K4 for C channels) and the banded drivers over K2/K3
+(K5/K6). CPU tensors run the plain PyTorch versions of the kernels; CUDA
+tensors launch the kernels in ``csrc/``, built with nvcc at first use. It
+never imports jax.
 """
 
 from .params import CVParams, DEFAULTS
 from .models.scalar import SegResult, SegTrace, segment, segment_fixed, step
+from .models.vector import segment_vector, segment_vector_fixed
 from .models.fused import segment_fused, segment_fused_fixed
-from .models.banded import (auto_config, segment_banded,
+from .models.banded import (auto_config, auto_config_mc, segment_banded,
                             segment_banded_fixed)
 
 __all__ = [
     "CVParams", "DEFAULTS",
     "segment", "segment_fixed", "step", "SegResult", "SegTrace",
+    "segment_vector", "segment_vector_fixed",
     "segment_fused", "segment_fused_fixed",
-    "auto_config", "segment_banded", "segment_banded_fixed",
+    "auto_config", "auto_config_mc", "segment_banded",
+    "segment_banded_fixed",
 ]
 
 __version__ = "0.1.0"

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled at first use with ``nvcc`` into one shared
-library with a plain C interface, under ``chan_vese_tpu_torch/_build/``,
-and loaded with ``ctypes``. The library's name carries a hash of the
-sources and flags, so an edit rebuilds it. Nothing is downloaded: the
-build needs only the CUDA toolkit and the sources in this package.
+Every ``csrc/*.cu`` is compiled at first use with ``nvcc``, one process
+per source and all started together, and the objects are linked into one
+shared library with a plain C interface under ``chan_vese_tpu_torch/_build/``,
+loaded with ``ctypes``. The library's name carries a hash of the sources
+and flags, so an edit rebuilds it; ptxas's register and spill report of
+the build is kept beside it (:func:`ptxas_report`). Nothing is downloaded:
+the build needs only the CUDA toolkit and the sources in this package.
 """
 
 from __future__ import annotations
@@ -22,16 +24,23 @@ _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
 _OUT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# the three kernel launchers share one signature apart from k
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_HEAD = [_P] * 6 + [_I, _I]                     # pointers, H, W
-_TAIL = [_I, _I, _I] + [_F] * 9 + [_P]          # TH, TW, cap, params, stream
+# scalar launchers: pointers, H, W, [k], TH, TW, cap, 9 params, stream
+_HEAD = [_P] * 6 + [_I, _I]
+_TAIL = [_I, _I, _I] + [_F] * 9 + [_P]
+# multichannel launchers: pointers, H, W, C, [k], TH, TW, cap, 7 params
+# (the per-channel weights travel with the means), stream
+_HEAD_MC = [_P] * 6 + [_I, _I, _I]
+_TAIL_MC = [_I, _I, _I] + [_F] * 7 + [_P]
 SIGNATURES = {
     "cv_fused_iteration": _HEAD + _TAIL,
     "cv_banded_chunk": _HEAD + [_I] + _TAIL,
     "cv_packed_banded_chunk": _HEAD + [_I] + _TAIL,
+    "cv_fused_iteration_mc": _HEAD_MC + _TAIL_MC,
+    "cv_banded_chunk_mc": _HEAD_MC + [_I] + _TAIL_MC,
+    "cv_packed_banded_chunk_mc": _HEAD_MC + [_I] + _TAIL_MC,
 }
 
 
@@ -57,23 +66,56 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def _lib_path() -> Path:
+    return _OUT / f"libcv_kernels_{source_hash()}.so"
+
+
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists."""
-    lib = _OUT / f"libcv_kernels_{source_hash()}.so"
+    lib = _lib_path()
     if lib.exists():
         return lib
     _OUT.mkdir(exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_OUT)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *map(str, sorted(_SRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, lib)
+    nvcc = find_nvcc()
+    work = Path(tempfile.mkdtemp(dir=_OUT))
+    try:
+        jobs = []
+        for src in sorted(_SRC.glob("*.cu")):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+                   str(work / f"{src.stem}.o")]
+            log = open(work / f"{src.stem}.log", "w+")
+            jobs.append((cmd, log, subprocess.Popen(
+                cmd, stdout=subprocess.DEVNULL, stderr=log)))
+        done = []
+        for cmd, log, proc in jobs:  # wait for all before raising
+            rc = proc.wait()
+            log.seek(0)
+            done.append((cmd, rc, log.read()))
+            log.close()
+        for cmd, rc, text in done:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                                   f"{text}")
+        report = [text for _, _, text in done]
+        tmp = work / lib.name
+        cmd = [nvcc, "-shared", "-o", str(tmp),
+               *(str(work / f"{src.stem}.o")
+                 for src in sorted(_SRC.glob("*.cu")))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        lib.with_suffix(".ptxas").write_text("".join(report))
+        os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib
+
+
+def ptxas_report() -> str:
+    """ptxas's per-kernel registers, shared memory and spills (the
+    ``-Xptxas -v`` output) of the library for these sources."""
+    return build().with_suffix(".ptxas").read_text()
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,14 +1,18 @@
-"""Command-line interface: the scalar subset of ``chan_vese_tpu/cli.py``.
+"""Command-line interface: the grayscale and colour subset of
+``chan_vese_tpu/cli.py``.
 
     python -m chan_vese_tpu_torch image.npy -o mask.npy
     python -m chan_vese_tpu_torch image.npy --iters 100 --device cpu
+    python -m chan_vese_tpu_torch rgb.npy --color --lambda1 1 1.2 0.8
 
 Flag names and defaults follow the reference. ``--device`` picks the torch
 device (default ``cuda``; it raises when no GPU is present rather than
-falling back). On a CUDA device with ``--order redblack`` the tolerance
-run takes the banded driver (K2/K3 kernels); otherwise the plain driver.
-``--iters`` runs exactly that many iterations of the plain driver, as the
-reference does.
+falling back). Routing is the reference's: ``--color`` runs the plain
+vector-valued drivers (``segment_vector``, or ``segment_vector_fixed``
+with ``--iters``), which reach no kernel. Otherwise, on a CUDA device
+with ``--order redblack``, the tolerance run takes the banded driver
+(K2/K3 kernels, K5/K6 for a 3-D array) and elsewhere the plain driver;
+``--iters`` runs exactly that many iterations of the plain driver.
 """
 
 from __future__ import annotations
@@ -34,10 +38,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help=f"length penalty (default {d.mu:g}; for [0,255] "
                          "intensities)")
     ap.add_argument("--nu", type=float, default=d.nu, help="area penalty")
-    ap.add_argument("--lambda1", type=float, default=d.lambda1,
-                    help="inside fit weight")
-    ap.add_argument("--lambda2", type=float, default=d.lambda2,
-                    help="outside fit weight")
+    ap.add_argument("--lambda1", type=float, nargs="+", default=[d.lambda1],
+                    help="inside fit weight(s); one per channel with --color")
+    ap.add_argument("--lambda2", type=float, nargs="+", default=[d.lambda2],
+                    help="outside fit weight(s)")
     ap.add_argument("--dt", type=float, default=d.dt, help="time step")
     ap.add_argument("--eps", type=float, default=d.eps,
                     help="Heaviside/Dirac regularization width")
@@ -53,6 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
                     default=d.order,
                     help="sweep ordering (wavefront == sequential raster "
                          "Gauss-Seidel; parity mode)")
+    ap.add_argument("--color", action="store_true",
+                    help="vector-valued (RGB) energy on color images")
     ap.add_argument("--no-fused", action="store_true",
                     help="skip the kernel drivers even on a GPU")
     ap.add_argument("--device", default="cuda",
@@ -68,8 +74,13 @@ def main(argv=None) -> int:
 
     from .models.banded import segment_banded
     from .models.scalar import segment, segment_fixed
+    from .models.vector import segment_vector, segment_vector_fixed
     from .utils import image_io
 
+    if not args.color and (len(args.lambda1) > 1 or len(args.lambda2) > 1):
+        print("error: per-channel --lambda1/--lambda2 need --color",
+              file=sys.stderr)
+        return 2
     if args.iters is not None and args.iters < 1:
         print("error: --iters must be positive", file=sys.stderr)
         return 2
@@ -78,38 +89,43 @@ def main(argv=None) -> int:
         raise RuntimeError("--device cuda but torch finds no CUDA device; "
                            "pass --device cpu to run on the CPU")
     try:
-        img = image_io.load_image(args.input)
+        img = image_io.load_image(args.input, color=args.color)
     except FileNotFoundError:
         print(f"error: cannot open input image {args.input!r}",
               file=sys.stderr)
         return 2
-    if img.ndim != 2:
-        print("error: color images are not ported yet (ROADMAP M6)",
-              file=sys.stderr)
-        return 2
     u0 = torch.from_numpy(np.ascontiguousarray(img)).to(device)
 
-    p = CVParams(mu=args.mu, nu=args.nu, lambda1=args.lambda1,
-                 lambda2=args.lambda2, dt=args.dt, eps=args.eps,
+    p = CVParams(mu=args.mu, nu=args.nu, lambda1=args.lambda1[0],
+                 lambda2=args.lambda2[0], dt=args.dt, eps=args.eps,
                  tol=args.tol, max_iter=args.max_iter, init=args.init,
                  order=args.order)
+    lam1 = tuple(args.lambda1) if args.color else None
+    lam2 = tuple(args.lambda2) if args.color else None
 
     if args.iters is not None:
-        tr = segment_fixed(u0, p, iters=args.iters)
+        if args.color:
+            tr = segment_vector_fixed(u0, p, iters=args.iters, lambda1=lam1,
+                                      lambda2=lam2)
+        else:
+            tr = segment_fixed(u0, p, iters=args.iters)
         mask, iters, c1, c2 = tr.mask, args.iters, tr.c1[-1], tr.c2[-1]
     else:
-        if (not args.no_fused and device.type == "cuda"
+        if args.color:
+            res = segment_vector(u0, p, lambda1=lam1, lambda2=lam2)
+        elif (not args.no_fused and device.type == "cuda"
                 and args.order == "redblack"):
             # the kernels implement red-black only; the banded driver
             # falls back to the fused kernel, then the plain path, off
-            # its envelope
+            # its envelope (the reference's routing: --color never
+            # reaches this branch)
             res = segment_banded(u0, p)
         else:
             res = segment(u0, p)
         mask, iters, c1, c2 = res.mask, res.iters, res.c1, res.c2
 
-    c1, c2 = float(c1), float(c2)
-    if not (np.isfinite(c1) and np.isfinite(c2)):
+    c1, c2 = c1.cpu().numpy(), c2.cpu().numpy()
+    if not (np.all(np.isfinite(c1)) and np.all(np.isfinite(c2))):
         print(f"DIVERGED after {iters} iters (non-finite level set - "
               f"check the input for NaN/Inf and the parameter scales); "
               f"no outputs written", file=sys.stderr)

@@ -1,0 +1,26 @@
+// K5: k red-black iterations per pass over device memory on a C-channel
+// image, c1[C]/c2[C] frozen.
+//
+// Replaces chan_vese_tpu/ops/pallas_banded.py::_banded_mc_kernel and
+// _banded_mc_kernel_fusej (whole-image mode, reached through
+// banded_chunk_mc). K2's body (redblack.cuh) with NC = C: the channels
+// enter the data term, computed once per chunk at window load, and the
+// s_uH partials; partials are padded to the reference's 16 slots.
+//
+// Bound on the card: as K2, shared memory and the rsqrt/divide pipe. Per
+// chunk a block reads C + 1 values per window cell and writes one per
+// owned cell (20 B/pixel at RGB, against 12 for K2), once per k
+// iterations.
+
+#include "redblack.cuh"
+
+extern "C" cudaError_t cv_banded_chunk_mc(
+    const float* phi, const float* u0, const float* cc, float* out,
+    double* block_parts, float* parts, int H, int W, int C, int k, int TH,
+    int TW, int cap, float mu, float nu, float eta2, float gdt, float eps,
+    float eps2, float inv_pi, void* stream) {
+  const cv::Params P = cv::mc_params(mu, nu, eta2, gdt, eps, eps2, inv_pi);
+  return cv::launch_chunk_mc<false>(phi, u0, cc, out, block_parts, parts, H,
+                                    W, C, k, TH, TW, cap, 16, P,
+                                    (cudaStream_t)stream);
+}

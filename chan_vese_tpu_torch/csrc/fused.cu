@@ -19,8 +19,9 @@ extern "C" cudaError_t cv_fused_iteration(
     int cap, float mu, float nu, float l1, float l2, float eta2, float gdt,
     float eps, float eps2, float inv_pi, void* stream) {
   const cv::Params P{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi};
-  return cv::launch_chunk<false>(phi, u0, cc, out, block_parts, parts, H, W,
-                                 1, TH, TW, cap, P, (cudaStream_t)stream);
+  return cv::launch_chunk<false, 0>(phi, u0, cc, out, block_parts, parts, H,
+                                    W, 1, TH, TW, cap, 8, P,
+                                    (cudaStream_t)stream);
 }
 
 // Name of a CUDA error code, for the Python wrappers' exceptions.

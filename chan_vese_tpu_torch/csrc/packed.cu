@@ -21,6 +21,7 @@ extern "C" cudaError_t cv_packed_banded_chunk(
     int cap, float mu, float nu, float l1, float l2, float eta2, float gdt,
     float eps, float eps2, float inv_pi, void* stream) {
   const cv::Params P{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi};
-  return cv::launch_chunk<true>(phi, u0, cc, out, block_parts, parts, H, W,
-                                k, TH, TW, cap, P, (cudaStream_t)stream);
+  return cv::launch_chunk<true, 0>(phi, u0, cc, out, block_parts, parts, H,
+                                   W, k, TH, TW, cap, 8, P,
+                                   (cudaStream_t)stream);
 }

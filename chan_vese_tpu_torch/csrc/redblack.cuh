@@ -1,12 +1,26 @@
-// Shared device code of the Hopper red-black kernels (K1 fused.cu, K2
-// banded.cu, K3 packed.cu): one body, three launchers.
+// Shared device code of the Hopper red-black kernels: K1 fused.cu, K2
+// banded.cu, K3 packed.cu on a scalar image and K4 fused_mc.cu, K5
+// banded_mc.cu, K6 packed_mc.cu on a C-channel image. One body, six
+// launchers.
 //
 // What a launch computes: k red-black semi-implicit iterations with the
-// region means c1/c2 frozen (k = 1 for the fused kernel), then the 8-slot
-// partials [s_uH, s_H, s_dphi2, flips, s_absdphi, 0, 0, 0] of the LAST
-// iteration's transition, summed over the image. This is the contract of
-// chan_vese_tpu/ops/pallas_banded.py::_banded_kernel (and, at k = 1, of
-// ops/pallas_sweep.py::_fused_band_kernel).
+// region means c1/c2 frozen (k = 1 for the fused kernels), then the
+// partials of the LAST iteration's transition, summed over the image:
+// [s_uH, s_H, s_dphi2, flips, s_absdphi, 0, 0, 0] for a scalar image,
+// [s_uH per channel..., s_H, s_dphi2, flips, s_absdphi, 0...] for a
+// C-channel one (C + 4 slots for K4, padded to 16 for K5/K6). This is the
+// contract of chan_vese_tpu/ops/pallas_banded.py::_banded_kernel and
+// ::_banded_mc_kernel (and, at k = 1, of ops/pallas_sweep.py and
+// ops/pallas_sweep_mc.py).
+//
+// Channels. The template parameter NC is 0 for a scalar image and the
+// channel count C (1..8) otherwise; u0 is then channels-first, channel c
+// at u0 + c H W in both layouts. Only the data term and the s_uH partials
+// see the channels: the level set, the update and the shared-memory
+// window stay scalar. NC = 0 keeps the scalar kernels' arithmetic
+// (f = -nu - l1 d1^2 + l2 d2^2); NC >= 1 computes the reference mc
+// kernels' f = -nu + sum_c (l2[c]/C) d2^2 - (l1[c]/C) d1^2 in their order,
+// with the weights l1[c]/C, l2[c]/C precomputed on the host.
 //
 // Tiling. A block owns a TH x TW output tile and loads a window of phi
 // clipped to the image and extended by 4k rows/cols up/left and 2k
@@ -17,28 +31,30 @@
 // edge that is exact replica-eval Neumann, elsewhere the wrong values stay
 // in the halo. Clamped replicas are never stored as cells.
 //
-// Per chunk the block computes f = -nu - l1 (u0-c1)^2 + l2 (u0-c2)^2 once
-// into shared memory, then runs k x (red, black) half-sweeps there. A
-// half-sweep computes the active color's new values into a half-size
-// buffer from the current window, then writes them back: the red update
-// reads its diagonal (red) neighbors through the backward coefficients, so
-// an in-place update would race. Each thread handles one horizontal cell
-// pair, exactly one of which is active, so no warp lane idles on color.
-// Window columns start at an even global column, which the wrapper
-// guarantees by requiring even H and W.
+// Per chunk the block computes f once into shared memory, then runs
+// k x (red, black) half-sweeps there. A half-sweep computes the active
+// color's new values into a half-size buffer from the current window,
+// then writes them back: the red update reads its diagonal (red)
+// neighbors through the backward coefficients, so an in-place update
+// would race. Each thread handles one horizontal cell pair, exactly one of
+// which is active, so no warp lane idles on color. Window columns start
+// at an even global column, which the wrapper guarantees by requiring
+// even H and W.
 //
 // Bound on the card: shared-memory traffic and the rsqrt/divide pipe. Per
 // iteration each cell reads its 3x3 neighborhood (8 loads) and evaluates
 // 4 rsqrt and 1 divide; device memory is read and written once per chunk
-// (12 B/pixel per k iterations plus the halo overlap), so at k = 8 DRAM is
-// far from the limit. The halo costs (TH + 6k)(TW + 6k) / (TH TW) of
-// redundant compute (2.4x at k = 8 with 64 x 128 tiles).
+// (12 B/pixel per k iterations for a scalar image, 8 + 4C for C channels,
+// plus the halo overlap), so at k = 8 DRAM is far from the limit. The halo
+// costs (TH + 6k)(TW + 6k) / (TH TW) of redundant compute (2.4x at k = 8
+// with 64 x 128 tiles).
 //
 // Partials come from owned cells only and compare each cell's value after
 // the last iteration with its value before it: the write-back of the last
-// iteration sees both. Each block writes its five sums (f64) to a
-// (nblocks, 8) scratch; a second one-block kernel sums them in a fixed
-// order in f64, so the result is deterministic.
+// iteration sees both; s_uH reads u0 from device memory there. Each block
+// writes its sums (f64) to an (nblocks, nsums) scratch; a second
+// one-block kernel sums them in a fixed order in f64, so the result is
+// deterministic.
 
 #pragma once
 
@@ -47,16 +63,27 @@
 
 namespace cv {
 // Internal linkage: every .cu that includes this header gets its own copy,
-// so the three launchers link into one library without clashes.
+// so the launchers link into one library without clashes.
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kMaxChannels = 8;
 
 struct Params {
-  float mu, nu, l1, l2, eta2;
+  float mu, nu, l1, l2, eta2;  // l1, l2: scalar image only
   float gdt;     // dt * eps / pi, computed on the host in double
   float eps, eps2, inv_pi;
 };
+
+// s_uH slots, and all partial sums, of a block for channel count NC.
+template <int NC>
+__host__ __device__ constexpr int uh_slots() { return NC == 0 ? 1 : NC; }
+template <int NC>
+__host__ __device__ constexpr int sum_slots() { return uh_slots<NC>() + 4; }
+// floats of cc: [c1, c2] for a scalar image, [c1 x C, c2 x C, l1/C x C,
+// l2/C x C] for C channels
+template <int NC>
+__host__ __device__ constexpr int cc_len() { return NC == 0 ? 2 : 4 * NC; }
 
 // Offset of image element (i, j): flat row-major, or parity planes
 // P[i & 1][j & 1][i >> 1][j >> 1] of shape (2, 2, H/2, W/2).
@@ -68,6 +95,29 @@ __device__ __forceinline__ int64_t gaddr(int i, int j, int H, int W) {
     return (plane * hp + (i >> 1)) * wp + (j >> 1);
   }
   return (int64_t)i * W + j;
+}
+
+// The frozen data term at element offset g; chan is H * W, the channel
+// stride of a channels-first u0.
+template <int NC>
+__device__ __forceinline__ float data_term(const float* __restrict__ u0,
+                                           int64_t g, int64_t chan,
+                                           const float* cc,
+                                           const Params& P) {
+  if constexpr (NC == 0) {
+    const float u = u0[g];
+    const float d1 = u - cc[0], d2 = u - cc[1];
+    return -P.nu - P.l1 * (d1 * d1) + P.l2 * (d2 * d2);
+  } else {
+    float f = -P.nu;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float u = u0[c * chan + g];
+      const float d1 = u - cc[c], d2 = u - cc[NC + c];
+      f = f + cc[3 * NC + c] * (d2 * d2) - cc[2 * NC + c] * (d1 * d1);
+    }
+    return f;
+  }
 }
 
 __device__ __forceinline__ float face(float mu, float eta2, float a,
@@ -119,14 +169,16 @@ __device__ __forceinline__ double block_sum(double v, double* scratch) {
 
 // cap: window capacity in floats, min(H, TH + 6k) * min(W, TW + 6k).
 // Dynamic shared memory: cur[cap] | f[cap] | half[cap / 2] = 10 cap bytes.
-template <bool PACKED>
+template <bool PACKED, int NC>
 __global__ void __launch_bounds__(kThreads)
 chunk_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
              const float* __restrict__ cc, float* __restrict__ out,
              double* __restrict__ block_parts, int H, int W, int k, int TH,
              int TW, int cap, Params P) {
+  constexpr int kUh = uh_slots<NC>(), kSums = sum_slots<NC>();
   extern __shared__ float smem[];
   __shared__ double red_scratch[kThreads / 32];
+  __shared__ float s_cc[cc_len<NC>()];
   float* cur = smem;
   float* f = smem + cap;
   float* half = smem + 2 * cap;
@@ -136,19 +188,21 @@ chunk_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
   const int wr0 = max(tr0 - 4 * k, 0), wr1 = min(tr1 + 2 * k, H);
   const int wc0 = max(tc0 - 4 * k, 0), wc1 = min(tc1 + 2 * k, W);
   const int wh = wr1 - wr0, ww = wc1 - wc0, hw = ww >> 1;
+  const int64_t chan = (int64_t)H * W;
 
-  const float c1 = cc[0], c2 = cc[1];
+  for (int t = threadIdx.x; t < cc_len<NC>(); t += blockDim.x) s_cc[t] = cc[t];
+  __syncthreads();
   for (int idx = threadIdx.x; idx < wh * ww; idx += blockDim.x) {
     const int r = idx / ww, c = idx - r * ww;
     const int64_t g = gaddr<PACKED>(wr0 + r, wc0 + c, H, W);
-    const float u = u0[g];
-    const float d1 = u - c1, d2 = u - c2;
     cur[idx] = phi[g];
-    f[idx] = -P.nu - P.l1 * (d1 * d1) + P.l2 * (d2 * d2);
+    f[idx] = data_term<NC>(u0, g, chan, s_cc, P);
   }
   __syncthreads();
 
-  double acc[5] = {0.0, 0.0, 0.0, 0.0, 0.0};
+  double acc[kSums];
+#pragma unroll
+  for (int t = 0; t < kSums; ++t) acc[t] = 0.0;
   for (int it = 0; it < k; ++it) {
     const bool last = it == k - 1;
     for (int color = 0; color < 2; ++color) {  // 0 = red: (i + j) even
@@ -168,11 +222,14 @@ chunk_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
             const float old = cur[r * ww + c];
             const float h = 0.5f + P.inv_pi * atanf(nv / P.eps);
             const float d = nv - old;
-            acc[0] += (double)(u0[gaddr<PACKED>(gi, gj, H, W)] * h);
-            acc[1] += (double)h;
-            acc[2] += (double)(d * d);
-            acc[3] += ((nv >= 0.0f) != (old >= 0.0f)) ? 1.0 : 0.0;
-            acc[4] += (double)fabsf(d);
+            const int64_t g = gaddr<PACKED>(gi, gj, H, W);
+#pragma unroll
+            for (int ch = 0; ch < kUh; ++ch)
+              acc[ch] += (double)(u0[ch * chan + g] * h);
+            acc[kUh] += (double)h;
+            acc[kUh + 1] += (double)(d * d);
+            acc[kUh + 2] += ((nv >= 0.0f) != (old >= 0.0f)) ? 1.0 : 0.0;
+            acc[kUh + 3] += (double)fabsf(d);
           }
         }
         cur[r * ww + c] = nv;
@@ -188,23 +245,25 @@ chunk_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
     out[gaddr<PACKED>(gi, gj, H, W)] = cur[(gi - wr0) * ww + (gj - wc0)];
   }
 
-  const int bid = blockIdx.y * gridDim.x + blockIdx.x;
-  for (int t = 0; t < 5; ++t) {
+  const int64_t bid = blockIdx.y * gridDim.x + blockIdx.x;
+#pragma unroll
+  for (int t = 0; t < kSums; ++t) {
     const double s = block_sum(acc[t], red_scratch);
-    if (threadIdx.x == 0) block_parts[(int64_t)bid * 8 + t] = s;
+    if (threadIdx.x == 0) block_parts[bid * kSums + t] = s;
   }
 }
 
-// Sums the (nblocks, 8) per-block partials in a fixed order in f64.
+// Sums the (nblocks, nsums) per-block partials in a fixed order in f64
+// into parts[nout]; slots from nsums on are 0.
 __global__ void __launch_bounds__(256)
 reduce_parts_kernel(const double* __restrict__ block_parts, int nblocks,
-                    float* __restrict__ parts) {
+                    int nsums, int nout, float* __restrict__ parts) {
   __shared__ double s[256];
-  for (int t = 0; t < 8; ++t) {
+  for (int t = 0; t < nout; ++t) {
     double a = 0.0;
-    if (t < 5) {
+    if (t < nsums) {
       for (int b = threadIdx.x; b < nblocks; b += blockDim.x)
-        a += block_parts[(int64_t)b * 8 + t];
+        a += block_parts[(int64_t)b * nsums + t];
     }
     s[threadIdx.x] = a;
     __syncthreads();
@@ -219,25 +278,50 @@ reduce_parts_kernel(const double* __restrict__ block_parts, int nblocks,
 
 // Host side: launch one chunk plus the partials reduction on `stream`.
 // The caller (chan_vese_tpu_torch/ops/_cuda.py) chooses TH, TW and cap and
-// allocates out, block_parts ((nblocks, 8) f64) and parts (8 f32).
-template <bool PACKED>
+// allocates out, block_parts ((nblocks, sum_slots<NC>()) f64) and parts
+// (nout f32).
+template <bool PACKED, int NC>
 cudaError_t launch_chunk(const float* phi, const float* u0, const float* cc,
                          float* out, double* block_parts, float* parts,
                          int H, int W, int k, int TH, int TW, int cap,
-                         Params P, cudaStream_t stream) {
+                         int nout, Params P, cudaStream_t stream) {
   const size_t smem = (size_t)cap * 10;
   cudaError_t err = cudaFuncSetAttribute(
-      chunk_kernel<PACKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      chunk_kernel<PACKED, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
-  chunk_kernel<PACKED><<<grid, kThreads, smem, stream>>>(
+  chunk_kernel<PACKED, NC><<<grid, kThreads, smem, stream>>>(
       phi, u0, cc, out, block_parts, H, W, k, TH, TW, cap, P);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  reduce_parts_kernel<<<1, 256, 0, stream>>>(block_parts,
-                                             (int)(grid.x * grid.y), parts);
+  reduce_parts_kernel<<<1, 256, 0, stream>>>(
+      block_parts, (int)(grid.x * grid.y), sum_slots<NC>(), nout, parts);
   return cudaGetLastError();
+}
+
+// C-channel image: the runtime channel count C (1..kMaxChannels) picks
+// the kernel compiled for it.
+template <bool PACKED, int NC = 1>
+cudaError_t launch_chunk_mc(const float* phi, const float* u0,
+                            const float* cc, float* out, double* block_parts,
+                            float* parts, int H, int W, int C, int k, int TH,
+                            int TW, int cap, int nout, Params P,
+                            cudaStream_t stream) {
+  if (C == NC)
+    return launch_chunk<PACKED, NC>(phi, u0, cc, out, block_parts, parts, H,
+                                    W, k, TH, TW, cap, nout, P, stream);
+  if constexpr (NC < kMaxChannels)
+    return launch_chunk_mc<PACKED, NC + 1>(phi, u0, cc, out, block_parts,
+                                           parts, H, W, C, k, TH, TW, cap,
+                                           nout, P, stream);
+  return cudaErrorInvalidValue;
+}
+
+// Params of a C-channel launch: the per-channel weights travel in cc.
+__host__ inline Params mc_params(float mu, float nu, float eta2, float gdt,
+                                 float eps, float eps2, float inv_pi) {
+  return Params{mu, nu, 0.0f, 0.0f, eta2, gdt, eps, eps2, inv_pi};
 }
 
 }  // namespace

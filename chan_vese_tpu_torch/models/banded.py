@@ -1,4 +1,5 @@
-"""Banded multi-iteration drivers (K2, K3): the scalar main path.
+"""Banded multi-iteration drivers: K2/K3 on grayscale images (the scalar
+main path), K5/K6 on vector-valued (H, W, C) ones (the RGB main path).
 
 Counterpart of ``chan_vese_tpu/models/banded.py``. A run is a host loop of
 chunks; each chunk is one kernel launch doing k red-black iterations with
@@ -12,10 +13,11 @@ in-chunk iteration's partials; ``patience`` is iteration-denominated (a
 below-tol chunk credits its full size to the streak). The tolerance loop
 reads the chunk's delta back once per chunk.
 
-Routing follows the reference exactly (``auto_config``, ``_supported``): a
-call takes the same route, and so the same trajectory class, as in
-``chan_vese_tpu`` at every shape. Off the banded envelope it runs the
-fused driver (K1), which itself falls back to the plain path.
+Routing follows the reference exactly (``auto_config``/``_supported``,
+``auto_config_mc``/``_supported_mc``): a call takes the same route, and so
+the same trajectory class, as in ``chan_vese_tpu`` at every shape. Off
+the banded envelope it runs the fused driver (K1/K4), which itself falls
+back to the plain path.
 """
 
 from __future__ import annotations
@@ -28,13 +30,19 @@ import torch
 from ..ops import banded_kernel, packed_kernel
 from ..ops.reductions import means_from_sums, region_means
 from ..params import CVParams
-from .fused import _delta_from_partials, _fold_scalar_lambdas
+from .fused import _delta_from_partials, _kernel_image, _lambdas
 from .scalar import SegResult, _check_ported, _phi0
 
 
 def _supported(u0, p: CVParams, k: int) -> bool:
-    # vector inputs and reinit already raised in _check_ported
+    # reinit already raised in _check_ported
     return (banded_kernel.supports_banded(*u0.shape, k)
+            and p.order == "redblack")
+
+
+def _supported_mc(u0, p: CVParams, k: int) -> bool:
+    H, W, C = u0.shape
+    return (banded_kernel.supports_banded_mc(H, W, k, C)
             and p.order == "redblack")
 
 
@@ -66,36 +74,95 @@ def auto_config(H, W, k=None, unroll=None, packed=None, fuse=None):
     return k, unroll, packed, fuse
 
 
-class _Chunker:
-    """State shared by both drivers: the (optionally packed) iterate, the
-    per-run sums behind the means, and the chunk launch."""
-
-    def __init__(self, u0, p, phi0, k, unroll, packed, fuse):
-        H, W = u0.shape
-        self.p, self.unroll, self.fuse = p, unroll, fuse
-        self.n_pix = torch.tensor(H * W, dtype=u0.dtype, device=u0.device)
-        self.sum_u = torch.sum(u0)
-        self.c1, self.c2 = region_means(u0, phi0, p.eps)
-        self.packed = packed and packed_kernel.supports_packed_banded(H, W, k)
-        if self.packed:
-            self.phi = packed_kernel._pack(phi0)
-            self.u0 = packed_kernel._pack(u0)
+def auto_config_mc(H, W, C, k=None, unroll=None, packed=None, fuse=None):
+    """(k, unroll, packed, fuse) for the multichannel banded drivers,
+    resolved exactly as the reference's ``auto_config_mc`` (its choices
+    were measured on its own hardware and are kept so that routing, and
+    the trajectory class, agree with ``chan_vese_tpu``): packed from 4K
+    area up where the plane envelope allows, flat below."""
+    if k is None:
+        k = 8
+    if packed is None:
+        packed = (H * W >= 2160 * 3840
+                  and packed_kernel.supports_packed_banded_mc(H, W, k, C))
+    if unroll is None:
+        if packed:
+            bp, _, _ = packed_kernel.band_rows_packed_mc(H, W, k, C)
+            unroll = 4 if (k % 4 == 0 and bp <= 96) else 1
         else:
-            self.phi, self.u0 = phi0, u0
+            unroll = 4
+    if fuse is None:
+        if packed:
+            fuse = k <= 8 and H * W >= 2160 * 3840
+        else:
+            fuse = unroll == 4 and k <= 8 and H * W >= 2160 * 3840
+    return k, unroll, packed, fuse
+
+
+class _Chunker:
+    """State shared by the drivers: the (optionally packed, channels-first)
+    iterate and image, the per-run sums behind the means, and the chunk
+    launch. A grayscale image runs K2/K3, a C-channel one K5/K6."""
+
+    def __init__(self, u0, p, phi0, k, unroll, packed, fuse, lambda1=None,
+                 lambda2=None):
+        H, W = u0.shape[:2]
+        self.p, self.unroll, self.fuse = p, unroll, fuse
+        self.lambda1, self.lambda2 = lambda1, lambda2
+        self.n_pix = torch.tensor(H * W, dtype=u0.dtype, device=u0.device)
+        self.c1, self.c2 = region_means(u0, phi0, p.eps)
+        img, self.sum_u, self.nchan = _kernel_image(u0)
+        self.offset = max(self.nchan, 1) - 1
+        if self.nchan:
+            self.packed = packed and packed_kernel.supports_packed_banded_mc(
+                H, W, k, self.nchan)
+            pack_u0 = packed_kernel._pack_mc
+        else:
+            self.packed = packed and packed_kernel.supports_packed_banded(
+                H, W, k)
+            pack_u0 = packed_kernel._pack
+        if self.packed:
+            self.phi, self.u0 = packed_kernel._pack(phi0), pack_u0(img)
+        else:
+            self.phi, self.u0 = phi0, img
 
     def run(self, size: int):
         """One chunk of ``size`` iterations; returns its partials."""
         un = self.unroll if size % self.unroll == 0 else 1
-        op = (packed_kernel.packed_banded_chunk if self.packed
-              else banded_kernel.banded_chunk)
-        self.phi, parts = op(self.phi, self.u0, self.c1, self.c2, self.p,
-                             size, unroll=un, fuse=self.fuse)
-        self.c1, self.c2 = means_from_sums(parts[0], parts[1], self.sum_u,
-                                           self.n_pix)
+        if self.nchan:
+            op = (packed_kernel.packed_banded_chunk_mc if self.packed
+                  else banded_kernel.banded_chunk_mc)
+            self.phi, parts = op(self.phi, self.u0, self.c1, self.c2, self.p,
+                                 size, unroll=un, fuse=self.fuse,
+                                 lambda1=self.lambda1, lambda2=self.lambda2)
+            sum_uh = parts[:self.nchan]
+        else:
+            op = (packed_kernel.packed_banded_chunk if self.packed
+                  else banded_kernel.banded_chunk)
+            self.phi, parts = op(self.phi, self.u0, self.c1, self.c2, self.p,
+                                 size, unroll=un, fuse=self.fuse)
+            sum_uh = parts[0]
+        self.c1, self.c2 = means_from_sums(sum_uh, parts[self.offset + 1],
+                                           self.sum_u, self.n_pix)
         return parts
 
     def image(self):
         return packed_kernel._unpack(self.phi) if self.packed else self.phi
+
+
+def _route(u0, p: CVParams, k, unroll, packed, fuse, lambda1, lambda2):
+    """Resolve the configuration and the lambdas as the reference does:
+    (k, unroll, packed, fuse, p, lambda1, lambda2, on the banded route)."""
+    p, lambda1, lambda2 = _lambdas(u0, p, lambda1, lambda2)
+    if u0.ndim == 3:
+        k, unroll, packed, fuse = auto_config_mc(*u0.shape, k, unroll,
+                                                 packed, fuse)
+        ok = _supported_mc(u0, p, k)
+    else:
+        k, unroll, packed, fuse = auto_config(*u0.shape, k, unroll, packed,
+                                              fuse)
+        ok = _supported(u0, p, k)
+    return k, unroll, packed, fuse, p, lambda1, lambda2, ok
 
 
 def segment_banded_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
@@ -106,16 +173,18 @@ def segment_banded_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
                          packed: Optional[bool] = None,
                          fuse: Optional[bool] = None):
     """Fixed-iteration banded run: full k-chunks plus one remainder chunk.
-    Returns (phi, mask). Off the banded envelope it runs
+    Returns (phi, mask). (H, W, C) images run the multichannel kernels
+    with per-channel lambda tuples. Off the banded envelope it runs
     :func:`.fused.segment_fused_fixed`."""
     _check_ported(u0, p)
-    k, unroll, packed, fuse = auto_config(*u0.shape, k, unroll, packed,
-                                          fuse)
-    p = _fold_scalar_lambdas(p, lambda1, lambda2)
-    if not _supported(u0, p, k) or iters < 1:
+    k, unroll, packed, fuse, p, lambda1, lambda2, ok = _route(
+        u0, p, k, unroll, packed, fuse, lambda1, lambda2)
+    if not ok or iters < 1:
         from .fused import segment_fused_fixed
-        return segment_fused_fixed(u0, p, iters, phi0)
-    ch = _Chunker(u0, p, _phi0(u0, p, phi0), k, unroll, packed, fuse)
+        return segment_fused_fixed(u0, p, iters, phi0, lambda1=lambda1,
+                                   lambda2=lambda2)
+    ch = _Chunker(u0, p, _phi0(u0, p, phi0), k, unroll, packed, fuse,
+                  lambda1, lambda2)
     for _ in range(iters // k):
         ch.run(k)
     if iters % k:
@@ -132,17 +201,18 @@ def segment_banded(u0, p: CVParams = CVParams(),
                    packed: Optional[bool] = None,
                    fuse: Optional[bool] = None) -> SegResult:
     """Tolerance-mode banded segmentation (chunk-granular convergence).
-    Off the banded envelope it runs :func:`.fused.segment_fused`."""
+    (H, W, C) images run the multichannel kernels with per-channel lambda
+    tuples. Off the banded envelope it runs :func:`.fused.segment_fused`."""
     _check_ported(u0, p)
-    k, unroll, packed, fuse = auto_config(*u0.shape, k, unroll, packed,
-                                          fuse)
-    p = _fold_scalar_lambdas(p, lambda1, lambda2)
-    if not _supported(u0, p, k):
+    k, unroll, packed, fuse, p, lambda1, lambda2, ok = _route(
+        u0, p, k, unroll, packed, fuse, lambda1, lambda2)
+    if not ok:
         from .fused import segment_fused
-        return segment_fused(u0, p, phi0)
+        return segment_fused(u0, p, phi0, lambda1=lambda1, lambda2=lambda2)
     # validate conv_norm before any work (same contract as the reference)
-    _delta_from_partials(torch.zeros(8, dtype=u0.dtype), 1.0, p)
-    ch = _Chunker(u0, p, _phi0(u0, p, phi0), k, unroll, packed, fuse)
+    _delta_from_partials(torch.zeros(16, dtype=u0.dtype), 1.0, p)
+    ch = _Chunker(u0, p, _phi0(u0, p, phi0), k, unroll, packed, fuse,
+                  lambda1, lambda2)
     n, streak = 0, 0
     delta = torch.tensor(math.inf, dtype=u0.dtype, device=u0.device)
 
@@ -154,7 +224,7 @@ def segment_banded(u0, p: CVParams = CVParams(),
     def run_chunk(size):
         nonlocal n, delta, streak
         parts = ch.run(size)
-        delta = _delta_from_partials(parts, ch.n_pix, p)
+        delta = _delta_from_partials(parts, ch.n_pix, p, ch.offset)
         # a below-tol chunk credits its full size: patience stays
         # iteration-denominated across drivers
         streak = streak + size if bool(delta < p.tol) else 0

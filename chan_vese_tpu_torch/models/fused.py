@@ -1,10 +1,14 @@
-"""Per-iteration fused-kernel drivers (K1), scalar images.
+"""Per-iteration fused-kernel drivers: K1 on grayscale images, K4 on
+vector-valued (H, W, C) ones.
 
 Counterpart of ``chan_vese_tpu/models/fused.py``. Each iteration is one
-:func:`..ops.fused_kernel.fused_iteration`; the next iteration's means come
-from its partials, so the trajectory is exactly the plain red-black
-path's. Shapes outside the reference's fused envelope (``supports``) and
-orders other than red-black run :mod:`.scalar`, as in the reference.
+:func:`..ops.fused_kernel.fused_iteration` (or, for C channels,
+:func:`..ops.fused_kernel_mc.fused_iteration_mc` on the channels-first
+image); the next iteration's means come from its partials, so the
+trajectory is exactly the plain red-black path's. Shapes outside the
+reference's fused envelopes (``supports``, ``supports_mc``) and orders
+other than red-black run :mod:`.scalar` (:mod:`.vector` for C channels,
+with the per-channel lambda tuples), as in the reference.
 """
 
 from __future__ import annotations
@@ -15,11 +19,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops import fused_kernel
+from ..ops import fused_kernel, fused_kernel_mc
 from ..ops.reductions import loop_continue, means_from_sums, region_means
 from ..params import CVParams
 from .scalar import (SegResult, _check_ported, _phi0,
-                     segment as _segment_plain, step as _step_plain)
+                     segment as _segment_plain, segment_fixed,
+                     step as _step_plain)
 
 
 def _delta_from_partials(parts, n_pixels, p: CVParams, offset: int = 0):
@@ -50,15 +55,59 @@ def _fold_scalar_lambdas(p: CVParams, lambda1, lambda2) -> CVParams:
     return p.replace(**kw) if kw else p
 
 
+def _kernel_image(u0):
+    """(image as the kernels take it, the sums behind the means, C):
+    channels-first (C, H, W) with per-channel sums for an (H, W, C) image,
+    the image itself and C = 0 for a grayscale one."""
+    if u0.ndim == 3:
+        img = u0.permute(2, 0, 1).contiguous()
+        return img, torch.sum(img, dim=(1, 2)), u0.shape[2]
+    return u0, torch.sum(u0), 0
+
+
+class _Iteration:
+    """The kernel route of one image: its channels-first copy, the sums
+    behind the means, and one kernel iteration with the means refresh."""
+
+    def __init__(self, u0, p: CVParams, phi0, lambda1, lambda2):
+        self.p, self.lambda1, self.lambda2 = p, lambda1, lambda2
+        self.phi = _phi0(u0, p, phi0)
+        self.n_pix = torch.tensor(self.phi.numel(), dtype=u0.dtype,
+                                  device=u0.device)
+        self.c1, self.c2 = region_means(u0, self.phi, p.eps)
+        self.u0, self.sum_u, self.nchan = _kernel_image(u0)
+        self.offset = max(self.nchan, 1) - 1
+
+    def run(self):
+        """One iteration; returns its partials."""
+        if self.nchan:
+            self.phi, parts = fused_kernel_mc.fused_iteration_mc(
+                self.phi, self.u0, self.c1, self.c2, self.p, self.lambda1,
+                self.lambda2)
+            sum_uh = parts[:self.nchan]
+        else:
+            self.phi, parts = fused_kernel.fused_iteration(
+                self.phi, self.u0, self.c1, self.c2, self.p)
+            sum_uh = parts[0]
+        self.c1, self.c2 = means_from_sums(sum_uh, parts[self.offset + 1],
+                                           self.sum_u, self.n_pix)
+        return parts
+
+
 def _routed(u0, p: CVParams) -> bool:
-    return fused_kernel.supports(*u0.shape) and p.order == "redblack"
+    if p.order != "redblack":
+        return False
+    if u0.ndim == 3:
+        return fused_kernel_mc.supports_mc(*u0.shape)
+    return fused_kernel.supports(*u0.shape)
 
 
-def _setup(u0, p: CVParams, phi0):
-    phi0 = _phi0(u0, p, phi0)
-    n_pix = torch.tensor(u0.numel(), dtype=u0.dtype, device=u0.device)
-    c1, c2 = region_means(u0, phi0, p.eps)
-    return phi0, n_pix, torch.sum(u0), c1, c2
+def _lambdas(u0, p: CVParams, lambda1, lambda2):
+    """(p, lambda1, lambda2) for the route: grayscale folds the overrides
+    into p, a C-channel image keeps them for the kernel."""
+    if u0.ndim == 3:
+        return p, lambda1, lambda2
+    return _fold_scalar_lambdas(p, lambda1, lambda2), None, None
 
 
 def segment_fused(u0, p: CVParams = CVParams(),
@@ -66,29 +115,33 @@ def segment_fused(u0, p: CVParams = CVParams(),
                   lambda1=None, lambda2=None, fixed: bool = False,
                   max_iter: Optional[int] = None) -> SegResult:
     """Tolerance-mode segmentation on the fused kernel; ``fixed=True`` runs
-    exactly ``max_iter`` (or p.max_iter) iterations."""
+    exactly ``max_iter`` (or p.max_iter) iterations. (H, W, C) images run
+    the multichannel kernel with per-channel lambda tuples."""
     _check_ported(u0, p)
     cap = p.max_iter if max_iter is None else max_iter
-    p = _fold_scalar_lambdas(p, lambda1, lambda2)
+    p, lambda1, lambda2 = _lambdas(u0, p, lambda1, lambda2)
     if not _routed(u0, p):
         # a negative tol can never be reached, so the loop runs to cap
         pf = p.replace(max_iter=cap, tol=-1.0) if fixed \
             else p.replace(max_iter=cap)
+        if u0.ndim == 3:
+            from .vector import segment_vector
+            return segment_vector(u0, pf, phi0, *p.channel_lambdas(
+                u0.shape[2], lambda1, lambda2))
         return _segment_plain(u0, pf, phi0)
 
-    phi, n_pix, sum_u, c1, c2 = _setup(u0, p, phi0)
+    it = _Iteration(u0, p, phi0, lambda1, lambda2)
     n, streak = 0, 0
     delta = torch.tensor(math.inf, dtype=u0.dtype, device=u0.device)
     delta_f = math.inf
     while (n < cap) if fixed else loop_continue(n, delta_f, streak, p, cap):
-        phi, parts = fused_kernel.fused_iteration(phi, u0, c1, c2, p)
-        c1, c2 = means_from_sums(parts[0], parts[1], sum_u, n_pix)
-        delta = _delta_from_partials(parts, n_pix, p)
+        parts = it.run()
+        delta = _delta_from_partials(parts, it.n_pix, p, it.offset)
         if not fixed:
             delta_f = float(delta)
             streak = streak + 1 if bool(delta < p.tol) else 0
         n += 1
-    return SegResult(phi, phi >= 0, n, delta, c1, c2)
+    return SegResult(it.phi, it.phi >= 0, n, delta, it.c1, it.c2)
 
 
 def segment_fused_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
@@ -96,14 +149,18 @@ def segment_fused_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
                         lambda1=None, lambda2=None):
     """Fixed-iteration fused run. Returns (phi, mask)."""
     _check_ported(u0, p)
-    p = _fold_scalar_lambdas(p, lambda1, lambda2)
+    p, lambda1, lambda2 = _lambdas(u0, p, lambda1, lambda2)
     if not _routed(u0, p):
+        if u0.ndim == 3:
+            l1, l2 = p.channel_lambdas(u0.shape[2], lambda1, lambda2)
+            tr = segment_fixed(u0, p, iters=iters, phi0=phi0, lambda1=l1,
+                               lambda2=l2)
+            return tr.phi, tr.mask
         phi = _phi0(u0, p, phi0)
         for _ in range(iters):
             phi = _step_plain(phi, u0, p)[0]
         return phi, phi >= 0
-    phi, n_pix, sum_u, c1, c2 = _setup(u0, p, phi0)
+    it = _Iteration(u0, p, phi0, lambda1, lambda2)
     for _ in range(iters):
-        phi, parts = fused_kernel.fused_iteration(phi, u0, c1, c2, p)
-        c1, c2 = means_from_sums(parts[0], parts[1], sum_u, n_pix)
-    return phi, phi >= 0
+        it.run()
+    return it.phi, it.phi >= 0

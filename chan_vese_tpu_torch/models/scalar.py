@@ -1,4 +1,5 @@
-"""Scalar (grayscale) Chan-Vese driver in plain PyTorch.
+"""Chan-Vese drivers in plain PyTorch, for grayscale (H, W) and
+vector-valued (H, W, C) images alike.
 
 Counterpart of ``chan_vese_tpu/models/scalar.py``. The outer iteration is a
 host loop whose body launches device work. Per iteration:
@@ -28,10 +29,6 @@ from ..utils.init_phi import init_phi
 
 def _check_ported(u0, p: CVParams) -> None:
     """Raise for the parts of the reference this port does not cover yet."""
-    if u0.ndim != 2:
-        raise NotImplementedError(
-            f"input of shape {tuple(u0.shape)}: vector-valued (H, W, C) "
-            f"images are not ported yet (ROADMAP M6)")
     if p.reinit_every:
         raise NotImplementedError(
             "reinit_every > 0 needs ops/reinit.py, not ported yet "
@@ -43,8 +40,8 @@ class SegResult(NamedTuple):
     mask: torch.Tensor    # phi >= 0 (bool)
     iters: int            # iterations actually run
     delta: torch.Tensor   # final per-pixel update norm
-    c1: torch.Tensor      # inside mean
-    c2: torch.Tensor      # outside mean
+    c1: torch.Tensor      # inside mean(s)
+    c2: torch.Tensor      # outside mean(s)
 
 
 class SegTrace(NamedTuple):
@@ -57,10 +54,13 @@ class SegTrace(NamedTuple):
 
 
 def step(phi, u0, p: CVParams, lambda1=None, lambda2=None, parity: int = 0):
-    """One full Chan-Vese iteration; returns (phi_new, c1, c2, delta)."""
+    """One full Chan-Vese iteration; returns (phi_new, c1, c2, delta).
+    lambda1/lambda2 may be per-channel tuples for an (H, W, C) image."""
     c1, c2 = region_means(u0, phi, p.eps)
-    l1 = p.lambda1 if lambda1 is None else float(lambda1)
-    l2 = p.lambda2 if lambda2 is None else float(lambda2)
+    l1 = p.lambda1 if lambda1 is None else torch.as_tensor(
+        lambda1, dtype=phi.dtype, device=phi.device)
+    l2 = p.lambda2 if lambda2 is None else torch.as_tensor(
+        lambda2, dtype=phi.dtype, device=phi.device)
     f = data_term(u0, c1, c2, p.nu, l1, l2)
     phi_new = semi_implicit_step(phi, f, p, parity)
     return phi_new, c1, c2, delta_norm(phi_new, phi, p.conv_norm)
@@ -68,7 +68,7 @@ def step(phi, u0, p: CVParams, lambda1=None, lambda2=None, parity: int = 0):
 
 def _phi0(u0, p: CVParams, phi0):
     if phi0 is None:
-        return init_phi(tuple(u0.shape), p.init, u0.dtype, device=u0.device)
+        return init_phi(u0.shape[:2], p.init, u0.dtype, device=u0.device)
     return phi0
 
 

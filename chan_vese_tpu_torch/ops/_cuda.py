@@ -1,4 +1,5 @@
-"""Launch path shared by the three red-black kernels (K1-K3).
+"""Launch path shared by the red-black kernels (K1-K3 on a scalar image,
+K4-K6 on a C-channel one).
 
 Checks the inputs, chooses the tile geometry, allocates the outputs and
 scratch, and calls the kernel library (``_build.library()``) on PyTorch's
@@ -8,6 +9,7 @@ launch raises.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -16,6 +18,8 @@ import torch
 TILES = ((64, 128), (32, 128), (32, 64), (16, 64), (16, 32))
 # H100 shared memory per block (232,448 B) less room for the static part
 SMEM_LIMIT = 232448 - 1024
+# channel counts the multichannel kernels are compiled for
+MAX_CHANNELS = 8
 
 
 def tile_geometry(h: int, w: int, k: int):
@@ -30,6 +34,20 @@ def tile_geometry(h: int, w: int, k: int):
                      f"(window of the smallest tile exceeds {SMEM_LIMIT} B)")
 
 
+def mc_channels(phi, u0) -> int:
+    """Channel count C of a channels-first u0 that matches phi: (C, H, W)
+    for an (H, W) phi, (C, 2, 2, H/2, W/2) for parity planes; 1 <= C <= 8.
+    """
+    if u0.ndim != phi.ndim + 1 or tuple(u0.shape[1:]) != tuple(phi.shape):
+        raise ValueError(f"u0 {tuple(u0.shape)} must be (C, *phi.shape) "
+                         f"with phi {tuple(phi.shape)}")
+    c = u0.shape[0]
+    if not 1 <= c <= MAX_CHANNELS:
+        raise ValueError(f"{c} channels; the kernels take 1 to "
+                         f"{MAX_CHANNELS}")
+    return c
+
+
 def _check_inputs(phi, u0):
     if phi.device.type != "cuda":
         raise ValueError(f"kernel launch needs CUDA tensors, got {phi.device}")
@@ -40,16 +58,55 @@ def _check_inputs(phi, u0):
             raise ValueError(f"{name} must be contiguous")
         if t.device != phi.device:
             raise ValueError(f"{name} is on {t.device}, phi on {phi.device}")
-    if u0.shape != phi.shape:
-        raise ValueError(f"u0 {tuple(u0.shape)} vs phi {tuple(phi.shape)}")
+
+
+def _common_params(p):
+    return (p.eta2, p.dt * p.eps / math.pi, p.eps, p.eps * p.eps,
+            1.0 / math.pi)
 
 
 def launch_chunk(symbol: str, phi, u0, c1, c2, p, k, h: int, w: int):
-    """Run kernel ``symbol`` on image geometry (h, w); phi/u0 hold it flat
-    or as parity planes. Returns (phi_new, partials (8,) f32)."""
+    """Run scalar kernel ``symbol`` on image geometry (h, w); phi/u0 hold
+    it flat or as parity planes. Returns (phi_new, partials (8,) f32)."""
+    _check_inputs(phi, u0)
+    if u0.shape != phi.shape:
+        raise ValueError(f"u0 {tuple(u0.shape)} vs phi {tuple(phi.shape)}")
+    dev = phi.device
+    cc = torch.stack([torch.as_tensor(c1, device=dev),
+                      torch.as_tensor(c2, device=dev)]).to(torch.float32)
+    params = (p.mu, p.nu, p.lambda1, p.lambda2, *_common_params(p))
+    return _launch(symbol, phi, u0, cc, (), k, h, w, 5, 8, params)
+
+
+@functools.lru_cache(maxsize=64)
+def _weights(l1, l2, device):
+    """[l1[c] / C..., l2[c] / C...] as f32 on ``device`` (the reference
+    kernels' per-channel weights, divided in double). Cached: a fresh
+    host-to-device copy per launch would wait for the stream."""
+    c = len(l1)
+    return torch.tensor([v / c for v in l1] + [v / c for v in l2],
+                        dtype=torch.float32, device=device)
+
+
+def launch_chunk_mc(symbol: str, phi, u0, c1, c2, p, k, h: int, w: int,
+                    l1, l2, nout: int):
+    """Run multichannel kernel ``symbol``: u0 is channels-first
+    (C, *phi.shape); c1, c2 are (C,) means; l1, l2 the per-channel lambda
+    tuples. Returns (phi_new, partials (nout,) f32)."""
+    c = mc_channels(phi, u0)
+    _check_inputs(phi, u0)
+    dev = phi.device
+    cc = torch.cat([
+        torch.as_tensor(c1, device=dev).reshape(c).to(torch.float32),
+        torch.as_tensor(c2, device=dev).reshape(c).to(torch.float32),
+        _weights(tuple(l1), tuple(l2), dev)])
+    params = (p.mu, p.nu, *_common_params(p))
+    return _launch(symbol, phi, u0, cc, (c,), k, h, w, c + 4, nout, params)
+
+
+def _launch(symbol, phi, u0, cc, chan, k, h, w, nsums, nout, params):
     from .._build import library
 
-    _check_inputs(phi, u0)
     if h % 2 or w % 2:
         raise ValueError(f"the kernels need even H and W, got {(h, w)}")
     if k is not None and k < 1:
@@ -58,18 +115,14 @@ def launch_chunk(symbol: str, phi, u0, c1, c2, p, k, h: int, w: int):
     dev = phi.device
     out = torch.empty_like(phi)
     nblocks = math.ceil(h / th) * math.ceil(w / tw)
-    block_parts = torch.empty((nblocks, 8),
+    block_parts = torch.empty((nblocks, nsums),
                               dtype=torch.float64, device=dev)
-    parts = torch.empty(8, dtype=torch.float32, device=dev)
-    cc = torch.stack([torch.as_tensor(c1, device=dev),
-                      torch.as_tensor(c2, device=dev)]).to(torch.float32)
-    params = (p.mu, p.nu, p.lambda1, p.lambda2, p.eta2,
-              p.dt * p.eps / math.pi, p.eps, p.eps * p.eps, 1.0 / math.pi)
+    parts = torch.empty(nout, dtype=torch.float32, device=dev)
     ptrs = (phi.data_ptr(), u0.data_ptr(), cc.data_ptr(), out.data_ptr(),
             block_parts.data_ptr(), parts.data_ptr())
     ks = () if k is None else (k,)
     lib = library()
-    err = getattr(lib, symbol)(*ptrs, h, w, *ks, th, tw, cap, *params,
+    err = getattr(lib, symbol)(*ptrs, h, w, *chan, *ks, th, tw, cap, *params,
                                torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{symbol} launch failed: "

@@ -44,22 +44,33 @@ def supports(h: int, w: int) -> bool:
             and band_rows(h, w) + _HALO <= h)
 
 
-def chunk_reference(phi, u0, c1, c2, p: CVParams, k: int):
-    """k red-black iterations with frozen means, then the partials of the
-    last iteration: the plain version of every red-black kernel."""
-    f = data_term(u0, c1, c2, p.nu, p.lambda1, p.lambda2)
+def iterate(phi, f, p: CVParams, k: int):
+    """k red-black iterations on the frozen force f; returns (phi, prev),
+    prev being phi before the last iteration."""
     for _ in range(k - 1):
         phi = redblack_step(phi, f, p)
-    prev = phi
-    phi = redblack_step(phi, f, p)
+    return redblack_step(phi, f, p), phi
+
+
+def partials(phi, prev, channels, p: CVParams, nout: int):
+    """[sum(u H) for u in channels, s_H, s_dphi2, flips, s_absdphi, 0...]
+    of the transition prev -> phi, padded to ``nout`` slots."""
     h = heaviside(phi, p.eps)
     d = phi - prev
     zero = torch.zeros((), dtype=phi.dtype, device=phi.device)
-    parts = torch.stack([
-        torch.sum(u0 * h), torch.sum(h), torch.sum(d * d),
+    sums = [torch.sum(u * h) for u in channels] + [
+        torch.sum(h), torch.sum(d * d),
         torch.sum(((phi >= 0) != (prev >= 0)).to(phi.dtype)),
-        torch.sum(torch.abs(d)), zero, zero, zero])
-    return phi, parts
+        torch.sum(torch.abs(d))]
+    return torch.stack(sums + [zero] * (nout - len(sums)))
+
+
+def chunk_reference(phi, u0, c1, c2, p: CVParams, k: int):
+    """k red-black iterations with frozen means, then the partials of the
+    last iteration: the plain version of every scalar red-black kernel."""
+    f = data_term(u0, c1, c2, p.nu, p.lambda1, p.lambda2)
+    phi, prev = iterate(phi, f, p, k)
+    return phi, partials(phi, prev, (u0,), p, 8)
 
 
 def fused_iteration_reference(phi, u0, c1, c2, p: CVParams):

@@ -1,8 +1,7 @@
 """Global reductions: region means, energy, convergence norms.
 
-Plain PyTorch counterparts of ``chan_vese_tpu/ops/reductions.py``. The
-vector-valued (H, W, C) energy and data term belong to ROADMAP item M6 and
-raise here.
+Plain PyTorch counterparts of ``chan_vese_tpu/ops/reductions.py``, for
+scalar (H, W) and vector-valued (H, W, C) images.
 """
 
 from __future__ import annotations
@@ -12,8 +11,6 @@ import math
 import torch
 
 from .numerics import dirac, grad_forward, heaviside
-
-_VECTOR = "vector-valued (H, W, C) input is not ported yet (ROADMAP M6)"
 
 
 def region_sums(u0, phi, eps: float):
@@ -47,25 +44,45 @@ def region_means(u0, phi, eps: float):
     return means_from_sums(*region_sums(u0, phi, eps))
 
 
+def _channel_weights(lam, u0):
+    """Per-channel lambda (scalar or length-C sequence) as a (C,) tensor
+    of u0's dtype."""
+    lam = torch.as_tensor(lam, dtype=u0.dtype, device=u0.device)
+    return lam.broadcast_to((u0.shape[-1],))
+
+
 def data_term(u0, c1, c2, nu: float, lambda1, lambda2):
-    """Pointwise data-fitting force
-    f = -nu - lambda1 (u0 - c1)^2 + lambda2 (u0 - c2)^2 (scalar image)."""
+    """Pointwise data-fitting force.
+
+    Scalar: f = -nu - lambda1 (u0 - c1)^2 + lambda2 (u0 - c2)^2.
+    Vector-valued (u0 (H, W, C), c and lambda (C,)), Chan-Sandberg-Vese:
+    f = -nu - mean_c l1[c] (u0-c1)[c]^2 + mean_c l2[c] (u0-c2)[c]^2.
+    """
     if u0.ndim == 3:
-        raise NotImplementedError(_VECTOR)
+        d1 = torch.mean(_channel_weights(lambda1, u0) * (u0 - c1) ** 2,
+                        dim=-1)
+        d2 = torch.mean(_channel_weights(lambda2, u0) * (u0 - c2) ** 2,
+                        dim=-1)
+        return -nu - d1 + d2
     return -nu - lambda1 * (u0 - c1) ** 2 + lambda2 * (u0 - c2) ** 2
 
 
 def energy(u0, phi, c1, c2, p, lambda1=None, lambda2=None):
     """Chan-Vese energy F = mu sum delta|grad phi| + nu sum H
-    + lambda1 sum (u0-c1)^2 H + lambda2 sum (u0-c2)^2 (1-H)."""
-    if u0.ndim == 3:
-        raise NotImplementedError(_VECTOR)
+    + lambda1 sum (u0-c1)^2 H + lambda2 sum (u0-c2)^2 (1-H); for an
+    (H, W, C) image the fitting terms average the per-channel weighted
+    squared distances, as :func:`data_term` does."""
     l1 = p.lambda1 if lambda1 is None else lambda1
     l2 = p.lambda2 if lambda2 is None else lambda2
     h = heaviside(phi, p.eps)
     gx, gy = grad_forward(phi)
     length = torch.sum(dirac(phi, p.eps) * torch.sqrt(gx * gx + gy * gy))
     area = torch.sum(h)
+    if u0.ndim == 3:
+        l1, l2 = _channel_weights(l1, u0), _channel_weights(l2, u0)
+        fit1 = torch.sum(torch.mean(l1 * (u0 - c1) ** 2, dim=-1) * h)
+        fit2 = torch.sum(torch.mean(l2 * (u0 - c2) ** 2, dim=-1) * (1.0 - h))
+        return p.mu * length + p.nu * area + fit1 + fit2
     fit1 = torch.sum((u0 - c1) ** 2 * h)
     fit2 = torch.sum((u0 - c2) ** 2 * (1.0 - h))
     return p.mu * length + p.nu * area + l1 * fit1 + l2 * fit2

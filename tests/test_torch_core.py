@@ -124,8 +124,14 @@ def test_reductions(fields):
     assert_rel(tr.energy(to_torch(u0), to_torch(phi), tc[0], tc[1], pt),
                jr.energy(jnp.asarray(u0), jnp.asarray(phi), jc[0], jc[1],
                          pj), RTOL)
-    with pytest.raises(NotImplementedError, match="M6"):
-        tr.data_term(torch.zeros(2, 2, 3), 0.0, 0.0, 0.0, 1.0, 1.0)
+    # the vector branch (ROADMAP M6): channel means of the weighted terms
+    rgb = np.stack([u0, 0.5 * u0, 255.0 - u0], axis=-1)
+    jcv = jr.region_means(jnp.asarray(rgb), jnp.asarray(phi), 1.0)
+    tcv = tr.region_means(to_torch(rgb), to_torch(phi), 1.0)
+    assert_rel(tr.data_term(to_torch(rgb), tcv[0], tcv[1], 3.0,
+                            (1.3, 1.0, 0.5), 0.7),
+               jr.data_term(jnp.asarray(rgb), jcv[0], jcv[1], 3.0,
+                            (1.3, 1.0, 0.5), 0.7), RTOL)
 
 
 @pytest.mark.parametrize("kind", ["flips", "rms", "mean_abs"])
