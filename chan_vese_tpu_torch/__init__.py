@@ -5,10 +5,12 @@ The port of ``chan_vese_tpu`` (the JAX reference, which stays beside it).
 This package covers the grayscale and the vector-valued (RGB) main paths:
 the plain PyTorch ops and drivers (``segment``, ``segment_fixed``,
 ``segment_vector``, ``segment_vector_fixed``), the per-iteration fused
-driver over K1 (K4 for C channels) and the banded drivers over K2/K3
-(K5/K6). CPU tensors run the plain PyTorch versions of the kernels; CUDA
-tensors launch the kernels in ``csrc/``, built with nvcc at first use. It
-never imports jax.
+driver over K1 (K4 for C channels), the banded drivers over K2/K3
+(K5/K6) and the exact-means resident drivers over K7/K8
+(``segment_resident``, ``segment_resident_fixed``,
+``segment_stack_resident_fixed``). CPU tensors run the plain PyTorch
+versions of the kernels; CUDA tensors launch the kernels in ``csrc/``,
+built with nvcc at first use. It never imports jax.
 """
 
 from .params import CVParams, DEFAULTS
@@ -17,6 +19,8 @@ from .models.vector import segment_vector, segment_vector_fixed
 from .models.fused import segment_fused, segment_fused_fixed
 from .models.banded import (auto_config, auto_config_mc, segment_banded,
                             segment_banded_fixed)
+from .models.resident import (segment_resident, segment_resident_fixed,
+                              segment_stack_resident_fixed)
 
 __all__ = [
     "CVParams", "DEFAULTS",
@@ -25,6 +29,8 @@ __all__ = [
     "segment_fused", "segment_fused_fixed",
     "auto_config", "auto_config_mc", "segment_banded",
     "segment_banded_fixed",
+    "segment_resident", "segment_resident_fixed",
+    "segment_stack_resident_fixed",
 ]
 
 __version__ = "0.1.0"

@@ -34,6 +34,14 @@ _TAIL = [_I, _I, _I] + [_F] * 9 + [_P]
 # (the per-channel weights travel with the means), stream
 _HEAD_MC = [_P] * 6 + [_I, _I, _I]
 _TAIL_MC = [_I, _I, _I] + [_F] * 7 + [_P]
+# resident launchers (csrc/resident.cuh CV_RESIDENT_ARGS): 8 pointers;
+# nblocks, N, H, W, C, iters, unroll, batch, nrow; 9 params; stream. Each
+# has a `_grid` twin (C, int* max co-resident blocks).
+_RESIDENT = [_P] * 8 + [_I] * 9 + [_F] * 9 + [_P]
+_GRID = [_I, ctypes.POINTER(ctypes.c_int)]
+RESIDENT_SYMBOLS = ("cv_resident_iterations", "cv_resident_iterations_mc",
+                    "cv_packed_resident_iterations",
+                    "cv_packed_resident_iterations_mc")
 SIGNATURES = {
     "cv_fused_iteration": _HEAD + _TAIL,
     "cv_banded_chunk": _HEAD + [_I] + _TAIL,
@@ -41,6 +49,8 @@ SIGNATURES = {
     "cv_fused_iteration_mc": _HEAD_MC + _TAIL_MC,
     "cv_banded_chunk_mc": _HEAD_MC + [_I] + _TAIL_MC,
     "cv_packed_banded_chunk_mc": _HEAD_MC + [_I] + _TAIL_MC,
+    **{s: _RESIDENT for s in RESIDENT_SYMBOLS},
+    **{f"{s}_grid": _GRID for s in RESIDENT_SYMBOLS},
 }
 
 

@@ -125,31 +125,51 @@ __device__ __forceinline__ float face(float mu, float eta2, float a,
   return mu * rsqrtf(eta2 + a * a + b * b);
 }
 
-// Semi-implicit update of window cell (r, c) from the window state s.
-// Counterpart of chan_vese_tpu/ops/pallas_sweep.py::_update_all: forward
-// coefficients A, B at the cell; backward ones A- = A(r-1, c) and
-// B- = B(r, c-1) evaluated with clamped reads, which at a window's first
-// row/col gives the replica-eval value (am0/bm0 of the reference). The
-// Dirac factor uses the cell's value before the iteration: the active
-// color is still old when its half-sweep runs.
-__device__ __forceinline__ float update_cell(const float* s, const float* f,
-                                             int r, int c, int wh, int ww,
-                                             const Params& P) {
+// Row-major offset of cell (r, c) in a window of width ww.
+struct FlatIdx {
+  int ww;
+  __device__ __forceinline__ int operator()(int r, int c) const {
+    return r * ww + c;
+  }
+};
+
+// Semi-implicit update of cell (r, c) of an wh x ww grid whose cell
+// offsets in s come from idx, with the force at the cell from force(),
+// evaluated where the sum needs it (so a shared-memory window's f is
+// loaded after the neighbours, as K1-K6 always did). Counterpart of
+// chan_vese_tpu/ops/pallas_sweep.py::_update_all: forward coefficients
+// A, B at the cell; backward ones A- = A(r-1, c) and B- = B(r, c-1)
+// evaluated with clamped reads, which at the grid's first row/col gives
+// the replica-eval value (am0/bm0 of the reference). The Dirac factor uses
+// the cell's value before the iteration: the active color is still old
+// when its half-sweep runs.
+template <class Idx, class Force>
+__device__ __forceinline__ float update_cell_at(const float* s, Force force,
+                                                int r, int c, int wh, int ww,
+                                                Idx idx, const Params& P) {
   const int rn = max(r - 1, 0), rs = min(r + 1, wh - 1);
   const int cw = max(c - 1, 0), ce = min(c + 1, ww - 1);
-  const float x = s[r * ww + c];
-  const float n = s[rn * ww + c], so = s[rs * ww + c];
-  const float w = s[r * ww + cw], e = s[r * ww + ce];
-  const float nw = s[rn * ww + cw], ne = s[rn * ww + ce];
-  const float sw = s[rs * ww + cw];
+  const float x = s[idx(r, c)];
+  const float n = s[idx(rn, c)], so = s[idx(rs, c)];
+  const float w = s[idx(r, cw)], e = s[idx(r, ce)];
+  const float nw = s[idx(rn, cw)], ne = s[idx(rn, ce)];
+  const float sw = s[idx(rs, cw)];
   const float A = face(P.mu, P.eta2, so - x, 0.5f * (e - w));
   const float Am = face(P.mu, P.eta2, x - n, 0.5f * (ne - nw));
   const float B = face(P.mu, P.eta2, 0.5f * (so - n), e - x);
   const float Bm = face(P.mu, P.eta2, 0.5f * (sw - nw), x - w);
   const float g = P.gdt / (P.eps2 + x * x);
-  const float num = x + g * (A * so + Am * n + B * e + Bm * w + f[r * ww + c]);
+  const float num = x + g * (A * so + Am * n + B * e + Bm * w + force());
   const float den = 1.0f + g * (A + Am + B + Bm);
   return num / den;
+}
+
+// update_cell_at on a shared-memory window with its force field f.
+__device__ __forceinline__ float update_cell(const float* s, const float* f,
+                                             int r, int c, int wh, int ww,
+                                             const Params& P) {
+  return update_cell_at(s, [&] { return f[r * ww + c]; }, r, c, wh, ww,
+                        FlatIdx{ww}, P);
 }
 
 // Sum v over the block in a fixed order (warp shuffles, then warp 0).

@@ -1,10 +1,11 @@
 """Launch path shared by the red-black kernels (K1-K3 on a scalar image,
-K4-K6 on a C-channel one).
+K4-K6 on a C-channel one) and the exact-means resident kernels (K7 flat,
+K8 parity planes; scalar, batch and C-channel modes).
 
-Checks the inputs, chooses the tile geometry, allocates the outputs and
-scratch, and calls the kernel library (``_build.library()``) on PyTorch's
-current stream. Nothing here synchronizes with the device. A refused
-launch raises.
+Checks the inputs, chooses the tile geometry (the resident kernels: the
+cooperative grid), allocates the outputs and scratch, and calls the kernel
+library (``_build.library()``) on PyTorch's current stream. Nothing here
+synchronizes with the device. A refused launch raises.
 """
 
 from __future__ import annotations
@@ -104,11 +105,15 @@ def launch_chunk_mc(symbol: str, phi, u0, c1, c2, p, k, h: int, w: int,
     return _launch(symbol, phi, u0, cc, (c,), k, h, w, c + 4, nout, params)
 
 
+def check_even(h: int, w: int):
+    if h % 2 or w % 2:
+        raise ValueError(f"the kernels need even H and W, got {(h, w)}")
+
+
 def _launch(symbol, phi, u0, cc, chan, k, h, w, nsums, nout, params):
     from .._build import library
 
-    if h % 2 or w % 2:
-        raise ValueError(f"the kernels need even H and W, got {(h, w)}")
+    check_even(h, w)
     if k is not None and k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     th, tw, cap = tile_geometry(h, w, 1 if k is None else k)
@@ -124,6 +129,76 @@ def _launch(symbol, phi, u0, cc, chan, k, h, w, nsums, nout, params):
     lib = library()
     err = getattr(lib, symbol)(*ptrs, h, w, *chan, *ks, th, tw, cap, *params,
                                torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{symbol} launch failed: "
+                           f"{lib.cv_error_string(err).decode()} ({err})")
+    return out, parts
+
+
+# threads per block of the resident kernels (csrc/resident.cuh kResThreads)
+RESIDENT_THREADS = 512
+
+
+@functools.lru_cache(maxsize=None)
+def resident_capacity(symbol: str, c: int, device_index: int) -> int:
+    """Most blocks of resident kernel ``symbol`` (C channels) that can be
+    co-resident on the device: occupancy per SM times the SM count, from
+    the library's ``_grid`` query. Raises where the device cannot launch
+    cooperatively."""
+    import ctypes
+
+    from .._build import library
+
+    lib = library()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = getattr(lib, f"{symbol}_grid")(c, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"{symbol} occupancy query failed: "
+                           f"{lib.cv_error_string(err).decode()} ({err})")
+    return n.value
+
+
+def launch_resident(symbol: str, phi, u0, p, iters: int, unroll: int,
+                    h: int, w: int, frames: int = 1, batch: bool = False,
+                    l1=None, l2=None):
+    """One cooperative launch of resident kernel ``symbol`` on image
+    geometry (h, w): ``iters`` exact-means iterations. phi holds one image
+    or ``frames`` of them (flat or parity planes); u0 is phi's shape for a
+    scalar image, channels-first (C, *phi.shape) when per-channel lambda
+    tuples ``l1``, ``l2`` are given. Returns (phi_new, partials): rows of
+    8 slots (C + 4 for C channels), one per ``unroll`` iterations, or one
+    per frame when ``batch``."""
+    from .._build import library
+
+    c = 0
+    if l1 is not None:
+        c = mc_channels(phi, u0)
+    elif u0.shape != phi.shape:
+        raise ValueError(f"u0 {tuple(u0.shape)} vs phi {tuple(phi.shape)}")
+    _check_inputs(phi, u0)
+    check_even(h, w)
+    dev = phi.device
+    nrow = c + 4 if c else 8
+    cap = resident_capacity(symbol, c, dev.index)
+    nblocks = max(1, min(cap, math.ceil(h * w // 2 / RESIDENT_THREADS)))
+    out = torch.empty_like(phi)
+    tmp = torch.empty(h * w, dtype=torch.float32, device=dev)
+    usum = u0.reshape(c or frames, -1).sum(1, dtype=torch.float64)
+    wts = _weights(tuple(l1), tuple(l2), dev) if c else None
+    scratch = torch.empty(nblocks * (max(c, 1) + 4), dtype=torch.float64,
+                          device=dev)
+    parts = torch.empty((frames if batch else iters // unroll, nrow),
+                        dtype=torch.float32, device=dev)
+    scalar_l = (p.lambda1, p.lambda2) if not c else (0.0, 0.0)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = getattr(lib, symbol)(
+            phi.data_ptr(), out.data_ptr(), tmp.data_ptr(), u0.data_ptr(),
+            usum.data_ptr(), None if wts is None else wts.data_ptr(),
+            scratch.data_ptr(), parts.data_ptr(), nblocks, frames, h, w, c,
+            iters, unroll, int(batch), nrow, p.mu, p.nu, *scalar_l,
+            *_common_params(p), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{symbol} launch failed: "
                            f"{lib.cv_error_string(err).decode()} ({err})")

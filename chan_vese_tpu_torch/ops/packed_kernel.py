@@ -1,5 +1,6 @@
 """K3 and K6: the banded chunk on parity planes (2, 2, H/2, W/2), for a
-scalar image (K3) or a C-channel one (K6, u0 as (C, 2, 2, H/2, W/2)).
+scalar image (K3) or a C-channel one (K6, u0 as (C, 2, 2, H/2, W/2)); K8:
+the exact-means resident iterations of K7 on parity planes.
 
 Counterpart of ``chan_vese_tpu/ops/pallas_packed.py`` (whole-image entries
 ``packed_banded_chunk`` and ``packed_banded_chunk_mc``). Plane (a, b)
@@ -14,6 +15,12 @@ and is not carried over. ``band_rows_packed(_mc)`` and
 ``supports_packed_banded(_mc)`` are the reference's routing predicates;
 their VMEM and alignment terms are the reference's routing, not limits of
 the Hopper kernel.
+
+K8 (``packed_resident_iterations``, ``_batch``, ``_mc``) keeps the
+reference's contract: (H, W) / (N, H, W) in and out, packed inside. On a
+CUDA tensor it launches ``csrc/packed_resident.cu`` or
+``csrc/packed_resident_mc.cu``; on a CPU tensor it runs the K7 plain
+versions, whose values the plane layout does not change.
 """
 
 from __future__ import annotations
@@ -22,9 +29,14 @@ from ..params import CVParams
 from . import _cuda
 from .banded_kernel import banded_chunk_mc_reference, banded_chunk_reference
 from .fused_kernel import _VMEM_LIMIT
+from .resident_kernel import (check_iters, check_stack,
+                              resident_iterations_batch_reference,
+                              resident_iterations_mc_reference,
+                              resident_iterations_reference)
 
-# routing constant of chan_vese_tpu/ops/pallas_packed.py
+# routing constants of chan_vese_tpu/ops/pallas_packed.py
 _TILES_BANDED = 34
+_ARRAYS_RESIDENT = 20
 
 
 def _pack(x):
@@ -165,3 +177,104 @@ def packed_banded_chunk_mc(phi_planes, u0_planes, c1, c2, p: CVParams,
 
 
 packed_banded_chunk_mc.launches = 0
+
+
+def supports_packed_resident(h: int, w: int) -> bool:
+    """Whether the reference routes (h, w) to its packed resident kernel."""
+    return (h % 16 == 0 and w % 256 == 0
+            and h * w * 4 * _ARRAYS_RESIDENT <= _VMEM_LIMIT)
+
+
+def supports_packed_resident_mc(h: int, w: int, c: int) -> bool:
+    """Whether the reference routes (h, w, c) to its packed resident mc
+    kernel."""
+    return (h % 16 == 0 and w % 256 == 0 and 1 <= c <= 8
+            and h * w * 4 * (_ARRAYS_RESIDENT + 2 * c) <= _VMEM_LIMIT)
+
+
+def packed_resident_iterations_reference(phi, u0, p: CVParams, iters: int,
+                                         unroll: int = 1):
+    """Plain PyTorch version of :func:`packed_resident_iterations`: K7's,
+    since packing moves values without changing them."""
+    return resident_iterations_reference(phi, u0, p, iters, unroll)
+
+
+def packed_resident_iterations(phi, u0, p: CVParams, iters: int,
+                               unroll: int = 1):
+    """K7's :func:`..resident_kernel.resident_iterations` contract ((H, W)
+    in and out, partials (iters // unroll, 8)) on parity planes."""
+    check_iters(iters, unroll)
+    if phi.ndim != 2 or u0.shape != phi.shape:
+        raise ValueError(f"phi {tuple(phi.shape)} and u0 "
+                         f"{tuple(u0.shape)} must be one (H, W) shape")
+    if phi.device.type == "cpu":
+        return packed_resident_iterations_reference(phi, u0, p, iters,
+                                                    unroll)
+    h, w = phi.shape
+    _cuda.check_even(h, w)
+    out, parts = _cuda.launch_resident(
+        "cv_packed_resident_iterations", _pack(phi), _pack(u0), p, iters,
+        unroll, h, w)
+    packed_resident_iterations.launches += 1
+    return _unpack(out), parts
+
+
+packed_resident_iterations.launches = 0
+
+
+def packed_resident_iterations_batch_reference(phis, u0s, p: CVParams,
+                                               iters: int, unroll: int = 1):
+    """Plain PyTorch version of :func:`packed_resident_iterations_batch`."""
+    return resident_iterations_batch_reference(phis, u0s, p, iters, unroll)
+
+
+def packed_resident_iterations_batch(phis, u0s, p: CVParams, iters: int,
+                                     unroll: int = 1):
+    """K7's batch contract ((N, H, W) in and out, partials (N, 8), each
+    frame's last iteration) on parity planes, all frames in one launch."""
+    check_iters(iters, unroll)
+    check_stack(phis, u0s)
+    if phis.device.type == "cpu":
+        return packed_resident_iterations_batch_reference(phis, u0s, p,
+                                                          iters, unroll)
+    n, h, w = phis.shape
+    _cuda.check_even(h, w)
+    out, parts = _cuda.launch_resident(
+        "cv_packed_resident_iterations", _pack_n(phis), _pack_n(u0s), p,
+        iters, unroll, h, w, frames=n, batch=True)
+    packed_resident_iterations_batch.launches += 1
+    return _unpack_n(out), parts
+
+
+packed_resident_iterations_batch.launches = 0
+
+
+def packed_resident_iterations_mc_reference(phi, u0_cfirst, p: CVParams,
+                                            iters: int, lambda1=None,
+                                            lambda2=None, unroll: int = 1):
+    """Plain PyTorch version of :func:`packed_resident_iterations_mc`."""
+    return resident_iterations_mc_reference(phi, u0_cfirst, p, iters,
+                                            lambda1, lambda2, unroll)
+
+
+def packed_resident_iterations_mc(phi, u0_cfirst, p: CVParams, iters: int,
+                                  lambda1=None, lambda2=None,
+                                  unroll: int = 1):
+    """K7's mc contract ((H, W) phi, (C, H, W) image, partials
+    (iters // unroll, C + 4)) on parity planes."""
+    check_iters(iters, unroll)
+    C = _cuda.mc_channels(phi, u0_cfirst)
+    if phi.device.type == "cpu":
+        return packed_resident_iterations_mc_reference(
+            phi, u0_cfirst, p, iters, lambda1, lambda2, unroll)
+    h, w = phi.shape
+    _cuda.check_even(h, w)
+    l1, l2 = p.channel_lambdas(C, lambda1, lambda2)
+    out, parts = _cuda.launch_resident(
+        "cv_packed_resident_iterations_mc", _pack(phi), _pack_mc(u0_cfirst),
+        p, iters, unroll, h, w, l1=l1, l2=l2)
+    packed_resident_iterations_mc.launches += 1
+    return _unpack(out), parts
+
+
+packed_resident_iterations_mc.launches = 0

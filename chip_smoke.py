@@ -6,10 +6,15 @@ Builds the CUDA kernels from this checkout, holds each kernel against its
 plain PyTorch version, drives the grayscale main path (segment_banded at
 4K, 3840x2160) and the RGB main path (segment_banded at 4K RGB,
 3840x2160x3) through the kernels, checks the masks, and times the 4K
-fixed-iteration runs. Five phases; any failure raises and exits non-zero.
-The last lines are a JSON object per kernel, the card's name and power
-limit, and {"ok": true, "device": {...}}. Without a CUDA device it exits 1
-and prints no result.
+fixed-iteration runs (phases 1-5). Phases 6-8 do the same for the
+exact-means resident route (K7 flat, K8 parity planes; scalar, batch and
+RGB modes): each mode against its plain version at 256^2-1024^2, a
+ragged shape and the shapes the main path gives it, segment_resident / segment_stack_resident_fixed /
+segment_resident_fixed through the kernels, and the resident drivers'
+throughput beside the per-iteration fused driver's at 256^2, 512^2 RGB and
+1024^2. Any failure raises and exits non-zero. The last lines are a JSON
+object per kernel, the card's name and power limit, and {"ok": true,
+"device": {...}}. Without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -30,8 +35,9 @@ if not torch.cuda.is_available():
 
 import chan_vese_tpu_torch as ct  # noqa: E402
 from chan_vese_tpu_torch import _build  # noqa: E402
-from chan_vese_tpu_torch.ops import (banded_kernel, fused_kernel,  # noqa: E402
-                                     fused_kernel_mc, packed_kernel)
+from chan_vese_tpu_torch.ops import (_cuda, banded_kernel,  # noqa: E402
+                                     fused_kernel, fused_kernel_mc,
+                                     packed_kernel, resident_kernel)
 from chan_vese_tpu_torch.ops.reductions import region_means  # noqa: E402
 from chan_vese_tpu_torch.utils.init_phi import init_phi  # noqa: E402
 
@@ -56,6 +62,11 @@ PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 # Dirac factor (square, add, divide), num (4 products, 4 adds, 2) and den
 # (3 adds, 2), the divide; rsqrt, divide and atan count as one operation
 OPS_UPDATE = 55
+# operations per pixel of the resident kernels' means, per iteration: the
+# Heaviside (atan, divide, multiply, add) and its sum, plus a multiply and
+# an add per channel; and of a partials row: d, d^2 and its sum, the flips
+# (2 compares, not-equal, sum), |d| and its sum
+OPS_MEANS, OPS_MEANS_CHANNEL, OPS_ROW = 4, 2, 8
 
 KERNELS = {
     "K1 fused_iteration": dict(
@@ -101,6 +112,54 @@ KERNELS = {
 GRAY = [n for n, k in KERNELS.items() if not k["channels"]]
 COLOR = [n for n, k in KERNELS.items() if k["channels"]]
 
+# the resident modes: K7 (flat) and K8 (parity planes), each single-image
+# scalar, batch and mc; the wrappers take (H, W) / (N, H, W) images
+RESIDENT = {}
+for _k, _mod, _pre, _src, _rep in (
+        ("K7", resident_kernel, "resident", "resident",
+         ("chan_vese_tpu/ops/pallas_resident.py", 58, 119, 177)),
+        ("K8", packed_kernel, "packed_resident", "packed_resident",
+         ("chan_vese_tpu/ops/pallas_packed.py", 1491, 1551, 1611))):
+    for _mode, _line, _ch in (("", _rep[1], 0), ("_batch", _rep[2], 0),
+                              ("_mc", _rep[3], RGB)):
+        _fn = getattr(_mod, f"{_pre}_iterations{_mode}")
+        RESIDENT[f"{_k} {_fn.__name__}"] = dict(
+            wrapper=_fn, plain=getattr(_mod, f"{_fn.__name__}_reference"),
+            module=_mod, source=f"chan_vese_tpu_torch/csrc/{_src}"
+            f"{'_mc' if _ch else ''}.cu", replaces=f"{_rep[0]}:{_line}",
+            mode=_mode, channels=_ch)
+# the envelope shapes, a ragged even one, and the shapes phase 7 sends to
+# K7: 1024x896 gray, stacks of 256x384 and 512x384 RGB (K8 gets 512^2 gray
+# and RGB and stacks of 256^2 there)
+RES_SHAPES = ((256, 256), (512, 512), (1024, 1024), (250, 398), (1024, 896),
+              (256, 384), (512, 384))
+# frames of the batch modes' stacks: 4, and at 256^2 the 8 of phase 7's K8
+# stack (its K7 stack is 4 x 256x384)
+RES_FRAMES = 4
+RES_FRAMES_AT = {(256, 256): 8}
+RES_TIMED = (1024, 1024)
+# 16-iteration check of a resident mode against its plain version, from a
+# circle start. The exact-means trajectory amplifies last-ulp differences
+# (rsqrtf, atanf, FMA, f64 vs f32 means) every iteration: the plain
+# version in f32 and in f64 differ by 2e-4 to 8e-3 of phi's largest value
+# over these inputs, and that largest difference moves 10x between runs
+# whose phi0 differs by 1e-7 relative, where the relative L2 difference
+# moves under 3x (CPU runs of the plain version at 512^2 and 1024^2). So
+# each run measures the plain f32 run's relative L2 difference from the
+# plain f64 run and holds the kernel's to PHI16_FACTOR times it: no less
+# accurate than the plain f32 run, within the factor. A cell may take the
+# other sign than the plain f32 run only where its |phi| is at most
+# FLIPS16_PHI, at most FLIPS16_FRAC of the cells; the rows' means sums are
+# held at MEANS16_RTOL. From the
+# checkerboard start at the default mu the run is chaotic in f32 (a 1e-7
+# relative change of phi0 moves phi by 44 of 180 at 256^2), so it is not
+# used here.
+PHI16_FACTOR, MEANS16_RTOL, FLIPS16_FRAC = 4.0, 1e-5, 1e-4
+FLIPS16_PHI = 10 * PHI_ATOL
+# fixed iterations of the main-path stack and RGB runs (converged by then)
+MAIN_FIXED_ITERS = 100
+THROUGHPUT_ITERS = 1000
+
 
 def two_disks(h, w, fg=217.0, bg=38.0, noise=8.0, seed=0):
     """Two bright disks on a dark background plus Gaussian noise, and the
@@ -133,6 +192,13 @@ def iou(a, b):
     return float((a & b).sum() / max((a | b).sum(), 1))
 
 
+def iou_phases(mask, gt):
+    """IoU with the truth up to the swap of the two phases: from the
+    checkerboard start the data decide which region ends as phi >= 0."""
+    mask = np.asarray(mask, bool)
+    return max(iou(mask, gt), iou(~mask, gt))
+
+
 def run(cmd):
     return subprocess.run(cmd, capture_output=True, text=True,
                           check=True).stdout.strip()
@@ -152,29 +218,39 @@ def time_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def bound(h, w, k, channels):
+def bound(h, w, k, channels, frames=1, rows=None):
     """(ms, "bytes" or "operations"): the least time an H100 SXM takes for
-    one launch's work at (h, w), k iterations, ``channels`` (0 = gray):
-    phi and every u0 channel read once and phi written once, against the
-    operations of k updates per pixel plus the data term (8 per channel)
-    and the partials (14 + 2 per channel) once per pixel."""
+    one launch's work at (h, w), k iterations, ``channels`` (0 = gray), on
+    ``frames`` images: phi and every u0 channel read once and phi written
+    once, against the operations of k updates per pixel plus the data term
+    (8 per channel) and the partials (14 + 2 per channel) once per pixel.
+    ``rows`` given: an exact-means resident launch, which computes the
+    data term and the means (OPS_MEANS + OPS_MEANS_CHANNEL per channel) at
+    every iteration and ``rows`` partials rows (OPS_ROW each)."""
     c = max(channels, 1)
-    nbytes = 4 * h * w * (2 + c)
-    ops = h * w * (OPS_UPDATE * k + 8 * c + 14 + 2 * c)
+    nbytes = 4 * h * w * (2 + c) * frames
+    if rows is None:
+        per_pixel = OPS_UPDATE * k + 8 * c + 14 + 2 * c
+    else:
+        per_pixel = (k * (OPS_UPDATE + 8 * c + OPS_MEANS
+                          + OPS_MEANS_CHANNEL * c) + rows * OPS_ROW)
+    ops = h * w * frames * per_pixel
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def ptxas_summary():
-    """Registers and spill stores of every chunk_kernel instance, from
-    ptxas's -v report of the build: 'flat/packed C=n: R regs, S B spill'."""
+    """Registers and spill stores of every chunk_kernel and resident_kernel
+    instance, from ptxas's -v report of the build: 'kind flat/packed C=n:
+    R regs, S B spill'."""
     out, name = {}, None
     for line in _build.ptxas_report().splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:  # the lines up to the next entry describe this one
-            m = re.search(r"chunk_kernelILb(\d)ELi(\d+)E", m.group(1))
-            name = (("flat", "packed")[int(m.group(1))], int(m.group(2))) \
-                if m else None
+            m = re.search(r"(chunk|resident)_kernelILb(\d)ELi(\d+)E",
+                          m.group(1))
+            name = (m.group(1), ("flat", "packed")[int(m.group(2))],
+                    int(m.group(3))) if m else None
             continue
         if name is None:
             continue
@@ -184,8 +260,9 @@ def ptxas_summary():
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out.setdefault(name, {})["regs"] = int(m.group(1))
-    return ", ".join(f"{lay} C={c}: {v.get('regs')} regs {v.get('spill')} B "
-                     f"spill" for (lay, c), v in sorted(out.items()))
+    return ", ".join(f"{kind} {lay} C={c}: {v.get('regs')} regs "
+                     f"{v.get('spill')} B spill"
+                     for (kind, lay, c), v in sorted(out.items()))
 
 
 @contextlib.contextmanager
@@ -197,6 +274,10 @@ def plain_route():
              fused_kernel_mc.fused_iteration_mc,
              banded_kernel.banded_chunk_mc,
              packed_kernel.packed_banded_chunk_mc)
+    # the resident wrappers take their plain versions' arguments
+    saved_resident = {name: r["wrapper"] for name, r in RESIDENT.items()}
+    for r in RESIDENT.values():
+        setattr(r["module"], r["wrapper"].__name__, r["plain"])
     fused_kernel.fused_iteration = fused_kernel.fused_iteration_reference
     banded_kernel.banded_chunk = (
         lambda phi, u0, c1, c2, p, k=8, unroll=1, fuse=False:
@@ -221,6 +302,8 @@ def plain_route():
          packed_kernel.packed_banded_chunk,
          fused_kernel_mc.fused_iteration_mc, banded_kernel.banded_chunk_mc,
          packed_kernel.packed_banded_chunk_mc) = saved
+        for name, fn in saved_resident.items():
+            setattr(RESIDENT[name]["module"], fn.__name__, fn)
 
 
 def check_kernel(name, kern, args, c1, c2, p, k, h, w, lam):
@@ -248,6 +331,89 @@ def check_kernel(name, kern, args, c1, c2, p, k, h, w, lam):
     return err
 
 
+def resident_inputs(r, phi, u0, ucf, stack):
+    """The arguments of resident mode ``r`` before the params: one gray
+    image, a stack of frames (each from phi), or a channels-first image."""
+    if r["mode"] == "_batch":
+        return phi.expand(stack.shape).contiguous(), stack
+    return (phi, ucf) if r["channels"] else (phi, u0)
+
+
+def rel_l2(x, ref):
+    """||x - ref|| / ||ref|| over all cells, in f64."""
+    return float((x.double() - ref).norm() / ref.norm())
+
+
+def check_resident(name, r, args, p, iters, unroll, lam, tag):
+    """One resident launch against its plain version; returns max |d phi|.
+    One iteration is held at phase 3's bars; more at PHI16_FACTOR times
+    the plain version's own f32 error, the sign flips at FLIPS16_FRAC and
+    the rows' means sums at MEANS16_RTOL. A second launch must repeat the
+    first bit for bit: the means are reduced in a fixed order without
+    atomics, so a difference means a read raced a write across a grid
+    sync."""
+    got_phi, got_parts = r["wrapper"](*args, p, iters, unroll=unroll, **lam)
+    again_phi, again_parts = r["wrapper"](*args, p, iters, unroll=unroll,
+                                          **lam)
+    ref_phi, ref_parts = r["plain"](*args, p, iters, unroll=unroll, **lam)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_phi, again_phi)
+            and torch.equal(got_parts, again_parts)):
+        raise AssertionError(f"{name} iters={iters} at {tag}: two launches "
+                             f"on the same input differ")
+    err = float((got_phi - ref_phi).abs().max())
+    sure = ref_phi.abs() > PHI_ATOL
+    flips = ((got_phi >= 0) != (ref_phi >= 0)) & sure
+    n_flips = int(flips.sum())
+    flip_phi = float(ref_phi.abs()[flips].max()) if n_flips else 0.0
+    if iters == 1:
+        ok_phi = torch.allclose(got_phi, ref_phi, rtol=PHI_RTOL,
+                                atol=PHI_ATOL)
+        ok_mask = n_flips == 0
+        bar = (f"phi rtol {PHI_RTOL} atol {PHI_ATOL}, no sign flip where "
+               f"|phi| > {PHI_ATOL}")
+    else:
+        ref64, _ = r["plain"](*(a.double() for a in args), p, iters,
+                              unroll=unroll, **lam)
+        e32 = float((ref_phi.double() - ref64).abs().max())
+        e_kern = float((got_phi.double() - ref64).abs().max())
+        l2_32 = rel_l2(ref_phi, ref64)
+        l2_kern = rel_l2(got_phi, ref64)
+        ok_phi = l2_kern <= PHI16_FACTOR * l2_32
+        ok_mask = (n_flips <= FLIPS16_FRAC * ref_phi.numel()
+                   and flip_phi <= FLIPS16_PHI)
+        bar = (f"relative L2 vs plain f64: kernel {l2_kern:.3e}, plain f32 "
+               f"{l2_32:.3e}, bar {PHI16_FACTOR} x plain f32; max vs plain "
+               f"f64: kernel {e_kern:.3e}, plain f32 {e32:.3e}; flips only "
+               f"where |phi| <= {FLIPS16_PHI:g}, at most {FLIPS16_FRAC} of "
+               f"cells")
+    nrow = r["channels"] + 4 if r["channels"] else 8
+    want_shape = ((args[0].shape[0], nrow) if r["mode"] == "_batch"
+                  else (iters // unroll, nrow))
+    ok_shape = tuple(got_parts.shape) == tuple(ref_parts.shape) == want_shape
+    nmeans = max(r["channels"], 1) + 1
+    means_err = float(((got_parts[:, :nmeans] - ref_parts[:, :nmeans]).abs()
+                       / ref_parts[:, :nmeans].abs().clamp_min(1.0)).max())
+    if iters == 1:
+        ok_parts = ok_shape and torch.allclose(
+            got_parts, ref_parts, rtol=PARTS_RTOL, atol=PARTS_ATOL)
+    else:
+        ok_parts = (ok_shape and bool(torch.isfinite(got_parts).all())
+                    and means_err <= MEANS16_RTOL)
+    print(f"phase 6 {name} {tag} iters={iters} unroll={unroll}"
+          f"{' per-channel lambda' if lam else ''}: phi max|d|={err:.3e} "
+          f"(scale {float(ref_phi.abs().max()):.3e}) parts "
+          f"{tuple(got_parts.shape)} max|d|="
+          f"{float((got_parts - ref_parts).abs().max()):.3e} means sums "
+          f"rel {means_err:.3e}; {n_flips} sign flips where |phi| > "
+          f"{PHI_ATOL}, largest |phi| there {flip_phi:.3e}; second launch "
+          f"bitwise equal ({bar})", flush=True)
+    if not (ok_phi and ok_mask and ok_parts and math.isfinite(err)):
+        raise AssertionError(f"{name} iters={iters} at {tag} disagrees "
+                             f"with its plain version")
+    return err
+
+
 def check_masks(checks):
     for key, (val, bar) in checks.items():
         if not val >= bar:
@@ -265,8 +431,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s "
-          f"({len(_build.sources())} sources); ptxas: {ptxas_summary()}",
-          flush=True)
+          f"({len(_build.sources())} sources); ptxas: {ptxas_summary()}; "
+          f"resident co-resident blocks: "
+          + ", ".join(f"{sym} {_cuda.resident_capacity(sym, 3, 0)}"
+                      for sym in _build.RESIDENT_SYMBOLS), flush=True)
 
     # phase 3: each kernel against its plain version, at the main paths'
     # shapes and a ragged one, on the main paths' inputs (the gray image
@@ -420,14 +588,169 @@ def main() -> int:
               f"{plain_ms:.1f} ms = {plain_rate:.1f} Mpixel-iters/s "
               f"[{card}]", flush=True)
 
-    print(json.dumps({"kernels": [
+    # phase 6: each resident mode against its plain version, on the main
+    # paths' images (gray two disks, RGB colored squares channels-first, a
+    # stack of two-disks frames), at the reference's envelope shapes, a
+    # ragged even one and the shapes phase 7 gives each mode: one iteration
+    # from the checkerboard start, 16 from a circle (PHI16_FACTOR)
+    res_stats = {name: dict(max_abs_err=0.0) for name in RESIDENT}
+    for h, w in RES_SHAPES:
+        u0 = torch.from_numpy(two_disks(h, w)[0]).to(dev)
+        ucf = (torch.from_numpy(colored_squares(h, w)[0]).to(dev)
+               .permute(2, 0, 1).contiguous())
+        frames = RES_FRAMES_AT.get((h, w), RES_FRAMES)
+        stack = torch.stack([torch.from_numpy(two_disks(h, w, seed=s)[0])
+                             for s in range(frames)]).to(dev)
+        starts = {s: init_phi((h, w), s, torch.float32, device=dev)
+                  for s in ("checkerboard", "circle")}
+        tag = f"{h}x{w}"
+        for name, r in RESIDENT.items():
+            args = {s: resident_inputs(r, phi, u0, ucf, stack)
+                    for s, phi in starts.items()}
+            runs = [(1, 1, {}, "checkerboard"), (16, 1, {}, "circle"),
+                    (16, 4, {}, "circle")]
+            if r["channels"]:
+                runs.append((1, 1, LAMBDAS, "checkerboard"))
+            for iters, un, lam, start in runs:
+                err = check_resident(name, r, args[start], p, iters, un, lam,
+                                     f"{tag} {start}")
+                res_stats[name]["max_abs_err"] = max(
+                    res_stats[name]["max_abs_err"], err)
+            if (h, w) == RES_TIMED:
+                frames = len(stack) if r["mode"] == "_batch" else 1
+                a = args["checkerboard"]
+                res_stats[name]["ms"] = time_ms(
+                    lambda: r["wrapper"](*a, p, 16), 20)
+                res_stats[name]["plain_ms"] = time_ms(
+                    lambda: r["plain"](*a, p, 16), 2)
+                res_stats[name]["bound_ms"], res_stats[name]["bound_by"] = (
+                    bound(h, w, 16, r["channels"], frames,
+                          rows=1 if frames > 1 else 16))
+    print(f"phase 6 timed: each mode at {RES_TIMED[0]}x{RES_TIMED[1]}, 16 "
+          f"iterations, batch {RES_FRAMES} frames, mc {RGB} channels: "
+          + ", ".join(f"{n} {v['ms']:.4f} ms (plain {v['plain_ms']:.3f}, "
+                      f"bound {v['bound_ms']:.4f} {v['bound_by']})"
+                      for n, v in res_stats.items()), flush=True)
+
+    # phase 7: the resident route through the user entry points. 512^2
+    # goes to K8 (W % 256 == 0), 1024x896 to K7; stacks of 8 x 256^2 to
+    # K8 batch and 4 x 256x384 to K7 batch; (512, 512, 3) to K8 mc and
+    # (512, 384, 3) to K7 mc. mu as phase 4 (pt gray, pv RGB).
+    g512, gt512 = two_disks(512, 512)
+    g1k, gt1k = two_disks(1024, 896)
+    ug512 = torch.from_numpy(g512).to(dev)
+    ug1k = torch.from_numpy(g1k).to(dev)
+    stacks = []
+    for n, (h, w) in ((8, (256, 256)), (4, (256, 384))):
+        frames = [two_disks(h, w, seed=s) for s in range(n)]
+        stacks.append((torch.from_numpy(np.stack([f for f, _ in frames]))
+                       .to(dev), [g for _, g in frames]))
+    c512, gtc512 = colored_squares(512, 512)
+    c384, gtc384 = colored_squares(512, 384)
+    vc512 = torch.from_numpy(c512).to(dev)
+    vc384 = torch.from_numpy(c384).to(dev)
+
+    def resident_path():
+        return dict(
+            r512=ct.segment_resident(ug512, pt),
+            r1k=ct.segment_resident(ug1k, pt),
+            s8=ct.segment_stack_resident_fixed(stacks[0][0], pt,
+                                               iters=MAIN_FIXED_ITERS)[1],
+            s4=ct.segment_stack_resident_fixed(stacks[1][0], pt,
+                                               iters=MAIN_FIXED_ITERS)[1],
+            c512=ct.segment_resident_fixed(vc512, pv,
+                                           iters=MAIN_FIXED_ITERS)[1],
+            c384=ct.segment_resident_fixed(vc384, pv,
+                                           iters=MAIN_FIXED_ITERS)[1])
+
+    for r in RESIDENT.values():
+        r["wrapper"].launches = 0
+    got = resident_path()
+    torch.cuda.synchronize()
+    for name, r in RESIDENT.items():
+        res_stats[name]["launches"] = r["wrapper"].launches
+    f512 = ct.segment_fused(ug512, pt)
+    f1k = ct.segment_fused(ug1k, pt)
+    with plain_route():
+        ref = resident_path()
+    torch.cuda.synchronize()
+    checks = {}
+    for key, gt in (("r512", gt512), ("r1k", gt1k)):
+        checks[f"{key} IoU vs truth"] = (iou_phases(got[key].mask.cpu(), gt),
+                                         0.99)
+        checks[f"{key} IoU vs plain route"] = (
+            iou(got[key].mask.cpu(), ref[key].mask.cpu()), 0.999)
+    for key, (_, gts) in (("s8", stacks[0]), ("s4", stacks[1])):
+        checks[f"{key} min frame IoU vs truth"] = (
+            min(iou_phases(m, g) for m, g in zip(got[key].cpu(), gts)), 0.99)
+        checks[f"{key} IoU vs plain route"] = (
+            iou(got[key].cpu(), ref[key].cpu()), 0.999)
+    for key, gt in (("c512", gtc512), ("c384", gtc384)):
+        checks[f"{key} IoU vs truth"] = (iou_phases(got[key].cpu(), gt), 0.99)
+        checks[f"{key} IoU vs plain route"] = (
+            iou(got[key].cpu(), ref[key].cpu()), 0.999)
+    print(f"phase 7 resident slice: segment_resident 512^2 {got['r512'].iters}"
+          f" iters (plain route {ref['r512'].iters}, segment_fused "
+          f"{f512.iters}), 1024x896 {got['r1k'].iters} (plain "
+          f"{ref['r1k'].iters}, fused {f1k.iters}); stacks and RGB "
+          f"{MAIN_FIXED_ITERS} fixed iterations; "
+          + "; ".join(f"{k} {v:.6f} (>= {m})" for k, (v, m) in checks.items())
+          + "; IoU vs truth up to the swap of the two phases; launches "
+          + ", ".join(f"{n}={res_stats[n]['launches']}" for n in RESIDENT),
+          flush=True)
+    for key, fused in (("r512", f512), ("r1k", f1k)):
+        res = got[key]
+        if not res.iters < pt.max_iter:
+            raise AssertionError(f"{key} did not converge within max_iter")
+        if abs(res.iters - fused.iters) > 16:
+            raise AssertionError(f"{key}: {res.iters} iterations against "
+                                 f"segment_fused's {fused.iters}")
+        if not torch.isfinite(res.phi).all():
+            raise AssertionError(f"non-finite level set ({key})")
+    check_masks(checks)
+    for name, st in res_stats.items():
+        if st["launches"] < 1:
+            raise AssertionError(f"{name} was not launched on the main path")
+
+    # phase 8: the resident drivers' throughput beside the per-iteration
+    # fused driver (K1/K4) on the same input and iterations
+    per_iter = {}
+    for tag, u, lam in (
+            ("256^2 gray", torch.from_numpy(two_disks(256, 256)[0]).to(dev),
+             {}),
+            ("512^2 RGB lambda1=(1.0, 1.2, 0.8)",
+             torch.from_numpy(colored_squares(512, 512)[0]).to(dev),
+             dict(lambda1=LAMBDAS["lambda1"])),
+            ("1024^2 gray",
+             torch.from_numpy(two_disks(1024, 1024)[0]).to(dev), {})):
+        n_pix = u.shape[0] * u.shape[1]
+        res_ms = time_ms(lambda: ct.segment_resident_fixed(
+            u, p, iters=THROUGHPUT_ITERS, **lam), 2)
+        fused_ms = time_ms(lambda: ct.segment_fused_fixed(
+            u, p, iters=THROUGHPUT_ITERS, **lam), 1)
+        per_iter[tag] = res_ms / THROUGHPUT_ITERS
+        print(f"phase 8 throughput {tag}, {THROUGHPUT_ITERS} iters: "
+              f"segment_resident_fixed {res_ms:.3f} ms = "
+              f"{n_pix * THROUGHPUT_ITERS / (res_ms * 1e3):.1f} "
+              f"Mpixel-iters/s; segment_fused_fixed {fused_ms:.3f} ms = "
+              f"{n_pix * THROUGHPUT_ITERS / (fused_ms * 1e3):.1f} "
+              f"Mpixel-iters/s [{card}]", flush=True)
+    # time per iteration = fixed + per-pixel x pixels: the fixed part (two
+    # grid syncs and the all-block reduction) from the 256^2 and 1024^2 runs
+    t256, t1k = per_iter["256^2 gray"], per_iter["1024^2 gray"]
+    print(f"phase 8 resident per-iteration cost: 256^2 {t256 * 1e3:.3f} us, "
+          f"1024^2 {t1k * 1e3:.3f} us; fixed part (16 t256 - t1024) / 15 = "
+          f"{(16 * t256 - t1k) / 15 * 1e3:.3f} us [{card}]", flush=True)
+
+    entries = [
         dict(name=name, route="cuda", source=k["source"],
-             replaces=k["replaces"], launches=stats[name]["launches"],
-             max_abs_err=stats[name]["max_abs_err"],
-             ms=stats[name]["ms"], plain_ms=stats[name]["plain_ms"],
-             bound_ms=stats[name]["bound_ms"],
-             bound_by=stats[name]["bound_by"], library_ms=None)
-        for name, k in KERNELS.items()]}))
+             replaces=k["replaces"], launches=st["launches"],
+             max_abs_err=st["max_abs_err"], ms=st["ms"],
+             plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+             bound_by=st["bound_by"], library_ms=None)
+        for table, stat in ((KERNELS, stats), (RESIDENT, res_stats))
+        for name, k in table.items() for st in (stat[name],)]
+    print(json.dumps({"kernels": entries}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
