@@ -8,8 +8,10 @@ the plain PyTorch ops and drivers (``segment``, ``segment_fixed``,
 driver over K1 (K4 for C channels), the banded drivers over K2/K3
 (K5/K6) and the exact-means resident drivers over K7/K8
 (``segment_resident``, ``segment_resident_fixed``,
-``segment_stack_resident_fixed``). CPU tensors run the plain PyTorch
-versions of the kernels; CUDA tensors launch the kernels in ``csrc/``,
+``segment_stack_resident_fixed``), and multiphase segmentation
+(``segment_multiphase``, ``segment_multiphase_fixed``) over K9/K10 and
+K1's force mode. CPU tensors run the plain PyTorch versions of the
+kernels; CUDA tensors launch the kernels in ``csrc/``,
 built with nvcc at first use. It never imports jax.
 """
 
@@ -21,6 +23,8 @@ from .models.banded import (auto_config, auto_config_mc, segment_banded,
                             segment_banded_fixed)
 from .models.resident import (segment_resident, segment_resident_fixed,
                               segment_stack_resident_fixed)
+from .models.multiphase import (MultiphaseResult, segment_multiphase,
+                                segment_multiphase_fixed)
 
 __all__ = [
     "CVParams", "DEFAULTS",
@@ -31,6 +35,7 @@ __all__ = [
     "segment_banded_fixed",
     "segment_resident", "segment_resident_fixed",
     "segment_stack_resident_fixed",
+    "segment_multiphase", "segment_multiphase_fixed", "MultiphaseResult",
 ]
 
 __version__ = "0.1.0"

@@ -42,8 +42,16 @@ _GRID = [_I, ctypes.POINTER(ctypes.c_int)]
 RESIDENT_SYMBOLS = ("cv_resident_iterations", "cv_resident_iterations_mc",
                     "cv_packed_resident_iterations",
                     "cv_packed_resident_iterations_mc")
+# 4-phase resident launchers (csrc/mp2.cuh CV_MP2_RESIDENT_ARGS): 7
+# pointers; nblocks, H, W, iters, unroll; 7 params; stream. Each has a
+# `_grid` twin.
+_MP2_RESIDENT = [_P] * 7 + [_I] * 5 + [_F] * 7 + [_P]
+MP2_RESIDENT_SYMBOLS = ("cv_mp2_resident_iterations",
+                        "cv_packed_mp2_resident_iterations")
 SIGNATURES = {
     "cv_fused_iteration": _HEAD + _TAIL,
+    "cv_fused_sweep": _HEAD + _TAIL,
+    "cv_mp2_iteration": _HEAD + _TAIL,
     "cv_banded_chunk": _HEAD + [_I] + _TAIL,
     "cv_packed_banded_chunk": _HEAD + [_I] + _TAIL,
     "cv_fused_iteration_mc": _HEAD_MC + _TAIL_MC,
@@ -51,6 +59,8 @@ SIGNATURES = {
     "cv_packed_banded_chunk_mc": _HEAD_MC + [_I] + _TAIL_MC,
     **{s: _RESIDENT for s in RESIDENT_SYMBOLS},
     **{f"{s}_grid": _GRID for s in RESIDENT_SYMBOLS},
+    **{s: _MP2_RESIDENT for s in MP2_RESIDENT_SYMBOLS},
+    **{f"{s}_grid": _GRID for s in MP2_RESIDENT_SYMBOLS},
 }
 
 

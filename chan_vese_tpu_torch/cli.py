@@ -1,9 +1,10 @@
-"""Command-line interface: the grayscale and colour subset of
+"""Command-line interface: the grayscale, colour and multiphase subset of
 ``chan_vese_tpu/cli.py``.
 
     python -m chan_vese_tpu_torch image.npy -o mask.npy
     python -m chan_vese_tpu_torch image.npy --iters 100 --device cpu
     python -m chan_vese_tpu_torch rgb.npy --color --lambda1 1 1.2 0.8
+    python -m chan_vese_tpu_torch image.npy --multiphase 2 -o labels.npy
 
 Flag names and defaults follow the reference. ``--device`` picks the torch
 device (default ``cuda``; it raises when no GPU is present rather than
@@ -13,6 +14,11 @@ with ``--iters``), which reach no kernel. Otherwise, on a CUDA device
 with ``--order redblack``, the tolerance run takes the banded driver
 (K2/K3 kernels, K5/K6 for a 3-D array) and elsewhere the plain driver;
 ``--iters`` runs exactly that many iterations of the plain driver.
+``--multiphase M`` segments into 2^M phases: the tolerance run takes
+``segment_multiphase`` and ``--iters`` ``segment_multiphase_fixed``, both
+on their auto route (K9/K10 for M = 2 on a gray image on a CUDA device,
+the plain path elsewhere or with ``--no-fused``), and the label map is
+written with ``save_labels``; a diverged run exits 1 and writes nothing.
 """
 
 from __future__ import annotations
@@ -59,6 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "Gauss-Seidel; parity mode)")
     ap.add_argument("--color", action="store_true",
                     help="vector-valued (RGB) energy on color images")
+    ap.add_argument("--multiphase", type=int, default=0, metavar="M",
+                    help="multiphase Vese-Chan with M level sets (2^M "
+                         "phases); writes a label map")
     ap.add_argument("--no-fused", action="store_true",
                     help="skip the kernel drivers even on a GPU")
     ap.add_argument("--device", default="cuda",
@@ -84,6 +93,9 @@ def main(argv=None) -> int:
     if args.iters is not None and args.iters < 1:
         print("error: --iters must be positive", file=sys.stderr)
         return 2
+    if args.multiphase < 0:
+        print("error: --multiphase must be positive", file=sys.stderr)
+        return 2
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch finds no CUDA device; "
@@ -100,6 +112,9 @@ def main(argv=None) -> int:
                  lambda2=args.lambda2[0], dt=args.dt, eps=args.eps,
                  tol=args.tol, max_iter=args.max_iter, init=args.init,
                  order=args.order)
+    if args.multiphase:
+        return _multiphase(args, u0, p)
+
     lam1 = tuple(args.lambda1) if args.color else None
     lam2 = tuple(args.lambda2) if args.color else None
 
@@ -133,6 +148,36 @@ def main(argv=None) -> int:
     print(f"converged in {iters} iters; c1={c1}, c2={c2}", file=sys.stderr)
     if args.output:
         image_io.save_mask(args.output, mask.cpu().numpy())
+    return 0
+
+
+def _multiphase(args, u0, p: CVParams) -> int:
+    """The --multiphase branch: tolerance mode or --iters, labels out."""
+    import torch
+
+    from .models.multiphase import (segment_multiphase,
+                                    segment_multiphase_fixed)
+    from .utils import image_io
+
+    use_pallas = False if args.no_fused else None
+    if args.iters is not None:
+        tr = segment_multiphase_fixed(u0, p, iters=args.iters,
+                                      m_sets=args.multiphase,
+                                      use_pallas=use_pallas)
+        labels, iters, signals = tr.labels, args.iters, (tr.energy[-1],)
+    else:
+        res = segment_multiphase(u0, p, m_sets=args.multiphase,
+                                 use_pallas=use_pallas)
+        labels, iters, signals = res.labels, res.iters, (res.cs, res.delta)
+    if not all(bool(torch.isfinite(s).all()) for s in signals):
+        print(f"DIVERGED after {iters} iters (non-finite level set - "
+              f"check the input for NaN/Inf and the parameter scales); "
+              f"no outputs written", file=sys.stderr)
+        return 1
+    print(f"multiphase: {2 ** args.multiphase} phases, {iters} iters",
+          file=sys.stderr)
+    if args.output:
+        image_io.save_labels(args.output, labels.cpu().numpy())
     return 0
 
 

@@ -1,7 +1,7 @@
-// Shared device code of the Hopper red-black kernels: K1 fused.cu, K2
-// banded.cu, K3 packed.cu on a scalar image and K4 fused_mc.cu, K5
-// banded_mc.cu, K6 packed_mc.cu on a C-channel image. One body, six
-// launchers.
+// Shared device code of the Hopper red-black kernels: K1 fused.cu (and its
+// force mode fused_sweep.cu), K2 banded.cu, K3 packed.cu on a scalar image
+// and K4 fused_mc.cu, K5 banded_mc.cu, K6 packed_mc.cu on a C-channel
+// image. One body, seven launchers.
 //
 // What a launch computes: k red-black semi-implicit iterations with the
 // region means c1/c2 frozen (k = 1 for the fused kernels), then the
@@ -20,7 +20,10 @@
 // window stay scalar. NC = 0 keeps the scalar kernels' arithmetic
 // (f = -nu - l1 d1^2 + l2 d2^2); NC >= 1 computes the reference mc
 // kernels' f = -nu + sum_c (l2[c]/C) d2^2 - (l1[c]/C) d1^2 in their order,
-// with the weights l1[c]/C, l2[c]/C precomputed on the host.
+// with the weights l1[c]/C, l2[c]/C precomputed on the host. NC = kForce
+// (-1) is the force mode of K1 (fused_sweep.cu, the reference's data_is_f):
+// the second input already is the force f, read where the others compute
+// the data term; its s_uH slot then sums f H, which carries no meaning.
 //
 // Tiling. A block owns a TH x TW output tile and loads a window of phi
 // clipped to the image and extended by 4k rows/cols up/left and 2k
@@ -68,6 +71,7 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kMaxChannels = 8;
+constexpr int kForce = -1;  // NC of the force mode
 
 struct Params {
   float mu, nu, l1, l2, eta2;  // l1, l2: scalar image only
@@ -77,13 +81,13 @@ struct Params {
 
 // s_uH slots, and all partial sums, of a block for channel count NC.
 template <int NC>
-__host__ __device__ constexpr int uh_slots() { return NC == 0 ? 1 : NC; }
+__host__ __device__ constexpr int uh_slots() { return NC <= 0 ? 1 : NC; }
 template <int NC>
 __host__ __device__ constexpr int sum_slots() { return uh_slots<NC>() + 4; }
-// floats of cc: [c1, c2] for a scalar image, [c1 x C, c2 x C, l1/C x C,
-// l2/C x C] for C channels
+// floats of cc: [c1, c2] for a scalar image (unused in the force mode),
+// [c1 x C, c2 x C, l1/C x C, l2/C x C] for C channels
 template <int NC>
-__host__ __device__ constexpr int cc_len() { return NC == 0 ? 2 : 4 * NC; }
+__host__ __device__ constexpr int cc_len() { return NC <= 0 ? 2 : 4 * NC; }
 
 // Offset of image element (i, j): flat row-major, or parity planes
 // P[i & 1][j & 1][i >> 1][j >> 1] of shape (2, 2, H/2, W/2).
@@ -104,7 +108,9 @@ __device__ __forceinline__ float data_term(const float* __restrict__ u0,
                                            int64_t g, int64_t chan,
                                            const float* cc,
                                            const Params& P) {
-  if constexpr (NC == 0) {
+  if constexpr (NC == kForce) {
+    return u0[g];
+  } else if constexpr (NC == 0) {
     const float u = u0[g];
     const float d1 = u - cc[0], d2 = u - cc[1];
     return -P.nu - P.l1 * (d1 * d1) + P.l2 * (d2 * d2);

@@ -1,6 +1,7 @@
 """Launch path shared by the red-black kernels (K1-K3 on a scalar image,
-K4-K6 on a C-channel one) and the exact-means resident kernels (K7 flat,
-K8 parity planes; scalar, batch and C-channel modes).
+K4-K6 on a C-channel one), the exact-means resident kernels (K7 flat, K8
+parity planes; scalar, batch and C-channel modes) and the 4-phase kernels
+(K9 banded and resident, K10 parity planes).
 
 Checks the inputs, chooses the tile geometry (the resident kernels: the
 cooperative grid), allocates the outputs and scratch, and calls the kernel
@@ -23,13 +24,14 @@ SMEM_LIMIT = 232448 - 1024
 MAX_CHANNELS = 8
 
 
-def tile_geometry(h: int, w: int, k: int):
+def tile_geometry(h: int, w: int, k: int, cell_bytes: int = 10):
     """(TH, TW, cap) for k iterations per launch: the largest tile whose
     window (tile + 6k rows/cols of halo, clipped to the image) fits in
-    shared memory at 10 bytes per window cell (phi, f, half a buffer)."""
+    shared memory at ``cell_bytes`` per window cell (10 for the red-black
+    kernels: phi, f, half a buffer)."""
     for th, tw in TILES:
         cap = min(h, th + 6 * k) * min(w, tw + 6 * k)
-        if 10 * cap <= SMEM_LIMIT:
+        if cell_bytes * cap <= SMEM_LIMIT:
             return th, tw, cap
     raise ValueError(f"k={k} needs more shared memory than a block has "
                      f"(window of the smallest tile exceeds {SMEM_LIMIT} B)")
@@ -110,13 +112,16 @@ def check_even(h: int, w: int):
         raise ValueError(f"the kernels need even H and W, got {(h, w)}")
 
 
-def _launch(symbol, phi, u0, cc, chan, k, h, w, nsums, nout, params):
+def _launch(symbol, phi, u0, cc, chan, k, h, w, nsums, nout, params,
+            reach=None, cell_bytes=10):
+    """``reach``: the iterations whose halo the tiles carry (default k, or
+    1 for the fused kernels, which take no k)."""
     from .._build import library
 
     check_even(h, w)
     if k is not None and k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    th, tw, cap = tile_geometry(h, w, 1 if k is None else k)
+    th, tw, cap = tile_geometry(h, w, reach or k or 1, cell_bytes)
     dev = phi.device
     out = torch.empty_like(phi)
     nblocks = math.ceil(h / th) * math.ceil(w / tw)
@@ -133,6 +138,26 @@ def _launch(symbol, phi, u0, cc, chan, k, h, w, nsums, nout, params):
         raise RuntimeError(f"{symbol} launch failed: "
                            f"{lib.cv_error_string(err).decode()} ({err})")
     return out, parts
+
+
+# shared-memory bytes per window cell of the banded 4-phase kernel
+# (csrc/mp2.cuh kMp2CellBytes: phi0, phi1, u0, f and half a buffer); its
+# window carries the halo of two red-black iterations
+MP2_CELL_BYTES = 18
+MP2_REACH = 2
+
+
+def launch_mp2(phis, u0, cs, p):
+    """One banded 4-phase iteration (csrc/mp2_band.cu) on (2, H, W) level
+    sets (shapes checked by the wrapper) with the four phase means ``cs``.
+    Returns (phis_new, partials (16,) f32)."""
+    _check_inputs(phis, u0)
+    h, w = u0.shape
+    cc = torch.as_tensor(cs, device=phis.device).to(torch.float32)
+    cc = cc.reshape(4).contiguous()
+    params = (p.mu, p.nu, 0.0, 0.0, *_common_params(p))
+    return _launch("cv_mp2_iteration", phis, u0, cc, (), None, h, w, 10, 16,
+                   params, reach=MP2_REACH, cell_bytes=MP2_CELL_BYTES)
 
 
 # threads per block of the resident kernels (csrc/resident.cuh kResThreads)
@@ -199,6 +224,41 @@ def launch_resident(symbol: str, phi, u0, p, iters: int, unroll: int,
             scratch.data_ptr(), parts.data_ptr(), nblocks, frames, h, w, c,
             iters, unroll, int(batch), nrow, p.mu, p.nu, *scalar_l,
             *_common_params(p), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{symbol} launch failed: "
+                           f"{lib.cv_error_string(err).decode()} ({err})")
+    return out, parts
+
+
+def launch_mp2_resident(symbol: str, phis, u0, p, iters: int, unroll: int,
+                        h: int, w: int):
+    """One cooperative launch of 4-phase resident kernel ``symbol`` on image
+    geometry (h, w): ``iters`` coupled iterations with exact means. phis
+    holds the two level sets, each flat or as parity planes; u0 one image
+    in the same layout. Returns (phis_new, partials (iters // unroll, 8))."""
+    from .._build import library
+
+    if phis.shape[0] != 2 or tuple(phis.shape[1:]) != tuple(u0.shape):
+        raise ValueError(f"phis {tuple(phis.shape)} vs u0 "
+                         f"{tuple(u0.shape)}: expected (2, *u0.shape)")
+    _check_inputs(phis, u0)
+    check_even(h, w)
+    dev = phis.device
+    cap = resident_capacity(symbol, 0, dev.index)
+    nblocks = max(1, min(cap, math.ceil(h * w // 2 / RESIDENT_THREADS)))
+    out = torch.empty_like(phis)
+    tmp = torch.empty_like(phis)
+    lab = torch.empty(h * w, dtype=torch.uint8, device=dev)
+    scratch = torch.empty(nblocks * 10, dtype=torch.float64, device=dev)
+    parts = torch.empty((iters // unroll, 8), dtype=torch.float32,
+                        device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = getattr(lib, symbol)(
+            phis.data_ptr(), out.data_ptr(), tmp.data_ptr(), lab.data_ptr(),
+            u0.data_ptr(), scratch.data_ptr(), parts.data_ptr(), nblocks, h,
+            w, iters, unroll, p.mu, p.nu, *_common_params(p),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{symbol} launch failed: "
                            f"{lib.cv_error_string(err).decode()} ({err})")

@@ -3,10 +3,13 @@
 Counterpart of ``chan_vese_tpu/ops/pallas_sweep.py`` (whole-image mode of
 ``_fused_band_kernel``). On a CUDA tensor :func:`fused_iteration` launches
 the hand-written kernel ``csrc/fused.cu``; on a CPU tensor it runs
-:func:`fused_iteration_reference`, the plain PyTorch version.
+:func:`fused_iteration_reference`, the plain PyTorch version. The force
+mode :func:`fused_sweep` (the reference's ``data_is_f``) takes a
+precomputed force instead of the image and launches ``csrc/fused_sweep.cu``.
 
 Partials layout (8,): [s_uH, s_H, s_dphi2, flips, s_absdphi, 0, 0, 0],
-taken over the transition phi -> phi_new.
+taken over the transition phi -> phi_new (in the force mode the first two
+are f H and H, which carry no meaning).
 
 ``supports`` and ``band_rows`` are the reference's routing predicates, kept
 as pure integer functions of the shape so that a call takes the same
@@ -94,3 +97,34 @@ def fused_iteration(phi, u0, c1, c2, p: CVParams):
 
 
 fused_iteration.launches = 0
+
+
+def fused_sweep_reference(phi, f, p: CVParams):
+    """Plain PyTorch version of :func:`fused_sweep`."""
+    new = redblack_step(phi, f, p)
+    return new, partials(new, phi, (f,), p, 8)
+
+
+def fused_sweep(phi, f, p: CVParams):
+    """One red-black sweep on the precomputed force ``f`` (H, W); returns
+    (phi_new, partials (8,)). Shapes the reference's fused kernel does not
+    take (``supports``) raise, as there.
+
+    CPU tensors run the plain version; CUDA tensors (float32, contiguous)
+    launch ``csrc/fused_sweep.cu`` or raise.
+    """
+    if phi.ndim != 2 or f.shape != phi.shape:
+        raise ValueError(f"phi {tuple(phi.shape)} and f {tuple(f.shape)} "
+                         f"must be one (H, W) shape")
+    h, w = phi.shape
+    if not supports(h, w):
+        raise ValueError(f"fused sweep unsupported for shape {(h, w)}")
+    if phi.device.type == "cpu":
+        return fused_sweep_reference(phi, f, p)
+    out = _cuda.launch_chunk("cv_fused_sweep", phi, f, 0.0, 0.0, p, None,
+                             h, w)
+    fused_sweep.launches += 1
+    return out
+
+
+fused_sweep.launches = 0

@@ -21,6 +21,11 @@ reference's contract: (H, W) / (N, H, W) in and out, packed inside. On a
 CUDA tensor it launches ``csrc/packed_resident.cu`` or
 ``csrc/packed_resident_mc.cu``; on a CPU tensor it runs the K7 plain
 versions, whose values the plane layout does not change.
+
+K10 (``packed_mp2_resident_iterations``) is K9's resident 4-phase mode on
+parity planes, with K9's contract ((2, H, W) in and out, rows
+(iters // unroll, 8)); on a CUDA tensor it launches
+``csrc/packed_mp2_resident.cu``, on a CPU tensor K9's plain version.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from ..params import CVParams
 from . import _cuda
 from .banded_kernel import banded_chunk_mc_reference, banded_chunk_reference
 from .fused_kernel import _VMEM_LIMIT
+from .multiphase_kernel import check_mp2, mp2_resident_iterations_reference
 from .resident_kernel import (check_iters, check_stack,
                               resident_iterations_batch_reference,
                               resident_iterations_mc_reference,
@@ -37,6 +43,7 @@ from .resident_kernel import (check_iters, check_stack,
 # routing constants of chan_vese_tpu/ops/pallas_packed.py
 _TILES_BANDED = 34
 _ARRAYS_RESIDENT = 20
+_ARRAYS_MP2_RESIDENT = 26
 
 
 def _pack(x):
@@ -278,3 +285,40 @@ def packed_resident_iterations_mc(phi, u0_cfirst, p: CVParams, iters: int,
 
 
 packed_resident_iterations_mc.launches = 0
+
+
+def supports_packed_mp2_resident(h: int, w: int) -> bool:
+    """Whether the reference routes (h, w) to its packed 4-phase resident
+    kernel."""
+    return (h % 16 == 0 and w % 256 == 0
+            and h * w * 4 * _ARRAYS_MP2_RESIDENT <= _VMEM_LIMIT)
+
+
+def packed_mp2_resident_iterations_reference(phis, u0, p: CVParams,
+                                             iters: int, unroll: int = 1):
+    """Plain PyTorch version of :func:`packed_mp2_resident_iterations`:
+    K9's, since packing moves values without changing them."""
+    return mp2_resident_iterations_reference(phis, u0, p, iters, unroll)
+
+
+def packed_mp2_resident_iterations(phis, u0, p: CVParams, iters: int,
+                                   unroll: int = 1):
+    """K9's :func:`..multiphase_kernel.mp2_resident_iterations` contract
+    ((2, H, W) in and out, partials (iters // unroll, 8)) on parity planes,
+    packed inside."""
+    check_mp2(phis, u0, supports_packed_mp2_resident, "packed mp2 resident")
+    if iters < 1 or unroll < 1 or iters % unroll:
+        raise ValueError(f"unroll must divide iters (iters={iters}, "
+                         f"unroll={unroll})")
+    if phis.device.type == "cpu":
+        return packed_mp2_resident_iterations_reference(phis, u0, p, iters,
+                                                        unroll)
+    h, w = u0.shape
+    out, parts = _cuda.launch_mp2_resident(
+        "cv_packed_mp2_resident_iterations", _pack_n(phis), _pack(u0), p,
+        iters, unroll, h, w)
+    packed_mp2_resident_iterations.launches += 1
+    return _unpack_n(out), parts
+
+
+packed_mp2_resident_iterations.launches = 0

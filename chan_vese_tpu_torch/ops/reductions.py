@@ -1,7 +1,8 @@
 """Global reductions: region means, energy, convergence norms.
 
 Plain PyTorch counterparts of ``chan_vese_tpu/ops/reductions.py``, for
-scalar (H, W) and vector-valued (H, W, C) images.
+scalar (H, W) and vector-valued (H, W, C) images, and the multiphase
+phase weights and means of ``chan_vese_tpu/models/multiphase.py``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,36 @@ def means_from_sums(sum_uh, sum_h, sum_u, n):
     c1 = sum_uh / torch.clamp_min(sum_h, 1e-30)
     c2 = (sum_u - sum_uh) / torch.clamp_min(n - sum_h, 1e-30)
     return c1, c2
+
+
+def phase_weights(phis, eps: float):
+    """The 2^M soft phase indicators w_s of M level sets (a stacked
+    (M, H, W) tensor or a sequence of (H, W)), ordered by bitmask s (bit m
+    set: inside phi_m, the H factor; else 1 - H). A list of (H, W)."""
+    m_sets = len(phis)
+    hs = [heaviside(phis[m], eps) for m in range(m_sets)]
+    ws = []
+    for s in range(2 ** m_sets):
+        w = None
+        for m in range(m_sets):
+            factor = hs[m] if (s >> m) & 1 else (1.0 - hs[m])
+            w = factor if w is None else w * factor
+        ws.append(w)
+    return ws
+
+
+def phase_means(u0, phis, eps: float):
+    """Means c_s of u0 over each soft phase (per channel for RGB), safe
+    against empty phases. A list of 2^M."""
+    cs = []
+    for w in phase_weights(phis, eps):
+        den = torch.clamp(torch.sum(w), min=1e-30)
+        if u0.ndim == 3:
+            num = torch.sum(u0 * w[..., None], dim=(0, 1))
+        else:
+            num = torch.sum(u0 * w)
+        cs.append(num / den)
+    return cs
 
 
 def region_means(u0, phi, eps: float):

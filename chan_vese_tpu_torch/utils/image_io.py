@@ -1,8 +1,8 @@
 """Image I/O (numpy only).
 
 Loads images as float arrays at the canonical [0, 255] operating point and
-writes masks. ``.npy``/``.npz`` need nothing beyond numpy; PNG/JPG import
-Pillow lazily and raise if it is missing.
+writes masks and phase-label maps. ``.npy``/``.npz`` need nothing beyond
+numpy; PNG/JPG import Pillow lazily and raise if it is missing.
 """
 
 from __future__ import annotations
@@ -37,6 +37,19 @@ def save_mask(path, mask) -> None:
     """Write a boolean mask as 8-bit (255 = inside): .npy or an image."""
     path = Path(path)
     arr = np.asarray(mask).astype(np.uint8) * 255
+    if path.suffix == ".npy":
+        np.save(path, arr)
+        return
+    _pil().fromarray(arr).save(path)
+
+
+def save_labels(path, labels) -> None:
+    """Write an integer phase-label map spread over [0, 255] as 8-bit:
+    .npy or an image."""
+    path = Path(path)
+    lab = np.asarray(labels)
+    k = max(int(lab.max()), 1)
+    arr = (lab.astype(np.float32) * (255.0 / k)).astype(np.uint8)
     if path.suffix == ".npy":
         np.save(path, arr)
         return

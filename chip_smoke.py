@@ -12,14 +12,22 @@ RGB modes): each mode against its plain version at 256^2-1024^2, a
 ragged shape and the shapes the main path gives it, segment_resident / segment_stack_resident_fixed /
 segment_resident_fixed through the kernels, and the resident drivers'
 throughput beside the per-iteration fused driver's at 256^2, 512^2 RGB and
-1024^2. Any failure raises and exits non-zero. The last lines are a JSON
-object per kernel, the card's name and power limit, and {"ok": true,
-"device": {...}}. Without a CUDA device it exits 1 and prints no result.
+1024^2. Phases 9-11 do the same for multiphase (two level sets, four
+phases): K9 banded and resident, K10 and K1's force mode (fused_sweep)
+each against its plain version at the shapes the main path gives it,
+segment_multiphase at 512^2 (K10), 1024^2 (K9 resident) and 4K (K9
+banded), segment_multiphase_fixed at 512^2 (K9 banded) and the fused_sweep
+route (M = 3 gray, M = 2 RGB) through the kernels, and the multiphase
+throughput at 512^2, 1024^2 and 4K. Any failure raises and exits
+non-zero. The last lines are a JSON object per kernel, the card's name and
+power limit, and {"ok": true, "device": {...}}. Without a CUDA device it
+exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import re
@@ -35,9 +43,11 @@ if not torch.cuda.is_available():
 
 import chan_vese_tpu_torch as ct  # noqa: E402
 from chan_vese_tpu_torch import _build  # noqa: E402
+from chan_vese_tpu_torch.models import multiphase as mpm  # noqa: E402
 from chan_vese_tpu_torch.ops import (_cuda, banded_kernel,  # noqa: E402
                                      fused_kernel, fused_kernel_mc,
-                                     packed_kernel, resident_kernel)
+                                     multiphase_kernel, packed_kernel,
+                                     resident_kernel)
 from chan_vese_tpu_torch.ops.reductions import region_means  # noqa: E402
 from chan_vese_tpu_torch.utils.init_phi import init_phi  # noqa: E402
 
@@ -160,6 +170,65 @@ FLIPS16_PHI = 10 * PHI_ATOL
 MAIN_FIXED_ITERS = 100
 THROUGHPUT_ITERS = 1000
 
+# the multiphase kernels (phases 9-11): the wrapper, its plain version,
+# the shapes of the phase 9 checks (the main path's, a ragged even one for
+# K9 banded) and the shape each is timed at
+MP2 = {
+    "K1 fused_sweep": dict(
+        wrapper=fused_kernel.fused_sweep,
+        plain=fused_kernel.fused_sweep_reference,
+        source="chan_vese_tpu_torch/csrc/fused_sweep.cu",
+        replaces="chan_vese_tpu/ops/pallas_sweep.py:216",
+        shapes=((H4K, W4K), (512, 512)), timed=(H4K, W4K)),
+    "K9 mp2_iteration": dict(
+        wrapper=multiphase_kernel.mp2_iteration,
+        plain=multiphase_kernel.mp2_iteration_reference,
+        source="chan_vese_tpu_torch/csrc/mp2_band.cu",
+        replaces="chan_vese_tpu/ops/pallas_multiphase.py:145",
+        shapes=((H4K, W4K), (1024, 1152), (512, 512), (1000, 1152)),
+        timed=(H4K, W4K)),
+    "K9 mp2_resident_iterations": dict(
+        wrapper=multiphase_kernel.mp2_resident_iterations,
+        plain=multiphase_kernel.mp2_resident_iterations_reference,
+        source="chan_vese_tpu_torch/csrc/mp2_resident.cu",
+        replaces="chan_vese_tpu/ops/pallas_multiphase.py:346",
+        shapes=((1024, 1024), (512, 384)), timed=(1024, 1024)),
+    "K10 packed_mp2_resident_iterations": dict(
+        wrapper=packed_kernel.packed_mp2_resident_iterations,
+        plain=packed_kernel.packed_mp2_resident_iterations_reference,
+        source="chan_vese_tpu_torch/csrc/packed_mp2_resident.cu",
+        replaces="chan_vese_tpu/ops/pallas_packed.py:1343",
+        shapes=((256, 256), (512, 512)), timed=(512, 512)),
+}
+# the JAX package's multiphase mu (tests/test_multiphase_mp2.py)
+MU_MP = 0.003 * 255.0 ** 2
+# one iteration of a 4-phase kernel against its plain version: the JAX
+# package's bars for its kernels against jnp (tests/test_multiphase_mp2.py
+# :36-37 banded, :84-85 resident; tests/test_multiphase_pallas.py:22-23 for
+# the sweep); partial sums rtol 2e-4 (its means bar), label flips within
+# FLIPS_CELLS cells (a cell whose new phi lies within an ulp of 0 may take
+# either sign)
+MP2_BARS = {"K1 fused_sweep": (2e-5, 2e-3), "K9 mp2_iteration": (2e-5, 2e-3),
+            "K9 mp2_resident_iterations": (3e-4, 2e-3),
+            "K10 packed_mp2_resident_iterations": (3e-4, 2e-3)}
+MP2_PARTS_RTOL, FLIPS_CELLS = 2e-4, 16
+# 25 iterations from init_multiphase: the coupling term amplifies last-ulp
+# differences about 100x per iteration near phi = 0, so the runs are held
+# on their labels: at most LABELS_FRAC of the cells differ (the JAX bar, 5
+# of 8192 cells, tests/test_multiphase_mp2.py:90-103)
+MP2_ITERS, LABELS_FRAC = 25, 1e-3
+# iterations per resident launch in the timings: the tolerance driver's
+# chunk
+MP2_CHUNK = 32
+# operations per pixel of a coupled iteration: two cell updates, the four
+# squared distances (subtract, square), two Heavisides (atan, divide,
+# multiply, add) and f0, f1 (1 - H, two differences, two products, two
+# adds each); of the phase sums behind the means: two Heavisides, the four
+# weights (two complements, four products) and u w_s and w_s summed (three
+# each); of a partials row: the 2-bit labels and their flip count (six) and
+# s_dphi2 (two differences, two squares, two adds)
+OPS_MP2_ITER, OPS_MP2_SUMS, OPS_MP2_ROW = 2 * OPS_UPDATE + 8 + 8 + 14, 26, 12
+
 
 def two_disks(h, w, fg=217.0, bg=38.0, noise=8.0, seed=0):
     """Two bright disks on a dark background plus Gaussian noise, and the
@@ -218,6 +287,30 @@ def time_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def roofline(nbytes, ops):
+    """(ms, "bytes" or "operations"): the larger of the two least times on
+    an H100 SXM."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_mp2(h, w, iters, rows, resident):
+    """Least time of one 4-phase launch at (h, w): phi0, phi1 and u0 read
+    once, phi0 and phi1 written once (20 B/pixel), against ``iters``
+    coupled iterations, the phase sums (every iteration on the resident
+    route, once for the banded one) and ``rows`` partials rows."""
+    sums = iters if resident else 1
+    per_pixel = (iters * OPS_MP2_ITER + sums * OPS_MP2_SUMS
+                 + rows * OPS_MP2_ROW)
+    return roofline(20 * h * w, h * w * per_pixel)
+
+
+def bound_sweep(h, w):
+    """Least time of one force-mode sweep: phi and f read, phi written,
+    against one cell update and the partials (14) per pixel."""
+    return roofline(12 * h * w, h * w * (OPS_UPDATE + 14))
+
+
 def bound(h, w, k, channels, frames=1, rows=None):
     """(ms, "bytes" or "operations"): the least time an H100 SXM takes for
     one launch's work at (h, w), k iterations, ``channels`` (0 = gray), on
@@ -234,23 +327,64 @@ def bound(h, w, k, channels, frames=1, rows=None):
     else:
         per_pixel = (k * (OPS_UPDATE + 8 * c + OPS_MEANS
                           + OPS_MEANS_CHANNEL * c) + rows * OPS_ROW)
-    ops = h * w * frames * per_pixel
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return roofline(nbytes, h * w * frames * per_pixel)
+
+
+def four_regions(h, w, noise=4.0, seed=2):
+    """Piecewise-constant 4-region image (values 13/89/166/242, a disk of
+    class 3 inside class 0) plus Gaussian noise, and its labels (the
+    recipe of tests/fixtures.py)."""
+    rng = np.random.default_rng(seed)
+    labels = np.zeros((h, w), dtype=np.int32)
+    labels[: h // 2, w // 2:] = 1
+    labels[h // 2:, : w // 2] = 2
+    labels[h // 2:, w // 2:] = 3
+    i, j = np.mgrid[0:h, 0:w]
+    labels[np.hypot(i - h // 4, j - w // 4) < min(h, w) // 8] = 3
+    img = np.array([13.0, 89.0, 166.0, 242.0])[labels]
+    img = img + noise * rng.standard_normal(img.shape)
+    return img.astype(np.float32), labels
+
+
+def rgb_four_regions(h, w, noise=3.0, seed=0):
+    """RGB image: four colored quadrants plus Gaussian noise, and its
+    labels (the recipe of tests/test_multiphase_vector.py)."""
+    rng = np.random.default_rng(seed)
+    colors = np.array([[220.0, 40.0, 40.0], [40.0, 220.0, 40.0],
+                       [40.0, 40.0, 220.0], [200.0, 200.0, 200.0]])
+    labels = np.zeros((h, w), np.int32)
+    labels[: h // 2, w // 2:] = 1
+    labels[h // 2:, : w // 2] = 2
+    labels[h // 2:, w // 2:] = 3
+    img = colors[labels] + noise * rng.standard_normal((h, w, 3))
+    return img.astype(np.float32), labels
+
+
+def best_accuracy(pred, gt):
+    """Label accuracy against the truth under the best permutation of the
+    four phases."""
+    pred = np.asarray(pred)
+    return max(float((np.asarray(perm)[pred] == gt).mean())
+               for perm in itertools.permutations(range(4)))
 
 
 def ptxas_summary():
-    """Registers and spill stores of every chunk_kernel and resident_kernel
-    instance, from ptxas's -v report of the build: 'kind flat/packed C=n:
-    R regs, S B spill'."""
+    """Registers and spill stores of every chunk_kernel, resident_kernel,
+    mp2_band_kernel and mp2_resident_kernel instance, from ptxas's -v
+    report of the build: 'kind flat/packed [C=n]: R regs, S B spill' (C =
+    -1 is K1's force mode)."""
     out, name = {}, None
     for line in _build.ptxas_report().splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:  # the lines up to the next entry describe this one
-            m = re.search(r"(chunk|resident)_kernelILb(\d)ELi(\d+)E",
-                          m.group(1))
-            name = (m.group(1), ("flat", "packed")[int(m.group(2))],
-                    int(m.group(3))) if m else None
+            m = re.search(r"(mp2_band|mp2_resident|chunk|resident)_kernel"
+                          r"(?:ILb(\d)E(?:Li(n?)(\d+)E)?)?", m.group(1))
+            name = None
+            if m:
+                c = ("" if m.group(4) is None else
+                     f" C={'-' if m.group(3) else ''}{m.group(4)}")
+                name = (m.group(1), ("flat", "packed")[int(m.group(2) or 0)],
+                        c)
             continue
         if name is None:
             continue
@@ -260,7 +394,7 @@ def ptxas_summary():
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out.setdefault(name, {})["regs"] = int(m.group(1))
-    return ", ".join(f"{kind} {lay} C={c}: {v.get('regs')} regs "
+    return ", ".join(f"{kind} {lay}{c}: {v.get('regs')} regs "
                      f"{v.get('spill')} B spill"
                      for (kind, lay, c), v in sorted(out.items()))
 
@@ -414,6 +548,114 @@ def check_resident(name, r, args, p, iters, unroll, lam, tag):
     return err
 
 
+def label_frac(a, b):
+    """Fraction of cells whose phase labels differ between two stacks of
+    level sets."""
+    return float((mpm.labels_from_phis(a) != mpm.labels_from_phis(b))
+                 .double().mean())
+
+
+def mp2_inputs(h, w, dev, p):
+    """The multiphase main path's inputs at (h, w): the four-regions image,
+    the init_multiphase start, its phase means and phi0's coupling force
+    (fused_sweep's input on the sweeps route)."""
+    u = torch.from_numpy(four_regions(h, w)[0]).to(dev)
+    phis = mpm.init_multiphase((h, w), 2, device=dev)
+    cs = torch.stack(mpm.phase_means(u, phis, p.eps))
+    return u, phis, cs, mpm._coupling_term(u, phis, cs, 0, p)
+
+
+def mp2_calls(name, u, phis, cs, f, p):
+    """(one call, a MP2_ITERS-iteration run) of 4-phase kernel ``name`` as
+    functions of the wrapper or the plain version; each returns (level
+    sets, partials)."""
+    if name == "K1 fused_sweep":
+        phi = phis[0].contiguous()
+
+        def many(fn):
+            x = phi
+            for _ in range(MP2_ITERS):
+                x, parts = fn(x, f, p)
+            return x[None], parts
+        return (lambda fn: (lambda r: (r[0][None], r[1]))(fn(phi, f, p)),
+                many)
+    if "resident" in name:
+        return (lambda fn: fn(phis, u, p, 1),
+                lambda fn: fn(phis, u, p, MP2_ITERS, unroll=5))
+
+    def many(fn):  # the banded driver's loop: means from the partials
+        x, c = phis, cs
+        for _ in range(MP2_ITERS):
+            x, parts = fn(x, u, c, p)
+            c = parts[0:4] / torch.clamp(parts[4:8], min=1e-30)
+        return x, parts
+    return lambda fn: fn(phis, u, cs, p), many
+
+
+def check_mp2(name, kern, u, phis, cs, f, p, tag):
+    """One launch of 4-phase kernel ``name`` against its plain version at
+    MP2_BARS, its partials at MP2_PARTS_RTOL / FLIPS_CELLS, a second
+    launch bitwise equal to the first, and MP2_ITERS iterations held on
+    their labels at LABELS_FRAC. Returns max |d phi| of the one call."""
+    one, many = mp2_calls(name, u, phis, cs, f, p)
+    got, gparts = one(kern["wrapper"])
+    again, aparts = one(kern["wrapper"])
+    ref, rparts = one(kern["plain"])
+    torch.cuda.synchronize()
+    repeat = torch.equal(got, again) and torch.equal(gparts, aparts)
+    rtol, atol = MP2_BARS[name]
+    err = float((got - ref).abs().max())
+    ok_phi = torch.allclose(got, ref, rtol=rtol, atol=atol)
+    g, r = gparts.reshape(-1).double(), rparts.reshape(-1).double()
+    # (flips slot, summed slots, zero slots) of each partials layout
+    flip, sums, zero = {"K1 fused_sweep": (3, [2, 4], [5, 6, 7]),
+                        "K9 mp2_iteration": (8, list(range(8)) + [9],
+                                             list(range(10, 16)))}.get(
+        name, (0, [1], list(range(2, 8))))
+    flips_d = float((g[flip] - r[flip]).abs())
+    sums_rel = float(((g[sums] - r[sums]).abs() / r[sums].abs()).max())
+    ok_parts = (gparts.shape == rparts.shape and flips_d <= FLIPS_CELLS
+                and sums_rel <= MP2_PARTS_RTOL and not g[zero].any())
+    got_n, parts_n = many(kern["wrapper"])
+    ref_n, _ = many(kern["plain"])
+    torch.cuda.synchronize()
+    frac = label_frac(got_n, ref_n)
+    ok_n = (frac <= LABELS_FRAC and bool(torch.isfinite(parts_n).all())
+            and bool(torch.isfinite(got_n).all()))
+    if "resident" in name:
+        ok_n = ok_n and tuple(parts_n.shape) == (MP2_ITERS // 5, 8)
+    print(f"phase 9 {name} {tag}: phi max|d|={err:.3e} (scale "
+          f"{float(ref.abs().max()):.3e}; rtol {rtol} atol {atol}); flips "
+          f"|d|={flips_d:g} (bar {FLIPS_CELLS}); partial sums rel "
+          f"{sums_rel:.3e} (bar {MP2_PARTS_RTOL}); second launch bitwise "
+          f"equal: {repeat}; {MP2_ITERS} iterations: labels differ at "
+          f"{frac:.3e} of cells (bar {LABELS_FRAC})", flush=True)
+    if not (repeat and ok_phi and ok_parts and ok_n and math.isfinite(err)):
+        raise AssertionError(f"{name} at {tag} disagrees with its plain "
+                             f"version")
+    return err
+
+
+def time_mp2(name, kern, u, phis, cs, f, p):
+    """(ms, plain ms, bound ms, bound by) of one launch of ``name`` at the
+    inputs' shape: one iteration for K9 banded and the sweep, MP2_CHUNK
+    for the resident modes."""
+    h, w = u.shape
+    if "resident" in name:
+        def call(fn):
+            return fn(phis, u, p, MP2_CHUNK)
+        bnd = bound_mp2(h, w, MP2_CHUNK, MP2_CHUNK, True)
+        reps = 10
+    else:
+        one, _ = mp2_calls(name, u, phis, cs, f, p)
+        call = one
+        bnd = (bound_sweep(h, w) if name == "K1 fused_sweep"
+               else bound_mp2(h, w, 1, 1, False))
+        reps = 20
+    return (time_ms(lambda: call(kern["wrapper"]), reps),
+            time_ms(lambda: call(kern["plain"]), 2), *bnd)
+
+
 def check_masks(checks):
     for key, (val, bar) in checks.items():
         if not val >= bar:
@@ -434,7 +676,9 @@ def main() -> int:
           f"({len(_build.sources())} sources); ptxas: {ptxas_summary()}; "
           f"resident co-resident blocks: "
           + ", ".join(f"{sym} {_cuda.resident_capacity(sym, 3, 0)}"
-                      for sym in _build.RESIDENT_SYMBOLS), flush=True)
+                      for sym in (*_build.RESIDENT_SYMBOLS,
+                                  *_build.MP2_RESIDENT_SYMBOLS)),
+          flush=True)
 
     # phase 3: each kernel against its plain version, at the main paths'
     # shapes and a ragged one, on the main paths' inputs (the gray image
@@ -742,13 +986,154 @@ def main() -> int:
           f"1024^2 {t1k * 1e3:.3f} us; fixed part (16 t256 - t1024) / 15 = "
           f"{(16 * t256 - t1k) / 15 * 1e3:.3f} us [{card}]", flush=True)
 
+    # phase 9: each multiphase kernel against its plain version, on the
+    # main path's inputs (the four-regions image, the init_multiphase
+    # start) at the shapes the main path gives it
+    pm = ct.CVParams(mu=MU_MP, max_iter=500)
+    mp_stats = {name: dict(max_abs_err=0.0) for name in MP2}
+    for name, kern in MP2.items():
+        for h, w in kern["shapes"]:
+            inputs = mp2_inputs(h, w, dev, pm)
+            err = check_mp2(name, kern, *inputs, pm, f"{h}x{w}")
+            st = mp_stats[name]
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            if (h, w) == kern["timed"]:
+                (st["ms"], st["plain_ms"], st["bound_ms"],
+                 st["bound_by"]) = time_mp2(name, kern, *inputs, pm)
+                st["timed"] = f"{h}x{w}"
+    print("phase 9 timed: " + ", ".join(
+        f"{n} at {v['timed']} {v['ms']:.4f} ms (plain {v['plain_ms']:.3f}, "
+        f"bound {v['bound_ms']:.4f} {v['bound_by']})"
+        for n, v in mp_stats.items())
+        + f" (resident: {MP2_CHUNK} iterations a launch) [{card}]",
+        flush=True)
+
+    # phase 10: multiphase through the user entry points. The auto route
+    # sends 512^2 to K10, 1024^2 to K9 resident and 4K to K9 banded;
+    # segment_multiphase_fixed excludes the resident route (K9 banded at
+    # 512^2); M = 3 gray and M = 2 RGB take fused_sweep per level set
+    mp_imgs = {}
+    for tag, (h, w) in (("512^2", (512, 512)), ("1024^2", (1024, 1024)),
+                        ("4K", (H4K, W4K))):
+        img, gt = four_regions(h, w)
+        mp_imgs[tag] = (torch.from_numpy(img).to(dev), gt)
+    rgb512, gt_rgb = rgb_four_regions(512, 512)
+    v512 = torch.from_numpy(rgb512).to(dev)
+    u512 = mp_imgs["512^2"][0]
+    routes = {tag: mpm._mp2_route(u, pm, 2, None)
+              for tag, (u, _) in mp_imgs.items()}
+
+    def multiphase_path(use_pallas):
+        sweeps = True if use_pallas is None else use_pallas
+        out = {tag: ct.segment_multiphase(u, pm, use_pallas=use_pallas)
+               for tag, (u, _) in mp_imgs.items()}
+        out["fixed"] = ct.segment_multiphase_fixed(u512, pm, iters=20,
+                                                   use_pallas=use_pallas)
+        out["m3"] = ct.segment_multiphase(u512, pm, m_sets=3,
+                                          use_pallas=sweeps)
+        out["rgb"] = ct.segment_multiphase(v512, pm, m_sets=2,
+                                           use_pallas=sweeps)
+        return out
+
+    for kern in MP2.values():
+        kern["wrapper"].launches = 0
+    got = multiphase_path(None)
+    torch.cuda.synchronize()
+    for name, kern in MP2.items():
+        mp_stats[name]["launches"] = kern["wrapper"].launches
+    ref = multiphase_path(False)
+    torch.cuda.synchronize()
+    checks = {}
+    for tag, (_, gt) in mp_imgs.items():
+        checks[f"{tag} accuracy vs truth"] = (
+            best_accuracy(got[tag].labels.cpu(), gt), 0.99)
+        checks[f"{tag} label agreement vs use_pallas=False"] = (
+            1.0 - label_frac(got[tag].phis, ref[tag].phis), 0.999)
+    checks["RGB M=2 accuracy vs truth"] = (
+        best_accuracy(got["rgb"].labels.cpu(), gt_rgb), 0.99)
+    checks["RGB M=2 label agreement vs use_pallas=False"] = (
+        1.0 - label_frac(got["rgb"].phis, ref["rgb"].phis), 0.999)
+    checks["gray M=3 label agreement vs use_pallas=False"] = (
+        1.0 - label_frac(got["m3"].phis, ref["m3"].phis), 0.99)
+    e_got, e_ref = got["fixed"].energy.double(), ref["fixed"].energy.double()
+    energy_rel = float(((e_got - e_ref).abs() / e_ref.abs()).max())
+    print(f"phase 10 multiphase slice: routes {routes}; segment_multiphase "
+          + ", ".join(f"{t} {got[t].iters} iters (plain {ref[t].iters})"
+                      for t in list(mp_imgs) + ["rgb", "m3"])
+          + f"; segment_multiphase_fixed 512^2 20 iterations energy rel "
+          f"{energy_rel:.3e} (bar 1e-3), labels agree at "
+          f"{1.0 - label_frac(got['fixed'].phis, ref['fixed'].phis):.6f}; "
+          + "; ".join(f"{k} {v:.6f} (>= {m})" for k, (v, m) in
+                      checks.items())
+          + "; launches " + ", ".join(f"{n}={mp_stats[n]['launches']}"
+                                     for n in MP2), flush=True)
+    if routes != {"512^2": "resident", "1024^2": "resident",
+                  "4K": "banded"}:
+        raise AssertionError(f"unexpected multiphase routes {routes}")
+    for key in list(mp_imgs) + ["rgb"]:
+        if not got[key].iters < pm.max_iter:
+            raise AssertionError(f"multiphase {key} did not converge within "
+                                 f"max_iter")
+    for key, res in got.items():
+        if not torch.isfinite(res.phis).all():
+            raise AssertionError(f"non-finite multiphase level sets ({key})")
+    if not energy_rel <= 1e-3:
+        raise AssertionError(f"segment_multiphase_fixed energy differs from "
+                             f"the plain route by {energy_rel}")
+    check_masks(checks)
+    for name, st in mp_stats.items():
+        if st["launches"] < 1:
+            raise AssertionError(f"{name} was not launched on the main path")
+
+    # phase 11: multiphase throughput, segment_multiphase(fixed=True) at
+    # the eval config 3 / multiphase-mp2 shape (512^2, K10), 1024^2 (K9
+    # resident) and 4K (K9 banded, 100 iterations); at 512^2 also K9
+    # resident called directly and the per-iteration banded loop
+    mp_rate = {}
+    for tag, iters in (("512^2", THROUGHPUT_ITERS),
+                       ("1024^2", THROUGHPUT_ITERS), ("4K", 100)):
+        u = mp_imgs[tag][0]
+        ms = time_ms(lambda: ct.segment_multiphase(u, pm, fixed=True,
+                                                   max_iter=iters), 1)
+        mp_rate[tag] = (routes[tag], iters, ms,
+                        u.numel() * iters / (ms * 1e3))
+    start512 = mpm.init_multiphase((512, 512), 2, device=dev)
+    flat_ms = time_ms(lambda: multiphase_kernel.mp2_resident_iterations(
+        start512, u512, pm, THROUGHPUT_ITERS), 1)
+    band_ms = time_ms(lambda: mpm._mp2_banded_loop(
+        u512, pm, start512, True, THROUGHPUT_ITERS), 1)
+    print("phase 11 multiphase throughput, segment_multiphase(fixed=True): "
+          + ", ".join(f"{t} {r} {it} iters {ms:.3f} ms = {rate:.1f} "
+                      f"Mpixel-iters/s" for t, (r, it, ms, rate)
+                      in mp_rate.items())
+          + f"; 512^2 K9 resident direct {flat_ms:.3f} ms = "
+          f"{512 * 512 * THROUGHPUT_ITERS / (flat_ms * 1e3):.1f}, "
+          f"per-iteration banded loop {band_ms:.3f} ms = "
+          f"{512 * 512 * THROUGHPUT_ITERS / (band_ms * 1e3):.1f} "
+          f"Mpixel-iters/s [{card}]", flush=True)
+    # fixed cost per coupled iteration of K9 resident (three grid syncs and
+    # the all-block means reduction), as phase 8
+    per_iter = {}
+    for h in (256, 1024):
+        u = torch.from_numpy(four_regions(h, h)[0]).to(dev)
+        start = mpm.init_multiphase((h, h), 2, device=dev)
+        per_iter[h] = time_ms(
+            lambda: multiphase_kernel.mp2_resident_iterations(
+                start, u, pm, THROUGHPUT_ITERS), 1) / THROUGHPUT_ITERS
+    print(f"phase 11 K9 resident per-iteration cost (3 grid syncs an "
+          f"iteration): 256^2 {per_iter[256] * 1e3:.3f} us, 1024^2 "
+          f"{per_iter[1024] * 1e3:.3f} us; fixed part (16 t256 - t1024) / "
+          f"15 = {(16 * per_iter[256] - per_iter[1024]) / 15 * 1e3:.3f} us "
+          f"[{card}]", flush=True)
+
     entries = [
         dict(name=name, route="cuda", source=k["source"],
              replaces=k["replaces"], launches=st["launches"],
              max_abs_err=st["max_abs_err"], ms=st["ms"],
              plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
              bound_by=st["bound_by"], library_ms=None)
-        for table, stat in ((KERNELS, stats), (RESIDENT, res_stats))
+        for table, stat in ((KERNELS, stats), (RESIDENT, res_stats),
+                            (MP2, mp_stats))
         for name, k in table.items() for st in (stat[name],)]
     print(json.dumps({"kernels": entries}))
     print(f"card: {card}")
