@@ -10,8 +10,12 @@ driver over K1 (K4 for C channels), the banded drivers over K2/K3
 (``segment_resident``, ``segment_resident_fixed``,
 ``segment_stack_resident_fixed``), and multiphase segmentation
 (``segment_multiphase``, ``segment_multiphase_fixed``) over K9/K10 and
-K1's force mode. CPU tensors run the plain PyTorch versions of the
-kernels; CUDA tensors launch the kernels in ``csrc/``,
+K1's force mode, and the morphological family: MorphACWE
+(``segment_morph``, ``segment_morph_fixed``, ``segment_morph_iterations``)
+and MorphGAC (``segment_gac``, ``segment_gac_fixed``,
+``segment_gac_iterations``) over K11 and K12, with the scikit-image
+compatible front ends in ``compat``. CPU tensors run the plain PyTorch
+versions of the kernels; CUDA tensors launch the kernels in ``csrc/``,
 built with nvcc at first use. It never imports jax.
 """
 
@@ -25,6 +29,10 @@ from .models.resident import (segment_resident, segment_resident_fixed,
                               segment_stack_resident_fixed)
 from .models.multiphase import (MultiphaseResult, segment_multiphase,
                                 segment_multiphase_fixed)
+from .models.morph import (MorphResult, MorphTrace, segment_morph,
+                           segment_morph_fixed, segment_morph_iterations)
+from .models.morph_gac import (GACResult, GACTrace, segment_gac,
+                               segment_gac_fixed, segment_gac_iterations)
 
 __all__ = [
     "CVParams", "DEFAULTS",
@@ -36,6 +44,10 @@ __all__ = [
     "segment_resident", "segment_resident_fixed",
     "segment_stack_resident_fixed",
     "segment_multiphase", "segment_multiphase_fixed", "MultiphaseResult",
+    "segment_morph", "segment_morph_fixed", "segment_morph_iterations",
+    "MorphResult", "MorphTrace",
+    "segment_gac", "segment_gac_fixed", "segment_gac_iterations",
+    "GACResult", "GACTrace",
 ]
 
 __version__ = "0.1.0"

@@ -48,6 +48,10 @@ RESIDENT_SYMBOLS = ("cv_resident_iterations", "cv_resident_iterations_mc",
 _MP2_RESIDENT = [_P] * 7 + [_I] * 5 + [_F] * 7 + [_P]
 MP2_RESIDENT_SYMBOLS = ("cv_mp2_resident_iterations",
                         "cv_packed_mp2_resident_iterations")
+# morphological launchers (csrc/morph_band.cu, morph_fused.cu): pointers;
+# H, W, [kind], k, s, parity0, [balloon, thr_b], halo, TH, TW, cap; stream
+_MORPH = [_P] * 3 + [_I] * 7 + [_F] + [_I] * 4 + [_P]
+_MORPH_FUSED = [_P] * 6 + [_I] * 9 + [_P]
 SIGNATURES = {
     "cv_fused_iteration": _HEAD + _TAIL,
     "cv_fused_sweep": _HEAD + _TAIL,
@@ -61,6 +65,8 @@ SIGNATURES = {
     **{f"{s}_grid": _GRID for s in RESIDENT_SYMBOLS},
     **{s: _MP2_RESIDENT for s in MP2_RESIDENT_SYMBOLS},
     **{f"{s}_grid": _GRID for s in MP2_RESIDENT_SYMBOLS},
+    "cv_morph_chunk": _MORPH,
+    "cv_morph_fused_chunk": _MORPH_FUSED,
 }
 
 

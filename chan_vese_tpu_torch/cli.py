@@ -5,6 +5,8 @@
     python -m chan_vese_tpu_torch image.npy --iters 100 --device cpu
     python -m chan_vese_tpu_torch rgb.npy --color --lambda1 1 1.2 0.8
     python -m chan_vese_tpu_torch image.npy --multiphase 2 -o labels.npy
+    python -m chan_vese_tpu_torch image.npy --morph -o mask.npy
+    python -m chan_vese_tpu_torch image.npy --morph-gac --balloon -1
 
 Flag names and defaults follow the reference. ``--device`` picks the torch
 device (default ``cuda``; it raises when no GPU is present rather than
@@ -19,6 +21,14 @@ with ``--order redblack``, the tolerance run takes the banded driver
 on their auto route (K9/K10 for M = 2 on a gray image on a CUDA device,
 the plain path elsewhere or with ``--no-fused``), and the label map is
 written with ``save_labels``; a diverged run exits 1 and writes nothing.
+``--morph`` runs MorphACWE (gray, or per-channel with ``--color``) and
+``--morph-gac`` MorphGAC on the image's inverse-Gaussian-gradient edge
+map (``--gac-alpha``, ``--gac-sigma``, ``--gac-threshold``,
+``--balloon``), both with ``--morph-smoothing`` cycles: the tolerance run
+takes ``segment_morph`` / ``segment_gac`` (K11 on a CUDA device unless
+``--no-fused``), ``--iters`` ``segment_morph_fixed`` /
+``segment_gac_fixed``. With ``--multiphase`` the morph flags are dropped
+with a warning.
 """
 
 from __future__ import annotations
@@ -68,6 +78,29 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--multiphase", type=int, default=0, metavar="M",
                     help="multiphase Vese-Chan with M level sets (2^M "
                          "phases); writes a label map")
+    ap.add_argument("--morph", action="store_true",
+                    help="morphological Chan-Vese (MorphACWE): binary "
+                         "level set with sup-inf/inf-sup curvature "
+                         "smoothing instead of the PDE; gray or --color; "
+                         "--mu/--dt/--eps unused")
+    ap.add_argument("--morph-smoothing", type=int, default=1, metavar="S",
+                    help="SI/IS smoothing cycles per --morph iteration")
+    ap.add_argument("--morph-gac", action="store_true",
+                    help="morphological geodesic active contours "
+                         "(MorphGAC) on the inverse-Gaussian-gradient edge "
+                         "map of the image, with balloon and "
+                         "edge-attraction forces; --init disk seeds the "
+                         "contour")
+    ap.add_argument("--balloon", type=int, default=0, metavar="B",
+                    help="MorphGAC balloon force: +1 grow, -1 shrink, "
+                         "0 off")
+    ap.add_argument("--gac-alpha", type=float, default=100.0,
+                    help="inverse-Gaussian-gradient steepness")
+    ap.add_argument("--gac-sigma", type=float, default=5.0,
+                    help="inverse-Gaussian-gradient blur width")
+    ap.add_argument("--gac-threshold", default="auto",
+                    help="balloon activation threshold on the edge map "
+                         "('auto' = 40th percentile)")
     ap.add_argument("--no-fused", action="store_true",
                     help="skip the kernel drivers even on a GPU")
     ap.add_argument("--device", default="cuda",
@@ -112,11 +145,23 @@ def main(argv=None) -> int:
                  lambda2=args.lambda2[0], dt=args.dt, eps=args.eps,
                  tol=args.tol, max_iter=args.max_iter, init=args.init,
                  order=args.order)
+    if (args.morph or args.morph_gac) and args.multiphase:
+        # the morphological schemes are two-phase; M coupled level sets
+        # stay on the PDE multiphase path
+        dropped = [n for n, v in (("--morph", args.morph),
+                                  ("--morph-gac", args.morph_gac)) if v]
+        print(f"warning: {', '.join(dropped)} not supported on the "
+              f"multiphase path; ignored", file=sys.stderr)
+        args.morph = args.morph_gac = False
     if args.multiphase:
         return _multiphase(args, u0, p)
 
     lam1 = tuple(args.lambda1) if args.color else None
     lam2 = tuple(args.lambda2) if args.color else None
+    if args.morph_gac:
+        return _morph_gac(args, u0, p)
+    if args.morph:
+        return _morph(args, u0, p, lam1, lam2)
 
     if args.iters is not None:
         if args.color:
@@ -140,10 +185,7 @@ def main(argv=None) -> int:
         mask, iters, c1, c2 = res.mask, res.iters, res.c1, res.c2
 
     c1, c2 = c1.cpu().numpy(), c2.cpu().numpy()
-    if not (np.all(np.isfinite(c1)) and np.all(np.isfinite(c2))):
-        print(f"DIVERGED after {iters} iters (non-finite level set - "
-              f"check the input for NaN/Inf and the parameter scales); "
-              f"no outputs written", file=sys.stderr)
+    if _diverged(iters, c1, c2):
         return 1
     print(f"converged in {iters} iters; c1={c1}, c2={c2}", file=sys.stderr)
     if args.output:
@@ -151,10 +193,21 @@ def main(argv=None) -> int:
     return 0
 
 
-def _multiphase(args, u0, p: CVParams) -> int:
-    """The --multiphase branch: tolerance mode or --iters, labels out."""
+def _diverged(iters, *signals) -> bool:
+    """True (after saying so) if any signal is non-finite: a diverged run
+    exits 1 and writes nothing."""
     import torch
 
+    if all(bool(torch.isfinite(torch.as_tensor(s)).all()) for s in signals):
+        return False
+    print(f"DIVERGED after {iters} iters (non-finite level set - check the "
+          f"input for NaN/Inf and the parameter scales); no outputs "
+          f"written", file=sys.stderr)
+    return True
+
+
+def _multiphase(args, u0, p: CVParams) -> int:
+    """The --multiphase branch: tolerance mode or --iters, labels out."""
     from .models.multiphase import (segment_multiphase,
                                     segment_multiphase_fixed)
     from .utils import image_io
@@ -169,15 +222,63 @@ def _multiphase(args, u0, p: CVParams) -> int:
         res = segment_multiphase(u0, p, m_sets=args.multiphase,
                                  use_pallas=use_pallas)
         labels, iters, signals = res.labels, res.iters, (res.cs, res.delta)
-    if not all(bool(torch.isfinite(s).all()) for s in signals):
-        print(f"DIVERGED after {iters} iters (non-finite level set - "
-              f"check the input for NaN/Inf and the parameter scales); "
-              f"no outputs written", file=sys.stderr)
+    if _diverged(iters, *signals):
         return 1
     print(f"multiphase: {2 ** args.multiphase} phases, {iters} iters",
           file=sys.stderr)
     if args.output:
         image_io.save_labels(args.output, labels.cpu().numpy())
+    return 0
+
+
+def _morph(args, u0, p: CVParams, lam1, lam2) -> int:
+    """The --morph branch (MorphACWE): tolerance mode or --iters."""
+    from .models.morph import segment_morph, segment_morph_fixed
+    from .utils import image_io
+
+    kw = dict(smoothing=args.morph_smoothing, lambda1=lam1, lambda2=lam2)
+    if args.iters is not None:
+        tr = segment_morph_fixed(u0, p, iters=args.iters, **kw)
+        mask, iters = tr.mask, args.iters
+        c1, c2, delta = tr.c1[-1], tr.c2[-1], tr.delta[-1]
+    else:
+        res = segment_morph(u0, p, use_pallas=False if args.no_fused else None,
+                            **kw)
+        mask, iters, c1, c2, delta = (res.mask, res.iters, res.c1, res.c2,
+                                      res.delta)
+    if _diverged(iters, c1, c2, delta):
+        return 1
+    print(f"morphACWE: {iters} iters; c1={c1.cpu().numpy()}, "
+          f"c2={c2.cpu().numpy()}", file=sys.stderr)
+    if args.output:
+        image_io.save_mask(args.output, mask.cpu().numpy())
+    return 0
+
+
+def _morph_gac(args, u0, p: CVParams) -> int:
+    """The --morph-gac branch (MorphGAC on the image's edge map)."""
+    from .models.morph_gac import segment_gac, segment_gac_fixed
+    from .ops.morph import inverse_gaussian_gradient
+    from .utils import image_io
+
+    g = inverse_gaussian_gradient(u0, args.gac_alpha, args.gac_sigma)
+    thr = (float(np.percentile(g.cpu().numpy(), 40))
+           if args.gac_threshold == "auto" else float(args.gac_threshold))
+    kw = dict(smoothing=args.morph_smoothing, balloon=args.balloon,
+              threshold=thr)
+    if args.iters is not None:
+        tr = segment_gac_fixed(g, p, iters=args.iters, **kw)
+        mask, iters, delta = tr.mask, args.iters, tr.delta[-1]
+    else:
+        res = segment_gac(g, p, use_pallas=False if args.no_fused else None,
+                          **kw)
+        mask, iters, delta = res.mask, res.iters, res.delta
+    if _diverged(iters, delta):
+        return 1
+    print(f"morphGAC: {iters} iters; balloon={args.balloon}, "
+          f"threshold={thr:.4g}", file=sys.stderr)
+    if args.output:
+        image_io.save_mask(args.output, mask.cpu().numpy())
     return 0
 
 

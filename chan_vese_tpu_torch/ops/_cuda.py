@@ -1,7 +1,8 @@
 """Launch path shared by the red-black kernels (K1-K3 on a scalar image,
 K4-K6 on a C-channel one), the exact-means resident kernels (K7 flat, K8
-parity planes; scalar, batch and C-channel modes) and the 4-phase kernels
-(K9 banded and resident, K10 parity planes).
+parity planes; scalar, batch and C-channel modes), the 4-phase kernels
+(K9 banded and resident, K10 parity planes) and the morphological kernels
+(K11, K12).
 
 Checks the inputs, chooses the tile geometry (the resident kernels: the
 cooperative grid), allocates the outputs and scratch, and calls the kernel
@@ -24,13 +25,15 @@ SMEM_LIMIT = 232448 - 1024
 MAX_CHANNELS = 8
 
 
-def tile_geometry(h: int, w: int, k: int, cell_bytes: int = 10):
+def tile_geometry(h: int, w: int, k: int, cell_bytes: int = 10,
+                  span=None):
     """(TH, TW, cap) for k iterations per launch: the largest tile whose
-    window (tile + 6k rows/cols of halo, clipped to the image) fits in
-    shared memory at ``cell_bytes`` per window cell (10 for the red-black
-    kernels: phi, f, half a buffer)."""
+    window (tile + ``span`` rows/cols of halo, 6k by default, clipped to the
+    image) fits in shared memory at ``cell_bytes`` per window cell (10 for
+    the red-black kernels: phi, f, half a buffer)."""
+    span = 6 * k if span is None else span
     for th, tw in TILES:
-        cap = min(h, th + 6 * k) * min(w, tw + 6 * k)
+        cap = min(h, th + span) * min(w, tw + span)
         if cell_bytes * cap <= SMEM_LIMIT:
             return th, tw, cap
     raise ValueError(f"k={k} needs more shared memory than a block has "
@@ -51,16 +54,17 @@ def mc_channels(phi, u0) -> int:
     return c
 
 
-def _check_inputs(phi, u0):
+def _check_inputs(phi, u0, names=("phi", "u0")):
     if phi.device.type != "cuda":
         raise ValueError(f"kernel launch needs CUDA tensors, got {phi.device}")
-    for name, t in (("phi", phi), ("u0", u0)):
+    for name, t in zip(names, (phi, u0)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != phi.device:
-            raise ValueError(f"{name} is on {t.device}, phi on {phi.device}")
+            raise ValueError(f"{name} is on {t.device}, {names[0]} on "
+                             f"{phi.device}")
 
 
 def _common_params(p):
@@ -261,5 +265,63 @@ def launch_mp2_resident(symbol: str, phis, u0, p, iters: int, unroll: int,
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{symbol} launch failed: "
+                           f"{lib.cv_error_string(err).decode()} ({err})")
+    return out, parts
+
+
+# the morphological kernels (csrc/morph.cuh): kind codes and shared-memory
+# bytes per window cell (MorphKind, morph_cell_bytes)
+MORPH_KINDS = {"acwe": 0, "gac": 1, "gac_pre": 2}
+MORPH_CELL_BYTES = {"acwe": 3, "gac": 11, "gac_pre": 11, "acwe_fused": 3}
+
+
+def _morph_geometry(kind, ls, aux, k, halo):
+    _check_inputs(ls, aux, ("ls", "u0" if kind == "acwe_fused" else "aux"))
+    h, w = ls.shape
+    return (h, w, *tile_geometry(h, w, k, MORPH_CELL_BYTES[kind],
+                                 span=2 * halo))
+
+
+def launch_morph(kind: str, ls, aux, k: int, smoothing: int, parity0: int,
+                 balloon: int, thr_b: float, halo: int):
+    """One K11 launch (csrc/morph_band.cu) of ``kind`` ('acwe', 'gac',
+    'gac_pre') on an (H, W) binary level set: k iterations with a
+    ``halo``-cell window margin. Returns the new level set."""
+    from .._build import library
+
+    h, w, th, tw, cap = _morph_geometry(kind, ls, aux, k, halo)
+    out = torch.empty_like(ls)
+    lib = library()
+    err = lib.cv_morph_chunk(
+        ls.data_ptr(), aux.data_ptr(), out.data_ptr(), h, w,
+        MORPH_KINDS[kind], k, smoothing, parity0, balloon, thr_b, halo, th,
+        tw, cap, torch.cuda.current_stream(ls.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"cv_morph_chunk launch failed: "
+                           f"{lib.cv_error_string(err).decode()} ({err})")
+    return out
+
+
+def launch_morph_fused(ls, u0, cc, k: int, smoothing: int, parity0: int,
+                       halo: int):
+    """One K12 launch (csrc/morph_fused.cu): k MorphACWE iterations with
+    the force from u0 and ``cc`` = (c_in, c_out, l1, l2) on the device.
+    Returns (ls_new, partials (2,) f32: sum ls, sum u0 ls)."""
+    from .._build import library
+
+    h, w, th, tw, cap = _morph_geometry("acwe_fused", ls, u0, k, halo)
+    out = torch.empty_like(ls)
+    nblocks = math.ceil(h / th) * math.ceil(w / tw)
+    block_parts = torch.empty((nblocks, 2), dtype=torch.float64,
+                              device=ls.device)
+    parts = torch.empty(2, dtype=torch.float32, device=ls.device)
+    lib = library()
+    err = lib.cv_morph_fused_chunk(
+        ls.data_ptr(), u0.data_ptr(), cc.data_ptr(), out.data_ptr(),
+        block_parts.data_ptr(), parts.data_ptr(), h, w, k, smoothing,
+        parity0, halo, th, tw, cap,
+        torch.cuda.current_stream(ls.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"cv_morph_fused_chunk launch failed: "
                            f"{lib.cv_error_string(err).decode()} ({err})")
     return out, parts

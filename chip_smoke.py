@@ -18,7 +18,13 @@ each against its plain version at the shapes the main path gives it,
 segment_multiphase at 512^2 (K10), 1024^2 (K9 resident) and 4K (K9
 banded), segment_multiphase_fixed at 512^2 (K9 banded) and the fused_sweep
 route (M = 3 gray, M = 2 RGB) through the kernels, and the multiphase
-throughput at 512^2, 1024^2 and 4K. Any failure raises and exits
+throughput at 512^2, 1024^2 and 4K. Phases 12-14 do the same for the
+morphological family: K11 (kinds acwe, gac, gac_pre) and K12 each bitwise
+against its plain version at 4K, 1080p and a ragged shape, segment_morph
+(4K gray and RGB), segment_morph_iterations(fuse_force=True),
+segment_gac, segment_gac_iterations and
+compat.morphological_geodesic_active_contour through the kernels, and the
+morph-acwe / morph-gac throughput at 4K. Any failure raises and exits
 non-zero. The last lines are a JSON object per kernel, the card's name and
 power limit, and {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result.
@@ -42,12 +48,16 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch finds no CUDA device")
 
 import chan_vese_tpu_torch as ct  # noqa: E402
-from chan_vese_tpu_torch import _build  # noqa: E402
+from chan_vese_tpu_torch import _build, compat  # noqa: E402
+from chan_vese_tpu_torch.models import morph as morphm  # noqa: E402
+from chan_vese_tpu_torch.models import morph_gac as gacm  # noqa: E402
 from chan_vese_tpu_torch.models import multiphase as mpm  # noqa: E402
 from chan_vese_tpu_torch.ops import (_cuda, banded_kernel,  # noqa: E402
                                      fused_kernel, fused_kernel_mc,
-                                     multiphase_kernel, packed_kernel,
-                                     resident_kernel)
+                                     morph_kernel, multiphase_kernel,
+                                     packed_kernel, resident_kernel)
+from chan_vese_tpu_torch.ops.morph import (  # noqa: E402
+    binary_means, inverse_gaussian_gradient)
 from chan_vese_tpu_torch.ops.reductions import region_means  # noqa: E402
 from chan_vese_tpu_torch.utils.init_phi import init_phi  # noqa: E402
 
@@ -229,6 +239,49 @@ MP2_CHUNK = 32
 # s_dphi2 (two differences, two squares, two adds)
 OPS_MP2_ITER, OPS_MP2_SUMS, OPS_MP2_ROW = 2 * OPS_UPDATE + 8 + 8 + 14, 26, 12
 
+# the morphological kernels (phases 12-14): K11's whole-image kinds and K12
+_MORPH_SRC = "chan_vese_tpu_torch/csrc/morph_band.cu"
+MORPH = {
+    "K11 morph_chunk": dict(kind="acwe", source=_MORPH_SRC,
+                            replaces="chan_vese_tpu/ops/pallas_morph.py:384"),
+    "K11 gac_chunk": dict(kind="gac", source=_MORPH_SRC,
+                          replaces="chan_vese_tpu/ops/pallas_morph.py:384"),
+    "K11 gac_chunk pre_dg": dict(
+        kind="gac_pre", source=_MORPH_SRC,
+        replaces="chan_vese_tpu/ops/pallas_morph.py:384"),
+    "K12 morph_chunk_fused": dict(
+        kind="acwe_fused", source="chan_vese_tpu_torch/csrc/morph_fused.cu",
+        replaces="chan_vese_tpu/ops/pallas_morph.py:281"),
+}
+MORPH_SHAPES = ((H4K, W4K), (1080, 1920), (1000, 1500))
+# (k, smoothing, parity0[, balloon]) of each phase 12 check; the first is
+# the one timed (the drivers' k)
+MORPH_RUNS = {"acwe": ((8, 1, 0), (2, 3, 0), (8, 1, 1)),
+              "gac": ((4, 1, 0, 1), (4, 1, 0, -1), (4, 1, 0, 0)),
+              "acwe_fused": ((8, 1, 0), (3, 1, 0))}
+MORPH_RUNS["gac_pre"] = MORPH_RUNS["gac"]
+# K12's sum_in against the plain version's float64 sum
+SUM_IN_RTOL = 1e-6
+# operations per pixel (each min, max, compare, select, add and multiply
+# one): per iteration the ACWE force step 8 (two differences, two |.|, an
+# add, the product with f, two compare-selects), GAC's masked balloon 9
+# and attraction 11 (two differences, two halvings, two products, an add,
+# two compare-selects), per smoothing cycle 22 (two ops of four 2-wide
+# line min/max, each 8 plus 3 to combine); once per launch K12's force 7
+# and partials 3, the gac kind's dgx, dgy and mask 5
+OPS_ACWE_FORCE, OPS_GAC_BALLOON, OPS_GAC_ATTRACT, OPS_CYCLE = 8, 9, 11, 22
+OPS_MORPH_ONCE = {"acwe": 0, "gac": 5, "gac_pre": 0, "acwe_fused": 10}
+# bytes per pixel a launch must move: ls and the force, edge map or image
+# read, ls written; gac_pre reads the 3-plane stack
+MORPH_BYTES = {"acwe": 12, "gac": 12, "gac_pre": 20, "acwe_fused": 12}
+# the GAC scene: a bright disk of radius 28/96 of the short side on a dark
+# ground, noise 3 (tests/test_morph_gac.py:91-99 scaled up), its edge map
+# inverse_gaussian_gradient(alpha=5, sigma=2) and a disk seed 32 px larger
+GAC_RADIUS, GAC_MARGIN, GAC_THRESHOLD = 28 / 96, 32, 0.3
+MORPH_ITERS, MORPH_PLAIN_ITERS = 800, 40
+# the compat entry point's image (1080p)
+COMPAT_SHAPE = (1080, 1920)
+
 
 def two_disks(h, w, fg=217.0, bg=38.0, noise=8.0, seed=0):
     """Two bright disks on a dark background plus Gaussian noise, and the
@@ -370,17 +423,21 @@ def best_accuracy(pred, gt):
 
 def ptxas_summary():
     """Registers and spill stores of every chunk_kernel, resident_kernel,
-    mp2_band_kernel and mp2_resident_kernel instance, from ptxas's -v
-    report of the build: 'kind flat/packed [C=n]: R regs, S B spill' (C =
-    -1 is K1's force mode)."""
+    mp2_band_kernel, mp2_resident_kernel and morph_kernel instance, from
+    ptxas's -v report of the build: 'kind flat/packed [C=n]: R regs, S B
+    spill' (C = -1 is K1's force mode), 'morph <kind>: ...'."""
     out, name = {}, None
+    morph_kinds = ("acwe", "gac", "gac_pre", "acwe_fused")
     for line in _build.ptxas_report().splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:  # the lines up to the next entry describe this one
+            mm = re.search(r"morph_kernelILi(\d)E", m.group(1))
             m = re.search(r"(mp2_band|mp2_resident|chunk|resident)_kernel"
                           r"(?:ILb(\d)E(?:Li(n?)(\d+)E)?)?", m.group(1))
             name = None
-            if m:
+            if mm:
+                name = ("morph", morph_kinds[int(mm.group(1))], "")
+            elif m:
                 c = ("" if m.group(4) is None else
                      f" C={'-' if m.group(3) else ''}{m.group(4)}")
                 name = (m.group(1), ("flat", "packed")[int(m.group(2) or 0)],
@@ -412,6 +469,11 @@ def plain_route():
     saved_resident = {name: r["wrapper"] for name, r in RESIDENT.items()}
     for r in RESIDENT.values():
         setattr(r["module"], r["wrapper"].__name__, r["plain"])
+    # the morph wrappers take their plain versions' arguments
+    morph_names = ("morph_chunk", "gac_chunk", "morph_chunk_fused")
+    saved_morph = {n: getattr(morph_kernel, n) for n in morph_names}
+    for n in morph_names:
+        setattr(morph_kernel, n, getattr(morph_kernel, f"{n}_reference"))
     fused_kernel.fused_iteration = fused_kernel.fused_iteration_reference
     banded_kernel.banded_chunk = (
         lambda phi, u0, c1, c2, p, k=8, unroll=1, fuse=False:
@@ -438,6 +500,8 @@ def plain_route():
          packed_kernel.packed_banded_chunk_mc) = saved
         for name, fn in saved_resident.items():
             setattr(RESIDENT[name]["module"], fn.__name__, fn)
+        for n, fn in saved_morph.items():
+            setattr(morph_kernel, n, fn)
 
 
 def check_kernel(name, kern, args, c1, c2, p, k, h, w, lam):
@@ -656,10 +720,254 @@ def time_mp2(name, kern, u, phis, cs, f, p):
             time_ms(lambda: call(kern["plain"]), 2), *bnd)
 
 
+def gac_scene(h, w):
+    """(image, truth, seed) of the GAC scene at (h, w), numpy float32."""
+    rng = np.random.default_rng(0)
+    r = GAC_RADIUS * min(h, w)
+    i, j = np.ogrid[:h, :w]
+    gt = (i - h / 2) ** 2 + (j - w / 2) ** 2 < r * r
+    img = np.where(gt, 220.0, 20.0) + rng.normal(0, 3.0, (h, w))
+    seed = compat.disk_level_set((h, w), radius=r + GAC_MARGIN)
+    return img.astype(np.float32), gt, seed.astype(np.float32)
+
+
+def bound_morph(kind, h, w, k, s, balloon):
+    """Least time of one morphological launch at (h, w): MORPH_BYTES per
+    pixel against the operations of k iterations with s smoothing cycles
+    (the balloon op only where balloon != 0) and the once-per-launch
+    work."""
+    if kind.startswith("acwe"):
+        per_iter = OPS_ACWE_FORCE
+    else:
+        per_iter = OPS_GAC_ATTRACT + (OPS_GAC_BALLOON if balloon else 0)
+    per_pixel = k * (per_iter + s * OPS_CYCLE) + OPS_MORPH_ONCE[kind]
+    return roofline(MORPH_BYTES[kind] * h * w, h * w * per_pixel)
+
+
+def morph_call(kind, inp, run):
+    """A function of ``plain`` that runs one launch of ``kind`` (or its
+    plain version) on the phase 12 inputs ``inp`` with ``run`` = (k,
+    smoothing, parity0[, balloon]); it returns (level set, partials or
+    None)."""
+    mk = morph_kernel
+    k, s, p0 = run[:3]
+    if kind == "acwe":
+        return lambda plain: ((mk.morph_chunk_reference if plain
+                               else mk.morph_chunk)(inp["ls"], inp["f"], k,
+                                                    s, p0), None)
+    if kind == "acwe_fused":
+        return lambda plain: (mk.morph_chunk_fused_reference if plain
+                              else mk.morph_chunk_fused)(
+            inp["ls"], inp["u"], inp["ci"], inp["co"], inp["l1"], inp["l2"],
+            k, s, p0)
+    b = run[3]
+    aux = inp["stacks"][b] if kind == "gac_pre" else inp["g"]
+    start = inp["seed"] if b <= 0 else inp["ls"]
+    return lambda plain: ((mk.gac_chunk_reference if plain
+                           else mk.gac_chunk)(
+        start, aux, k, s, p0, b, GAC_THRESHOLD, kind == "gac_pre"), None)
+
+
+def check_morph(name, kind, inp, run, st):
+    """One launch of ``kind`` against its plain version: the level set
+    bitwise equal, K12's n_in exact and sum_in within SUM_IN_RTOL, and a
+    second launch bitwise equal to the first. Updates the stats ``st``."""
+    call = morph_call(kind, inp, run)
+    got, gparts = call(False)
+    again, aparts = call(False)
+    ref, rparts = call(True)
+    torch.cuda.synchronize()
+    ok = torch.equal(got, ref) and torch.equal(got, again)
+    st["max_abs_err"] = max(st["max_abs_err"],
+                            float((got - ref).abs().max()))
+    if gparts is not None:
+        ok = ok and torch.equal(gparts, aparts) and bool(
+            gparts[0] == rparts[0])
+        rel = float((gparts[1].double() - rparts[1].double()).abs()
+                    / rparts[1].double().abs())
+        st["sum_in_rel"] = max(st.get("sum_in_rel", 0.0), rel)
+        ok = ok and rel <= SUM_IN_RTOL
+    st["checks"] = st.get("checks", 0) + 1
+    if not ok:
+        raise AssertionError(f"{name} {run} at {tuple(got.shape)} "
+                             f"disagrees with its plain version")
+
+
+def morph_counts():
+    """Launches of each morphological kernel kind so far."""
+    return {"K11 morph_chunk": morph_kernel.morph_chunk.launches,
+            "K11 gac_chunk": morph_kernel.gac_chunk.kind_launches["gac"],
+            "K11 gac_chunk pre_dg":
+                morph_kernel.gac_chunk.kind_launches["gac_pre"],
+            "K12 morph_chunk_fused": morph_kernel.morph_chunk_fused.launches}
+
+
+def reset_morph_counts():
+    morph_kernel.morph_chunk.launches = 0
+    morph_kernel.gac_chunk.launches = 0
+    morph_kernel.gac_chunk.kind_launches = {"gac": 0, "gac_pre": 0}
+    morph_kernel.morph_chunk_fused.launches = 0
+
+
 def check_masks(checks):
     for key, (val, bar) in checks.items():
         if not val >= bar:
             raise AssertionError(f"{key} = {val} < {bar}")
+
+
+def morph_phases(dev, card):
+    """Phases 12-14, the morphological family; returns the kernels'
+    stats for the JSON line."""
+    # phase 12: each morphological kernel kind against its plain version on
+    # the main paths' inputs (the two-disks image, its checkerboard binary
+    # start and frozen force plane; the GAC scene's edge map, aux stacks and
+    # seed), bitwise, at 4K, 1080p and a ragged shape; timed at 4K
+    p = ct.CVParams()
+    mo_stats = {name: dict(max_abs_err=0.0) for name in MORPH}
+    for h, w in MORPH_SHAPES:
+        u = torch.from_numpy(two_disks(h, w)[0]).to(dev)
+        ls = gacm._init_ls(u, p, None)
+        l1, l2 = morphm._lambdas(u, p, None, None)
+        ci, co = binary_means(u, ls)
+        gimg, _, seed = gac_scene(h, w)
+        g = inverse_gaussian_gradient(
+            torch.from_numpy(gimg).to(dev), 5.0, 2.0).contiguous()
+        # lambdas as device tensors, as the drivers pass them (a Python
+        # float would cost K12's wrapper a host-to-device copy per call)
+        inp = dict(u=u, ls=ls, f=morphm._force_plane(u, ls, l1, l2), ci=ci,
+                   co=co, l1=l1, l2=l2, g=g,
+                   seed=torch.from_numpy(seed).to(dev),
+                   stacks={b: morph_kernel.gac_aux_stack(g, b, GAC_THRESHOLD)
+                           for b in (-1, 0, 1)})
+        for name, m in MORPH.items():
+            st = mo_stats[name]
+            for run in MORPH_RUNS[m["kind"]]:
+                check_morph(name, m["kind"], inp, run, st)
+            if (h, w) == (H4K, W4K):
+                run = MORPH_RUNS[m["kind"]][0]
+                call = morph_call(m["kind"], inp, run)
+                st["ms"] = time_ms(lambda: call(False), 20)
+                st["plain_ms"] = time_ms(lambda: call(True), 2)
+                st["bound_ms"], st["bound_by"] = bound_morph(
+                    m["kind"], h, w, *run[:2], run[3] if len(run) > 3 else 0)
+                st["timed"] = run
+    for name, st in mo_stats.items():
+        extra = (f", sum_in within {st['sum_in_rel']:.3e} relative of the "
+                 f"plain f64 sum (bar {SUM_IN_RTOL}), n_in exact"
+                 if "sum_in_rel" in st else "")
+        print(f"phase 12 {name}: {st['checks']} launches at "
+              f"{len(MORPH_SHAPES)} shapes (k, s, parity0[, balloon] in "
+              f"{MORPH_RUNS[MORPH[name]['kind']]}), level set bitwise equal "
+              f"to the plain version in all (max |d| {st['max_abs_err']:g}),"
+              f" second launch bitwise equal{extra}; 4K {st['timed']}: "
+              f"{st['ms']:.4f} ms (plain {st['plain_ms']:.3f}, bound "
+              f"{st['bound_ms']:.4f} {st['bound_by']}) [{card}]", flush=True)
+
+    # phase 13: the morphological path through the user entry points. All
+    # shapes are on the reference's kernel envelope, so the auto routes
+    # take K11 (segment_morph: acwe; segment_gac and compat: gac_pre;
+    # segment_gac_iterations(pre_dg=False): gac) and K12 (fuse_force)
+    img4k, gt4k = two_disks(H4K, W4K)
+    u4k = torch.from_numpy(img4k).to(dev)
+    v4k = torch.from_numpy(np.stack(
+        [img4k, 0.5 * img4k + 30.0, 255.0 - img4k], axis=-1)).to(dev)
+    gimg4k, gtg4k, seed4k = gac_scene(H4K, W4K)
+    g4k = inverse_gaussian_gradient(
+        torch.from_numpy(gimg4k).to(dev), 5.0, 2.0)
+    s4k = torch.from_numpy(seed4k).to(dev)
+    gimg1k, gtg1k, seed1k = gac_scene(*COMPAT_SHAPE)
+    g1k = compat.inverse_gaussian_gradient(gimg1k, 5.0, 2.0, device=dev)
+    gkw = dict(balloon=-1, threshold=GAC_THRESHOLD)
+
+    def morph_path():
+        return dict(
+            gray=ct.segment_morph(u4k, p),
+            rgb=ct.segment_morph(v4k, p),
+            fused=ct.segment_morph_iterations(u4k, p, iters=64,
+                                              fuse_force=True),
+            gac=ct.segment_gac(g4k, p, ls0=s4k, **gkw),
+            gac_it=ct.segment_gac_iterations(g4k, p, iters=64, ls0=s4k,
+                                             pre_dg=False, **gkw),
+            compat=compat.morphological_geodesic_active_contour(
+                g1k, 80, init_level_set=seed1k, device=dev, **gkw))
+
+    reset_morph_counts()
+    got = morph_path()
+    torch.cuda.synchronize()
+    for name, n in morph_counts().items():
+        mo_stats[name]["launches"] = n
+    with plain_route():
+        ref = morph_path()
+    torch.cuda.synchronize()
+    masks = {key: (np.asarray(r) > 0 if key == "compat"
+                   else r.mask.cpu().numpy()) for key, r in got.items()}
+    checks = {f"{key} IoU vs truth": (iou_phases(masks[key], gt4k), 0.98)
+              for key in ("gray", "rgb", "fused")}
+    checks.update({f"{key} IoU vs truth": (iou(masks[key], gt), 0.95)
+                   for key, gt in (("gac", gtg4k), ("gac_it", gtg4k),
+                                   ("compat", gtg1k))})
+    same = {key: (np.array_equal(got[key], ref[key]) if key == "compat"
+                  else torch.equal(got[key].ls, ref[key].ls))
+            for key in got}
+    print("phase 13 morph slice: segment_morph 4K gray "
+          f"{got['gray'].iters} iters (plain route {ref['gray'].iters}), "
+          f"4K RGB {got['rgb'].iters} (plain {ref['rgb'].iters}), "
+          f"segment_gac 4K {got['gac'].iters} (plain {ref['gac'].iters}); "
+          "segment_morph_iterations(fuse_force=True) and "
+          "segment_gac_iterations(pre_dg=False) 64 iterations, compat "
+          "morphological_geodesic_active_contour "
+          f"{COMPAT_SHAPE[0]}x{COMPAT_SHAPE[1]} 80; "
+          + "; ".join(f"{k} {v:.6f} (>= {m})" for k, (v, m) in
+                      checks.items())
+          + "; ACWE IoU up to the swap of the phases; level set bitwise "
+          f"equal to the plain route: {same}; launches "
+          + ", ".join(f"{n}={st['launches']}" for n, st in mo_stats.items()),
+          flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"morph route differs from the plain route: "
+                             f"{same}")
+    for key in ("gray", "rgb", "gac"):
+        if not got[key].iters < p.max_iter:
+            raise AssertionError(f"morph {key} did not converge within "
+                                 f"max_iter")
+    check_masks(checks)
+    for name, st in mo_stats.items():
+        if st["launches"] < 1:
+            raise AssertionError(f"{name} was not launched on the main path")
+
+    # phase 14: the morph-acwe and morph-gac families' throughput at 4K
+    # (bench_families.py:137-164): the lean drivers, 800 iterations, the
+    # GAC edge map uniform in [0.05, 1) (seed 0), balloon 1, threshold 0.3;
+    # the plain route at 40 iterations
+    gbench = torch.from_numpy(np.random.default_rng(0).uniform(
+        0.05, 1.0, (H4K, W4K)).astype(np.float32)).to(dev)
+    bkw = dict(balloon=1, threshold=GAC_THRESHOLD)
+    for tag, fn in (
+            ("segment_morph_iterations 4K gray (K11 acwe, k=8)",
+             lambda it: ct.segment_morph_iterations(u4k, p, iters=it)),
+            ("segment_morph_iterations 4K RGB (K11 acwe, k=8)",
+             lambda it: ct.segment_morph_iterations(v4k, p, iters=it)),
+            ("segment_morph_iterations 4K gray fuse_force (K12, k=8)",
+             lambda it: ct.segment_morph_iterations(u4k, p, iters=it,
+                                                    fuse_force=True)),
+            ("segment_gac_iterations 4K pre_dg=True (default; K11 gac_pre,"
+             " k=4)",
+             lambda it: ct.segment_gac_iterations(gbench, p, iters=it,
+                                                  **bkw)),
+            ("segment_gac_iterations 4K pre_dg=False (K11 gac, k=4)",
+             lambda it: ct.segment_gac_iterations(gbench, p, iters=it,
+                                                  pre_dg=False, **bkw))):
+        kern_ms = time_ms(lambda: fn(MORPH_ITERS), 1)
+        with plain_route():
+            plain_ms = time_ms(lambda: fn(MORPH_PLAIN_ITERS), 1)
+        print(f"phase 14 throughput: {tag}, {MORPH_ITERS} iters "
+              f"{kern_ms:.3f} ms = "
+              f"{H4K * W4K * MORPH_ITERS / (kern_ms * 1e3):.1f} "
+              f"Mpixel-iters/s; plain route {MORPH_PLAIN_ITERS} iters "
+              f"{plain_ms:.3f} ms = "
+              f"{H4K * W4K * MORPH_PLAIN_ITERS / (plain_ms * 1e3):.1f} "
+              f"Mpixel-iters/s [{card}]", flush=True)
+    return mo_stats
 
 
 def main() -> int:
@@ -1126,6 +1434,8 @@ def main() -> int:
           f"15 = {(16 * per_iter[256] - per_iter[1024]) / 15 * 1e3:.3f} us "
           f"[{card}]", flush=True)
 
+    mo_stats = morph_phases(dev, card)
+
     entries = [
         dict(name=name, route="cuda", source=k["source"],
              replaces=k["replaces"], launches=st["launches"],
@@ -1133,7 +1443,7 @@ def main() -> int:
              plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
              bound_by=st["bound_by"], library_ms=None)
         for table, stat in ((KERNELS, stats), (RESIDENT, res_stats),
-                            (MP2, mp_stats))
+                            (MP2, mp_stats), (MORPH, mo_stats))
         for name, k in table.items() for st in (stat[name],)]
     print(json.dumps({"kernels": entries}))
     print(f"card: {card}")

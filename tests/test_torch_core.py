@@ -68,7 +68,10 @@ def test_cvparams_from_reference_round_trips():
 
 def test_port_imports_no_jax():
     code = ("import sys, chan_vese_tpu_torch, chan_vese_tpu_torch.cli, "
-            "chan_vese_tpu_torch.models.banded, chan_vese_tpu_torch._build; "
+            "chan_vese_tpu_torch.models.banded, chan_vese_tpu_torch._build, "
+            "chan_vese_tpu_torch.compat, chan_vese_tpu_torch.models.morph, "
+            "chan_vese_tpu_torch.models.morph_gac, "
+            "chan_vese_tpu_torch.ops.morph_kernel; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'chan_vese_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
