@@ -14,7 +14,11 @@ K1's force mode, and the morphological family: MorphACWE
 (``segment_morph``, ``segment_morph_fixed``, ``segment_morph_iterations``)
 and MorphGAC (``segment_gac``, ``segment_gac_fixed``,
 ``segment_gac_iterations``) over K11 and K12, with the scikit-image
-compatible front ends in ``compat``. CPU tensors run the plain PyTorch
+compatible front ends in ``compat``; and frame stacks (``segment_batch``,
+``segment_stack_fixed``, ``segment_stack_fused_fixed`` over K1's batch
+mode, and ``parallel.segment_stack_sharded`` over a data mesh). Every
+packed route packs through K15/K16; K13 (``ops.packed_kernel.
+packed_chunk``) is the layout A/B. CPU tensors run the plain PyTorch
 versions of the kernels; CUDA tensors launch the kernels in ``csrc/``,
 built with nvcc at first use. It never imports jax.
 """
@@ -27,12 +31,15 @@ from .models.banded import (auto_config, auto_config_mc, segment_banded,
                             segment_banded_fixed)
 from .models.resident import (segment_resident, segment_resident_fixed,
                               segment_stack_resident_fixed)
+from .models.batched import (segment_batch, segment_stack_fixed,
+                             segment_stack_fused_fixed)
 from .models.multiphase import (MultiphaseResult, segment_multiphase,
                                 segment_multiphase_fixed)
 from .models.morph import (MorphResult, MorphTrace, segment_morph,
                            segment_morph_fixed, segment_morph_iterations)
 from .models.morph_gac import (GACResult, GACTrace, segment_gac,
                                segment_gac_fixed, segment_gac_iterations)
+from . import parallel
 
 __all__ = [
     "CVParams", "DEFAULTS",
@@ -43,11 +50,13 @@ __all__ = [
     "segment_banded_fixed",
     "segment_resident", "segment_resident_fixed",
     "segment_stack_resident_fixed",
+    "segment_batch", "segment_stack_fixed", "segment_stack_fused_fixed",
     "segment_multiphase", "segment_multiphase_fixed", "MultiphaseResult",
     "segment_morph", "segment_morph_fixed", "segment_morph_iterations",
     "MorphResult", "MorphTrace",
     "segment_gac", "segment_gac_fixed", "segment_gac_iterations",
     "GACResult", "GACTrace",
+    "parallel",
 ]
 
 __version__ = "0.1.0"

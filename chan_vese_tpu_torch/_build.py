@@ -48,6 +48,13 @@ RESIDENT_SYMBOLS = ("cv_resident_iterations", "cv_resident_iterations_mc",
 _MP2_RESIDENT = [_P] * 7 + [_I] * 5 + [_F] * 7 + [_P]
 MP2_RESIDENT_SYMBOLS = ("cv_mp2_resident_iterations",
                         "cv_packed_mp2_resident_iterations")
+# frozen-means resident chunk launchers (csrc/resident_chunk.cu, K13): 7
+# pointers; nblocks, H, W, k; 9 params; stream. Each has a `_grid` twin.
+_RESIDENT_CHUNK = [_P] * 7 + [_I] * 4 + [_F] * 9 + [_P]
+CHUNK_SYMBOLS = ("cv_resident_chunk", "cv_packed_resident_chunk")
+# parity pack and unpack (csrc/pack.cu, K15/K16): source, destination; N,
+# H, W, vector width; stream
+_PACK = [_P, _P] + [_I] * 4 + [_P]
 # morphological launchers (csrc/morph_band.cu, morph_fused.cu): pointers;
 # H, W, [kind], k, s, parity0, [balloon, thr_b], halo, TH, TW, cap; stream
 _MORPH = [_P] * 3 + [_I] * 7 + [_F] + [_I] * 4 + [_P]
@@ -58,6 +65,8 @@ SIGNATURES = {
     "cv_mp2_iteration": _HEAD + _TAIL,
     "cv_banded_chunk": _HEAD + [_I] + _TAIL,
     "cv_packed_banded_chunk": _HEAD + [_I] + _TAIL,
+    # the batch launcher takes the frame count N where mc ones take C
+    "cv_fused_iteration_batch": _HEAD_MC + _TAIL,
     "cv_fused_iteration_mc": _HEAD_MC + _TAIL_MC,
     "cv_banded_chunk_mc": _HEAD_MC + [_I] + _TAIL_MC,
     "cv_packed_banded_chunk_mc": _HEAD_MC + [_I] + _TAIL_MC,
@@ -65,6 +74,10 @@ SIGNATURES = {
     **{f"{s}_grid": _GRID for s in RESIDENT_SYMBOLS},
     **{s: _MP2_RESIDENT for s in MP2_RESIDENT_SYMBOLS},
     **{f"{s}_grid": _GRID for s in MP2_RESIDENT_SYMBOLS},
+    **{s: _RESIDENT_CHUNK for s in CHUNK_SYMBOLS},
+    **{f"{s}_grid": _GRID for s in CHUNK_SYMBOLS},
+    "cv_pack_planes": _PACK,
+    "cv_unpack_planes": _PACK,
     "cv_morph_chunk": _MORPH,
     "cv_morph_fused_chunk": _MORPH_FUSED,
 }

@@ -24,6 +24,26 @@ extern "C" cudaError_t cv_fused_iteration(
                                     (cudaStream_t)stream);
 }
 
+// K1's batch mode: one red-black iteration of each frame of an (N, H, W)
+// stack in one launch, with per-frame means (cc is (N, 2)) and per-frame
+// partials (parts is (N, 8)).
+//
+// Replaces chan_vese_tpu/ops/pallas_sweep.py::_fused_band_kernel with
+// batched=True (reached through fused_iteration_batch), whose frame axis
+// is the leading grid axis. Here it is blockIdx.z of the same tiles; the
+// reduction runs one block per frame, so each frame is bitwise the
+// single-image launch. Bound: as above, 12 B/pixel per frame.
+extern "C" cudaError_t cv_fused_iteration_batch(
+    const float* phi, const float* u0, const float* cc, float* out,
+    double* block_parts, float* parts, int H, int W, int N, int TH, int TW,
+    int cap, float mu, float nu, float l1, float l2, float eta2, float gdt,
+    float eps, float eps2, float inv_pi, void* stream) {
+  const cv::Params P{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi};
+  return cv::launch_chunk<false, 0>(phi, u0, cc, out, block_parts, parts, H,
+                                    W, 1, TH, TW, cap, 8, P,
+                                    (cudaStream_t)stream, N);
+}
+
 // Name of a CUDA error code, for the Python wrappers' exceptions.
 extern "C" const char* cv_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -1,7 +1,8 @@
 // Shared device code of the Hopper red-black kernels: K1 fused.cu (and its
-// force mode fused_sweep.cu), K2 banded.cu, K3 packed.cu on a scalar image
-// and K4 fused_mc.cu, K5 banded_mc.cu, K6 packed_mc.cu on a C-channel
-// image. One body, seven launchers.
+// force mode fused_sweep.cu, and its batch mode over a stack of frames),
+// K2 banded.cu, K3 packed.cu on a scalar image and K4 fused_mc.cu, K5
+// banded_mc.cu, K6 packed_mc.cu on a C-channel image. One body, eight
+// launchers.
 //
 // What a launch computes: k red-black semi-implicit iterations with the
 // region means c1/c2 frozen (k = 1 for the fused kernels), then the
@@ -58,6 +59,15 @@
 // writes its sums (f64) to an (nblocks, nsums) scratch; a second
 // one-block kernel sums them in a fixed order in f64, so the result is
 // deterministic.
+//
+// Frames (K1's batch mode, fused.cu cv_fused_iteration_batch). A launch
+// may carry N independent images of one shape, stacked (N, H, W):
+// blockIdx.z is the frame, each frame reads its own means from row z of
+// an (N, cc_len) cc and writes its own (nblocks, nsums) block-partials
+// rows, and the reduction runs one block per frame into an (N, nout)
+// parts. A frame's tiles, sums and summation order are those of the same
+// image launched alone, so frame n of a batch is bitwise the single-image
+// result. Single-image launches are the case N = 1.
 
 #pragma once
 
@@ -216,6 +226,14 @@ chunk_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
   const int wh = wr1 - wr0, ww = wc1 - wc0, hw = ww >> 1;
   const int64_t chan = (int64_t)H * W;
 
+  // this block's frame (0 unless the launch carries a stack)
+  const int64_t frame = blockIdx.z;
+  phi += frame * chan;
+  out += frame * chan;
+  u0 += frame * chan * uh_slots<NC>();
+  cc += frame * cc_len<NC>();
+  block_parts += frame * gridDim.x * gridDim.y * kSums;
+
   for (int t = threadIdx.x; t < cc_len<NC>(); t += blockDim.x) s_cc[t] = cc[t];
   __syncthreads();
   for (int idx = threadIdx.x; idx < wh * ww; idx += blockDim.x) {
@@ -280,11 +298,14 @@ chunk_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
 }
 
 // Sums the (nblocks, nsums) per-block partials in a fixed order in f64
-// into parts[nout]; slots from nsums on are 0.
+// into parts[nout]; slots from nsums on are 0. One block per frame: block
+// z reduces frame z's rows into parts[z * nout ...].
 __global__ void __launch_bounds__(256)
 reduce_parts_kernel(const double* __restrict__ block_parts, int nblocks,
                     int nsums, int nout, float* __restrict__ parts) {
   __shared__ double s[256];
+  block_parts += (int64_t)blockIdx.x * nblocks * nsums;
+  parts += (int64_t)blockIdx.x * nout;
   for (int t = 0; t < nout; ++t) {
     double a = 0.0;
     if (t < nsums) {
@@ -304,24 +325,27 @@ reduce_parts_kernel(const double* __restrict__ block_parts, int nblocks,
 
 // Host side: launch one chunk plus the partials reduction on `stream`.
 // The caller (chan_vese_tpu_torch/ops/_cuda.py) chooses TH, TW and cap and
-// allocates out, block_parts ((nblocks, sum_slots<NC>()) f64) and parts
-// (nout f32).
+// allocates out, block_parts ((frames * nblocks, sum_slots<NC>()) f64) and
+// parts (frames * nout f32). `frames` images of one shape are stacked in
+// phi, u0 and out, with frames rows of means in cc (at most 65535, the
+// grid's z limit, which the caller checks).
 template <bool PACKED, int NC>
 cudaError_t launch_chunk(const float* phi, const float* u0, const float* cc,
                          float* out, double* block_parts, float* parts,
                          int H, int W, int k, int TH, int TW, int cap,
-                         int nout, Params P, cudaStream_t stream) {
+                         int nout, Params P, cudaStream_t stream,
+                         int frames = 1) {
   const size_t smem = (size_t)cap * 10;
   cudaError_t err = cudaFuncSetAttribute(
       chunk_kernel<PACKED, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, frames);
   chunk_kernel<PACKED, NC><<<grid, kThreads, smem, stream>>>(
       phi, u0, cc, out, block_parts, H, W, k, TH, TW, cap, P);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  reduce_parts_kernel<<<1, 256, 0, stream>>>(
+  reduce_parts_kernel<<<frames, 256, 0, stream>>>(
       block_parts, (int)(grid.x * grid.y), sum_slots<NC>(), nout, parts);
   return cudaGetLastError();
 }

@@ -1,8 +1,10 @@
 // Shared device code of the Hopper exact-means resident kernels: K7
 // resident.cu / resident_mc.cu (flat layout) and K8 packed_resident.cu /
 // packed_resident_mc.cu (parity planes), each on a scalar image, a stack
-// of scalar frames, or (mc) one C-channel image. One body, templated on
-// <bool PACKED, int NC> as redblack.cuh's chunk kernel is.
+// of scalar frames, or (mc) one C-channel image; and of K13
+// resident_chunk.cu, its frozen-means chunk mode in either layout. One
+// body, templated on <bool PACKED, int NC> as redblack.cuh's chunk kernel
+// is.
 //
 // What a launch computes: `iters` full Chan-Vese iterations with the
 // region means recomputed from the current phi at every iteration (no
@@ -35,6 +37,15 @@
 //       fixed order, so all blocks hold bitwise-equal c1/c2 (no atomics).
 // Iteration 0's sums come from a separate pass over the input. So an
 // iteration costs two grid syncs.
+//
+// Frozen-means chunk mode (K13, resident_chunk.cu; ResidentArgs::cc set):
+// the contract of chan_vese_tpu/ops/pallas_packed.py::packed_chunk and of
+// banded_chunk: k iterations with the given c1/c2 held fixed (no input
+// pass, no step (a)), then one row of partials of the LAST iteration,
+// [s_uH, s_H] of the phi it leaves and [s_dphi2, flips, s_absdphi] of its
+// transition. The data term is evaluated from u0 and the frozen means at
+// each read, the same expression on the same inputs as a plane computed
+// once, at the bytes of reading one. Still two grid syncs an iteration.
 //
 // Coherence. Buffers written inside the launch (A, B, the scratch) are
 // read with plain loads, never through __ldg or a const __restrict__
@@ -78,6 +89,9 @@ struct ResidentArgs {
   double* scratch;      // (nblocks, uh + 1) H sums | (nblocks, 3) row sums
   float* parts;         // partials rows of nrow floats
   int N, H, W, iters, unroll, batch, nrow;
+  // frozen-means chunk mode: (c1, c2) for every iteration (scalar image,
+  // one frame, unroll = iters); null in the exact-means modes
+  const float* cc;
 };
 
 template <bool PACKED, int NC>
@@ -98,10 +112,16 @@ resident_kernel(ResidentArgs a, Params P) {
   const ImageIdx<PACKED> idx{H, W};
   double* means_parts = a.scratch;
   double* row_parts = a.scratch + (int64_t)nb * kM;
+  const bool frozen = a.cc != nullptr;
 
   if constexpr (NC > 0) {
     for (int t = threadIdx.x; t < 2 * NC; t += blockDim.x)
       s_cc[2 * NC + t] = a.wts[t];
+  } else {
+    if (frozen) {
+      if (threadIdx.x < 2) s_cc[threadIdx.x] = a.cc[threadIdx.x];
+      __syncthreads();
+    }
   }
 
   for (int fr = 0; fr < a.N; ++fr) {
@@ -113,53 +133,59 @@ resident_kernel(ResidentArgs a, Params P) {
 
     double acc[kM];
     // H sums of the input: iteration 0's means
+    if (!frozen) {
 #pragma unroll
-    for (int s = 0; s < kM; ++s) acc[s] = 0.0;
-    for (int t = gtid; t < npairs; t += gstride) {
-      const int i = t / hw, j0 = 2 * (t - i * hw);
+      for (int s = 0; s < kM; ++s) acc[s] = 0.0;
+      for (int t = gtid; t < npairs; t += gstride) {
+        const int i = t / hw, j0 = 2 * (t - i * hw);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int64_t g = idx(i, j0 + e);
-        const float h = 0.5f + P.inv_pi * atanf(start[g] / P.eps);
+        for (int e = 0; e < 2; ++e) {
+          const int64_t g = idx(i, j0 + e);
+          const float h = 0.5f + P.inv_pi * atanf(start[g] / P.eps);
 #pragma unroll
-        for (int ch = 0; ch < kUh; ++ch)
-          acc[ch] += (double)(u0[ch * chan + g] * h);
-        acc[kUh] += (double)h;
+          for (int ch = 0; ch < kUh; ++ch)
+            acc[ch] += (double)(u0[ch * chan + g] * h);
+          acc[kUh] += (double)h;
+        }
       }
-    }
 #pragma unroll
-    for (int s = 0; s < kM; ++s) {
-      const double v = block_sum(acc[s], red_scratch);
-      if (threadIdx.x == 0) means_parts[blockIdx.x * kM + s] = v;
+      for (int s = 0; s < kM; ++s) {
+        const double v = block_sum(acc[s], red_scratch);
+        if (threadIdx.x == 0) means_parts[blockIdx.x * kM + s] = v;
+      }
+      grid.sync();
     }
-    grid.sync();
 
     for (int it = 0; it < a.iters; ++it) {
       const float* cur = it == 0 ? start : A;
       const bool row = a.batch ? it == a.iters - 1
                                : it % a.unroll == a.unroll - 1;
-      const bool more = it + 1 < a.iters;
+      // H sums of the phi this iteration leaves: the next iteration's
+      // means, or in the frozen mode the last iteration's partials
+      const bool more = frozen ? it + 1 == a.iters : it + 1 < a.iters;
 
       // (a) means: every block reduces all blocks' slots in one order
+      if (!frozen) {
 #pragma unroll
-      for (int s = 0; s < kM; ++s) {
-        double v = 0.0;
-        for (int b = threadIdx.x; b < nb; b += blockDim.x)
-          v += means_parts[b * kM + s];
-        v = block_sum(v, red_scratch);
-        if (threadIdx.x == 0) s_tot[s] = v;
-      }
-      if (threadIdx.x == 0) {
-        const double in = fmax(s_tot[kUh], 1e-30);
-        const double outside = fmax(n_pix - s_tot[kUh], 1e-30);
-#pragma unroll
-        for (int ch = 0; ch < kUh; ++ch) {
-          const double su = a.usum[NC == 0 ? fr : ch];
-          s_cc[ch] = (float)(s_tot[ch] / in);
-          s_cc[kUh + ch] = (float)((su - s_tot[ch]) / outside);
+        for (int s = 0; s < kM; ++s) {
+          double v = 0.0;
+          for (int b = threadIdx.x; b < nb; b += blockDim.x)
+            v += means_parts[b * kM + s];
+          v = block_sum(v, red_scratch);
+          if (threadIdx.x == 0) s_tot[s] = v;
         }
+        if (threadIdx.x == 0) {
+          const double in = fmax(s_tot[kUh], 1e-30);
+          const double outside = fmax(n_pix - s_tot[kUh], 1e-30);
+#pragma unroll
+          for (int ch = 0; ch < kUh; ++ch) {
+            const double su = a.usum[NC == 0 ? fr : ch];
+            s_cc[ch] = (float)(s_tot[ch] / in);
+            s_cc[kUh + ch] = (float)((su - s_tot[ch]) / outside);
+          }
+        }
+        __syncthreads();
       }
-      __syncthreads();
 
       // (b) red half-sweep: A -> B
       for (int t = gtid; t < npairs; t += gstride) {
@@ -225,8 +251,18 @@ resident_kernel(ResidentArgs a, Params P) {
       grid.sync();
 
       // block 0 writes the row; the next write of row_parts is two grid
-      // syncs away
+      // syncs away. A frozen row's [s_uH, s_H] are the H sums (c) just
+      // wrote; an exact row's are the ones (a) reduced.
       if (row && blockIdx.x == 0) {
+        if (frozen) {
+          for (int s = 0; s < kM; ++s) {
+            double v = 0.0;
+            for (int b = threadIdx.x; b < nb; b += blockDim.x)
+              v += means_parts[b * kM + s];
+            v = block_sum(v, red_scratch);
+            if (threadIdx.x == 0) s_tot[s] = v;
+          }
+        }
         for (int s = 0; s < 3; ++s) {
           double v = 0.0;
           for (int b = threadIdx.x; b < nb; b += blockDim.x)

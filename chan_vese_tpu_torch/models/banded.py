@@ -116,13 +116,13 @@ class _Chunker:
         if self.nchan:
             self.packed = packed and packed_kernel.supports_packed_banded_mc(
                 H, W, k, self.nchan)
-            pack_u0 = packed_kernel._pack_mc
         else:
             self.packed = packed and packed_kernel.supports_packed_banded(
                 H, W, k)
-            pack_u0 = packed_kernel._pack
         if self.packed:
-            self.phi, self.u0 = packed_kernel._pack(phi0), pack_u0(img)
+            # img is (H, W) or channels-first (C, H, W): one pack for both
+            self.phi = packed_kernel.pack_planes(phi0)
+            self.u0 = packed_kernel.pack_planes(img)
         else:
             self.phi, self.u0 = phi0, img
 
@@ -147,7 +147,8 @@ class _Chunker:
         return parts
 
     def image(self):
-        return packed_kernel._unpack(self.phi) if self.packed else self.phi
+        return (packed_kernel.unpack_planes(self.phi) if self.packed
+                else self.phi)
 
 
 def _route(u0, p: CVParams, k, unroll, packed, fuse, lambda1, lambda2):

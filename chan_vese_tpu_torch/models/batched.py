@@ -1,12 +1,20 @@
-"""Fixed-iteration segmentation of (N, H, W) grayscale stacks: what the
-resident stack driver runs off its envelope.
+"""Segmentation of frame stacks (N, H, W[, C]): video and microscopy time
+series, every frame its own image.
 
-Counterpart of ``chan_vese_tpu/models/batched.py`` (``segment_stack_fixed``
-and ``segment_stack_fused_fixed``). The reference vectorizes the frames
-(``vmap``, or K1's batch grid axis); frames are independent, so here each
-frame runs on its own and the values per frame are the same. K1's batch
-mode, which replaces the per-frame loop of the fused driver, is ROADMAP
-M8.
+Counterpart of ``chan_vese_tpu/models/batched.py``. The reference
+vectorizes the frames (``vmap``); frames are independent, so here:
+
+- :func:`segment_batch` (tolerance mode) runs :func:`.scalar.segment` on
+  each frame and stacks the results, per-frame ``iters``, ``delta``,
+  ``c1``, ``c2``. Under ``vmap`` the reference's while loop keeps a
+  finished frame's carry, so its per-frame results are the per-frame
+  runs' too (``tests/test_torch_batched.py``).
+- :func:`segment_stack_fixed` runs the plain step on each frame.
+- :func:`segment_stack_fused_fixed` runs K1's batch mode: one
+  :func:`..ops.fused_kernel.fused_iteration_batch` per iteration over every
+  frame, the next means per frame from its partials on the device, no
+  device-to-host read in the loop. It is what the resident stack driver
+  runs off its envelope.
 """
 
 from __future__ import annotations
@@ -16,8 +24,9 @@ from typing import Optional
 import torch
 
 from ..ops import fused_kernel
+from ..ops.reductions import means_from_sums, region_means
 from ..params import CVParams
-from .scalar import _check_ported, _phi0, step
+from .scalar import SegResult, _check_ported, _phi0, segment, step
 
 
 def _stack_phi0(u0, p: CVParams, phi0):
@@ -25,6 +34,24 @@ def _stack_phi0(u0, p: CVParams, phi0):
         # contiguous: each frame goes to the kernels as it is
         return _phi0(u0[0], p, None).expand(u0.shape[:3]).contiguous()
     return phi0
+
+
+def segment_batch(u0, p: CVParams = CVParams(),
+                  phi0: Optional[torch.Tensor] = None,
+                  lambda1=None, lambda2=None) -> SegResult:
+    """Tolerance-mode segmentation of every frame of an (N, H, W[, C])
+    stack. Returns a SegResult with a leading frame axis on every field:
+    ``iters`` is an (N,) int64 tensor of per-frame iteration counts."""
+    _check_ported(u0, p)
+    runs = [segment(u, p, phi, lambda1=lambda1, lambda2=lambda2)
+            for u, phi in zip(u0, _stack_phi0(u0, p, phi0))]
+    phi = torch.stack([r.phi for r in runs])
+    return SegResult(
+        phi, phi >= 0,
+        torch.tensor([r.iters for r in runs], dtype=torch.int64,
+                     device=u0.device),
+        torch.stack([r.delta for r in runs]),
+        torch.stack([r.c1 for r in runs]), torch.stack([r.c2 for r in runs]))
 
 
 def segment_stack_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
@@ -44,17 +71,20 @@ def segment_stack_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
 
 def segment_stack_fused_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
                               phi0: Optional[torch.Tensor] = None):
-    """Fixed-iteration segmentation of an (N, H, W) stack through the
-    fused kernel (K1), frame by frame; shapes off the fused envelope and
-    other sweep orders run :func:`segment_stack_fixed`. Returns
-    (phi, mask)."""
-    from .fused import segment_fused_fixed
-
+    """Fixed-iteration segmentation of an (N, H, W) stack through K1's
+    batch mode, one launch per iteration for all frames; shapes off the
+    fused envelope and other sweep orders run :func:`segment_stack_fixed`.
+    Returns (phi, mask)."""
     _check_ported(u0, p)
     N, H, W = u0.shape
     if not fused_kernel.supports(H, W) or p.order != "redblack":
         return segment_stack_fixed(u0, p, iters, phi0)
-    phis = torch.stack([
-        segment_fused_fixed(u, p, iters, phi)[0]
-        for u, phi in zip(u0, _stack_phi0(u0, p, phi0))])
+    phis = _stack_phi0(u0, p, phi0)
+    n_pix = torch.tensor(H * W, dtype=u0.dtype, device=u0.device)
+    sum_u = torch.sum(u0, dim=(1, 2))
+    c1, c2 = (torch.stack(c) for c in zip(*(
+        region_means(u, phi, p.eps) for u, phi in zip(u0, phis))))
+    for _ in range(iters):
+        phis, parts = fused_kernel.fused_iteration_batch(phis, u0, c1, c2, p)
+        c1, c2 = means_from_sums(parts[:, 0], parts[:, 1], sum_u, n_pix)
     return phis, phis >= 0

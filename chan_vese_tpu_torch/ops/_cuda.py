@@ -1,8 +1,9 @@
 """Launch path shared by the red-black kernels (K1-K3 on a scalar image,
-K4-K6 on a C-channel one), the exact-means resident kernels (K7 flat, K8
-parity planes; scalar, batch and C-channel modes), the 4-phase kernels
-(K9 banded and resident, K10 parity planes) and the morphological kernels
-(K11, K12).
+K1 on a stack of frames, K4-K6 on a C-channel image), the exact-means
+resident kernels (K7 flat, K8 parity planes; scalar, batch and C-channel
+modes) and their frozen-means chunk mode (K13), the 4-phase kernels (K9
+banded and resident, K10 parity planes), the morphological kernels (K11,
+K12) and the parity pack and unpack (K15, K16).
 
 Checks the inputs, chooses the tile geometry (the resident kernels: the
 cooperative grid), allocates the outputs and scratch, and calls the kernel
@@ -23,6 +24,8 @@ TILES = ((64, 128), (32, 128), (32, 64), (16, 64), (16, 32))
 SMEM_LIMIT = 232448 - 1024
 # channel counts the multichannel kernels are compiled for
 MAX_CHANNELS = 8
+# frames of one batch launch: the grid's z limit
+MAX_FRAMES = 65535
 
 
 def tile_geometry(h: int, w: int, k: int, cell_bytes: int = 10,
@@ -111,15 +114,34 @@ def launch_chunk_mc(symbol: str, phi, u0, c1, c2, p, k, h: int, w: int,
     return _launch(symbol, phi, u0, cc, (c,), k, h, w, c + 4, nout, params)
 
 
+def launch_chunk_batch(symbol: str, phis, u0s, c1s, c2s, p, h: int, w: int):
+    """Run scalar kernel ``symbol`` on each frame of (N, h, w) stacks with
+    per-frame means c1s, c2s (N,). Returns (phis_new, partials (N, 8))."""
+    _check_inputs(phis, u0s)
+    if u0s.shape != phis.shape:
+        raise ValueError(f"u0 {tuple(u0s.shape)} vs phi {tuple(phis.shape)}")
+    n = phis.shape[0]
+    if not 1 <= n <= MAX_FRAMES:
+        raise ValueError(f"{n} frames; a batch launch takes 1 to "
+                         f"{MAX_FRAMES}")
+    dev = phis.device
+    cc = torch.stack([torch.as_tensor(c, device=dev).reshape(n)
+                      for c in (c1s, c2s)], dim=1).to(torch.float32)
+    params = (p.mu, p.nu, p.lambda1, p.lambda2, *_common_params(p))
+    return _launch(symbol, phis, u0s, cc.contiguous(), (n,), None, h, w, 5,
+                   8, params, frames=n)
+
+
 def check_even(h: int, w: int):
     if h % 2 or w % 2:
         raise ValueError(f"the kernels need even H and W, got {(h, w)}")
 
 
 def _launch(symbol, phi, u0, cc, chan, k, h, w, nsums, nout, params,
-            reach=None, cell_bytes=10):
+            reach=None, cell_bytes=10, frames=None):
     """``reach``: the iterations whose halo the tiles carry (default k, or
-    1 for the fused kernels, which take no k)."""
+    1 for the fused kernels, which take no k). ``frames``: phi and u0 hold
+    that many images and the partials are (frames, nout)."""
     from .._build import library
 
     check_even(h, w)
@@ -129,9 +151,10 @@ def _launch(symbol, phi, u0, cc, chan, k, h, w, nsums, nout, params,
     dev = phi.device
     out = torch.empty_like(phi)
     nblocks = math.ceil(h / th) * math.ceil(w / tw)
-    block_parts = torch.empty((nblocks, nsums),
+    block_parts = torch.empty(((frames or 1) * nblocks, nsums),
                               dtype=torch.float64, device=dev)
-    parts = torch.empty(nout, dtype=torch.float32, device=dev)
+    parts = torch.empty(nout if frames is None else (frames, nout),
+                        dtype=torch.float32, device=dev)
     ptrs = (phi.data_ptr(), u0.data_ptr(), cc.data_ptr(), out.data_ptr(),
             block_parts.data_ptr(), parts.data_ptr())
     ks = () if k is None else (k,)
@@ -232,6 +255,70 @@ def launch_resident(symbol: str, phi, u0, p, iters: int, unroll: int,
         raise RuntimeError(f"{symbol} launch failed: "
                            f"{lib.cv_error_string(err).decode()} ({err})")
     return out, parts
+
+
+def launch_resident_chunk(symbol: str, phi, u0, c1, c2, p, k: int, h: int,
+                          w: int):
+    """One cooperative launch of frozen-means chunk kernel ``symbol`` (K13)
+    on image geometry (h, w), phi and u0 flat or as parity planes: k
+    iterations with means c1, c2. Returns (phi_new, partials (8,) f32 of
+    the last iteration)."""
+    from .._build import library
+
+    if u0.shape != phi.shape:
+        raise ValueError(f"u0 {tuple(u0.shape)} vs phi {tuple(phi.shape)}")
+    _check_inputs(phi, u0)
+    check_even(h, w)
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    dev = phi.device
+    cap = resident_capacity(symbol, 0, dev.index)
+    nblocks = max(1, min(cap, math.ceil(h * w // 2 / RESIDENT_THREADS)))
+    out = torch.empty_like(phi)
+    tmp = torch.empty(h * w, dtype=torch.float32, device=dev)
+    cc = torch.stack([torch.as_tensor(c1, device=dev),
+                      torch.as_tensor(c2, device=dev)]).to(torch.float32)
+    # (nblocks, 2) H sums and (nblocks, 3) row sums
+    scratch = torch.empty(nblocks * 5, dtype=torch.float64, device=dev)
+    parts = torch.empty(8, dtype=torch.float32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = getattr(lib, symbol)(
+            phi.data_ptr(), out.data_ptr(), tmp.data_ptr(), u0.data_ptr(),
+            cc.data_ptr(), scratch.data_ptr(), parts.data_ptr(), nblocks, h,
+            w, k, p.mu, p.nu, p.lambda1, p.lambda2, *_common_params(p),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{symbol} launch failed: "
+                           f"{lib.cv_error_string(err).decode()} ({err})")
+    return out, parts
+
+
+def launch_pack(symbol: str, src, shape):
+    """One K15/K16 launch (csrc/pack.cu): ``symbol`` 'cv_pack_planes' maps
+    an (N, H, W) f32 stack to (N, 2, 2, H/2, W/2) planes, 'cv_unpack_planes'
+    back; ``shape`` is the output's shape. Four columns a thread where W
+    allows it, else two."""
+    from .._build import library
+
+    if src.dtype != torch.float32:
+        raise TypeError(f"the pack kernels take float32, got {src.dtype}")
+    n, h, w = (shape[0], 2 * shape[3], 2 * shape[4]) if len(shape) == 5 \
+        else shape
+    check_even(h, w)
+    src = src.contiguous()
+    if src.data_ptr() % 16:  # a view at an offset: the vector loads need
+        src = src.clone()    # an aligned start (fresh buffers are)
+    out = torch.empty(shape, dtype=torch.float32, device=src.device)
+    lib = library()
+    with torch.cuda.device(src.device):
+        err = getattr(lib, symbol)(
+            src.data_ptr(), out.data_ptr(), n, h, w, 4 if w % 4 == 0 else 2,
+            torch.cuda.current_stream(src.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{symbol} launch failed: "
+                           f"{lib.cv_error_string(err).decode()} ({err})")
+    return out
 
 
 def launch_mp2_resident(symbol: str, phis, u0, p, iters: int, unroll: int,

@@ -6,6 +6,9 @@ the hand-written kernel ``csrc/fused.cu``; on a CPU tensor it runs
 :func:`fused_iteration_reference`, the plain PyTorch version. The force
 mode :func:`fused_sweep` (the reference's ``data_is_f``) takes a
 precomputed force instead of the image and launches ``csrc/fused_sweep.cu``.
+The batch mode :func:`fused_iteration_batch` runs one iteration of every
+frame of an (N, H, W) stack with per-frame means in one launch of
+``csrc/fused.cu``'s ``cv_fused_iteration_batch``.
 
 Partials layout (8,): [s_uH, s_H, s_dphi2, flips, s_absdphi, 0, 0, 0],
 taken over the transition phi -> phi_new (in the force mode the first two
@@ -128,3 +131,41 @@ def fused_sweep(phi, f, p: CVParams):
 
 
 fused_sweep.launches = 0
+
+
+def fused_iteration_batch_reference(phis, u0s, c1s, c2s, p: CVParams):
+    """Plain PyTorch version of :func:`fused_iteration_batch`:
+    :func:`fused_iteration_reference` on each frame, stacked."""
+    outs = [fused_iteration_reference(phi, u0, c1, c2, p)
+            for phi, u0, c1, c2 in zip(phis, u0s, c1s, c2s)]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
+def fused_iteration_batch(phis, u0s, c1s, c2s, p: CVParams):
+    """One red-black iteration of each frame of an (N, H, W) stack with
+    per-frame means c1s, c2s (N,); returns (phi_new (N, H, W), partials
+    (N, 8)), row n that of frame n. Shapes the reference's fused kernel
+    does not take (``supports``) raise, as there.
+
+    CPU tensors run the plain version; CUDA tensors (float32, contiguous)
+    launch ``cv_fused_iteration_batch`` (all frames, one launch) or raise.
+    """
+    if phis.ndim != 3 or u0s.shape != phis.shape:
+        raise ValueError(f"phis {tuple(phis.shape)} and u0s "
+                         f"{tuple(u0s.shape)} must be one (N, H, W) shape")
+    n, h, w = phis.shape
+    if not supports(h, w):
+        raise ValueError(f"fused batch unsupported for shape {(h, w)}")
+    if tuple(c1s.shape) != (n,) or tuple(c2s.shape) != (n,):
+        raise ValueError(f"c1s {tuple(c1s.shape)} and c2s "
+                         f"{tuple(c2s.shape)} must be ({n},)")
+    if phis.device.type == "cpu":
+        return fused_iteration_batch_reference(phis, u0s, c1s, c2s, p)
+    out = _cuda.launch_chunk_batch("cv_fused_iteration_batch", phis, u0s,
+                                   c1s, c2s, p, h, w)
+    fused_iteration_batch.launches += 1
+    return out
+
+
+fused_iteration_batch.launches = 0

@@ -9,9 +9,22 @@ holds P[a][b][r, c] = phi[2r+a, 2c+b]. On a CUDA tensor
 :func:`packed_banded_chunk_mc` ``csrc/packed_mc.cu``; on a CPU tensor they
 run their ``_reference`` plain versions.
 
-``_pack``/``_pack_n``/``_unpack``/``_unpack_n`` are a plain reshape +
-permute: the reference's MXU permutation-matmul pack was a TPU workaround
-and is not carried over. ``band_rows_packed(_mc)`` and
+K15/K16 (:func:`pack_planes`, :func:`unpack_planes`) are the parity pack
+and its inverse for (H, W) and (N, H, W) inputs (a frame or channel
+axis); every packed route packs and unpacks through them, looked up as
+module attributes at each call. On a CUDA tensor they launch
+``csrc/pack.cu``; on a CPU tensor they run the plain reshape + permute
+(``pack_planes_reference``, ``unpack_planes_reference``). Both are exact
+permutations, so bitwise equal. The reference's MXU permutation-matmul
+pack (a TPU workaround) flushes denormals to zero; these keep them.
+
+K13 (:func:`packed_chunk`) is the reference's layout A/B: k frozen-means
+iterations with the whole image resident, on parity planes
+(``packed=True``) or flat, (H, W) in and out, the partials of the last
+iteration; on a CUDA tensor it launches ``csrc/resident_chunk.cu``, on a
+CPU tensor it runs :func:`..fused_kernel.chunk_reference`.
+
+``band_rows_packed(_mc)`` and
 ``supports_packed_banded(_mc)`` are the reference's routing predicates;
 their VMEM and alignment terms are the reference's routing, not limits of
 the Hopper kernel.
@@ -33,7 +46,7 @@ from __future__ import annotations
 from ..params import CVParams
 from . import _cuda
 from .banded_kernel import banded_chunk_mc_reference, banded_chunk_reference
-from .fused_kernel import _VMEM_LIMIT
+from .fused_kernel import _VMEM_LIMIT, chunk_reference
 from .multiphase_kernel import check_mp2, mp2_resident_iterations_reference
 from .resident_kernel import (check_iters, check_stack,
                               resident_iterations_batch_reference,
@@ -46,34 +59,77 @@ _ARRAYS_RESIDENT = 20
 _ARRAYS_MP2_RESIDENT = 26
 
 
-def _pack(x):
-    """(H, W) -> (2, 2, H/2, W/2) parity planes, contiguous."""
-    h, w = x.shape
-    return x.reshape(h // 2, 2, w // 2, 2).permute(1, 3, 0, 2).contiguous()
+def _image_shape(x):
+    """(N or None, H, W) of an (H, W) or (N, H, W) input; odd sides and
+    other ranks raise."""
+    if x.ndim not in (2, 3):
+        raise ValueError(f"expected (H, W) or (N, H, W), got "
+                         f"{tuple(x.shape)}")
+    n = x.shape[0] if x.ndim == 3 else None
+    h, w = x.shape[-2:]
+    _cuda.check_even(h, w)
+    return n, h, w
 
 
-def _unpack(planes):
-    """(2, 2, H/2, W/2) -> (H, W). Inverse of :func:`_pack`."""
-    _, _, hp, wp = planes.shape
-    return planes.permute(2, 0, 3, 1).reshape(2 * hp, 2 * wp)
+def pack_planes_reference(x):
+    """Plain PyTorch version of :func:`pack_planes`."""
+    n, h, w = _image_shape(x)
+    lead = () if n is None else (n,)
+    y = x.reshape(*lead, h // 2, 2, w // 2, 2)
+    order = (1, 3, 0, 2) if n is None else (0, 2, 4, 1, 3)
+    return y.permute(*order).contiguous()
 
 
-def _pack_n(xn):
-    """(N, H, W) -> (N, 2, 2, H/2, W/2): :func:`_pack` over a leading axis."""
-    n, h, w = xn.shape
-    return (xn.reshape(n, h // 2, 2, w // 2, 2).permute(0, 2, 4, 1, 3)
-            .contiguous())
+def pack_planes(x):
+    """(H, W) -> (2, 2, H/2, W/2) parity planes, or (N, H, W) -> (N, 2, 2,
+    H/2, W/2) (a frame or channel axis), contiguous; plane (a, b) holds
+    x[2r + a, 2c + b]. CPU tensors run the plain version; CUDA tensors
+    (float32) launch K15 or raise."""
+    n, h, w = _image_shape(x)
+    if x.device.type == "cpu":
+        return pack_planes_reference(x)
+    out = _cuda.launch_pack("cv_pack_planes", x.reshape(n or 1, h, w),
+                            (n or 1, 2, 2, h // 2, w // 2))
+    pack_planes.launches += 1
+    return out if n is not None else out[0]
 
 
-def _pack_mc(ucf):
-    """(C, H, W) channels-first -> (C, 2, 2, H/2, W/2)."""
-    return _pack_n(ucf)
+pack_planes.launches = 0
 
 
-def _unpack_n(planes_n):
-    """(N, 2, 2, H/2, W/2) -> (N, H, W). Inverse of :func:`_pack_n`."""
-    n, _, _, hp, wp = planes_n.shape
-    return planes_n.permute(0, 3, 1, 4, 2).reshape(n, 2 * hp, 2 * wp)
+def _planes_shape(planes):
+    """(N or None, H, W) of (2, 2, H/2, W/2) or (N, 2, 2, H/2, W/2)
+    planes; other shapes raise."""
+    if planes.ndim not in (4, 5) or tuple(planes.shape[-4:-2]) != (2, 2):
+        raise ValueError(f"expected (2, 2, H/2, W/2) or (N, 2, 2, H/2, W/2) "
+                         f"planes, got {tuple(planes.shape)}")
+    n = planes.shape[0] if planes.ndim == 5 else None
+    return n, 2 * planes.shape[-2], 2 * planes.shape[-1]
+
+
+def unpack_planes_reference(planes):
+    """Plain PyTorch version of :func:`unpack_planes`."""
+    n, h, w = _planes_shape(planes)
+    if n is None:
+        return planes.permute(2, 0, 3, 1).reshape(h, w)
+    return planes.permute(0, 3, 1, 4, 2).reshape(n, h, w)
+
+
+def unpack_planes(planes):
+    """Inverse of :func:`pack_planes`: (2, 2, H/2, W/2) -> (H, W) or
+    (N, 2, 2, H/2, W/2) -> (N, H, W). CPU tensors run the plain version;
+    CUDA tensors (float32) launch K16 or raise."""
+    n, h, w = _planes_shape(planes)
+    if planes.device.type == "cpu":
+        return unpack_planes_reference(planes)
+    out = _cuda.launch_pack("cv_unpack_planes",
+                            planes.reshape(n or 1, 2, 2, h // 2, w // 2),
+                            (n or 1, h, w))
+    unpack_planes.launches += 1
+    return out if n is not None else out[0]
+
+
+unpack_planes.launches = 0
 
 
 def band_rows_packed(h: int, w: int, k: int):
@@ -99,9 +155,10 @@ def supports_packed_banded(h: int, w: int, k: int) -> bool:
 def packed_banded_chunk_reference(phi_planes, u0_planes, c1, c2,
                                   p: CVParams, k: int = 8):
     """Plain PyTorch version of :func:`packed_banded_chunk`."""
-    phi, parts = banded_chunk_reference(_unpack(phi_planes),
-                                        _unpack(u0_planes), c1, c2, p, k)
-    return _pack(phi), parts
+    phi, parts = banded_chunk_reference(unpack_planes_reference(phi_planes),
+                                        unpack_planes_reference(u0_planes),
+                                        c1, c2, p, k)
+    return pack_planes_reference(phi), parts
 
 
 def packed_banded_chunk(phi_planes, u0_planes, c1, c2, p: CVParams,
@@ -153,9 +210,9 @@ def packed_banded_chunk_mc_reference(phi_planes, u0_planes, c1, c2,
                                      lambda2=None):
     """Plain PyTorch version of :func:`packed_banded_chunk_mc`."""
     phi, parts = banded_chunk_mc_reference(
-        _unpack(phi_planes), _unpack_n(u0_planes), c1, c2, p, k, lambda1,
-        lambda2)
-    return _pack(phi), parts
+        unpack_planes_reference(phi_planes),
+        unpack_planes_reference(u0_planes), c1, c2, p, k, lambda1, lambda2)
+    return pack_planes_reference(phi), parts
 
 
 def packed_banded_chunk_mc(phi_planes, u0_planes, c1, c2, p: CVParams,
@@ -192,6 +249,58 @@ def supports_packed_resident(h: int, w: int) -> bool:
             and h * w * 4 * _ARRAYS_RESIDENT <= _VMEM_LIMIT)
 
 
+def supports_packed(h: int, w: int) -> bool:
+    """Whether the reference's :func:`packed_chunk` takes (h, w) (the same
+    envelope as its packed resident kernel)."""
+    return supports_packed_resident(h, w)
+
+
+def packed_chunk_reference(phi, u0, c1, c2, p: CVParams, k: int = 8):
+    """Plain PyTorch version of :func:`packed_chunk` (either layout: the
+    plane layout moves values without changing them)."""
+    return chunk_reference(phi, u0, c1, c2, p, k)
+
+
+def packed_chunk(phi, u0, c1, c2, p: CVParams, k: int = 8, unroll: int = 1,
+                 packed: bool = True):
+    """k frozen-means red-black iterations with the whole image resident,
+    on parity planes (``packed=True``, packed and unpacked inside) or
+    flat; (H, W) in and out. Returns (phi_new, partials (8,)) with the
+    partials describing the LAST iteration (the ``banded_chunk``
+    contract). Shapes off ``supports_packed`` raise, as do k < 1 and an
+    ``unroll`` that does not divide k; ``unroll`` changes nothing else.
+
+    CPU tensors run the plain version; CUDA tensors (float32) launch
+    ``csrc/resident_chunk.cu`` (one cooperative launch) or raise.
+    """
+    if phi.ndim != 2 or u0.shape != phi.shape:
+        raise ValueError(f"phi {tuple(phi.shape)} and u0 "
+                         f"{tuple(u0.shape)} must be one (H, W) shape")
+    h, w = phi.shape
+    if not supports_packed(h, w):
+        raise ValueError(f"packed resident unsupported for {(h, w)}")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if unroll < 1 or k % unroll:
+        raise ValueError(f"unroll must divide k (got k={k}, unroll={unroll})")
+    if phi.device.type == "cpu":
+        return packed_chunk_reference(phi, u0, c1, c2, p, k)
+    if packed:
+        out, parts = _cuda.launch_resident_chunk(
+            "cv_packed_resident_chunk", pack_planes(phi), pack_planes(u0),
+            c1, c2, p, k, h, w)
+        out = unpack_planes(out)
+    else:
+        out, parts = _cuda.launch_resident_chunk(
+            "cv_resident_chunk", phi, u0, c1, c2, p, k, h, w)
+    packed_chunk.launches["packed" if packed else "flat"] += 1
+    return out, parts
+
+
+# one count per layout: the two layouts are two kernels
+packed_chunk.launches = {"flat": 0, "packed": 0}
+
+
 def supports_packed_resident_mc(h: int, w: int, c: int) -> bool:
     """Whether the reference routes (h, w, c) to its packed resident mc
     kernel."""
@@ -220,10 +329,10 @@ def packed_resident_iterations(phi, u0, p: CVParams, iters: int,
     h, w = phi.shape
     _cuda.check_even(h, w)
     out, parts = _cuda.launch_resident(
-        "cv_packed_resident_iterations", _pack(phi), _pack(u0), p, iters,
-        unroll, h, w)
+        "cv_packed_resident_iterations", pack_planes(phi), pack_planes(u0),
+        p, iters, unroll, h, w)
     packed_resident_iterations.launches += 1
-    return _unpack(out), parts
+    return unpack_planes(out), parts
 
 
 packed_resident_iterations.launches = 0
@@ -247,10 +356,10 @@ def packed_resident_iterations_batch(phis, u0s, p: CVParams, iters: int,
     n, h, w = phis.shape
     _cuda.check_even(h, w)
     out, parts = _cuda.launch_resident(
-        "cv_packed_resident_iterations", _pack_n(phis), _pack_n(u0s), p,
-        iters, unroll, h, w, frames=n, batch=True)
+        "cv_packed_resident_iterations", pack_planes(phis),
+        pack_planes(u0s), p, iters, unroll, h, w, frames=n, batch=True)
     packed_resident_iterations_batch.launches += 1
-    return _unpack_n(out), parts
+    return unpack_planes(out), parts
 
 
 packed_resident_iterations_batch.launches = 0
@@ -278,10 +387,10 @@ def packed_resident_iterations_mc(phi, u0_cfirst, p: CVParams, iters: int,
     _cuda.check_even(h, w)
     l1, l2 = p.channel_lambdas(C, lambda1, lambda2)
     out, parts = _cuda.launch_resident(
-        "cv_packed_resident_iterations_mc", _pack(phi), _pack_mc(u0_cfirst),
-        p, iters, unroll, h, w, l1=l1, l2=l2)
+        "cv_packed_resident_iterations_mc", pack_planes(phi),
+        pack_planes(u0_cfirst), p, iters, unroll, h, w, l1=l1, l2=l2)
     packed_resident_iterations_mc.launches += 1
-    return _unpack(out), parts
+    return unpack_planes(out), parts
 
 
 packed_resident_iterations_mc.launches = 0
@@ -315,10 +424,10 @@ def packed_mp2_resident_iterations(phis, u0, p: CVParams, iters: int,
                                                         unroll)
     h, w = u0.shape
     out, parts = _cuda.launch_mp2_resident(
-        "cv_packed_mp2_resident_iterations", _pack_n(phis), _pack(u0), p,
-        iters, unroll, h, w)
+        "cv_packed_mp2_resident_iterations", pack_planes(phis),
+        pack_planes(u0), p, iters, unroll, h, w)
     packed_mp2_resident_iterations.launches += 1
-    return _unpack_n(out), parts
+    return unpack_planes(out), parts
 
 
 packed_mp2_resident_iterations.launches = 0

@@ -24,10 +24,21 @@ against its plain version at 4K, 1080p and a ragged shape, segment_morph
 (4K gray and RGB), segment_morph_iterations(fuse_force=True),
 segment_gac, segment_gac_iterations and
 compat.morphological_geodesic_active_contour through the kernels, and the
-morph-acwe / morph-gac throughput at 4K. Any failure raises and exits
-non-zero. The last lines are a JSON object per kernel, the card's name and
-power limit, and {"ok": true, "device": {...}}. Without a CUDA device it
-exits 1 and prints no result.
+morph-acwe / morph-gac throughput at 4K, and check that the binary
+morph start built on the card equals the one built on the CPU. Phases
+15-17 do the same for frame stacks and the layout kernels: K1's batch
+mode, K13 (packed_chunk, flat and packed) and the parity pack/unpack
+K15/K16 each against its plain version (the pack bitwise) at the shapes
+the main path gives it, segment_stack_sharded on a one-device data mesh
+(64 x 512^2 through K8 batch, 16 x 1080p through K1 batch, tolerance
+mode, whose per-frame iteration counts and masks are held against the
+same stack run on the CPU) and packed_chunk through the kernels, and the
+times: the batched-stack configuration at steady state, K1 batch beside
+the per-frame loop it replaced, the layout A/B at 1024^2 (K13
+flat/packed, K2/K3, K7/K8) and K15/K16 beside the permute-copy. Any
+failure raises and exits non-zero. The last lines are a JSON object per
+kernel, the card's name and power limit, and {"ok": true, "device":
+{...}}. Without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ if not torch.cuda.is_available():
 
 import chan_vese_tpu_torch as ct  # noqa: E402
 from chan_vese_tpu_torch import _build, compat  # noqa: E402
+from chan_vese_tpu_torch.models import batched as batchedm  # noqa: E402
 from chan_vese_tpu_torch.models import morph as morphm  # noqa: E402
 from chan_vese_tpu_torch.models import morph_gac as gacm  # noqa: E402
 from chan_vese_tpu_torch.models import multiphase as mpm  # noqa: E402
@@ -59,6 +71,8 @@ from chan_vese_tpu_torch.ops import (_cuda, banded_kernel,  # noqa: E402
 from chan_vese_tpu_torch.ops.morph import (  # noqa: E402
     binary_means, inverse_gaussian_gradient)
 from chan_vese_tpu_torch.ops.reductions import region_means  # noqa: E402
+from chan_vese_tpu_torch.parallel import (make_data_mesh,  # noqa: E402
+                                          segment_stack_sharded)
 from chan_vese_tpu_torch.utils.init_phi import init_phi  # noqa: E402
 
 H4K, W4K = 2160, 3840
@@ -282,6 +296,39 @@ MORPH_ITERS, MORPH_PLAIN_ITERS = 800, 40
 # the compat entry point's image (1080p)
 COMPAT_SHAPE = (1080, 1920)
 
+# frame stacks and the layout kernels (phases 15-17)
+STACK = {
+    "K1 fused_iteration_batch": dict(
+        source="chan_vese_tpu_torch/csrc/fused.cu",
+        replaces="chan_vese_tpu/ops/pallas_sweep.py:216"),
+    "K13 packed_chunk (flat)": dict(
+        source="chan_vese_tpu_torch/csrc/resident_chunk.cu",
+        replaces="chan_vese_tpu/ops/pallas_packed.py:384", packed=False),
+    "K13 packed_chunk (packed)": dict(
+        source="chan_vese_tpu_torch/csrc/resident_chunk.cu",
+        replaces="chan_vese_tpu/ops/pallas_packed.py:328", packed=True),
+    "K15 pack_planes": dict(source="chan_vese_tpu_torch/csrc/pack.cu",
+                            replaces="scripts/bench_pack.py:124"),
+    "K16 unpack_planes": dict(source="chan_vese_tpu_torch/csrc/pack.cu",
+                              replaces="scripts/bench_pack.py:148"),
+}
+# K1 batch: the 1080p video stack phase 16 sends it and a ragged one (1000
+# rows: not a multiple of the 64-row tile) inside the fused envelope,
+# which fused_iteration_batch holds to as the reference does
+VIDEO_FRAMES = 16
+K1B_STACKS = ((VIDEO_FRAMES, 1080, 1920), (3, 1000, 1408))
+# K13: inside its envelope (supports_packed), 720p the ragged shape
+K13_SHAPES, K13_KS, K13_TIMED = ((512, 512), (1024, 1024), (720, 1280)), \
+    (1, 3, 8), (1024, 1024)
+# K15/K16: 4K, 4K RGB channels-first, the 64 x 512^2 stack, W % 4 == 2
+STACK_FRAMES = 64
+PACK_SHAPES = ((H4K, W4K), (RGB, H4K, W4K), (STACK_FRAMES, 512, 512),
+               (1000, 1502))
+# the tolerance-mode stack of phase 16: frames with their own noise level
+# (seeds 0-3), which stop at different iterations (7, 23, 27, 11 on the
+# CPU, f32 and f64 alike)
+TOL_STACK, TOL_NOISES = (4, 256, 256), (8.0, 20.0, 20.0, 12.0)
+
 
 def two_disks(h, w, fg=217.0, bg=38.0, noise=8.0, seed=0):
     """Two bright disks on a dark background plus Gaussian noise, and the
@@ -338,6 +385,37 @@ def time_ms(fn, n):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+# cycles of the spin that holds the stream while queued_ms enqueues its
+# calls (~20 ms at the H100's clock: room for 50 calls of ~0.4 ms of host
+# time each); doubled up to 16x where the host needs longer
+QUEUE_SPIN_CYCLES = 40_000_000
+
+
+def queued_ms(fn, n):
+    """Mean device time of fn over n calls with the host out of the way: a
+    spin kernel holds the stream while the n calls are queued behind it,
+    so the events time their kernels back to back. For launches about as
+    short as their host-side cost, which time_ms measures at the host's
+    pace. Raises if even the longest spin ends before the calls are
+    queued."""
+    fn()
+    torch.cuda.synchronize()
+    for spin in (QUEUE_SPIN_CYCLES << s for s in range(5)):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        held = not start.query()  # the spin outlasted the enqueueing
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / n
+    raise AssertionError(f"queued_ms: {n} calls took longer to enqueue "
+                         f"than a spin of {spin} cycles")
 
 
 def roofline(nbytes, ops):
@@ -474,6 +552,17 @@ def plain_route():
     saved_morph = {n: getattr(morph_kernel, n) for n in morph_names}
     for n in morph_names:
         setattr(morph_kernel, n, getattr(morph_kernel, f"{n}_reference"))
+    # K1 batch, K13 and the pack pair (every packed route packs through it)
+    saved_stack = (fused_kernel.fused_iteration_batch,
+                   packed_kernel.packed_chunk, packed_kernel.pack_planes,
+                   packed_kernel.unpack_planes)
+    fused_kernel.fused_iteration_batch = (
+        fused_kernel.fused_iteration_batch_reference)
+    packed_kernel.packed_chunk = (
+        lambda phi, u0, c1, c2, p, k=8, unroll=1, packed=True:
+        packed_kernel.packed_chunk_reference(phi, u0, c1, c2, p, k))
+    packed_kernel.pack_planes = packed_kernel.pack_planes_reference
+    packed_kernel.unpack_planes = packed_kernel.unpack_planes_reference
     fused_kernel.fused_iteration = fused_kernel.fused_iteration_reference
     banded_kernel.banded_chunk = (
         lambda phi, u0, c1, c2, p, k=8, unroll=1, fuse=False:
@@ -502,6 +591,8 @@ def plain_route():
             setattr(RESIDENT[name]["module"], fn.__name__, fn)
         for n, fn in saved_morph.items():
             setattr(morph_kernel, n, fn)
+        (fused_kernel.fused_iteration_batch, packed_kernel.packed_chunk,
+         packed_kernel.pack_planes, packed_kernel.unpack_planes) = saved_stack
 
 
 def check_kernel(name, kern, args, c1, c2, p, k, h, w, lam):
@@ -809,6 +900,17 @@ def reset_morph_counts():
     morph_kernel.morph_chunk_fused.launches = 0
 
 
+def reset_pack_counts():
+    packed_kernel.pack_planes.launches = 0
+    packed_kernel.unpack_planes.launches = 0
+
+
+def pack_counts():
+    """(K15, K16) launches since the last reset."""
+    return (packed_kernel.pack_planes.launches,
+            packed_kernel.unpack_planes.launches)
+
+
 def check_masks(checks):
     for key, (val, bar) in checks.items():
         if not val >= bar:
@@ -891,6 +993,21 @@ def morph_phases(dev, card):
             compat=compat.morphological_geodesic_active_contour(
                 g1k, 80, init_level_set=seed1k, device=dev, **gkw))
 
+    # the binary start of MorphACWE/MorphGAC (init_phi(...) >= 0, whose
+    # sign on the checkerboard's zero rows rests on sin's last ulp) built
+    # on the card against the same start built on the CPU
+    start_diff = {}
+    for h, w in ((H4K, W4K), (1080, 1920)):
+        like = torch.empty((h, w), device=dev)
+        start_diff[f"{h}x{w}"] = int((gacm._init_ls(like, p, None).cpu()
+                                      != gacm._init_ls(like.cpu(), p, None))
+                                     .sum())
+    print(f"phase 13 binary start built on the card vs on the CPU: cells "
+          f"differing {start_diff}", flush=True)
+    if any(start_diff.values()):
+        raise AssertionError(f"the binary start differs between the card "
+                             f"and the CPU: {start_diff}")
+
     reset_morph_counts()
     got = morph_path()
     torch.cuda.synchronize()
@@ -970,6 +1087,330 @@ def morph_phases(dev, card):
     return mo_stats
 
 
+def frame_stack(n, h, w, dev, noises=(8.0,)):
+    """n two-disks frames (seeds 0..n-1, noise levels taken in turn from
+    ``noises``) on the card, and their truths."""
+    frames = [two_disks(h, w, noise=noises[s % len(noises)], seed=s)
+              for s in range(n)]
+    return (torch.from_numpy(np.stack([f for f, _ in frames])).to(dev),
+            [g for _, g in frames])
+
+
+def chunk_inputs(u, p):
+    """(phi, u0, c1, c2): the checkerboard start and its means on image u."""
+    phi = init_phi(tuple(u.shape), p.init, torch.float32, device=u.device)
+    return (phi, u, *region_means(u, phi, p.eps))
+
+
+def hold(name, got, ref, tag):
+    """A kernel's (phi, partials) against another version's at phase 3's
+    bars; returns max |d phi|."""
+    (gphi, gparts), (rphi, rparts) = got, ref
+    err = float((gphi - rphi).abs().max())
+    sure = rphi.abs() > PHI_ATOL
+    ok = (torch.allclose(gphi, rphi, rtol=PHI_RTOL, atol=PHI_ATOL)
+          and bool(((gphi >= 0) == (rphi >= 0))[sure].all())
+          and gparts.shape == rparts.shape
+          and torch.allclose(gparts, rparts, rtol=PARTS_RTOL,
+                             atol=PARTS_ATOL) and math.isfinite(err))
+    if not ok:
+        raise AssertionError(f"{name} at {tag} disagrees: phi max|d| {err}, "
+                             f"parts {gparts.tolist()} vs {rparts.tolist()}")
+    return err
+
+
+def check_stack_kernels(dev, p, img4k, rgb4k_cf):
+    """Phase 15: K1 batch, K13 (both layouts) and K15/K16 against their
+    plain versions; a second launch of each bitwise equal to the first.
+    Returns the stats dict of the five entries."""
+    st = {name: dict(max_abs_err=0.0) for name in STACK}
+    # K1 batch: each frame also bitwise the single-image K1 launch
+    for n, h, w in K1B_STACKS:
+        u, _ = frame_stack(n, h, w, dev)
+        phi, _, _, _ = chunk_inputs(u[0], p)
+        phis = phi.expand(n, h, w).contiguous()
+        means = [region_means(f, phi, p.eps) for f in u]
+        c1 = torch.stack([m[0] for m in means])
+        c2 = torch.stack([m[1] for m in means])
+        op = fused_kernel.fused_iteration_batch
+        got, again = op(phis, u, c1, c2, p), op(phis, u, c1, c2, p)
+        ref = fused_kernel.fused_iteration_batch_reference(phis, u, c1, c2, p)
+        single = [fused_kernel.fused_iteration(phis[i], u[i], c1[i], c2[i], p)
+                  for i in range(n)]
+        torch.cuda.synchronize()
+        repeat = torch.equal(got[0], again[0]) and torch.equal(got[1],
+                                                               again[1])
+        alone = all(torch.equal(got[0][i], o[0]) and torch.equal(got[1][i],
+                                                                 o[1])
+                    for i, o in enumerate(single))
+        if not (repeat and alone):
+            raise AssertionError(f"K1 batch at {n}x{h}x{w}: second launch "
+                                 f"equal {repeat}, frames equal to single "
+                                 f"launches {alone}")
+        err = hold("K1 fused_iteration_batch", got, ref, f"{n}x{h}x{w}")
+        b = st["K1 fused_iteration_batch"]
+        b["max_abs_err"] = max(b["max_abs_err"], err)
+        print(f"phase 15 K1 fused_iteration_batch {n}x{h}x{w}: phi max|d|="
+              f"{err:.3e} parts max|d|="
+              f"{float((got[1] - ref[1]).abs().max()):.3e} (phi rtol "
+              f"{PHI_RTOL} atol {PHI_ATOL}, parts rtol {PARTS_RTOL} atol "
+              f"{PARTS_ATOL}); every frame bitwise equal to its own "
+              f"fused_iteration launch; second launch bitwise equal",
+              flush=True)
+        if n == VIDEO_FRAMES:
+            b["ms"] = time_ms(lambda: op(phis, u, c1, c2, p), 20)
+            b["plain_ms"] = time_ms(
+                lambda: fused_kernel.fused_iteration_batch_reference(
+                    phis, u, c1, c2, p), 2)
+            b["bound_ms"], b["bound_by"] = bound(h, w, 1, 0, frames=n)
+            b["timed"] = f"{n}x{h}x{w}"
+    # K13: against its plain version and against K2 on the card
+    for h, w in K13_SHAPES:
+        args = chunk_inputs(torch.from_numpy(two_disks(h, w)[0]).to(dev), p)
+        for k in K13_KS:
+            band = banded_kernel.banded_chunk(*args, p, k)
+            ref = packed_kernel.packed_chunk_reference(*args, p, k)
+            for name in ("K13 packed_chunk (flat)",
+                         "K13 packed_chunk (packed)"):
+                packed = STACK[name]["packed"]
+                got = packed_kernel.packed_chunk(*args, p, k, packed=packed)
+                again = packed_kernel.packed_chunk(*args, p, k,
+                                                   packed=packed)
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], again[0])
+                        and torch.equal(got[1], again[1])):
+                    raise AssertionError(f"{name} k={k} at {h}x{w}: two "
+                                         f"launches differ")
+                err = hold(name, got, ref, f"{h}x{w} k={k}")
+                err_band = hold(name, got, band, f"{h}x{w} k={k} vs K2")
+                st[name]["max_abs_err"] = max(st[name]["max_abs_err"], err)
+                print(f"phase 15 {name} {h}x{w} k={k}: phi max|d| vs plain "
+                      f"{err:.3e}, vs K2 banded_chunk {err_band:.3e}; parts "
+                      f"max|d| vs plain "
+                      f"{float((got[1] - ref[1]).abs().max()):.3e} (phase "
+                      f"3's bars); second launch bitwise equal", flush=True)
+                if (h, w) == K13_TIMED and k == K13_KS[-1]:
+                    # queued: with the pack inside, four launches whose
+                    # host-side cost is about their device time
+                    st[name]["ms"] = queued_ms(lambda: packed_kernel.
+                                               packed_chunk(*args, p, k,
+                                                            packed=packed),
+                                               20)
+                    st[name]["plain_ms"] = time_ms(
+                        lambda: packed_kernel.packed_chunk_reference(
+                            *args, p, k), 2)
+                    st[name]["bound_ms"], st[name]["bound_by"] = bound(
+                        h, w, k, 0)
+    # K15/K16 bitwise, on the main paths' images
+    inputs = {(H4K, W4K): img4k, (RGB, H4K, W4K): rgb4k_cf}
+    for shape in PACK_SHAPES:
+        x = inputs.get(shape)
+        if x is None:
+            x = torch.from_numpy(np.random.default_rng(5).uniform(
+                0, 255, shape).astype(np.float32)).to(dev)
+        planes, planes2 = (packed_kernel.pack_planes(x),
+                           packed_kernel.pack_planes(x))
+        back, back2 = (packed_kernel.unpack_planes(planes),
+                       packed_kernel.unpack_planes(planes))
+        torch.cuda.synchronize()
+        ok = (torch.equal(planes, packed_kernel.pack_planes_reference(x))
+              and torch.equal(planes, planes2) and torch.equal(back, x)
+              and torch.equal(back, back2)
+              and torch.equal(back, packed_kernel.unpack_planes_reference(
+                  planes)))
+        print(f"phase 15 K15/K16 {'x'.join(map(str, shape))}: planes and "
+              f"round trip bitwise equal to the plain versions and the "
+              f"input: {ok}; second launches bitwise equal", flush=True)
+        if not ok:
+            raise AssertionError(f"K15/K16 at {shape} differ from the "
+                                 f"plain versions")
+    return st
+
+
+def stack_phases(dev, card, img4k, rgb4k_cf):
+    """Phases 15-17, frame stacks and the layout kernels; returns the five
+    kernels' stats for the JSON line."""
+    p = ct.CVParams()
+    st = check_stack_kernels(dev, p, img4k, rgb4k_cf)
+
+    # phase 16: the slice through the user entry points on a data mesh of
+    # the card. 64 x 512^2 is inside the resident envelope: K8 batch, which
+    # packs through K15/K16; 1080p frames are off it: K1 batch, one launch
+    # an iteration. mu as phase 4 (the k=8 trap does not apply, but the
+    # smoke's other mask checks use it). segment_fused on frame 0 sets the
+    # video's iterations so that the run has converged.
+    pt = ct.CVParams(mu=0.001 * 255.0 ** 2, max_iter=500)
+    mesh = make_data_mesh()
+    s512, gt512 = frame_stack(STACK_FRAMES, 512, 512, dev)
+    video, gtv = frame_stack(VIDEO_FRAMES, 1080, 1920, dev)
+    small, gts = frame_stack(*TOL_STACK, dev, TOL_NOISES)
+    video_iters = max(MAIN_FIXED_ITERS, ct.segment_fused(video[0], pt).iters)
+    chunk = chunk_inputs(torch.from_numpy(two_disks(*K13_TIMED)[0]).to(dev),
+                         p)
+
+    def stack_path():
+        out = dict(
+            s512=segment_stack_sharded(s512, pt, mesh,
+                                       iters=MAIN_FIXED_ITERS)[1],
+            video=segment_stack_sharded(video, pt, mesh,
+                                        iters=video_iters)[1])
+        for name in ("K13 packed_chunk (flat)", "K13 packed_chunk (packed)"):
+            out[name] = packed_kernel.packed_chunk(
+                *chunk, p, 8, packed=STACK[name]["packed"])
+        return out
+
+    batch_op = fused_kernel.fused_iteration_batch
+    batch_op.launches = 0
+    packed_kernel.packed_chunk.launches = {"flat": 0, "packed": 0}
+    packed_kernel.packed_resident_iterations_batch.launches = 0
+    reset_pack_counts()
+    got = stack_path()
+    # tolerance mode launches no kernel (the reference runs the plain
+    # segment under vmap): it is held against the same stack on the CPU
+    got["tol"] = segment_stack_sharded(small, pt, mesh)
+    torch.cuda.synchronize()
+    st["K1 fused_iteration_batch"]["launches"] = batch_op.launches
+    for name in ("K13 packed_chunk (flat)", "K13 packed_chunk (packed)"):
+        st[name]["launches"] = packed_kernel.packed_chunk.launches[
+            "packed" if STACK[name]["packed"] else "flat"]
+    (st["K15 pack_planes"]["launches"],
+     st["K16 unpack_planes"]["launches"]) = pack_counts()
+    k8_batch = packed_kernel.packed_resident_iterations_batch.launches
+    with plain_route():
+        ref = stack_path()
+    torch.cuda.synchronize()
+    tol_cpu = segment_stack_sharded(small.cpu(), pt, make_data_mesh(
+        devices=[torch.device("cpu")]))
+    checks = {}
+    for key, gt in (("s512", gt512), ("video", gtv)):
+        checks[f"{key} min frame IoU vs truth"] = (
+            min(iou_phases(m, g) for m, g in zip(got[key].cpu(), gt)), 0.99)
+        checks[f"{key} IoU vs plain route"] = (
+            iou(got[key].cpu(), ref[key].cpu()), 0.999)
+    checks["tol min frame IoU vs truth"] = (
+        min(iou_phases(m, g) for m, g in zip(got["tol"].mask.cpu(), gts)),
+        0.99)
+    checks["tol min frame IoU vs the CPU"] = (
+        min(iou(m, c) for m, c in zip(got["tol"].mask.cpu(), tol_cpu.mask)),
+        0.999)
+    for name in ("K13 packed_chunk (flat)", "K13 packed_chunk (packed)"):
+        hold(name, got[name], ref[name], "phase 16 1024^2 k=8")
+    card_iters, cpu_iters = got["tol"].iters.tolist(), tol_cpu.iters.tolist()
+    print(f"phase 16 stack slice on a data mesh of {mesh.shape}: "
+          f"segment_stack_sharded {STACK_FRAMES}x512^2 {MAIN_FIXED_ITERS} "
+          f"iterations (K8 batch launches {k8_batch}), {VIDEO_FRAMES}x1080p "
+          f"{video_iters} iterations (segment_fused on frame 0 stopped "
+          f"there or earlier), tolerance mode {'x'.join(map(str, TOL_STACK))}"
+          f" noise {TOL_NOISES} iters on the card {card_iters} (CPU "
+          f"{cpu_iters}); packed_chunk 1024^2 k=8 both "
+          f"layouts within phase 3's bars of the plain route; "
+          + "; ".join(f"{k} {v:.6f} (>= {m})" for k, (v, m) in checks.items())
+          + "; launches " + ", ".join(f"{n}={v['launches']}"
+                                     for n, v in st.items()), flush=True)
+    check_masks(checks)
+    if card_iters != cpu_iters or len(set(card_iters)) < 2:
+        raise AssertionError(f"tolerance-mode iteration counts on the card "
+                             f"{card_iters}, on the CPU {cpu_iters}: they "
+                             f"must agree and differ between frames")
+    if k8_batch < 1:
+        raise AssertionError("the 512^2 stack did not run K8 batch")
+    if batch_op.launches != video_iters * mesh.shape["data"]:
+        raise AssertionError(f"K1 batch launched {batch_op.launches} times "
+                             f"for {video_iters} iterations")
+    for name, v in st.items():
+        if v["launches"] < 1:
+            raise AssertionError(f"{name} was not launched on the main path")
+
+    # phase 17: times. The batched-stack configuration (bench_families.py
+    # :121-135: 64 x 512^2 uniform in [0, 255), seed 0, default params) at
+    # steady state; K1 batch beside the per-frame loop it replaced; the
+    # layout A/B at 1024^2; K15/K16 beside the permute-copy
+    bstack = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 255, (STACK_FRAMES, 512, 512)).astype(np.float32)).to(dev)
+    ms = time_ms(lambda: segment_stack_sharded(
+        bstack, p, mesh, iters=THROUGHPUT_ITERS), 1)
+    print(f"phase 17 batched-stack {STACK_FRAMES}x512^2 on the data mesh, "
+          f"{THROUGHPUT_ITERS} iterations (K8 batch): {ms:.3f} ms = "
+          f"{bstack.numel() * THROUGHPUT_ITERS / (ms * 1e3):.1f} "
+          f"Mpixel-iters/s [{card}]", flush=True)
+
+    def per_frame_loop():  # the per-frame driver K1 batch replaced
+        return torch.stack([
+            ct.segment_fused_fixed(u, p, MAIN_FIXED_ITERS, phi)[0]
+            for u, phi in zip(video, batchedm._stack_phi0(video, p, None))])
+    n_pix = video.numel() * MAIN_FIXED_ITERS
+    batch_ms = time_ms(lambda: batchedm.segment_stack_fused_fixed(
+        video, p, MAIN_FIXED_ITERS), 2)
+    loop_ms = time_ms(per_frame_loop, 1)
+    print(f"phase 17 {VIDEO_FRAMES}x1080p, {MAIN_FIXED_ITERS} iterations: "
+          f"segment_stack_fused_fixed (K1 batch) {batch_ms:.3f} ms = "
+          f"{n_pix / (batch_ms * 1e3):.1f} Mpixel-iters/s; per-frame "
+          f"segment_fused_fixed loop {loop_ms:.3f} ms = "
+          f"{n_pix / (loop_ms * 1e3):.1f} [{card}]", flush=True)
+
+    phi, u, c1, c2 = chunk
+    h, w = K13_TIMED
+    phi_pl, u_pl = packed_kernel.pack_planes(phi), packed_kernel.pack_planes(u)
+    runs = {
+        "K13 flat": lambda: packed_kernel.packed_chunk(phi, u, c1, c2, p, 8,
+                                                       packed=False),
+        "K13 packed (pack inside)": lambda: packed_kernel.packed_chunk(
+            phi, u, c1, c2, p, 8),
+        "K13 packed (planes)": lambda: _cuda.launch_resident_chunk(
+            "cv_packed_resident_chunk", phi_pl, u_pl, c1, c2, p, 8, h, w),
+        "K2 k=8": lambda: banded_kernel.banded_chunk(phi, u, c1, c2, p, 8),
+        "K3 k=8 (planes)": lambda: packed_kernel.packed_banded_chunk(
+            phi_pl, u_pl, c1, c2, p, 8),
+        "K7 16 it": lambda: resident_kernel.resident_iterations(phi, u, p,
+                                                                16),
+        "K8 16 it (pack inside)":
+            lambda: packed_kernel.packed_resident_iterations(phi, u, p, 16),
+    }
+    order = list(runs) + list(runs)[::-1]  # in turns, then back
+    times = {name: [] for name in runs}
+    for name in order:
+        times[name].append(queued_ms(runs[name], 20))
+    print(f"phase 17 layout A/B at {h}x{w} (queued device ms a launch, "
+          f"forward and backward pass): "
+          + ", ".join(f"{n} {t[0]:.4f}/{t[1]:.4f}" for n, t in times.items())
+          + f" [{card}]", flush=True)
+
+    x = img4k
+    planes = packed_kernel.pack_planes(x)
+    hh, ww = x.shape
+    lib = {"K15 pack_planes": lambda: x.reshape(hh // 2, 2, ww // 2, 2)
+           .permute(1, 3, 0, 2).contiguous(),
+           "K16 unpack_planes": lambda: planes.permute(2, 0, 3, 1)
+           .reshape(hh, ww)}
+    calls = {"K15 pack_planes": (lambda: packed_kernel.pack_planes(x),
+                                 lambda: packed_kernel.pack_planes_reference(
+                                     x)),
+             "K16 unpack_planes": (
+                 lambda: packed_kernel.unpack_planes(planes),
+                 lambda: packed_kernel.unpack_planes_reference(planes))}
+    # a 4K pack is about as short as its host-side cost: queued device
+    # times, and the kernel's time at the host's pace beside them
+    paced = {}
+    for name, (kern, plain) in calls.items():
+        st[name]["ms"] = queued_ms(kern, 50)
+        st[name]["plain_ms"] = queued_ms(plain, 50)
+        st[name]["library_ms"] = queued_ms(lib[name], 50)
+        st[name]["bound_ms"], st[name]["bound_by"] = roofline(8 * hh * ww, 0)
+        paced[name] = time_ms(kern, 50)
+    print("phase 17 parity pack at 4K (2160x3840 f32), queued device time: "
+          + ", ".join(
+              f"{n} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, "
+              f"permute-copy {v['library_ms']:.4f}, bound "
+              f"{v['bound_ms']:.4f} bytes; at the host's pace "
+              f"{paced[n]:.4f})"
+              for n, v in st.items() if n in paced)
+          + f"; K1 batch {st['K1 fused_iteration_batch']['timed']} "
+          f"{st['K1 fused_iteration_batch']['ms']:.4f} ms an iteration "
+          f"(bound {st['K1 fused_iteration_batch']['bound_ms']:.4f}) "
+          f"[{card}]", flush=True)
+    return st
+
+
 def main() -> int:
     dev = torch.device("cuda", 0)
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -985,7 +1426,8 @@ def main() -> int:
           f"resident co-resident blocks: "
           + ", ".join(f"{sym} {_cuda.resident_capacity(sym, 3, 0)}"
                       for sym in (*_build.RESIDENT_SYMBOLS,
-                                  *_build.MP2_RESIDENT_SYMBOLS)),
+                                  *_build.MP2_RESIDENT_SYMBOLS,
+                                  *_build.CHUNK_SYMBOLS)),
           flush=True)
 
     # phase 3: each kernel against its plain version, at the main paths'
@@ -1003,11 +1445,11 @@ def main() -> int:
         means = {0: region_means(u0, phi, p.eps),
                  RGB: region_means(u0_rgb, phi, p.eps)}
         inputs = {(0, False): (phi, u0),
-                  (0, True): (packed_kernel._pack(phi),
-                              packed_kernel._pack(u0)),
+                  (0, True): (packed_kernel.pack_planes(phi),
+                              packed_kernel.pack_planes(u0)),
                   (RGB, False): (phi, ucf),
-                  (RGB, True): (packed_kernel._pack(phi),
-                                packed_kernel._pack_mc(ucf))}
+                  (RGB, True): (packed_kernel.pack_planes(phi),
+                                packed_kernel.pack_planes(ucf))}
         for name, kern in KERNELS.items():
             args = inputs[kern["channels"], kern["packed"]]
             c1, c2 = means[kern["channels"]]
@@ -1042,12 +1484,14 @@ def main() -> int:
     u1k = torch.from_numpy(img1k).to(dev)
     for name in GRAY:
         KERNELS[name]["wrapper"].launches = 0
+    reset_pack_counts()
     res4k = ct.segment_banded(u4k, pt)
     res1k = ct.segment_banded(u1k, pt)
     resf = ct.segment_fused(u1k, pt)
     torch.cuda.synchronize()
     for name in GRAY:
         stats[name]["launches"] = KERNELS[name]["wrapper"].launches
+    packs = pack_counts()
     with plain_route():
         plain4k = ct.segment_banded(u4k, pt)
         plain1k = ct.segment_banded(u1k, pt)
@@ -1067,10 +1511,14 @@ def main() -> int:
           + "; ".join(f"{k} {v:.6f} (>= {m})" for k, (v, m) in
                       checks.items())
           + "; launches " + ", ".join(f"{n.split()[0]}={stats[n]['launches']}"
-                                     for n in GRAY), flush=True)
+                                     for n in GRAY)
+          + f", K15={packs[0]}, K16={packs[1]}", flush=True)
     if not (res4k.iters < pt.max_iter and res1k.iters < pt.max_iter
             and resf.iters < pt.max_iter):
         raise AssertionError("a run did not converge within max_iter")
+    if min(packs) < 1:
+        raise AssertionError(f"the 4K packed route packed through K15/K16 "
+                             f"{packs} times")
     if not torch.isfinite(res4k.phi).all():
         raise AssertionError("non-finite 4K level set")
     check_masks(checks)
@@ -1089,12 +1537,14 @@ def main() -> int:
     v1k = torch.from_numpy(rgb1k).to(dev)
     for name in COLOR:
         KERNELS[name]["wrapper"].launches = 0
+    reset_pack_counts()
     rv4k = ct.segment_banded(v4k, pv)
     rv1k = ct.segment_banded(v1k, pv)
     rvf = ct.segment_fused(v1k, pv)
     torch.cuda.synchronize()
     for name in COLOR:
         stats[name]["launches"] = KERNELS[name]["wrapper"].launches
+    packs = pack_counts()
     with plain_route():
         pv4k = ct.segment_banded(v4k, pv)
         pv1k = ct.segment_banded(v1k, pv)
@@ -1113,9 +1563,13 @@ def main() -> int:
           + "; ".join(f"{k} {v:.6f} (>= {m})" for k, (v, m) in
                       checks.items())
           + "; launches " + ", ".join(f"{n.split()[0]}={stats[n]['launches']}"
-                                     for n in COLOR), flush=True)
+                                     for n in COLOR)
+          + f", K15={packs[0]}, K16={packs[1]}", flush=True)
     if not all(r.iters < pv.max_iter for r in (rv4k, rv1k, rvf)):
         raise AssertionError("an RGB run did not converge within max_iter")
+    if min(packs) < 1:
+        raise AssertionError(f"the 4K RGB packed route packed through "
+                             f"K15/K16 {packs} times")
     if not (torch.isfinite(rv4k.phi).all() and rv4k.c1.shape == (RGB,)):
         raise AssertionError("non-finite 4K RGB level set or bad means")
     check_masks(checks)
@@ -1435,15 +1889,17 @@ def main() -> int:
           f"[{card}]", flush=True)
 
     mo_stats = morph_phases(dev, card)
+    sk_stats = stack_phases(dev, card, u4k, v4k.permute(2, 0, 1).contiguous())
 
     entries = [
         dict(name=name, route="cuda", source=k["source"],
              replaces=k["replaces"], launches=st["launches"],
              max_abs_err=st["max_abs_err"], ms=st["ms"],
              plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
-             bound_by=st["bound_by"], library_ms=None)
+             bound_by=st["bound_by"], library_ms=st.get("library_ms"))
         for table, stat in ((KERNELS, stats), (RESIDENT, res_stats),
-                            (MP2, mp_stats), (MORPH, mo_stats))
+                            (MP2, mp_stats), (MORPH, mo_stats),
+                            (STACK, sk_stats))
         for name, k in table.items() for st in (stat[name],)]
     print(json.dumps({"kernels": entries}))
     print(f"card: {card}")

@@ -210,12 +210,12 @@ def test_pack_unpack_bitwise_against_reference():
     rng = np.random.default_rng(1)
     x = rng.standard_normal((32, 512)).astype(np.float32)
     want = np.asarray(pallas_packed._pack(jnp.asarray(x)))
-    got = packed_kernel._pack(to_torch(x, np.float32))
+    got = packed_kernel.pack_planes(to_torch(x, np.float32))
     np.testing.assert_array_equal(to_np(got), want)
-    np.testing.assert_array_equal(to_np(packed_kernel._unpack(got)), x)
+    np.testing.assert_array_equal(to_np(packed_kernel.unpack_planes(got)), x)
     np.testing.assert_array_equal(
         np.asarray(pallas_packed._unpack(jnp.asarray(want))),
-        to_np(packed_kernel._unpack(got)))
+        to_np(packed_kernel.unpack_planes(got)))
 
 
 # (h) image I/O and the CLI -----------------------------------------------

@@ -98,8 +98,8 @@ def test_packed_banded_chunk_plain_matches_pallas(k):
         pallas_packed._pack(jnp.asarray(phi)),
         pallas_packed._pack(jnp.asarray(u0)), c1, c2, pj, k, interpret=True)
     got = packed_kernel.packed_banded_chunk(
-        packed_kernel._pack(to_torch(phi, np.float32)),
-        packed_kernel._pack(to_torch(u0, np.float32)),
+        packed_kernel.pack_planes(to_torch(phi, np.float32)),
+        packed_kernel.pack_planes(to_torch(u0, np.float32)),
         torch.tensor(c1), torch.tensor(c2), pt, k)
     _check(got, want)
 
@@ -164,7 +164,7 @@ def test_banded_chunk_cuda_matches_plain(k):
 def test_packed_banded_chunk_cuda_matches_plain():
     phi, u0, c1, c2 = _card_case(cuda_device(), (200, 300), 4)
     _, pt = params()
-    pp, up = packed_kernel._pack(phi), packed_kernel._pack(u0)
+    pp, up = packed_kernel.pack_planes(phi), packed_kernel.pack_planes(u0)
     got = packed_kernel.packed_banded_chunk(pp, up, c1, c2, pt, 8)
     _check_card(got, packed_kernel.packed_banded_chunk_reference(
         pp, up, c1, c2, pt, 8))

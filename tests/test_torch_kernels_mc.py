@@ -112,7 +112,7 @@ def test_packed_banded_chunk_mc_plain_matches_pallas(k):
         interpret=True)
     phi_t, u_t, c1_t, c2_t = _torch(ucf, phi, c1, c2)
     got = packed_kernel.packed_banded_chunk_mc(
-        packed_kernel._pack(phi_t), packed_kernel._pack_mc(u_t), c1_t, c2_t,
+        packed_kernel.pack_planes(phi_t), packed_kernel.pack_planes(u_t), c1_t, c2_t,
         pt, k, **_lam(k))
     assert tuple(got[1].shape) == (16,)
     _check(got, want)
@@ -140,12 +140,12 @@ def test_pack_n_unpack_n_bitwise_against_reference():
     rng = np.random.default_rng(3)
     x = rng.standard_normal((3, 32, 512)).astype(np.float32)
     want = np.asarray(pallas_packed._pack_mc(jnp.asarray(x)))
-    got = packed_kernel._pack_mc(to_torch(x, np.float32))
+    got = packed_kernel.pack_planes(to_torch(x, np.float32))
     np.testing.assert_array_equal(to_np(got), want)
-    np.testing.assert_array_equal(to_np(packed_kernel._unpack_n(got)), x)
+    np.testing.assert_array_equal(to_np(packed_kernel.unpack_planes(got)), x)
     np.testing.assert_array_equal(
         np.asarray(pallas_packed._unpack_n(jnp.asarray(want))),
-        to_np(packed_kernel._unpack_n(got)))
+        to_np(packed_kernel.unpack_planes(got)))
 
 
 def test_mc_wrappers_validate_arguments():
@@ -246,7 +246,7 @@ def test_banded_chunk_mc_cuda_matches_plain(k):
 def test_packed_banded_chunk_mc_cuda_matches_plain(nchan):
     phi, u0, c1, c2 = _card_case(cuda_device(), (nchan, 200, 300), 4)
     _, pt = params()
-    pp, up = packed_kernel._pack(phi), packed_kernel._pack_mc(u0)
+    pp, up = packed_kernel.pack_planes(phi), packed_kernel.pack_planes(u0)
     got = packed_kernel.packed_banded_chunk_mc(pp, up, c1, c2, pt, 8)
     _check_card(got, packed_kernel.packed_banded_chunk_mc_reference(
         pp, up, c1, c2, pt, 8))
