@@ -34,6 +34,10 @@ _TAIL = [_I, _I, _I] + [_F] * 9 + [_P]
 # (the per-channel weights travel with the means), stream
 _HEAD_MC = [_P] * 6 + [_I, _I, _I]
 _TAIL_MC = [_I, _I, _I] + [_F] * 7 + [_P]
+# shard-canvas launchers (redblack.cuh SHARD): the scalar or multichannel
+# launcher's arguments with parity, r0, r1, c0, c1 and the top, bottom,
+# left, right flags before the stream
+_SHARD = [_I] * 9 + [_P]
 # resident launchers (csrc/resident.cuh CV_RESIDENT_ARGS): 8 pointers;
 # nblocks, N, H, W, C, iters, unroll, batch, nrow; 9 params; stream. Each
 # has a `_grid` twin (C, int* max co-resident blocks).
@@ -70,6 +74,10 @@ SIGNATURES = {
     "cv_fused_iteration_mc": _HEAD_MC + _TAIL_MC,
     "cv_banded_chunk_mc": _HEAD_MC + [_I] + _TAIL_MC,
     "cv_packed_banded_chunk_mc": _HEAD_MC + [_I] + _TAIL_MC,
+    "cv_fused_iteration_shard": _HEAD + _TAIL[:-1] + _SHARD,
+    "cv_banded_chunk_shard": _HEAD + [_I] + _TAIL[:-1] + _SHARD,
+    "cv_packed_banded_chunk_shard": _HEAD + [_I] + _TAIL[:-1] + _SHARD,
+    "cv_banded_chunk_mc_shard": _HEAD_MC + [_I] + _TAIL_MC[:-1] + _SHARD,
     **{s: _RESIDENT for s in RESIDENT_SYMBOLS},
     **{f"{s}_grid": _GRID for s in RESIDENT_SYMBOLS},
     **{s: _MP2_RESIDENT for s in MP2_RESIDENT_SYMBOLS},

@@ -7,6 +7,7 @@
     python -m chan_vese_tpu_torch image.npy --multiphase 2 -o labels.npy
     python -m chan_vese_tpu_torch image.npy --morph -o mask.npy
     python -m chan_vese_tpu_torch image.npy --morph-gac --balloon -1
+    python -m chan_vese_tpu_torch image.npy --mesh 2 2 --comm-k 8 --iters 800
 
 Flag names and defaults follow the reference. ``--device`` picks the torch
 device (default ``cuda``; it raises when no GPU is present rather than
@@ -28,7 +29,11 @@ map (``--gac-alpha``, ``--gac-sigma``, ``--gac-threshold``,
 takes ``segment_morph`` / ``segment_gac`` (K11 on a CUDA device unless
 ``--no-fused``), ``--iters`` ``segment_morph_fixed`` /
 ``segment_gac_fixed``. With ``--multiphase`` the morph flags are dropped
-with a warning.
+with a warning. ``--mesh NX NY`` shards the two-phase PDE (gray or
+``--color``) over an NX x NY grid (NX*NY CPU devices with ``--device cpu``,
+the CUDA devices otherwise) with ``--comm-k``: ``segment_sharded`` in
+tolerance mode, or fixed with ``--iters``; with ``--multiphase``,
+``--morph`` or ``--morph-gac`` it raises (ROADMAP M13b, M13c).
 """
 
 from __future__ import annotations
@@ -101,6 +106,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gac-threshold", default="auto",
                     help="balloon activation threshold on the edge map "
                          "('auto' = 40th percentile)")
+    ap.add_argument("--mesh", type=int, nargs=2, default=None,
+                    metavar=("NX", "NY"),
+                    help="shard the image over an NX x NY grid mesh "
+                         "(halo exchange): NX*NY CPU devices with --device "
+                         "cpu, the CUDA devices otherwise")
+    ap.add_argument("--comm-k", type=int, default=1, metavar="K",
+                    help="sharded communication-avoiding chunking: one "
+                         "4K-deep halo exchange per K iterations "
+                         "(frozen-means trajectory class; grayscale and "
+                         "--color; the banded kernel per shard on a GPU)")
     ap.add_argument("--no-fused", action="store_true",
                     help="skip the kernel drivers even on a GPU")
     ap.add_argument("--device", default="cuda",
@@ -153,6 +168,14 @@ def main(argv=None) -> int:
         print(f"warning: {', '.join(dropped)} not supported on the "
               f"multiphase path; ignored", file=sys.stderr)
         args.morph = args.morph_gac = False
+    if args.mesh is not None:
+        for flag, on, module in (("--multiphase", args.multiphase, "M13b"),
+                                 ("--morph", args.morph, "M13c"),
+                                 ("--morph-gac", args.morph_gac, "M13c")):
+            if on:
+                raise NotImplementedError(
+                    f"--mesh with {flag} is the sharded solver of ROADMAP "
+                    f"{module}, not ported yet")
     if args.multiphase:
         return _multiphase(args, u0, p)
 
@@ -163,7 +186,9 @@ def main(argv=None) -> int:
     if args.morph:
         return _morph(args, u0, p, lam1, lam2)
 
-    if args.iters is not None:
+    if args.mesh is not None:
+        mask, iters, c1, c2 = _sharded(args, u0, p, lam1, lam2)
+    elif args.iters is not None:
         if args.color:
             tr = segment_vector_fixed(u0, p, iters=args.iters, lambda1=lam1,
                                       lambda2=lam2)
@@ -191,6 +216,26 @@ def main(argv=None) -> int:
     if args.output:
         image_io.save_mask(args.output, mask.cpu().numpy())
     return 0
+
+
+def _sharded(args, u0, p: CVParams, lam1, lam2):
+    """The --mesh branch (the two-phase PDE, gray or --color): tolerance
+    mode, or exactly --iters iterations. Returns (mask, iters, c1, c2)."""
+    import torch
+
+    from .parallel import make_grid_mesh, segment_sharded
+
+    nx, ny = args.mesh
+    devices = ([torch.device("cpu")] * (nx * ny)
+               if u0.device.type == "cpu" else None)
+    mesh = make_grid_mesh(nx, ny, devices)
+    kw = dict(lambda1=lam1, lambda2=lam2, comm_k=args.comm_k,
+              use_pallas=False if args.no_fused else None)
+    if args.iters is None:
+        res = segment_sharded(u0, p, mesh, fixed=False, **kw)
+        return res.mask, res.iters, res.c1, res.c2
+    res = segment_sharded(u0, p, mesh, max_iter=args.iters, fixed=True, **kw)
+    return res.mask, args.iters, res.c1, res.c2
 
 
 def _diverged(iters, *signals) -> bool:

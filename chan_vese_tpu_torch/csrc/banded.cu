@@ -26,3 +26,25 @@ extern "C" cudaError_t cv_banded_chunk(
                                     W, k, TH, TW, cap, 8, P,
                                     (cudaStream_t)stream);
 }
+
+// K2's shard-canvas mode: k frozen-means iterations on a shard canvas whose
+// halo (D = 4 comm_k) covers the chunk's reach, with parity, crop and
+// global-edge flags as cv_fused_iteration_shard (redblack.cuh, SHARD).
+//
+// Replaces chan_vese_tpu/ops/pallas_banded.py::_banded_kernel's sharded
+// branch (reached through banded_chunk_sharded). The TPU kernel streamed
+// full-width bands of the canvas, so it never needed column halos; here the
+// tiles carry them, and the left/right rim refresh runs per window. Bound:
+// as the whole-image mode.
+extern "C" cudaError_t cv_banded_chunk_shard(
+    const float* phi, const float* u0, const float* cc, float* out,
+    double* block_parts, float* parts, int H, int W, int k, int TH, int TW,
+    int cap, float mu, float nu, float l1, float l2, float eta2, float gdt,
+    float eps, float eps2, float inv_pi, int parity, int r0, int r1, int c0,
+    int c1, int top, int bottom, int left, int right, void* stream) {
+  const cv::Params P{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi};
+  const cv::Shard S{parity, r0, r1, c0, c1, top, bottom, left, right};
+  return cv::launch_chunk<false, 0, true>(phi, u0, cc, out, block_parts,
+                                          parts, H, W, k, TH, TW, cap, 8, P,
+                                          (cudaStream_t)stream, 1, S);
+}

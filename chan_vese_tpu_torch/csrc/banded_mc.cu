@@ -24,3 +24,22 @@ extern "C" cudaError_t cv_banded_chunk_mc(
                                     W, C, k, TH, TW, cap, 16, P,
                                     (cudaStream_t)stream);
 }
+
+// K5's shard-canvas mode: K2's shard mode on a C-channel image canvas
+// (channels-first), partials C + 4 padded to 16.
+//
+// Replaces chan_vese_tpu/ops/pallas_banded.py::_banded_mc_kernel's sharded
+// branch (reached through banded_chunk_mc_sharded). The RGB sharded solver
+// runs it at every comm_k, a k = 1 chunk included.
+extern "C" cudaError_t cv_banded_chunk_mc_shard(
+    const float* phi, const float* u0, const float* cc, float* out,
+    double* block_parts, float* parts, int H, int W, int C, int k, int TH,
+    int TW, int cap, float mu, float nu, float eta2, float gdt, float eps,
+    float eps2, float inv_pi, int parity, int r0, int r1, int c0, int c1,
+    int top, int bottom, int left, int right, void* stream) {
+  const cv::Params P = cv::mc_params(mu, nu, eta2, gdt, eps, eps2, inv_pi);
+  const cv::Shard S{parity, r0, r1, c0, c1, top, bottom, left, right};
+  return cv::launch_chunk_mc<false, 1, true>(phi, u0, cc, out, block_parts,
+                                             parts, H, W, C, k, TH, TW, cap,
+                                             16, P, (cudaStream_t)stream, S);
+}

@@ -44,6 +44,28 @@ extern "C" cudaError_t cv_fused_iteration_batch(
                                     (cudaStream_t)stream, N);
 }
 
+// K1's shard-canvas mode: one red-black iteration on a halo-padded shard
+// canvas of the sharded solver, with the lattice offset by `parity`, the
+// tiles and partials on the crop [r0, r1) x [c0, c1), and the depth-2
+// replica rim refreshed after each half-sweep on the flagged global edges.
+//
+// Replaces chan_vese_tpu/ops/pallas_sweep.py::_fused_band_kernel with
+// parity, crop and edges (reached through fused_iteration(parity, crop,
+// edges), with _resync_rim). Bound: as the whole-image mode, 12 B/pixel of
+// the crop plus the canvas rim.
+extern "C" cudaError_t cv_fused_iteration_shard(
+    const float* phi, const float* u0, const float* cc, float* out,
+    double* block_parts, float* parts, int H, int W, int TH, int TW, int cap,
+    float mu, float nu, float l1, float l2, float eta2, float gdt, float eps,
+    float eps2, float inv_pi, int parity, int r0, int r1, int c0, int c1,
+    int top, int bottom, int left, int right, void* stream) {
+  const cv::Params P{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi};
+  const cv::Shard S{parity, r0, r1, c0, c1, top, bottom, left, right};
+  return cv::launch_chunk<false, 0, true>(phi, u0, cc, out, block_parts,
+                                          parts, H, W, 1, TH, TW, cap, 8, P,
+                                          (cudaStream_t)stream, 1, S);
+}
+
 // Name of a CUDA error code, for the Python wrappers' exceptions.
 extern "C" const char* cv_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -25,3 +25,23 @@ extern "C" cudaError_t cv_packed_banded_chunk(
                                    W, k, TH, TW, cap, 8, P,
                                    (cudaStream_t)stream);
 }
+
+// K3's shard-canvas mode: K2's shard mode on a canvas stored as parity
+// planes. The canvas origin lies on an even global cell and the crop is
+// even (the wrapper checks both), so the lattice parity is 0; the window in
+// shared memory is flat, so the rim refresh is K2's.
+//
+// Replaces chan_vese_tpu/ops/pallas_packed.py::_packed_banded_kernel with
+// cropp (reached through packed_banded_chunk_sharded, with _packed_rim).
+extern "C" cudaError_t cv_packed_banded_chunk_shard(
+    const float* phi, const float* u0, const float* cc, float* out,
+    double* block_parts, float* parts, int H, int W, int k, int TH, int TW,
+    int cap, float mu, float nu, float l1, float l2, float eta2, float gdt,
+    float eps, float eps2, float inv_pi, int parity, int r0, int r1, int c0,
+    int c1, int top, int bottom, int left, int right, void* stream) {
+  const cv::Params P{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi};
+  const cv::Shard S{parity, r0, r1, c0, c1, top, bottom, left, right};
+  return cv::launch_chunk<true, 0, true>(phi, u0, cc, out, block_parts,
+                                         parts, H, W, k, TH, TW, cap, 8, P,
+                                         (cudaStream_t)stream, 1, S);
+}

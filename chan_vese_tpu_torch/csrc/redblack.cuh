@@ -68,6 +68,29 @@
 // parts. A frame's tiles, sums and summation order are those of the same
 // image launched alone, so frame n of a batch is bitwise the single-image
 // result. Single-image launches are the case N = 1.
+//
+// Shard canvases (SHARD = true: K1 shard in fused.cu, K2/K3/K5 shard in
+// banded.cu, packed.cu, banded_mc.cu). The image is one shard's halo-padded
+// canvas of the spatially sharded solver (parallel/sharded.py), and the
+// launch computes the contract of chan_vese_tpu/ops/pallas_banded.py
+// ::_banded_kernel's sharded branch with pallas_sweep.py::_resync_rim:
+// - parity: canvas cell (i, j) is red iff (i + j + parity) is even, which
+//   puts the canvas on the global red-black lattice;
+// - crop [r0, r1) x [c0, c1): the shard's own cells. The tiles tile the
+//   crop only, and the partials count only its cells; their windows reach
+//   4k up/left and 2k down/right into the canvas as in the whole-image
+//   mode. Cells outside the crop are copied through from the input;
+// - edges (top, bottom, left, right): the sides of the canvas that are
+//   global image edges. There the canvas holds clamped replicas of the
+//   shard's edge row or column, which the sweeps overwrite; after the
+//   write-back of every half-sweep the depth-2 rim is refreshed from the
+//   edge cells in shared memory, rows first and then columns (so the
+//   corners come out as in _resync_rim), wherever a block's window holds
+//   the replica row or column and its source. Depth 2 suffices: a
+//   half-sweep reads one cell into the rim.
+// Window columns still start on an even canvas column (the start is
+// rounded down to an even column, and the width rounded up to even), so
+// each thread's cell pair holds one cell of either color.
 
 #pragma once
 
@@ -87,6 +110,13 @@ struct Params {
   float mu, nu, l1, l2, eta2;  // l1, l2: scalar image only
   float gdt;     // dt * eps / pi, computed on the host in double
   float eps, eps2, inv_pi;
+};
+
+// The shard-canvas arguments (SHARD = true; unused otherwise): lattice
+// parity, crop [r0, r1) x [c0, c1), and the global-edge flags.
+struct Shard {
+  int parity, r0, r1, c0, c1;
+  int top, bottom, left, right;
 };
 
 // s_uH slots, and all partial sums, of a block for channel count NC.
@@ -203,14 +233,47 @@ __device__ __forceinline__ double block_sum(double v, double* scratch) {
   return v;  // valid in thread 0
 }
 
-// cap: window capacity in floats, min(H, TH + 6k) * min(W, TW + 6k).
+// Refreshes the depth-2 replica rim of a shard canvas inside the window
+// [wr0, wr1) x [wc0, wc0 + ww) held row-major in cur: rows r0-1, r0-2 take
+// row r0 (top), rows r1, r1+1 take row r1-1 (bottom), then columns c0-1,
+// c0-2 take column c0 (left) and c1, c1+1 take c1-1 (right), each where
+// its flag is set and the window holds both the replica and its source.
+// The counterpart of chan_vese_tpu/ops/pallas_sweep.py::_resync_rim.
+__device__ __forceinline__ void resync_rim(float* cur, int wr0, int wr1,
+                                           int wc0, int ww, const Shard& S) {
+  const int wh = wr1 - wr0, wc1 = wc0 + ww;
+  for (int idx = threadIdx.x; idx < 4 * ww; idx += blockDim.x) {
+    const int t = idx / ww, c = idx - t * ww;
+    const bool top = t < 2;
+    const int dst = top ? S.r0 - 1 - t : S.r1 + t - 2;
+    const int src = top ? S.r0 : S.r1 - 1;
+    if ((top ? S.top : S.bottom) && dst >= wr0 && dst < wr1 && src >= wr0 &&
+        src < wr1)
+      cur[(dst - wr0) * ww + c] = cur[(src - wr0) * ww + c];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < 4 * wh; idx += blockDim.x) {
+    const int t = idx / wh, r = idx - t * wh;
+    const bool left = t < 2;
+    const int dst = left ? S.c0 - 1 - t : S.c1 + t - 2;
+    const int src = left ? S.c0 : S.c1 - 1;
+    if ((left ? S.left : S.right) && dst >= wc0 && dst < wc1 && src >= wc0 &&
+        src < wc1)
+      cur[r * ww + dst - wc0] = cur[r * ww + src - wc0];
+  }
+  __syncthreads();
+}
+
+// cap: window capacity in floats, min(H, TH + 6k) * min(W, TW + 6k)
+// (TH + 6k + 2 and TW + 6k + 2 on a shard canvas, whose windows are
+// widened to an even start and width).
 // Dynamic shared memory: cur[cap] | f[cap] | half[cap / 2] = 10 cap bytes.
-template <bool PACKED, int NC>
+template <bool PACKED, int NC, bool SHARD = false>
 __global__ void __launch_bounds__(kThreads)
 chunk_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
              const float* __restrict__ cc, float* __restrict__ out,
              double* __restrict__ block_parts, int H, int W, int k, int TH,
-             int TW, int cap, Params P) {
+             int TW, int cap, Params P, Shard S) {
   constexpr int kUh = uh_slots<NC>(), kSums = sum_slots<NC>();
   extern __shared__ float smem[];
   __shared__ double red_scratch[kThreads / 32];
@@ -219,10 +282,18 @@ chunk_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
   float* f = smem + cap;
   float* half = smem + 2 * cap;
 
-  const int tr0 = blockIdx.y * TH, tc0 = blockIdx.x * TW;
-  const int tr1 = min(tr0 + TH, H), tc1 = min(tc0 + TW, W);
+  // the tiled region: the whole image, or a shard canvas's crop
+  const int ty0 = SHARD ? S.r0 : 0, ty1 = SHARD ? S.r1 : H;
+  const int tx0 = SHARD ? S.c0 : 0, tx1 = SHARD ? S.c1 : W;
+  const int par = SHARD ? S.parity : 0;
+  const int tr0 = ty0 + blockIdx.y * TH, tc0 = tx0 + blockIdx.x * TW;
+  const int tr1 = min(tr0 + TH, ty1), tc1 = min(tc0 + TW, tx1);
   const int wr0 = max(tr0 - 4 * k, 0), wr1 = min(tr1 + 2 * k, H);
-  const int wc0 = max(tc0 - 4 * k, 0), wc1 = min(tc1 + 2 * k, W);
+  int wc0 = max(tc0 - 4 * k, 0), wc1 = min(tc1 + 2 * k, W);
+  if constexpr (SHARD) {  // an even start and width (W is even)
+    wc0 &= ~1;
+    wc1 += (wc1 - wc0) & 1;
+  }
   const int wh = wr1 - wr0, ww = wc1 - wc0, hw = ww >> 1;
   const int64_t chan = (int64_t)H * W;
 
@@ -252,13 +323,13 @@ chunk_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
     for (int color = 0; color < 2; ++color) {  // 0 = red: (i + j) even
       for (int idx = threadIdx.x; idx < wh * hw; idx += blockDim.x) {
         const int r = idx / hw, q = idx - r * hw;
-        const int c = 2 * q + ((wr0 + r + color) & 1);
+        const int c = 2 * q + ((wr0 + r + color + par) & 1);
         half[idx] = update_cell(cur, f, r, c, wh, ww, P);
       }
       __syncthreads();
       for (int idx = threadIdx.x; idx < wh * hw; idx += blockDim.x) {
         const int r = idx / hw, q = idx - r * hw;
-        const int c = 2 * q + ((wr0 + r + color) & 1);
+        const int c = 2 * q + ((wr0 + r + color + par) & 1);
         const float nv = half[idx];
         if (last) {
           const int gi = wr0 + r, gj = wc0 + c;
@@ -279,6 +350,7 @@ chunk_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
         cur[r * ww + c] = nv;
       }
       __syncthreads();
+      if constexpr (SHARD) resync_rim(cur, wr0, wr1, wc0, ww, S);
     }
   }
 
@@ -287,6 +359,23 @@ chunk_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
     const int orow = idx / (tc1 - tc0), ocol = idx - orow * (tc1 - tc0);
     const int gi = tr0 + orow, gj = tc0 + ocol;
     out[gaddr<PACKED>(gi, gj, H, W)] = cur[(gi - wr0) * ww + (gj - wc0)];
+  }
+  if constexpr (SHARD) {
+    // the canvas outside the crop passes through: a block on the tile
+    // grid's border also copies the rim cells beyond its tile, so the
+    // border blocks cover the rim once
+    const int er0 = blockIdx.y == 0 ? 0 : tr0;
+    const int er1 = blockIdx.y == gridDim.y - 1 ? H : tr1;
+    const int ec0 = blockIdx.x == 0 ? 0 : tc0;
+    const int ec1 = blockIdx.x == gridDim.x - 1 ? W : tc1;
+    const int ew = ec1 - ec0;
+    for (int idx = threadIdx.x; idx < (er1 - er0) * ew; idx += blockDim.x) {
+      const int gi = er0 + idx / ew, gj = ec0 + idx % ew;
+      if (gi < tr0 || gi >= tr1 || gj < tc0 || gj >= tc1) {
+        const int64_t g = gaddr<PACKED>(gi, gj, H, W);
+        out[g] = phi[g];
+      }
+    }
   }
 
   const int64_t bid = blockIdx.y * gridDim.x + blockIdx.x;
@@ -329,20 +418,22 @@ reduce_parts_kernel(const double* __restrict__ block_parts, int nblocks,
 // parts (frames * nout f32). `frames` images of one shape are stacked in
 // phi, u0 and out, with frames rows of means in cc (at most 65535, the
 // grid's z limit, which the caller checks).
-template <bool PACKED, int NC>
+// On a shard canvas (SHARD) the grid tiles S's crop.
+template <bool PACKED, int NC, bool SHARD = false>
 cudaError_t launch_chunk(const float* phi, const float* u0, const float* cc,
                          float* out, double* block_parts, float* parts,
                          int H, int W, int k, int TH, int TW, int cap,
                          int nout, Params P, cudaStream_t stream,
-                         int frames = 1) {
+                         int frames = 1, Shard S = Shard{}) {
   const size_t smem = (size_t)cap * 10;
   cudaError_t err = cudaFuncSetAttribute(
-      chunk_kernel<PACKED, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      chunk_kernel<PACKED, NC, SHARD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, frames);
-  chunk_kernel<PACKED, NC><<<grid, kThreads, smem, stream>>>(
-      phi, u0, cc, out, block_parts, H, W, k, TH, TW, cap, P);
+  const int th = SHARD ? S.r1 - S.r0 : H, tw = SHARD ? S.c1 - S.c0 : W;
+  const dim3 grid((tw + TW - 1) / TW, (th + TH - 1) / TH, frames);
+  chunk_kernel<PACKED, NC, SHARD><<<grid, kThreads, smem, stream>>>(
+      phi, u0, cc, out, block_parts, H, W, k, TH, TW, cap, P, S);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   reduce_parts_kernel<<<frames, 256, 0, stream>>>(
@@ -352,19 +443,20 @@ cudaError_t launch_chunk(const float* phi, const float* u0, const float* cc,
 
 // C-channel image: the runtime channel count C (1..kMaxChannels) picks
 // the kernel compiled for it.
-template <bool PACKED, int NC = 1>
+template <bool PACKED, int NC = 1, bool SHARD = false>
 cudaError_t launch_chunk_mc(const float* phi, const float* u0,
                             const float* cc, float* out, double* block_parts,
                             float* parts, int H, int W, int C, int k, int TH,
                             int TW, int cap, int nout, Params P,
-                            cudaStream_t stream) {
+                            cudaStream_t stream, Shard S = Shard{}) {
   if (C == NC)
-    return launch_chunk<PACKED, NC>(phi, u0, cc, out, block_parts, parts, H,
-                                    W, k, TH, TW, cap, nout, P, stream);
+    return launch_chunk<PACKED, NC, SHARD>(phi, u0, cc, out, block_parts,
+                                           parts, H, W, k, TH, TW, cap, nout,
+                                           P, stream, 1, S);
   if constexpr (NC < kMaxChannels)
-    return launch_chunk_mc<PACKED, NC + 1>(phi, u0, cc, out, block_parts,
-                                           parts, H, W, C, k, TH, TW, cap,
-                                           nout, P, stream);
+    return launch_chunk_mc<PACKED, NC + 1, SHARD>(
+        phi, u0, cc, out, block_parts, parts, H, W, C, k, TH, TW, cap, nout,
+        P, stream, S);
   return cudaErrorInvalidValue;
 }
 

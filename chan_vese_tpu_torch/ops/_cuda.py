@@ -75,9 +75,44 @@ def _common_params(p):
             1.0 / math.pi)
 
 
-def launch_chunk(symbol: str, phi, u0, c1, c2, p, k, h: int, w: int):
+def _flag(v) -> int:
+    return int(bool(v.item() if hasattr(v, "item") else v))
+
+
+def shard_args(h: int, w: int, k: int, parity, crop, edges):
+    """The nine ints of a shard-canvas launch on an (h, w) canvas for k
+    iterations: (parity, r0, r1, c0, c1, top, bottom, left, right).
+
+    ``crop`` = (r0, r1, c0, c1), the shard's own window (None: the whole
+    canvas, and no rim); ``edges`` = the [top, bottom, left, right]
+    global-edge flags (any truthy values, a tensor included: a CUDA one is
+    read back; None: none). The canvas must hold the chunk's reach around
+    the crop, 4k rows/cols up/left and 2k down/right, except on a flagged
+    side, where two replica rows or columns suffice. Raises otherwise."""
+    parity = int(parity.item() if hasattr(parity, "item") else parity) % 2
+    if crop is None:  # the whole canvas, no rim: the whole-image sweep
+        return parity, 0, h, 0, w, 0, 0, 0, 0
+    r0, r1, c0, c1 = (int(v) for v in crop)
+    top, bottom, left, right = (_flag(v) for v in
+                                (edges if edges is not None else (0,) * 4))
+    if not (0 <= r0 < r1 <= h and 0 <= c0 < c1 <= w):
+        raise ValueError(f"crop {crop} is not a window of the {(h, w)} "
+                         f"canvas")
+    need = (2 if top else 4 * k, 2 if bottom else 2 * k,
+            2 if left else 4 * k, 2 if right else 2 * k)
+    have = (r0, h - r1, c0, w - c1)
+    if any(a < b for a, b in zip(have, need)):
+        raise ValueError(f"crop {crop} of the {(h, w)} canvas leaves "
+                         f"{have} rows/cols (top, bottom, left, right) "
+                         f"around it; k={k} with edges {edges} needs {need}")
+    return parity, r0, r1, c0, c1, top, bottom, left, right
+
+
+def launch_chunk(symbol: str, phi, u0, c1, c2, p, k, h: int, w: int,
+                 shard=None):
     """Run scalar kernel ``symbol`` on image geometry (h, w); phi/u0 hold
-    it flat or as parity planes. Returns (phi_new, partials (8,) f32)."""
+    it flat or as parity planes. ``shard``: the :func:`shard_args` of a
+    shard-canvas launch. Returns (phi_new, partials (8,) f32)."""
     _check_inputs(phi, u0)
     if u0.shape != phi.shape:
         raise ValueError(f"u0 {tuple(u0.shape)} vs phi {tuple(phi.shape)}")
@@ -85,7 +120,8 @@ def launch_chunk(symbol: str, phi, u0, c1, c2, p, k, h: int, w: int):
     cc = torch.stack([torch.as_tensor(c1, device=dev),
                       torch.as_tensor(c2, device=dev)]).to(torch.float32)
     params = (p.mu, p.nu, p.lambda1, p.lambda2, *_common_params(p))
-    return _launch(symbol, phi, u0, cc, (), k, h, w, 5, 8, params)
+    return _launch(symbol, phi, u0, cc, (), k, h, w, 5, 8, params,
+                   shard=shard)
 
 
 @functools.lru_cache(maxsize=64)
@@ -99,10 +135,11 @@ def _weights(l1, l2, device):
 
 
 def launch_chunk_mc(symbol: str, phi, u0, c1, c2, p, k, h: int, w: int,
-                    l1, l2, nout: int):
+                    l1, l2, nout: int, shard=None):
     """Run multichannel kernel ``symbol``: u0 is channels-first
     (C, *phi.shape); c1, c2 are (C,) means; l1, l2 the per-channel lambda
-    tuples. Returns (phi_new, partials (nout,) f32)."""
+    tuples; ``shard`` as :func:`launch_chunk`. Returns (phi_new, partials
+    (nout,) f32)."""
     c = mc_channels(phi, u0)
     _check_inputs(phi, u0)
     dev = phi.device
@@ -111,7 +148,8 @@ def launch_chunk_mc(symbol: str, phi, u0, c1, c2, p, k, h: int, w: int,
         torch.as_tensor(c2, device=dev).reshape(c).to(torch.float32),
         _weights(tuple(l1), tuple(l2), dev)])
     params = (p.mu, p.nu, *_common_params(p))
-    return _launch(symbol, phi, u0, cc, (c,), k, h, w, c + 4, nout, params)
+    return _launch(symbol, phi, u0, cc, (c,), k, h, w, c + 4, nout, params,
+                   shard=shard)
 
 
 def launch_chunk_batch(symbol: str, phis, u0s, c1s, c2s, p, h: int, w: int):
@@ -138,19 +176,25 @@ def check_even(h: int, w: int):
 
 
 def _launch(symbol, phi, u0, cc, chan, k, h, w, nsums, nout, params,
-            reach=None, cell_bytes=10, frames=None):
+            reach=None, cell_bytes=10, frames=None, shard=None):
     """``reach``: the iterations whose halo the tiles carry (default k, or
     1 for the fused kernels, which take no k). ``frames``: phi and u0 hold
-    that many images and the partials are (frames, nout)."""
+    that many images and the partials are (frames, nout). ``shard``: the
+    nine ints of a shard-canvas launch, whose tiles cover the crop and
+    whose windows are two cells wider (an even start and width)."""
     from .._build import library
 
     check_even(h, w)
     if k is not None and k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    th, tw, cap = tile_geometry(h, w, reach or k or 1, cell_bytes)
+    reach = reach or k or 1
+    th, tw, cap = tile_geometry(
+        h, w, reach, cell_bytes, span=None if shard is None else 6 * reach + 2)
     dev = phi.device
     out = torch.empty_like(phi)
-    nblocks = math.ceil(h / th) * math.ceil(w / tw)
+    th_all, tw_all = (h, w) if shard is None else (shard[2] - shard[1],
+                                                   shard[4] - shard[3])
+    nblocks = math.ceil(th_all / th) * math.ceil(tw_all / tw)
     block_parts = torch.empty(((frames or 1) * nblocks, nsums),
                               dtype=torch.float64, device=dev)
     parts = torch.empty(nout if frames is None else (frames, nout),
@@ -160,6 +204,7 @@ def _launch(symbol, phi, u0, cc, chan, k, h, w, nsums, nout, params,
     ks = () if k is None else (k,)
     lib = library()
     err = getattr(lib, symbol)(*ptrs, h, w, *chan, *ks, th, tw, cap, *params,
+                               *(shard or ()),
                                torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{symbol} launch failed: "

@@ -1,12 +1,14 @@
 """K2 and K5: k red-black iterations per pass over device memory, means
 frozen, on a scalar image (K2) or a C-channel one (K5).
 
-Counterpart of ``chan_vese_tpu/ops/pallas_banded.py`` (whole-image modes
-of ``_banded_kernel`` / ``_banded_kernel_fusej`` and ``_banded_mc_kernel``
-/ ``_banded_mc_kernel_fusej``). On a CUDA tensor :func:`banded_chunk`
-launches ``csrc/banded.cu`` and :func:`banded_chunk_mc`
-``csrc/banded_mc.cu``; on a CPU tensor they run
-:func:`banded_chunk_reference` and :func:`banded_chunk_mc_reference`.
+Counterpart of ``chan_vese_tpu/ops/pallas_banded.py`` (``_banded_kernel``
+/ ``_banded_kernel_fusej`` and ``_banded_mc_kernel`` /
+``_banded_mc_kernel_fusej``, on a whole image and on a shard canvas). On a
+CUDA tensor :func:`banded_chunk` launches ``csrc/banded.cu`` and
+:func:`banded_chunk_mc` ``csrc/banded_mc.cu``, and their shard-canvas
+modes :func:`banded_chunk_sharded` and :func:`banded_chunk_mc_sharded` the
+same files' shard launchers; on a CPU tensor each runs its ``_reference``
+plain version.
 
 Trajectory class: c1/c2 stay frozen across the k iterations of a chunk;
 the partials describe the LAST iteration's transition. k = 1 is the fused
@@ -22,10 +24,13 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import torch
+
 from ..params import CVParams
 from . import _cuda
-from .fused_kernel import _VMEM_LIMIT, chunk_reference
-from .fused_kernel_mc import chunk_reference_mc
+from .fused_kernel import _VMEM_LIMIT, chunk_reference, chunk_shard_reference
+from .fused_kernel_mc import chunk_reference_mc, data_term_mc
+from .reductions import data_term
 
 # routing constant of chan_vese_tpu/ops/pallas_banded.py
 _TILES = 34
@@ -85,6 +90,49 @@ def banded_chunk(phi, u0, c1, c2, p: CVParams, k: int = 8,
 banded_chunk.launches = 0
 
 
+def banded_chunk_sharded_reference(canvas, u0_canvas, c1, c2, p: CVParams,
+                                   k: int, parity, edges, crop):
+    """Plain PyTorch version of :func:`banded_chunk_sharded`."""
+    shard = _cuda.shard_args(*canvas.shape, k, parity, crop, edges)
+    f = data_term(u0_canvas, c1, c2, p.nu, p.lambda1, p.lambda2)
+    return chunk_shard_reference(canvas, f, (u0_canvas,), p, k, shard, 8)
+
+
+def banded_chunk_sharded(canvas, u0_canvas, c1, c2, p: CVParams, k: int,
+                         parity, edges, crop, unroll: int = 1,
+                         fuse: bool = False):
+    """k frozen-means iterations on a halo-padded shard canvas (the
+    sharded solver's chunk, ``parallel/sharded.py``): ``parity`` offsets
+    the red-black lattice, ``edges`` = [top, bottom, left, right] flags the
+    canvas sides that are global image edges (their replica rim is
+    refreshed after every half-sweep), and ``crop`` = (r0, r1, c0, c1) is
+    the shard's own window, to which the tiles and the partials are
+    restricted; the canvas outside it is returned as it came in. The
+    canvas must hold the chunk's reach around the crop
+    (:func:`._cuda.shard_args`). Returns (canvas_new, partials (8,)).
+
+    The reference's routing predicate is the driver's to check, on the
+    reference's lane-padded canvas geometry: the Hopper kernel takes any
+    even canvas. ``unroll``/``fuse``: as :func:`banded_chunk`. CPU
+    tensors run the plain version; CUDA tensors launch
+    ``cv_banded_chunk_shard`` (``csrc/banded.cu``) or raise.
+    """
+    if unroll < 1 or k % unroll:
+        raise ValueError(f"unroll must divide k (got k={k}, unroll={unroll})")
+    h, w = canvas.shape
+    shard = _cuda.shard_args(h, w, k, parity, crop, edges)
+    if canvas.device.type == "cpu":
+        return banded_chunk_sharded_reference(canvas, u0_canvas, c1, c2, p,
+                                              k, parity, edges, crop)
+    out = _cuda.launch_chunk("cv_banded_chunk_shard", canvas, u0_canvas, c1,
+                             c2, p, k, h, w, shard=shard)
+    banded_chunk_sharded.launches += 1
+    return out
+
+
+banded_chunk_sharded.launches = 0
+
+
 def band_rows_banded_mc(h: int, w: int, k: int, c: int) -> int:
     """The reference's band height for the C-channel kernel."""
     up, dn = _halos(k)
@@ -132,3 +180,48 @@ def banded_chunk_mc(phi, u0_cfirst, c1, c2, p: CVParams, k: int = 8,
 
 
 banded_chunk_mc.launches = 0
+
+
+def banded_chunk_mc_sharded_reference(canvas, u0_canvas_cfirst, c1, c2,
+                                      p: CVParams, k: int, parity, edges,
+                                      crop, lambda1=None, lambda2=None):
+    """Plain PyTorch version of :func:`banded_chunk_mc_sharded`."""
+    C = _cuda.mc_channels(canvas, u0_canvas_cfirst)
+    shard = _cuda.shard_args(*canvas.shape, k, parity, crop, edges)
+    l1, l2 = p.channel_lambdas(C, lambda1, lambda2)
+    c1 = torch.as_tensor(c1, dtype=canvas.dtype,
+                         device=canvas.device).reshape(C)
+    c2 = torch.as_tensor(c2, dtype=canvas.dtype,
+                         device=canvas.device).reshape(C)
+    f = data_term_mc(u0_canvas_cfirst, c1, c2, p, l1, l2)
+    return chunk_shard_reference(canvas, f, list(u0_canvas_cfirst), p, k,
+                                 shard, 16)
+
+
+def banded_chunk_mc_sharded(canvas, u0_canvas_cfirst, c1, c2, p: CVParams,
+                            k: int, parity, edges, crop, unroll: int = 1,
+                            lambda1=None, lambda2=None, fuse: bool = False):
+    """The multichannel twin of :func:`banded_chunk_sharded`: k
+    frozen-means iterations on a shard canvas with a (C, Hc, Wc)
+    channels-first image canvas and (C,) means. Same parity/edges/crop
+    contract; returns (canvas_new, partials (16,)) restricted to the crop.
+    CPU tensors run the plain version; CUDA tensors launch
+    ``cv_banded_chunk_mc_shard`` (``csrc/banded_mc.cu``) or raise."""
+    if unroll < 1 or k % unroll:
+        raise ValueError(f"unroll must divide k (got k={k}, unroll={unroll})")
+    C = _cuda.mc_channels(canvas, u0_canvas_cfirst)
+    h, w = canvas.shape
+    shard = _cuda.shard_args(h, w, k, parity, crop, edges)
+    if canvas.device.type == "cpu":
+        return banded_chunk_mc_sharded_reference(
+            canvas, u0_canvas_cfirst, c1, c2, p, k, parity, edges, crop,
+            lambda1, lambda2)
+    l1, l2 = p.channel_lambdas(C, lambda1, lambda2)
+    out = _cuda.launch_chunk_mc("cv_banded_chunk_mc_shard", canvas,
+                                u0_canvas_cfirst, c1, c2, p, k, h, w, l1, l2,
+                                16, shard=shard)
+    banded_chunk_mc_sharded.launches += 1
+    return out
+
+
+banded_chunk_mc_sharded.launches = 0

@@ -1,9 +1,12 @@
 """K1: one fused red-black iteration plus next-iteration partials.
 
-Counterpart of ``chan_vese_tpu/ops/pallas_sweep.py`` (whole-image mode of
-``_fused_band_kernel``). On a CUDA tensor :func:`fused_iteration` launches
+Counterpart of ``chan_vese_tpu/ops/pallas_sweep.py`` (``_fused_band_kernel``
+on a whole image and, with ``parity``/``crop``/``edges``, on a shard canvas
+of the sharded solver). On a CUDA tensor :func:`fused_iteration` launches
 the hand-written kernel ``csrc/fused.cu``; on a CPU tensor it runs
-:func:`fused_iteration_reference`, the plain PyTorch version. The force
+:func:`fused_iteration_reference`, the plain PyTorch version.
+:func:`chunk_shard_reference` is the plain version of every shard-canvas
+kernel (K1, K2, K3, K5 shard). The force
 mode :func:`fused_sweep` (the reference's ``data_is_f``) takes a
 precomputed force instead of the image and launches ``csrc/fused_sweep.cu``.
 The batch mode :func:`fused_iteration_batch` runs one iteration of every
@@ -29,7 +32,7 @@ from ..params import CVParams
 from . import _cuda
 from .numerics import heaviside
 from .reductions import data_term
-from .sweep import redblack_step
+from .sweep import _update_all, color_masks, redblack_step
 
 # routing constants of chan_vese_tpu/ops/pallas_sweep.py
 _VMEM_LIMIT = 96 * 1024 * 1024
@@ -79,27 +82,102 @@ def chunk_reference(phi, u0, c1, c2, p: CVParams, k: int):
     return phi, partials(phi, prev, (u0,), p, 8)
 
 
-def fused_iteration_reference(phi, u0, c1, c2, p: CVParams):
+def resync_rim(x, crop, edges):
+    """The depth-2 replica rim of a shard canvas refreshed from its edge
+    cells on the flagged sides, rows first and then columns (so the
+    corners take the corner cell): the plain version of the shard kernels'
+    refresh, ``chan_vese_tpu/ops/pallas_sweep.py::_resync_rim``."""
+    r0, r1, c0, c1 = crop
+    top, bottom, left, right = edges
+    x = x.clone()
+    if top:
+        x[r0 - 2:r0] = x[r0]
+    if bottom:
+        x[r1:r1 + 2] = x[r1 - 1]
+    if left:
+        x[:, c0 - 2:c0] = x[:, c0:c0 + 1]
+    if right:
+        x[:, c1:c1 + 2] = x[:, c1 - 1:c1]
+    return x
+
+
+def chunk_shard_reference(phi, f, channels, p: CVParams, k: int, shard,
+                          nout: int):
+    """k red-black iterations on a shard canvas with the frozen force f:
+    the plain version of every shard-canvas kernel. ``shard`` is
+    :func:`._cuda.shard_args`' nine ints; ``channels`` the image planes
+    behind the s_uH partials. The lattice is offset by the parity, the
+    depth-2 rim is refreshed after each half-sweep, the partials of the
+    last iteration count the crop only, and the canvas outside the crop is
+    returned as it came in."""
+    parity, r0, r1, c0, c1, *edges = shard
+    crop = (r0, r1, c0, c1)
+    red = color_masks(phi.shape, parity, device=phi.device)
+    prev = cur = phi
+    for _ in range(k):
+        prev = cur
+        cur = torch.where(red, _update_all(cur, f, p.mu, p.dt, p.eps,
+                                           p.eta2), cur)
+        cur = resync_rim(cur, crop, edges)
+        cur = torch.where(red, cur, _update_all(cur, f, p.mu, p.dt, p.eps,
+                                                p.eta2))
+        cur = resync_rim(cur, crop, edges)
+    win = (slice(r0, r1), slice(c0, c1))
+    out = phi.clone()
+    out[win] = cur[win]
+    return out, partials(cur[win], prev[win], [u[win] for u in channels], p,
+                         nout)
+
+
+def fused_iteration_reference(phi, u0, c1, c2, p: CVParams, parity=None,
+                              crop=None, edges=None):
     """Plain PyTorch version of :func:`fused_iteration`."""
-    return chunk_reference(phi, u0, c1, c2, p, 1)
+    if parity is None and crop is None and edges is None:
+        return chunk_reference(phi, u0, c1, c2, p, 1)
+    shard = _cuda.shard_args(*phi.shape, 1, parity or 0, crop, edges)
+    f = data_term(u0, c1, c2, p.nu, p.lambda1, p.lambda2)
+    return chunk_shard_reference(phi, f, (u0,), p, 1, shard, 8)
 
 
-def fused_iteration(phi, u0, c1, c2, p: CVParams):
+def fused_iteration(phi, u0, c1, c2, p: CVParams, parity=None, crop=None,
+                    edges=None):
     """One red-black iteration; returns (phi_new, partials (8,)).
 
+    Shard-canvas mode (the reference's arguments, given by the sharded
+    solver, ``parallel/sharded.py``): ``parity`` offsets the red-black
+    lattice, ``crop`` = (r0, r1, c0, c1) is the shard's own window, to
+    which the sweep's tiles and the partials are restricted (the canvas
+    outside it is returned as it came in), and ``edges`` = [top, bottom,
+    left, right] flags the canvas sides that are global image edges, whose
+    replica rim is refreshed after each half-sweep. Any crop whose
+    surroundings hold the iteration's reach is taken
+    (:func:`._cuda.shard_args`), not only the reference's 4-deep geometry.
+
     CPU tensors run the plain version; CUDA tensors (float32, contiguous,
-    even H and W) launch ``csrc/fused.cu`` or raise.
+    even H and W) launch ``csrc/fused.cu`` (``cv_fused_iteration``, or
+    ``cv_fused_iteration_shard`` in the shard-canvas mode, counted in
+    ``fused_iteration.shard_launches``) or raise.
     """
-    if phi.device.type == "cpu":
-        return fused_iteration_reference(phi, u0, c1, c2, p)
     h, w = phi.shape
-    out = _cuda.launch_chunk("cv_fused_iteration", phi, u0, c1, c2, p,
-                             None, h, w)
-    fused_iteration.launches += 1
+    if parity is None and crop is None and edges is None:
+        if phi.device.type == "cpu":
+            return fused_iteration_reference(phi, u0, c1, c2, p)
+        out = _cuda.launch_chunk("cv_fused_iteration", phi, u0, c1, c2, p,
+                                 None, h, w)
+        fused_iteration.launches += 1
+        return out
+    shard = _cuda.shard_args(h, w, 1, parity or 0, crop, edges)
+    if phi.device.type == "cpu":
+        return fused_iteration_reference(phi, u0, c1, c2, p, parity, crop,
+                                         edges)
+    out = _cuda.launch_chunk("cv_fused_iteration_shard", phi, u0, c1, c2, p,
+                             None, h, w, shard=shard)
+    fused_iteration.shard_launches += 1
     return out
 
 
 fused_iteration.launches = 0
+fused_iteration.shard_launches = 0
 
 
 def fused_sweep_reference(phi, f, p: CVParams):

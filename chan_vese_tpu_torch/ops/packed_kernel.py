@@ -3,7 +3,9 @@ scalar image (K3) or a C-channel one (K6, u0 as (C, 2, 2, H/2, W/2)); K8:
 the exact-means resident iterations of K7 on parity planes.
 
 Counterpart of ``chan_vese_tpu/ops/pallas_packed.py`` (whole-image entries
-``packed_banded_chunk`` and ``packed_banded_chunk_mc``). Plane (a, b)
+``packed_banded_chunk`` and ``packed_banded_chunk_mc``; K3's shard-canvas
+mode :func:`packed_banded_chunk_sharded`, which launches
+``csrc/packed.cu``'s shard launcher). Plane (a, b)
 holds P[a][b][r, c] = phi[2r+a, 2c+b]. On a CUDA tensor
 :func:`packed_banded_chunk` launches ``csrc/packed.cu`` and
 :func:`packed_banded_chunk_mc` ``csrc/packed_mc.cu``; on a CPU tensor they
@@ -45,7 +47,8 @@ from __future__ import annotations
 
 from ..params import CVParams
 from . import _cuda
-from .banded_kernel import banded_chunk_mc_reference, banded_chunk_reference
+from .banded_kernel import (banded_chunk_mc_reference, banded_chunk_reference,
+                            banded_chunk_sharded_reference)
 from .fused_kernel import _VMEM_LIMIT, chunk_reference
 from .multiphase_kernel import check_mp2, mp2_resident_iterations_reference
 from .resident_kernel import (check_iters, check_stack,
@@ -182,6 +185,59 @@ def packed_banded_chunk(phi_planes, u0_planes, c1, c2, p: CVParams,
 
 
 packed_banded_chunk.launches = 0
+
+
+def _check_plane_canvas(planes, u0_planes, crop):
+    if planes.ndim != 4 or tuple(planes.shape[:2]) != (2, 2):
+        raise ValueError(f"expected (2, 2, H/2, W/2) planes, got "
+                         f"{tuple(planes.shape)}")
+    if u0_planes.shape != planes.shape:
+        raise ValueError(f"u0 planes {tuple(u0_planes.shape)} vs phi "
+                         f"planes {tuple(planes.shape)}")
+    if any(int(c) % 2 for c in crop):
+        raise ValueError(f"packed sharded crop must be even, got {crop}")
+
+
+def packed_banded_chunk_sharded_reference(canvas_planes, u0_canvas_planes,
+                                          c1, c2, p: CVParams, k: int,
+                                          edges, crop):
+    """Plain PyTorch version of :func:`packed_banded_chunk_sharded`."""
+    _check_plane_canvas(canvas_planes, u0_canvas_planes, crop)
+    phi, parts = banded_chunk_sharded_reference(
+        unpack_planes_reference(canvas_planes),
+        unpack_planes_reference(u0_canvas_planes), c1, c2, p, k, 0, edges,
+        crop)
+    return pack_planes_reference(phi), parts
+
+
+def packed_banded_chunk_sharded(canvas_planes, u0_canvas_planes, c1, c2,
+                                p: CVParams, k: int, edges, crop,
+                                unroll: int = 1):
+    """k frozen-means iterations on a shard canvas stored as parity planes
+    (2, 2, Hc/2, Wc/2): :func:`..banded_kernel.banded_chunk_sharded`'s
+    contract, with the canvas origin on an even global cell (the sharded
+    solver's even shards and even halo depth give it), so the lattice
+    parity is 0 and takes no argument, and an even crop (checked, as in
+    the reference). Returns (canvas_planes_new, partials (8,)).
+    ``unroll``: as :func:`packed_banded_chunk`. CPU tensors run the plain
+    version; CUDA tensors launch ``cv_packed_banded_chunk_shard``
+    (``csrc/packed.cu``) or raise."""
+    if unroll < 1 or k % unroll:
+        raise ValueError(f"unroll must divide k (got k={k}, unroll={unroll})")
+    _check_plane_canvas(canvas_planes, u0_canvas_planes, crop)
+    _, _, hp, wp = canvas_planes.shape
+    shard = _cuda.shard_args(2 * hp, 2 * wp, k, 0, crop, edges)
+    if canvas_planes.device.type == "cpu":
+        return packed_banded_chunk_sharded_reference(
+            canvas_planes, u0_canvas_planes, c1, c2, p, k, edges, crop)
+    out = _cuda.launch_chunk("cv_packed_banded_chunk_shard", canvas_planes,
+                             u0_canvas_planes, c1, c2, p, k, 2 * hp, 2 * wp,
+                             shard=shard)
+    packed_banded_chunk_sharded.launches += 1
+    return out
+
+
+packed_banded_chunk_sharded.launches = 0
 
 
 def band_rows_packed_mc(h: int, w: int, k: int, c: int):

@@ -1,8 +1,22 @@
-"""Distribution layer of the port: the data mesh and data-parallel frame
-stacks. Counterpart of ``chan_vese_tpu/parallel`` (the grid and hybrid
-meshes, the shardings and the sharded solvers are ROADMAP M13a)."""
+"""Distribution layer of the port: device meshes, the halo exchange, the
+spatially sharded two-phase solver and data-parallel frame stacks.
+Counterpart of ``chan_vese_tpu/parallel``. One process drives every device
+of a mesh. The sharded multiphase solver is ROADMAP M13b, the sharded
+morphological solvers M13c, the RDMA halo (K14) M13d and multihost runs
+M13e."""
 
 from .data_parallel import segment_stack_sharded, shard_stack
-from .mesh import Mesh, make_data_mesh
+from .halo import exchange_halo2d, exchange_halo2d_batched
+from .mesh import (Mesh, Sharding, batch_sharding, gather_grid,
+                   grid_sharding, make_data_mesh, make_grid_mesh,
+                   make_hybrid_mesh, shard_grid)
+from .sharded import (ShardedTrace, segment_sharded,
+                      segment_sharded_fixed_trace)
 
-__all__ = ["Mesh", "make_data_mesh", "segment_stack_sharded", "shard_stack"]
+__all__ = [
+    "Mesh", "Sharding", "make_grid_mesh", "make_data_mesh",
+    "make_hybrid_mesh", "grid_sharding", "batch_sharding", "shard_grid",
+    "gather_grid", "exchange_halo2d", "exchange_halo2d_batched",
+    "segment_sharded", "segment_sharded_fixed_trace", "ShardedTrace",
+    "segment_stack_sharded", "shard_stack",
+]

@@ -1,0 +1,690 @@
+"""Spatially sharded Chan-Vese: one large image split over an (x, y) grid
+mesh of shards, with halo exchange. Counterpart of
+``chan_vese_tpu/parallel/sharded.py`` (``segment_sharded``,
+``segment_sharded_fixed_trace``) for the two-phase PDE, gray and RGB.
+
+One process drives every shard (a single controller, as ``shard_map`` on
+one host): the shards are a list of rows of blocks, each on its mesh
+device, and each step loops over them. Per iteration (``comm_k = 1``):
+
+    exchange depth-4 halos of phi (rows, then columns: corners ride along)
+    red half-sweep on each padded block, the replica rim refreshed at the
+      global edges, black half-sweep; crop the block
+    per-shard partial sums -> their sum in row-major shard order, in f64
+      on the mesh's first device (the reference's psum) -> c1, c2, delta
+
+``comm_k = k > 1`` exchanges a 4k-deep halo once per k frozen-means
+iterations (the banded trajectory class; a remainder chunk ends the
+run). With the kernels, each shard's step is one launch on its halo-padded
+canvas: K1's shard mode per iteration, K2's (K5's for C channels, at
+every comm_k) per chunk, K3's on parity planes with ``packed=True``, the
+chunk state then staying on planes (one K15 pack before the loop, one K16
+unpack after it, plane halos exchanged at half depth).
+
+Intended differences from the reference: results are gathered onto the
+mesh's first device (the reference returns arrays sharded over the mesh);
+the kernels' canvases are (h + 2D, w + 2D), rounded up to an even width,
+without the reference's 128/256-lane pad (a TPU layout need), while the
+routing predicates are evaluated on the lane-padded geometry, so that a
+call takes the reference's route. ``halo='rdma'``/``'overlap'`` (M13d)
+and ``reinit_every > 0`` (M10) raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..models.fused import (_delta_from_partials, _fold_scalar_lambdas,
+                            segment_fused)
+from ..models.scalar import SegResult
+from ..ops import banded_kernel, fused_kernel, packed_kernel
+from ..ops.numerics import dirac, heaviside
+from ..ops.reductions import data_term, loop_continue, means_from_sums
+from ..ops.sweep import _update_all
+from ..params import CVParams
+from ..utils.init_phi import init_phi
+from .data_parallel import _on
+from .halo import exchange_halo2d, exchange_halo2d_batched
+from .mesh import Mesh, gather_grid, grid_sharding, shard_grid
+
+_D = 4  # halo depth of the per-iteration exchange
+
+
+def _global_coords(shape, ix, iy, h, w, pad, device):
+    """(g_i, g_j) int64 grids (broadcastable) of a block of ``shape``
+    padded by ``pad`` on each side."""
+    gi = torch.arange(shape[0], device=device)[:, None] + (ix * h - pad)
+    gj = torch.arange(shape[1], device=device)[None, :] + (iy * w - pad)
+    return gi, gj
+
+
+def _resync_replicas(pad, ix, iy, nx, ny, depth=_D):
+    """The padded block with its global-edge replica halos refreshed from
+    the current edge cells, at full ``depth``, rows before columns."""
+    pad = pad.clone()
+    if ix == 0:
+        pad[:depth] = pad[depth]
+    if ix == nx - 1:
+        pad[-depth:] = pad[-depth - 1]
+    if iy == 0:
+        pad[:, :depth] = pad[:, depth:depth + 1]
+    if iy == ny - 1:
+        pad[:, -depth:] = pad[:, -depth - 1:-depth]
+    return pad
+
+
+def _local_checkerboard(shape, ix, iy, h, w, dtype, device, period=5.0):
+    gi, gj = _global_coords(shape, ix, iy, h, w, 0, device)
+    k = math.pi / period
+    return torch.sin(gi.to(dtype) * k) * torch.sin(gj.to(dtype) * k)
+
+
+def _sqrt(x):
+    """The correctly rounded square root, as XLA's and CUDA's: torch's CPU
+    kernel (Sleef's, within 0.5001 ulp) rounds about 1% of f64 cells the
+    other way, so on the CPU numpy's takes it."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
+def _local_circle(shape, ix, iy, h, w, H, W, dtype, device, r=None):
+    gi, gj = _global_coords(shape, ix, iy, h, w, 0, device)
+    cy, cx = (H - 1) / 2.0, (W - 1) / 2.0
+    r = min(H, W) / 4.0 if r is None else r
+    gi, gj = gi.to(dtype), gj.to(dtype)
+    return r - _sqrt((gi - cy) ** 2 + (gj - cx) ** 2)
+
+
+def _local_rect(shape, ix, iy, h, w, H, W, dtype, device, margin=None):
+    """Sharded mirror of utils/init_phi.rect (global-coordinate SDF)."""
+    gi, gj = _global_coords(shape, ix, iy, h, w, 0, device)
+    m = min(H, W) / 8.0 if margin is None else margin
+    gi, gj = gi.to(dtype), gj.to(dtype)
+    return torch.minimum(torch.minimum(gi - m, (H - 1 - m) - gi),
+                         torch.minimum(gj - m, (W - 1 - m) - gj))
+
+
+def _make_phi0(shape, kind, dtype, mesh: Mesh):
+    """The start, built shard by shard on each shard's device from global
+    coordinates: a grid of (H/nx, W/ny) blocks."""
+    nx, ny = mesh.shape["x"], mesh.shape["y"]
+    H, W = shape
+    h, w = H // nx, W // ny
+
+    def local(ix, iy):
+        dev = mesh.device(ix, iy)
+        if kind == "checkerboard":
+            v = _local_checkerboard((h, w), ix, iy, h, w, dtype, dev)
+        elif kind in ("circle", "disk"):
+            v = _local_circle((h, w), ix, iy, h, w, H, W, dtype, dev)
+        elif kind in ("small disk", "small-disk"):
+            v = _local_circle((h, w), ix, iy, h, w, H, W, dtype, dev,
+                              r=min(H, W) / 8.0)
+        elif kind == "rect":
+            v = _local_rect((h, w), ix, iy, h, w, H, W, dtype, dev)
+        else:
+            raise ValueError(f"unsupported sharded init {kind!r}")
+        return v.expand(h, w).contiguous()
+
+    return [[local(ix, iy) for iy in range(ny)] for ix in range(nx)]
+
+
+# the reference's routing predicates, on its lane-padded canvas geometry
+
+def _canvas_cols(w: int, depth: int = _D) -> int:
+    """The reference's lane-aligned canvas width for a (h+2d, w+2d) padded
+    shard (routing only: the port's canvases are not lane-padded)."""
+    return -(-(w + 2 * depth) // 128) * 128
+
+
+def _pallas_ok(h: int, w: int) -> bool:
+    return h % 8 == 0 and fused_kernel.supports(h + 2 * _D, _canvas_cols(w))
+
+
+def _pallas_banded_ok(h: int, w: int, comm_k: int, channels: int = 0) -> bool:
+    """Can the banded kernel run per shard inside comm_k-deep chunks?
+    Remainder chunks run fewer iterations on the same canvas, and the
+    predicates are monotone in k, so checking comm_k covers them."""
+    D = 4 * comm_k
+    hc, wc = h + 2 * D, _canvas_cols(w, D)
+    if channels:
+        return (h % 8 == 0
+                and banded_kernel.supports_banded_mc(hc, wc, comm_k,
+                                                     channels))
+    return h % 8 == 0 and banded_kernel.supports_banded(hc, wc, comm_k)
+
+
+def _packed_canvas_cols(w: int, depth: int) -> int:
+    """The reference's 256-aligned canvas width of the packed shard kernel
+    (routing only)."""
+    return -(-(w + 2 * depth) // 256) * 256
+
+
+def _packed_banded_shard_ok(h: int, w: int, comm_k: int) -> bool:
+    """Can the packed banded kernel run per shard inside comm_k chunks?
+    Even shards and the even depth D = 4 comm_k put every canvas origin on
+    an even global cell: the packed shard kernel's static parity."""
+    D = 4 * comm_k
+    return (h % 2 == 0 and w % 2 == 0 and comm_k > 1
+            and packed_kernel.supports_packed_banded(
+                h + 2 * D, _packed_canvas_cols(w, D), comm_k))
+
+
+# one shard's step ---------------------------------------------------------
+
+def _sweep_local(pad, f, p, red, black, ix, iy, nx, ny, depth=_D):
+    """Red and black half-sweeps on a padded block, the replica halos
+    refreshed in between."""
+    upd = _update_all(pad, f, p.mu, p.dt, p.eps, p.eta2)
+    pad = torch.where(red, upd, pad)
+    pad = _resync_replicas(pad, ix, iy, nx, ny, depth)
+    upd = _update_all(pad, f, p.mu, p.dt, p.eps, p.eta2)
+    return torch.where(black, upd, pad)
+
+
+def _partials(new, prev, u0_loc, eps):
+    """[s_uH (per channel for an (h, w, C) block), s_H, s_dphi2, flips,
+    s_absdphi] of a shard's transition prev -> new."""
+    h_eps = heaviside(new, eps)
+    d = new - prev
+    flips = ((new >= 0) != (prev >= 0)).to(new.dtype)
+    if u0_loc.ndim == 3:
+        s_uh = torch.sum(u0_loc * h_eps[..., None], dim=(0, 1))
+    else:
+        s_uh = torch.sum(u0_loc * h_eps)[None]
+    return torch.cat([s_uh, torch.stack([
+        torch.sum(h_eps), torch.sum(d * d), torch.sum(flips),
+        torch.sum(torch.abs(d))])])
+
+
+def _jnp_chunk(pad, u0_pad, c1, c2, p, lambdas, k, pos, grid, depth):
+    """k frozen-means iterations of one padded block on the plain path
+    (the reference's jnp route; k = 1 is its per-iteration step). Returns
+    (new, prev) of the block's own cells."""
+    (ix, iy), (nx, ny, h, w) = pos, grid
+    gi, gj = _global_coords(pad.shape, ix, iy, h, w, depth, pad.device)
+    valid = (gi >= 0) & (gi < nx * h) & (gj >= 0) & (gj < ny * w)
+    odd = (gi + gj) % 2 == 1
+    red, black = ~odd & valid, odd & valid
+    if lambdas is None:
+        f = data_term(u0_pad, c1, c2, p.nu, p.lambda1, p.lambda2)
+    else:
+        f = data_term(u0_pad, c1, c2, p.nu, *lambdas)
+    prev = pad
+    for it in range(k):
+        prev = pad
+        if it:
+            # the replicas refreshed from the current edge cells before
+            # every iteration but the first, whose exchange built them
+            pad = _resync_replicas(pad, ix, iy, nx, ny, depth)
+        pad = _sweep_local(pad, f, p, red, black, ix, iy, nx, ny, depth)
+    crop = (slice(depth, depth + h), slice(depth, depth + w))
+    return pad[crop], prev[crop]
+
+
+def _even_cols(x):
+    """x with one edge-replicated column more where its width is odd (the
+    kernels' canvases have an even width)."""
+    return torch.cat([x, x[..., -1:]], dim=-1) if x.shape[-1] % 2 else x
+
+
+def _fix_edge_replicas_planes(planes, edges, crop_p):
+    """Restore the flat clamped-replica convention at the global edges of
+    a freshly plane-exchanged canvas, depth 2 (all the kernels read): the
+    exchange replicates each plane's own edge, the flat convention wants
+    the global edge row/column, so canvas rows r0-1 and r0-2 (plane row
+    r0p - 1 of both row planes) take edge row r0 (plane a = 0), and so on.
+    crop_p = the plane-coordinate crop (r0p, r1p, c0p, c1p)."""
+    r0p, r1p, c0p, c1p = crop_p
+    top, bottom, left, right = edges
+    planes = planes.clone()
+    if top:
+        planes[:, :, r0p - 1, :] = planes[0:1, :, r0p, :]
+    if bottom:
+        planes[:, :, r1p, :] = planes[1:2, :, r1p - 1, :]
+    if left:
+        planes[:, :, :, c0p - 1] = planes[:, 0:1, :, c0p]
+    if right:
+        planes[:, :, :, c1p] = planes[:, 1:2, :, c1p - 1]
+    return planes
+
+
+class _Shards:
+    """The state of a sharded run that its routes share: the grid, the
+    image's blocks, the start, the sums behind the means, and each shard's
+    lattice parity and global-edge flags."""
+
+    def __init__(self, u0, p: CVParams, mesh: Mesh, lambdas, phi0):
+        self.p, self.mesh, self.lambdas = p, mesh, lambdas
+        self.nx, self.ny = mesh.shape["x"], mesh.shape["y"]
+        self.first = mesh.devices[0]
+        self.vec = u0.ndim == 3
+        self.u0 = shard_grid(u0, grid_sharding(mesh))
+        self.h, self.w = self.u0[0][0].shape[:2]
+        self.dtype = u0.dtype
+        self.n_pix = torch.tensor(self.nx * self.h * self.ny * self.w,
+                                  dtype=u0.dtype, device=self.first)
+        self.phi0 = (_make_phi0(u0.shape[:2], p.init, u0.dtype, mesh)
+                     if phi0 is None else shard_grid(phi0,
+                                                     grid_sharding(mesh)))
+        # the means of the start: the smooth-Heaviside sums, summed over
+        # the shards
+        parts = self.psum(self._each(lambda pos, u, ph: _partials(
+            ph, ph, u, p.eps), self.u0, self.phi0))
+        c = u0.shape[2] if self.vec else 1
+        self.nchan = c
+        self.sum_u = self.psum(self._each(
+            lambda pos, u: torch.sum(u, dim=(0, 1)).reshape(c), self.u0))
+        self.c1, self.c2 = self.means(parts)
+
+    def positions(self):
+        return [(ix, iy) for ix in range(self.nx) for iy in range(self.ny)]
+
+    def _each(self, fn, *grids):
+        """fn(pos, *blocks) for every shard in row-major order, each in
+        its device's context."""
+        out = []
+        for ix, iy in self.positions():
+            with _on(self.mesh.device(ix, iy)):
+                out.append(fn((ix, iy), *(g[ix][iy] for g in grids)))
+        return out
+
+    def grid(self, flat):
+        return [flat[ix * self.ny:(ix + 1) * self.ny] for ix in range(self.nx)]
+
+    def psum(self, parts):
+        """The per-shard partials summed in row-major shard order, in f64
+        on the first device, returned in the image's dtype."""
+        acc = parts[0].to(self.first, torch.float64)
+        for q in parts[1:]:
+            acc = acc + q.to(self.first, torch.float64)
+        return acc.to(self.dtype)
+
+    def means(self, parts):
+        c = self.nchan
+        s_uh = parts[:c] if self.vec else parts[0]
+        s_u = self.sum_u if self.vec else self.sum_u[0]
+        return means_from_sums(s_uh, parts[c], s_u, self.n_pix)
+
+    def delta(self, parts):
+        return _delta_from_partials(parts, self.n_pix, self.p,
+                                    self.nchan - 1)
+
+    def parity(self, pos):
+        return (pos[0] * self.h + pos[1] * self.w) % 2
+
+    def edges(self, pos):
+        ix, iy = pos
+        return (ix == 0, ix == self.nx - 1, iy == 0, iy == self.ny - 1)
+
+    def cfirst(self):
+        """The image blocks, channels-first for C channels."""
+        if not self.vec:
+            return self.u0
+        return [[u.permute(2, 0, 1).contiguous() for u in row]
+                for row in self.u0]
+
+
+def _channels_last(pad):
+    return pad.permute(1, 2, 0) if pad.ndim == 3 else pad
+
+
+class _Step:
+    """One route's step over every shard: ``run(phi, c1, c2, size)``
+    returns (phi blocks, partials summed over the shards)."""
+
+    def __init__(self, sh: _Shards, use_pallas: bool, depth: int,
+                 packed: bool, chunked: bool):
+        self.sh, self.use_pallas, self.D = sh, use_pallas, depth
+        self.packed, self.chunked = packed, chunked
+        u0_pad = exchange_halo2d_batched(sh.cfirst(), depth)
+        if packed:
+            # the image canvas on parity planes, packed once (K15)
+            self.u0 = [[packed_kernel.pack_planes(u) for u in row]
+                       for row in u0_pad]
+        elif use_pallas:
+            self.u0 = [[_even_cols(u) for u in row] for row in u0_pad]
+        else:
+            self.u0 = [[_channels_last(u) for u in row] for row in u0_pad]
+
+    def _kernel(self, pos, canvas, u0c, c1, c2, size):
+        sh, D = self.sh, self.D
+        crop = (D, D + sh.h, D, D + sh.w)
+        parity, edges = sh.parity(pos), sh.edges(pos)
+        if sh.vec:
+            l1, l2 = sh.lambdas
+            new, parts = banded_kernel.banded_chunk_mc_sharded(
+                canvas, u0c, c1, c2, sh.p, size, parity, edges, crop,
+                unroll=4 if size % 4 == 0 else 1, lambda1=l1, lambda2=l2)
+        elif self.chunked:
+            new, parts = banded_kernel.banded_chunk_sharded(
+                canvas, u0c, c1, c2, sh.p, size, parity, edges, crop,
+                unroll=4 if size % 4 == 0 else 1)
+        else:
+            new, parts = fused_kernel.fused_iteration(
+                canvas, u0c, c1, c2, sh.p, parity=parity, crop=crop,
+                edges=edges)
+        return new[D:D + sh.h, D:D + sh.w], parts[:sh.nchan + 4]
+
+    def _packed(self, pos, pad, u0c, c1, c2, size):
+        sh, D = self.sh, self.D
+        crop = (D, D + sh.h, D, D + sh.w)
+        crop_p = tuple(c // 2 for c in crop)
+        edges = sh.edges(pos)
+        canvas = _fix_edge_replicas_planes(pad, edges, crop_p)
+        new, parts = packed_kernel.packed_banded_chunk_sharded(
+            canvas, u0c, c1, c2, sh.p, size, edges, crop)
+        return new[:, :, crop_p[0]:crop_p[1], crop_p[2]:crop_p[3]], parts[:5]
+
+    def run(self, phi, c1, c2, size):
+        sh, D = self.sh, self.D
+        pad = (exchange_halo2d_batched(phi, D // 2) if self.packed
+               else exchange_halo2d(phi, D))
+
+        def one(pos, pad, u0c):
+            dev = pad.device
+            a, b = c1.to(dev), c2.to(dev)
+            if self.packed:
+                return self._packed(pos, pad, u0c, a, b, size)
+            if self.use_pallas:
+                return self._kernel(pos, _even_cols(pad), u0c, a, b, size)
+            new, prev = _jnp_chunk(pad, u0c, a, b, sh.p, sh.lambdas, size,
+                                   pos, (sh.nx, sh.ny, sh.h, sh.w), D)
+            u0_loc = u0c[D:D + sh.h, D:D + sh.w]
+            return new, _partials(new, prev, u0_loc, sh.p.eps)
+
+        outs = sh._each(one, pad, self.u0)
+        return (sh.grid([o[0] for o in outs]),
+                sh.psum([o[1] for o in outs]))
+
+
+def _energy(sh: _Shards, phi, c1, c2):
+    """The Chan-Vese energy of the sharded level set, summed over the
+    shards: forward differences read the south/east neighbour through a
+    1-deep halo, whose global-edge replicas make the clamped difference
+    vanish at the image boundary, as ``ops.reductions.energy``."""
+    p = sh.p
+    pad1 = exchange_halo2d(phi, 1)
+
+    def local(pos, pad, new, u0_loc):
+        dev = new.device
+        a, b = c1.to(dev), c2.to(dev)
+        ph = pad[1:-1, 1:-1]
+        gx = pad[2:, 1:-1] - ph
+        gy = pad[1:-1, 2:] - ph
+        h = heaviside(new, p.eps)
+        length = torch.sum(dirac(new, p.eps) * torch.sqrt(gx * gx + gy * gy))
+        area = torch.sum(h)
+        if sh.vec:
+            l1, l2 = (torch.as_tensor(v, dtype=new.dtype, device=dev)
+                      for v in sh.lambdas)
+            fit1 = torch.sum(torch.mean(l1 * (u0_loc - a) ** 2, dim=-1) * h)
+            fit2 = torch.sum(torch.mean(l2 * (u0_loc - b) ** 2, dim=-1)
+                             * (1.0 - h))
+            return (p.mu * length + p.nu * area + fit1 + fit2)[None]
+        fit1 = torch.sum((u0_loc - a) ** 2 * h)
+        fit2 = torch.sum((u0_loc - b) ** 2 * (1.0 - h))
+        return (p.mu * length + p.nu * area + p.lambda1 * fit1
+                + p.lambda2 * fit2)[None]
+
+    return sh.psum(sh._each(local, pad1, phi, sh.u0))[0]
+
+
+def _run_sharded(sh: _Shards, max_iter, fixed, use_pallas, comm_k, packed):
+    """The solver over the shards: (phi blocks, c1, c2, iters, delta)."""
+    p = sh.p
+    chunked = comm_k > 1 or (sh.vec and use_pallas)
+    step = _Step(sh, use_pallas, 4 * comm_k if chunked else _D, packed,
+                 chunked)
+    phi = sh.phi0
+    if packed:
+        phi = [[packed_kernel.pack_planes(b) for b in row] for row in phi]
+    c1, c2 = sh.c1, sh.c2
+    n, streak = 0, 0
+    delta = torch.tensor(math.inf, dtype=sh.dtype, device=sh.first)
+    delta_f = math.inf
+
+    def run(size):
+        nonlocal phi, c1, c2, n, streak, delta, delta_f
+        phi, parts = step.run(phi, c1, c2, size)
+        c1, c2 = sh.means(parts)
+        delta = sh.delta(parts)
+        if not fixed:  # one read of delta a chunk (an iteration)
+            delta_f = delta.item()
+            below = torch.tensor(delta_f, dtype=sh.dtype) < p.tol
+            # a below-tol chunk credits its full size: patience stays
+            # iteration-denominated across drivers
+            streak = streak + size if bool(below) else 0
+        n += size
+
+    def not_stopped():
+        done = streak >= p.patience and n >= p.min_iter
+        return not (done or (n > 0 and not math.isfinite(delta_f)))
+
+    if chunked:
+        full = (max_iter // comm_k) * comm_k
+        while n < full and (fixed or not_stopped()):
+            run(comm_k)
+        rem = max_iter - full
+        if rem and n < max_iter and (fixed or not_stopped()):
+            run(rem)
+    else:
+        while (n < max_iter) if fixed else loop_continue(
+                n, delta_f, streak, p, max_iter):
+            run(1)
+    if packed:  # one unpack (K16) a shard
+        phi = [[packed_kernel.unpack_planes(b) for b in row] for row in phi]
+    return phi, c1, c2, n, delta
+
+
+def _check_ported(halo: str, p: CVParams):
+    """Raise for the options whose modules are not ported yet."""
+    if halo in ("rdma", "overlap"):
+        raise NotImplementedError(
+            f"halo={halo!r} is a halo mechanism of ROADMAP M13d (with K14), "
+            f"not ported yet; use halo='ppermute'")
+    if p.reinit_every:
+        raise NotImplementedError(
+            "reinit_every > 0 needs ops/reinit.py and the sharded "
+            "redistance, not ported yet (ROADMAP M10)")
+
+
+def _on_mesh(x, mesh: Mesh):
+    """An input moved to the mesh's first device (as a tensor)."""
+    return torch.as_tensor(x).to(mesh.devices[0])
+
+
+def segment_sharded(u0, p: CVParams = CVParams(), mesh: Optional[Mesh] = None,
+                    phi0: Optional[torch.Tensor] = None,
+                    max_iter: Optional[int] = None, fixed: bool = False,
+                    use_pallas: Optional[bool] = None,
+                    lambda1=None, lambda2=None,
+                    halo: str = "ppermute",
+                    comm_k: int = 1,
+                    packed: Optional[bool] = None) -> SegResult:
+    """Segment one large image sharded over a 2-D ('x', 'y') grid mesh.
+
+    u0: (H, W) grayscale or (H, W, C) vector-valued (per-channel
+    lambda1/lambda2 tuples supported), with H % nx == 0 and W % ny == 0.
+    Tolerance mode by default; ``fixed=True`` runs exactly ``max_iter``
+    (or p.max_iter) iterations and reads nothing back to the host;
+    tolerance mode reads delta once a chunk (once an iteration at
+    comm_k = 1). Returns a SegResult whose phi and mask are gathered onto
+    the mesh's first device.
+
+    comm_k: one 4k-deep halo exchange per comm_k frozen-means iterations
+    (the banded trajectory class), with convergence checked per chunk.
+    use_pallas: None takes the kernels when every mesh device is a CUDA
+    device and the reference's predicate holds for the shard (K1's shard
+    mode per iteration for a gray image, K2's per chunk at comm_k > 1,
+    K5's for C channels at every comm_k); True on CPU devices runs the
+    kernels' plain versions through the same drivers (the reference's
+    ``interpret=True``). packed=True runs the gray chunks on parity planes
+    (K3's shard mode; even shards, comm_k > 1). A 1x1 mesh on the
+    per-iteration kernel route runs :func:`..models.fused.segment_fused`,
+    as the reference does.
+    """
+    if mesh is None:
+        raise ValueError("segment_sharded needs a mesh "
+                         "(parallel.mesh.make_grid_mesh)")
+    nx, ny = mesh.shape["x"], mesh.shape["y"]
+    H, W = u0.shape[:2]
+    if H % nx or W % ny:
+        raise ValueError(f"image {tuple(u0.shape)} not divisible by mesh "
+                         f"({nx}, {ny})")
+    cap = max_iter if max_iter is not None else p.max_iter
+    if halo not in ("ppermute", "rdma", "overlap"):
+        raise ValueError(f"unknown halo mechanism {halo!r}")
+    if halo == "overlap" and min(H // nx, W // ny) < 16:
+        raise ValueError("halo='overlap' needs shards of at least 16x16 "
+                         "(the rim strips span 16 canvas rows/cols)")
+    if comm_k < 1:
+        raise ValueError("comm_k must be >= 1")
+    if comm_k > 1:
+        if p.reinit_every:
+            raise ValueError(
+                "comm_k > 1 supports no reinit cadence (frozen-means "
+                "chunks have no per-iteration boundary to hang it on)")
+        if halo == "overlap" and u0.ndim == 3:
+            raise ValueError("overlap x comm_k supports grayscale only")
+        if 4 * comm_k > min(H // nx, W // ny):
+            raise ValueError(
+                f"comm_k={comm_k} needs 4*comm_k-deep halos, larger than "
+                f"the shard ({H // nx}, {W // ny})")
+    vec = u0.ndim == 3
+    if vec:
+        if halo != "ppermute":
+            raise ValueError(f"halo={halo!r} supports grayscale images only")
+        lambdas = p.channel_lambdas(u0.shape[-1], lambda1, lambda2)
+    else:
+        p = _fold_scalar_lambdas(p, lambda1, lambda2)
+        lambdas = None
+    if p.reinit_every and p.reinit_steps > min(H // nx, W // ny):
+        raise ValueError(
+            f"reinit_steps={p.reinit_steps} exceeds the shard size "
+            f"({H // nx}, {W // ny}); the halo-aware redistance exchanges a "
+            f"depth-reinit_steps halo from immediate neighbors only - lower "
+            f"reinit_steps or use a coarser mesh")
+    on_cuda = all(d.type == "cuda" for d in mesh.devices)
+    if comm_k > 1 or vec:
+        ch = u0.shape[-1] if vec else 0
+        ok = _pallas_banded_ok(H // nx, W // ny, comm_k, ch) and not (
+            vec and (p.reinit_every or comm_k == 1 and halo != "ppermute"))
+        if use_pallas is None:
+            use_pallas = on_cuda and ok
+        elif use_pallas and not ok:
+            raise ValueError(
+                f"banded pallas path unsupported for shard "
+                f"({tuple(u0.shape)}, mesh ({nx}, {ny}), comm_k={comm_k})")
+    elif use_pallas is None:
+        use_pallas = on_cuda and _pallas_ok(H // nx, W // ny)
+    elif use_pallas and not _pallas_ok(H // nx, W // ny):
+        raise ValueError(f"pallas path unsupported for shard "
+                         f"({tuple(u0.shape)}, mesh ({nx}, {ny}))")
+    packed_ok = (not vec and comm_k > 1 and bool(use_pallas)
+                 and halo == "ppermute"
+                 and _packed_banded_shard_ok(H // nx, W // ny, comm_k))
+    if packed is None:
+        packed = False
+    elif packed and not packed_ok:
+        raise ValueError(
+            f"packed sharded banded path unsupported for shard "
+            f"({tuple(u0.shape)}, mesh ({nx}, {ny}), comm_k={comm_k}, "
+            f"halo={halo!r}, use_pallas={use_pallas})")
+    _check_ported(halo, p)
+
+    u0 = _on_mesh(u0, mesh)
+    if phi0 is not None:
+        phi0 = _on_mesh(phi0, mesh)
+    if nx == 1 and ny == 1 and not vec and use_pallas and comm_k == 1:
+        # a 1x1 mesh: the shard is the image, so the canvas machinery is
+        # pure tax; the single-image fused driver runs the same math
+        if phi0 is None:
+            phi0 = init_phi((H, W), p.init, u0.dtype, device=u0.device)
+        return segment_fused(u0, p, phi0=phi0, fixed=fixed, max_iter=cap)
+
+    sh = _Shards(u0, p, mesh, lambdas, phi0)
+    phi, c1, c2, iters, delta = _run_sharded(sh, cap, fixed,
+                                             bool(use_pallas), comm_k,
+                                             bool(packed))
+    phi = gather_grid(phi, mesh)
+    return SegResult(phi, phi >= 0, iters, delta, c1, c2)
+
+
+class ShardedTrace(NamedTuple):
+    phi: torch.Tensor
+    mask: torch.Tensor
+    energy: torch.Tensor   # (iters,)
+    delta: torch.Tensor    # (iters,)
+    c1: torch.Tensor       # (iters[, C])
+    c2: torch.Tensor
+
+
+def segment_sharded_fixed_trace(u0, p: CVParams = CVParams(),
+                                mesh: Optional[Mesh] = None,
+                                iters: int = 100,
+                                phi0: Optional[torch.Tensor] = None,
+                                use_pallas: Optional[bool] = None,
+                                lambda1=None, lambda2=None,
+                                halo: str = "ppermute") -> ShardedTrace:
+    """Fixed-iteration sharded run with per-iteration energy, delta and
+    means traces (the parity artifact of BASELINE.json:5, computed from
+    the shards' sums without a gather): the energy after each sweep, with
+    means from the post-sweep phi; c1/c2 are the means each iteration
+    used, as ``models.scalar.segment_fixed``'s trace. The per-iteration
+    route only (K1's shard mode on the kernels, gray); nothing is read back
+    to the host."""
+    if mesh is None:
+        raise ValueError("segment_sharded_fixed_trace needs a mesh")
+    nx, ny = mesh.shape["x"], mesh.shape["y"]
+    H, W = u0.shape[:2]
+    if H % nx or W % ny:
+        raise ValueError(f"image {tuple(u0.shape)} not divisible by mesh "
+                         f"({nx}, {ny})")
+    if halo not in ("ppermute", "rdma", "overlap"):
+        raise ValueError(f"unknown halo mechanism {halo!r}")
+    vec = u0.ndim == 3
+    if vec:
+        if halo != "ppermute":
+            raise ValueError(f"halo={halo!r} supports grayscale only")
+        lambdas = p.channel_lambdas(u0.shape[-1], lambda1, lambda2)
+    else:
+        p = _fold_scalar_lambdas(p, lambda1, lambda2)
+        lambdas = None
+    ok = _pallas_ok(H // nx, W // ny)
+    if use_pallas is None:
+        use_pallas = (not vec and all(d.type == "cuda" for d in mesh.devices)
+                      and ok)
+    elif use_pallas and (vec or not ok):
+        raise ValueError(f"pallas path unsupported for shard "
+                         f"({tuple(u0.shape)}, mesh ({nx}, {ny}))")
+    _check_ported(halo, p)
+
+    u0 = _on_mesh(u0, mesh)
+    sh = _Shards(u0, p, mesh, lambdas,
+                 None if phi0 is None else _on_mesh(phi0, mesh))
+    step = _Step(sh, bool(use_pallas), _D, False, False)
+    phi, c1, c2 = sh.phi0, sh.c1, sh.c2
+    es, ds, c1s, c2s = [], [], [], []
+    for _ in range(iters):
+        phi, parts = step.run(phi, c1, c2, 1)
+        c1n, c2n = sh.means(parts)
+        es.append(_energy(sh, phi, c1n, c2n))
+        ds.append(sh.delta(parts))
+        c1s.append(c1)
+        c2s.append(c2)
+        c1, c2 = c1n, c2n
+    first = sh.first
+
+    def stack(xs):
+        return (torch.stack(xs) if xs
+                else torch.empty(0, dtype=sh.dtype, device=first))
+
+    phi = gather_grid(phi, mesh)
+    return ShardedTrace(phi, phi >= 0, stack(es), stack(ds), stack(c1s),
+                        stack(c2s))

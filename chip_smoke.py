@@ -35,8 +35,18 @@ mode, whose per-frame iteration counts and masks are held against the
 same stack run on the CPU) and packed_chunk through the kernels, and the
 times: the batched-stack configuration at steady state, K1 batch beside
 the per-frame loop it replaced, the layout A/B at 1024^2 (K13
-flat/packed, K2/K3, K7/K8) and K15/K16 beside the permute-copy. Any
-failure raises and exits non-zero. The last lines are a JSON object per
+flat/packed, K2/K3, K7/K8) and K15/K16 beside the permute-copy. Phases
+18-20 do the same for the sharded two-phase PDE: the shard-canvas modes
+of K1, K2, K3 and K5 each against its plain version on every shard of a
+2x2 and a 3x3 grid of the 4K images (a second launch bitwise the first,
+each crop against the whole-image launch of the same kernel),
+segment_sharded at 4K on a 2x2 grid of four shards on the card (gray and
+RGB, comm_k 8 and 1, tolerance mode) and on the 1x1 mesh (flat and
+packed), and segment_sharded_fixed_trace, with their masks, trace and
+launch counts checked, and the times: each run's throughput beside the
+unsharded banded driver, each shard mode per launch, and the halo
+exchange that builds the canvases. Any failure raises and exits
+non-zero. The last lines are a JSON object per
 kernel, the card's name and power limit, and {"ok": true, "device":
 {...}}. Without a CUDA device it exits 1 and prints no result.
 """
@@ -71,8 +81,10 @@ from chan_vese_tpu_torch.ops import (_cuda, banded_kernel,  # noqa: E402
 from chan_vese_tpu_torch.ops.morph import (  # noqa: E402
     binary_means, inverse_gaussian_gradient)
 from chan_vese_tpu_torch.ops.reductions import region_means  # noqa: E402
-from chan_vese_tpu_torch.parallel import (make_data_mesh,  # noqa: E402
-                                          segment_stack_sharded)
+from chan_vese_tpu_torch.parallel import (  # noqa: E402
+    exchange_halo2d, exchange_halo2d_batched, grid_sharding, make_data_mesh,
+    make_grid_mesh, segment_sharded, segment_sharded_fixed_trace,
+    segment_stack_sharded, shard_grid)
 from chan_vese_tpu_torch.utils.init_phi import init_phi  # noqa: E402
 
 H4K, W4K = 2160, 3840
@@ -328,6 +340,39 @@ PACK_SHAPES = ((H4K, W4K), (RGB, H4K, W4K), (STACK_FRAMES, 512, 512),
 # (seeds 0-3), which stop at different iterations (7, 23, 27, 11 on the
 # CPU, f32 and f64 alike)
 TOL_STACK, TOL_NOISES = (4, 256, 256), (8.0, 20.0, 20.0, 12.0)
+
+# the sharded two-phase PDE (phases 18-20): the shard-canvas modes of K1,
+# K2, K3 and K5; k the chunk each is checked and timed at (K5 also at
+# k = 1, the RGB per-iteration route)
+SHARD = {
+    "K1 fused_iteration (shard)": dict(
+        source="chan_vese_tpu_torch/csrc/fused.cu",
+        replaces="chan_vese_tpu/ops/pallas_sweep.py:381", ks=(1,),
+        channels=0, counter=(fused_kernel.fused_iteration,
+                             "shard_launches")),
+    "K2 banded_chunk_sharded": dict(
+        source="chan_vese_tpu_torch/csrc/banded.cu",
+        replaces="chan_vese_tpu/ops/pallas_banded.py:399", ks=(8,),
+        channels=0, counter=(banded_kernel.banded_chunk_sharded,
+                             "launches")),
+    "K3 packed_banded_chunk_sharded": dict(
+        source="chan_vese_tpu_torch/csrc/packed.cu",
+        replaces="chan_vese_tpu/ops/pallas_packed.py:857", ks=(8,),
+        channels=0, counter=(packed_kernel.packed_banded_chunk_sharded,
+                             "launches")),
+    "K5 banded_chunk_mc_sharded": dict(
+        source="chan_vese_tpu_torch/csrc/banded_mc.cu",
+        replaces="chan_vese_tpu/ops/pallas_banded.py:800", ks=(8, 1),
+        channels=RGB, counter=(banded_kernel.banded_chunk_mc_sharded,
+                               "launches")),
+}
+# grids of shards on the one card: 2x2 (1080x1920 shards, every shard a
+# corner) and 3x3 (720x1280; side shards and a centre one without flags)
+SHARD_GRIDS = ((2, 2), (3, 3))
+# phase 19's runs: comm_k, and the iterations of the fixed runs
+SHARD_K, SHARD_ITERS, SHARD_ITERS_K1, TRACE_ITERS = 8, 800, 100, 50
+# the trace's energy against the unsharded plain trace (BASELINE.json:5)
+TRACE_RTOL = 1e-5
 
 
 def two_disks(h, w, fg=217.0, bg=38.0, noise=8.0, seed=0):
@@ -1411,6 +1456,337 @@ def stack_phases(dev, card, img4k, rgb4k_cf):
     return st
 
 
+def shard_counts():
+    return {name: getattr(*v["counter"]) for name, v in SHARD.items()}
+
+
+def reset_shard_counts():
+    for v in SHARD.values():
+        setattr(*v["counter"], 0)
+
+
+def shard_call(name, p, k, plain=False):
+    """fn(canvas, image canvas, c1, c2, parity, edges, crop) -> (canvas,
+    partials) of a shard mode (or its plain version), flat canvases in
+    and out (K3 packs and unpacks around its planes)."""
+    if name.startswith("K1"):
+        f = (fused_kernel.fused_iteration_reference if plain
+             else fused_kernel.fused_iteration)
+        return lambda x, u, a, b, par, e, cr: f(x, u, a, b, p, par, cr, e)
+    if name.startswith("K3"):
+        f = (packed_kernel.packed_banded_chunk_sharded_reference if plain
+             else packed_kernel.packed_banded_chunk_sharded)
+
+        def run(x, u, a, b, par, e, cr):
+            out, parts = f(packed_kernel.pack_planes(x),
+                           packed_kernel.pack_planes(u), a, b, p, k, e, cr)
+            return packed_kernel.unpack_planes(out), parts
+        return run
+    if name.startswith("K2"):
+        f = (banded_kernel.banded_chunk_sharded_reference if plain
+             else banded_kernel.banded_chunk_sharded)
+    else:
+        f = (banded_kernel.banded_chunk_mc_sharded_reference if plain
+             else banded_kernel.banded_chunk_mc_sharded)
+    return lambda x, u, a, b, par, e, cr: f(x, u, a, b, p, k, par, e, cr)
+
+
+def whole_call(name, phi, u, c1, c2, p, k):
+    """The whole-image launch of the mode's kernel (K1, K2, K3, K5)."""
+    if name.startswith("K1"):
+        return fused_kernel.fused_iteration(phi, u, c1, c2, p)
+    if name.startswith("K2"):
+        return banded_kernel.banded_chunk(phi, u, c1, c2, p, k)
+    if name.startswith("K3"):
+        out, parts = packed_kernel.packed_banded_chunk(
+            packed_kernel.pack_planes(phi), packed_kernel.pack_planes(u), c1,
+            c2, p, k)
+        return packed_kernel.unpack_planes(out), parts
+    return banded_kernel.banded_chunk_mc(phi, u, c1, c2, p, k)
+
+
+def shard_canvases(phi, u, nx, ny, D, dev):
+    """Each shard's (position, phi canvas, image canvas, parity, edges,
+    crop) of an nx x ny grid on ``dev``, built by the port's halo
+    exchange: (h + 2D, w + 2D), the image channels-first."""
+    mesh = make_grid_mesh(nx, ny, [dev] * (nx * ny))
+    sharding = grid_sharding(mesh)
+    phis = exchange_halo2d(shard_grid(phi, sharding), D)
+    cf = u.ndim == 3
+    ublocks = shard_grid(u.permute(1, 2, 0) if cf else u, sharding)
+    if cf:
+        ublocks = [[b.permute(2, 0, 1).contiguous() for b in row]
+                   for row in ublocks]
+    us = exchange_halo2d_batched(ublocks, D)
+    h, w = phi.shape[0] // nx, phi.shape[1] // ny
+    return [((ix, iy), phis[ix][iy], us[ix][iy], (ix * h + iy * w) % 2,
+             (ix == 0, ix == nx - 1, iy == 0, iy == ny - 1),
+             (D, D + h, D, D + w))
+            for ix in range(nx) for iy in range(ny)]
+
+
+def check_shard_kernels(dev, p, u4k, v4k):
+    """Phase 18: each shard mode against its plain version on every shard
+    of a 2x2 and a 3x3 grid of the 4K images (the checkerboard start and
+    its means), a second launch bitwise the first, and each shard's crop
+    against the matching window of the whole-image launch of the same
+    kernel from the same means (bitwise expected: the arithmetic per cell
+    is the same code). Returns the stats of the four entries."""
+    st = {name: dict(max_abs_err=0.0) for name in SHARD}
+    phi = init_phi((H4K, W4K), p.init, torch.float32, device=dev)
+    inputs = {0: (u4k, *region_means(u4k, phi, p.eps)),
+              RGB: (v4k.permute(2, 0, 1).contiguous(),
+                    *region_means(v4k, phi, p.eps))}
+    for name, kern in SHARD.items():
+        u, c1, c2 = inputs[kern["channels"]]
+        for k in kern["ks"]:
+            D = 4 * k
+            call, plain = shard_call(name, p, k), shard_call(name, p, k, True)
+            whole, wparts = whole_call(name, phi, u, c1, c2, p, k)
+            for nx, ny in SHARD_GRIDS:
+                h, w = H4K // nx, W4K // ny
+                errs, bitwise, psum = [], True, 0.0
+                for pos, x, uc, par, edges, crop in shard_canvases(
+                        phi, u, nx, ny, D, dev):
+                    args = (x, uc, c1, c2, par, edges, crop)
+                    got, again, ref = call(*args), call(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got[0], again[0])
+                            and torch.equal(got[1], again[1])):
+                        raise AssertionError(f"{name} k={k} shard {pos} of "
+                                             f"{nx}x{ny}: two launches "
+                                             f"differ")
+                    tag = f"k={k} shard {pos} of {nx}x{ny} edges {edges}"
+                    errs.append(hold(name, got, ref, tag))
+                    ix, iy = pos
+                    mine = got[0][D:D + h, D:D + w]
+                    win = whole[ix * h:(ix + 1) * h, iy * w:(iy + 1) * w]
+                    if not torch.equal(mine, win):
+                        bitwise = False
+                        hold(name, (mine, got[1]), (win, got[1]),
+                             f"{tag} vs the whole-image launch")
+                    psum = psum + got[1].double()
+                st[name]["max_abs_err"] = max(st[name]["max_abs_err"],
+                                              *errs)
+                n = kern["channels"] + 4 if kern["channels"] else 5
+                hold(name, (whole, psum[:n].float()), (whole, wparts[:n]),
+                     f"k={k} {nx}x{ny}: the shards' partials summed vs the "
+                     f"whole image's")
+                crops = ("bitwise equal to" if bitwise
+                         else "within the bars of")
+                print(f"phase 18 {name} k={k} {nx}x{ny} ({h}x{w} shards, "
+                      f"D={D}): phi max|d| vs plain {max(errs):.3e} (phase "
+                      f"3's bars), crops {crops} the whole-image launch, "
+                      f"the shards' partials summed "
+                      f"within the bars of the whole image's; second "
+                      f"launches bitwise equal", flush=True)
+    return st
+
+
+def shard_phases(dev, card, u4k, gt4k, v4k, gtc4k):
+    """Phases 18-20, the sharded two-phase PDE at 4K on a 2x2 grid of four
+    shards on the card (and the 1x1 mesh); returns the four shard modes'
+    stats for the JSON line."""
+    p = ct.CVParams()
+    st = check_shard_kernels(dev, p, u4k, v4k)
+
+    # phase 19: the slice through segment_sharded. mu as phase 4's gray
+    # and RGB checks
+    pt = ct.CVParams(mu=0.001 * 255.0 ** 2, max_iter=500)
+    pv = ct.CVParams(mu=0.0001 * 255.0 ** 2, max_iter=500)
+    mesh = make_grid_mesh(2, 2, [dev] * 4)
+    mesh1 = make_grid_mesh(1, 1, [dev])
+    nsh = 4
+    chunks = SHARD_ITERS // SHARD_K
+    tol_ref = ct.segment_banded(u4k, pt, k=SHARD_K)
+    runs = {  # run, image, unsharded run of the same class, its launches
+        "gray k=8": (lambda: segment_sharded(
+            u4k, pt, mesh, fixed=True, max_iter=SHARD_ITERS, comm_k=SHARD_K),
+            "gray", lambda: ct.segment_banded_fixed(
+                u4k, pt, SHARD_ITERS, k=SHARD_K)[1],
+            {"K2 banded_chunk_sharded": nsh * chunks}),
+        # the reference's packed predicate needs the canvas height (h + 8k)
+        # to be a multiple of 16: 2160 + 64 is, 1080 + 64 is not, so the
+        # packed route runs on the 1x1 mesh
+        "1x1 gray k=8 packed": (lambda: segment_sharded(
+            u4k, pt, mesh1, fixed=True, max_iter=SHARD_ITERS, comm_k=SHARD_K,
+            packed=True), "gray", None,
+            {"K3 packed_banded_chunk_sharded": chunks}),
+        "gray k=1": (lambda: segment_sharded(
+            u4k, pt, mesh, fixed=True, max_iter=SHARD_ITERS_K1), "gray",
+            lambda: ct.segment_fused_fixed(u4k, pt, SHARD_ITERS_K1)[1],
+            {"K1 fused_iteration (shard)": nsh * SHARD_ITERS_K1}),
+        "rgb k=8": (lambda: segment_sharded(
+            v4k, pv, mesh, fixed=True, max_iter=SHARD_ITERS, comm_k=SHARD_K),
+            "rgb", lambda: ct.segment_banded_fixed(
+                v4k, pv, SHARD_ITERS, k=SHARD_K)[1],
+            {"K5 banded_chunk_mc_sharded": nsh * chunks}),
+        "rgb k=1": (lambda: segment_sharded(
+            v4k, pv, mesh, fixed=True, max_iter=SHARD_ITERS_K1), "rgb",
+            lambda: ct.segment_fused_fixed(v4k, pv, SHARD_ITERS_K1)[1],
+            {"K5 banded_chunk_mc_sharded": nsh * SHARD_ITERS_K1}),
+        "gray tolerance k=8": (lambda: segment_sharded(
+            u4k, pt, mesh, comm_k=SHARD_K), "gray",
+            lambda: tol_ref.mask, None),
+        "1x1 gray k=8": (lambda: segment_sharded(
+            u4k, pt, mesh1, fixed=True, max_iter=SHARD_ITERS,
+            comm_k=SHARD_K), "gray", None,
+            {"K2 banded_chunk_sharded": chunks}),
+    }
+    truth = {"gray": gt4k, "rgb": gtc4k}
+    reset_shard_counts()
+    reset_pack_counts()
+    got, launches = {}, {}
+    for tag, (run_fn, _, _, _) in runs.items():
+        before = shard_counts()
+        got[tag] = run_fn()
+        torch.cuda.synchronize()
+        launches[tag] = {n: v - before[n] for n, v in shard_counts().items()}
+    # the trace at the default parameters of the parity artifact
+    # (BASELINE.json:5, configuration 1's default mu/nu/dt): at phase 4's
+    # mu the f32 trajectory from the checkerboard drifts 1e-4 to 1e-3 in
+    # energy from f64 within 20 iterations, sharded or not (CPU runs of
+    # the plain route at 544x960)
+    before = shard_counts()
+    trace = segment_sharded_fixed_trace(u4k, p, mesh, iters=TRACE_ITERS)
+    torch.cuda.synchronize()
+    launches["trace"] = {n: v - before[n] for n, v in shard_counts().items()}
+    for name in SHARD:
+        st[name]["launches"] = shard_counts()[name]
+    packs = pack_counts()
+
+    tol_iters = got["gray tolerance k=8"].iters
+    tol_chunks = -(-tol_iters // SHARD_K)
+    runs["gray tolerance k=8"] = runs["gray tolerance k=8"][:3] + (
+        {"K2 banded_chunk_sharded": nsh * tol_chunks},)
+    launches_want = {tag: r[3] for tag, r in runs.items()}
+    launches_want["trace"] = {"K1 fused_iteration (shard)":
+                              nsh * TRACE_ITERS}
+    checks, unsharded = {}, {}
+    for tag, (_, img, ref_fn, _) in runs.items():
+        mask = got[tag].mask.cpu()
+        checks[f"{tag} IoU vs truth"] = (iou_phases(mask, truth[img]), 0.99)
+        if ref_fn is not None:
+            unsharded[tag] = ref_fn()
+            checks[f"{tag} IoU vs unsharded"] = (
+                iou(mask, unsharded[tag].cpu()), 0.999)
+    checks["1x1 gray k=8 IoU vs 2x2"] = (
+        iou(got["1x1 gray k=8"].mask.cpu(), got["gray k=8"].mask.cpu()),
+        0.999)
+    plain_trace = ct.segment_fixed(u4k, p, iters=TRACE_ITERS)
+    e_rel = float(((trace.energy.double() - plain_trace.energy.double()).abs()
+                   / plain_trace.energy.double().abs()).max())
+    packed_equal = torch.equal(got["1x1 gray k=8 packed"].mask,
+                               got["1x1 gray k=8"].mask)
+    print(f"phase 19 sharded slice at 4K on a 2x2 grid of shards on "
+          f"{dev} (and the 1x1 mesh): segment_sharded fixed {SHARD_ITERS} "
+          f"iterations comm_k={SHARD_K} gray (flat and packed) and RGB, "
+          f"{SHARD_ITERS_K1} comm_k=1 gray and RGB, tolerance comm_k="
+          f"{SHARD_K} {tol_iters} iterations (unsharded segment_banded "
+          f"{tol_ref.iters}); "
+          + "; ".join(f"{k} {v:.6f} (>= {m})" for k, (v, m) in checks.items())
+          + f"; packed mask equal to flat {packed_equal}; trace "
+          f"{TRACE_ITERS} iterations energy max rel diff vs unsharded "
+          f"segment_fixed {e_rel:.3e} (<= {TRACE_RTOL}); launches "
+          + "; ".join(f"{t}: " + ", ".join(f"{n.split()[0]}={v}"
+                                          for n, v in c.items() if v)
+                      for t, c in launches.items())
+          + f"; K15={packs[0]}, K16={packs[1]}", flush=True)
+    check_masks(checks)
+    if not packed_equal:
+        raise AssertionError("the packed and flat shard routes' masks "
+                             "differ")
+    if not e_rel <= TRACE_RTOL:
+        raise AssertionError(f"sharded trace energy {e_rel} from the "
+                             f"unsharded one")
+    for tag, want in launches_want.items():
+        have = {n: v for n, v in launches[tag].items() if v}
+        if have != want:
+            raise AssertionError(f"{tag} launched {have}, expected {want}")
+    if packs != (2, 1):  # the phi and image canvases, then phi back
+        raise AssertionError(f"the packed run packed/unpacked {packs} "
+                             f"times, expected (2, 1)")
+    if not tol_iters < pt.max_iter:
+        raise AssertionError("the sharded tolerance run did not converge")
+
+    # phase 20: times. Each fixed run beside the unsharded banded driver
+    # at 4K, k = 8; each shard mode at the 2x2 canvas of shard (0, 0)
+    rates = {}
+    base_ms = time_ms(lambda: ct.segment_banded_fixed(u4k, pt, SHARD_ITERS,
+                                                      k=SHARD_K), 1)
+    rates["unsharded segment_banded_fixed k=8"] = (SHARD_ITERS, base_ms)
+    for tag, (run_fn, _, _, want) in runs.items():
+        if tag.startswith("gray tolerance"):
+            continue
+        iters = SHARD_ITERS_K1 if tag.endswith("k=1") else SHARD_ITERS
+        rates[tag] = (iters, time_ms(run_fn, 1))
+    rates["trace"] = (TRACE_ITERS, time_ms(
+        lambda: segment_sharded_fixed_trace(u4k, p, mesh,
+                                            iters=TRACE_ITERS), 1))
+    print("phase 20 sharded throughput at 4K (Mpixel-iters/s, the whole "
+          "run): " + "; ".join(
+              f"{t} {it} iterations {ms:.3f} ms = "
+              f"{H4K * W4K * it / (ms * 1e3):.1f}"
+              for t, (it, ms) in rates.items()) + f" [{card}]", flush=True)
+
+    phi = init_phi((H4K, W4K), p.init, torch.float32, device=dev)
+    inputs = {0: (u4k, *region_means(u4k, phi, p.eps)),
+              RGB: (v4k.permute(2, 0, 1).contiguous(),
+                    *region_means(v4k, phi, p.eps))}
+    h, w = H4K // 2, W4K // 2
+    per_mode = []
+    for name, kern in SHARD.items():
+        u, c1, c2 = inputs[kern["channels"]]
+        for k in kern["ks"]:
+            D = 4 * k
+            (_, x, uc, par, edges, crop), = [
+                c for c in shard_canvases(phi, u, 2, 2, D, dev)
+                if c[0] == (0, 0)]
+            if name.startswith("K3"):  # time the launch on its planes
+                xp, up = packed_kernel.pack_planes(x), \
+                    packed_kernel.pack_planes(uc)
+                fn = (lambda xp=xp, up=up, c1=c1, c2=c2, k=k, e=edges,
+                      cr=crop: packed_kernel.packed_banded_chunk_sharded(
+                          xp, up, c1, c2, p, k, e, cr))
+                pl = (lambda xp=xp, up=up, c1=c1, c2=c2, k=k, e=edges,
+                      cr=crop: packed_kernel.
+                      packed_banded_chunk_sharded_reference(
+                          xp, up, c1, c2, p, k, e, cr))
+            else:
+                args = (x, uc, c1, c2, par, edges, crop)
+                fn = (lambda f=shard_call(name, p, k), a=args: f(*a))
+                pl = (lambda f=shard_call(name, p, k, True), a=args: f(*a))
+            ms = queued_ms(fn, 20)
+            plain_ms = time_ms(pl, 2)
+            b_ms, b_by = bound(h, w, k, kern["channels"])
+            per_mode.append(f"{name} k={k} {ms:.4f} ms (plain "
+                            f"{plain_ms:.3f}, bound {b_ms:.4f} {b_by})")
+            if k == kern["ks"][0]:
+                st[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=None)
+    # the canvases' cost a chunk: the exchange of the four shards' phi, its
+    # host time (enqueueing) and its device time (queued behind a spin: at
+    # the host's pace time_ms would read the host time)
+    blocks = shard_grid(phi, grid_sharding(mesh))
+    canv = {}
+    for D in (4, 4 * SHARD_K):
+        exchange_halo2d(blocks, D)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            exchange_halo2d(blocks, D)
+        host = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        canv[D] = (host, queued_ms(lambda: exchange_halo2d(blocks, D), 20))
+    print("phase 20 shard modes at the 2x2 canvas of shard (0, 0) (queued "
+          "device ms a launch): " + "; ".join(per_mode)
+          + "; building the four shards' canvases (halo exchange): "
+          + ", ".join(f"D={D} host {hst:.3f} ms, device {dv:.4f} ms a "
+                      f"chunk" for D, (hst, dv) in canv.items())
+          + f" [{card}]", flush=True)
+    return st
+
+
 def main() -> int:
     dev = torch.device("cuda", 0)
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1890,6 +2266,7 @@ def main() -> int:
 
     mo_stats = morph_phases(dev, card)
     sk_stats = stack_phases(dev, card, u4k, v4k.permute(2, 0, 1).contiguous())
+    sh_stats = shard_phases(dev, card, u4k, gt4k, v4k, gtc4k)
 
     entries = [
         dict(name=name, route="cuda", source=k["source"],
@@ -1899,7 +2276,7 @@ def main() -> int:
              bound_by=st["bound_by"], library_ms=st.get("library_ms"))
         for table, stat in ((KERNELS, stats), (RESIDENT, res_stats),
                             (MP2, mp_stats), (MORPH, mo_stats),
-                            (STACK, sk_stats))
+                            (STACK, sk_stats), (SHARD, sh_stats))
         for name, k in table.items() for st in (stat[name],)]
     print(json.dumps({"kernels": entries}))
     print(f"card: {card}")
