@@ -62,6 +62,9 @@ _PACK = [_P, _P] + [_I] * 4 + [_P]
 # morphological launchers (csrc/morph_band.cu, morph_fused.cu): pointers;
 # H, W, [kind], k, s, parity0, [balloon, thr_b], halo, TH, TW, cap; stream
 _MORPH = [_P] * 3 + [_I] * 7 + [_F] + [_I] * 4 + [_P]
+# the shard kinds' launcher: the same with pt, pb, pcl, pcr and the top,
+# bottom, left, right flags before the stream
+_MORPH_SHARD = _MORPH[:-1] + [_I] * 8 + [_P]
 _MORPH_FUSED = [_P] * 6 + [_I] * 9 + [_P]
 SIGNATURES = {
     "cv_fused_iteration": _HEAD + _TAIL,
@@ -78,6 +81,8 @@ SIGNATURES = {
     "cv_banded_chunk_shard": _HEAD + [_I] + _TAIL[:-1] + _SHARD,
     "cv_packed_banded_chunk_shard": _HEAD + [_I] + _TAIL[:-1] + _SHARD,
     "cv_banded_chunk_mc_shard": _HEAD_MC + [_I] + _TAIL_MC[:-1] + _SHARD,
+    "cv_fused_sweep_shard": _HEAD + _TAIL[:-1] + _SHARD,
+    "cv_mp2_iteration_shard": _HEAD + _TAIL[:-1] + _SHARD,
     **{s: _RESIDENT for s in RESIDENT_SYMBOLS},
     **{f"{s}_grid": _GRID for s in RESIDENT_SYMBOLS},
     **{s: _MP2_RESIDENT for s in MP2_RESIDENT_SYMBOLS},
@@ -87,6 +92,7 @@ SIGNATURES = {
     "cv_pack_planes": _PACK,
     "cv_unpack_planes": _PACK,
     "cv_morph_chunk": _MORPH,
+    "cv_morph_chunk_shard": _MORPH_SHARD,
     "cv_morph_fused_chunk": _MORPH_FUSED,
 }
 

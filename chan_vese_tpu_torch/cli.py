@@ -8,6 +8,8 @@
     python -m chan_vese_tpu_torch image.npy --morph -o mask.npy
     python -m chan_vese_tpu_torch image.npy --morph-gac --balloon -1
     python -m chan_vese_tpu_torch image.npy --mesh 2 2 --comm-k 8 --iters 800
+    python -m chan_vese_tpu_torch image.npy --mesh 2 2 --multiphase 2
+    python -m chan_vese_tpu_torch image.npy --mesh 2 2 --morph-gac --comm-k 8
 
 Flag names and defaults follow the reference. ``--device`` picks the torch
 device (default ``cuda``; it raises when no GPU is present rather than
@@ -29,11 +31,20 @@ map (``--gac-alpha``, ``--gac-sigma``, ``--gac-threshold``,
 takes ``segment_morph`` / ``segment_gac`` (K11 on a CUDA device unless
 ``--no-fused``), ``--iters`` ``segment_morph_fixed`` /
 ``segment_gac_fixed``. With ``--multiphase`` the morph flags are dropped
-with a warning. ``--mesh NX NY`` shards the two-phase PDE (gray or
-``--color``) over an NX x NY grid (NX*NY CPU devices with ``--device cpu``,
-the CUDA devices otherwise) with ``--comm-k``: ``segment_sharded`` in
-tolerance mode, or fixed with ``--iters``; with ``--multiphase``,
-``--morph`` or ``--morph-gac`` it raises (ROADMAP M13b, M13c).
+with a warning. ``--mesh NX NY`` shards the image over an NX x NY grid
+(NX*NY CPU devices with ``--device cpu``, the CUDA devices otherwise, in
+turn where there are fewer than shards), as the reference routes it: the
+two-phase PDE (gray or ``--color``) through ``segment_sharded`` and
+``--multiphase`` through ``segment_multiphase_sharded`` (tolerance mode,
+or fixed with ``--iters``; ``--comm-k`` and ``--halo`` passed on);
+``--morph`` and ``--morph-gac`` in
+tolerance mode through ``segment_morph_sharded_chunked`` /
+``segment_gac_sharded_chunked`` with ``--comm-k`` above 1, else
+``segment_morph_sharded`` / ``segment_gac_sharded``, and with ``--iters``
+through the unsharded fixed drivers, whose result the reference's mesh
+run equals. ``--trace-energy``, ``--evolution-gif`` (ROADMAP M12) and
+``--checkpoint-dir`` (M13e) raise; ``--halo rdma``/``overlap`` raise in
+the sharded drivers (M13d).
 """
 
 from __future__ import annotations
@@ -110,12 +121,23 @@ def build_parser() -> argparse.ArgumentParser:
                     metavar=("NX", "NY"),
                     help="shard the image over an NX x NY grid mesh "
                          "(halo exchange): NX*NY CPU devices with --device "
-                         "cpu, the CUDA devices otherwise")
+                         "cpu, the CUDA devices otherwise (in turn where "
+                         "there are fewer than shards)")
     ap.add_argument("--comm-k", type=int, default=1, metavar="K",
                     help="sharded communication-avoiding chunking: one "
-                         "4K-deep halo exchange per K iterations "
-                         "(frozen-means trajectory class; grayscale and "
-                         "--color; the banded kernel per shard on a GPU)")
+                         "deep halo exchange per K iterations "
+                         "(frozen-means trajectory class; the kernels per "
+                         "shard on a GPU)")
+    ap.add_argument("--halo", choices=("ppermute", "rdma", "overlap"),
+                    default="ppermute",
+                    help="sharded halo mechanism (rdma and overlap are "
+                         "ROADMAP M13d and raise)")
+    ap.add_argument("--trace-energy", default=None, metavar="CSV",
+                    help="per-iteration energy trace (ROADMAP M12; raises)")
+    ap.add_argument("--evolution-gif", default=None, metavar="GIF",
+                    help="contour-evolution animation (ROADMAP M12; raises)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="checkpoints (ROADMAP M13e; raises)")
     ap.add_argument("--no-fused", action="store_true",
                     help="skip the kernel drivers even on a GPU")
     ap.add_argument("--device", default="cuda",
@@ -168,14 +190,13 @@ def main(argv=None) -> int:
         print(f"warning: {', '.join(dropped)} not supported on the "
               f"multiphase path; ignored", file=sys.stderr)
         args.morph = args.morph_gac = False
-    if args.mesh is not None:
-        for flag, on, module in (("--multiphase", args.multiphase, "M13b"),
-                                 ("--morph", args.morph, "M13c"),
-                                 ("--morph-gac", args.morph_gac, "M13c")):
-            if on:
-                raise NotImplementedError(
-                    f"--mesh with {flag} is the sharded solver of ROADMAP "
-                    f"{module}, not ported yet")
+    for flag, value, module in (
+            ("--trace-energy", args.trace_energy, "M12"),
+            ("--evolution-gif", args.evolution_gif, "M12"),
+            ("--checkpoint-dir", args.checkpoint_dir, "M13e")):
+        if value is not None:
+            raise NotImplementedError(f"{flag} is ROADMAP {module}, not "
+                                      f"ported yet")
     if args.multiphase:
         return _multiphase(args, u0, p)
 
@@ -218,19 +239,31 @@ def main(argv=None) -> int:
     return 0
 
 
+def _mesh(args, u0):
+    """The --mesh grid: NX*NY CPU devices for a CPU tensor, else the CUDA
+    devices, taken in turn where there are fewer than shards (one process
+    drives every shard, so a 2x2 grid runs on one card)."""
+    import torch
+
+    from .parallel import make_grid_mesh
+
+    nx, ny = args.mesh
+    if u0.device.type == "cpu":
+        devices = [torch.device("cpu")] * (nx * ny)
+    else:
+        n = torch.cuda.device_count()
+        devices = [torch.device("cuda", i % n) for i in range(nx * ny)]
+    return make_grid_mesh(nx, ny, devices)
+
+
 def _sharded(args, u0, p: CVParams, lam1, lam2):
     """The --mesh branch (the two-phase PDE, gray or --color): tolerance
     mode, or exactly --iters iterations. Returns (mask, iters, c1, c2)."""
-    import torch
+    from .parallel import segment_sharded
 
-    from .parallel import make_grid_mesh, segment_sharded
-
-    nx, ny = args.mesh
-    devices = ([torch.device("cpu")] * (nx * ny)
-               if u0.device.type == "cpu" else None)
-    mesh = make_grid_mesh(nx, ny, devices)
+    mesh = _mesh(args, u0)
     kw = dict(lambda1=lam1, lambda2=lam2, comm_k=args.comm_k,
-              use_pallas=False if args.no_fused else None)
+              use_pallas=False if args.no_fused else None, halo=args.halo)
     if args.iters is None:
         res = segment_sharded(u0, p, mesh, fixed=False, **kw)
         return res.mask, res.iters, res.c1, res.c2
@@ -258,7 +291,20 @@ def _multiphase(args, u0, p: CVParams) -> int:
     from .utils import image_io
 
     use_pallas = False if args.no_fused else None
-    if args.iters is not None:
+    if args.mesh is not None:
+        from .parallel import segment_multiphase_sharded
+
+        kw = dict(m_sets=args.multiphase, use_pallas=use_pallas,
+                  halo=args.halo, comm_k=args.comm_k)
+        if args.iters is not None:
+            res = segment_multiphase_sharded(u0, p, _mesh(args, u0),
+                                             max_iter=args.iters, fixed=True,
+                                             **kw)
+            labels, iters, signals = res.labels, args.iters, (res.cs,)
+        else:
+            res = segment_multiphase_sharded(u0, p, _mesh(args, u0), **kw)
+            labels, iters, signals = res.labels, res.iters, (res.cs,)
+    elif args.iters is not None:
         tr = segment_multiphase_fixed(u0, p, iters=args.iters,
                                       m_sets=args.multiphase,
                                       use_pallas=use_pallas)
@@ -286,6 +332,19 @@ def _morph(args, u0, p: CVParams, lam1, lam2) -> int:
         tr = segment_morph_fixed(u0, p, iters=args.iters, **kw)
         mask, iters = tr.mask, args.iters
         c1, c2, delta = tr.c1[-1], tr.c2[-1], tr.delta[-1]
+    elif args.mesh is not None:
+        if args.comm_k > 1:
+            from .parallel.sharded_morph import segment_morph_sharded_chunked
+
+            res = segment_morph_sharded_chunked(
+                u0, p, mesh=_mesh(args, u0), comm_k=args.comm_k,
+                use_pallas=False if args.no_fused else None, **kw)
+        else:
+            from .models.morph import segment_morph_sharded
+
+            res = segment_morph_sharded(u0, p, mesh=_mesh(args, u0), **kw)
+        mask, iters, c1, c2, delta = (res.mask, res.iters, res.c1, res.c2,
+                                      res.delta)
     else:
         res = segment_morph(u0, p, use_pallas=False if args.no_fused else None,
                             **kw)
@@ -314,6 +373,18 @@ def _morph_gac(args, u0, p: CVParams) -> int:
     if args.iters is not None:
         tr = segment_gac_fixed(g, p, iters=args.iters, **kw)
         mask, iters, delta = tr.mask, args.iters, tr.delta[-1]
+    elif args.mesh is not None:
+        if args.comm_k > 1:
+            from .parallel.sharded_morph import segment_gac_sharded_chunked
+
+            res = segment_gac_sharded_chunked(
+                g, p, mesh=_mesh(args, u0), comm_k=args.comm_k,
+                use_pallas=False if args.no_fused else None, **kw)
+        else:
+            from .models.morph_gac import segment_gac_sharded
+
+            res = segment_gac_sharded(g, p, mesh=_mesh(args, u0), **kw)
+        mask, iters, delta = res.mask, res.iters, res.delta
     else:
         res = segment_gac(g, p, use_pallas=False if args.no_fused else None,
                           **kw)

@@ -50,6 +50,23 @@
 // and 4 B written per pixel, 16 + 4 for gac_pre). Byte cells keep the
 // window at 3 B per cell for ACWE and 11 B for GAC (dgx, dgy in f32).
 // Each warp walks whole window rows, so no cell index is divided.
+//
+// Shard blocks (kinds acwe_sh and gac_pre_sh: acwe and gac_pre on one
+// shard's halo-padded block of the sharded morphological solver,
+// parallel/sharded_morph.py; the contract of _morph_banded_kernel with
+// `pads` and its `rim` callback). The block's pads are (pt, pb, pcl, pcr)
+// rows and columns deep, its own cells the crop [pt, H - pb) x [pcl,
+// W - pcr) (Shard's r0, r1, c0, c1), and the flags mark the sides that are
+// global image edges. Before every elementary op (the force or attraction
+// step, the balloon op, each inf-sup and sup-inf) the depth-1 replica ring
+// on the flagged sides takes the crop's edge cells, rows first, then
+// columns (so a corner takes the corner cell), wherever the window holds
+// the ring cell and its source. The ring holds the current edge value at
+// every read, which makes the crop exact; refreshing only between
+// iterations leaves a fraction of a percent of the cells wrong. The tiles
+// cover the crop, whose windows reach `halo` cells into the pads; cells
+// outside the crop come back as they went in. Parity0, k and every other
+// argument are the whole-image kinds'.
 
 #pragma once
 
@@ -59,11 +76,21 @@ namespace cv {
 namespace {
 
 enum MorphKind { kMorphAcwe = 0, kMorphGac = 1, kMorphGacPre = 2,
-                 kMorphFused = 3 };
+                 kMorphFused = 3, kMorphAcweSh = 4, kMorphGacPreSh = 5 };
 
+// the shard kinds run their whole-image kind's iteration
+template <int KIND>
+__host__ __device__ constexpr bool morph_is_shard() {
+  return KIND == kMorphAcweSh || KIND == kMorphGacPreSh;
+}
+template <int KIND>
+__host__ __device__ constexpr int morph_base() {
+  return KIND == kMorphAcweSh ? kMorphAcwe
+                              : (KIND == kMorphGacPreSh ? kMorphGacPre : KIND);
+}
 template <int KIND>
 __host__ __device__ constexpr bool morph_is_gac() {
-  return KIND == kMorphGac || KIND == kMorphGacPre;
+  return morph_base<KIND>() == kMorphGac || morph_base<KIND>() == kMorphGacPre;
 }
 // dynamic shared-memory bytes per window cell (ops/_cuda.py
 // MORPH_CELL_BYTES): two state buffers and the force sign, or dgx, dgy,
@@ -102,6 +129,36 @@ __device__ __forceinline__ int8_t sign_of(float f) {
   return (int8_t)((f > 0.0f) - (f < 0.0f));  // NaN -> 0
 }
 
+// Refreshes the depth-1 replica ring of a shard block inside the window
+// [wr0, wr0 + wh) x [wc0, wc0 + ww): row r0 - 1 takes row r0 (top), row r1
+// takes row r1 - 1 (bottom), then column c0 - 1 takes column c0 (left) and
+// column c1 takes c1 - 1 (right), each where its flag is set and the window
+// holds the ring cell and its source; then the block syncs. The
+// counterpart of the `rim` callback of
+// chan_vese_tpu/ops/pallas_morph.py::_morph_banded_kernel.
+__device__ __forceinline__ void morph_rim(uint8_t* cur, int wr0, int wh,
+                                          int wc0, int ww, const Shard& S) {
+  const int wr1 = wr0 + wh, wc1 = wc0 + ww;
+  for (int idx = threadIdx.x; idx < 2 * ww; idx += blockDim.x) {
+    const bool top = idx < ww;
+    const int c = top ? idx : idx - ww;
+    const int dst = top ? S.r0 - 1 : S.r1, src = top ? S.r0 : S.r1 - 1;
+    if ((top ? S.top : S.bottom) && dst >= wr0 && dst < wr1 && src >= wr0 &&
+        src < wr1)
+      cur[(dst - wr0) * ww + c] = cur[(src - wr0) * ww + c];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < 2 * wh; idx += blockDim.x) {
+    const bool left = idx < wh;
+    const int r = left ? idx : idx - wh;
+    const int dst = left ? S.c0 - 1 : S.c1, src = left ? S.c0 : S.c1 - 1;
+    if ((left ? S.left : S.right) && dst >= wc0 && dst < wc1 && src >= wc0 &&
+        src < wc1)
+      cur[r * ww + dst - wc0] = cur[r * ww + src - wc0];
+  }
+  __syncthreads();
+}
+
 // One elementary op over the window: nxt[cell] = op(neighborhood, cell),
 // each warp on whole rows; then the block syncs.
 template <class Op>
@@ -120,25 +177,31 @@ __device__ __forceinline__ void window_op(const uint8_t* cur, uint8_t* nxt,
 //   acwe, fused: cur[cap] | nxt[cap] | force sign[cap]
 //   gac kinds:   dgx[cap] f32 | dgy[cap] f32 | cur | nxt | mask[cap]
 // cc (fused): c_in, c_out, l1, l2. block_parts (fused): (nblocks, 2) f64.
+// S (shard kinds only): the crop, in Shard's r0, r1, c0, c1, and the flags.
 template <int KIND>
 __global__ void __launch_bounds__(kThreads)
 morph_kernel(const float* __restrict__ ls, const float* __restrict__ aux,
              const float* __restrict__ cc, float* __restrict__ out,
              double* __restrict__ block_parts, int H, int W, int k, int s,
              int parity0, int balloon, float thr_b, int halo, int TH, int TW,
-             int cap) {
+             int cap, Shard S) {
   extern __shared__ __align__(16) unsigned char morph_smem[];
   __shared__ double red_scratch[kThreads / 32];
   __shared__ float s_cc[4];
   constexpr bool kGac = morph_is_gac<KIND>();
+  constexpr bool kShard = morph_is_shard<KIND>();
+  constexpr int kBase = morph_base<KIND>();
   float* dgx = reinterpret_cast<float*>(morph_smem);
   float* dgy = dgx + cap;
   uint8_t* cur = morph_smem + (kGac ? 8 * (size_t)cap : 0);
   uint8_t* nxt = cur + cap;
   uint8_t* side = cur + 2 * cap;  // force sign (int8) or balloon mask
 
-  const int tr0 = blockIdx.y * TH, tc0 = blockIdx.x * TW;
-  const int tr1 = min(tr0 + TH, H), tc1 = min(tc0 + TW, W);
+  // the tiled region: the whole image, or a shard block's crop
+  const int tr0 = (kShard ? S.r0 : 0) + blockIdx.y * TH;
+  const int tc0 = (kShard ? S.c0 : 0) + blockIdx.x * TW;
+  const int tr1 = min(tr0 + TH, kShard ? S.r1 : H);
+  const int tc1 = min(tc0 + TW, kShard ? S.c1 : W);
   const int wr0 = max(tr0 - halo, 0), wr1 = min(tr1 + halo, H);
   const int wc0 = max(tc0 - halo, 0), wc1 = min(tc1 + halo, W);
   const int wh = wr1 - wr0, ww = wc1 - wc0;
@@ -156,7 +219,7 @@ morph_kernel(const float* __restrict__ ls, const float* __restrict__ aux,
       const int idx = r * ww + c;
       const int64_t g = grow + wc0 + c;
       cur[idx] = ls[g] > 0.5f;
-      if constexpr (KIND == kMorphAcwe) {
+      if constexpr (kBase == kMorphAcwe) {
         side[idx] = (uint8_t)sign_of(aux[g]);
       } else if constexpr (KIND == kMorphFused) {
         const float d1 = __fsub_rn(aux[g], s_cc[0]);
@@ -164,7 +227,7 @@ morph_kernel(const float* __restrict__ ls, const float* __restrict__ aux,
         side[idx] = (uint8_t)sign_of(
             __fsub_rn(__fmul_rn(s_cc[2], __fmul_rn(d1, d1)),
                       __fmul_rn(s_cc[3], __fmul_rn(d2, d2))));
-      } else if constexpr (KIND == kMorphGacPre) {
+      } else if constexpr (kBase == kMorphGacPre) {
         dgx[idx] = aux[g];
         dgy[idx] = aux[plane + g];
         side[idx] = aux[2 * plane + g] > 0.0f;
@@ -181,10 +244,15 @@ morph_kernel(const float* __restrict__ ls, const float* __restrict__ aux,
   }
   __syncthreads();
 
+  // the shard kinds' ring refresh before each elementary op
+  auto rim = [&] {
+    if constexpr (kShard) morph_rim(cur, wr0, wh, wc0, ww, S);
+  };
   for (int j = 0; j < k; ++j) {
     if constexpr (kGac) {
       if (balloon != 0) {
         const bool grow = balloon > 0;
+        rim();
         window_op(cur, nxt, wh, ww, [&](const Nb& n, int idx) -> uint8_t {
           if (!side[idx]) return n.u;
           return grow ? (uint8_t)(n.u | n.up | n.dn | n.lf | n.rt | n.ul |
@@ -194,6 +262,7 @@ morph_kernel(const float* __restrict__ ls, const float* __restrict__ aux,
         });
         uint8_t* t = cur; cur = nxt; nxt = t;
       }
+      rim();
       window_op(cur, nxt, wh, ww, [&](const Nb& n, int idx) -> uint8_t {
         const float dux = 0.5f * (float)((int)n.dn - (int)n.up);
         const float duy = 0.5f * (float)((int)n.rt - (int)n.lf);
@@ -202,6 +271,7 @@ morph_kernel(const float* __restrict__ ls, const float* __restrict__ aux,
         return a > 0.0f ? 1 : (a < 0.0f ? 0 : n.u);
       });
     } else {
+      rim();
       window_op(cur, nxt, wh, ww, [&](const Nb& n, int idx) -> uint8_t {
         const int8_t sg = (int8_t)side[idx];
         if ((n.dn == n.up && n.rt == n.lf) || sg == 0) return n.u;
@@ -214,6 +284,7 @@ morph_kernel(const float* __restrict__ ls, const float* __restrict__ aux,
       for (int half = 0; half < 2; ++half) {
         // SIoIS: inf-sup first; ISoSI: sup-inf first
         const bool inf_first = sioi == (half == 0);
+        rim();
         window_op(cur, nxt, wh, ww, [&](const Nb& n, int) -> uint8_t {
           return inf_first ? inf_sup(n) : sup_inf(n);
         });
@@ -236,6 +307,22 @@ morph_kernel(const float* __restrict__ ls, const float* __restrict__ aux,
       }
     }
   }
+  if constexpr (kShard) {
+    // the block outside the crop passes through: a block on the tile
+    // grid's border also copies the pad cells beyond its tile
+    const int er0 = blockIdx.y == 0 ? 0 : tr0;
+    const int er1 = blockIdx.y == gridDim.y - 1 ? H : tr1;
+    const int ec0 = blockIdx.x == 0 ? 0 : tc0;
+    const int ec1 = blockIdx.x == gridDim.x - 1 ? W : tc1;
+    for (int r = er0 + warp; r < er1; r += nwarps) {
+      for (int c = ec0 + lane; c < ec1; c += 32) {
+        if (r < tr0 || r >= tr1 || c < tc0 || c >= tc1) {
+          const int64_t g = (int64_t)r * W + c;
+          out[g] = ls[g];
+        }
+      }
+    }
+  }
   if (KIND == kMorphFused) {
     const int64_t bid = blockIdx.y * gridDim.x + blockIdx.x;
     const double s0 = block_sum(acc0, red_scratch);
@@ -249,21 +336,24 @@ morph_kernel(const float* __restrict__ ls, const float* __restrict__ aux,
 // reduction of the per-block sums into parts[2]. The caller
 // (chan_vese_tpu_torch/ops/_cuda.py) chooses TH, TW and cap and allocates
 // out, block_parts and parts.
+// A shard kind's grid tiles S's crop.
 template <int KIND>
 cudaError_t launch_morph(const float* ls, const float* aux, const float* cc,
                          float* out, double* block_parts, float* parts, int H,
                          int W, int k, int s, int parity0, int balloon,
                          float thr_b, int halo, int TH, int TW, int cap,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, Shard S = Shard{}) {
   const size_t smem = (size_t)cap * morph_cell_bytes<KIND>();
   cudaError_t err = cudaFuncSetAttribute(
       morph_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
+  constexpr bool kShard = morph_is_shard<KIND>();
+  const int th = kShard ? S.r1 - S.r0 : H, tw = kShard ? S.c1 - S.c0 : W;
+  const dim3 grid((tw + TW - 1) / TW, (th + TH - 1) / TH);
   morph_kernel<KIND><<<grid, kThreads, smem, stream>>>(
       ls, aux, cc, out, block_parts, H, W, k, s, parity0, balloon, thr_b,
-      halo, TH, TW, cap);
+      halo, TH, TW, cap, S);
   err = cudaGetLastError();
   if (err != cudaSuccess || KIND != kMorphFused) return err;
   reduce_parts_kernel<<<1, 256, 0, stream>>>(

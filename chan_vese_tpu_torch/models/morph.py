@@ -144,6 +144,25 @@ def segment_morph(u0, p: CVParams = CVParams(),
     return MorphResult(ls, ls >= 0.5, st.n, st.delta, c1, c2)
 
 
+def segment_morph_sharded(u0, p: CVParams = CVParams(), mesh=None,
+                          ls0: Optional[torch.Tensor] = None,
+                          smoothing: int = 1,
+                          lambda1=None, lambda2=None) -> MorphResult:
+    """MorphACWE over a 2-D ('x', 'y') grid mesh, (H, W) or (H, W, C), H
+    and W divisible by the mesh: :func:`segment_morph`'s per-iteration
+    scheme and stopping rule (means every iteration, the 2-cycle
+    detector), run shard by shard with one halo exchange of the
+    iteration's reach each iteration and the region sums summed over the
+    shards; the image is never gathered onto one device. The result (the
+    level set gathered onto the mesh's first device, the iteration count
+    and delta) is the reference's, which runs ``segment_morph`` on sharded
+    arrays with ``use_pallas=False``; the means' sums may differ from the
+    unsharded run in their last ulps (summed per shard)."""
+    from ..parallel.sharded_morph import morph_sharded
+
+    return morph_sharded(u0, p, mesh, ls0, smoothing, lambda1, lambda2)
+
+
 def segment_morph_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
                         ls0: Optional[torch.Tensor] = None,
                         smoothing: int = 1,

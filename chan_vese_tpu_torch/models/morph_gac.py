@@ -182,6 +182,23 @@ def segment_gac(g, p: CVParams = CVParams(),
     return GACResult(ls, ls >= 0.5, st.n, st.delta)
 
 
+def segment_gac_sharded(g, p: CVParams = CVParams(), mesh=None,
+                        ls0: Optional[torch.Tensor] = None,
+                        smoothing: int = 1,
+                        balloon: int = 0,
+                        threshold: float = 0.5) -> GACResult:
+    """MorphGAC over a 2-D ('x', 'y') grid mesh: :func:`segment_gac`'s
+    per-iteration scheme and stopping rule (the 2-cycle detector) run
+    shard by shard, one halo exchange of the iteration's reach each
+    iteration and no reduction in the loop. The level set (gathered onto
+    the mesh's first device), the iteration count and delta are the
+    reference's, which runs ``segment_gac`` on sharded arrays with
+    ``use_pallas=False``."""
+    from ..parallel.sharded_morph import gac_sharded
+
+    return gac_sharded(g, p, mesh, ls0, smoothing, balloon, threshold)
+
+
 def _segment_gac_chunked(g, p: CVParams, ls_init, s: int, b: int,
                          threshold: float, kk: int) -> GACResult:
     """Tolerance-mode MorphGAC through K11 (gac_pre), k iterations per

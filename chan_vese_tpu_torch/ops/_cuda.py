@@ -175,13 +175,22 @@ def check_even(h: int, w: int):
         raise ValueError(f"the kernels need even H and W, got {(h, w)}")
 
 
+def crop_tiles(n: int, lo: int, hi: int, t: int) -> int:
+    """Tiles of t cells along an axis of n cells cut at lo and hi (the
+    whole-canvas tiling of K9's shard mode, csrc/mp2_band.cu crop_tiles)."""
+    return math.ceil(lo / t) + math.ceil((hi - lo) / t) + math.ceil((n - hi)
+                                                                     / t)
+
+
 def _launch(symbol, phi, u0, cc, chan, k, h, w, nsums, nout, params,
-            reach=None, cell_bytes=10, frames=None, shard=None):
+            reach=None, cell_bytes=10, frames=None, shard=None,
+            canvas_tiles=False):
     """``reach``: the iterations whose halo the tiles carry (default k, or
     1 for the fused kernels, which take no k). ``frames``: phi and u0 hold
     that many images and the partials are (frames, nout). ``shard``: the
-    nine ints of a shard-canvas launch, whose tiles cover the crop and
-    whose windows are two cells wider (an even start and width)."""
+    nine ints of a shard-canvas launch, whose tiles cover the crop (the
+    whole canvas, cut at the crop, with ``canvas_tiles``) and whose
+    windows are two cells wider (an even start and width)."""
     from .._build import library
 
     check_even(h, w)
@@ -192,9 +201,13 @@ def _launch(symbol, phi, u0, cc, chan, k, h, w, nsums, nout, params,
         h, w, reach, cell_bytes, span=None if shard is None else 6 * reach + 2)
     dev = phi.device
     out = torch.empty_like(phi)
-    th_all, tw_all = (h, w) if shard is None else (shard[2] - shard[1],
-                                                   shard[4] - shard[3])
-    nblocks = math.ceil(th_all / th) * math.ceil(tw_all / tw)
+    if canvas_tiles:
+        nblocks = (crop_tiles(h, shard[1], shard[2], th)
+                   * crop_tiles(w, shard[3], shard[4], tw))
+    else:
+        th_all, tw_all = (h, w) if shard is None else (shard[2] - shard[1],
+                                                       shard[4] - shard[3])
+        nblocks = math.ceil(th_all / th) * math.ceil(tw_all / tw)
     block_parts = torch.empty(((frames or 1) * nblocks, nsums),
                               dtype=torch.float64, device=dev)
     parts = torch.empty(nout if frames is None else (frames, nout),
@@ -219,17 +232,20 @@ MP2_CELL_BYTES = 18
 MP2_REACH = 2
 
 
-def launch_mp2(phis, u0, cs, p):
+def launch_mp2(phis, u0, cs, p, shard=None):
     """One banded 4-phase iteration (csrc/mp2_band.cu) on (2, H, W) level
-    sets (shapes checked by the wrapper) with the four phase means ``cs``.
-    Returns (phis_new, partials (16,) f32)."""
+    sets (shapes checked by the wrapper) with the four phase means ``cs``;
+    with ``shard`` (:func:`shard_args`' nine ints) on a shard canvas, every
+    cell swept. Returns (phis_new, partials (16,) f32)."""
     _check_inputs(phis, u0)
     h, w = u0.shape
     cc = torch.as_tensor(cs, device=phis.device).to(torch.float32)
     cc = cc.reshape(4).contiguous()
     params = (p.mu, p.nu, 0.0, 0.0, *_common_params(p))
-    return _launch("cv_mp2_iteration", phis, u0, cc, (), None, h, w, 10, 16,
-                   params, reach=MP2_REACH, cell_bytes=MP2_CELL_BYTES)
+    symbol = "cv_mp2_iteration" if shard is None else "cv_mp2_iteration_shard"
+    return _launch(symbol, phis, u0, cc, (), None, h, w, 10, 16, params,
+                   reach=MP2_REACH, cell_bytes=MP2_CELL_BYTES, shard=shard,
+                   canvas_tiles=shard is not None)
 
 
 # threads per block of the resident kernels (csrc/resident.cuh kResThreads)
@@ -403,8 +419,10 @@ def launch_mp2_resident(symbol: str, phis, u0, p, iters: int, unroll: int,
 
 # the morphological kernels (csrc/morph.cuh): kind codes and shared-memory
 # bytes per window cell (MorphKind, morph_cell_bytes)
-MORPH_KINDS = {"acwe": 0, "gac": 1, "gac_pre": 2}
-MORPH_CELL_BYTES = {"acwe": 3, "gac": 11, "gac_pre": 11, "acwe_fused": 3}
+MORPH_KINDS = {"acwe": 0, "gac": 1, "gac_pre": 2, "acwe_sh": 4,
+               "gac_pre_sh": 5}
+MORPH_CELL_BYTES = {"acwe": 3, "gac": 11, "gac_pre": 11, "acwe_fused": 3,
+                    "acwe_sh": 3, "gac_pre_sh": 11}
 
 
 def _morph_geometry(kind, ls, aux, k, halo):
@@ -415,21 +433,25 @@ def _morph_geometry(kind, ls, aux, k, halo):
 
 
 def launch_morph(kind: str, ls, aux, k: int, smoothing: int, parity0: int,
-                 balloon: int, thr_b: float, halo: int):
+                 balloon: int, thr_b: float, halo: int, shard=None):
     """One K11 launch (csrc/morph_band.cu) of ``kind`` ('acwe', 'gac',
-    'gac_pre') on an (H, W) binary level set: k iterations with a
-    ``halo``-cell window margin. Returns the new level set."""
+    'gac_pre'; 'acwe_sh', 'gac_pre_sh' with ``shard`` = (pt, pb, pcl, pcr,
+    top, bottom, left, right) ints) on an (H, W) binary level set: k
+    iterations with a ``halo``-cell window margin. Returns the new level
+    set."""
     from .._build import library
 
     h, w, th, tw, cap = _morph_geometry(kind, ls, aux, k, halo)
     out = torch.empty_like(ls)
     lib = library()
-    err = lib.cv_morph_chunk(
-        ls.data_ptr(), aux.data_ptr(), out.data_ptr(), h, w,
-        MORPH_KINDS[kind], k, smoothing, parity0, balloon, thr_b, halo, th,
-        tw, cap, torch.cuda.current_stream(ls.device).cuda_stream)
+    args = (ls.data_ptr(), aux.data_ptr(), out.data_ptr(), h, w,
+            MORPH_KINDS[kind], k, smoothing, parity0, balloon, thr_b, halo,
+            th, tw, cap)
+    stream = torch.cuda.current_stream(ls.device).cuda_stream
+    symbol = "cv_morph_chunk" if shard is None else "cv_morph_chunk_shard"
+    err = getattr(lib, symbol)(*args, *(shard or ()), stream)
     if err:
-        raise RuntimeError(f"cv_morph_chunk launch failed: "
+        raise RuntimeError(f"{symbol} launch failed: "
                            f"{lib.cv_error_string(err).decode()} ({err})")
     return out
 

@@ -8,7 +8,8 @@ the hand-written kernel ``csrc/fused.cu``; on a CPU tensor it runs
 :func:`chunk_shard_reference` is the plain version of every shard-canvas
 kernel (K1, K2, K3, K5 shard). The force
 mode :func:`fused_sweep` (the reference's ``data_is_f``) takes a
-precomputed force instead of the image and launches ``csrc/fused_sweep.cu``.
+precomputed force instead of the image, and optionally the lattice
+``parity``, and launches ``csrc/fused_sweep.cu``.
 The batch mode :func:`fused_iteration_batch` runs one iteration of every
 frame of an (N, H, W) stack with per-frame means in one launch of
 ``csrc/fused.cu``'s ``cv_fused_iteration_batch``.
@@ -180,19 +181,23 @@ fused_iteration.launches = 0
 fused_iteration.shard_launches = 0
 
 
-def fused_sweep_reference(phi, f, p: CVParams):
+def fused_sweep_reference(phi, f, p: CVParams, parity=None):
     """Plain PyTorch version of :func:`fused_sweep`."""
-    new = redblack_step(phi, f, p)
+    par = 0 if parity is None else int(parity) % 2
+    new = redblack_step(phi, f, p, par)
     return new, partials(new, phi, (f,), p, 8)
 
 
-def fused_sweep(phi, f, p: CVParams):
+def fused_sweep(phi, f, p: CVParams, parity=None):
     """One red-black sweep on the precomputed force ``f`` (H, W); returns
-    (phi_new, partials (8,)). Shapes the reference's fused kernel does not
-    take (``supports``) raise, as there.
+    (phi_new, partials (8,)). ``parity`` offsets the lattice: cell (i, j)
+    is red iff (i + j + parity) is even (None: 0). Shapes the reference's
+    fused kernel does not take (``supports``) raise, as there.
 
     CPU tensors run the plain version; CUDA tensors (float32, contiguous)
-    launch ``csrc/fused_sweep.cu`` or raise.
+    launch ``csrc/fused_sweep.cu`` (``cv_fused_sweep``, or
+    ``cv_fused_sweep_shard`` with a parity, counted in
+    ``fused_sweep.parity_launches``) or raise.
     """
     if phi.ndim != 2 or f.shape != phi.shape:
         raise ValueError(f"phi {tuple(phi.shape)} and f {tuple(f.shape)} "
@@ -201,14 +206,23 @@ def fused_sweep(phi, f, p: CVParams):
     if not supports(h, w):
         raise ValueError(f"fused sweep unsupported for shape {(h, w)}")
     if phi.device.type == "cpu":
-        return fused_sweep_reference(phi, f, p)
-    out = _cuda.launch_chunk("cv_fused_sweep", phi, f, 0.0, 0.0, p, None,
-                             h, w)
-    fused_sweep.launches += 1
+        return fused_sweep_reference(phi, f, p, parity)
+    if parity is None:
+        out = _cuda.launch_chunk("cv_fused_sweep", phi, f, 0.0, 0.0, p,
+                                 None, h, w)
+        fused_sweep.launches += 1
+        return out
+    # the parity only: the whole image is the crop, no rim
+    out = _cuda.launch_chunk("cv_fused_sweep_shard", phi, f, 0.0, 0.0, p,
+                             None, h, w,
+                             shard=_cuda.shard_args(h, w, 1, parity, None,
+                                                    None))
+    fused_sweep.parity_launches += 1
     return out
 
 
 fused_sweep.launches = 0
+fused_sweep.parity_launches = 0
 
 
 def fused_iteration_batch_reference(phis, u0s, c1s, c2s, p: CVParams):

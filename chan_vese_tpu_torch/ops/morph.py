@@ -194,3 +194,32 @@ def gac_step(u, dgx, dgy, balloon_mask, balloon: int):
     one = torch.ones((), dtype=u.dtype, device=u.device)
     zero = torch.zeros((), dtype=u.dtype, device=u.device)
     return torch.where(aux > 0, one, torch.where(aux < 0, zero, u))
+
+
+def padded_iteration(u, aux, j: int, kind: str, smoothing: int, parity0: int,
+                     balloon: int = 0, rim=None):
+    """Iteration j of a chunk on a shard's padded block, with ``rim`` (the
+    global-edge replica refresh) applied before every elementary op: the
+    force step for ``kind`` 'acwe' (aux the force f), or for 'gac' (aux
+    the (dgx, dgy, balloon mask) stack) the balloon op where ``balloon``
+    is set and the attraction; then ``smoothing`` cycles, cycle c SIoIS
+    when (parity0 + j smoothing + c) is even. The counterpart of
+    ``chan_vese_tpu/ops/pallas_morph.py::_iterate`` with its ``rim``
+    callback and of the jnp chunk body of
+    ``chan_vese_tpu/parallel/sharded_morph.py``."""
+    r = rim if rim is not None else (lambda x: x)
+    if kind == "acwe":
+        u = acwe_force_step(r(u), aux)
+    else:
+        dgx, dgy, mask = aux[0], aux[1], aux[2]
+        if balloon:
+            u = r(u)
+            u = torch.where(mask > 0, dilate8(u) if balloon > 0
+                            else erode8(u), u)
+        u = gac_step(r(u), dgx, dgy, mask, 0)  # the attraction alone
+    for c in range(smoothing):
+        if (parity0 + j * smoothing + c) % 2 == 0:
+            u = sup_inf(r(inf_sup(r(u))))
+        else:
+            u = inf_sup(r(sup_inf(r(u))))
+    return u

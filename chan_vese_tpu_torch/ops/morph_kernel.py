@@ -1,13 +1,14 @@
 """K11 and K12: k morphological iterations per pass over device memory on
 a binary level set.
 
-Counterpart of ``chan_vese_tpu/ops/pallas_morph.py`` (whole-image kinds
-``acwe``, ``gac``, ``gac_pre`` of ``_morph_banded_kernel`` and
-``_morph_fused_kernel``). On a CUDA tensor :func:`morph_chunk` and
-:func:`gac_chunk` launch ``csrc/morph_band.cu`` and
-:func:`morph_chunk_fused` ``csrc/morph_fused.cu``; on a CPU tensor they run
-:func:`morph_chunk_reference`, :func:`gac_chunk_reference` and
-:func:`morph_chunk_fused_reference`.
+Counterpart of ``chan_vese_tpu/ops/pallas_morph.py`` (kinds ``acwe``,
+``gac``, ``gac_pre`` of ``_morph_banded_kernel`` on a whole image, its
+shard kinds ``acwe_sh`` and ``gac_pre_sh`` on a shard's padded block, and
+``_morph_fused_kernel``). On a CUDA tensor :func:`morph_chunk`,
+:func:`gac_chunk`, :func:`morph_chunk_shard` and :func:`gac_chunk_shard`
+launch ``csrc/morph_band.cu`` and :func:`morph_chunk_fused`
+``csrc/morph_fused.cu``; on a CPU tensor each runs its ``_reference``
+plain version.
 
 Schedule (all three): iteration j of a chunk is the force step, then
 ``smoothing`` cycles, cycle c SIoIS when (parity0 + j s + c) is even and
@@ -30,7 +31,8 @@ import torch
 
 from . import _cuda
 from .fused_kernel import _VMEM_LIMIT
-from .morph import acwe_force, acwe_force_step, gac_step, smooth
+from .morph import (acwe_force, acwe_force_step, gac_step, padded_iteration,
+                    smooth)
 from .numerics import grad_central
 
 # routing constants of chan_vese_tpu/ops/pallas_morph.py
@@ -215,3 +217,138 @@ def gac_chunk(ls, g, k: int = 8, smoothing: int = 1, parity0: int = 0,
 # launches of both kinds, and of each
 gac_chunk.launches = 0
 gac_chunk.kind_launches = {"gac": 0, "gac_pre": 0}
+
+
+# shard kinds: a shard's halo-padded block --------------------------------
+
+def shard_ring(x, crop, flags):
+    """The depth-1 replica ring of a shard block refreshed from its edge
+    cells on the flagged sides, rows first and then columns (so a corner
+    takes the corner cell): the plain version of the shard kinds' refresh,
+    the ``rim`` callback of
+    ``chan_vese_tpu/ops/pallas_morph.py::_morph_banded_kernel``."""
+    r0, r1, c0, c1 = crop
+    top, bottom, left, right = flags
+    x = x.clone()
+    if top:
+        x[r0 - 1] = x[r0]
+    if bottom:
+        x[r1] = x[r1 - 1]
+    if left:
+        x[:, c0 - 1] = x[:, c0]
+    if right:
+        x[:, c1] = x[:, c1 - 1]
+    return x
+
+
+def _shard_block(ls, pads, flags):
+    """(crop, flags as four ints) of a padded (H, W) block with ``pads`` =
+    (pt, pb, pcl, pcr) and ``flags`` = [top, bottom, left, right] (any
+    truthy values; the reference's (1, 4) float array too). A flagged side
+    needs a pad to hold its replica ring."""
+    h, w = ls.shape
+    pt, pb, pcl, pcr = (int(v) for v in pads)
+    vals = flags.reshape(-1).tolist() if hasattr(flags, "reshape") else flags
+    fl = tuple(int(bool(v)) for v in vals)
+    if len(fl) != 4:
+        raise ValueError(f"flags must be [top, bottom, left, right], got "
+                         f"{flags}")
+    if min(pt, pb, pcl, pcr) < 0 or pt + pb >= h or pcl + pcr >= w:
+        raise ValueError(f"pads {tuple(pads)} leave no cells of the "
+                         f"{(h, w)} block")
+    if any(f and d < 1 for f, d in zip(fl, (pt, pb, pcl, pcr))):
+        raise ValueError(f"pads {tuple(pads)} hold no replica ring on a "
+                         f"flagged side (flags {fl})")
+    return (pt, h - pb, pcl, w - pcr), fl
+
+
+def _shard_chunk_reference(ls, aux, crop, fl, kind, k, smoothing, parity0,
+                           balloon):
+    u = ls
+    for j in range(k):
+        u = padded_iteration(u, aux, j, kind, smoothing, parity0, balloon,
+                             lambda x: shard_ring(x, crop, fl))
+    r0, r1, c0, c1 = crop
+    out = ls.clone()
+    out[r0:r1, c0:c1] = u[r0:r1, c0:c1]
+    return out
+
+
+def morph_chunk_shard_reference(ls_pad, f_pad, flags, pads, k: int = 8,
+                                smoothing: int = 1, parity0: int = 0):
+    """Plain PyTorch version of :func:`morph_chunk_shard`: the iterations on
+    the whole block (reads clamped at its edge) with the ring refreshed
+    before every elementary op, then the block's own cells written into
+    the input."""
+    crop, fl = _shard_block(ls_pad, pads, flags)
+    return _shard_chunk_reference(ls_pad, f_pad, crop, fl, "acwe", k,
+                                  smoothing, parity0, 0)
+
+
+def morph_chunk_shard(ls_pad, f_pad, flags, pads, k: int = 8,
+                      smoothing: int = 1, parity0: int = 0):
+    """k MorphACWE iterations against the frozen force ``f_pad`` on a
+    shard's halo-padded block ``ls_pad`` (H, W). ``pads`` = (pt, pb, pcl,
+    pcr) pad depths, so the shard's own cells are [pt, H - pb) x [pcl,
+    W - pcr); ``flags`` = [top, bottom, left, right] marks the global-edge
+    sides, whose depth-1 replica ring is refreshed before every elementary
+    op. The own cells are exact where the unflagged pads are R k deep;
+    cells outside them come back as they went in (the reference's kernel
+    sweeps them and its driver crops them away). Returns the new block.
+
+    CPU tensors run the plain version; CUDA tensors (float32, contiguous)
+    launch ``csrc/morph_band.cu``'s ``cv_morph_chunk_shard`` (kind
+    acwe_sh) or raise."""
+    _check(ls_pad, f_pad, ls_pad.shape, k, smoothing, parity0)
+    if ls_pad.device.type == "cpu":
+        return morph_chunk_shard_reference(ls_pad, f_pad, flags, pads, k,
+                                           smoothing, parity0)
+    _, fl = _shard_block(ls_pad, pads, flags)
+    out = _cuda.launch_morph("acwe_sh", ls_pad, f_pad, k, smoothing, parity0,
+                             0, 0.0, _reach("acwe", smoothing) * k,
+                             shard=(*(int(v) for v in pads), *fl))
+    morph_chunk_shard.launches += 1
+    return out
+
+
+morph_chunk_shard.launches = 0
+
+
+def gac_chunk_shard_reference(ls_pad, aux_pad, flags, pads, k: int = 4,
+                              smoothing: int = 1, parity0: int = 0,
+                              balloon: int = 0, threshold: float = 0.5):
+    """Plain PyTorch version of :func:`gac_chunk_shard`."""
+    crop, fl = _shard_block(ls_pad, pads, flags)
+    return _shard_chunk_reference(ls_pad, aux_pad, crop, fl, "gac", k,
+                                  smoothing, parity0, int(balloon))
+
+
+def gac_chunk_shard(ls_pad, aux_pad, flags, pads, k: int = 4,
+                    smoothing: int = 1, parity0: int = 0, balloon: int = 0,
+                    threshold: float = 0.5):
+    """k MorphGAC iterations on a shard's halo-padded block ``ls_pad`` (H,
+    W) with ``aux_pad`` the (3, H, W) (dgx, dgy, balloon mask) stack of the
+    padded edge map (:func:`gac_aux_stack`, a run invariant; ``threshold``
+    is then only the reference's argument); ``flags``, ``pads`` and the
+    result as :func:`morph_chunk_shard`, the per-iteration trajectory for
+    any k.
+
+    CPU tensors run the plain version; CUDA tensors (float32, contiguous)
+    launch ``csrc/morph_band.cu``'s ``cv_morph_chunk_shard`` (kind
+    gac_pre_sh) or raise."""
+    _check(ls_pad, aux_pad, (3, *ls_pad.shape), k, smoothing, parity0)
+    if ls_pad.device.type == "cpu":
+        return gac_chunk_shard_reference(ls_pad, aux_pad, flags, pads, k,
+                                         smoothing, parity0, balloon,
+                                         threshold)
+    _, fl = _shard_block(ls_pad, pads, flags)
+    b = int(balloon)
+    out = _cuda.launch_morph("gac_pre_sh", ls_pad, aux_pad.contiguous(), k,
+                             smoothing, parity0, b, _thr_b(b, threshold),
+                             _reach("gac_pre_sh", smoothing) * k,
+                             shard=(*(int(v) for v in pads), *fl))
+    gac_chunk_shard.launches += 1
+    return out
+
+
+gac_chunk_shard.launches = 0

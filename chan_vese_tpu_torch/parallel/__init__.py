@@ -1,8 +1,8 @@
 """Distribution layer of the port: device meshes, the halo exchange, the
-spatially sharded two-phase solver and data-parallel frame stacks.
-Counterpart of ``chan_vese_tpu/parallel``. One process drives every device
-of a mesh. The sharded multiphase solver is ROADMAP M13b, the sharded
-morphological solvers M13c, the RDMA halo (K14) M13d and multihost runs
+spatially sharded two-phase and multiphase solvers (``sharded``), the
+sharded morphological solvers (``sharded_morph``) and data-parallel frame
+stacks. Counterpart of ``chan_vese_tpu/parallel``. One process drives every
+device of a mesh. The RDMA halo (K14) is ROADMAP M13d, multihost runs
 M13e."""
 
 from .data_parallel import segment_stack_sharded, shard_stack
@@ -10,13 +10,17 @@ from .halo import exchange_halo2d, exchange_halo2d_batched
 from .mesh import (Mesh, Sharding, batch_sharding, gather_grid,
                    grid_sharding, make_data_mesh, make_grid_mesh,
                    make_hybrid_mesh, shard_grid)
-from .sharded import (ShardedTrace, segment_sharded,
-                      segment_sharded_fixed_trace)
+from .sharded import (MultiphaseShardedTrace, ShardedTrace,
+                      segment_multiphase_sharded,
+                      segment_multiphase_sharded_fixed_trace,
+                      segment_sharded, segment_sharded_fixed_trace)
 
 __all__ = [
     "Mesh", "Sharding", "make_grid_mesh", "make_data_mesh",
     "make_hybrid_mesh", "grid_sharding", "batch_sharding", "shard_grid",
     "gather_grid", "exchange_halo2d", "exchange_halo2d_batched",
     "segment_sharded", "segment_sharded_fixed_trace", "ShardedTrace",
+    "segment_multiphase_sharded", "segment_multiphase_sharded_fixed_trace",
+    "MultiphaseShardedTrace",
     "segment_stack_sharded", "shard_stack",
 ]

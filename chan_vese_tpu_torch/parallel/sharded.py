@@ -1,7 +1,10 @@
 """Spatially sharded Chan-Vese: one large image split over an (x, y) grid
 mesh of shards, with halo exchange. Counterpart of
-``chan_vese_tpu/parallel/sharded.py`` (``segment_sharded``,
-``segment_sharded_fixed_trace``) for the two-phase PDE, gray and RGB.
+``chan_vese_tpu/parallel/sharded.py``: ``segment_sharded`` and
+``segment_sharded_fixed_trace`` for the two-phase PDE, and
+``segment_multiphase_sharded`` and
+``segment_multiphase_sharded_fixed_trace`` for M coupled level sets, gray
+and RGB.
 
 One process drives every shard (a single controller, as ``shard_map`` on
 one host): the shards are a list of rows of blocks, each on its mesh
@@ -20,6 +23,15 @@ canvas: K1's shard mode per iteration, K2's (K5's for C channels, at
 every comm_k) per chunk, K3's on parity planes with ``packed=True``, the
 chunk state then staying on planes (one K15 pack before the loop, one K16
 unpack after it, plane halos exchanged at half depth).
+
+The multiphase solver computes the 2^M phase means from the shards' sums,
+then sweeps the level sets in order, each on its depth-4 padded block with
+every level set exchanged anew (phi_m's coupling term sees phi_{m-1}'s
+update). ``comm_k = k > 1`` exchanges 8k-deep halos of every level set
+once per k coupled iterations with the means frozen. With the kernels (M =
+2, gray), each iteration is one launch of K9's shard mode per shard on its
+canvas, k launches on one canvas a chunk, the means carried through the
+kernel's partials.
 
 Intended differences from the reference: results are gathered onto the
 mesh's first device (the reference returns arrays sharded over the mesh);
@@ -40,10 +52,14 @@ import torch
 
 from ..models.fused import (_delta_from_partials, _fold_scalar_lambdas,
                             segment_fused)
+from ..models.multiphase import (MultiphaseResult, _coupling_term,
+                                 init_multiphase, labels_from_phis)
 from ..models.scalar import SegResult
-from ..ops import banded_kernel, fused_kernel, packed_kernel
+from ..ops import (banded_kernel, fused_kernel, multiphase_kernel,
+                   packed_kernel)
 from ..ops.numerics import dirac, heaviside
-from ..ops.reductions import data_term, loop_continue, means_from_sums
+from ..ops.reductions import (data_term, loop_continue, means_from_sums,
+                              phase_means, phase_weights)
 from ..ops.sweep import _update_all
 from ..params import CVParams
 from ..utils.init_phi import init_phi
@@ -202,15 +218,12 @@ def _partials(new, prev, u0_loc, eps):
         torch.sum(torch.abs(d))])])
 
 
-def _jnp_chunk(pad, u0_pad, c1, c2, p, lambdas, k, pos, grid, depth):
+def _jnp_chunk(sh, pad, u0_pad, c1, c2, k, pos, depth):
     """k frozen-means iterations of one padded block on the plain path
     (the reference's jnp route; k = 1 is its per-iteration step). Returns
     (new, prev) of the block's own cells."""
-    (ix, iy), (nx, ny, h, w) = pos, grid
-    gi, gj = _global_coords(pad.shape, ix, iy, h, w, depth, pad.device)
-    valid = (gi >= 0) & (gi < nx * h) & (gj >= 0) & (gj < ny * w)
-    odd = (gi + gj) % 2 == 1
-    red, black = ~odd & valid, odd & valid
+    p, lambdas, (ix, iy), nx, ny = sh.p, sh.lambdas, pos, sh.nx, sh.ny
+    red, black = sh.lattice(pos, pad.shape, depth, pad.device)
     if lambdas is None:
         f = data_term(u0_pad, c1, c2, p.nu, p.lambda1, p.lambda2)
     else:
@@ -223,7 +236,7 @@ def _jnp_chunk(pad, u0_pad, c1, c2, p, lambdas, k, pos, grid, depth):
             # every iteration but the first, whose exchange built them
             pad = _resync_replicas(pad, ix, iy, nx, ny, depth)
         pad = _sweep_local(pad, f, p, red, black, ix, iy, nx, ny, depth)
-    crop = (slice(depth, depth + h), slice(depth, depth + w))
+    crop = (slice(depth, depth + sh.h), slice(depth, depth + sh.w))
     return pad[crop], prev[crop]
 
 
@@ -254,33 +267,22 @@ def _fix_edge_replicas_planes(planes, edges, crop_p):
     return planes
 
 
-class _Shards:
-    """The state of a sharded run that its routes share: the grid, the
-    image's blocks, the start, the sums behind the means, and each shard's
-    lattice parity and global-edge flags."""
+class _Grid:
+    """A sharded run's grid of shards: the mesh, the image's blocks, and
+    each shard's lattice parity and global-edge flags; ``_each`` runs a
+    function on every shard and ``psum`` sums their partials."""
 
-    def __init__(self, u0, p: CVParams, mesh: Mesh, lambdas, phi0):
-        self.p, self.mesh, self.lambdas = p, mesh, lambdas
+    def __init__(self, u0, p: CVParams, mesh: Mesh):
+        self.p, self.mesh = p, mesh
         self.nx, self.ny = mesh.shape["x"], mesh.shape["y"]
         self.first = mesh.devices[0]
         self.vec = u0.ndim == 3
+        self.nchan = u0.shape[2] if self.vec else 1
         self.u0 = shard_grid(u0, grid_sharding(mesh))
         self.h, self.w = self.u0[0][0].shape[:2]
         self.dtype = u0.dtype
         self.n_pix = torch.tensor(self.nx * self.h * self.ny * self.w,
                                   dtype=u0.dtype, device=self.first)
-        self.phi0 = (_make_phi0(u0.shape[:2], p.init, u0.dtype, mesh)
-                     if phi0 is None else shard_grid(phi0,
-                                                     grid_sharding(mesh)))
-        # the means of the start: the smooth-Heaviside sums, summed over
-        # the shards
-        parts = self.psum(self._each(lambda pos, u, ph: _partials(
-            ph, ph, u, p.eps), self.u0, self.phi0))
-        c = u0.shape[2] if self.vec else 1
-        self.nchan = c
-        self.sum_u = self.psum(self._each(
-            lambda pos, u: torch.sum(u, dim=(0, 1)).reshape(c), self.u0))
-        self.c1, self.c2 = self.means(parts)
 
     def positions(self):
         return [(ix, iy) for ix in range(self.nx) for iy in range(self.ny)]
@@ -294,6 +296,10 @@ class _Shards:
                 out.append(fn((ix, iy), *(g[ix][iy] for g in grids)))
         return out
 
+    def gather(self, blocks):
+        """The blocks' image on the mesh's first device."""
+        return gather_grid(blocks, self.mesh)
+
     def grid(self, flat):
         return [flat[ix * self.ny:(ix + 1) * self.ny] for ix in range(self.nx)]
 
@@ -305,6 +311,54 @@ class _Shards:
             acc = acc + q.to(self.first, torch.float64)
         return acc.to(self.dtype)
 
+    def parity(self, pos):
+        return (pos[0] * self.h + pos[1] * self.w) % 2
+
+    def edges(self, pos):
+        ix, iy = pos
+        return (ix == 0, ix == self.nx - 1, iy == 0, iy == self.ny - 1)
+
+    def crop(self, depth: int):
+        """A padded block's own cells (r0, r1, c0, c1)."""
+        return (depth, depth + self.h, depth, depth + self.w)
+
+    def lattice(self, pos, shape, depth: int, device):
+        """(red, black) masks of a block padded by ``depth``: the global
+        red-black lattice on cells inside the image, neither outside."""
+        ix, iy = pos
+        gi, gj = _global_coords(shape, ix, iy, self.h, self.w, depth, device)
+        valid = ((gi >= 0) & (gi < self.nx * self.h) & (gj >= 0)
+                 & (gj < self.ny * self.w))
+        odd = (gi + gj) % 2 == 1
+        return ~odd & valid, odd & valid
+
+    def cfirst(self):
+        """The image blocks, channels-first for C channels."""
+        if not self.vec:
+            return self.u0
+        return [[u.permute(2, 0, 1).contiguous() for u in row]
+                for row in self.u0]
+
+
+class _Shards(_Grid):
+    """The state of a two-phase sharded run that its routes share: the
+    grid, the start and the sums behind the means."""
+
+    def __init__(self, u0, p: CVParams, mesh: Mesh, lambdas, phi0):
+        super().__init__(u0, p, mesh)
+        self.lambdas = lambdas
+        self.phi0 = (_make_phi0(u0.shape[:2], p.init, u0.dtype, mesh)
+                     if phi0 is None else shard_grid(phi0,
+                                                     grid_sharding(mesh)))
+        # the means of the start: the smooth-Heaviside sums, summed over
+        # the shards
+        parts = self.psum(self._each(lambda pos, u, ph: _partials(
+            ph, ph, u, p.eps), self.u0, self.phi0))
+        c = self.nchan
+        self.sum_u = self.psum(self._each(
+            lambda pos, u: torch.sum(u, dim=(0, 1)).reshape(c), self.u0))
+        self.c1, self.c2 = self.means(parts)
+
     def means(self, parts):
         c = self.nchan
         s_uh = parts[:c] if self.vec else parts[0]
@@ -314,20 +368,6 @@ class _Shards:
     def delta(self, parts):
         return _delta_from_partials(parts, self.n_pix, self.p,
                                     self.nchan - 1)
-
-    def parity(self, pos):
-        return (pos[0] * self.h + pos[1] * self.w) % 2
-
-    def edges(self, pos):
-        ix, iy = pos
-        return (ix == 0, ix == self.nx - 1, iy == 0, iy == self.ny - 1)
-
-    def cfirst(self):
-        """The image blocks, channels-first for C channels."""
-        if not self.vec:
-            return self.u0
-        return [[u.permute(2, 0, 1).contiguous() for u in row]
-                for row in self.u0]
 
 
 def _channels_last(pad):
@@ -354,7 +394,7 @@ class _Step:
 
     def _kernel(self, pos, canvas, u0c, c1, c2, size):
         sh, D = self.sh, self.D
-        crop = (D, D + sh.h, D, D + sh.w)
+        crop = sh.crop(D)
         parity, edges = sh.parity(pos), sh.edges(pos)
         if sh.vec:
             l1, l2 = sh.lambdas
@@ -373,7 +413,7 @@ class _Step:
 
     def _packed(self, pos, pad, u0c, c1, c2, size):
         sh, D = self.sh, self.D
-        crop = (D, D + sh.h, D, D + sh.w)
+        crop = sh.crop(D)
         crop_p = tuple(c // 2 for c in crop)
         edges = sh.edges(pos)
         canvas = _fix_edge_replicas_planes(pad, edges, crop_p)
@@ -393,8 +433,7 @@ class _Step:
                 return self._packed(pos, pad, u0c, a, b, size)
             if self.use_pallas:
                 return self._kernel(pos, _even_cols(pad), u0c, a, b, size)
-            new, prev = _jnp_chunk(pad, u0c, a, b, sh.p, sh.lambdas, size,
-                                   pos, (sh.nx, sh.ny, sh.h, sh.w), D)
+            new, prev = _jnp_chunk(sh, pad, u0c, a, b, size, pos, D)
             u0_loc = u0c[D:D + sh.h, D:D + sh.w]
             return new, _partials(new, prev, u0_loc, sh.p.eps)
 
@@ -435,28 +474,24 @@ def _energy(sh: _Shards, phi, c1, c2):
     return sh.psum(sh._each(local, pad1, phi, sh.u0))[0]
 
 
-def _run_sharded(sh: _Shards, max_iter, fixed, use_pallas, comm_k, packed):
-    """The solver over the shards: (phi blocks, c1, c2, iters, delta)."""
-    p = sh.p
-    chunked = comm_k > 1 or (sh.vec and use_pallas)
-    step = _Step(sh, use_pallas, 4 * comm_k if chunked else _D, packed,
-                 chunked)
-    phi = sh.phi0
-    if packed:
-        phi = [[packed_kernel.pack_planes(b) for b in row] for row in phi]
-    c1, c2 = sh.c1, sh.c2
+def _drive(g: _Grid, max_iter, fixed, comm_k, chunked, advance):
+    """The stopping rule of every sharded route: ``advance(size)`` runs
+    ``size`` iterations and returns their delta (a tensor on the first
+    device). Chunked: full comm_k chunks, then one remainder chunk, so the
+    cap is exact; else one iteration at a time. Tolerance mode reads delta
+    once a chunk (an iteration); fixed mode reads nothing. Returns (iters,
+    delta)."""
+    p = g.p
     n, streak = 0, 0
-    delta = torch.tensor(math.inf, dtype=sh.dtype, device=sh.first)
+    delta = torch.tensor(math.inf, dtype=g.dtype, device=g.first)
     delta_f = math.inf
 
     def run(size):
-        nonlocal phi, c1, c2, n, streak, delta, delta_f
-        phi, parts = step.run(phi, c1, c2, size)
-        c1, c2 = sh.means(parts)
-        delta = sh.delta(parts)
+        nonlocal n, streak, delta, delta_f
+        delta = advance(size)
         if not fixed:  # one read of delta a chunk (an iteration)
             delta_f = delta.item()
-            below = torch.tensor(delta_f, dtype=sh.dtype) < p.tol
+            below = torch.tensor(delta_f, dtype=g.dtype) < p.tol
             # a below-tol chunk credits its full size: patience stays
             # iteration-denominated across drivers
             streak = streak + size if bool(below) else 0
@@ -477,6 +512,26 @@ def _run_sharded(sh: _Shards, max_iter, fixed, use_pallas, comm_k, packed):
         while (n < max_iter) if fixed else loop_continue(
                 n, delta_f, streak, p, max_iter):
             run(1)
+    return n, delta
+
+
+def _run_sharded(sh: _Shards, max_iter, fixed, use_pallas, comm_k, packed):
+    """The solver over the shards: (phi blocks, c1, c2, iters, delta)."""
+    chunked = comm_k > 1 or (sh.vec and use_pallas)
+    step = _Step(sh, use_pallas, 4 * comm_k if chunked else _D, packed,
+                 chunked)
+    phi = sh.phi0
+    if packed:
+        phi = [[packed_kernel.pack_planes(b) for b in row] for row in phi]
+    c1, c2 = sh.c1, sh.c2
+
+    def advance(size):
+        nonlocal phi, c1, c2
+        phi, parts = step.run(phi, c1, c2, size)
+        c1, c2 = sh.means(parts)
+        return sh.delta(parts)
+
+    n, delta = _drive(sh, max_iter, fixed, comm_k, chunked, advance)
     if packed:  # one unpack (K16) a shard
         phi = [[packed_kernel.unpack_planes(b) for b in row] for row in phi]
     return phi, c1, c2, n, delta
@@ -688,3 +743,336 @@ def segment_sharded_fixed_trace(u0, p: CVParams = CVParams(),
     phi = gather_grid(phi, mesh)
     return ShardedTrace(phi, phi >= 0, stack(es), stack(ds), stack(c1s),
                         stack(c2s))
+
+
+# the sharded multiphase solver ---------------------------------------------
+
+_TINY = 1e-30  # the phase means' empty-phase guard
+
+
+def _mp_pallas_ok(p: CVParams, u0, nx, ny, m_sets, depth: int = _D) -> bool:
+    """The reference's envelope of K9's shard mode (M = 2 gray, red-black,
+    no reinit, 8-row shards), on its lane-padded canvas geometry."""
+    if u0.ndim != 2 or m_sets != 2 or p.order != "redblack" \
+            or p.reinit_every:
+        return False
+    h, w = u0.shape[0] // nx, u0.shape[1] // ny
+    return (h % 8 == 0
+            and multiphase_kernel.supports_mp2(h + 2 * depth,
+                                               _canvas_cols(w, depth)))
+
+
+def _shard_phis(phis, mesh: Mesh):
+    """(M, H, W) level sets -> the grid of each shard's (M, h, w) stack."""
+    per = [shard_grid(phis[m], grid_sharding(mesh))
+           for m in range(phis.shape[0])]
+    return [[torch.stack([g[ix][iy] for g in per])
+             for iy in range(len(per[0][0]))] for ix in range(len(per[0]))]
+
+
+def _gather_phis(phis, mesh: Mesh):
+    """The inverse of :func:`_shard_phis`, on the mesh's first device."""
+    return torch.stack([gather_grid([[b[m] for b in row] for row in phis],
+                                    mesh)
+                        for m in range(phis[0][0].shape[0])])
+
+
+def _sharded_phase_means(g: _Grid, phis):
+    """The 2^M phase means (per channel for RGB) of the shards' level sets,
+    from each shard's sums of u w_s and w_s summed over the shards: a list
+    on the first device."""
+    def local(pos, u, ph):
+        ws = phase_weights(ph, g.p.eps)
+        if g.vec:
+            nums = [torch.sum(u * w[..., None], dim=(0, 1)) for w in ws]
+        else:
+            nums = [torch.sum(u * w)[None] for w in ws]
+        return torch.cat(nums + [torch.sum(w)[None] for w in ws])
+
+    tot = g.psum(g._each(local, g.u0, phis))
+    ns, c = 2 ** phis[0][0].shape[0], g.nchan
+    return [(tot[s * c:(s + 1) * c] if g.vec else tot[s])
+            / torch.clamp(tot[ns * c + s], min=_TINY) for s in range(ns)]
+
+
+def _label_flips(new, old):
+    """Cells whose phase label changed; 0 * sum(new) NaN-poisons the count
+    when a level set went non-finite."""
+    return (torch.sum((labels_from_phis(new) != labels_from_phis(old))
+                      .to(new.dtype)) + 0.0 * torch.sum(new))[None]
+
+
+def _image_pads(g: _Grid, depth: int):
+    """The image blocks padded by ``depth`` (channels last for RGB)."""
+    return [[_channels_last(u) for u in row]
+            for row in exchange_halo2d_batched(g.cfirst(), depth)]
+
+
+def _mp_iteration(g: _Grid, phis, u0_pad):
+    """One coupled iteration on the plain path (the reference's
+    ``_sharded_multiphase_iteration``): the phase means, then each level
+    set in order swept on its depth-4 padded block, every level set
+    exchanged anew for its coupling term. Returns (phis, delta)."""
+    p, m_sets = g.p, phis[0][0].shape[0]
+    cs = _sharded_phase_means(g, phis)
+    new = phis
+    for m in range(m_sets):
+        pads = exchange_halo2d_batched(new, _D)
+
+        def one(pos, pad, up, cur, m=m):
+            red, black = g.lattice(pos, pad.shape[1:], _D, pad.device)
+            f = _coupling_term(up, pad, [c.to(pad.device) for c in cs], m,
+                               p)
+            upd = _sweep_local(pad[m], f, p, red, black, *pos, g.nx, g.ny)
+            out = cur.clone()
+            out[m] = upd[_D:_D + g.h, _D:_D + g.w]
+            return out
+        new = g.grid(g._each(one, pads, u0_pad, new))
+    flips = g.psum(g._each(lambda pos, a, b: _label_flips(a, b), new,
+                           phis))[0]
+    return new, flips / g.n_pix
+
+
+def _mp_chunk(g: _Grid, phis, u0_pad, cs, k: int, depth: int):
+    """k coupled iterations with the phase means ``cs`` frozen, on each
+    shard's depth-deep padded blocks (the reference's plain
+    ``_sharded_multiphase_chunk``): the replicas refreshed before each
+    iteration and between its half-sweeps. Returns (phis, the new state's
+    means, delta of the last iteration)."""
+    p, D = g.p, depth
+    crop = (slice(D, D + g.h), slice(D, D + g.w))
+
+    def one(pos, pad, up):
+        red, black = g.lattice(pos, pad.shape[1:], D, pad.device)
+        c = [x.to(pad.device) for x in cs]
+        cur = prev = list(pad)
+        for _ in range(k):
+            prev = cur
+            cur = [_resync_replicas(x, *pos, g.nx, g.ny, D) for x in cur]
+            for m in range(len(cur)):
+                f = _coupling_term(up, cur, c, m, p)
+                cur[m] = _sweep_local(cur[m], f, p, red, black, *pos, g.nx,
+                                      g.ny, D)
+        new = torch.stack([x[crop] for x in cur])
+        return new, _label_flips(new, torch.stack([x[crop] for x in prev]))
+
+    outs = g._each(one, exchange_halo2d_batched(phis, D), u0_pad)
+    new = g.grid([o[0] for o in outs])
+    flips = g.psum([o[1] for o in outs])[0]
+    return new, _sharded_phase_means(g, new), flips / g.n_pix
+
+
+def _mp_kernel_chunk(g: _Grid, phis, u0c, cs, k: int, depth: int):
+    """k launches of K9's shard mode on each shard's depth-deep canvas
+    (the reference's ``_sharded_multiphase_iteration_pallas`` at k = 1 and
+    its kernel chunk): the whole canvas advances between launches; the
+    means come back from the last launch's partials summed over the
+    shards. Returns (phis, means (4,), delta)."""
+    D, crop = depth, g.crop(depth)
+
+    def one(pos, canvas, uc):
+        canvas, c = _even_cols(canvas), cs.to(canvas.device)
+        parts = None
+        for _ in range(k):
+            canvas, parts = multiphase_kernel.mp2_iteration_sharded(
+                canvas, uc, c, g.p, g.parity(pos), g.edges(pos), crop)
+        return canvas[:, D:D + g.h, D:D + g.w], parts[:10]
+
+    outs = g._each(one, exchange_halo2d_batched(phis, D), u0c)
+    parts = g.psum([o[1] for o in outs])
+    cs = parts[0:4] / torch.clamp(parts[4:8], min=_TINY)
+    # 0 * s_dphi2 NaN-poisons the flip metric on divergence
+    return (g.grid([o[0] for o in outs]), cs,
+            parts[8] / g.n_pix + 0.0 * parts[9])
+
+
+def _mp_step(g: _Grid, use_pallas: bool, comm_k: int):
+    """A route's step(phis, cs, size) -> (phis, cs, delta), cs the means
+    the next step starts from (None on the per-iteration plain route,
+    which computes its own)."""
+    D = 8 * comm_k if comm_k > 1 else _D
+    if use_pallas:
+        u0c = [[_even_cols(u) for u in row]
+               for row in exchange_halo2d(g.u0, D)]
+        return lambda ph, cs, size: _mp_kernel_chunk(g, ph, u0c, cs, size,
+                                                     D)
+    u0_pad = _image_pads(g, D)
+    if comm_k > 1:
+        return lambda ph, cs, size: _mp_chunk(g, ph, u0_pad, cs, size, D)
+
+    def iteration(ph, cs, size):
+        ph, delta = _mp_iteration(g, ph, u0_pad)
+        return ph, None, delta
+    return iteration
+
+
+def _check_multiphase(u0, p: CVParams, mesh, halo, comm_k, m_sets,
+                      use_pallas, depth):
+    """The reference's argument checks (ValueError), then the port's
+    unported options (NotImplementedError); returns use_pallas
+    resolved."""
+    if mesh is None:
+        raise ValueError("needs a mesh (parallel.mesh.make_grid_mesh)")
+    nx, ny = mesh.shape["x"], mesh.shape["y"]
+    H, W = u0.shape[:2]
+    if H % nx or W % ny:
+        raise ValueError(f"image {tuple(u0.shape)} not divisible by mesh")
+    if halo not in ("ppermute", "rdma", "overlap"):
+        raise ValueError(f"unknown halo mechanism {halo!r}")
+    if halo == "overlap":
+        if comm_k > 1:
+            raise ValueError("multiphase overlap x comm_k not supported; "
+                             "use halo='ppermute' with comm_k")
+        if min(H // nx, W // ny) < 16:
+            raise ValueError("halo='overlap' needs shards of at least "
+                             "16x16 (stitch strip width)")
+    if comm_k < 1:
+        raise ValueError("comm_k must be >= 1")
+    if comm_k > 1:
+        if p.reinit_every:
+            raise ValueError("multiphase comm_k > 1 supports no reinit "
+                             "cadence (frozen-means chunks)")
+        if 8 * comm_k > min(H // nx, W // ny):
+            raise ValueError(
+                f"multiphase comm_k={comm_k} needs 8*comm_k-deep halos, "
+                f"larger than the shard ({H // nx}, {W // ny})")
+    ok = (_mp_pallas_ok(p, u0, nx, ny, m_sets, depth)
+          and halo != "overlap")
+    if use_pallas is None:
+        use_pallas = all(d.type == "cuda" for d in mesh.devices) and ok
+    elif use_pallas and not ok:
+        raise ValueError(
+            f"fused multiphase pallas path unsupported for "
+            f"{tuple(u0.shape)} on mesh ({nx}, {ny}) with halo={halo!r} "
+            f"(needs M=2 grayscale, redblack order, no reinit, "
+            f"8-row-aligned shards, non-overlap halos)")
+    _check_ported(halo, p)
+    return bool(use_pallas)
+
+
+def _mp_start(u0, m_sets, phis0, mesh):
+    if phis0 is None:
+        phis0 = init_multiphase(u0.shape[:2], m_sets, dtype=u0.dtype,
+                                device=mesh.devices[0])
+    return _shard_phis(_on_mesh(phis0, mesh), mesh)
+
+
+def segment_multiphase_sharded(u0, p: CVParams = CVParams(),
+                               mesh: Optional[Mesh] = None,
+                               m_sets: int = 2,
+                               phis0: Optional[torch.Tensor] = None,
+                               max_iter: Optional[int] = None,
+                               fixed: bool = False,
+                               use_pallas: Optional[bool] = None,
+                               halo: str = "ppermute",
+                               comm_k: int = 1) -> MultiphaseResult:
+    """Multiphase Vese-Chan (M coupled level sets, 2^M phases) over a 2-D
+    ('x', 'y') grid mesh. u0: (H, W) or (H, W, C), divisible by the mesh.
+    Tolerance mode on the label-flip fraction by default; ``fixed=True``
+    runs exactly ``max_iter`` (or p.max_iter) iterations. Returns a
+    MultiphaseResult whose phis and labels are gathered onto the mesh's
+    first device, and the phase means of the final state.
+
+    use_pallas: None takes K9's shard mode where every mesh device is a
+    CUDA device and the reference's envelope holds (M = 2 gray, red-black,
+    no reinit, 8-row shards): one launch an iteration per shard, the means
+    carried through its partials. True on CPU devices runs its plain
+    version through the same driver (the reference's ``interpret=True``).
+    comm_k: one 8k-deep exchange of every level set per comm_k coupled
+    iterations with frozen phase means (the chunk's last iteration's flips
+    are its metric; patience counts iterations), a remainder chunk ending
+    the run. halo='rdma'/'overlap' (ROADMAP M13d) and reinit_every > 0
+    (M10) raise NotImplementedError after the reference's ValueErrors.
+    """
+    depth = 8 * comm_k if comm_k > 1 else _D
+    use_pallas = _check_multiphase(u0, p, mesh, halo, comm_k, m_sets,
+                                   use_pallas, depth)
+    cap = max_iter if max_iter is not None else p.max_iter
+    u0 = _on_mesh(u0, mesh)
+    g = _Grid(u0, p, mesh)
+    phis = _mp_start(u0, m_sets, phis0, mesh)
+    step = _mp_step(g, use_pallas, comm_k)
+    cs = (torch.stack(_sharded_phase_means(g, phis)) if use_pallas
+          else _sharded_phase_means(g, phis) if comm_k > 1 else None)
+
+    def advance(size):
+        nonlocal phis, cs
+        phis, cs, delta = step(phis, cs, size)
+        return delta
+
+    iters, delta = _drive(g, cap, fixed, comm_k, comm_k > 1, advance)
+    phis = _gather_phis(phis, mesh)
+    cs = torch.stack(phase_means(u0, phis, p.eps))
+    return MultiphaseResult(phis, labels_from_phis(phis), iters, delta, cs)
+
+
+def _sharded_multiphase_energy(g: _Grid, phis):
+    """The multiphase energy of the sharded level sets, summed over the
+    shards: the phase means from the shards' sums, forward differences
+    through a 1-deep halo (as ``models.multiphase.multiphase_energy`` on
+    the assembled image)."""
+    p = g.p
+    cs = _sharded_phase_means(g, phis)
+
+    def local(pos, u, ph, pad):
+        c = [x.to(ph.device) for x in cs]
+        fit = torch.zeros((), dtype=ph.dtype, device=ph.device)
+        for w, cc in zip(phase_weights(ph, p.eps), c):
+            d = (torch.mean((u - cc) ** 2, dim=-1) if g.vec
+                 else (u - cc) ** 2)
+            fit = fit + torch.sum(d * w)
+        reg = torch.zeros((), dtype=ph.dtype, device=ph.device)
+        for m in range(ph.shape[0]):
+            core = pad[m, 1:-1, 1:-1]
+            gx = pad[m, 2:, 1:-1] - core
+            gy = pad[m, 1:-1, 2:] - core
+            reg = reg + p.mu * torch.sum(dirac(ph[m], p.eps)
+                                         * torch.sqrt(gx * gx + gy * gy))
+            reg = reg + p.nu * torch.sum(heaviside(ph[m], p.eps))
+        return (fit + reg)[None]
+
+    return g.psum(g._each(local, g.u0, phis,
+                          exchange_halo2d_batched(phis, 1)))[0]
+
+
+class MultiphaseShardedTrace(NamedTuple):
+    phis: torch.Tensor     # (M, H, W)
+    labels: torch.Tensor   # (H, W) int32
+    energy: torch.Tensor   # (iters,)
+    delta: torch.Tensor    # (iters,) label-flip fractions
+
+
+def segment_multiphase_sharded_fixed_trace(
+        u0, p: CVParams = CVParams(), mesh: Optional[Mesh] = None,
+        iters: int = 100, m_sets: int = 2,
+        phis0: Optional[torch.Tensor] = None,
+        use_pallas: Optional[bool] = None,
+        halo: str = "ppermute") -> MultiphaseShardedTrace:
+    """Fixed-iteration sharded multiphase run with the energy and the
+    label-flip fraction of every iteration, from the shards' sums (the
+    schedule of ``models.multiphase.segment_multiphase_fixed``: the energy
+    after each coupled iteration). The per-iteration routes: K9's shard
+    mode (M = 2 gray, means carried) or the plain path; phis and labels
+    gathered onto the mesh's first device."""
+    if mesh is None:
+        raise ValueError("needs a mesh (parallel.mesh.make_grid_mesh)")
+    use_pallas = _check_multiphase(u0, p, mesh, halo, 1, m_sets, use_pallas,
+                                   _D)
+    u0 = _on_mesh(u0, mesh)
+    g = _Grid(u0, p, mesh)
+    phis = _mp_start(u0, m_sets, phis0, mesh)
+    step = _mp_step(g, use_pallas, 1)
+    cs = torch.stack(_sharded_phase_means(g, phis)) if use_pallas else None
+    es, ds = [], []
+    for _ in range(iters):
+        phis, cs, delta = step(phis, cs, 1)
+        es.append(_sharded_multiphase_energy(g, phis))
+        ds.append(delta)
+
+    def stack(xs):
+        return (torch.stack(xs) if xs
+                else torch.empty(0, dtype=g.dtype, device=g.first))
+
+    phis = _gather_phis(phis, mesh)
+    return MultiphaseShardedTrace(phis, labels_from_phis(phis), stack(es),
+                                  stack(ds))

@@ -45,10 +45,23 @@ RGB, comm_k 8 and 1, tolerance mode) and on the 1x1 mesh (flat and
 packed), and segment_sharded_fixed_trace, with their masks, trace and
 launch counts checked, and the times: each run's throughput beside the
 unsharded banded driver, each shard mode per launch, and the halo
-exchange that builds the canvases. Any failure raises and exits
-non-zero. The last lines are a JSON object per
-kernel, the card's name and power limit, and {"ok": true, "device":
-{...}}. Without a CUDA device it exits 1 and prints no result.
+exchange that builds the canvases. Phases 21-23 do the same for the
+sharded multiphase and morphological solvers: K9's shard-canvas mode, K1's
+force mode with a parity and K11's shard kinds (acwe_sh, gac_pre_sh) each
+against its plain version on every shard of a 2x2 and a 3x3 grid of the
+4K images (each crop or owned block against the whole-image launch, K9
+also over 2 and 8 launches chained on one canvas),
+segment_multiphase_sharded at 4K on a 2x2 grid of four shards on the card
+(fixed at comm_k 1 and 8, tolerance mode), its trace,
+segment_morph_sharded_chunked and segment_gac_sharded_chunked at comm_k 8,
+the per-iteration segment_morph_sharded / segment_gac_sharded at 1080p and
+the multiphase sweeps with the lattice offset, each against the unsharded
+run of its trajectory class, with every launch counted, and the times:
+each run's throughput beside the unsharded route, each mode per launch,
+and the halo exchange a chunk. Any failure raises and exits non-zero.
+The last lines are a JSON object per kernel, the card's name and power
+limit, and {"ok": true, "device": {...}}. Without a CUDA device it exits
+1 and prints no result.
 """
 
 from __future__ import annotations
@@ -83,8 +96,12 @@ from chan_vese_tpu_torch.ops.morph import (  # noqa: E402
 from chan_vese_tpu_torch.ops.reductions import region_means  # noqa: E402
 from chan_vese_tpu_torch.parallel import (  # noqa: E402
     exchange_halo2d, exchange_halo2d_batched, grid_sharding, make_data_mesh,
-    make_grid_mesh, segment_sharded, segment_sharded_fixed_trace,
-    segment_stack_sharded, shard_grid)
+    make_grid_mesh, segment_multiphase_sharded,
+    segment_multiphase_sharded_fixed_trace, segment_sharded,
+    segment_sharded_fixed_trace, segment_stack_sharded, shard_grid)
+from chan_vese_tpu_torch.parallel.sharded import _shard_phis  # noqa: E402
+from chan_vese_tpu_torch.parallel.sharded_morph import (  # noqa: E402
+    segment_gac_sharded_chunked, segment_morph_sharded_chunked)
 from chan_vese_tpu_torch.utils.init_phi import init_phi  # noqa: E402
 
 H4K, W4K = 2160, 3840
@@ -374,6 +391,52 @@ SHARD_K, SHARD_ITERS, SHARD_ITERS_K1, TRACE_ITERS = 8, 800, 100, 50
 # the trace's energy against the unsharded plain trace (BASELINE.json:5)
 TRACE_RTOL = 1e-5
 
+# the sharded multiphase and morphological solvers (phases 21-23): K9's
+# shard-canvas mode, K1's force mode with a parity and K11's shard kinds;
+# the counter each wrapper adds to where it launches
+MP_SHARD = {
+    "K9 mp2_iteration_sharded": dict(
+        source="chan_vese_tpu_torch/csrc/mp2_band.cu",
+        replaces="chan_vese_tpu/ops/pallas_multiphase.py:279",
+        counter=(multiphase_kernel.mp2_iteration_sharded, "launches")),
+    "K1 fused_sweep (parity)": dict(
+        source="chan_vese_tpu_torch/csrc/fused_sweep.cu",
+        replaces="chan_vese_tpu/ops/pallas_sweep.py:467",
+        counter=(fused_kernel.fused_sweep, "parity_launches")),
+    "K11 morph_chunk_shard (acwe_sh)": dict(
+        source=_MORPH_SRC, replaces="chan_vese_tpu/ops/pallas_morph.py:675",
+        counter=(morph_kernel.morph_chunk_shard, "launches")),
+    "K11 gac_chunk_shard (gac_pre_sh)": dict(
+        source=_MORPH_SRC, replaces="chan_vese_tpu/ops/pallas_morph.py:694",
+        counter=(morph_kernel.gac_chunk_shard, "launches")),
+}
+# K9 launches chained on one 8k-deep canvas (the comm_k chunk), phase 21
+MP_CHAIN_KS = (2, 8)
+# comm_k of the sharded morph runs and K11's shard launches (ACWE D = 24,
+# GAC D = 32 at smoothing 1)
+MORPH_SHARD_K = 8
+# iterations: the multiphase runs (phases 22-23), its trace, the fixed
+# morph runs of phase 22 and of the timings
+MP_SHARD_ITERS, MP_TRACE_ITERS = 100, 20
+MORPH_SHARD_ITERS, MORPH_SHARD_RATE_ITERS = 200, 800
+# the trace's energy against segment_multiphase_fixed (phase 10's bar) and
+# against the energy of its own final state assembled on one image. From
+# the checkerboard the f32 trajectory passes a fast transition (the energy
+# falls 20x in 6 iterations) where ulp-level differences of the means, as
+# summing them per shard makes, move the energy by up to 2e-2 (the same
+# sharding on the plain route, on an H100 80GB HBM3 at 700 W): the sharded
+# trace is held within MP_ENERGY_RTOL of the unsharded kernel route or
+# within twice the plain routes' sharded-vs-unsharded gap of the same run,
+# whichever is larger, and its labels agree with the unsharded route's
+MP_ENERGY_RTOL, MP_ENERGY_SELF_RTOL = 1e-3, 1e-5
+# mu of phase 22's comm_k = 8 multiphase run held to the truth: at MU_MP
+# the comm_k = 8 frozen-means class (the unsharded frozen-means K9 loop as
+# well) merges two phases of the 4K image (accuracy 0.528 at 100 to 400
+# iterations on an H100 80GB HBM3 at 700 W); at this mu it converges. The
+# run at MU_MP is held to the unsharded frozen-means loop and its accuracy
+# printed, without a bar.
+MU_MP_SHARD = 0.001 * 255.0 ** 2
+
 
 def two_disks(h, w, fg=217.0, bg=38.0, noise=8.0, seed=0):
     """Two bright disks on a dark background plus Gaussian noise, and the
@@ -550,21 +613,28 @@ def ptxas_summary():
     ptxas's -v report of the build: 'kind flat/packed [C=n]: R regs, S B
     spill' (C = -1 is K1's force mode), 'morph <kind>: ...'."""
     out, name = {}, None
-    morph_kinds = ("acwe", "gac", "gac_pre", "acwe_fused")
+    morph_kinds = ("acwe", "gac", "gac_pre", "acwe_fused", "acwe_sh",
+                   "gac_pre_sh")
     for line in _build.ptxas_report().splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:  # the lines up to the next entry describe this one
             mm = re.search(r"morph_kernelILi(\d)E", m.group(1))
             m = re.search(r"(mp2_band|mp2_resident|chunk|resident)_kernel"
-                          r"(?:ILb(\d)E(?:Li(n?)(\d+)E)?)?", m.group(1))
+                          r"(?:ILb(\d)E(?:Li(n?)(\d+)E)?(?:Lb(\d)E)?)?",
+                          m.group(1))
             name = None
             if mm:
                 name = ("morph", morph_kinds[int(mm.group(1))], "")
             elif m:
                 c = ("" if m.group(4) is None else
                      f" C={'-' if m.group(3) else ''}{m.group(4)}")
-                name = (m.group(1), ("flat", "packed")[int(m.group(2) or 0)],
-                        c)
+                # mp2_band's one template flag is SHARD, chunk_kernel's
+                # third
+                shard = (m.group(2) if m.group(1) == "mp2_band"
+                         else m.group(5)) == "1"
+                packed = m.group(1) != "mp2_band" and m.group(2) == "1"
+                name = (m.group(1), ("flat", "packed")[packed],
+                        c + (" shard" if shard else ""))
             continue
         if name is None:
             continue
@@ -1787,6 +1857,598 @@ def shard_phases(dev, card, u4k, gt4k, v4k, gtc4k):
     return st
 
 
+def mp_shard_counts():
+    return {name: getattr(*v["counter"]) for name, v in MP_SHARD.items()}
+
+
+def reset_mp_shard_counts():
+    for v in MP_SHARD.values():
+        setattr(*v["counter"], 0)
+
+
+def mp_canvases(phis, u, nx, ny, D, dev):
+    """Each shard's (position, level-set canvas (2, h + 2D, w + 2D), image
+    canvas, parity, edges, crop) of an nx x ny grid on ``dev``, built by
+    the port's halo exchange (the driver's canvases)."""
+    mesh = make_grid_mesh(nx, ny, [dev] * (nx * ny))
+    pads = exchange_halo2d_batched(_shard_phis(phis, mesh), D)
+    us = exchange_halo2d(shard_grid(u, grid_sharding(mesh)), D)
+    h, w = u.shape[0] // nx, u.shape[1] // ny
+    return [((ix, iy), pads[ix][iy], us[ix][iy], (ix * h + iy * w) % 2,
+             (ix == 0, ix == nx - 1, iy == 0, iy == ny - 1),
+             (D, D + h, D, D + w))
+            for ix in range(nx) for iy in range(ny)]
+
+
+def mp2_parts_ok(gparts, rparts, nshards=1):
+    """K9 partials against another version's: the summed slots within
+    MP2_PARTS_RTOL, the flips within FLIPS_CELLS a shard, the rest 0.
+    Returns (ok, flips |d|, sums relative |d|)."""
+    g, r = gparts.reshape(-1).double(), rparts.reshape(-1).double()
+    sums = list(range(8)) + [9]
+    flips_d = float((g[8] - r[8]).abs())
+    sums_rel = float(((g[sums] - r[sums]).abs() / r[sums].abs()).max())
+    ok = (gparts.shape == rparts.shape and flips_d <= FLIPS_CELLS * nshards
+          and sums_rel <= MP2_PARTS_RTOL and not g[10:].any())
+    return ok, flips_d, sums_rel
+
+
+def check_mp2_shard(dev, pm, st):
+    """Phase 21, K9's shard mode on every shard of a 2x2 and a 3x3 grid of
+    the 4K four-regions image (the init_multiphase start and its means):
+    one launch against its plain version on the whole canvas at phase 9's K9
+    bars, a second launch bitwise the first, each crop against the
+    whole-image K9 launch's window (bitwise expected: the same arithmetic
+    per cell) and the shards' partials summed against the whole image's;
+    then MP_CHAIN_KS launches chained on an 8k-deep canvas (the comm_k
+    chunk, whose halo cells advance between launches): each crop against
+    the whole-image K9 loop of as many iterations, its labels against the
+    plain version's."""
+    mk = multiphase_kernel
+    name = "K9 mp2_iteration_sharded"
+    u, phis, cs, _ = mp2_inputs(H4K, W4K, dev, pm)
+    rtol, atol = MP2_BARS["K9 mp2_iteration"]
+    whole, wparts = mk.mp2_iteration(phis, u, cs, pm)
+    chains = {}
+    for k in MP_CHAIN_KS:
+        x = phis
+        for _ in range(k):
+            x, _ = mk.mp2_iteration(x, u, cs, pm)
+        chains[k] = x
+    for nx, ny in SHARD_GRIDS:
+        h, w = H4K // nx, W4K // ny
+        errs, bitwise, psum, bad = [], True, 0.0, 0
+        for pos, x, uc, par, edges, crop in mp_canvases(phis, u, nx, ny, 4,
+                                                        dev):
+            args = (x, uc, cs, pm, par, edges, crop)
+            got, again = mk.mp2_iteration_sharded(*args), \
+                mk.mp2_iteration_sharded(*args)
+            ref = mk.mp2_iteration_sharded_reference(*args)
+            torch.cuda.synchronize()
+            tag = f"shard {pos} of {nx}x{ny} edges {edges}"
+            repeat = (torch.equal(got[0], again[0])
+                      and torch.equal(got[1], again[1]))
+            ok, flips_d, sums_rel = mp2_parts_ok(got[1], ref[1])
+            err = float((got[0] - ref[0]).abs().max())
+            if not (repeat and ok and math.isfinite(err) and torch.allclose(
+                    got[0], ref[0], rtol=rtol, atol=atol)):
+                raise AssertionError(
+                    f"{name} at {tag} disagrees with its plain version: phi "
+                    f"max|d| {err}, flips |d| {flips_d}, sums rel "
+                    f"{sums_rel}, repeat {repeat}")
+            errs.append(err)
+            ix, iy = pos
+            mine = got[0][:, 4:4 + h, 4:4 + w]
+            win = whole[:, ix * h:(ix + 1) * h, iy * w:(iy + 1) * w]
+            if not torch.equal(mine, win):
+                bitwise = False
+                bad += int((mine != win).sum())
+            psum = psum + got[1].double()
+        ok, flips_d, sums_rel = mp2_parts_ok(psum.float(), wparts, nx * ny)
+        if not ok or bad > 0:
+            raise AssertionError(
+                f"{name} {nx}x{ny}: {bad} crop cells differ from the "
+                f"whole-image launch; partials summed: flips |d| {flips_d},"
+                f" sums rel {sums_rel}")
+        st["max_abs_err"] = max(st["max_abs_err"], *errs)
+        print(f"phase 21 {name} {nx}x{ny} ({h}x{w} shards, D=4): phi "
+              f"max|d| vs plain {max(errs):.3e} (rtol {rtol} atol {atol}), "
+              f"crops bitwise equal to the whole-image K9 launch "
+              f"{bitwise}, the shards' partials summed vs the whole image's"
+              f" flips |d| {flips_d:g}, sums rel {sums_rel:.3e}; second "
+              f"launches bitwise equal", flush=True)
+        for k in MP_CHAIN_KS:
+            D = 8 * k
+            fracs, same = [], True
+            for pos, x, uc, par, edges, crop in mp_canvases(
+                    phis, u, nx, ny, D, dev):
+                got = ref = x
+                for _ in range(k):
+                    got, gparts = mk.mp2_iteration_sharded(
+                        got, uc, cs, pm, par, edges, crop)
+                    ref, _ = mk.mp2_iteration_sharded_reference(
+                        ref, uc, cs, pm, par, edges, crop)
+                torch.cuda.synchronize()
+                ix, iy = pos
+                mine = got[:, D:D + h, D:D + w]
+                fracs.append(label_frac(mine, ref[:, D:D + h, D:D + w]))
+                same = same and torch.equal(
+                    mine, chains[k][:, ix * h:(ix + 1) * h,
+                                    iy * w:(iy + 1) * w])
+                if not bool(torch.isfinite(gparts).all()):
+                    raise AssertionError(f"{name} k={k}: partials not "
+                                         f"finite")
+            print(f"phase 21 {name} {nx}x{ny}: {k} launches chained on a "
+                  f"{D}-deep canvas: crops bitwise equal to the whole-image"
+                  f" K9 loop of {k} iterations {same}; labels differ from "
+                  f"the plain version's at {max(fracs):.3e} of the cells "
+                  f"(bar {LABELS_FRAC})", flush=True)
+            if not same or max(fracs) > LABELS_FRAC:
+                raise AssertionError(f"{name} chained k={k} on {nx}x{ny} "
+                                     f"disagrees")
+    return u, phis, cs
+
+
+def check_sweep_parity(dev, pm, st):
+    """Phase 21, K1's force mode with a parity: parity 1 against its plain
+    version at phase 3's bars at the multiphase main path's shapes (phi0's
+    coupling force on the init_multiphase start), a second launch bitwise
+    the first, and parity 0 (through the same instantiation) bitwise equal
+    to the whole-image force mode."""
+    name = "K1 fused_sweep (parity)"
+    fk = fused_kernel
+    for h, w in ((H4K, W4K), (512, 512)):
+        _, phis, _, f = mp2_inputs(h, w, dev, pm)
+        phi = phis[0].contiguous()
+        got = fk.fused_sweep(phi, f, pm, parity=1)
+        again = fk.fused_sweep(phi, f, pm, parity=1)
+        ref = fk.fused_sweep_reference(phi, f, pm, parity=1)
+        zero, base = fk.fused_sweep(phi, f, pm, parity=0), \
+            fk.fused_sweep(phi, f, pm)
+        torch.cuda.synchronize()
+        err = hold(name, got, ref, f"{h}x{w} parity 1")
+        same0 = torch.equal(zero[0], base[0]) and torch.equal(zero[1],
+                                                              base[1])
+        repeat = torch.equal(got[0], again[0]) and torch.equal(got[1],
+                                                               again[1])
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        print(f"phase 21 {name} {h}x{w}: parity 1 phi max|d| vs plain "
+              f"{err:.3e} (phase 3's bars); parity 0 bitwise equal to the "
+              f"whole-image force mode {same0}; second launch bitwise equal "
+              f"{repeat}", flush=True)
+        if not (same0 and repeat):
+            raise AssertionError(f"{name} at {h}x{w}: parity 0 or a second "
+                                 f"launch differs")
+
+
+def morph_shard_inputs(dev, p):
+    """The 4K morph inputs of the shard checks: the two-disks image's
+    checkerboard binary start and its frozen force, the GAC scene's edge
+    map (whose aux stack the driver builds per shard)."""
+    u = torch.from_numpy(two_disks(H4K, W4K)[0]).to(dev)
+    ls = gacm._init_ls(u, p, None)
+    l1, l2 = morphm._lambdas(u, p, None, None)
+    g = inverse_gaussian_gradient(
+        torch.from_numpy(gac_scene(H4K, W4K)[0]).to(dev), 5.0,
+        2.0).contiguous()
+    return ls, morphm._force_plane(u, ls, l1, l2), g
+
+
+def morph_blocks(ls, aux, nx, ny, D, dev, gac):
+    """Each shard's (position, padded level set, padded aux, edges) of an
+    nx x ny grid: the force padded as the image is, or the (dgx, dgy,
+    mask) stack of the padded edge map (the drivers' blocks)."""
+    mesh = make_grid_mesh(nx, ny, [dev] * (nx * ny))
+    sharding = grid_sharding(mesh)
+    lsp = exchange_halo2d(shard_grid(ls, sharding), D)
+    ap = exchange_halo2d(shard_grid(aux, sharding), D)
+    return [((ix, iy), lsp[ix][iy],
+             (morph_kernel.gac_aux_stack(ap[ix][iy], 1, GAC_THRESHOLD)
+              if gac else ap[ix][iy]),
+             (ix == 0, ix == nx - 1, iy == 0, iy == ny - 1))
+            for ix in range(nx) for iy in range(ny)]
+
+
+def morph_shard_call(gac, k, D, plain=False):
+    """fn(block, aux, edges) of a K11 shard kind (or its plain version):
+    k iterations, smoothing 1, parity0 0, GAC with balloon 1."""
+    mk = morph_kernel
+    if gac:
+        f = mk.gac_chunk_shard_reference if plain else mk.gac_chunk_shard
+        return lambda x, a, e: f(x, a, e, (D,) * 4, k, 1, 0, 1,
+                                 GAC_THRESHOLD)
+    f = mk.morph_chunk_shard_reference if plain else mk.morph_chunk_shard
+    return lambda x, a, e: f(x, a, e, (D,) * 4, k, 1, 0)
+
+
+def check_morph_shard(dev, p, stats):
+    """Phase 21, K11's shard kinds on every shard of a 2x2 and a 3x3 grid
+    of the 4K inputs (k = MORPH_SHARD_K on the driver's D-deep blocks):
+    bitwise equal to the plain version on the whole block, a second launch
+    bitwise the first, and each owned block bitwise equal to the
+    whole-image K11 launch's window."""
+    ls, f, g = morph_shard_inputs(dev, p)
+    k = MORPH_SHARD_K
+    whole = {False: morph_kernel.morph_chunk(ls, f, k, 1, 0),
+             True: morph_kernel.gac_chunk(
+                 ls, morph_kernel.gac_aux_stack(g, 1, GAC_THRESHOLD), k, 1, 0,
+                 1, GAC_THRESHOLD, pre_dg=True)}
+    for name, gac in (("K11 morph_chunk_shard (acwe_sh)", False),
+                      ("K11 gac_chunk_shard (gac_pre_sh)", True)):
+        D = morph_kernel._reach("gac" if gac else "acwe", 1) * k
+        call, plain = morph_shard_call(gac, k, D), \
+            morph_shard_call(gac, k, D, True)
+        for nx, ny in SHARD_GRIDS:
+            h, w = H4K // nx, W4K // ny
+            for pos, x, a, edges in morph_blocks(ls, g if gac else f, nx, ny,
+                                                 D, dev, gac):
+                got, again, ref = call(x, a, edges), call(x, a, edges), \
+                    plain(x, a, edges)
+                torch.cuda.synchronize()
+                ix, iy = pos
+                win = whole[gac][ix * h:(ix + 1) * h, iy * w:(iy + 1) * w]
+                if not (torch.equal(got, ref) and torch.equal(got, again)
+                        and torch.equal(got[D:D + h, D:D + w], win)):
+                    raise AssertionError(
+                        f"{name} at shard {pos} of {nx}x{ny} edges {edges} "
+                        f"differs: vs plain "
+                        f"{int((got != ref).sum())} cells, vs the whole "
+                        f"image {int((got[D:D + h, D:D + w] != win).sum())}")
+            print(f"phase 21 {name} k={k} {nx}x{ny} ({h}x{w} shards, "
+                  f"D={D}): every block bitwise equal to the plain version, "
+                  f"every owned block bitwise equal to the whole-image K11 "
+                  f"launch; second launches bitwise equal", flush=True)
+    return ls, f, g
+
+
+def frozen_mp2_loop(u, phis, pm, iters, k):
+    """The unsharded K9 loop of the comm_k class: ``iters`` iterations,
+    the means frozen over each k-chunk and refreshed from its last
+    launch's partials."""
+    cs = torch.stack(mpm.phase_means(u, phis, pm.eps))
+    done = 0
+    while done < iters:
+        for _ in range(min(k, iters - done)):
+            phis, parts = multiphase_kernel.mp2_iteration(phis, u, cs, pm)
+        cs = parts[0:4] / torch.clamp(parts[4:8], min=1e-30)
+        done += k
+    return phis
+
+
+def parity_sweeps(u, phis, pm, sweep):
+    """One coupled iteration of the multiphase sweeps route with the
+    red-black lattice offset by one (parity 1): the means, then each level
+    set's force and its sweep through ``sweep`` (K1's force mode or its
+    plain version). Returns the new level sets."""
+    cs = mpm.phase_means(u, phis, pm.eps)
+    new = [phis[m] for m in range(phis.shape[0])]
+    for m in range(len(new)):
+        f = mpm._coupling_term(u, new, cs, m, pm)
+        new[m] = sweep(new[m].contiguous(), f, pm, parity=1)[0]
+    return torch.stack(new)
+
+
+def mp_morph_main_paths(dev, card, u, gt, pm, p):
+    """Phase 22: the slice through the user entry points at 4K on a 2x2
+    grid of four shards on the card, every launch counted. Returns the
+    multiphase and morph inputs phase 23 times."""
+    mesh = make_grid_mesh(2, 2, [dev] * 4)
+    nsh = 4
+    img4k, gt4k = two_disks(H4K, W4K)
+    u2 = torch.from_numpy(img4k).to(dev)
+    gimg, gtg, seed = gac_scene(H4K, W4K)
+    g4k = inverse_gaussian_gradient(torch.from_numpy(gimg).to(dev), 5.0,
+                                    2.0).contiguous()
+    s4k = torch.from_numpy(seed).to(dev)
+    img1k = two_disks(1080, 1920)[0]
+    u1k = torch.from_numpy(img1k).to(dev)
+    gimg1k, gtg1k, seed1k = gac_scene(1080, 1920)
+    g1k = inverse_gaussian_gradient(torch.from_numpy(gimg1k).to(dev), 5.0,
+                                    2.0).contiguous()
+    s1k = torch.from_numpy(seed1k).to(dev)
+    gkw = dict(balloon=-1, threshold=GAC_THRESHOLD)
+    phis0 = mpm.init_multiphase((H4K, W4K), 2, device=dev)
+    pk = ct.CVParams(mu=MU_MP_SHARD, max_iter=500)
+    runs = {
+        "multiphase fixed comm_k=1": lambda: segment_multiphase_sharded(
+            u, pm, mesh, max_iter=MP_SHARD_ITERS, fixed=True),
+        "multiphase fixed comm_k=8": lambda: segment_multiphase_sharded(
+            u, pm, mesh, max_iter=MP_SHARD_ITERS, fixed=True,
+            comm_k=SHARD_K),
+        "multiphase fixed comm_k=8 mu=0.001": lambda: (
+            segment_multiphase_sharded(u, pk, mesh, max_iter=MP_SHARD_ITERS,
+                                       fixed=True, comm_k=SHARD_K)),
+        "multiphase tolerance": lambda: segment_multiphase_sharded(
+            u, pm, mesh),
+        "multiphase trace": lambda: segment_multiphase_sharded_fixed_trace(
+            u, pm, mesh, iters=MP_TRACE_ITERS),
+        "multiphase trace, plain route": lambda: (
+            segment_multiphase_sharded_fixed_trace(
+                u, pm, mesh, iters=MP_TRACE_ITERS, use_pallas=False)),
+        "sweeps parity 1": lambda: parity_sweeps(u, phis0, pm,
+                                                 fused_kernel.fused_sweep),
+        "morph-acwe comm_k=8": lambda: segment_morph_sharded_chunked(
+            u2, p, mesh=mesh, comm_k=MORPH_SHARD_K),
+        "morph-gac comm_k=8": lambda: segment_gac_sharded_chunked(
+            g4k, p, mesh=mesh, ls0=s4k, comm_k=MORPH_SHARD_K, **gkw),
+        "segment_morph_sharded 1080p": lambda: morphm.segment_morph_sharded(
+            u1k, p, mesh=mesh),
+        "segment_gac_sharded 1080p": lambda: gacm.segment_gac_sharded(
+            g1k, p, mesh=mesh, ls0=s1k, **gkw),
+    }
+    reset_mp_shard_counts()
+    got, launches = {}, {}
+    for tag, fn in runs.items():
+        before = mp_shard_counts()
+        got[tag] = fn()
+        torch.cuda.synchronize()
+        launches[tag] = {n.split()[0] + " " + n.split()[1]: v - before[n]
+                         for n, v in mp_shard_counts().items()
+                         if v != before[n]}
+    counts = mp_shard_counts()
+
+    # the unsharded runs of the same trajectory classes
+    ref = {
+        "multiphase fixed comm_k=1": ct.segment_multiphase(
+            u, pm, fixed=True, max_iter=MP_SHARD_ITERS),
+        "multiphase tolerance": ct.segment_multiphase(u, pm),
+    }
+    frozen = {tag: frozen_mp2_loop(u, phis0, q, MP_SHARD_ITERS, SHARD_K)
+              for tag, q in (("multiphase fixed comm_k=8", pm),
+                             ("multiphase fixed comm_k=8 mu=0.001", pk))}
+    trace_ref = ct.segment_multiphase_fixed(u, pm, iters=MP_TRACE_ITERS)
+    trace_plain = ct.segment_multiphase_fixed(u, pm, iters=MP_TRACE_ITERS,
+                                              use_pallas=False)
+    trace = got["multiphase trace"]
+    e_final = mpm.multiphase_energy(u, trace.phis, pm).double()
+    plain_sweeps = parity_sweeps(u, phis0, pm,
+                                 fused_kernel.fused_sweep_reference)
+    acwe, gac = got["morph-acwe comm_k=8"], got["morph-gac comm_k=8"]
+    acwe_ref = ct.segment_morph_iterations(u2, p, iters=acwe.iters,
+                                           k=MORPH_SHARD_K)
+    gac_ref = ct.segment_gac_iterations(g4k, p, iters=gac.iters, ls0=s4k,
+                                        **gkw)
+    wm, wg = got["segment_morph_sharded 1080p"], \
+        got["segment_gac_sharded 1080p"]
+    wm_ref = ct.segment_morph(u1k, p, use_pallas=False)
+    wg_ref = ct.segment_gac(g1k, p, ls0=s1k, use_pallas=False, **gkw)
+    torch.cuda.synchronize()
+
+    checks = {}
+    for tag in ("multiphase fixed comm_k=1",
+                "multiphase fixed comm_k=8 mu=0.001", "multiphase tolerance"):
+        checks[f"{tag} accuracy vs truth"] = (
+            best_accuracy(got[tag].labels.cpu(), gt), 0.99)
+    checks["multiphase fixed comm_k=1 labels vs unsharded"] = (
+        1.0 - label_frac(got["multiphase fixed comm_k=1"].phis,
+                         ref["multiphase fixed comm_k=1"].phis), 0.999)
+    for tag, phis in frozen.items():
+        checks[f"{tag} labels vs the unsharded frozen-means loop"] = (
+            1.0 - label_frac(got[tag].phis, phis), 0.999)
+    merged = best_accuracy(got["multiphase fixed comm_k=8"].labels.cpu(),
+                           gt)
+    checks["multiphase tolerance labels vs unsharded"] = (
+        1.0 - label_frac(got["multiphase tolerance"].phis,
+                         ref["multiphase tolerance"].phis), 0.999)
+    checks["sweeps parity 1 labels vs plain"] = (
+        1.0 - label_frac(got["sweeps parity 1"], plain_sweeps), 0.999)
+    checks["morph-acwe IoU vs truth"] = (iou_phases(acwe.mask.cpu(), gt4k),
+                                         0.98)
+    checks["morph-acwe IoU vs unsharded K11 route"] = (
+        iou(acwe.mask.cpu(), acwe_ref.mask.cpu()), 0.999)
+    checks["morph-gac IoU vs truth"] = (iou(gac.mask.cpu(), gtg), 0.95)
+    checks["segment_morph_sharded IoU vs unsharded"] = (
+        iou(wm.mask.cpu(), wm_ref.mask.cpu()), 0.999)
+    ties = {"morph-acwe": int((acwe.ls != acwe_ref.ls).sum()),
+            "segment_morph_sharded": int((wm.ls != wm_ref.ls).sum())}
+    def e_gap(a, b):
+        a, b = a.energy.double(), b.energy.double()
+        return float(((a - b).abs() / b.abs()).max())
+
+    e_rel = e_gap(trace, trace_ref)
+    e_plain = e_gap(got["multiphase trace, plain route"], trace_plain)
+    e_bar = max(MP_ENERGY_RTOL, 2.0 * e_plain)
+    e_self = float((trace.energy[-1].double() - e_final).abs()
+                   / e_final.abs())
+    checks["multiphase trace labels vs unsharded"] = (
+        1.0 - label_frac(trace.phis, trace_ref.phis), 0.999)
+    gac_same = torch.equal(gac.ls, gac_ref.ls)
+    wg_same = torch.equal(wg.ls, wg_ref.ls) and wg.iters == wg_ref.iters
+    mp_tol = got["multiphase tolerance"]
+    print(f"phase 22 sharded multiphase and morph slice at 4K on a 2x2 grid "
+          f"of shards on {dev}: segment_multiphase_sharded fixed "
+          f"{MP_SHARD_ITERS} iterations at comm_k 1 and {SHARD_K}, "
+          f"tolerance {mp_tol.iters} iterations (unsharded "
+          f"{ref['multiphase tolerance'].iters}); comm_k={SHARD_K} at mu "
+          f"{MU_MP:g} accuracy vs truth {merged:.6f} (the frozen-means "
+          f"class merges two phases there; no bar); trace {MP_TRACE_ITERS} "
+          f"iterations: energy max rel diff vs segment_multiphase_fixed "
+          f"{e_rel:.3e} (<= {e_bar:.3e}: the larger of {MP_ENERGY_RTOL} and "
+          f"twice the plain routes' sharded-vs-unsharded gap {e_plain:.3e};"
+          f" the unsharded kernel route vs the plain one "
+          f"{e_gap(trace_ref, trace_plain):.3e}), its last energy vs the "
+          f"assembled final state's {e_self:.3e} (<= "
+          f"{MP_ENERGY_SELF_RTOL}); morph-acwe comm_k="
+          f"{MORPH_SHARD_K} {acwe.iters} iterations, cells differing from "
+          f"the unsharded K11 route (mean-order ties) {ties['morph-acwe']};"
+          f" morph-gac comm_k={MORPH_SHARD_K} {gac.iters} iterations, level"
+          f" set bitwise equal to segment_gac_iterations {gac_same}; "
+          f"1080p segment_morph_sharded {wm.iters} iterations (unsharded "
+          f"{wm_ref.iters}), ties {ties['segment_morph_sharded']}, "
+          f"segment_gac_sharded {wg.iters} (unsharded {wg_ref.iters}), "
+          f"bitwise with equal iterations {wg_same}; "
+          + "; ".join(f"{k} {v:.6f} (>= {m})" for k, (v, m) in checks.items())
+          + "; launches " + "; ".join(
+              f"{t}: " + (", ".join(f"{n}={v}" for n, v in c.items())
+                          or "none") for t, c in launches.items()),
+          flush=True)
+    want = {
+        "multiphase fixed comm_k=1": {"K9 mp2_iteration_sharded":
+                                      nsh * MP_SHARD_ITERS},
+        "multiphase fixed comm_k=8": {"K9 mp2_iteration_sharded":
+                                      nsh * MP_SHARD_ITERS},
+        "multiphase fixed comm_k=8 mu=0.001": {
+            "K9 mp2_iteration_sharded": nsh * MP_SHARD_ITERS},
+        "multiphase tolerance": {"K9 mp2_iteration_sharded":
+                                 nsh * mp_tol.iters},
+        "multiphase trace": {"K9 mp2_iteration_sharded":
+                             nsh * MP_TRACE_ITERS},
+        "multiphase trace, plain route": {},
+        "sweeps parity 1": {"K1 fused_sweep": 2},
+        "morph-acwe comm_k=8": {"K11 morph_chunk_shard":
+                                nsh * (acwe.iters // MORPH_SHARD_K)},
+        "morph-gac comm_k=8": {"K11 gac_chunk_shard":
+                               nsh * (gac.iters // MORPH_SHARD_K)},
+        "segment_morph_sharded 1080p": {},
+        "segment_gac_sharded 1080p": {},
+    }
+    for tag, w in want.items():
+        if launches[tag] != w:
+            raise AssertionError(f"{tag} launched {launches[tag]}, "
+                                 f"expected {w}")
+    check_masks(checks)
+    if not (e_rel <= e_bar and e_self <= MP_ENERGY_SELF_RTOL and gac_same
+            and wg_same and wm.iters == wm_ref.iters):
+        raise AssertionError("a sharded run differs from its unsharded "
+                             "counterpart (trace energy, GAC level set or "
+                             "iterations)")
+    if not (mp_tol.iters < pm.max_iter and acwe.iters < p.max_iter
+            and gac.iters < p.max_iter):
+        raise AssertionError("a sharded tolerance run did not converge")
+    for res in got.values():
+        phis = res if isinstance(res, torch.Tensor) else (
+            res.phis if hasattr(res, "phis") else res.ls)
+        if not torch.isfinite(phis).all():
+            raise AssertionError("non-finite level set")
+    return counts, mesh, u2, g4k, s4k
+
+
+def mp_morph_rates(dev, card, st, u, pm, p, mesh, u2, g4k, s4k):
+    """Phase 23: each run's Mpixel-it/s beside the unsharded route in the
+    same run, each kernel mode's time a launch (ms, plain ms, bound), and
+    the halo exchange's host and device ms a chunk."""
+    gkw = dict(balloon=-1, threshold=GAC_THRESHOLD)
+    p0 = ct.CVParams(tol=0.0, max_iter=MORPH_SHARD_RATE_ITERS)
+    its, mits = MP_SHARD_ITERS, MORPH_SHARD_RATE_ITERS
+    rates = {
+        "multiphase unsharded segment_multiphase(fixed) (K9)": (its, lambda: (
+            ct.segment_multiphase(u, pm, fixed=True, max_iter=its))),
+        "multiphase 2x2 comm_k=1": (its, lambda: segment_multiphase_sharded(
+            u, pm, mesh, max_iter=its, fixed=True)),
+        "multiphase 2x2 comm_k=8": (its, lambda: segment_multiphase_sharded(
+            u, pm, mesh, max_iter=its, fixed=True, comm_k=SHARD_K)),
+        "morph-acwe unsharded segment_morph_iterations k=8": (
+            mits, lambda: ct.segment_morph_iterations(u2, p, iters=mits)),
+        "morph-acwe 2x2 comm_k=8": (mits, lambda: (
+            segment_morph_sharded_chunked(u2, p0, mesh=mesh,
+                                          comm_k=MORPH_SHARD_K))),
+        "morph-gac unsharded segment_gac_iterations k=4": (
+            mits, lambda: ct.segment_gac_iterations(g4k, p, iters=mits,
+                                                    ls0=s4k, **gkw)),
+        "morph-gac 2x2 comm_k=8": (mits, lambda: segment_gac_sharded_chunked(
+            g4k, p0, mesh=mesh, ls0=s4k, comm_k=MORPH_SHARD_K, **gkw)),
+    }
+    out = {tag: (it, time_ms(fn, 1)) for tag, (it, fn) in rates.items()}
+    print("phase 23 sharded multiphase and morph throughput at 4K "
+          "(Mpixel-iters/s, the whole run): " + "; ".join(
+              f"{t} {it} iterations {ms:.3f} ms = "
+              f"{H4K * W4K * it / (ms * 1e3):.1f}"
+              for t, (it, ms) in out.items()) + f" [{card}]", flush=True)
+
+    # each mode a launch: K9 and K11 at the 2x2 canvas of shard (0, 0),
+    # K1 with a parity at 4K
+    h, w = H4K // 2, W4K // 2
+    mk = multiphase_kernel
+    phis = mpm.init_multiphase((H4K, W4K), 2, device=dev)
+    cs = torch.stack(mpm.phase_means(u, phis, pm.eps))
+    (_, x, uc, par, edges, crop), = [
+        c for c in mp_canvases(phis, u, 2, 2, 4, dev) if c[0] == (0, 0)]
+    args = (x, uc, cs, pm, par, edges, crop)
+    f = mpm._coupling_term(u, phis, cs, 0, pm)
+    phi0 = phis[0].contiguous()
+    ls, fm, g = morph_shard_inputs(dev, p)
+    modes = {
+        "K9 mp2_iteration_sharded": (
+            lambda: mk.mp2_iteration_sharded(*args),
+            lambda: mk.mp2_iteration_sharded_reference(*args),
+            bound_mp2(h, w, 1, 1, False)),
+        "K1 fused_sweep (parity)": (
+            lambda: fused_kernel.fused_sweep(phi0, f, pm, parity=1),
+            lambda: fused_kernel.fused_sweep_reference(phi0, f, pm, 1),
+            bound_sweep(H4K, W4K)),
+    }
+    k = MORPH_SHARD_K
+    for name, gac in (("K11 morph_chunk_shard (acwe_sh)", False),
+                      ("K11 gac_chunk_shard (gac_pre_sh)", True)):
+        D = morph_kernel._reach("gac" if gac else "acwe", 1) * k
+        (_, xb, a, e), = [b for b in morph_blocks(
+            ls, g if gac else fm, 2, 2, D, dev, gac) if b[0] == (0, 0)]
+        call, plain = morph_shard_call(gac, k, D), \
+            morph_shard_call(gac, k, D, True)
+        modes[name] = (lambda c=call, xb=xb, a=a, e=e: c(xb, a, e),
+                       lambda c=plain, xb=xb, a=a, e=e: c(xb, a, e),
+                       bound_morph("gac_pre" if gac else "acwe", h, w, k, 1,
+                                   1 if gac else 0))
+    per_mode = []
+    for name, (fn, pl, (b_ms, b_by)) in modes.items():
+        # K1's force-mode wrapper copies its (unused) means to the card
+        # each call, which waits for the stream: timed at the host's
+        # pace, as phase 9 times the force mode
+        ms = (time_ms if name.startswith("K1") else queued_ms)(fn, 20)
+        plain_ms = time_ms(pl, 2)
+        st[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+        per_mode.append(f"{name} {ms:.4f} ms (plain {plain_ms:.3f}, bound "
+                        f"{b_ms:.4f} {b_by})")
+    # the exchange a chunk: both level sets (D = 4 and 8 comm_k), the
+    # morph level set (D = 24 ACWE, 32 GAC); host time (enqueueing) and
+    # device time (queued behind a spin)
+    stacks = _shard_phis(phis, mesh)
+    lsb = shard_grid(ls, grid_sharding(mesh))
+    canv = {}
+    for tag, blocks, D in (("level sets D=4", stacks, 4),
+                           (f"level sets D={8 * SHARD_K}", stacks,
+                            8 * SHARD_K),
+                           ("morph D=24", lsb, 24), ("morph D=32", lsb, 32)):
+        def ex(blocks=blocks, D=D):
+            return exchange_halo2d_batched(blocks, D)
+        ex()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            ex()
+        host = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        canv[tag] = (host, queued_ms(ex, 20))
+    print("phase 23 modes a launch (device ms, queued but for K1; K9 and "
+          "K11 at the 2x2 canvas of shard (0, 0), K1 at 4K): "
+          + "; ".join(per_mode) + "; the halo exchange a chunk: "
+          + ", ".join(f"{t} host {hst:.3f} ms, device {dv:.4f} ms"
+                      for t, (hst, dv) in canv.items()) + f" [{card}]",
+          flush=True)
+
+
+def mp_morph_shard_phases(dev, card):
+    """Phases 21-23, the sharded multiphase and morphological solvers at
+    4K on a 2x2 grid of four shards on the card; returns the four kernel
+    modes' stats for the JSON line."""
+    pm = ct.CVParams(mu=MU_MP, max_iter=500)
+    p = ct.CVParams()
+    st = {name: dict(max_abs_err=0.0) for name in MP_SHARD}
+    check_mp2_shard(dev, pm, st["K9 mp2_iteration_sharded"])
+    check_sweep_parity(dev, pm, st["K1 fused_sweep (parity)"])
+    check_morph_shard(dev, p, st)
+    img, gt = four_regions(H4K, W4K)
+    u = torch.from_numpy(img).to(dev)
+    counts, mesh, u2, g4k, s4k = mp_morph_main_paths(dev, card, u, gt, pm, p)
+    for name, n in counts.items():
+        st[name]["launches"] = n
+        if n < 1:
+            raise AssertionError(f"{name} was not launched on the main path")
+    mp_morph_rates(dev, card, st, u, pm, p, mesh, u2, g4k, s4k)
+    return st
+
+
 def main() -> int:
     dev = torch.device("cuda", 0)
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2267,6 +2929,7 @@ def main() -> int:
     mo_stats = morph_phases(dev, card)
     sk_stats = stack_phases(dev, card, u4k, v4k.permute(2, 0, 1).contiguous())
     sh_stats = shard_phases(dev, card, u4k, gt4k, v4k, gtc4k)
+    ms_stats = mp_morph_shard_phases(dev, card)
 
     entries = [
         dict(name=name, route="cuda", source=k["source"],
@@ -2276,7 +2939,8 @@ def main() -> int:
              bound_by=st["bound_by"], library_ms=st.get("library_ms"))
         for table, stat in ((KERNELS, stats), (RESIDENT, res_stats),
                             (MP2, mp_stats), (MORPH, mo_stats),
-                            (STACK, sk_stats), (SHARD, sh_stats))
+                            (STACK, sk_stats), (SHARD, sh_stats),
+                            (MP_SHARD, ms_stats))
         for name, k in table.items() for st in (stat[name],)]
     print(json.dumps({"kernels": entries}))
     print(f"card: {card}")
