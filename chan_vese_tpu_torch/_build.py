@@ -66,6 +66,9 @@ _MORPH = [_P] * 3 + [_I] * 7 + [_F] + [_I] * 4 + [_P]
 # bottom, left, right flags before the stream
 _MORPH_SHARD = _MORPH[:-1] + [_I] * 8 + [_P]
 _MORPH_FUSED = [_P] * 6 + [_I] * 9 + [_P]
+# the halo ring (csrc/halo_ring.cu, K14): the task array, its length, the
+# element size; stream. Peer access: device, peer.
+_HALO_RING = [_P, _I, _I, _P]
 SIGNATURES = {
     "cv_fused_iteration": _HEAD + _TAIL,
     "cv_fused_sweep": _HEAD + _TAIL,
@@ -94,6 +97,8 @@ SIGNATURES = {
     "cv_morph_chunk": _MORPH,
     "cv_morph_chunk_shard": _MORPH_SHARD,
     "cv_morph_fused_chunk": _MORPH_FUSED,
+    "cv_halo_ring": _HALO_RING,
+    "cv_halo_peer_access": [_I, _I],
 }
 
 

@@ -42,9 +42,13 @@ tolerance mode through ``segment_morph_sharded_chunked`` /
 ``segment_gac_sharded_chunked`` with ``--comm-k`` above 1, else
 ``segment_morph_sharded`` / ``segment_gac_sharded``, and with ``--iters``
 through the unsharded fixed drivers, whose result the reference's mesh
-run equals. ``--trace-energy``, ``--evolution-gif`` (ROADMAP M12) and
-``--checkpoint-dir`` (M13e) raise; ``--halo rdma``/``overlap`` raise in
-the sharded drivers (M13d).
+run equals. ``--halo`` picks the sharded PDE's exchange: ``ppermute``
+(the default), ``rdma`` (K14's ring shifts on the card, its plain version
+with ``--device cpu``) or ``overlap`` (the interior swept while the
+exchange runs on a second stream, then the rim stitched), with the
+reference's raises (gray only for the two-phase PDE; no ``--comm-k`` with
+multiphase ``overlap``). ``--trace-energy``, ``--evolution-gif`` (ROADMAP
+M12) and ``--checkpoint-dir`` (M13e) raise.
 """
 
 from __future__ import annotations
@@ -130,8 +134,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "shard on a GPU)")
     ap.add_argument("--halo", choices=("ppermute", "rdma", "overlap"),
                     default="ppermute",
-                    help="sharded halo mechanism (rdma and overlap are "
-                         "ROADMAP M13d and raise)")
+                    help="sharded halo mechanism: the plain exchange "
+                         "(default), the ring-shift kernel (K14), or "
+                         "comm/compute overlap (interior compute concurrent "
+                         "with the exchange on a second stream)")
     ap.add_argument("--trace-energy", default=None, metavar="CSV",
                     help="per-iteration energy trace (ROADMAP M12; raises)")
     ap.add_argument("--evolution-gif", default=None, metavar="GIF",

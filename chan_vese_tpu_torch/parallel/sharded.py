@@ -38,12 +38,23 @@ mesh's first device (the reference returns arrays sharded over the mesh);
 the kernels' canvases are (h + 2D, w + 2D), rounded up to an even width,
 without the reference's 128/256-lane pad (a TPU layout need), while the
 routing predicates are evaluated on the lane-padded geometry, so that a
-call takes the reference's route. ``halo='rdma'``/``'overlap'`` (M13d)
-and ``reinit_every > 0`` (M10) raise ``NotImplementedError``.
+call takes the reference's route. ``reinit_every > 0`` (M10) raises
+``NotImplementedError``.
+
+``halo`` picks the exchange of the level sets, with the reference's
+routing and raises: 'ppermute' (:func:`.halo.exchange_halo2d`), 'rdma'
+(:func:`.halo_rdma.exchange_halo2d_rdma`, K14's ring shifts on the card;
+bitwise the same blocks) or 'overlap': each shard's interior swept from
+its own cells while the exchange runs on a second CUDA stream, then the
+rim recomputed from strips of the exchanged block (the plain route
+bitwise the exchange-then-sweep one; with the kernels, K1's or K2's shard
+mode as the interior, the reference's hybrid trajectory). The image's
+one-time halos stay on the plain exchange, as in the reference.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional
 
@@ -65,6 +76,7 @@ from ..params import CVParams
 from ..utils.init_phi import init_phi
 from .data_parallel import _on
 from .halo import exchange_halo2d, exchange_halo2d_batched
+from .halo_rdma import exchange_halo2d_rdma
 from .mesh import Mesh, gather_grid, grid_sharding, shard_grid
 
 _D = 4  # halo depth of the per-iteration exchange
@@ -78,17 +90,24 @@ def _global_coords(shape, ix, iy, h, w, pad, device):
     return gi, gj
 
 
-def _resync_replicas(pad, ix, iy, nx, ny, depth=_D):
+# the sides of a padded block that may be canvas edges (top, bottom, left,
+# right); a strip of the block holds only some of them
+_ALL_EDGES = (True, True, True, True)
+
+
+def _resync_replicas(pad, ix, iy, nx, ny, depth=_D, edges=_ALL_EDGES):
     """The padded block with its global-edge replica halos refreshed from
-    the current edge cells, at full ``depth``, rows before columns."""
+    the current edge cells, at full ``depth``, rows before columns, on the
+    sides ``edges`` allows."""
+    top, bottom, left, right = edges
     pad = pad.clone()
-    if ix == 0:
+    if top and ix == 0:
         pad[:depth] = pad[depth]
-    if ix == nx - 1:
+    if bottom and ix == nx - 1:
         pad[-depth:] = pad[-depth - 1]
-    if iy == 0:
+    if left and iy == 0:
         pad[:, :depth] = pad[:, depth:depth + 1]
-    if iy == ny - 1:
+    if right and iy == ny - 1:
         pad[:, -depth:] = pad[:, -depth - 1:-depth]
     return pad
 
@@ -193,14 +212,41 @@ def _packed_banded_shard_ok(h: int, w: int, comm_k: int) -> bool:
 
 # one shard's step ---------------------------------------------------------
 
-def _sweep_local(pad, f, p, red, black, ix, iy, nx, ny, depth=_D):
-    """Red and black half-sweeps on a padded block, the replica halos
-    refreshed in between."""
+def _sweep_local(pad, f, p, red, black, ix, iy, nx, ny, depth=_D,
+                 edges=_ALL_EDGES):
+    """Red and black half-sweeps on a padded block (or a strip of one), the
+    replica halos refreshed in between."""
     upd = _update_all(pad, f, p.mu, p.dt, p.eps, p.eta2)
     pad = torch.where(red, upd, pad)
-    pad = _resync_replicas(pad, ix, iy, nx, ny, depth)
+    pad = _resync_replicas(pad, ix, iy, nx, ny, depth, edges)
     upd = _update_all(pad, f, p.mu, p.dt, p.eps, p.eta2)
     return torch.where(black, upd, pad)
+
+
+def _chunk_iterate(pad, f, p, red, black, pos, nx, ny, depth, k,
+                   edges=_ALL_EDGES):
+    """k chunk iterations on a depth-padded block or a strip of one: the
+    replicas refreshed from the current edge cells before every iteration
+    but the first (whose exchange or edge pad built them: the reference's
+    refresh there is a no-op), then the red and black half-sweeps. Returns
+    (final, the state before the last iteration)."""
+    cur = prev = pad
+    for it in range(k):
+        prev = cur
+        if it:
+            cur = _resync_replicas(cur, *pos, nx, ny, depth, edges)
+        cur = _sweep_local(cur, f, p, red, black, *pos, nx, ny, depth, edges)
+    return cur, prev
+
+
+def _edge_pad(x, depth: int):
+    """(..., h, w) -> (..., h + 2 depth, w + 2 depth) padded with replicas
+    of x's own edge rows and columns (the reference's ``jnp.pad(mode=
+    'edge')``): a block with no neighbour's data."""
+    h, w = x.shape[-2:]
+    rows = torch.arange(-depth, h + depth, device=x.device).clamp(0, h - 1)
+    cols = torch.arange(-depth, w + depth, device=x.device).clamp(0, w - 1)
+    return x.index_select(-2, rows).index_select(-1, cols)
 
 
 def _partials(new, prev, u0_loc, eps):
@@ -222,20 +268,13 @@ def _jnp_chunk(sh, pad, u0_pad, c1, c2, k, pos, depth):
     """k frozen-means iterations of one padded block on the plain path
     (the reference's jnp route; k = 1 is its per-iteration step). Returns
     (new, prev) of the block's own cells."""
-    p, lambdas, (ix, iy), nx, ny = sh.p, sh.lambdas, pos, sh.nx, sh.ny
+    p, lambdas, nx, ny = sh.p, sh.lambdas, sh.nx, sh.ny
     red, black = sh.lattice(pos, pad.shape, depth, pad.device)
     if lambdas is None:
         f = data_term(u0_pad, c1, c2, p.nu, p.lambda1, p.lambda2)
     else:
         f = data_term(u0_pad, c1, c2, p.nu, *lambdas)
-    prev = pad
-    for it in range(k):
-        prev = pad
-        if it:
-            # the replicas refreshed from the current edge cells before
-            # every iteration but the first, whose exchange built them
-            pad = _resync_replicas(pad, ix, iy, nx, ny, depth)
-        pad = _sweep_local(pad, f, p, red, black, ix, iy, nx, ny, depth)
+    pad, prev = _chunk_iterate(pad, f, p, red, black, pos, nx, ny, depth, k)
     crop = (slice(depth, depth + sh.h), slice(depth, depth + sh.w))
     return pad[crop], prev[crop]
 
@@ -374,14 +413,103 @@ def _channels_last(pad):
     return pad.permute(1, 2, 0) if pad.ndim == 3 else pad
 
 
+def _exchange(blocks, depth: int, halo: str):
+    """The halo exchange by mechanism name (the reference's ``_exchange``):
+    K14's ring shifts for 'rdma', else :func:`.halo.exchange_halo2d`.
+    Blocks may carry leading dimensions (a stack of level sets)."""
+    if halo == "rdma":
+        return exchange_halo2d_rdma(blocks, depth)
+    return exchange_halo2d(blocks, depth)
+
+
+def _side_streams(halo: str, mesh: Mesh):
+    """A second stream on each CUDA device of the mesh for the overlap
+    route's exchange (none on CPU devices or for the other mechanisms)."""
+    if halo != "overlap":
+        return {}
+    return {d: torch.cuda.Stream(d) for d in dict.fromkeys(mesh.devices)
+            if d.type == "cuda"}
+
+
+def _overlapped(streams, blocks, depth: int, interior):
+    """(exchange_halo2d(blocks, depth), interior()): the exchange queued on
+    each device's side stream while ``interior`` (the shards' launches from
+    their own cells) runs on the current streams, the counterpart of XLA's
+    async collective-permute under the reference's overlap route. The
+    current streams wait for the exchange before returning, so the stitch
+    that follows reads finished halos. On CPU devices the two run in turn.
+    """
+    if not streams:
+        return exchange_halo2d(blocks, depth), interior()
+    for dev, side in streams.items():
+        side.wait_stream(torch.cuda.current_stream(dev))
+    with contextlib.ExitStack() as stack:
+        for side in streams.values():
+            stack.enter_context(torch.cuda.stream(side))
+        pad = exchange_halo2d(blocks, depth)
+    for row in blocks:
+        for b in row:  # read on the side stream
+            b.record_stream(streams[b.device])
+    out = interior()
+    for dev, side in streams.items():
+        torch.cuda.current_stream(dev).wait_stream(side)
+    for row in pad:
+        for b in row:  # made on the side stream, read on the current one
+            b.record_stream(torch.cuda.current_stream(b.device))
+    return pad, out
+
+
+def _overlap_stitch(g, pos, xs, pad, force, masks, depth: int, strip: int,
+                    k: int):
+    """The rim of interior-only results ``xs`` (the final state and, where
+    given, the state before the last iteration) overwritten from four
+    strips of the exchanged ``pad`` swept k chunk iterations, their replica
+    refresh restricted to the canvas edges each strip holds: the
+    reference's ``_overlap_stitch`` (depth 4, 16-cell strips) and the
+    stitch of ``_sharded_chunk_overlap`` (depth 4k, 3 depth strips). The
+    rim is the composite stencil's reach, ``depth`` rows and columns
+    top/left, depth/2 bottom/right. ``force(window)`` is the data term on
+    a window of the padded block; ``masks`` its (red, black)."""
+    p, D, S, h, w = g.p, depth, strip, g.h, g.w
+    ph, pw = h + 2 * D, w + 2 * D
+    red, black = masks
+
+    def run(rs, re, cs, ce, edges):
+        win = (slice(rs, re), slice(cs, ce))
+        return _chunk_iterate(pad[win], force(win), p, red[win], black[win],
+                              pos, g.nx, g.ny, D, k, edges)
+
+    n_s = run(0, S, 0, pw, (True, False, True, True))
+    s_s = run(ph - S, ph, 0, pw, (False, True, True, True))
+    w_s = run(0, ph, 0, S, (True, True, True, False))
+    e_s = run(0, ph, pw - S, pw, (True, True, False, True))
+    tw, bw = D, D // 2
+    out = []
+    for i, x in enumerate(xs):
+        x = x.clone()
+        x[0:tw, :] = n_s[i][D:D + tw, D:D + w]
+        x[h - bw:h, :] = s_s[i][S - D - bw:S - D, D:D + w]
+        x[:, 0:tw] = w_s[i][D:D + h, D:D + tw]
+        x[:, w - bw:w] = e_s[i][D:D + h, S - D - bw:S - D]
+        out.append(x)
+    return out
+
+
+# rim strips of the per-iteration overlap route: 16 canvas rows/columns
+_STRIP = 16
+
+
 class _Step:
     """One route's step over every shard: ``run(phi, c1, c2, size)``
-    returns (phi blocks, partials summed over the shards)."""
+    returns (phi blocks, partials summed over the shards). ``halo`` names
+    the exchange: 'ppermute' (:func:`.halo.exchange_halo2d`), 'rdma' (K14)
+    or 'overlap' (the interior from each shard's own cells while the
+    exchange runs on a second stream, then the rim stitched)."""
 
     def __init__(self, sh: _Shards, use_pallas: bool, depth: int,
-                 packed: bool, chunked: bool):
+                 packed: bool, chunked: bool, halo: str):
         self.sh, self.use_pallas, self.D = sh, use_pallas, depth
-        self.packed, self.chunked = packed, chunked
+        self.packed, self.chunked, self.halo = packed, chunked, halo
         u0_pad = exchange_halo2d_batched(sh.cfirst(), depth)
         if packed:
             # the image canvas on parity planes, packed once (K15)
@@ -391,8 +519,15 @@ class _Step:
             self.u0 = [[_even_cols(u) for u in row] for row in u0_pad]
         else:
             self.u0 = [[_channels_last(u) for u in row] for row in u0_pad]
+        self.streams = _side_streams(halo, sh.mesh)
+        if halo == "overlap":  # the padded blocks' lattices, for the strips
+            shape = (sh.h + 2 * depth, sh.w + 2 * depth)
+            self.masks = {pos: sh.lattice(pos, shape, depth,
+                                          sh.mesh.device(*pos))
+                          for pos in sh.positions()}
 
-    def _kernel(self, pos, canvas, u0c, c1, c2, size):
+    def _launch(self, pos, canvas, u0c, c1, c2, size):
+        """The shard's kernel on its canvas: (new canvas, partials)."""
         sh, D = self.sh, self.D
         crop = sh.crop(D)
         parity, edges = sh.parity(pos), sh.edges(pos)
@@ -409,7 +544,7 @@ class _Step:
             new, parts = fused_kernel.fused_iteration(
                 canvas, u0c, c1, c2, sh.p, parity=parity, crop=crop,
                 edges=edges)
-        return new[D:D + sh.h, D:D + sh.w], parts[:sh.nchan + 4]
+        return new, parts[:sh.nchan + 4]
 
     def _packed(self, pos, pad, u0c, c1, c2, size):
         sh, D = self.sh, self.D
@@ -422,9 +557,11 @@ class _Step:
         return new[:, :, crop_p[0]:crop_p[1], crop_p[2]:crop_p[3]], parts[:5]
 
     def run(self, phi, c1, c2, size):
+        if self.halo == "overlap":
+            return self._run_overlap(phi, c1, c2, size)
         sh, D = self.sh, self.D
         pad = (exchange_halo2d_batched(phi, D // 2) if self.packed
-               else exchange_halo2d(phi, D))
+               else _exchange(phi, D, self.halo))
 
         def one(pos, pad, u0c):
             dev = pad.device
@@ -432,12 +569,74 @@ class _Step:
             if self.packed:
                 return self._packed(pos, pad, u0c, a, b, size)
             if self.use_pallas:
-                return self._kernel(pos, _even_cols(pad), u0c, a, b, size)
+                new, parts = self._launch(pos, _even_cols(pad), u0c, a, b,
+                                          size)
+                return new[D:D + sh.h, D:D + sh.w], parts
             new, prev = _jnp_chunk(sh, pad, u0c, a, b, size, pos, D)
             u0_loc = u0c[D:D + sh.h, D:D + sh.w]
             return new, _partials(new, prev, u0_loc, sh.p.eps)
 
         outs = sh._each(one, pad, self.u0)
+        return (sh.grid([o[0] for o in outs]),
+                sh.psum([o[1] for o in outs]))
+
+    def _interior(self, pos, phi, u0c, c1, c2, size):
+        """The overlap route's interior: ``size`` iterations of the shard
+        from its block edge-padded with its own cells, so independent of
+        the exchange in flight (the reference's ``_overlap_new``,
+        ``_overlap_pallas_new`` and the interior of
+        ``_sharded_chunk_overlap``). K1's shard mode per iteration, K2's in
+        chunks, where ``size`` splits into (size - 1) + 1 launches for the
+        state before the last iteration; else the plain chunk. Returns
+        (final, state before the last iteration) of the shard's cells,
+        whose rim the stitch replaces."""
+        sh, D = self.sh, self.D
+        crop = (slice(D, D + sh.h), slice(D, D + sh.w))
+        local = _edge_pad(phi, D)
+        if not self.use_pallas:
+            f = data_term(u0c, c1, c2, sh.p.nu, sh.p.lambda1, sh.p.lambda2)
+            red, black = self.masks[pos]
+            new, prev = _chunk_iterate(local, f, sh.p, red, black, pos,
+                                       sh.nx, sh.ny, D, size)
+            return new[crop], prev[crop]
+        canvas = _even_cols(local)
+        if not self.chunked:
+            return self._launch(pos, canvas, u0c, c1, c2, 1)[0][crop], phi
+        prev = (self._launch(pos, canvas, u0c, c1, c2, size - 1)[0]
+                if size > 1 else canvas)
+        new = self._launch(pos, prev, u0c, c1, c2, 1)[0]
+        return new[crop], prev[crop]
+
+    def _run_overlap(self, phi, c1, c2, size):
+        """The overlap route's step (gray): the interiors on the current
+        streams while the exchange runs on the side streams, then each
+        shard's rim stitched from strips of its exchanged block and the
+        partials taken from the stitched (new, prev), as the reference."""
+        sh, D, p = self.sh, self.D, self.sh.p
+        strip = 3 * D if self.chunked else _STRIP
+
+        def means(dev):
+            return c1.to(dev), c2.to(dev)
+
+        pad, inner = _overlapped(self.streams, phi, D, lambda: sh._each(
+            lambda pos, ph, u0c: self._interior(pos, ph, u0c,
+                                                *means(ph.device), size),
+            phi, self.u0))
+
+        def one(pos, pd, u0c, xs):
+            a, b = means(pd.device)
+            u0_pad = u0c[:, :sh.w + 2 * D]  # the kernels' canvas is even
+
+            def force(win):
+                return data_term(u0_pad[win], a, b, p.nu, p.lambda1,
+                                 p.lambda2)
+
+            new, prev = _overlap_stitch(sh, pos, xs, pd, force,
+                                        self.masks[pos], D, strip, size)
+            u0_loc = u0_pad[D:D + sh.h, D:D + sh.w]
+            return new, _partials(new, prev, u0_loc, p.eps)
+
+        outs = sh._each(one, pad, self.u0, sh.grid(inner))
         return (sh.grid([o[0] for o in outs]),
                 sh.psum([o[1] for o in outs]))
 
@@ -515,11 +714,12 @@ def _drive(g: _Grid, max_iter, fixed, comm_k, chunked, advance):
     return n, delta
 
 
-def _run_sharded(sh: _Shards, max_iter, fixed, use_pallas, comm_k, packed):
+def _run_sharded(sh: _Shards, max_iter, fixed, use_pallas, comm_k, packed,
+                 halo):
     """The solver over the shards: (phi blocks, c1, c2, iters, delta)."""
     chunked = comm_k > 1 or (sh.vec and use_pallas)
     step = _Step(sh, use_pallas, 4 * comm_k if chunked else _D, packed,
-                 chunked)
+                 chunked, halo)
     phi = sh.phi0
     if packed:
         phi = [[packed_kernel.pack_planes(b) for b in row] for row in phi]
@@ -537,12 +737,8 @@ def _run_sharded(sh: _Shards, max_iter, fixed, use_pallas, comm_k, packed):
     return phi, c1, c2, n, delta
 
 
-def _check_ported(halo: str, p: CVParams):
+def _check_ported(p: CVParams):
     """Raise for the options whose modules are not ported yet."""
-    if halo in ("rdma", "overlap"):
-        raise NotImplementedError(
-            f"halo={halo!r} is a halo mechanism of ROADMAP M13d (with K14), "
-            f"not ported yet; use halo='ppermute'")
     if p.reinit_every:
         raise NotImplementedError(
             "reinit_every > 0 needs ops/reinit.py and the sharded "
@@ -582,7 +778,9 @@ def segment_sharded(u0, p: CVParams = CVParams(), mesh: Optional[Mesh] = None,
     ``interpret=True``). packed=True runs the gray chunks on parity planes
     (K3's shard mode; even shards, comm_k > 1). A 1x1 mesh on the
     per-iteration kernel route runs :func:`..models.fused.segment_fused`,
-    as the reference does.
+    as the reference does. halo: 'ppermute', 'rdma' (K14) or 'overlap'
+    (module docstring; gray only, shards of at least 16x16, packed only
+    with 'ppermute').
     """
     if mesh is None:
         raise ValueError("segment_sharded needs a mesh "
@@ -651,7 +849,7 @@ def segment_sharded(u0, p: CVParams = CVParams(), mesh: Optional[Mesh] = None,
             f"packed sharded banded path unsupported for shard "
             f"({tuple(u0.shape)}, mesh ({nx}, {ny}), comm_k={comm_k}, "
             f"halo={halo!r}, use_pallas={use_pallas})")
-    _check_ported(halo, p)
+    _check_ported(p)
 
     u0 = _on_mesh(u0, mesh)
     if phi0 is not None:
@@ -666,7 +864,7 @@ def segment_sharded(u0, p: CVParams = CVParams(), mesh: Optional[Mesh] = None,
     sh = _Shards(u0, p, mesh, lambdas, phi0)
     phi, c1, c2, iters, delta = _run_sharded(sh, cap, fixed,
                                              bool(use_pallas), comm_k,
-                                             bool(packed))
+                                             bool(packed), halo)
     phi = gather_grid(phi, mesh)
     return SegResult(phi, phi >= 0, iters, delta, c1, c2)
 
@@ -692,8 +890,8 @@ def segment_sharded_fixed_trace(u0, p: CVParams = CVParams(),
     the shards' sums without a gather): the energy after each sweep, with
     means from the post-sweep phi; c1/c2 are the means each iteration
     used, as ``models.scalar.segment_fixed``'s trace. The per-iteration
-    route only (K1's shard mode on the kernels, gray); nothing is read back
-    to the host."""
+    route only (K1's shard mode on the kernels, gray), through any
+    ``halo``; nothing is read back to the host."""
     if mesh is None:
         raise ValueError("segment_sharded_fixed_trace needs a mesh")
     nx, ny = mesh.shape["x"], mesh.shape["y"]
@@ -718,12 +916,12 @@ def segment_sharded_fixed_trace(u0, p: CVParams = CVParams(),
     elif use_pallas and (vec or not ok):
         raise ValueError(f"pallas path unsupported for shard "
                          f"({tuple(u0.shape)}, mesh ({nx}, {ny}))")
-    _check_ported(halo, p)
+    _check_ported(p)
 
     u0 = _on_mesh(u0, mesh)
     sh = _Shards(u0, p, mesh, lambdas,
                  None if phi0 is None else _on_mesh(phi0, mesh))
-    step = _Step(sh, bool(use_pallas), _D, False, False)
+    step = _Step(sh, bool(use_pallas), _D, False, False, halo)
     phi, c1, c2 = sh.phi0, sh.c1, sh.c2
     es, ds, c1s, c2s = [], [], [], []
     for _ in range(iters):
@@ -808,16 +1006,21 @@ def _image_pads(g: _Grid, depth: int):
             for row in exchange_halo2d_batched(g.cfirst(), depth)]
 
 
-def _mp_iteration(g: _Grid, phis, u0_pad):
+def _mp_iteration(g: _Grid, phis, u0_pad, halo: str, overlap):
     """One coupled iteration on the plain path (the reference's
     ``_sharded_multiphase_iteration``): the phase means, then each level
     set in order swept on its depth-4 padded block, every level set
-    exchanged anew for its coupling term. Returns (phis, delta)."""
+    exchanged anew for its coupling term. ``overlap`` (the side streams
+    and each shard's lattice) takes the overlap route for every level set.
+    Returns (phis, delta)."""
     p, m_sets = g.p, phis[0][0].shape[0]
     cs = _sharded_phase_means(g, phis)
     new = phis
     for m in range(m_sets):
-        pads = exchange_halo2d_batched(new, _D)
+        if overlap is not None:
+            new = _mp_overlap_set(g, new, u0_pad, cs, m, *overlap)
+            continue
+        pads = _exchange(new, _D, halo)
 
         def one(pos, pad, up, cur, m=m):
             red, black = g.lattice(pos, pad.shape[1:], _D, pad.device)
@@ -833,7 +1036,42 @@ def _mp_iteration(g: _Grid, phis, u0_pad):
     return new, flips / g.n_pix
 
 
-def _mp_chunk(g: _Grid, phis, u0_pad, cs, k: int, depth: int):
+def _mp_overlap_set(g: _Grid, phis, u0_pad, cs, m: int, streams, masks):
+    """Level set m's sweep on the overlap route (the reference's
+    ``_sharded_multiphase_m_overlap``): the interior from every level
+    set's block edge-padded with its own cells (the coupling term is
+    pointwise, so interior cells read no halo of any level set) while the
+    exchange of the whole stack runs on the side streams, then the rim
+    stitched from strips of the exchanged blocks. Returns the grid of
+    stacks with level set m updated."""
+    p, D = g.p, _D
+
+    def interior(pos, ph, up):
+        local = _edge_pad(ph, D)
+        red, black = masks[pos]
+        f = _coupling_term(up, local, [c.to(ph.device) for c in cs], m, p)
+        upd = _sweep_local(local[m], f, p, red, black, *pos, g.nx, g.ny)
+        return upd[D:D + g.h, D:D + g.w]
+
+    pads, inner = _overlapped(streams, phis, D,
+                              lambda: g._each(interior, phis, u0_pad))
+
+    def one(pos, pd, up, nm, cur):
+        c = [x.to(pd.device) for x in cs]
+
+        def force(win):
+            return _coupling_term(up[win], pd[(slice(None),) + win], c, m, p)
+
+        stitched, = _overlap_stitch(g, pos, [nm], pd[m], force, masks[pos],
+                                    D, _STRIP, 1)
+        out = cur.clone()
+        out[m] = stitched
+        return out
+
+    return g.grid(g._each(one, pads, u0_pad, g.grid(inner), phis))
+
+
+def _mp_chunk(g: _Grid, phis, u0_pad, cs, k: int, depth: int, halo: str):
     """k coupled iterations with the phase means ``cs`` frozen, on each
     shard's depth-deep padded blocks (the reference's plain
     ``_sharded_multiphase_chunk``): the replicas refreshed before each
@@ -856,13 +1094,14 @@ def _mp_chunk(g: _Grid, phis, u0_pad, cs, k: int, depth: int):
         new = torch.stack([x[crop] for x in cur])
         return new, _label_flips(new, torch.stack([x[crop] for x in prev]))
 
-    outs = g._each(one, exchange_halo2d_batched(phis, D), u0_pad)
+    outs = g._each(one, _exchange(phis, D, halo), u0_pad)
     new = g.grid([o[0] for o in outs])
     flips = g.psum([o[1] for o in outs])[0]
     return new, _sharded_phase_means(g, new), flips / g.n_pix
 
 
-def _mp_kernel_chunk(g: _Grid, phis, u0c, cs, k: int, depth: int):
+def _mp_kernel_chunk(g: _Grid, phis, u0c, cs, k: int, depth: int,
+                     halo: str):
     """k launches of K9's shard mode on each shard's depth-deep canvas
     (the reference's ``_sharded_multiphase_iteration_pallas`` at k = 1 and
     its kernel chunk): the whole canvas advances between launches; the
@@ -878,7 +1117,7 @@ def _mp_kernel_chunk(g: _Grid, phis, u0c, cs, k: int, depth: int):
                 canvas, uc, c, g.p, g.parity(pos), g.edges(pos), crop)
         return canvas[:, D:D + g.h, D:D + g.w], parts[:10]
 
-    outs = g._each(one, exchange_halo2d_batched(phis, D), u0c)
+    outs = g._each(one, _exchange(phis, D, halo), u0c)
     parts = g.psum([o[1] for o in outs])
     cs = parts[0:4] / torch.clamp(parts[4:8], min=_TINY)
     # 0 * s_dphi2 NaN-poisons the flip metric on divergence
@@ -886,7 +1125,7 @@ def _mp_kernel_chunk(g: _Grid, phis, u0c, cs, k: int, depth: int):
             parts[8] / g.n_pix + 0.0 * parts[9])
 
 
-def _mp_step(g: _Grid, use_pallas: bool, comm_k: int):
+def _mp_step(g: _Grid, use_pallas: bool, comm_k: int, halo: str):
     """A route's step(phis, cs, size) -> (phis, cs, delta), cs the means
     the next step starts from (None on the per-iteration plain route,
     which computes its own)."""
@@ -895,13 +1134,20 @@ def _mp_step(g: _Grid, use_pallas: bool, comm_k: int):
         u0c = [[_even_cols(u) for u in row]
                for row in exchange_halo2d(g.u0, D)]
         return lambda ph, cs, size: _mp_kernel_chunk(g, ph, u0c, cs, size,
-                                                     D)
+                                                     D, halo)
     u0_pad = _image_pads(g, D)
     if comm_k > 1:
-        return lambda ph, cs, size: _mp_chunk(g, ph, u0_pad, cs, size, D)
+        return lambda ph, cs, size: _mp_chunk(g, ph, u0_pad, cs, size, D,
+                                              halo)
+    overlap = None
+    if halo == "overlap":
+        shape = (g.h + 2 * D, g.w + 2 * D)
+        overlap = (_side_streams(halo, g.mesh),
+                   {pos: g.lattice(pos, shape, D, g.mesh.device(*pos))
+                    for pos in g.positions()})
 
     def iteration(ph, cs, size):
-        ph, delta = _mp_iteration(g, ph, u0_pad)
+        ph, delta = _mp_iteration(g, ph, u0_pad, halo, overlap)
         return ph, None, delta
     return iteration
 
@@ -946,7 +1192,7 @@ def _check_multiphase(u0, p: CVParams, mesh, halo, comm_k, m_sets,
             f"{tuple(u0.shape)} on mesh ({nx}, {ny}) with halo={halo!r} "
             f"(needs M=2 grayscale, redblack order, no reinit, "
             f"8-row-aligned shards, non-overlap halos)")
-    _check_ported(halo, p)
+    _check_ported(p)
     return bool(use_pallas)
 
 
@@ -981,8 +1227,10 @@ def segment_multiphase_sharded(u0, p: CVParams = CVParams(),
     comm_k: one 8k-deep exchange of every level set per comm_k coupled
     iterations with frozen phase means (the chunk's last iteration's flips
     are its metric; patience counts iterations), a remainder chunk ending
-    the run. halo='rdma'/'overlap' (ROADMAP M13d) and reinit_every > 0
-    (M10) raise NotImplementedError after the reference's ValueErrors.
+    the run. halo: 'ppermute', 'rdma' (K14, every route) or 'overlap'
+    (the plain per-iteration route only, shards of at least 16x16).
+    reinit_every > 0 (M10) raises NotImplementedError after the
+    reference's ValueErrors.
     """
     depth = 8 * comm_k if comm_k > 1 else _D
     use_pallas = _check_multiphase(u0, p, mesh, halo, comm_k, m_sets,
@@ -991,7 +1239,7 @@ def segment_multiphase_sharded(u0, p: CVParams = CVParams(),
     u0 = _on_mesh(u0, mesh)
     g = _Grid(u0, p, mesh)
     phis = _mp_start(u0, m_sets, phis0, mesh)
-    step = _mp_step(g, use_pallas, comm_k)
+    step = _mp_step(g, use_pallas, comm_k, halo)
     cs = (torch.stack(_sharded_phase_means(g, phis)) if use_pallas
           else _sharded_phase_means(g, phis) if comm_k > 1 else None)
 
@@ -1061,7 +1309,7 @@ def segment_multiphase_sharded_fixed_trace(
     u0 = _on_mesh(u0, mesh)
     g = _Grid(u0, p, mesh)
     phis = _mp_start(u0, m_sets, phis0, mesh)
-    step = _mp_step(g, use_pallas, 1)
+    step = _mp_step(g, use_pallas, 1, halo)
     cs = torch.stack(_sharded_phase_means(g, phis)) if use_pallas else None
     es, ds = [], []
     for _ in range(iters):

@@ -9,14 +9,18 @@ other: the kernels, their inputs and the order in which the shards'
 partials are summed are the same, so phi must be bitwise equal. Does the
 same for segment_stack_sharded on a data mesh of the four cards against
 one card. Times every run on both layouts. The halo strips between cards
-and the gather move by peer copy. Exits non-zero without four CUDA
-devices or on any disagreement; the last line is {"ok": true, ...}.
+and the gather move by peer copy; with halo='rdma' the strips move by
+K14's peer stores (NVLink), which must give phi bitwise equal to the
+ppermute run, and an exchange of each kind is timed on the four cards.
+Exits non-zero without four CUDA devices or on any disagreement; the
+last line is {"ok": true, ...}.
 """
 
 from __future__ import annotations
 
 import json
 import sys
+import time
 
 import numpy as np
 import torch
@@ -26,8 +30,9 @@ if torch.cuda.device_count() < 4:
 
 import chan_vese_tpu_torch as ct  # noqa: E402
 from chan_vese_tpu_torch.parallel import (  # noqa: E402
-    make_data_mesh, make_grid_mesh, segment_sharded,
-    segment_sharded_fixed_trace, segment_stack_sharded)
+    exchange_halo2d, exchange_halo2d_rdma, grid_sharding, make_data_mesh,
+    make_grid_mesh, segment_sharded, segment_sharded_fixed_trace,
+    segment_stack_sharded, shard_grid)
 from chip_smoke import (H4K, W4K, colored_squares, iou_phases,  # noqa: E402
                         run, time_ms, two_disks)
 
@@ -52,6 +57,12 @@ def main() -> int:
             u, pt, m, fixed=True, max_iter=ITERS, comm_k=8), ITERS, gt),
         "gray comm_k=1": (lambda m: segment_sharded(
             u, pt, m, fixed=True, max_iter=ITERS_K1), ITERS_K1, gt),
+        "gray comm_k=8 rdma": (lambda m: segment_sharded(
+            u, pt, m, fixed=True, max_iter=ITERS, comm_k=8, halo="rdma"),
+            ITERS, gt),
+        "gray comm_k=1 rdma": (lambda m: segment_sharded(
+            u, pt, m, fixed=True, max_iter=ITERS_K1, halo="rdma"), ITERS_K1,
+            gt),
         "rgb comm_k=8": (lambda m: segment_sharded(
             v, pv, m, fixed=True, max_iter=ITERS, comm_k=8), ITERS, gtc),
         "gray tolerance comm_k=8": (lambda m: segment_sharded(
@@ -60,11 +71,15 @@ def main() -> int:
             u, ct.CVParams(), m, iters=TRACE_ITERS), TRACE_ITERS, None),
     }
     ok = True
+    four = {}
     for tag, (fn, iters, truth) in runs.items():
         out = {name: fn(mesh) for name, mesh in grids.items()}
         torch.cuda.synchronize()
         a, b = out["four cards"], out["one card"]
+        four[tag] = a
         same = torch.equal(a.phi, b.phi) and a.phi.device == cards[0]
+        if tag.endswith("rdma"):  # K14's peer stores against peer copies
+            same = same and torch.equal(a.phi, four[tag[:-5]].phi)
         if tag == "trace":
             same = same and torch.equal(a.energy, b.energy)
         else:
@@ -82,6 +97,37 @@ def main() -> int:
                 f"Mpixel-iters/s" for name, t in ms.items())
         print(line, flush=True)
         ok = ok and same and (truth is None or score >= 0.99)
+
+    # one exchange of the four shards' blocks across the cards: K14's
+    # peer stores against the plain exchange's peer copies (host clock
+    # around 20 exchanges, every card synchronized)
+    blocks = shard_grid(u, grid_sharding(grids["four cards"]))
+
+    def sync_all():
+        for c in cards:
+            torch.cuda.synchronize(c)
+
+    times = []
+    for D in (4, 32):
+        got = exchange_halo2d_rdma(blocks, D)
+        ref = exchange_halo2d(blocks, D)
+        sync_all()
+        same = all(torch.equal(x, y) for rx, ry in zip(got, ref)
+                   for x, y in zip(rx, ry))
+        ok = ok and same
+        for name, fn in (("K14", exchange_halo2d_rdma),
+                         ("exchange_halo2d", exchange_halo2d)):
+            fn(blocks, D)
+            sync_all()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn(blocks, D)
+            sync_all()
+            times.append(f"D={D} {name} "
+                         f"{(time.perf_counter() - t0) / 20 * 1e3:.3f} ms")
+        times[-1] += f" (K14 bitwise equal {same})"
+    print("exchange of the 2x2 grid over four cards (host clock, all cards "
+          "synchronized): " + "; ".join(times), flush=True)
 
     # a stack of frames on a data mesh of the four cards
     rng = np.random.default_rng(0)

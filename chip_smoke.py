@@ -58,7 +58,18 @@ the per-iteration segment_morph_sharded / segment_gac_sharded at 1080p and
 the multiphase sweeps with the lattice offset, each against the unsharded
 run of its trajectory class, with every launch counted, and the times:
 each run's throughput beside the unsharded route, each mode per launch,
-and the halo exchange a chunk. Any failure raises and exits non-zero.
+and the halo exchange a chunk. Phases 24-26 do the same for the halo
+mechanisms: K14 (exchange_halo2d_rdma) bitwise against its plain version
+and exchange_halo2d on every shard of a 2x2 and a 3x3 grid of the 4K
+image and on the 1x1 self-ring at D = 4, 32 and 64, for the image and a
+stack of two level sets (and on a grid over the cards where there are
+several), segment_sharded (comm_k 8 and 1), segment_multiphase_sharded
+(K9's shard mode, comm_k 1 and 8) and segment_sharded_fixed_trace with
+halo='rdma' bitwise equal to halo='ppermute', K14's launches counted,
+halo='overlap' (the kernels' hybrid at 4K against ppermute, the plain
+route bitwise at 1080p), and the times: K14 an exchange beside
+exchange_halo2d and its bound, and the 4K rates of the three mechanisms.
+Any failure raises and exits non-zero.
 The last lines are a JSON object per kernel, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without a CUDA device it exits
 1 and prints no result.
@@ -94,11 +105,13 @@ from chan_vese_tpu_torch.ops import (_cuda, banded_kernel,  # noqa: E402
 from chan_vese_tpu_torch.ops.morph import (  # noqa: E402
     binary_means, inverse_gaussian_gradient)
 from chan_vese_tpu_torch.ops.reductions import region_means  # noqa: E402
+from chan_vese_tpu_torch.parallel import halo_rdma  # noqa: E402
 from chan_vese_tpu_torch.parallel import (  # noqa: E402
-    exchange_halo2d, exchange_halo2d_batched, grid_sharding, make_data_mesh,
-    make_grid_mesh, segment_multiphase_sharded,
-    segment_multiphase_sharded_fixed_trace, segment_sharded,
-    segment_sharded_fixed_trace, segment_stack_sharded, shard_grid)
+    exchange_halo2d, exchange_halo2d_batched, exchange_halo2d_rdma,
+    grid_sharding, make_data_mesh, make_grid_mesh,
+    segment_multiphase_sharded, segment_multiphase_sharded_fixed_trace,
+    segment_sharded, segment_sharded_fixed_trace, segment_stack_sharded,
+    shard_grid)
 from chan_vese_tpu_torch.parallel.sharded import _shard_phis  # noqa: E402
 from chan_vese_tpu_torch.parallel.sharded_morph import (  # noqa: E402
     segment_gac_sharded_chunked, segment_morph_sharded_chunked)
@@ -436,6 +449,25 @@ MP_ENERGY_RTOL, MP_ENERGY_SELF_RTOL = 1e-3, 1e-5
 # run at MU_MP is held to the unsharded frozen-means loop and its accuracy
 # printed, without a bar.
 MU_MP_SHARD = 0.001 * 255.0 ** 2
+
+# the halo mechanisms (phases 24-26): K14's ring shifts, the exchange of
+# halo='rdma'; the counter its wrapper adds to where it launches
+HALO = {
+    "K14 exchange_halo2d_rdma": dict(
+        source="chan_vese_tpu_torch/csrc/halo_ring.cu",
+        replaces="chan_vese_tpu/parallel/halo_rdma.py:54",
+        counter=(exchange_halo2d_rdma, "launches")),
+}
+# the depths the main path exchanges at: comm_k = 1 (D = 4), the two-phase
+# comm_k = 8 chunk (D = 32) and the multiphase one (D = 64); the JSON line
+# carries K14's numbers at D = 32
+HALO_DEPTHS, HALO_TIMED = (4, 32, 64), 32
+# iterations of the plain overlap route held bitwise at 1080p, and of the
+# 4K overlap runs at comm_k 8 and 1: its rim strips are plain-torch
+# launches, host-bound at 0.2-0.25 s a chunk on the 2x2 grid of an H100
+# 80GB HBM3 at 700 W (PERF.md), so it runs 12 chunks, not phase 19's 100
+OVERLAP_PLAIN_ITERS = 16
+OVERLAP_ITERS = {SHARD_K: 96, 1: 20}
 
 
 def two_disks(h, w, fg=217.0, bg=38.0, noise=8.0, seed=0):
@@ -2449,6 +2481,252 @@ def mp_morph_shard_phases(dev, card):
     return st
 
 
+# the halo mechanisms (phases 24-26) ----------------------------------------
+
+def grids_err(a, b):
+    """Largest |a - b| over two grids of blocks; inf where shapes differ."""
+    err = 0.0
+    for ra, rb in zip(a, b):
+        for x, y in zip(ra, rb):
+            if x.shape != y.shape:
+                return math.inf
+            err = max(err, float((x.double() - y.double()).abs().max()))
+    return err
+
+
+def grids_equal(a, b):
+    return all(torch.equal(x, y) for ra, rb in zip(a, b)
+               for x, y in zip(ra, rb))
+
+
+def check_halo_kernel(dev, u4k, st):
+    """Phase 24: K14 against its plain version and against exchange_halo2d,
+    bitwise, on every shard of a 2x2 and a 3x3 grid of the 4K image and on
+    the 1x1 self-ring, at the main path's depths, for the image and for a
+    stack of two level sets (the multiphase exchange); a second launch
+    bitwise the first; and, where there is more than one CUDA device, a
+    2x2 grid laid over the cards (peer stores)."""
+    phis = mpm.init_multiphase((H4K, W4K), 2, device=dev)
+    err = 0.0
+    for nx, ny in SHARD_GRIDS + ((1, 1),):
+        mesh = make_grid_mesh(nx, ny, [dev] * (nx * ny))
+        inputs = {"image": shard_grid(u4k, grid_sharding(mesh)),
+                  "2 level sets": _shard_phis(phis, mesh)}
+        for D in HALO_DEPTHS:
+            for tag, blocks in inputs.items():
+                got = exchange_halo2d_rdma(blocks, D)
+                again = exchange_halo2d_rdma(blocks, D)
+                plain = halo_rdma.exchange_halo2d_rdma_reference(blocks, D)
+                cat = exchange_halo2d(blocks, D)
+                torch.cuda.synchronize()
+                err = max(err, grids_err(got, plain))
+                if not (grids_equal(got, plain) and grids_equal(got, cat)
+                        and grids_equal(got, again)):
+                    raise AssertionError(
+                        f"K14 on the {nx}x{ny} grid, {tag}, D={D}: not "
+                        f"bitwise its plain version, exchange_halo2d and "
+                        f"its own second launch (max|d| {err})")
+        print(f"phase 24 K14 {nx}x{ny} grid of the 4K image "
+              f"({H4K // nx}x{W4K // ny} shards"
+              + (", the self-ring" if nx * ny == 1 else "")
+              + f"), D={HALO_DEPTHS}, the image and two level sets: bitwise "
+              f"equal to its plain version and to exchange_halo2d; second "
+              f"launches bitwise equal", flush=True)
+    st["max_abs_err"] = err
+    n = torch.cuda.device_count()
+    if n < 2:
+        print("phase 24 K14 across cards (peer stores): skipped, one CUDA "
+              "device", flush=True)
+        return
+    cards = [torch.device("cuda", i % n) for i in range(4)]
+    mesh = make_grid_mesh(2, 2, cards)
+    blocks = shard_grid(u4k, grid_sharding(mesh))
+    for D in HALO_DEPTHS:
+        got = exchange_halo2d_rdma(blocks, D)
+        plain = halo_rdma.exchange_halo2d_rdma_reference(blocks, D)
+        torch.cuda.synchronize()
+        if not grids_equal(got, plain):
+            raise AssertionError(f"K14 across {n} cards, D={D}: not bitwise "
+                                 f"its plain version")
+    print(f"phase 24 K14 2x2 grid over {n} cards (peer stores), "
+          f"D={HALO_DEPTHS}: bitwise equal to its plain version", flush=True)
+
+
+def halo_main_paths(dev, card, u4k, gt4k, st):
+    """Phase 25: halo='rdma' and halo='overlap' through the user entry
+    points at 4K on a 2x2 grid of four shards on the card, K14's launches
+    counted over exactly the rdma calls. Returns the runs phase 26
+    times."""
+    pt = ct.CVParams(mu=0.001 * 255.0 ** 2, max_iter=500)
+    pm = ct.CVParams(mu=MU_MP, max_iter=500)
+    mesh = make_grid_mesh(2, 2, [dev] * 4)
+    u_mp = torch.from_numpy(four_regions(H4K, W4K)[0]).to(dev)
+    def gray(k):
+        return lambda halo, iters=SHARD_ITERS if k > 1 else SHARD_ITERS_K1, \
+            use_pallas=None: segment_sharded(
+                u4k, pt, mesh, fixed=True, max_iter=iters, comm_k=k,
+                halo=halo, use_pallas=use_pallas)
+
+    runs = {  # tag: (run with a halo, K14 launches of its rdma run)
+        "gray comm_k=8": (gray(SHARD_K), 2 * (SHARD_ITERS // SHARD_K)),
+        "gray comm_k=1": (gray(1), 2 * SHARD_ITERS_K1),
+        "multiphase comm_k=1": (lambda halo: segment_multiphase_sharded(
+            u_mp, pm, mesh, max_iter=MP_SHARD_ITERS, fixed=True, halo=halo),
+            2 * MP_SHARD_ITERS),
+        "multiphase comm_k=8": (lambda halo: segment_multiphase_sharded(
+            u_mp, pm, mesh, max_iter=MP_SHARD_ITERS, fixed=True,
+            comm_k=SHARD_K, halo=halo), 2 * -(-MP_SHARD_ITERS // SHARD_K)),
+        "trace": (lambda halo: segment_sharded_fixed_trace(
+            u4k, ct.CVParams(), mesh, iters=TRACE_ITERS, halo=halo),
+            2 * TRACE_ITERS),
+    }
+    k9 = multiphase_kernel.mp2_iteration_sharded
+    exchange_halo2d_rdma.launches = 0
+    k9_before = k9.launches
+    got, launches = {}, {}
+    for tag, (fn, _) in runs.items():
+        before = exchange_halo2d_rdma.launches
+        got[tag] = fn("rdma")
+        torch.cuda.synchronize()
+        launches[tag] = exchange_halo2d_rdma.launches - before
+    st["launches"] = exchange_halo2d_rdma.launches
+    k9_launches = k9.launches - k9_before
+    pp = {tag: fn("ppermute") for tag, (fn, _) in runs.items()}
+    torch.cuda.synchronize()
+    same = {}
+    for tag, res in got.items():
+        if tag.startswith("multiphase"):
+            same[tag] = torch.equal(res.phis, pp[tag].phis)
+        elif tag == "trace":
+            same[tag] = (torch.equal(res.phi, pp[tag].phi)
+                         and torch.equal(res.energy, pp[tag].energy))
+        else:
+            same[tag] = torch.equal(res.phi, pp[tag].phi)
+    checks = {f"rdma {tag} IoU vs truth": (
+        iou_phases(got[tag].mask.cpu(), gt4k), 0.99)
+        for tag in ("gray comm_k=8", "gray comm_k=1")}
+
+    # overlap: the kernels' hybrid at 4K against ppermute at the same
+    # iterations, the plain route at 1080p
+    before = exchange_halo2d_rdma.launches
+    ovl, ovl_pp, gaps = {}, {}, {}
+    for k in (SHARD_K, 1):
+        tag, n = f"gray comm_k={k}", OVERLAP_ITERS[k]
+        ovl[tag] = runs[tag][0]("overlap", n)
+        ovl_pp[tag] = runs[tag][0]("ppermute", n)
+        # the hybrid's two parents, the kernel and the plain route, differ
+        # by as much: the f32 trajectory from the checkerboard is chaotic
+        plain = runs[tag][0]("ppermute", n, False)
+        gaps[tag] = (float((ovl[tag].phi - ovl_pp[tag].phi).abs().max()),
+                     float((plain.phi - ovl_pp[tag].phi).abs().max()),
+                     float(ovl_pp[tag].phi.abs().max()))
+    u1k = torch.from_numpy(two_disks(1080, 1920)[0]).to(dev)
+    plain_same = {}
+    for k in (1, SHARD_K):
+        kw = dict(fixed=True, max_iter=OVERLAP_PLAIN_ITERS, comm_k=k,
+                  use_pallas=False)
+        a = segment_sharded(u1k, pt, mesh, halo="overlap", **kw)
+        b = segment_sharded(u1k, pt, mesh, **kw)
+        plain_same[k] = torch.equal(a.phi, b.phi)
+    torch.cuda.synchronize()
+    if exchange_halo2d_rdma.launches != before:
+        raise AssertionError("the overlap route launched K14")
+    for tag, res in ovl.items():
+        checks[f"overlap {tag} IoU vs ppermute"] = (
+            iou(res.mask.cpu(), ovl_pp[tag].mask.cpu()), 0.999)
+    print(f"phase 25 halo slice at 4K on a 2x2 grid of shards on {dev}: "
+          f"halo='rdma' bitwise equal to halo='ppermute' "
+          + ", ".join(f"{t} {v}" for t, v in same.items())
+          + "; K14 launches " + ", ".join(f"{t} {v}" for t, v in
+                                         launches.items())
+          + f" (total {st['launches']}); K9 shard launches in the rdma "
+          f"multiphase runs {k9_launches}; halo='overlap' (K1/K2 shard "
+          f"interior), {OVERLAP_ITERS[SHARD_K]} and {OVERLAP_ITERS[1]} "
+          f"iterations: max |phi - ppermute kernel route| (and the plain "
+          f"route's, of max |phi|) "
+          + ", ".join(f"{t} {a:.3e} ({b:.3e}, of {c:.3e})"
+                      for t, (a, b, c) in gaps.items())
+          + f"; plain overlap route at 1080p, {OVERLAP_PLAIN_ITERS} "
+          f"iterations, bitwise equal to ppermute: "
+          + ", ".join(f"comm_k={k} {v}" for k, v in plain_same.items())
+          + "; " + "; ".join(f"{k} {v:.6f} (>= {m})" for k, (v, m) in
+                              checks.items()) + f" [{card}]", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"halo='rdma' differs from ppermute: {same}")
+    if not all(plain_same.values()):
+        raise AssertionError(f"the plain overlap route differs from "
+                             f"exchange-then-sweep: {plain_same}")
+    want = {tag: n for tag, (_, n) in runs.items()}
+    if launches != want:
+        raise AssertionError(f"K14 launched {launches}, expected {want}")
+    if k9_launches != 4 * 2 * MP_SHARD_ITERS:
+        raise AssertionError(f"the rdma multiphase runs launched K9's shard "
+                             f"mode {k9_launches} times")
+    check_masks(checks)
+    return runs
+
+
+def halo_rates(dev, card, u4k, st, runs):
+    """Phase 26: K14 per exchange at the main path's depths (queued device
+    ms) beside exchange_halo2d (its torch.cat route), the plain version and
+    the bound, and the 4K 2x2 rates of the three halo mechanisms."""
+    mesh = make_grid_mesh(2, 2, [dev] * 4)
+    blocks = shard_grid(u4k, grid_sharding(mesh))
+    h, w = H4K // 2, W4K // 2
+    per_depth = []
+    for D in HALO_DEPTHS:
+        ms = queued_ms(lambda: exchange_halo2d_rdma(blocks, D), 20)
+        lib_ms = queued_ms(lambda: exchange_halo2d(blocks, D), 20)
+        plain_ms = time_ms(
+            lambda: halo_rdma.exchange_halo2d_rdma_reference(blocks, D), 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            exchange_halo2d_rdma(blocks, D)
+        host = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        nbytes = 4 * 4 * (h * w + (h + 2 * D) * (w + 2 * D))
+        b_ms, b_by = roofline(nbytes, 0)
+        per_depth.append(f"D={D} {ms:.4f} ms (exchange_halo2d {lib_ms:.4f}, "
+                         f"plain {plain_ms:.4f}, bound {b_ms:.4f} {b_by}, "
+                         f"{nbytes / 1e6:.1f} MB; host {host:.3f} ms an "
+                         f"exchange)")
+        if D == HALO_TIMED:
+            st.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                      library_ms=lib_ms)
+    print(f"phase 26 K14 an exchange of the four {h}x{w} shards (queued "
+          "device ms): " + "; ".join(per_depth) + f" [{card}]", flush=True)
+    rates = []
+    for k, iters in ((SHARD_K, SHARD_ITERS), (1, SHARD_ITERS_K1)):
+        fn = runs[f"gray comm_k={k}"][0]
+        got = {}
+        for halo in ("ppermute", "rdma", "overlap", "rdma", "ppermute"):
+            n = OVERLAP_ITERS[k] if halo == "overlap" else iters
+            t = time_ms(lambda: fn(halo, n), 1)
+            got.setdefault(halo, []).append(
+                f"{H4K * W4K * n / (t * 1e3):.1f}")
+        rates.append(f"comm_k={k}: " + ", ".join(
+            f"{halo} " + " / ".join(r) for halo, r in got.items()))
+    print(f"phase 26 4K 2x2 rates (Mpixel-iters/s, the whole run, in turns "
+          f"ppermute, rdma, overlap, rdma, ppermute; {SHARD_ITERS} and "
+          f"{SHARD_ITERS_K1} iterations at comm_k {SHARD_K} and 1, overlap "
+          f"{OVERLAP_ITERS[SHARD_K]} and {OVERLAP_ITERS[1]}): "
+          + "; ".join(rates) + f" [{card}]", flush=True)
+
+
+def halo_phases(dev, card, u4k, gt4k):
+    """Phases 24-26, the halo mechanisms; returns K14's stats for the JSON
+    line."""
+    st = {name: dict(max_abs_err=0.0) for name in HALO}
+    k14 = st["K14 exchange_halo2d_rdma"]
+    check_halo_kernel(dev, u4k, k14)
+    runs = halo_main_paths(dev, card, u4k, gt4k, k14)
+    if k14["launches"] < 1:
+        raise AssertionError("K14 was not launched on the main path")
+    halo_rates(dev, card, u4k, k14, runs)
+    return st
+
+
 def main() -> int:
     dev = torch.device("cuda", 0)
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2930,6 +3208,7 @@ def main() -> int:
     sk_stats = stack_phases(dev, card, u4k, v4k.permute(2, 0, 1).contiguous())
     sh_stats = shard_phases(dev, card, u4k, gt4k, v4k, gtc4k)
     ms_stats = mp_morph_shard_phases(dev, card)
+    ha_stats = halo_phases(dev, card, u4k, gt4k)
 
     entries = [
         dict(name=name, route="cuda", source=k["source"],
@@ -2940,7 +3219,7 @@ def main() -> int:
         for table, stat in ((KERNELS, stats), (RESIDENT, res_stats),
                             (MP2, mp_stats), (MORPH, mo_stats),
                             (STACK, sk_stats), (SHARD, sh_stats),
-                            (MP_SHARD, ms_stats))
+                            (MP_SHARD, ms_stats), (HALO, ha_stats))
         for name, k in table.items() for st in (stat[name],)]
     print(json.dumps({"kernels": entries}))
     print(f"card: {card}")

@@ -252,8 +252,8 @@ def test_one_by_one_mesh_delegates_to_segment_fused(monkeypatch):
     assert len(calls) == 1
 
 
-def test_arguments_raise_where_the_reference_raises():
-    _, pt = params()
+def test_arguments_raise_where_the_reference_raises(jgrid):
+    pj, pt = params()
     u = torch.zeros(48, 96, dtype=torch.float64)
     mesh = cpu_grid(2, 4)
     with pytest.raises(ValueError, match="needs a mesh"):
@@ -273,11 +273,21 @@ def test_arguments_raise_where_the_reference_raises():
                         use_pallas=True)
     with pytest.raises(ValueError, match="per-channel"):
         segment_sharded(u, pt, mesh, lambda1=(1.0, 2.0))
+    # the halo mechanisms of M13d run and equal the reference's
+    # (tests/test_torch_halo_rdma.py, test_torch_sharded_overlap.py)
+    img = two_disks(48, 96, noise=6.0)[0]
     for halo in ("rdma", "overlap"):
-        with pytest.raises(NotImplementedError, match="M13d"):
-            segment_sharded(u, pt, mesh, halo=halo)
-        with pytest.raises(NotImplementedError, match="M13d"):
-            segment_sharded_fixed_trace(u, pt, mesh, halo=halo)
+        kw = dict(fixed=True, max_iter=3, use_pallas=False, halo=halo)
+        got = segment_sharded(to_torch(img), pt, mesh, **kw)
+        want = jsharded.segment_sharded(jnp.asarray(img), pj, jgrid,
+                                        interpret=True, **kw)
+        assert_rel(got.phi, want.phi, 1e-10)
+        got = segment_sharded_fixed_trace(to_torch(img), pt, mesh, iters=2,
+                                          use_pallas=False, halo=halo)
+        want = jsharded.segment_sharded_fixed_trace(
+            jnp.asarray(img), pj, jgrid, iters=2, use_pallas=False,
+            interpret=True, halo=halo)
+        assert_rel(got.energy, want.energy, 1e-10)
     with pytest.raises(NotImplementedError, match="M10"):
         segment_sharded(u, pt.replace(reinit_every=5, reinit_steps=4), mesh)
     with pytest.raises(ValueError, match="reinit cadence"):
@@ -297,13 +307,24 @@ def test_cli_mesh_writes_the_reference_mask(tmp_path):
                              "--device", "cpu"]) == 0
     np.testing.assert_array_equal(np.load(tmp_path / "t.npy"),
                                   np.load(tmp_path / "j.npy"))
+    # --halo overlap writes the reference CLI's overlap mask; --halo rdma
+    # its ppermute mask (the reference CLI runs its ring kernel only on a
+    # TPU: on the CPU Pallas takes interpret mode alone, which its CLI does
+    # not pass; its own tests hold rdma bitwise equal to ppermute)
+    for halo, ref in (("rdma", "j.npy"), ("overlap", "jo.npy")):
+        if halo == "overlap":
+            assert jcli.main(args + ["--halo", "overlap", "-o",
+                                     str(tmp_path / ref)]) == 0
+        assert tcli.main(args + ["--halo", halo, "--device", "cpu", "-o",
+                                 str(tmp_path / f"t_{halo}.npy")]) == 0
+        np.testing.assert_array_equal(np.load(tmp_path / f"t_{halo}.npy"),
+                                      np.load(tmp_path / ref))
     # --multiphase, --morph and --morph-gac run sharded
     # (tests/test_torch_sharded_multiphase.py, test_torch_sharded_morph.py);
     # the flags of unported modules raise naming them
     for flag, module in ((["--trace-energy", "t.csv"], "M12"),
                          (["--evolution-gif", "e.gif"], "M12"),
-                         (["--checkpoint-dir", "ck"], "M13e"),
-                         (["--halo", "rdma"], "M13d")):
+                         (["--checkpoint-dir", "ck"], "M13e")):
         with pytest.raises(NotImplementedError, match=module):
             tcli.main([str(src), "--mesh", "2", "2", "--device", "cpu",
                        "--iters", "2", *flag])

@@ -170,8 +170,8 @@ def test_trace_matches_reference(use_pallas, jgrid):
     assert_rel(got.energy, ref.energy, 1e-9)
 
 
-def test_arguments_raise_where_the_reference_raises():
-    _, pt = params(mu=MU)
+def test_arguments_raise_where_the_reference_raises(jgrid):
+    pj, pt = params(mu=MU)
     u = torch.zeros(64, 64, dtype=torch.float64)
     mesh = cpu_grid(2, 4)
     with pytest.raises(ValueError, match="needs a mesh"):
@@ -197,11 +197,21 @@ def test_arguments_raise_where_the_reference_raises():
     with pytest.raises(ValueError, match="pallas path unsupported"):
         segment_multiphase_sharded_fixed_trace(torch.zeros(64, 64, 3), pt,
                                                mesh, use_pallas=True)
+    # the halo mechanisms of M13d run and equal the reference's
+    # (tests/test_torch_halo_rdma.py, test_torch_sharded_overlap.py)
+    img = GRAY[:, :64]
     for halo in ("rdma", "overlap"):
-        with pytest.raises(NotImplementedError, match="M13d"):
-            segment_multiphase_sharded(u, pt, mesh, halo=halo)
-        with pytest.raises(NotImplementedError, match="M13d"):
-            segment_multiphase_sharded_fixed_trace(u, pt, mesh, halo=halo)
+        got = segment_multiphase_sharded(to_torch(img), pt, mesh, halo=halo,
+                                         fixed=True, max_iter=2)
+        want = jsharded.segment_multiphase_sharded(
+            jnp.asarray(img), pj, jgrid, halo=halo, fixed=True, max_iter=2,
+            interpret=True)
+        assert_rel(got.phis, want.phis, 1e-10)
+        got = segment_multiphase_sharded_fixed_trace(to_torch(img), pt, mesh,
+                                                     iters=2, halo=halo)
+        want = jsharded.segment_multiphase_sharded_fixed_trace(
+            jnp.asarray(img), pj, jgrid, iters=2, halo=halo, interpret=True)
+        assert_rel(got.energy, want.energy, 1e-10)
     with pytest.raises(NotImplementedError, match="M10"):
         segment_multiphase_sharded(u, pt.replace(reinit_every=5), mesh)
 
