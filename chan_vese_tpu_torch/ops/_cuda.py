@@ -1,5 +1,6 @@
 """Launch path shared by the red-black kernels (K1-K3 on a scalar image,
-K1 on a stack of frames, K4-K6 on a C-channel image), the exact-means
+K1 on a stack of frames, K4-K6 on a C-channel image; K2 and K5 on the
+banded body of csrc/band.cuh, the others on csrc/redblack.cuh), the exact-means
 resident kernels (K7 flat, K8 parity planes; scalar, batch and C-channel
 modes) and their frozen-means chunk mode (K13), the 4-phase kernels (K9
 banded and resident, K10 parity planes), the morphological kernels (K11,
@@ -41,6 +42,106 @@ def tile_geometry(h: int, w: int, k: int, cell_bytes: int = 10,
             return th, tw, cap
     raise ValueError(f"k={k} needs more shared memory than a block has "
                      f"(window of the smallest tile exceeds {SMEM_LIMIT} B)")
+
+
+# csrc/band.cuh (K2, K5): rows of a thread's strip, most threads a block,
+# and the SM resources its tiles are chosen against: registers (64 a
+# thread under __launch_bounds__(512, 2)), warps, shared memory (the SM's
+# 228 KB, 1 KB of it reserved a block) and the H100 SXM's SM count
+BAND_ROWS, BAND_THREADS = 12, 512
+BAND_REGS, SM_REGS, SM_WARPS, SM_SMEM = 64, 65536, 64, 233472
+SMS = 132
+# tile candidates (rows, cols) of the band geometry
+BAND_TILE_ROWS = tuple(range(8, 257, 8))
+BAND_TILE_COLS = tuple(range(16, 513, 16))
+
+
+def band_window(tr0, tr1, tc0, tc1, h, w, k):
+    """Window [wr0, wr1) x [wc0, wc1) of the band body's tile [tr0, tr1) x
+    [tc0, tc1) on an (h, w) image or canvas for k iterations: the tile plus
+    2k each way, cut at the image, the columns widened to an even start and
+    width (csrc/band.cuh band_kernel)."""
+    wr0, wr1 = max(tr0 - 2 * k, 0), min(tr1 + 2 * k, h)
+    wc0, wc1 = max(tc0 - 2 * k, 0) & ~1, min(tc1 + 2 * k, w)
+    return wr0, wr1, wc0, wc1 + ((wc1 - wc0) & 1)
+
+
+def band_static_bytes(nsums: int, cc_len: int) -> int:
+    """Static shared memory of band_kernel: the f64 reduction scratch and
+    the means."""
+    return 8 * nsums * (BAND_THREADS // 32) + 4 * cc_len
+
+
+def band_blocks_per_sm(threads: int, cap: int, static: int) -> int:
+    """Blocks of the band body an SM holds at ``threads`` threads and
+    ``cap`` window cells (8 B each), by registers, warps and shared
+    memory (the design's count; the card's own is
+    :func:`band_occupancy`)."""
+    warps = -(-threads // 32)
+    return min(SM_REGS // (BAND_REGS * 32 * warps), SM_WARPS // warps,
+               SM_SMEM // (8 * cap + static + 1024), 32)
+
+
+@functools.lru_cache(maxsize=256)
+def band_geometry(h: int, w: int, k: int, crop=None, nsums: int = 5,
+                  cc_len: int = 2, sms: int = SMS):
+    """(TH, TW, PX, PY, cap) of a band-body launch (K2, K5) on an (h, w)
+    image, or on a canvas whose ``crop`` = (r0, r1, c0, c1) the tiles
+    cover: TH x TW tiles, PX x PY threads (PX pairs across, PY strips of
+    BAND_ROWS rows down, enough for the largest window), windows of at
+    most ``cap`` cells. Among the tiles whose window fits a block, those
+    that let an SM hold two blocks are taken where any does, and of them
+    the one whose busiest SM (the blocks spread evenly over ``sms`` SMs)
+    updates the fewest window cells, the larger tile on a tie."""
+    shard = crop is not None
+    th_all, tw_all = (h, w) if not shard else (crop[1] - crop[0],
+                                               crop[3] - crop[2])
+    static = band_static_bytes(nsums, cc_len)
+    best = []
+    for th in BAND_TILE_ROWS:
+        for tw in BAND_TILE_COLS:
+            wh = min(h, th + 4 * k)
+            ww = min(w, tw + 4 * k + (2 if shard else 0))
+            px, py = -(-ww // 2), -(-wh // BAND_ROWS)
+            cap = wh * ww
+            if px * py > BAND_THREADS or 8 * cap + static > SMEM_LIMIT + 1024:
+                continue
+            bps = band_blocks_per_sm(px * py, cap, static)
+            nblocks = -(-th_all // th) * -(-tw_all // tw)
+            load = -(-nblocks // sms) * cap
+            best.append((bps < 2, load, -th * tw, (th, tw, px, py, cap)))
+    if not best:
+        raise ValueError(f"k={k} needs a larger window than a block of the "
+                         f"band body holds ({BAND_THREADS} threads, "
+                         f"{SMEM_LIMIT} B)")
+    return min(best)[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def band_occupancy(c: int, shard: bool, threads: int, cap: int) -> int:
+    """The card's blocks per SM of the band body (C channels, 0: K2) at
+    ``threads`` threads and ``cap`` window cells
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import ctypes
+
+    from .._build import library
+
+    lib = library()
+    n = ctypes.c_int(0)
+    if c:
+        err = lib.cv_band_occupancy_mc(c, int(shard), threads, 8 * cap,
+                                       ctypes.byref(n))
+    else:
+        err = lib.cv_band_occupancy(int(shard), threads, 8 * cap,
+                                    ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"band occupancy query failed: "
+                           f"{lib.cv_error_string(err).decode()} ({err})")
+    return n.value
 
 
 def mc_channels(phi, u0) -> int:
@@ -108,6 +209,23 @@ def shard_args(h: int, w: int, k: int, parity, crop, edges):
     return parity, r0, r1, c0, c1, top, bottom, left, right
 
 
+@functools.lru_cache(maxsize=64)
+def _constant_means(c1: float, c2: float, device):
+    """[c1, c2] as f32 on ``device`` for means given as numbers (K1's force
+    mode passes 0, 0). Cached: a host-to-device copy per launch would wait
+    for the stream."""
+    return torch.tensor([c1, c2], dtype=torch.float32, device=device)
+
+
+def _means(c1, c2, dev):
+    """The [c1, c2] cc of a scalar launch, without a host-to-device copy
+    where the means are numbers or already on ``dev``."""
+    if not (isinstance(c1, torch.Tensor) or isinstance(c2, torch.Tensor)):
+        return _constant_means(float(c1), float(c2), dev)
+    return torch.stack([torch.as_tensor(c1, device=dev),
+                        torch.as_tensor(c2, device=dev)]).to(torch.float32)
+
+
 def launch_chunk(symbol: str, phi, u0, c1, c2, p, k, h: int, w: int,
                  shard=None):
     """Run scalar kernel ``symbol`` on image geometry (h, w); phi/u0 hold
@@ -116,12 +234,77 @@ def launch_chunk(symbol: str, phi, u0, c1, c2, p, k, h: int, w: int,
     _check_inputs(phi, u0)
     if u0.shape != phi.shape:
         raise ValueError(f"u0 {tuple(u0.shape)} vs phi {tuple(phi.shape)}")
-    dev = phi.device
-    cc = torch.stack([torch.as_tensor(c1, device=dev),
-                      torch.as_tensor(c2, device=dev)]).to(torch.float32)
+    cc = _means(c1, c2, phi.device)
     params = (p.mu, p.nu, p.lambda1, p.lambda2, *_common_params(p))
     return _launch(symbol, phi, u0, cc, (), k, h, w, 5, 8, params,
                    shard=shard)
+
+
+def _mc_means(c1, c2, l1, l2, c, dev):
+    """The [c1 x C, c2 x C, l1/C x C, l2/C x C] cc of a multichannel
+    launch."""
+    return torch.cat([
+        torch.as_tensor(c1, device=dev).reshape(c).to(torch.float32),
+        torch.as_tensor(c2, device=dev).reshape(c).to(torch.float32),
+        _weights(tuple(l1), tuple(l2), dev)])
+
+
+def launch_band(phi, u0, c1, c2, p, k: int, shard=None, l1=None, l2=None):
+    """One launch of the band body (csrc/band.cuh): K2 on an (h, w) phi and
+    u0, or K5 with a channels-first (C, h, w) u0, (C,) means and the
+    per-channel lambda tuples ``l1``, ``l2``; ``shard``: the
+    :func:`shard_args` of a shard-canvas launch. Returns (phi_new,
+    partials: (8,) for K2, (16,) for K5)."""
+    from .._build import library
+
+    c = 0 if l1 is None else mc_channels(phi, u0)
+    if not c and u0.shape != phi.shape:
+        raise ValueError(f"u0 {tuple(u0.shape)} vs phi {tuple(phi.shape)}")
+    _check_inputs(phi, u0)
+    if phi.ndim != 2:
+        raise ValueError(f"phi must be (H, W), got {tuple(phi.shape)}")
+    h, w = phi.shape
+    check_even(h, w)
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if phi.data_ptr() % 8 or u0.data_ptr() % 8:
+        raise ValueError("the band body reads 8-byte pairs: phi and u0 must "
+                         "start on an 8-byte boundary")
+    dev = phi.device
+    nsums, nout = (c + 4, 16) if c else (5, 8)
+    cc_len = 4 * c if c else 2
+    th, tw, px, py, cap = band_geometry(
+        h, w, k, None if shard is None else tuple(shard[1:5]), nsums,
+        cc_len, _sm_count(dev.index))
+    th_all, tw_all = (h, w) if shard is None else (shard[2] - shard[1],
+                                                   shard[4] - shard[3])
+    nblocks = math.ceil(th_all / th) * math.ceil(tw_all / tw)
+    out = torch.empty_like(phi)
+    block_parts = torch.empty((nblocks, nsums), dtype=torch.float64,
+                              device=dev)
+    parts = torch.empty(nout, dtype=torch.float32, device=dev)
+    if c:
+        cc = _mc_means(c1, c2, l1, l2, c, dev)
+        params = (p.mu, p.nu, *_common_params(p))
+        symbol = "cv_banded_chunk_mc"
+    else:
+        cc = _means(c1, c2, dev)
+        params = (p.mu, p.nu, p.lambda1, p.lambda2, *_common_params(p))
+        symbol = "cv_banded_chunk"
+    if shard is not None:
+        symbol += "_shard"
+    lib = library()
+    with torch.cuda.device(dev):
+        err = getattr(lib, symbol)(
+            phi.data_ptr(), u0.data_ptr(), cc.data_ptr(), out.data_ptr(),
+            block_parts.data_ptr(), parts.data_ptr(), h, w, *((c,) if c
+                                                             else ()),
+            k, th, tw, px, py, cap, *params, *(shard or ()),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{symbol} launch failed: "
+                           f"{lib.cv_error_string(err).decode()} ({err})")
+    return out, parts
 
 
 @functools.lru_cache(maxsize=64)
@@ -142,11 +325,7 @@ def launch_chunk_mc(symbol: str, phi, u0, c1, c2, p, k, h: int, w: int,
     (nout,) f32)."""
     c = mc_channels(phi, u0)
     _check_inputs(phi, u0)
-    dev = phi.device
-    cc = torch.cat([
-        torch.as_tensor(c1, device=dev).reshape(c).to(torch.float32),
-        torch.as_tensor(c2, device=dev).reshape(c).to(torch.float32),
-        _weights(tuple(l1), tuple(l2), dev)])
+    cc = _mc_means(c1, c2, l1, l2, c, phi.device)
     params = (p.mu, p.nu, *_common_params(p))
     return _launch(symbol, phi, u0, cc, (c,), k, h, w, c + 4, nout, params,
                    shard=shard)

@@ -7,8 +7,13 @@ Counterpart of ``chan_vese_tpu/ops/pallas_banded.py`` (``_banded_kernel``
 CUDA tensor :func:`banded_chunk` launches ``csrc/banded.cu`` and
 :func:`banded_chunk_mc` ``csrc/banded_mc.cu``, and their shard-canvas
 modes :func:`banded_chunk_sharded` and :func:`banded_chunk_mc_sharded` the
-same files' shard launchers; on a CPU tensor each runs its ``_reference``
-plain version.
+same files' shard launchers, all four on the body of ``csrc/band.cuh``
+(:func:`._cuda.launch_band`); on a CPU tensor each runs its ``_reference``
+plain version. The first body's launchers (``cv_banded_chunk_v1``,
+``cv_banded_chunk_shard_v1``, ``cv_banded_chunk_mc_v1``,
+``cv_banded_chunk_mc_shard_v1``, through :func:`._cuda.launch_chunk` and
+:func:`._cuda.launch_chunk_mc`) stay in the library as the yardstick of
+the smoke and the cuda-marked tests; nothing here calls them.
 
 Trajectory class: c1/c2 stay frozen across the k iterations of a chunk;
 the partials describe the LAST iteration's transition. k = 1 is the fused
@@ -81,8 +86,7 @@ def banded_chunk(phi, u0, c1, c2, p: CVParams, k: int = 8,
         raise ValueError(f"unroll must divide k (got k={k}, unroll={unroll})")
     if phi.device.type == "cpu":
         return banded_chunk_reference(phi, u0, c1, c2, p, k)
-    h, w = phi.shape
-    out = _cuda.launch_chunk("cv_banded_chunk", phi, u0, c1, c2, p, k, h, w)
+    out = _cuda.launch_band(phi, u0, c1, c2, p, k)
     banded_chunk.launches += 1
     return out
 
@@ -115,7 +119,8 @@ def banded_chunk_sharded(canvas, u0_canvas, c1, c2, p: CVParams, k: int,
     reference's lane-padded canvas geometry: the Hopper kernel takes any
     even canvas. ``unroll``/``fuse``: as :func:`banded_chunk`. CPU
     tensors run the plain version; CUDA tensors launch
-    ``cv_banded_chunk_shard`` (``csrc/banded.cu``) or raise.
+    ``cv_banded_chunk_shard`` (``csrc/banded.cu``, the band body) or
+    raise.
     """
     if unroll < 1 or k % unroll:
         raise ValueError(f"unroll must divide k (got k={k}, unroll={unroll})")
@@ -124,8 +129,7 @@ def banded_chunk_sharded(canvas, u0_canvas, c1, c2, p: CVParams, k: int,
     if canvas.device.type == "cpu":
         return banded_chunk_sharded_reference(canvas, u0_canvas, c1, c2, p,
                                               k, parity, edges, crop)
-    out = _cuda.launch_chunk("cv_banded_chunk_shard", canvas, u0_canvas, c1,
-                             c2, p, k, h, w, shard=shard)
+    out = _cuda.launch_band(canvas, u0_canvas, c1, c2, p, k, shard=shard)
     banded_chunk_sharded.launches += 1
     return out
 
@@ -171,10 +175,8 @@ def banded_chunk_mc(phi, u0_cfirst, c1, c2, p: CVParams, k: int = 8,
     if phi.device.type == "cpu":
         return banded_chunk_mc_reference(phi, u0_cfirst, c1, c2, p, k,
                                          lambda1, lambda2)
-    h, w = phi.shape
     l1, l2 = p.channel_lambdas(C, lambda1, lambda2)
-    out = _cuda.launch_chunk_mc("cv_banded_chunk_mc", phi, u0_cfirst, c1, c2,
-                                p, k, h, w, l1, l2, 16)
+    out = _cuda.launch_band(phi, u0_cfirst, c1, c2, p, k, l1=l1, l2=l2)
     banded_chunk_mc.launches += 1
     return out
 
@@ -217,9 +219,8 @@ def banded_chunk_mc_sharded(canvas, u0_canvas_cfirst, c1, c2, p: CVParams,
             canvas, u0_canvas_cfirst, c1, c2, p, k, parity, edges, crop,
             lambda1, lambda2)
     l1, l2 = p.channel_lambdas(C, lambda1, lambda2)
-    out = _cuda.launch_chunk_mc("cv_banded_chunk_mc_shard", canvas,
-                                u0_canvas_cfirst, c1, c2, p, k, h, w, l1, l2,
-                                16, shard=shard)
+    out = _cuda.launch_band(canvas, u0_canvas_cfirst, c1, c2, p, k,
+                            shard=shard, l1=l1, l2=l2)
     banded_chunk_mc_sharded.launches += 1
     return out
 

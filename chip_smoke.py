@@ -1,6 +1,6 @@
 """Smoke test of chan_vese_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--sass-parent DIR]
 
 Builds the CUDA kernels from this checkout, holds each kernel against its
 plain PyTorch version, drives the grayscale main path (segment_banded at
@@ -69,6 +69,19 @@ halo='rdma' bitwise equal to halo='ppermute', K14's launches counted,
 halo='overlap' (the kernels' hybrid at 4K against ppermute, the plain
 route bitwise at 1080p), and the times: K14 an exchange beside
 exchange_halo2d and its bound, and the 4K rates of the three mechanisms.
+Phase 27 does the same for the banded body of K2 and K5 (csrc/band.cuh):
+registers, spills and (with --sass-parent DIR, a checkout of the parent
+package) sass_diff.py's check that every kernel left on redblack.cuh
+compiles as before; each mode (whole image and shard canvas) against the
+first body's `_v1` launchers (phi bitwise, flips exact), its plain
+version and its own second launch at 4K gray and RGB (k = 1, 8, 21), a
+ragged shape and every shard of the 2x2 and 3x3 grids and the 1x1 canvas
+(each crop bitwise equal to the whole-image launch); the two bodies in
+turns at the main path's shapes beside the bound, blocks per SM and
+waves; and phase 19's sharded runs and the flat 4K segment_banded_fixed
+runs through the entry points, their masks against the truth and every
+K2/K5 launch counted, with their rates. K1's force mode runs once under
+torch.cuda.set_sync_debug_mode("error") (phase 9).
 Any failure raises and exits non-zero.
 The last lines are a JSON object per kernel, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -155,7 +168,7 @@ KERNELS = {
     "K2 banded_chunk": dict(
         wrapper=banded_kernel.banded_chunk,
         plain=banded_kernel.banded_chunk_reference,
-        source="chan_vese_tpu_torch/csrc/banded.cu",
+        source="chan_vese_tpu_torch/csrc/band.cuh",
         replaces="chan_vese_tpu/ops/pallas_banded.py:104", ks=(1, 3, 8),
         packed=False, channels=0),
     "K3 packed_banded_chunk": dict(
@@ -175,7 +188,7 @@ KERNELS = {
     "K5 banded_chunk_mc": dict(
         wrapper=banded_kernel.banded_chunk_mc,
         plain=banded_kernel.banded_chunk_mc_reference,
-        source="chan_vese_tpu_torch/csrc/banded_mc.cu",
+        source="chan_vese_tpu_torch/csrc/band.cuh",
         replaces="chan_vese_tpu/ops/pallas_banded.py:507", ks=(1, 3, 8),
         packed=False, channels=RGB),
     "K6 packed_banded_chunk_mc": dict(
@@ -381,7 +394,7 @@ SHARD = {
         channels=0, counter=(fused_kernel.fused_iteration,
                              "shard_launches")),
     "K2 banded_chunk_sharded": dict(
-        source="chan_vese_tpu_torch/csrc/banded.cu",
+        source="chan_vese_tpu_torch/csrc/band.cuh",
         replaces="chan_vese_tpu/ops/pallas_banded.py:399", ks=(8,),
         channels=0, counter=(banded_kernel.banded_chunk_sharded,
                              "launches")),
@@ -391,7 +404,7 @@ SHARD = {
         channels=0, counter=(packed_kernel.packed_banded_chunk_sharded,
                              "launches")),
     "K5 banded_chunk_mc_sharded": dict(
-        source="chan_vese_tpu_torch/csrc/banded_mc.cu",
+        source="chan_vese_tpu_torch/csrc/band.cuh",
         replaces="chan_vese_tpu/ops/pallas_banded.py:800", ks=(8, 1),
         channels=RGB, counter=(banded_kernel.banded_chunk_mc_sharded,
                                "launches")),
@@ -640,22 +653,28 @@ def best_accuracy(pred, gt):
 
 
 def ptxas_summary():
-    """Registers and spill stores of every chunk_kernel, resident_kernel,
-    mp2_band_kernel, mp2_resident_kernel and morph_kernel instance, from
-    ptxas's -v report of the build: 'kind flat/packed [C=n]: R regs, S B
-    spill' (C = -1 is K1's force mode), 'morph <kind>: ...'."""
+    """Registers and spill stores of every chunk_kernel, band_kernel,
+    resident_kernel, mp2_band_kernel, mp2_resident_kernel and morph_kernel
+    instance, from ptxas's -v report of the build: 'kind flat/packed
+    [C=n]: R regs, S B spill' (C = -1 is K1's force mode), 'morph <kind>:
+    ...'."""
     out, name = {}, None
     morph_kinds = ("acwe", "gac", "gac_pre", "acwe_fused", "acwe_sh",
                    "gac_pre_sh")
     for line in _build.ptxas_report().splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:  # the lines up to the next entry describe this one
+            mb = re.search(r"[^_]band_kernelILi(\d+)ELb(\d)E", m.group(1))
             mm = re.search(r"morph_kernelILi(\d)E", m.group(1))
             m = re.search(r"(mp2_band|mp2_resident|chunk|resident)_kernel"
                           r"(?:ILb(\d)E(?:Li(n?)(\d+)E)?(?:Lb(\d)E)?)?",
                           m.group(1))
             name = None
-            if mm:
+            if mb:
+                nc = int(mb.group(1))
+                name = ("band", "flat", (f" C={nc}" if nc else "")
+                        + (" shard" if mb.group(2) == "1" else ""))
+            elif mm:
                 name = ("morph", morph_kinds[int(mm.group(1))], "")
             elif m:
                 c = ("" if m.group(4) is None else
@@ -954,8 +973,33 @@ def time_mp2(name, kern, u, phis, cs, f, p):
         bnd = (bound_sweep(h, w) if name == "K1 fused_sweep"
                else bound_mp2(h, w, 1, 1, False))
         reps = 20
-    return (time_ms(lambda: call(kern["wrapper"]), reps),
+    # the force mode's launch is about as short as its host-side cost:
+    # timed queued (its wrapper no longer waits for the stream)
+    timer = queued_ms if name == "K1 fused_sweep" else time_ms
+    return (timer(lambda: call(kern["wrapper"]), reps),
             time_ms(lambda: call(kern["plain"]), 2), *bnd)
+
+
+def check_sweep_no_sync(dev, pm):
+    """K1's force mode once under torch.cuda.set_sync_debug_mode("error"),
+    with and without a parity: its wrapper must not wait for the stream
+    (a host-to-device copy of its means did before). Returns its queued
+    ms at 4K and 512^2: {(tag, parity): ms}."""
+    times = {}
+    for tag, (h, w) in (("4K", (H4K, W4K)), ("512^2", (512, 512))):
+        _, phis, _, f = mp2_inputs(h, w, dev, pm)
+        phi = phis[0].contiguous()
+        for par in (None, 1):
+            fused_kernel.fused_sweep(phi, f, pm, parity=par)  # warm up
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fused_kernel.fused_sweep(phi, f, pm, parity=par)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            times[tag, par] = queued_ms(
+                lambda: fused_kernel.fused_sweep(phi, f, pm, parity=par), 20)
+    return times
 
 
 def gac_scene(h, w):
@@ -1866,6 +1910,17 @@ def shard_phases(dev, card, u4k, gt4k, v4k, gtc4k):
             if k == kern["ks"][0]:
                 st[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                 bound_by=b_by, library_ms=None)
+    # K3's main-path launches run on the 1x1 mesh's canvas (phase 19's
+    # packed route): timed there too
+    (_, x, uc, par, edges, crop), = shard_canvases(phi, u4k, 1, 1,
+                                                   4 * SHARD_K, dev)
+    xp, up = packed_kernel.pack_planes(x), packed_kernel.pack_planes(uc)
+    c1, c2 = inputs[0][1:]
+    ms = queued_ms(lambda: packed_kernel.packed_banded_chunk_sharded(
+        xp, up, c1, c2, p, SHARD_K, edges, crop), 20)
+    per_mode.append(f"K3 packed_banded_chunk_sharded k={SHARD_K} at the 1x1 "
+                    f"canvas {ms:.4f} ms (bound "
+                    f"{bound(H4K, W4K, SHARD_K, 0)[0]:.4f})")
     # the canvases' cost a chunk: the exchange of the four shards' phi, its
     # host time (enqueueing) and its device time (queued behind a spin: at
     # the host's pace time_ms would read the host time)
@@ -2423,10 +2478,7 @@ def mp_morph_rates(dev, card, st, u, pm, p, mesh, u2, g4k, s4k):
                                    1 if gac else 0))
     per_mode = []
     for name, (fn, pl, (b_ms, b_by)) in modes.items():
-        # K1's force-mode wrapper copies its (unused) means to the card
-        # each call, which waits for the stream: timed at the host's
-        # pace, as phase 9 times the force mode
-        ms = (time_ms if name.startswith("K1") else queued_ms)(fn, 20)
+        ms = queued_ms(fn, 20)
         plain_ms = time_ms(pl, 2)
         st[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=None)
@@ -2452,8 +2504,13 @@ def mp_morph_rates(dev, card, st, u, pm, p, mesh, u2, g4k, s4k):
         host = (time.perf_counter() - t0) / 20 * 1e3
         torch.cuda.synchronize()
         canv[tag] = (host, queued_ms(ex, 20))
-    print("phase 23 modes a launch (device ms, queued but for K1; K9 and "
-          "K11 at the 2x2 canvas of shard (0, 0), K1 at 4K): "
+    _, p512, _, f512 = mp2_inputs(512, 512, dev, pm)
+    q512 = p512[0].contiguous()
+    per_mode.append("K1 fused_sweep (parity) at 512^2 " + "%.4f" % queued_ms(
+        lambda: fused_kernel.fused_sweep(q512, f512, pm, parity=1), 20)
+        + " ms")
+    print("phase 23 modes a launch (queued device ms; K9 and K11 at the "
+          "2x2 canvas of shard (0, 0), K1 at 4K and 512^2): "
           + "; ".join(per_mode) + "; the halo exchange a chunk: "
           + ", ".join(f"{t} host {hst:.3f} ms, device {dv:.4f} ms"
                       for t, (hst, dv) in canv.items()) + f" [{card}]",
@@ -2727,7 +2784,309 @@ def halo_phases(dev, card, u4k, gt4k):
     return st
 
 
-def main() -> int:
+# the band body (phase 27): K2 and K5 on csrc/band.cuh, in their
+# whole-image and shard-canvas modes, against the first body (redblack.cuh,
+# the `_v1` launchers), their plain versions and their second launches;
+# the counter each wrapper adds to where it launches
+BAND = {
+    "K2 banded_chunk": (0, False, banded_kernel.banded_chunk),
+    "K2 banded_chunk_sharded": (0, True,
+                                banded_kernel.banded_chunk_sharded),
+    "K5 banded_chunk_mc": (RGB, False, banded_kernel.banded_chunk_mc),
+    "K5 banded_chunk_mc_sharded": (RGB, True,
+                                   banded_kernel.banded_chunk_mc_sharded),
+}
+# chunk depths of the whole-image checks, the ragged even shape (its last
+# tiles partial), and the shard checks' k (K5 also at the per-iteration
+# route's k = 1)
+BAND_KS, BAND_RAGGED, BAND_SHARD_KS = (1, 8, 21), (1000, 1500), (8, 1)
+# phase 27's reruns of phase 19's sharded runs and the flat 4K runs:
+# iterations (k = 1 runs: SHARD_ITERS_K1)
+BAND_ITERS = 800
+
+
+def band_counts():
+    return {name: fn.launches for name, (_, _, fn) in BAND.items()}
+
+
+def band_call(c, p, k, v1=False):
+    """fn(phi, image, c1, c2, shard ints or None) -> (phi, partials) of the
+    band body through its wrappers, or of the first body's `_v1`
+    launchers; the image channels-first for K5."""
+    if v1:
+        def run(x, u, a, b, shard):
+            suffix = "_v1" if shard is None else "_shard_v1"
+            if c:
+                l1, l2 = p.channel_lambdas(c)
+                return _cuda.launch_chunk_mc(
+                    "cv_banded_chunk_mc" + suffix, x, u, a, b, p, k,
+                    *x.shape, l1, l2, 16, shard=shard)
+            return _cuda.launch_chunk("cv_banded_chunk" + suffix, x, u, a, b,
+                                      p, k, *x.shape, shard=shard)
+        return run
+
+    def run(x, u, a, b, shard):
+        if shard is None:
+            return (banded_kernel.banded_chunk_mc if c
+                    else banded_kernel.banded_chunk)(x, u, a, b, p, k)
+        par, r0, r1, c0, c1, *edges = shard
+        return (banded_kernel.banded_chunk_mc_sharded if c
+                else banded_kernel.banded_chunk_sharded)(
+            x, u, a, b, p, k, par, edges, (r0, r1, c0, c1))
+    return run
+
+
+def band_plain(c, p, k):
+    def run(x, u, a, b, shard):
+        if shard is None:
+            return (banded_kernel.banded_chunk_mc_reference if c
+                    else banded_kernel.banded_chunk_reference)(x, u, a, b,
+                                                               p, k)
+        par, r0, r1, c0, c1, *edges = shard
+        return (banded_kernel.banded_chunk_mc_sharded_reference if c
+                else banded_kernel.banded_chunk_sharded_reference)(
+            x, u, a, b, p, k, par, edges, (r0, r1, c0, c1))
+    return run
+
+
+def check_band(name, c, p, k, args, tag):
+    """The band body's launch against the first body's (phi bitwise, the
+    flips exactly), its plain version (phase 3's bars) and its own second
+    launch (bitwise). Returns (phi, partials, max |d phi| vs plain, max
+    relative difference of the other partial sums from the first
+    body's)."""
+    got = band_call(c, p, k)(*args)
+    again = band_call(c, p, k)(*args)
+    old = band_call(c, p, k, v1=True)(*args)
+    ref = band_plain(c, p, k)(*args)
+    torch.cuda.synchronize()
+    flip = (c or 1) + 2
+    if not torch.equal(got[0], old[0]):
+        d = got[0] - old[0]
+        raise AssertionError(f"{name} {tag}: phi differs from the first "
+                             f"body's at {int((d != 0).sum())} cells, max "
+                             f"|d| {float(d.abs().max())}")
+    if float(got[1][flip]) != float(old[1][flip]):
+        raise AssertionError(f"{name} {tag}: flips {float(got[1][flip])} "
+                             f"vs the first body's {float(old[1][flip])}")
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        raise AssertionError(f"{name} {tag}: two launches differ")
+    err = hold(name, got, ref, tag)
+    n = (c or 1) + 4
+    rel = float(((got[1][:n].double() - old[1][:n].double()).abs()
+                 / old[1][:n].double().abs().clamp(min=1e-30)).max())
+    return got, err, rel
+
+
+def band_inputs(dev, p, u4k, v4k):
+    """{channels: (image (channels-first for RGB), c1, c2)} of the 4K
+    checkerboard start, and the start itself."""
+    phi = init_phi((H4K, W4K), p.init, torch.float32, device=dev)
+    return phi, {0: (u4k, *region_means(u4k, phi, p.eps)),
+                 RGB: (v4k.permute(2, 0, 1).contiguous(),
+                       *region_means(v4k, phi, p.eps))}
+
+
+def band_checks(dev, p, u4k, v4k, stats):
+    """Phase 27's checks: every band launch of the listed shapes against
+    the first body, the plain version and itself; each shard crop bitwise
+    equal to the whole-image launch's window."""
+    phi, inputs = band_inputs(dev, p, u4k, v4k)
+    img, _ = two_disks(*BAND_RAGGED)
+    rgb, _ = colored_squares(*BAND_RAGGED)
+    ur = torch.from_numpy(img).to(dev)
+    vr = torch.from_numpy(rgb).to(dev)
+    phir = init_phi(BAND_RAGGED, p.init, torch.float32, device=dev)
+    ragged = {0: (ur, *region_means(ur, phir, p.eps)),
+              RGB: (vr.permute(2, 0, 1).contiguous(),
+                    *region_means(vr, phir, p.eps))}
+    lines = []
+    for name, (c, shard, _) in BAND.items():
+        st = stats[name]
+        if not shard:
+            whole = [(phi, inputs, H4K, W4K, k) for k in BAND_KS] + [
+                (phir, ragged, *BAND_RAGGED, 8)]
+            rels = []
+            for x, inp, h, w, k in whole:
+                u, c1, c2 = inp[c]
+                _, err, rel = check_band(name, c, p, k,
+                                         (x, u, c1, c2, None),
+                                         f"{h}x{w} k={k}")
+                st["max_abs_err"] = max(st["max_abs_err"], err)
+                rels.append(rel)
+            lines.append(f"{name} 4K k={BAND_KS} and {BAND_RAGGED[0]}x"
+                         f"{BAND_RAGGED[1]} k=8: phi bitwise the first "
+                         f"body's, flips equal, other sums within "
+                         f"{max(rels):.2e} relative of its")
+            continue
+        u, c1, c2 = inputs[c]
+        for k in BAND_SHARD_KS if c else BAND_SHARD_KS[:1]:
+            D = 4 * k
+            whole = band_call(c, p, k)(phi, u, c1, c2, None)[0]
+            rels = []
+            for nx, ny in SHARD_GRIDS + ((1, 1),):
+                h, w = H4K // nx, W4K // ny
+                for pos, x, uc, par, edges, crop in shard_canvases(
+                        phi, u, nx, ny, D, dev):
+                    sh = _cuda.shard_args(*x.shape, k, par, crop, edges)
+                    tag = f"k={k} shard {pos} of {nx}x{ny}"
+                    got, err, rel = check_band(name, c, p, k,
+                                               (x, uc, c1, c2, sh), tag)
+                    st["max_abs_err"] = max(st["max_abs_err"], err)
+                    rels.append(rel)
+                    ix, iy = pos
+                    if not torch.equal(got[0][D:D + h, D:D + w],
+                                       whole[ix * h:(ix + 1) * h,
+                                             iy * w:(iy + 1) * w]):
+                        raise AssertionError(f"{name} {tag}: the crop "
+                                             f"differs from the whole-image "
+                                             f"launch")
+            lines.append(f"{name} k={k} every shard of 2x2, 3x3 and the 1x1 "
+                         f"canvas: phi bitwise the first body's and each "
+                         f"crop the whole-image launch's, flips equal, other "
+                         f"sums within {max(rels):.2e} relative")
+    return lines
+
+
+def band_times(dev, card, p, u4k, v4k, stats, sh_stats):
+    """Phase 27's times: the band body against the first body in turns
+    (v1, new, new, v1; queued) at the main path's shapes, beside the bound,
+    the card's blocks per SM and the waves a launch takes."""
+    phi, inputs = band_inputs(dev, p, u4k, v4k)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = [("K2 banded_chunk", "4K", 8, None),
+             ("K5 banded_chunk_mc", "4K RGB", 8, None),
+             ("K2 banded_chunk_sharded", "2x2 canvas", 8, (2, 2)),
+             ("K5 banded_chunk_mc_sharded", "2x2 canvas RGB", 8, (2, 2)),
+             ("K5 banded_chunk_mc_sharded", "2x2 canvas RGB", 1, (2, 2)),
+             ("K2 banded_chunk_sharded", "1x1 canvas", 8, (1, 1))]
+    out = []
+    for name, tag, k, grid in cases:
+        c = BAND[name][0]
+        u, c1, c2 = inputs[c]
+        if grid is None:
+            x, uc, sh, (h, w) = phi, u, None, (H4K, W4K)
+        else:
+            (_, x, uc, par, edges, crop), = [
+                s for s in shard_canvases(phi, u, *grid, 4 * k, dev)
+                if s[0] == (0, 0)]
+            sh = _cuda.shard_args(*x.shape, k, par, crop, edges)
+            h, w = crop[1] - crop[0], crop[3] - crop[2]
+        args = (x, uc, c1, c2, sh)
+        new, old = band_call(c, p, k), band_call(c, p, k, v1=True)
+        t = [queued_ms(lambda f=f: f(*args), 20)
+             for f in (old, new, new, old)]
+        geo = _cuda.band_geometry(
+            *x.shape, k, None if sh is None else tuple(sh[1:5]),
+            (c or 1) + 4 if c else 5, 4 * c if c else 2, sms)
+        th, tw, px, py, cap = geo
+        occ = _cuda.band_occupancy(c, sh is not None, px * py, cap)
+        nblocks = math.ceil(h / th) * math.ceil(w / tw)
+        b_ms, b_by = bound(h, w, k, c)
+        ms, v1_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        out.append(f"{name} {tag} k={k}: v1 {t[0]:.4f}, new {t[1]:.4f}, new "
+                   f"{t[2]:.4f}, v1 {t[3]:.4f} ms (new/v1 {ms / v1_ms:.3f}; "
+                   f"bound {b_ms:.4f} {b_by}); tile {th}x{tw}, "
+                   f"{-(-px * py // 32) * 32} threads, window <= {cap} "
+                   f"cells ({8 * cap} B), {occ} blocks/SM, {nblocks} blocks "
+                   f"= {nblocks / (occ * sms):.2f} waves")
+        st = (stats if grid is None else sh_stats)[name]
+        if k == 8 and tag != "1x1 canvas":
+            st.update(ms=ms, bound_ms=b_ms, bound_by=b_by)
+    print("phase 27 band body vs the first body (queued device ms a launch, "
+          "in turns): " + "; ".join(out) + f" [{card}]", flush=True)
+
+
+def band_runs(dev, card, u4k, gt4k, v4k, gtc4k):
+    """Phase 27's runs through the entry points: phase 19's sharded runs
+    (gray and RGB k = 8, RGB k = 1, the 1x1 mesh) and the flat 4K
+    segment_banded_fixed runs, their masks against the truth and their
+    K2/K5 launches counted; then their rates."""
+    pt = ct.CVParams(mu=0.001 * 255.0 ** 2, max_iter=500)
+    pv = ct.CVParams(mu=0.0001 * 255.0 ** 2, max_iter=500)
+    mesh = make_grid_mesh(2, 2, [dev] * 4)
+    mesh1 = make_grid_mesh(1, 1, [dev])
+    chunks = BAND_ITERS // SHARD_K
+    runs = {  # run, truth, iterations, launches
+        "2x2 gray k=8": (lambda: segment_sharded(
+            u4k, pt, mesh, fixed=True, max_iter=BAND_ITERS, comm_k=SHARD_K),
+            gt4k, BAND_ITERS, {"K2 banded_chunk_sharded": 4 * chunks}),
+        "2x2 rgb k=8": (lambda: segment_sharded(
+            v4k, pv, mesh, fixed=True, max_iter=BAND_ITERS, comm_k=SHARD_K),
+            gtc4k, BAND_ITERS, {"K5 banded_chunk_mc_sharded": 4 * chunks}),
+        "2x2 rgb k=1": (lambda: segment_sharded(
+            v4k, pv, mesh, fixed=True, max_iter=SHARD_ITERS_K1), gtc4k,
+            SHARD_ITERS_K1,
+            {"K5 banded_chunk_mc_sharded": 4 * SHARD_ITERS_K1}),
+        "1x1 gray k=8": (lambda: segment_sharded(
+            u4k, pt, mesh1, fixed=True, max_iter=BAND_ITERS,
+            comm_k=SHARD_K), gt4k, BAND_ITERS,
+            {"K2 banded_chunk_sharded": chunks}),
+        "4K gray packed=False": (lambda: ct.segment_banded_fixed(
+            u4k, pt, BAND_ITERS, k=SHARD_K, packed=False), gt4k,
+            BAND_ITERS, {"K2 banded_chunk": chunks}),
+        "4K rgb packed=False": (lambda: ct.segment_banded_fixed(
+            v4k, pv, BAND_ITERS, k=SHARD_K, packed=False), gtc4k,
+            BAND_ITERS, {"K5 banded_chunk_mc": chunks}),
+    }
+    checks, launches = {}, {}
+    for tag, (fn, gt, _, want) in runs.items():
+        before = band_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        have = {n: v - before[n] for n, v in band_counts().items()
+                if v - before[n]}
+        if have != want:
+            raise AssertionError(f"{tag} launched {have}, expected {want}")
+        launches[tag] = have
+        mask = res.mask if hasattr(res, "mask") else res[1]
+        checks[f"{tag} IoU vs truth"] = (iou_phases(mask.cpu(), gt), 0.99)
+    print("phase 27 runs through the band body: "
+          + "; ".join(f"{k} {v:.6f} (>= {m})" for k, (v, m) in
+                      checks.items())
+          + "; launches " + "; ".join(
+              f"{t}: " + ", ".join(f"{n}={v}" for n, v in c.items())
+              for t, c in launches.items()), flush=True)
+    check_masks(checks)
+    rates = {tag: (it, time_ms(fn, 1))
+             for tag, (fn, _, it, _) in runs.items()}
+    print("phase 27 rates at 4K (Mpixel-iters/s, the whole run): "
+          + "; ".join(f"{t} {it} iterations {ms:.3f} ms = "
+                      f"{H4K * W4K * it / (ms * 1e3):.1f}"
+                      for t, (it, ms) in rates.items()) + f" [{card}]",
+          flush=True)
+
+
+def band_phase(dev, card, u4k, gt4k, v4k, gtc4k, stats, sh_stats,
+               sass_parent):
+    """Phase 27: the band body. Registers, spills and the SASS check
+    against a parent checkout (given), then the checks, times and runs."""
+    regs = [s for s in ptxas_summary().split(", ") if s.startswith("band")]
+    print("phase 27 band body ptxas: " + ", ".join(regs), flush=True)
+    if sass_parent:
+        proc = subprocess.run([sys.executable, "sass_diff.py", sass_parent],
+                              capture_output=True, text=True)
+        print("phase 27 " + proc.stdout.strip().replace("\n", " | "),
+              flush=True)
+        if proc.returncode:
+            raise AssertionError(f"sass_diff.py failed ({proc.returncode}): "
+                                 f"{proc.stderr[-2000:]}")
+    else:
+        print("phase 27 sass_diff: not run (no --sass-parent checkout)",
+              flush=True)
+    p = ct.CVParams()
+    for line in band_checks(dev, p, u4k, v4k, {**stats, **sh_stats}):
+        print(f"phase 27 {line}", flush=True)
+    band_times(dev, card, p, u4k, v4k, stats, sh_stats)
+    band_runs(dev, card, u4k, gt4k, v4k, gtc4k)
+
+
+def main(argv=()) -> int:
+    sass_parent = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--sass-parent":
+            sys.exit("usage: python3 chip_smoke.py [--sass-parent DIR]")
+        sass_parent = argv[1]
     dev = torch.device("cuda", 0)
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
@@ -3085,6 +3444,14 @@ def main() -> int:
         for n, v in mp_stats.items())
         + f" (resident: {MP2_CHUNK} iterations a launch) [{card}]",
         flush=True)
+    sweep_t = check_sweep_no_sync(dev, pm)
+    sweep_b = {"4K": bound_sweep(H4K, W4K)[0],
+               "512^2": bound_sweep(512, 512)[0]}
+    print("phase 9 K1 fused_sweep ran under set_sync_debug_mode('error') "
+          "without a synchronization; queued ms a launch: " + ", ".join(
+              f"{tag} {'parity 1' if par else 'no parity'} {ms:.4f} (bound "
+              f"{sweep_b[tag]:.4f})" for (tag, par), ms in sweep_t.items())
+          + f" [{card}]", flush=True)
 
     # phase 10: multiphase through the user entry points. The auto route
     # sends 512^2 to K10, 1024^2 to K9 resident and 4K to K9 banded;
@@ -3209,6 +3576,8 @@ def main() -> int:
     sh_stats = shard_phases(dev, card, u4k, gt4k, v4k, gtc4k)
     ms_stats = mp_morph_shard_phases(dev, card)
     ha_stats = halo_phases(dev, card, u4k, gt4k)
+    band_phase(dev, card, u4k, gt4k, v4k, gtc4k, stats, sh_stats,
+               sass_parent)
 
     entries = [
         dict(name=name, route="cuda", source=k["source"],
@@ -3230,4 +3599,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main(sys.argv[1:]))

@@ -17,7 +17,8 @@ import torch
 
 from chan_vese_tpu.ops import pallas_banded, pallas_packed, pallas_sweep
 from chan_vese_tpu.ops.reductions import region_means as j_region_means
-from chan_vese_tpu_torch.ops import banded_kernel, fused_kernel, packed_kernel
+from chan_vese_tpu_torch.ops import _cuda, banded_kernel, fused_kernel, \
+    packed_kernel
 from chan_vese_tpu_torch.ops._cuda import tile_geometry
 from chan_vese_tpu_torch.ops.reductions import region_means
 from torch_port_helpers import cuda_device, params, to_np, to_torch
@@ -168,3 +169,26 @@ def test_packed_banded_chunk_cuda_matches_plain():
     got = packed_kernel.packed_banded_chunk(pp, up, c1, c2, pt, 8)
     _check_card(got, packed_kernel.packed_banded_chunk_reference(
         pp, up, c1, c2, pt, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 8, 21])
+@pytest.mark.parametrize("shape", [(200, 300), (1000, 1500)])
+def test_banded_chunk_cuda_is_bitwise_the_first_body(shape, k):
+    """K2 on csrc/band.cuh against the first body (redblack.cuh, the
+    `_v1` launcher): the level set bitwise, the flips exactly, the other
+    sums at the plain bars; a second launch bitwise the first."""
+    phi, u0, c1, c2 = _card_case(cuda_device(), shape, 5)
+    _, pt = params()
+    n = banded_kernel.banded_chunk.launches
+    got = banded_kernel.banded_chunk(phi, u0, c1, c2, pt, k)
+    again = banded_kernel.banded_chunk(phi, u0, c1, c2, pt, k)
+    old = _cuda.launch_chunk("cv_banded_chunk_v1", phi, u0, c1, c2, pt, k,
+                             *shape)
+    torch.cuda.synchronize()
+    assert banded_kernel.banded_chunk.launches == n + 2
+    assert torch.equal(got[0], old[0])
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert float(got[1][3]) == float(old[1][3])
+    np.testing.assert_allclose(to_np(got[1]), to_np(old[1]), **PARTS_TOL)
+

@@ -19,7 +19,7 @@ from chan_vese_tpu.models import banded as jbanded
 from chan_vese_tpu.ops import pallas_banded, pallas_packed, pallas_sweep_mc
 from chan_vese_tpu.ops.reductions import region_means as j_region_means
 from chan_vese_tpu_torch.models import banded as tbanded
-from chan_vese_tpu_torch.ops import (banded_kernel, fused_kernel_mc,
+from chan_vese_tpu_torch.ops import (_cuda, banded_kernel, fused_kernel_mc,
                                      packed_kernel)
 from chan_vese_tpu_torch.ops.reductions import region_means
 from torch_port_helpers import cuda_device, params, to_np, to_torch
@@ -250,3 +250,25 @@ def test_packed_banded_chunk_mc_cuda_matches_plain(nchan):
     got = packed_kernel.packed_banded_chunk_mc(pp, up, c1, c2, pt, 8)
     _check_card(got, packed_kernel.packed_banded_chunk_mc_reference(
         pp, up, c1, c2, pt, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 21])
+@pytest.mark.parametrize("nchan", [1, 3, 8])
+def test_banded_chunk_mc_cuda_is_bitwise_the_first_body(nchan, k):
+    """K5 on csrc/band.cuh against the first body (the `_v1` launcher):
+    the level set bitwise, the flips exactly, the other sums at the plain
+    bars; a second launch bitwise the first."""
+    phi, u0, c1, c2 = _card_case(cuda_device(), (nchan, 1000, 1500), 6)
+    _, pt = params()
+    got = banded_kernel.banded_chunk_mc(phi, u0, c1, c2, pt, k)
+    again = banded_kernel.banded_chunk_mc(phi, u0, c1, c2, pt, k)
+    l1, l2 = pt.channel_lambdas(nchan)
+    old = _cuda.launch_chunk_mc("cv_banded_chunk_mc_v1", phi, u0, c1, c2,
+                                pt, k, 1000, 1500, l1, l2, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], old[0])
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert float(got[1][nchan + 2]) == float(old[1][nchan + 2])
+    np.testing.assert_allclose(to_np(got[1]), to_np(old[1]), **PARTS_TOL)
+

@@ -29,7 +29,8 @@ from chan_vese_tpu.ops.reductions import region_means as j_region_means
 from chan_vese_tpu.parallel import mesh as jmesh
 from chan_vese_tpu.parallel import sharded as jsharded
 from chan_vese_tpu.utils.init_phi import init_phi as j_init_phi
-from chan_vese_tpu_torch.ops import banded_kernel, fused_kernel, packed_kernel
+from chan_vese_tpu_torch.ops import _cuda, banded_kernel, fused_kernel, \
+    packed_kernel
 from chan_vese_tpu_torch.parallel import make_grid_mesh, segment_sharded
 from fixtures import colored_squares, two_disks
 from torch_port_helpers import assert_rel, cuda_device, params, to_np, \
@@ -318,3 +319,42 @@ def test_shard_modes_cuda_match_plain(case):
         np.testing.assert_allclose(to_np(got), to_np(want), **PHI_BAR)
         np.testing.assert_allclose(to_np(parts), to_np(wparts), **PARTS_BAR)
     assert getattr(wrapper, count) == n0 + runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["K2", "K2 k=3 remainder", "K2 3x3 centre",
+                                  "K5", "K5 k=1"])
+def test_band_shard_modes_cuda_are_bitwise_the_first_body(case):
+    """K2's and K5's shard modes on csrc/band.cuh against the first body's
+    shard launchers (`_v1`) on every shard's canvas: the canvas bitwise,
+    the flips exactly, the other sums at chip_smoke.py's bars."""
+    dev = cuda_device()
+    shape, (nx, ny), D, k, lane = CASES[case]
+    rgb = case.startswith("K5")
+    img, phi, c1, c2 = _inputs(shape, F32, rgb)
+    _, pt = params()
+    c1, c2 = to_torch(c1, F32).to(dev), to_torch(c2, F32).to(dev)
+    for _, canvas, ucanvas, par, edges, crop in _canvases(
+            img, phi, nx, ny, D, lane):
+        x = to_torch(canvas, F32).to(dev)
+        u = to_torch(ucanvas, F32).to(dev)
+        shard = _cuda.shard_args(*x.shape, k, par, crop, edges)
+        if rgb:
+            got = banded_kernel.banded_chunk_mc_sharded(x, u, c1, c2, pt, k,
+                                                        par, edges, crop)
+            l1, l2 = pt.channel_lambdas(u.shape[0])
+            old = _cuda.launch_chunk_mc("cv_banded_chunk_mc_shard_v1", x, u,
+                                        c1, c2, pt, k, *x.shape, l1, l2, 16,
+                                        shard=shard)
+        else:
+            got = banded_kernel.banded_chunk_sharded(x, u, c1, c2, pt, k,
+                                                     par, edges, crop)
+            old = _cuda.launch_chunk("cv_banded_chunk_shard_v1", x, u, c1,
+                                     c2, pt, k, *x.shape, shard=shard)
+        torch.cuda.synchronize()
+        flip = (u.shape[0] if rgb else 1) + 2
+        assert torch.equal(got[0], old[0])
+        assert float(got[1][flip]) == float(old[1][flip])
+        np.testing.assert_allclose(to_np(got[1]), to_np(old[1]),
+                                   **PARTS_BAR)
+
