@@ -66,9 +66,10 @@ _MORPH = [_P] * 3 + [_I] * 7 + [_F] + [_I] * 4 + [_P]
 # bottom, left, right flags before the stream
 _MORPH_SHARD = _MORPH[:-1] + [_I] * 8 + [_P]
 _MORPH_FUSED = [_P] * 6 + [_I] * 9 + [_P]
-# K2/K5 on csrc/band.cuh: the scalar or multichannel launcher's pointers
-# and sizes; k, TH, TW, PX, PY, cap; the params; [the shard ints]; stream.
-# Occupancy: [C], shard, threads, dynamic bytes, int* blocks per SM.
+# K2/K5 and K3/K6 on csrc/band.cuh: the scalar or multichannel launcher's
+# pointers and sizes; k, TH, TW, PX, PY, cap; the params; [the shard ints];
+# stream. Occupancy: [C], [shard], threads, dynamic bytes, int* blocks per
+# SM.
 _BAND = [_I] * 6 + [_F] * 9
 _BAND_MC = [_I] * 6 + [_F] * 7
 # the halo ring (csrc/halo_ring.cu, K14): the task array, its length, the
@@ -84,16 +85,22 @@ SIGNATURES = {
     "cv_banded_chunk_mc_shard": _HEAD_MC + _BAND_MC + _SHARD,
     "cv_band_occupancy": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
     "cv_band_occupancy_mc": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
+    "cv_packed_banded_chunk": _HEAD + _BAND + [_P],
+    "cv_packed_banded_chunk_shard": _HEAD + _BAND + _SHARD,
+    "cv_packed_banded_chunk_mc": _HEAD_MC + _BAND_MC + [_P],
+    "cv_packed_band_occupancy": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
+    "cv_packed_band_occupancy_mc": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
     "cv_banded_chunk_v1": _HEAD + [_I] + _TAIL,
-    "cv_packed_banded_chunk": _HEAD + [_I] + _TAIL,
+    "cv_packed_banded_chunk_v1": _HEAD + [_I] + _TAIL,
     # the batch launcher takes the frame count N where mc ones take C
     "cv_fused_iteration_batch": _HEAD_MC + _TAIL,
     "cv_fused_iteration_mc": _HEAD_MC + _TAIL_MC,
     "cv_banded_chunk_mc_v1": _HEAD_MC + [_I] + _TAIL_MC,
-    "cv_packed_banded_chunk_mc": _HEAD_MC + [_I] + _TAIL_MC,
+    "cv_packed_banded_chunk_mc_v1": _HEAD_MC + [_I] + _TAIL_MC,
     "cv_fused_iteration_shard": _HEAD + _TAIL[:-1] + _SHARD,
     "cv_banded_chunk_shard_v1": _HEAD + [_I] + _TAIL[:-1] + _SHARD,
-    "cv_packed_banded_chunk_shard": _HEAD + [_I] + _TAIL[:-1] + _SHARD,
+    "cv_packed_banded_chunk_shard_v1": (_HEAD + [_I] + _TAIL[:-1]
+                                        + _SHARD),
     "cv_banded_chunk_mc_shard_v1": (_HEAD_MC + [_I] + _TAIL_MC[:-1]
                                     + _SHARD),
     "cv_fused_sweep_shard": _HEAD + _TAIL[:-1] + _SHARD,

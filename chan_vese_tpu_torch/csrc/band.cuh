@@ -1,16 +1,31 @@
 // The banded chunk body of K2 (banded.cu, NC = 0) and K5 (banded_mc.cu,
-// NC = C), in their whole-image and shard-canvas modes (SHARD). It
-// computes what redblack.cuh's chunk_kernel computes for those kernels:
-// k red-black iterations with c1/c2 frozen, the shard canvas's lattice
-// parity, crop, edge flags and depth-2 rim refresh after every
-// half-sweep, the canvas outside the crop copied through, and the
+// NC = C), in their whole-image and shard-canvas modes (SHARD), and of K3
+// (packed.cu, both modes) and K6 (packed_mc.cu) on parity planes
+// (PACKED). It computes what redblack.cuh's chunk_kernel computes for
+// those kernels: k red-black iterations with c1/c2 frozen, the shard
+// canvas's lattice parity, crop, edge flags and depth-2 rim refresh after
+// every half-sweep, the canvas outside the crop copied through, and the
 // partials of the last iteration in the same slots, summed in f64 in a
 // fixed order. Every cell goes through redblack.cuh's update_cell_at and
 // the same Heaviside and partials expressions, so the level set comes out
 // bitwise equal to chunk_kernel's. Replaces, like chunk_kernel did,
 // chan_vese_tpu/ops/pallas_banded.py::_banded_kernel (:104, _fusej :230,
-// the sharded branch of banded_chunk_sharded :399) and _banded_mc_kernel
-// (:507, _fusej :625, banded_chunk_mc :776, banded_chunk_mc_sharded :800).
+// the sharded branch of banded_chunk_sharded :399), _banded_mc_kernel
+// (:507, _fusej :625, banded_chunk_mc :776, banded_chunk_mc_sharded :800),
+// and chan_vese_tpu/ops/pallas_packed.py::_packed_banded_kernel (:528,
+// _fusej :670, packed_banded_chunk_sharded :857 with _packed_rim :276) and
+// _packed_banded_mc_kernel (:965, _fusej :1089).
+//
+// The layout enters only the three passes over device memory: the window
+// load, the stores with the partials, and the shard canvas's copy-through.
+// Element (i, j) lives at redblack.cuh's gaddr<PACKED>(i, j, H, W): flat
+// row-major, or planes P[i & 1][j & 1][i >> 1][j >> 1]. The window in
+// shared memory is flat in both, so the sweeps, the rim refresh, the
+// reduction and the tile choice are the flat kernel's, and a packed launch
+// equals pack(flat launch(unpack(x))) bitwise, partials included. The
+// window's column start is even, so the pair (2q, 2q + 1) of row i is one
+// cell of plane (i & 1, 0) and one of plane (i & 1, 1) at the same offset:
+// two 4-byte loads, each consecutive across a warp's q.
 //
 // Bound on the card: the update's arithmetic (4 rsqrt and a divide on the
 // MUFU pipe, ~55 FP32 operations) over every window cell, not DRAM (12
@@ -215,8 +230,9 @@ __device__ __forceinline__ void band_half_sweep(float* cur, float* fpl,
 // Dynamic shared memory: cur[cap] | f planes [2][cap / 2] = 8 cap bytes,
 // cap >= wh * ww of every block's window. PX * PY <= kBandThreads with
 // PX >= ww / 2 and PY kBandRows >= wh; blockDim.x is PX * PY rounded up
-// to whole warps.
-template <int NC, bool SHARD>
+// to whole warps. phi, u0 (each channel) and out hold the image flat or as
+// parity planes (PACKED).
+template <int NC, bool SHARD, bool PACKED>
 __global__ void __launch_bounds__(kBandThreads, 2)
 band_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
             const float* __restrict__ cc, float* __restrict__ out,
@@ -261,11 +277,22 @@ band_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
     for (int j = 0; j < kBandRows; ++j) {
       const int r = r0s + j;
       if (r >= B.wh) break;
-      const int64_t g = (int64_t)(B.wr0 + r) * W + B.wc0 + 2 * q;
-      const float2 v = *reinterpret_cast<const float2*>(phi + g);
-      *reinterpret_cast<float2*>(cur + r * B.ww + 2 * q) = v;
-      const float f0 = data_term<NC>(u0, g, chan, s_cc, P);
-      const float f1 = data_term<NC>(u0, g + 1, chan, s_cc, P);
+      float f0, f1;
+      if constexpr (PACKED) {
+        // column 2q of planes (i & 1, 0) and (i & 1, 1), a plane apart
+        const int64_t g = gaddr<true>(B.wr0 + r, B.wc0 + 2 * q, H, W);
+        const int64_t g1 = g + (chan >> 2);
+        *reinterpret_cast<float2*>(cur + r * B.ww + 2 * q) =
+            make_float2(phi[g], phi[g1]);
+        f0 = data_term<NC>(u0, g, chan, s_cc, P);
+        f1 = data_term<NC>(u0, g1, chan, s_cc, P);
+      } else {
+        const int64_t g = (int64_t)(B.wr0 + r) * W + B.wc0 + 2 * q;
+        const float2 v = *reinterpret_cast<const float2*>(phi + g);
+        *reinterpret_cast<float2*>(cur + r * B.ww + 2 * q) = v;
+        f0 = data_term<NC>(u0, g, chan, s_cc, P);
+        f1 = data_term<NC>(u0, g + 1, chan, s_cc, P);
+      }
       const int red1 = (B.wr0 + r + B.par) & 1;  // 1: the red cell is 2q+1
       fpl[(red1 ? 1 : 0) * (B.wh * B.hw) + r * B.hw + q] = f0;
       fpl[(red1 ? 0 : 1) * (B.wh * B.hw) + r * B.hw + q] = f1;
@@ -297,7 +324,7 @@ band_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
         if (gj < B.tc0 || gj >= B.tc1) continue;
         const float v = cur[r * B.ww + 2 * q + o];
         const float old = fpl[(red1 ^ o) * (B.wh * B.hw) + r * B.hw + q];
-        const int64_t g = (int64_t)gi * W + gj;
+        const int64_t g = gaddr<PACKED>(gi, gj, H, W);
         out[g] = v;
         const float h = 0.5f + P.inv_pi * atanf(v / P.eps);
         const float d = v - old;
@@ -323,7 +350,7 @@ band_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
     for (int idx = threadIdx.x; idx < (er1 - er0) * ew; idx += blockDim.x) {
       const int gi = er0 + idx / ew, gj = ec0 + idx % ew;
       if (gi < B.tr0 || gi >= B.tr1 || gj < B.tc0 || gj >= B.tc1) {
-        const int64_t g = (int64_t)gi * W + gj;
+        const int64_t g = gaddr<PACKED>(gi, gj, H, W);
         out[g] = phi[g];
       }
     }
@@ -382,10 +409,10 @@ band_reduce_kernel(const double* __restrict__ block_parts, int nblocks,
   }
 }
 
-// Raises band_kernel<NC, SHARD>'s dynamic shared-memory limit to what
-// the device's opt-in block maximum leaves beside its static part, once
-// per device and process.
-template <int NC, bool SHARD>
+// Raises band_kernel<NC, SHARD, PACKED>'s dynamic shared-memory limit to
+// what the device's opt-in block maximum leaves beside its static part,
+// once per device and process.
+template <int NC, bool SHARD, bool PACKED>
 cudaError_t band_attributes() {
   static bool done[kMaxDevices] = {};
   int dev = 0;
@@ -397,9 +424,9 @@ cudaError_t band_attributes() {
                                dev);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, band_kernel<NC, SHARD>);
+  err = cudaFuncGetAttributes(&attr, band_kernel<NC, SHARD, PACKED>);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(band_kernel<NC, SHARD>,
+  err = cudaFuncSetAttribute(band_kernel<NC, SHARD, PACKED>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              optin - (int)attr.sharedSizeBytes);
   if (err == cudaSuccess && dev >= 0 && dev < kMaxDevices) done[dev] = true;
@@ -410,22 +437,23 @@ cudaError_t band_attributes() {
 // caller (ops/_cuda.py::launch_band) chooses TH, TW, PX, PY and cap
 // (band_geometry) and allocates out, block_parts ((nblocks,
 // sum_slots<NC>()) f64) and parts (nout f32). On a shard canvas the grid
-// tiles S's crop.
-template <int NC, bool SHARD>
+// tiles S's crop; PACKED: phi, u0 and out are parity planes.
+template <int NC, bool SHARD, bool PACKED = false>
 cudaError_t launch_band(const float* phi, const float* u0, const float* cc,
                         float* out, double* block_parts, float* parts, int H,
                         int W, int k, int TH, int TW, int PX, int PY,
                         int cap, int nout, Params P, cudaStream_t stream,
                         Shard S) {
   if (PX < 1 || PY < 1 || PX * PY > kBandThreads) return cudaErrorInvalidValue;
-  cudaError_t err = band_attributes<NC, SHARD>();
+  cudaError_t err = band_attributes<NC, SHARD, PACKED>();
   if (err != cudaSuccess) return err;
   const int th = SHARD ? S.r1 - S.r0 : H, tw = SHARD ? S.c1 - S.c0 : W;
   const dim3 grid((tw + TW - 1) / TW, (th + TH - 1) / TH);
   // whole warps (the reduction's shuffles); the extra threads idle
   const int threads = (PX * PY + 31) & ~31;
-  band_kernel<NC, SHARD><<<grid, threads, (size_t)cap * 8, stream>>>(
-      phi, u0, cc, out, block_parts, H, W, k, TH, TW, PX, cap, P, S);
+  band_kernel<NC, SHARD, PACKED>
+      <<<grid, threads, (size_t)cap * 8, stream>>>(
+          phi, u0, cc, out, block_parts, H, W, k, TH, TW, PX, cap, P, S);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   band_reduce_kernel<sum_slots<NC>()><<<1, 256, 0, stream>>>(
@@ -433,40 +461,43 @@ cudaError_t launch_band(const float* phi, const float* u0, const float* cc,
   return cudaGetLastError();
 }
 
-// blocks of band_kernel<NC, SHARD> that fit on one SM at `threads` and
-// `smem` dynamic bytes
-template <int NC, bool SHARD>
+// blocks of band_kernel<NC, SHARD, PACKED> that fit on one SM at
+// `threads` and `smem` dynamic bytes
+template <int NC, bool SHARD, bool PACKED = false>
 cudaError_t band_occupancy(int threads, int smem, int* blocks) {
-  cudaError_t err = band_attributes<NC, SHARD>();
+  cudaError_t err = band_attributes<NC, SHARD, PACKED>();
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, band_kernel<NC, SHARD>, (threads + 31) & ~31, (size_t)smem);
+      blocks, band_kernel<NC, SHARD, PACKED>, (threads + 31) & ~31,
+      (size_t)smem);
 }
 
 // C-channel image: the runtime channel count C (1..kMaxChannels) picks
 // the kernel compiled for it.
-template <bool SHARD, int NC = 1>
+template <bool SHARD, bool PACKED = false, int NC = 1>
 cudaError_t launch_band_mc(const float* phi, const float* u0,
                            const float* cc, float* out, double* block_parts,
                            float* parts, int H, int W, int C, int k, int TH,
                            int TW, int PX, int PY, int cap, int nout,
                            Params P, cudaStream_t stream, Shard S) {
   if (C == NC)
-    return launch_band<NC, SHARD>(phi, u0, cc, out, block_parts, parts, H,
-                                  W, k, TH, TW, PX, PY, cap, nout, P, stream,
-                                  S);
+    return launch_band<NC, SHARD, PACKED>(phi, u0, cc, out, block_parts,
+                                          parts, H, W, k, TH, TW, PX, PY,
+                                          cap, nout, P, stream, S);
   if constexpr (NC < kMaxChannels)
-    return launch_band_mc<SHARD, NC + 1>(phi, u0, cc, out, block_parts,
-                                         parts, H, W, C, k, TH, TW, PX, PY,
-                                         cap, nout, P, stream, S);
+    return launch_band_mc<SHARD, PACKED, NC + 1>(
+        phi, u0, cc, out, block_parts, parts, H, W, C, k, TH, TW, PX, PY,
+        cap, nout, P, stream, S);
   return cudaErrorInvalidValue;
 }
 
-template <bool SHARD, int NC = 1>
+template <bool SHARD, bool PACKED = false, int NC = 1>
 cudaError_t band_occupancy_mc(int C, int threads, int smem, int* blocks) {
-  if (C == NC) return band_occupancy<NC, SHARD>(threads, smem, blocks);
+  if (C == NC)
+    return band_occupancy<NC, SHARD, PACKED>(threads, smem, blocks);
   if constexpr (NC < kMaxChannels)
-    return band_occupancy_mc<SHARD, NC + 1>(C, threads, smem, blocks);
+    return band_occupancy_mc<SHARD, PACKED, NC + 1>(C, threads, smem,
+                                                    blocks);
   return cudaErrorInvalidValue;
 }
 

@@ -1,10 +1,10 @@
 """Launch path shared by the red-black kernels (K1-K3 on a scalar image,
-K1 on a stack of frames, K4-K6 on a C-channel image; K2 and K5 on the
-banded body of csrc/band.cuh, the others on csrc/redblack.cuh), the exact-means
-resident kernels (K7 flat, K8 parity planes; scalar, batch and C-channel
-modes) and their frozen-means chunk mode (K13), the 4-phase kernels (K9
-banded and resident, K10 parity planes), the morphological kernels (K11,
-K12) and the parity pack and unpack (K15, K16).
+K1 on a stack of frames, K4-K6 on a C-channel image; K2, K3, K5 and K6 on
+the banded body of csrc/band.cuh, the others on csrc/redblack.cuh), the
+exact-means resident kernels (K7 flat, K8 parity planes; scalar, batch and
+C-channel modes) and their frozen-means chunk mode (K13), the 4-phase
+kernels (K9 banded and resident, K10 parity planes), the morphological
+kernels (K11, K12) and the parity pack and unpack (K15, K16).
 
 Checks the inputs, chooses the tile geometry (the resident kernels: the
 cooperative grid), allocates the outputs and scratch, and calls the kernel
@@ -44,8 +44,8 @@ def tile_geometry(h: int, w: int, k: int, cell_bytes: int = 10,
                      f"(window of the smallest tile exceeds {SMEM_LIMIT} B)")
 
 
-# csrc/band.cuh (K2, K5): rows of a thread's strip, most threads a block,
-# and the SM resources its tiles are chosen against: registers (64 a
+# csrc/band.cuh (K2, K3, K5, K6): rows of a thread's strip, most threads a
+# block, and the SM resources its tiles are chosen against: registers (64 a
 # thread under __launch_bounds__(512, 2)), warps, shared memory (the SM's
 # 228 KB, 1 KB of it reserved a block) and the H100 SXM's SM count
 BAND_ROWS, BAND_THREADS = 12, 512
@@ -64,6 +64,15 @@ def band_window(tr0, tr1, tc0, tc1, h, w, k):
     wr0, wr1 = max(tr0 - 2 * k, 0), min(tr1 + 2 * k, h)
     wc0, wc1 = max(tc0 - 2 * k, 0) & ~1, min(tc1 + 2 * k, w)
     return wr0, wr1, wc0, wc1 + ((wc1 - wc0) & 1)
+
+
+def plane_offset(i, j, h: int, w: int):
+    """Offset of element (i, j) of an (h, w) image stored as parity planes
+    (2, 2, h/2, w/2), plane (i & 1, j & 1) at row i >> 1, column j >> 1:
+    the band body's packed address (csrc/redblack.cuh gaddr<true>). ``i``
+    and ``j`` may be ints or integer tensors."""
+    hp, wp = h // 2, w // 2
+    return (((i & 1) * 2 + (j & 1)) * hp + (i >> 1)) * wp + (j >> 1)
 
 
 def band_static_bytes(nsums: int, cc_len: int) -> int:
@@ -122,17 +131,27 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def band_occupancy(c: int, shard: bool, threads: int, cap: int) -> int:
-    """The card's blocks per SM of the band body (C channels, 0: K2) at
-    ``threads`` threads and ``cap`` window cells
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+def band_occupancy(c: int, shard: bool, threads: int, cap: int,
+                   packed: bool = False) -> int:
+    """The card's blocks per SM of the band body (C channels, 0: K2; on
+    parity planes with ``packed``: K3, K6) at ``threads`` threads and
+    ``cap`` window cells (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
+    """
     import ctypes
 
     from .._build import library
 
     lib = library()
     n = ctypes.c_int(0)
-    if c:
+    if packed and c:
+        if shard:
+            raise ValueError("K6 has no shard-canvas mode")
+        err = lib.cv_packed_band_occupancy_mc(c, threads, 8 * cap,
+                                              ctypes.byref(n))
+    elif packed:
+        err = lib.cv_packed_band_occupancy(int(shard), threads, 8 * cap,
+                                           ctypes.byref(n))
+    elif c:
         err = lib.cv_band_occupancy_mc(c, int(shard), threads, 8 * cap,
                                        ctypes.byref(n))
     else:
@@ -249,36 +268,59 @@ def _mc_means(c1, c2, l1, l2, c, dev):
         _weights(tuple(l1), tuple(l2), dev)])
 
 
-def launch_band(phi, u0, c1, c2, p, k: int, shard=None, l1=None, l2=None):
-    """One launch of the band body (csrc/band.cuh): K2 on an (h, w) phi and
-    u0, or K5 with a channels-first (C, h, w) u0, (C,) means and the
-    per-channel lambda tuples ``l1``, ``l2``; ``shard``: the
-    :func:`shard_args` of a shard-canvas launch. Returns (phi_new,
-    partials: (8,) for K2, (16,) for K5)."""
-    from .._build import library
-
-    c = 0 if l1 is None else mc_channels(phi, u0)
+def band_plan(phi, u0, k: int, shard=None, c: int = 0, sms: int = SMS):
+    """(symbol, h, w, (TH, TW, PX, PY, cap), blocks) of a band-body launch
+    on ``phi``: an (h, w) image (K2, K5 with ``c`` channels) or its parity
+    planes (2, 2, h/2, w/2) (K3, K6), whose launch takes the flat one's
+    geometry; ``shard``: the :func:`shard_args` of a shard-canvas launch
+    (K2, K3, K5). Checks the shapes, not the device."""
+    packed = phi.ndim == 4
+    if packed:
+        if tuple(phi.shape[:2]) != (2, 2):
+            raise ValueError(f"expected (2, 2, H/2, W/2) planes, got "
+                             f"{tuple(phi.shape)}")
+        if c and shard is not None:
+            raise ValueError("K6 has no shard-canvas mode")
+        h, w = 2 * phi.shape[2], 2 * phi.shape[3]
+    elif phi.ndim == 2:
+        h, w = phi.shape
+    else:
+        raise ValueError(f"phi must be (H, W) or (2, 2, H/2, W/2) planes, "
+                         f"got {tuple(phi.shape)}")
     if not c and u0.shape != phi.shape:
         raise ValueError(f"u0 {tuple(u0.shape)} vs phi {tuple(phi.shape)}")
-    _check_inputs(phi, u0)
-    if phi.ndim != 2:
-        raise ValueError(f"phi must be (H, W), got {tuple(phi.shape)}")
-    h, w = phi.shape
     check_even(h, w)
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    if phi.data_ptr() % 8 or u0.data_ptr() % 8:
+    nsums, cc_len = (c + 4, 4 * c) if c else (5, 2)
+    crop = None if shard is None else tuple(shard[1:5])
+    geo = band_geometry(h, w, k, crop, nsums, cc_len, sms)
+    th_all, tw_all = (h, w) if crop is None else (crop[1] - crop[0],
+                                                  crop[3] - crop[2])
+    blocks = math.ceil(th_all / geo[0]) * math.ceil(tw_all / geo[1])
+    symbol = (("cv_packed_banded_chunk" if packed else "cv_banded_chunk")
+              + ("_mc" if c else "") + ("" if shard is None else "_shard"))
+    return symbol, h, w, geo, blocks
+
+
+def launch_band(phi, u0, c1, c2, p, k: int, shard=None, l1=None, l2=None):
+    """One launch of the band body (csrc/band.cuh): K2 on an (h, w) phi and
+    u0, or K5 with a channels-first (C, h, w) u0, (C,) means and the
+    per-channel lambda tuples ``l1``, ``l2``; K3 and K6 the same on parity
+    planes (phi (2, 2, h/2, w/2), u0 of phi's shape or (C, *phi.shape)).
+    ``shard``: the :func:`shard_args` of a shard-canvas launch (K2, K3,
+    K5). Returns (phi_new, partials: (8,) for K2/K3, (16,) for K5/K6)."""
+    from .._build import library
+
+    c = 0 if l1 is None else mc_channels(phi, u0)
+    _check_inputs(phi, u0)
+    dev = phi.device
+    symbol, h, w, (th, tw, px, py, cap), nblocks = band_plan(
+        phi, u0, k, shard, c, _sm_count(dev.index))
+    if phi.ndim == 2 and (phi.data_ptr() % 8 or u0.data_ptr() % 8):
         raise ValueError("the band body reads 8-byte pairs: phi and u0 must "
                          "start on an 8-byte boundary")
-    dev = phi.device
     nsums, nout = (c + 4, 16) if c else (5, 8)
-    cc_len = 4 * c if c else 2
-    th, tw, px, py, cap = band_geometry(
-        h, w, k, None if shard is None else tuple(shard[1:5]), nsums,
-        cc_len, _sm_count(dev.index))
-    th_all, tw_all = (h, w) if shard is None else (shard[2] - shard[1],
-                                                   shard[4] - shard[3])
-    nblocks = math.ceil(th_all / th) * math.ceil(tw_all / tw)
     out = torch.empty_like(phi)
     block_parts = torch.empty((nblocks, nsums), dtype=torch.float64,
                               device=dev)
@@ -286,13 +328,9 @@ def launch_band(phi, u0, c1, c2, p, k: int, shard=None, l1=None, l2=None):
     if c:
         cc = _mc_means(c1, c2, l1, l2, c, dev)
         params = (p.mu, p.nu, *_common_params(p))
-        symbol = "cv_banded_chunk_mc"
     else:
         cc = _means(c1, c2, dev)
         params = (p.mu, p.nu, p.lambda1, p.lambda2, *_common_params(p))
-        symbol = "cv_banded_chunk"
-    if shard is not None:
-        symbol += "_shard"
     lib = library()
     with torch.cuda.device(dev):
         err = getattr(lib, symbol)(

@@ -8,8 +8,13 @@ mode :func:`packed_banded_chunk_sharded`, which launches
 ``csrc/packed.cu``'s shard launcher). Plane (a, b)
 holds P[a][b][r, c] = phi[2r+a, 2c+b]. On a CUDA tensor
 :func:`packed_banded_chunk` launches ``csrc/packed.cu`` and
-:func:`packed_banded_chunk_mc` ``csrc/packed_mc.cu``; on a CPU tensor they
-run their ``_reference`` plain versions.
+:func:`packed_banded_chunk_mc` ``csrc/packed_mc.cu``, both on the band body
+of ``csrc/band.cuh`` (:func:`._cuda.launch_band`, K2's and K5's geometry
+and cell order, so a launch is bitwise K2's or K5's on the unpacked
+image); on a CPU tensor they run their ``_reference`` plain versions. The
+first bodies (``cv_packed_banded_chunk_v1``, ``_shard_v1``, ``_mc_v1``)
+stay in the library as the yardstick of the band body; no wrapper reaches
+them.
 
 K15/K16 (:func:`pack_planes`, :func:`unpack_planes`) are the parity pack
 and its inverse for (H, W) and (N, H, W) inputs (a frame or channel
@@ -177,9 +182,7 @@ def packed_banded_chunk(phi_planes, u0_planes, c1, c2, p: CVParams,
     if phi_planes.device.type == "cpu":
         return packed_banded_chunk_reference(phi_planes, u0_planes, c1, c2,
                                              p, k)
-    _, _, hp, wp = phi_planes.shape
-    out = _cuda.launch_chunk("cv_packed_banded_chunk", phi_planes,
-                             u0_planes, c1, c2, p, k, 2 * hp, 2 * wp)
+    out = _cuda.launch_band(phi_planes, u0_planes, c1, c2, p, k)
     packed_banded_chunk.launches += 1
     return out
 
@@ -230,9 +233,8 @@ def packed_banded_chunk_sharded(canvas_planes, u0_canvas_planes, c1, c2,
     if canvas_planes.device.type == "cpu":
         return packed_banded_chunk_sharded_reference(
             canvas_planes, u0_canvas_planes, c1, c2, p, k, edges, crop)
-    out = _cuda.launch_chunk("cv_packed_banded_chunk_shard", canvas_planes,
-                             u0_canvas_planes, c1, c2, p, k, 2 * hp, 2 * wp,
-                             shard=shard)
+    out = _cuda.launch_band(canvas_planes, u0_canvas_planes, c1, c2, p, k,
+                            shard=shard)
     packed_banded_chunk_sharded.launches += 1
     return out
 
@@ -287,11 +289,9 @@ def packed_banded_chunk_mc(phi_planes, u0_planes, c1, c2, p: CVParams,
     if phi_planes.device.type == "cpu":
         return packed_banded_chunk_mc_reference(phi_planes, u0_planes, c1,
                                                 c2, p, k, lambda1, lambda2)
-    _, _, hp, wp = phi_planes.shape
     l1, l2 = p.channel_lambdas(C, lambda1, lambda2)
-    out = _cuda.launch_chunk_mc("cv_packed_banded_chunk_mc", phi_planes,
-                                u0_planes, c1, c2, p, k, 2 * hp, 2 * wp, l1,
-                                l2, 16)
+    out = _cuda.launch_band(phi_planes, u0_planes, c1, c2, p, k, l1=l1,
+                            l2=l2)
     packed_banded_chunk_mc.launches += 1
     return out
 

@@ -69,19 +69,23 @@ halo='rdma' bitwise equal to halo='ppermute', K14's launches counted,
 halo='overlap' (the kernels' hybrid at 4K against ppermute, the plain
 route bitwise at 1080p), and the times: K14 an exchange beside
 exchange_halo2d and its bound, and the 4K rates of the three mechanisms.
-Phase 27 does the same for the banded body of K2 and K5 (csrc/band.cuh):
-registers, spills and (with --sass-parent DIR, a checkout of the parent
-package) sass_diff.py's check that every kernel left on redblack.cuh
-compiles as before; each mode (whole image and shard canvas) against the
-first body's `_v1` launchers (phi bitwise, flips exact), its plain
-version and its own second launch at 4K gray and RGB (k = 1, 8, 21), a
-ragged shape and every shard of the 2x2 and 3x3 grids and the 1x1 canvas
-(each crop bitwise equal to the whole-image launch); the two bodies in
-turns at the main path's shapes beside the bound, blocks per SM and
-waves; and phase 19's sharded runs and the flat 4K segment_banded_fixed
-runs through the entry points, their masks against the truth and every
-K2/K5 launch counted, with their rates. K1's force mode runs once under
-torch.cuda.set_sync_debug_mode("error") (phase 9).
+Phase 27 does the same for the banded body of K2, K3, K5 and K6
+(csrc/band.cuh, K3 and K6 on parity planes): registers, spills and (with
+--sass-parent DIR, a checkout of the parent package) sass_diff.py's check
+that every kernel body of the parent compiles as before; each mode (whole
+image and shard canvas) against the first body's `_v1` launchers (phi
+bitwise, flips exact), its plain version and its own second launch at 4K
+gray and RGB (k = 1, 8, 21), a ragged shape and every shard of the 2x2
+and 3x3 grids and the 1x1 canvas (each crop bitwise equal to the
+whole-image launch), K3 and K6 also bitwise K2's and K5's launch on the
+unpacked inputs in phi and every partial; the two bodies in turns at the
+main path's shapes beside the bound, blocks per SM and waves; and phase
+19's sharded runs (the 1x1 mesh also packed) and the 4K
+segment_banded_fixed runs, flat and default-routed (packed), through the
+entry points, their masks against the truth and every K2/K3/K5/K6 launch
+counted, with their rates (the default route also on the first body).
+K1's force mode runs once under torch.cuda.set_sync_debug_mode("error")
+(phase 9).
 Any failure raises and exits non-zero.
 The last lines are a JSON object per kernel, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -174,7 +178,7 @@ KERNELS = {
     "K3 packed_banded_chunk": dict(
         wrapper=packed_kernel.packed_banded_chunk,
         plain=packed_kernel.packed_banded_chunk_reference,
-        source="chan_vese_tpu_torch/csrc/packed.cu",
+        source="chan_vese_tpu_torch/csrc/band.cuh",
         replaces="chan_vese_tpu/ops/pallas_packed.py:528", ks=(8,),
         packed=True, channels=0),
     "K4 fused_iteration_mc": dict(
@@ -194,7 +198,7 @@ KERNELS = {
     "K6 packed_banded_chunk_mc": dict(
         wrapper=packed_kernel.packed_banded_chunk_mc,
         plain=packed_kernel.packed_banded_chunk_mc_reference,
-        source="chan_vese_tpu_torch/csrc/packed_mc.cu",
+        source="chan_vese_tpu_torch/csrc/band.cuh",
         replaces="chan_vese_tpu/ops/pallas_packed.py:965", ks=(8,),
         packed=True, channels=RGB),
 }
@@ -399,7 +403,7 @@ SHARD = {
         channels=0, counter=(banded_kernel.banded_chunk_sharded,
                              "launches")),
     "K3 packed_banded_chunk_sharded": dict(
-        source="chan_vese_tpu_torch/csrc/packed.cu",
+        source="chan_vese_tpu_torch/csrc/band.cuh",
         replaces="chan_vese_tpu/ops/pallas_packed.py:857", ks=(8,),
         channels=0, counter=(packed_kernel.packed_banded_chunk_sharded,
                              "launches")),
@@ -664,7 +668,8 @@ def ptxas_summary():
     for line in _build.ptxas_report().splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:  # the lines up to the next entry describe this one
-            mb = re.search(r"[^_]band_kernelILi(\d+)ELb(\d)E", m.group(1))
+            mb = re.search(r"[^_]band_kernelILi(\d+)ELb(\d)ELb(\d)E",
+                           m.group(1))
             mm = re.search(r"morph_kernelILi(\d)E", m.group(1))
             m = re.search(r"(mp2_band|mp2_resident|chunk|resident)_kernel"
                           r"(?:ILb(\d)E(?:Li(n?)(\d+)E)?(?:Lb(\d)E)?)?",
@@ -672,7 +677,8 @@ def ptxas_summary():
             name = None
             if mb:
                 nc = int(mb.group(1))
-                name = ("band", "flat", (f" C={nc}" if nc else "")
+                name = ("band", ("flat", "packed")[mb.group(3) == "1"],
+                        (f" C={nc}" if nc else "")
                         + (" shard" if mb.group(2) == "1" else ""))
             elif mm:
                 name = ("morph", morph_kinds[int(mm.group(1))], "")
@@ -2784,17 +2790,24 @@ def halo_phases(dev, card, u4k, gt4k):
     return st
 
 
-# the band body (phase 27): K2 and K5 on csrc/band.cuh, in their
-# whole-image and shard-canvas modes, against the first body (redblack.cuh,
-# the `_v1` launchers), their plain versions and their second launches;
-# the counter each wrapper adds to where it launches
+# the band body (phase 27): K2 and K5 on csrc/band.cuh, K3 and K6 on it
+# with parity planes, in their whole-image and shard-canvas modes, against
+# the first body (redblack.cuh, the `_v1` launchers), their plain versions
+# and their second launches: (channels, shard mode, packed, the counter
+# each wrapper adds to where it launches)
 BAND = {
-    "K2 banded_chunk": (0, False, banded_kernel.banded_chunk),
-    "K2 banded_chunk_sharded": (0, True,
+    "K2 banded_chunk": (0, False, False, banded_kernel.banded_chunk),
+    "K2 banded_chunk_sharded": (0, True, False,
                                 banded_kernel.banded_chunk_sharded),
-    "K5 banded_chunk_mc": (RGB, False, banded_kernel.banded_chunk_mc),
-    "K5 banded_chunk_mc_sharded": (RGB, True,
+    "K5 banded_chunk_mc": (RGB, False, False, banded_kernel.banded_chunk_mc),
+    "K5 banded_chunk_mc_sharded": (RGB, True, False,
                                    banded_kernel.banded_chunk_mc_sharded),
+    "K3 packed_banded_chunk": (0, False, True,
+                               packed_kernel.packed_banded_chunk),
+    "K3 packed_banded_chunk_sharded": (
+        0, True, True, packed_kernel.packed_banded_chunk_sharded),
+    "K6 packed_banded_chunk_mc": (RGB, False, True,
+                                  packed_kernel.packed_banded_chunk_mc),
 }
 # chunk depths of the whole-image checks, the ragged even shape (its last
 # tiles partial), and the shard checks' k (K5 also at the per-iteration
@@ -2806,23 +2819,38 @@ BAND_ITERS = 800
 
 
 def band_counts():
-    return {name: fn.launches for name, (_, _, fn) in BAND.items()}
+    return {name: fn.launches for name, (*_, fn) in BAND.items()}
 
 
-def band_call(c, p, k, v1=False):
+def band_call(c, p, k, v1=False, packed=False):
     """fn(phi, image, c1, c2, shard ints or None) -> (phi, partials) of the
     band body through its wrappers, or of the first body's `_v1`
-    launchers; the image channels-first for K5."""
+    launchers; the image channels-first for K5 and K6; with ``packed``
+    (K3, K6) phi and the image are parity planes, and the shard ints
+    those of the unpacked canvas (lattice parity 0)."""
+    pre = "cv_packed_banded_chunk" if packed else "cv_banded_chunk"
     if v1:
         def run(x, u, a, b, shard):
             suffix = "_v1" if shard is None else "_shard_v1"
+            h, w = (2 * x.shape[-2], 2 * x.shape[-1]) if packed else x.shape
             if c:
                 l1, l2 = p.channel_lambdas(c)
                 return _cuda.launch_chunk_mc(
-                    "cv_banded_chunk_mc" + suffix, x, u, a, b, p, k,
-                    *x.shape, l1, l2, 16, shard=shard)
-            return _cuda.launch_chunk("cv_banded_chunk" + suffix, x, u, a, b,
-                                      p, k, *x.shape, shard=shard)
+                    pre + "_mc" + suffix, x, u, a, b, p, k, h, w, l1, l2, 16,
+                    shard=shard)
+            return _cuda.launch_chunk(pre + suffix, x, u, a, b, p, k, h, w,
+                                      shard=shard)
+        return run
+    if packed:
+        def run(x, u, a, b, shard):
+            if shard is None:
+                return (packed_kernel.packed_banded_chunk_mc if c
+                        else packed_kernel.packed_banded_chunk)(x, u, a, b,
+                                                                p, k)
+            par, r0, r1, c0, c1, *edges = shard
+            assert par == 0, shard
+            return packed_kernel.packed_banded_chunk_sharded(
+                x, u, a, b, p, k, edges, (r0, r1, c0, c1))
         return run
 
     def run(x, u, a, b, shard):
@@ -2836,7 +2864,18 @@ def band_call(c, p, k, v1=False):
     return run
 
 
-def band_plain(c, p, k):
+def band_plain(c, p, k, packed=False):
+    if packed:
+        def run(x, u, a, b, shard):
+            if shard is None:
+                return (packed_kernel.packed_banded_chunk_mc_reference if c
+                        else packed_kernel.packed_banded_chunk_reference)(
+                    x, u, a, b, p, k)
+            _, r0, r1, c0, c1, *edges = shard
+            return packed_kernel.packed_banded_chunk_sharded_reference(
+                x, u, a, b, p, k, edges, (r0, r1, c0, c1))
+        return run
+
     def run(x, u, a, b, shard):
         if shard is None:
             return (banded_kernel.banded_chunk_mc_reference if c
@@ -2849,16 +2888,26 @@ def band_plain(c, p, k):
     return run
 
 
-def check_band(name, c, p, k, args, tag):
+def check_band(name, c, p, k, args, tag, packed=False):
     """The band body's launch against the first body's (phi bitwise, the
     flips exactly), its plain version (phase 3's bars) and its own second
-    launch (bitwise). Returns (phi, partials, max |d phi| vs plain, max
-    relative difference of the other partial sums from the first
-    body's)."""
-    got = band_call(c, p, k)(*args)
-    again = band_call(c, p, k)(*args)
-    old = band_call(c, p, k, v1=True)(*args)
-    ref = band_plain(c, p, k)(*args)
+    launch (bitwise); a packed launch (K3, K6) also against the flat
+    kernel's launch on the unpacked inputs, packed (phi and every partial
+    bitwise). Returns (phi, partials, max |d phi| vs plain, max relative
+    difference of the other partial sums from the first body's)."""
+    got = band_call(c, p, k, packed=packed)(*args)
+    again = band_call(c, p, k, packed=packed)(*args)
+    old = band_call(c, p, k, v1=True, packed=packed)(*args)
+    ref = band_plain(c, p, k, packed=packed)(*args)
+    if packed:
+        x, u, a, b, shard = args
+        flat = band_call(c, p, k)(packed_kernel.unpack_planes(x),
+                                  packed_kernel.unpack_planes(u), a, b,
+                                  shard)
+        if not (torch.equal(got[0], packed_kernel.pack_planes(flat[0]))
+                and torch.equal(got[1], flat[1])):
+            raise AssertionError(f"{name} {tag}: differs from the flat "
+                                 f"kernel's launch on the unpacked inputs")
     torch.cuda.synchronize()
     flip = (c or 1) + 2
     if not torch.equal(got[0], old[0]):
@@ -2900,9 +2949,13 @@ def band_checks(dev, p, u4k, v4k, stats):
     ragged = {0: (ur, *region_means(ur, phir, p.eps)),
               RGB: (vr.permute(2, 0, 1).contiguous(),
                     *region_means(vr, phir, p.eps))}
+    pack, unpack = packed_kernel.pack_planes, packed_kernel.unpack_planes
     lines = []
-    for name, (c, shard, _) in BAND.items():
+    for name, (c, shard, packed, _) in BAND.items():
         st = stats[name]
+        lay = pack if packed else (lambda t: t)
+        also = (f"; phi and every partial bitwise {'K5' if c else 'K2'}'s "
+                f"on the unpacked inputs" if packed else "")
         if not shard:
             whole = [(phi, inputs, H4K, W4K, k) for k in BAND_KS] + [
                 (phir, ragged, *BAND_RAGGED, 8)]
@@ -2910,19 +2963,21 @@ def band_checks(dev, p, u4k, v4k, stats):
             for x, inp, h, w, k in whole:
                 u, c1, c2 = inp[c]
                 _, err, rel = check_band(name, c, p, k,
-                                         (x, u, c1, c2, None),
-                                         f"{h}x{w} k={k}")
+                                         (lay(x), lay(u), c1, c2, None),
+                                         f"{h}x{w} k={k}", packed)
                 st["max_abs_err"] = max(st["max_abs_err"], err)
                 rels.append(rel)
             lines.append(f"{name} 4K k={BAND_KS} and {BAND_RAGGED[0]}x"
                          f"{BAND_RAGGED[1]} k=8: phi bitwise the first "
                          f"body's, flips equal, other sums within "
-                         f"{max(rels):.2e} relative of its")
+                         f"{max(rels):.2e} relative of its{also}")
             continue
         u, c1, c2 = inputs[c]
         for k in BAND_SHARD_KS if c else BAND_SHARD_KS[:1]:
             D = 4 * k
-            whole = band_call(c, p, k)(phi, u, c1, c2, None)[0]
+            whole = band_call(c, p, k, packed=packed)(lay(phi), lay(u), c1,
+                                                      c2, None)[0]
+            whole = unpack(whole) if packed else whole
             rels = []
             for nx, ny in SHARD_GRIDS + ((1, 1),):
                 h, w = H4K // nx, W4K // ny
@@ -2930,12 +2985,14 @@ def band_checks(dev, p, u4k, v4k, stats):
                         phi, u, nx, ny, D, dev):
                     sh = _cuda.shard_args(*x.shape, k, par, crop, edges)
                     tag = f"k={k} shard {pos} of {nx}x{ny}"
-                    got, err, rel = check_band(name, c, p, k,
-                                               (x, uc, c1, c2, sh), tag)
+                    got, err, rel = check_band(
+                        name, c, p, k, (lay(x), lay(uc), c1, c2, sh), tag,
+                        packed)
                     st["max_abs_err"] = max(st["max_abs_err"], err)
                     rels.append(rel)
                     ix, iy = pos
-                    if not torch.equal(got[0][D:D + h, D:D + w],
+                    mine = unpack(got[0]) if packed else got[0]
+                    if not torch.equal(mine[D:D + h, D:D + w],
                                        whole[ix * h:(ix + 1) * h,
                                              iy * w:(iy + 1) * w]):
                         raise AssertionError(f"{name} {tag}: the crop "
@@ -2944,7 +3001,7 @@ def band_checks(dev, p, u4k, v4k, stats):
             lines.append(f"{name} k={k} every shard of 2x2, 3x3 and the 1x1 "
                          f"canvas: phi bitwise the first body's and each "
                          f"crop the whole-image launch's, flips equal, other "
-                         f"sums within {max(rels):.2e} relative")
+                         f"sums within {max(rels):.2e} relative{also}")
     return lines
 
 
@@ -2959,10 +3016,15 @@ def band_times(dev, card, p, u4k, v4k, stats, sh_stats):
              ("K2 banded_chunk_sharded", "2x2 canvas", 8, (2, 2)),
              ("K5 banded_chunk_mc_sharded", "2x2 canvas RGB", 8, (2, 2)),
              ("K5 banded_chunk_mc_sharded", "2x2 canvas RGB", 1, (2, 2)),
-             ("K2 banded_chunk_sharded", "1x1 canvas", 8, (1, 1))]
+             ("K2 banded_chunk_sharded", "1x1 canvas", 8, (1, 1)),
+             ("K3 packed_banded_chunk", "4K", 8, None),
+             ("K6 packed_banded_chunk_mc", "4K RGB", 8, None),
+             ("K3 packed_banded_chunk_sharded", "2x2 canvas", 8, (2, 2)),
+             ("K3 packed_banded_chunk_sharded", "1x1 canvas", 8, (1, 1))]
     out = []
     for name, tag, k, grid in cases:
-        c = BAND[name][0]
+        c, _, packed, _ = BAND[name]
+        lay = packed_kernel.pack_planes if packed else (lambda t: t)
         u, c1, c2 = inputs[c]
         if grid is None:
             x, uc, sh, (h, w) = phi, u, None, (H4K, W4K)
@@ -2972,15 +3034,16 @@ def band_times(dev, card, p, u4k, v4k, stats, sh_stats):
                 if s[0] == (0, 0)]
             sh = _cuda.shard_args(*x.shape, k, par, crop, edges)
             h, w = crop[1] - crop[0], crop[3] - crop[2]
-        args = (x, uc, c1, c2, sh)
-        new, old = band_call(c, p, k), band_call(c, p, k, v1=True)
-        t = [queued_ms(lambda f=f: f(*args), 20)
-             for f in (old, new, new, old)]
         geo = _cuda.band_geometry(
             *x.shape, k, None if sh is None else tuple(sh[1:5]),
             (c or 1) + 4 if c else 5, 4 * c if c else 2, sms)
+        args = (lay(x), lay(uc), c1, c2, sh)
+        new = band_call(c, p, k, packed=packed)
+        old = band_call(c, p, k, v1=True, packed=packed)
+        t = [queued_ms(lambda f=f: f(*args), 20)
+             for f in (old, new, new, old)]
         th, tw, px, py, cap = geo
-        occ = _cuda.band_occupancy(c, sh is not None, px * py, cap)
+        occ = _cuda.band_occupancy(c, sh is not None, px * py, cap, packed)
         nblocks = math.ceil(h / th) * math.ceil(w / tw)
         b_ms, b_by = bound(h, w, k, c)
         ms, v1_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
@@ -2997,11 +3060,38 @@ def band_times(dev, card, p, u4k, v4k, stats, sh_stats):
           "in turns): " + "; ".join(out) + f" [{card}]", flush=True)
 
 
+@contextlib.contextmanager
+def first_body_route():
+    """The packed wrappers K3 and K6 replaced by the first body's `_v1`
+    launchers (the same driver code, the kernels before the band body)."""
+    saved = (packed_kernel.packed_banded_chunk,
+             packed_kernel.packed_banded_chunk_mc)
+
+    def k3(phi, u0, c1, c2, p, k=8, unroll=1, fuse=False):
+        return band_call(0, p, k, v1=True, packed=True)(phi, u0, c1, c2,
+                                                        None)
+
+    def k6(phi, u0, c1, c2, p, k=8, unroll=1, fuse=False, lambda1=None,
+           lambda2=None):
+        l1, l2 = p.channel_lambdas(u0.shape[0], lambda1, lambda2)
+        return _cuda.launch_chunk_mc(
+            "cv_packed_banded_chunk_mc_v1", phi, u0, c1, c2, p, k,
+            2 * phi.shape[-2], 2 * phi.shape[-1], l1, l2, 16)
+    packed_kernel.packed_banded_chunk = k3
+    packed_kernel.packed_banded_chunk_mc = k6
+    try:
+        yield
+    finally:
+        (packed_kernel.packed_banded_chunk,
+         packed_kernel.packed_banded_chunk_mc) = saved
+
+
 def band_runs(dev, card, u4k, gt4k, v4k, gtc4k):
     """Phase 27's runs through the entry points: phase 19's sharded runs
-    (gray and RGB k = 8, RGB k = 1, the 1x1 mesh) and the flat 4K
-    segment_banded_fixed runs, their masks against the truth and their
-    K2/K5 launches counted; then their rates."""
+    (gray and RGB k = 8, RGB k = 1, the 1x1 mesh flat and packed) and the
+    flat and default-routed (packed) 4K segment_banded_fixed runs, their
+    masks against the truth and their K2/K3/K5/K6 launches counted; then
+    their rates, the default route's also on the first body."""
     pt = ct.CVParams(mu=0.001 * 255.0 ** 2, max_iter=500)
     pv = ct.CVParams(mu=0.0001 * 255.0 ** 2, max_iter=500)
     mesh = make_grid_mesh(2, 2, [dev] * 4)
@@ -3028,6 +3118,16 @@ def band_runs(dev, card, u4k, gt4k, v4k, gtc4k):
         "4K rgb packed=False": (lambda: ct.segment_banded_fixed(
             v4k, pv, BAND_ITERS, k=SHARD_K, packed=False), gtc4k,
             BAND_ITERS, {"K5 banded_chunk_mc": chunks}),
+        "1x1 gray k=8 packed": (lambda: segment_sharded(
+            u4k, pt, mesh1, fixed=True, max_iter=BAND_ITERS,
+            comm_k=SHARD_K, packed=True), gt4k, BAND_ITERS,
+            {"K3 packed_banded_chunk_sharded": chunks}),
+        "4K gray default route": (lambda: ct.segment_banded_fixed(
+            u4k, pt, BAND_ITERS, k=SHARD_K), gt4k, BAND_ITERS,
+            {"K3 packed_banded_chunk": chunks}),
+        "4K rgb default route": (lambda: ct.segment_banded_fixed(
+            v4k, pv, BAND_ITERS, k=SHARD_K), gtc4k, BAND_ITERS,
+            {"K6 packed_banded_chunk_mc": chunks}),
     }
     checks, launches = {}, {}
     for tag, (fn, gt, _, want) in runs.items():
@@ -3050,6 +3150,10 @@ def band_runs(dev, card, u4k, gt4k, v4k, gtc4k):
     check_masks(checks)
     rates = {tag: (it, time_ms(fn, 1))
              for tag, (fn, _, it, _) in runs.items()}
+    with first_body_route():
+        for tag in ("4K gray default route", "4K rgb default route"):
+            fn, _, it, _ = runs[tag]
+            rates[f"{tag} on the first body"] = (it, time_ms(fn, 1))
     print("phase 27 rates at 4K (Mpixel-iters/s, the whole run): "
           + "; ".join(f"{t} {it} iterations {ms:.3f} ms = "
                       f"{H4K * W4K * it / (ms * 1e3):.1f}"

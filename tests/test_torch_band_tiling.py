@@ -68,6 +68,25 @@ def _rim(x, win, crop, edges):
     return x
 
 
+def sweep_window(cur, fw, p, k, parity, win, crop=None, edges=None):
+    """k plain red-black iterations on a window ``win`` = (wr0, wr1, wc0,
+    wc1) of phi (``cur``) and its force (``fw``): the lattice parity shifted
+    by the window's origin; with ``edges`` the depth-2 rim of ``crop``
+    refreshed after each half-sweep, as the kernel does."""
+    wr0, _, wc0, _ = win
+    red = color_masks(cur.shape, (parity + wr0 + wc0) % 2)
+    for _ in range(k):
+        cur = torch.where(red, _update_all(cur, fw, p.mu, p.dt, p.eps,
+                                           p.eta2), cur)
+        if edges is not None:
+            cur = _rim(cur, win, crop, edges)
+        cur = torch.where(red, cur, _update_all(cur, fw, p.mu, p.dt, p.eps,
+                                                p.eta2))
+        if edges is not None:
+            cur = _rim(cur, win, crop, edges)
+    return cur
+
+
 def twin(phi, f, p, k, tile, shard=None, halo=None):
     """The band body's result computed tile by tile with the plain sweep:
     ``tile`` = (TH, TW); ``shard`` = ``_cuda.shard_args``' nine ints (None:
@@ -87,18 +106,8 @@ def twin(phi, f, p, k, tile, shard=None, halo=None):
             tr1, tc1 = min(tr0 + th, r1), min(tc0 + tw, c1)
             win = _window(tr0, tr1, tc0, tc1, h, w, halo)
             wr0, wr1, wc0, wc1 = win
-            cur = phi[wr0:wr1, wc0:wc1]
-            fw = f[wr0:wr1, wc0:wc1]
-            red = color_masks(cur.shape, (parity + wr0 + wc0) % 2)
-            for _ in range(k):
-                cur = torch.where(red, _update_all(cur, fw, p.mu, p.dt,
-                                                   p.eps, p.eta2), cur)
-                if edges is not None:
-                    cur = _rim(cur, win, crop, edges)
-                cur = torch.where(red, cur, _update_all(cur, fw, p.mu, p.dt,
-                                                        p.eps, p.eta2))
-                if edges is not None:
-                    cur = _rim(cur, win, crop, edges)
+            cur = sweep_window(phi[wr0:wr1, wc0:wc1], f[wr0:wr1, wc0:wc1],
+                               p, k, parity, win, crop, edges)
             out[tr0:tr1, tc0:tc1] = cur[tr0 - wr0:tr1 - wr0,
                                         tc0 - wc0:tc1 - wc0]
     return out

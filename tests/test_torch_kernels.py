@@ -192,3 +192,42 @@ def test_banded_chunk_cuda_is_bitwise_the_first_body(shape, k):
     assert float(got[1][3]) == float(old[1][3])
     np.testing.assert_allclose(to_np(got[1]), to_np(old[1]), **PARTS_TOL)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 21])
+@pytest.mark.parametrize("shape", [(200, 300), (1000, 1500)])
+def test_packed_banded_chunk_cuda_is_bitwise_the_first_body(shape, k):
+    """K3 on csrc/band.cuh against the first body (the `_v1` launcher on
+    the planes): the level set bitwise, the flips exactly, the other sums
+    at the plain bars; a second launch bitwise the first."""
+    phi, u0, c1, c2 = _card_case(cuda_device(), shape, 7)
+    _, pt = params()
+    pp, up = packed_kernel.pack_planes(phi), packed_kernel.pack_planes(u0)
+    n = packed_kernel.packed_banded_chunk.launches
+    got = packed_kernel.packed_banded_chunk(pp, up, c1, c2, pt, k)
+    again = packed_kernel.packed_banded_chunk(pp, up, c1, c2, pt, k)
+    old = _cuda.launch_chunk("cv_packed_banded_chunk_v1", pp, up, c1, c2,
+                             pt, k, *shape)
+    torch.cuda.synchronize()
+    assert packed_kernel.packed_banded_chunk.launches == n + 2
+    assert torch.equal(got[0], old[0])
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert float(got[1][3]) == float(old[1][3])
+    np.testing.assert_allclose(to_np(got[1]), to_np(old[1]), **PARTS_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 21])
+@pytest.mark.parametrize("shape", [(200, 300), (1000, 1500)])
+def test_packed_banded_chunk_cuda_is_the_flat_band_packed(shape, k):
+    """K3 is K2's band launch on the unpacked image, packed: phi and every
+    partial slot bitwise (the same tiles, cell order and sums)."""
+    phi, u0, c1, c2 = _card_case(cuda_device(), shape, 8)
+    _, pt = params()
+    pp, up = packed_kernel.pack_planes(phi), packed_kernel.pack_planes(u0)
+    got = packed_kernel.packed_banded_chunk(pp, up, c1, c2, pt, k)
+    flat = banded_kernel.banded_chunk(phi, u0, c1, c2, pt, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], packed_kernel.pack_planes(flat[0]))
+    assert torch.equal(got[1], flat[1])

@@ -272,3 +272,32 @@ def test_banded_chunk_mc_cuda_is_bitwise_the_first_body(nchan, k):
     assert float(got[1][nchan + 2]) == float(old[1][nchan + 2])
     np.testing.assert_allclose(to_np(got[1]), to_np(old[1]), **PARTS_TOL)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 21])
+@pytest.mark.parametrize("nchan", [1, 3, 8])
+def test_packed_banded_chunk_mc_cuda_is_bitwise_the_first_body(nchan, k):
+    """K6 on csrc/band.cuh against the first body (the `_v1` launcher on
+    the planes): the level set bitwise, the flips exactly, the other sums
+    at the plain bars; a second launch bitwise the first; and K5's band
+    launch on the unpacked image, packed, bitwise in phi and in every
+    partial slot."""
+    phi, u0, c1, c2 = _card_case(cuda_device(), (nchan, 1000, 1500), 9)
+    _, pt = params()
+    pp, up = packed_kernel.pack_planes(phi), packed_kernel.pack_planes(u0)
+    n = packed_kernel.packed_banded_chunk_mc.launches
+    got = packed_kernel.packed_banded_chunk_mc(pp, up, c1, c2, pt, k)
+    again = packed_kernel.packed_banded_chunk_mc(pp, up, c1, c2, pt, k)
+    l1, l2 = pt.channel_lambdas(nchan)
+    old = _cuda.launch_chunk_mc("cv_packed_banded_chunk_mc_v1", pp, up, c1,
+                                c2, pt, k, 1000, 1500, l1, l2, 16)
+    flat = banded_kernel.banded_chunk_mc(phi, u0, c1, c2, pt, k)
+    torch.cuda.synchronize()
+    assert packed_kernel.packed_banded_chunk_mc.launches == n + 2
+    assert torch.equal(got[0], old[0])
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert float(got[1][nchan + 2]) == float(old[1][nchan + 2])
+    np.testing.assert_allclose(to_np(got[1]), to_np(old[1]), **PARTS_TOL)
+    assert torch.equal(got[0], packed_kernel.pack_planes(flat[0]))
+    assert torch.equal(got[1], flat[1])

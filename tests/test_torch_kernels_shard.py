@@ -358,3 +358,45 @@ def test_band_shard_modes_cuda_are_bitwise_the_first_body(case):
         np.testing.assert_allclose(to_np(got[1]), to_np(old[1]),
                                    **PARTS_BAR)
 
+
+
+# K3's shard mode on the card: (image shape, mesh, D, k, lane) as CASES,
+# even shards and an even D (the packed mode's lattice parity 0)
+K3_CARD = {"k=2": CASES["K3"], "k=3": ((48, 256), (2, 4), 16, 3, 128),
+           "k=8": ((128, 256), (2, 2), 32, 8, 128)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K3_CARD))
+def test_packed_shard_mode_cuda_is_bitwise_the_first_body(case):
+    """K3's shard mode on csrc/band.cuh against the first body's shard
+    launcher (`_v1`) on every shard's canvas: the planes bitwise, the flips
+    exactly, the other sums at chip_smoke.py's bars; and K2's shard mode
+    on the unpacked canvas, packed, bitwise in the planes and in every
+    partial slot."""
+    dev = cuda_device()
+    shape, (nx, ny), D, k, lane = K3_CARD[case]
+    img, phi, c1, c2 = _inputs(shape, F32)
+    _, pt = params()
+    c1, c2 = to_torch(c1, F32).to(dev), to_torch(c2, F32).to(dev)
+    pack = packed_kernel.pack_planes
+    for _, canvas, ucanvas, par, edges, crop in _canvases(
+            img, phi, nx, ny, D, lane):
+        x = to_torch(canvas, F32).to(dev)
+        u = to_torch(ucanvas, F32).to(dev)
+        assert par == 0
+        shard = _cuda.shard_args(*x.shape, k, 0, crop, edges)
+        got = packed_kernel.packed_banded_chunk_sharded(
+            pack(x), pack(u), c1, c2, pt, k, edges, crop)
+        old = _cuda.launch_chunk("cv_packed_banded_chunk_shard_v1", pack(x),
+                                 pack(u), c1, c2, pt, k, *x.shape,
+                                 shard=shard)
+        flat = banded_kernel.banded_chunk_sharded(x, u, c1, c2, pt, k, 0,
+                                                  edges, crop)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], old[0])
+        assert float(got[1][3]) == float(old[1][3])
+        np.testing.assert_allclose(to_np(got[1]), to_np(old[1]),
+                                   **PARTS_BAR)
+        assert torch.equal(got[0], pack(flat[0]))
+        assert torch.equal(got[1], flat[1])
