@@ -69,16 +69,21 @@ _MORPH_FUSED = [_P] * 6 + [_I] * 9 + [_P]
 # K2/K5 and K3/K6 on csrc/band.cuh: the scalar or multichannel launcher's
 # pointers and sizes; k, TH, TW, PX, PY, cap; the params; [the shard ints];
 # stream. Occupancy: [C], [shard], threads, dynamic bytes, int* blocks per
-# SM.
+# SM. K9 on its band body (csrc/mp2_band.cu) the same, its seven ints TH,
+# TW, fold, PX, PY, cap and the grid's block count.
 _BAND = [_I] * 6 + [_F] * 9
 _BAND_MC = [_I] * 6 + [_F] * 7
+_MP2_BAND = [_I] * 7 + [_F] * 9
 # the halo ring (csrc/halo_ring.cu, K14): the task array, its length, the
 # element size; stream. Peer access: device, peer.
 _HALO_RING = [_P, _I, _I, _P]
 SIGNATURES = {
     "cv_fused_iteration": _HEAD + _TAIL,
     "cv_fused_sweep": _HEAD + _TAIL,
-    "cv_mp2_iteration": _HEAD + _TAIL,
+    "cv_mp2_iteration": _HEAD + _MP2_BAND + [_P],
+    "cv_mp2_iteration_shard": _HEAD + _MP2_BAND + _SHARD,
+    "cv_mp2_band_occupancy": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
+    "cv_mp2_iteration_v1": _HEAD + _TAIL,
     "cv_banded_chunk": _HEAD + _BAND + [_P],
     "cv_banded_chunk_shard": _HEAD + _BAND + _SHARD,
     "cv_banded_chunk_mc": _HEAD_MC + _BAND_MC + [_P],
@@ -104,7 +109,7 @@ SIGNATURES = {
     "cv_banded_chunk_mc_shard_v1": (_HEAD_MC + [_I] + _TAIL_MC[:-1]
                                     + _SHARD),
     "cv_fused_sweep_shard": _HEAD + _TAIL[:-1] + _SHARD,
-    "cv_mp2_iteration_shard": _HEAD + _TAIL[:-1] + _SHARD,
+    "cv_mp2_iteration_shard_v1": _HEAD + _TAIL[:-1] + _SHARD,
     **{s: _RESIDENT for s in RESIDENT_SYMBOLS},
     **{f"{s}_grid": _GRID for s in RESIDENT_SYMBOLS},
     **{s: _MP2_RESIDENT for s in MP2_RESIDENT_SYMBOLS},

@@ -107,31 +107,28 @@ struct BandWin {
   int par;                   // lattice parity (0 on a whole image)
 };
 
-// One half-sweep's update of a thread's strip rows [r0s, r0s + kBandRows)
-// of pair q: the active colour's new values into nv. ODD0 is the active
+// One half-sweep's update of a thread's strip rows [r0s, r0s + ROWS) of
+// pair q: the active colour's new values into nv, each from
+// cell(r, odd, g9) with the cell's 3 x 3 neighbourhood g9 (band_kernel's
+// BandCell; K9's band body in mp2_band.cu has its own). ODD0 is the active
 // cell's column offset (0: 2q, 1: 2q + 1) in the strip's first row; it
-// alternates down the strip. In the last iteration (`last`) each cell's
-// old value takes the place of its force in the colour's plane, which no
-// later half-sweep reads: the partials pass finds it there.
-template <int ODD0>
-__device__ __forceinline__ void band_rows(const float* cur, float* fc,
-                                          const BandWin& B, int r0s, int q,
-                                          bool last, const Params& P,
-                                          float (&nv)[kBandRows]) {
+// alternates down the strip.
+template <int ODD0, int ROWS, class Cell>
+__device__ __forceinline__ void band_rows(const float* cur, const BandWin& B,
+                                          int r0s, int q, const Cell& cell,
+                                          float (&nv)[ROWS]) {
   Quad n = load_quad(cur, max(r0s - 1, 0), q, B.ww);
   Quad x = load_quad(cur, r0s, q, B.ww);
   Quad s = load_quad(cur, min(r0s + 1, B.wh - 1), q, B.ww);
 #pragma unroll
-  for (int j = 0; j < kBandRows; ++j) {
+  for (int j = 0; j < ROWS; ++j) {
     const int r = r0s + j;
     if (r < B.wh) {
       const bool odd = ((ODD0 + j) & 1) != 0;  // folded once unrolled
       const float g9[9] = {odd ? n.a : n.l, odd ? n.b : n.a, odd ? n.r : n.b,
                            odd ? x.a : x.l, odd ? x.b : x.a, odd ? x.r : x.b,
                            odd ? s.a : s.l, odd ? s.b : s.a, odd ? s.r : s.b};
-      const float fv = fc[r * B.hw + q];
-      nv[j] = update_cell_at(g9, [&] { return fv; }, 1, 1, 3, 3, Grid3{}, P);
-      if (last) fc[r * B.hw + q] = g9[4];
+      nv[j] = cell(r, odd, g9);
       n = x;
       x = s;
       s = load_quad(cur, min(r + 2, B.wh - 1), q, B.ww);
@@ -139,13 +136,31 @@ __device__ __forceinline__ void band_rows(const float* cur, float* fc,
   }
 }
 
+// band_kernel's cell: the force from the colour's plane fc; in the last
+// iteration (`last`) the cell's old value takes its place there, which no
+// later half-sweep reads: the partials pass finds it there.
+struct BandCell {
+  float* fc;
+  int hw, q;
+  bool last;
+  const Params& P;
+  __device__ __forceinline__ float operator()(int r, bool,
+                                              const float (&g9)[9]) const {
+    const float fv = fc[r * hw + q];
+    const float v =
+        update_cell_at(g9, [&] { return fv; }, 1, 1, 3, 3, Grid3{}, P);
+    if (last) fc[r * hw + q] = g9[4];
+    return v;
+  }
+};
+
 // Writes a strip's new values back (ODD0 as band_rows).
-template <int ODD0>
+template <int ODD0, int ROWS>
 __device__ __forceinline__ void band_store(float* cur, const BandWin& B,
                                            int r0s, int q,
-                                           const float (&nv)[kBandRows]) {
+                                           const float (&nv)[ROWS]) {
 #pragma unroll
-  for (int j = 0; j < kBandRows; ++j) {
+  for (int j = 0; j < ROWS; ++j) {
     const int r = r0s + j;
     if (r < B.wh) cur[r * B.ww + 2 * q + ((ODD0 + j) & 1)] = nv[j];
   }
@@ -194,25 +209,23 @@ __device__ __forceinline__ bool band_needs_rim(const BandWin& B,
   return top || bottom || left || right;
 }
 
-// One half-sweep of colour `color`: compute into registers, barrier,
-// write back, barrier, and on a shard canvas the rim refresh where the
-// window needs it.
-template <bool SHARD>
-__device__ __forceinline__ void band_half_sweep(float* cur, float* fpl,
-                                                const BandWin& B,
+// One half-sweep of colour `color` over strips of ROWS rows, each cell
+// updated by cell (as band_rows): compute into registers, barrier, write
+// back, barrier, and on a shard canvas the rim refresh where the window
+// needs it.
+template <bool SHARD, int ROWS, class Cell>
+__device__ __forceinline__ void band_half_sweep(float* cur, const BandWin& B,
                                                 const Shard& S, int color,
-                                                bool busy, bool rim,
-                                                bool last, int r0s, int q,
-                                                const Params& P) {
-  float nv[kBandRows];
-  float* fc = fpl + color * (B.wh * B.hw);
+                                                bool busy, bool rim, int r0s,
+                                                int q, const Cell& cell) {
+  float nv[ROWS];
   // r0s is even, so the strip's first row has the block's colour offset
   const bool odd0 = ((B.wr0 + color + B.par) & 1) != 0;
   if (busy) {
     if (odd0)
-      band_rows<1>(cur, fc, B, r0s, q, last, P, nv);
+      band_rows<1>(cur, B, r0s, q, cell, nv);
     else
-      band_rows<0>(cur, fc, B, r0s, q, last, P, nv);
+      band_rows<0>(cur, B, r0s, q, cell, nv);
   }
   __syncthreads();
   if (busy) {
@@ -224,6 +237,30 @@ __device__ __forceinline__ void band_half_sweep(float* cur, float* fpl,
   __syncthreads();
   if constexpr (SHARD) {
     if (rim) band_rim(cur, B, S);
+  }
+}
+
+// Every slot of acc reduced over the block at once: warp shuffles, one
+// barrier, then thread t sums slot t over the warps in order into
+// block_parts[block id][t].
+template <int NSUMS>
+__device__ __forceinline__ void band_block_sums(
+    const double (&acc)[NSUMS], double (&scratch)[NSUMS][kBandThreads / 32],
+    double* block_parts) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int t = 0; t < NSUMS; ++t) {
+    double v = acc[t];
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) scratch[t][warp] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < NSUMS) {
+    const int nwarps = (blockDim.x + 31) >> 5;
+    double v = 0.0;
+    for (int w = 0; w < nwarps; ++w) v += scratch[threadIdx.x][w];
+    const int64_t bid = blockIdx.y * gridDim.x + blockIdx.x;
+    block_parts[bid * NSUMS + threadIdx.x] = v;
   }
 }
 
@@ -303,8 +340,11 @@ band_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
   const bool rim = SHARD && band_needs_rim(B, S);
   for (int it = 0; it < k; ++it) {
     const bool last = it == k - 1;
-    band_half_sweep<SHARD>(cur, fpl, B, S, 0, busy, rim, last, r0s, q, P);
-    band_half_sweep<SHARD>(cur, fpl, B, S, 1, busy, rim, last, r0s, q, P);
+    band_half_sweep<SHARD, kBandRows>(cur, B, S, 0, busy, rim, r0s, q,
+                                      BandCell{fpl, B.hw, q, last, P});
+    band_half_sweep<SHARD, kBandRows>(
+        cur, B, S, 1, busy, rim, r0s, q,
+        BandCell{fpl + B.wh * B.hw, B.hw, q, last, P});
   }
 
   // the owned cells: stored, and their partials (the old value of a cell
@@ -356,23 +396,7 @@ band_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
     }
   }
 
-  // every slot reduced at once: warp shuffles, one barrier, then thread t
-  // sums slot t over the warps in order
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int t = 0; t < kSums; ++t) {
-    double v = acc[t];
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) red_scratch[t][warp] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < kSums) {
-    const int nwarps = (blockDim.x + 31) >> 5;
-    double v = 0.0;
-    for (int w = 0; w < nwarps; ++w) v += red_scratch[threadIdx.x][w];
-    const int64_t bid = blockIdx.y * gridDim.x + blockIdx.x;
-    block_parts[bid * kSums + threadIdx.x] = v;
-  }
+  band_block_sums(acc, red_scratch, block_parts);
 }
 
 // Sums the (nblocks, NSUMS) per-block partials in f64 into parts[nout]
@@ -409,12 +433,11 @@ band_reduce_kernel(const double* __restrict__ block_parts, int nblocks,
   }
 }
 
-// Raises band_kernel<NC, SHARD, PACKED>'s dynamic shared-memory limit to
-// what the device's opt-in block maximum leaves beside its static part,
-// once per device and process.
-template <int NC, bool SHARD, bool PACKED>
-cudaError_t band_attributes() {
-  static bool done[kMaxDevices] = {};
+// Raises `kernel`'s dynamic shared-memory limit to what the device's
+// opt-in block maximum leaves beside its static part, once per device
+// (`done`: the caller's record for this kernel).
+template <class Kernel>
+cudaError_t raise_smem_limit(Kernel kernel, bool (&done)[kMaxDevices]) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -424,13 +447,20 @@ cudaError_t band_attributes() {
                                dev);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, band_kernel<NC, SHARD, PACKED>);
+  err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(band_kernel<NC, SHARD, PACKED>,
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              optin - (int)attr.sharedSizeBytes);
   if (err == cudaSuccess && dev >= 0 && dev < kMaxDevices) done[dev] = true;
   return err;
+}
+
+// band_kernel<NC, SHARD, PACKED>'s limit, once per device and process.
+template <int NC, bool SHARD, bool PACKED>
+cudaError_t band_attributes() {
+  static bool done[kMaxDevices] = {};
+  return raise_smem_limit(band_kernel<NC, SHARD, PACKED>, done);
 }
 
 // Host side: one chunk plus the partials reduction on `stream`. The

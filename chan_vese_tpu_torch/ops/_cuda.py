@@ -394,7 +394,8 @@ def check_even(h: int, w: int):
 
 def crop_tiles(n: int, lo: int, hi: int, t: int) -> int:
     """Tiles of t cells along an axis of n cells cut at lo and hi (the
-    whole-canvas tiling of K9's shard mode, csrc/mp2_band.cu crop_tiles)."""
+    whole-canvas tiling of K9's first body's shard mode, csrc/mp2_band.cu
+    crop_tiles)."""
     return math.ceil(lo / t) + math.ceil((hi - lo) / t) + math.ceil((n - hi)
                                                                      / t)
 
@@ -442,27 +443,187 @@ def _launch(symbol, phi, u0, cc, chan, k, h, w, nsums, nout, params,
     return out, parts
 
 
-# shared-memory bytes per window cell of the banded 4-phase kernel
-# (csrc/mp2.cuh kMp2CellBytes: phi0, phi1, u0, f and half a buffer); its
-# window carries the halo of two red-black iterations
+# the first banded 4-phase body (csrc/mp2_band.cu mp2_band_kernel, the
+# `_v1` launchers): shared-memory bytes per window cell (kMp2CellBytes:
+# phi0, phi1, u0, f and half a buffer); its window carries the halo of two
+# red-black iterations
 MP2_CELL_BYTES = 18
 MP2_REACH = 2
+# the band body of K9 (csrc/mp2_band.cu mp2_coupled_kernel): the coupled
+# iteration's halo (kMp2Halo), rows of a thread's strip (kMp2Rows),
+# shared-memory bytes per window cell (phi0, phi1, u0 and the aux plane),
+# its ten live partial slots
+MP2_HALO, MP2_ROWS, MP2_BAND_CELL_BYTES, MP2_SUMS = 2, 6, 16, 10
 
 
-def launch_mp2(phis, u0, cs, p, shard=None):
+def mp2_axis_tiles(n: int, lo: int, hi: int, t: int, fold: int):
+    """[(t0, t1), ...]: the band body's tiles along an axis of n cells cut
+    at lo and hi (a shard canvas's crop; 0 and n on a whole image), the
+    mirror of csrc/mp2_band.cu Mp2Axis: tiles of t cells counted back from
+    lo, forward from lo to hi and from hi to n; with ``fold`` the outermost
+    tile of [0, lo) and of [hi, n), where partial, joins its inner
+    neighbour; the first starts at 0, the last ends at n."""
+    def outer(length):
+        m = -(-length // t)
+        return m - 1 if fold and length % t else m
+
+    na, nb, nc = outer(lo), -(-(hi - lo) // t), outer(n - hi)
+    tiles = ([(lo - (na - b) * t, lo - (na - 1 - b) * t) for b in range(na)]
+             + [(lo + b * t, min(lo + (b + 1) * t, hi)) for b in range(nb)]
+             + [(hi + b * t, hi + (b + 1) * t) for b in range(nc)])
+    tiles[0] = (0, tiles[0][1])
+    tiles[-1] = (tiles[-1][0], n)
+    return tiles
+
+
+def mp2_window(t0: int, t1: int, n: int, lo: int, hi: int,
+               even: bool = False):
+    """Window [w0, w1) of the band body's tile [t0, t1) along an axis of n
+    cells with the crop [lo, hi): MP2_HALO each way, cut at the axis, one
+    cell more into the crop where the tile ends at lo or starts at hi;
+    ``even`` (the columns) widens it to an even start and width."""
+    w0 = max(t0 - MP2_HALO - (t0 == hi), 0)
+    w1 = min(t1 + MP2_HALO + (t1 == lo), n)
+    if even:
+        w0 &= ~1
+        w1 += (w1 - w0) & 1
+    return w0, w1
+
+
+def mp2_static_bytes() -> int:
+    """Static shared memory of the band body: the f64 reduction scratch
+    and the four means."""
+    return 8 * MP2_SUMS * (BAND_THREADS // 32) + 16
+
+
+def mp2_blocks_per_sm(threads: int, cap: int) -> int:
+    """Blocks of K9's band body an SM holds at ``threads`` threads and
+    ``cap`` window cells, by registers, warps and shared memory (the
+    design's count; the card's own is :func:`mp2_occupancy`)."""
+    warps = -(-threads // 32)
+    return min(SM_REGS // (BAND_REGS * 32 * warps), SM_WARPS // warps,
+               SM_SMEM // (MP2_BAND_CELL_BYTES * cap + mp2_static_bytes()
+                           + 1024), 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _mp2_axis(n, lo, hi, t, fold, even):
+    """(tile count, largest window) of one axis of the band body."""
+    tiles = mp2_axis_tiles(n, lo, hi, t, fold)
+    return len(tiles), max(b - a for a, b in (mp2_window(*x, n, lo, hi, even)
+                                              for x in tiles))
+
+
+def mp2_tiling(h: int, w: int, crop, th: int, tw: int, fold: int):
+    """((TH, TW, fold, PX, PY, cap), blocks) of the band body's tiling of an
+    (h, w) image or canvas (``crop`` as :func:`mp2_geometry`) into TH x TW
+    tiles: the threads and window cells its largest window needs."""
+    r0, r1, c0, c1 = crop or (0, h, 0, w)
+    nr, wh = _mp2_axis(h, r0, r1, th, fold, False)
+    nc, ww = _mp2_axis(w, c0, c1, tw, fold, True)
+    return (th, tw, fold, ww // 2, -(-wh // MP2_ROWS), wh * ww), nr * nc
+
+
+@functools.lru_cache(maxsize=256)
+def mp2_geometry(h: int, w: int, crop=None, sms: int = SMS):
+    """(TH, TW, fold, PX, PY, cap) of a K9 band-body launch on an (h, w)
+    image or, with ``crop`` = (r0, r1, c0, c1), on a shard canvas (the
+    whole canvas tiled, cut at the crop, the thin outer tiles folded where
+    ``fold``): PX x PY threads (PX pairs across, PY strips of MP2_ROWS
+    rows down, enough for the largest window), windows of at most ``cap``
+    cells. Among the tilings whose window fits a block, those that let an
+    SM hold two blocks are taken where any does, and of them the one whose
+    busiest SM (the blocks spread evenly over ``sms`` SMs) updates the
+    fewest window cells, the larger tile on a tie."""
+    static = mp2_static_bytes()
+    best = []
+    for fold in ((0, 1) if crop is not None else (0,)):
+        for th in BAND_TILE_ROWS:
+            for tw in BAND_TILE_COLS:
+                geo, nblocks = mp2_tiling(h, w, crop, th, tw, fold)
+                _, _, _, px, py, cap = geo
+                if (px * py > BAND_THREADS or MP2_BAND_CELL_BYTES * cap
+                        + static > SMEM_LIMIT + 1024):
+                    continue
+                bps = mp2_blocks_per_sm(px * py, cap)
+                load = -(-nblocks // sms) * cap
+                best.append((bps < 2, load, -th * tw, fold, geo))
+    if not best:
+        raise ValueError(f"no K9 band-body tiling of the {(h, w)} image "
+                         f"fits a block ({BAND_THREADS} threads, "
+                         f"{SMEM_LIMIT} B)")
+    return min(best)[-1]
+
+
+def mp2_occupancy(shard: bool, threads: int, cap: int) -> int:
+    """The card's blocks per SM of K9's band body at ``threads`` threads
+    and ``cap`` window cells
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import ctypes
+
+    from .._build import library
+
+    n = ctypes.c_int(0)
+    lib = library()
+    err = lib.cv_mp2_band_occupancy(int(shard), threads,
+                                    MP2_BAND_CELL_BYTES * cap,
+                                    ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"mp2 band occupancy query failed: "
+                           f"{lib.cv_error_string(err).decode()} ({err})")
+    return n.value
+
+
+def mp2_plan(h: int, w: int, shard=None, sms: int = SMS):
+    """((TH, TW, fold, PX, PY, cap), blocks) of a K9 band-body launch on an
+    (h, w) image, or with ``shard`` (:func:`shard_args`' nine ints) on a
+    shard canvas: :func:`mp2_geometry`'s tiling."""
+    crop = None if shard is None else tuple(shard[1:5])
+    return mp2_tiling(h, w, crop, *mp2_geometry(h, w, crop, sms)[:3])
+
+
+def launch_mp2(phis, u0, cs, p, shard=None, v1=False):
     """One banded 4-phase iteration (csrc/mp2_band.cu) on (2, H, W) level
     sets (shapes checked by the wrapper) with the four phase means ``cs``;
     with ``shard`` (:func:`shard_args`' nine ints) on a shard canvas, every
-    cell swept. Returns (phis_new, partials (16,) f32)."""
+    cell swept. The band body; ``v1``: the first body (the yardstick the
+    smoke and the cuda-marked tests hold it against). Returns (phis_new,
+    partials (16,) f32)."""
+    from .._build import library
+
     _check_inputs(phis, u0)
     h, w = u0.shape
     cc = torch.as_tensor(cs, device=phis.device).to(torch.float32)
     cc = cc.reshape(4).contiguous()
     params = (p.mu, p.nu, 0.0, 0.0, *_common_params(p))
+    if v1:
+        symbol = ("cv_mp2_iteration_v1" if shard is None
+                  else "cv_mp2_iteration_shard_v1")
+        return _launch(symbol, phis, u0, cc, (), None, h, w, 10, 16, params,
+                       reach=MP2_REACH, cell_bytes=MP2_CELL_BYTES,
+                       shard=shard, canvas_tiles=shard is not None)
+    check_even(h, w)
+    if phis.data_ptr() % 8 or u0.data_ptr() % 8:
+        raise ValueError("the band body reads 8-byte pairs: phis and u0 must "
+                         "start on an 8-byte boundary")
+    dev = phis.device
+    geo, nblocks = mp2_plan(h, w, shard, _sm_count(dev.index))
+    out = torch.empty_like(phis)
+    block_parts = torch.empty((nblocks, MP2_SUMS), dtype=torch.float64,
+                              device=dev)
+    parts = torch.empty(16, dtype=torch.float32, device=dev)
     symbol = "cv_mp2_iteration" if shard is None else "cv_mp2_iteration_shard"
-    return _launch(symbol, phis, u0, cc, (), None, h, w, 10, 16, params,
-                   reach=MP2_REACH, cell_bytes=MP2_CELL_BYTES, shard=shard,
-                   canvas_tiles=shard is not None)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = getattr(lib, symbol)(
+            phis.data_ptr(), u0.data_ptr(), cc.data_ptr(), out.data_ptr(),
+            block_parts.data_ptr(), parts.data_ptr(), h, w, *geo, nblocks,
+            *params, *(shard or ()),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{symbol} launch failed: "
+                           f"{lib.cv_error_string(err).decode()} ({err})")
+    return out, parts
 
 
 # threads per block of the resident kernels (csrc/resident.cuh kResThreads)

@@ -84,6 +84,16 @@ main path's shapes beside the bound, blocks per SM and waves; and phase
 segment_banded_fixed runs, flat and default-routed (packed), through the
 entry points, their masks against the truth and every K2/K3/K5/K6 launch
 counted, with their rates (the default route also on the first body).
+Phase 28 does the same for K9's band body (csrc/mp2_band.cu's
+mp2_coupled_kernel, both modes): registers, spills, each mode against the
+first body's `_v1` launchers (phi bitwise, the flips and every partial
+equal, second launches bitwise) at 4K, a ragged shape and every shard of
+the 2x2 and 3x3 grids at D = 4 and over 2 and 8 launches chained on
+8k-deep canvases; the two bodies in turns at 4K and on the 2x2 canvas
+beside the bound, blocks per SM and waves; and phase 23's three 4-phase
+runs through the entry points, their K9 launches counted and their level
+sets bitwise the first body's runs, with their rates in turns with the
+first body.
 K1's force mode runs once under torch.cuda.set_sync_debug_mode("error")
 (phase 9).
 Any failure raises and exits non-zero.
@@ -658,10 +668,10 @@ def best_accuracy(pred, gt):
 
 def ptxas_summary():
     """Registers and spill stores of every chunk_kernel, band_kernel,
-    resident_kernel, mp2_band_kernel, mp2_resident_kernel and morph_kernel
-    instance, from ptxas's -v report of the build: 'kind flat/packed
-    [C=n]: R regs, S B spill' (C = -1 is K1's force mode), 'morph <kind>:
-    ...'."""
+    resident_kernel, mp2_band_kernel, mp2_coupled_kernel,
+    mp2_resident_kernel and morph_kernel instance, from ptxas's -v report
+    of the build: 'kind flat/packed [C=n]: R regs, S B spill' (C = -1 is
+    K1's force mode), 'morph <kind>: ...'."""
     out, name = {}, None
     morph_kinds = ("acwe", "gac", "gac_pre", "acwe_fused", "acwe_sh",
                    "gac_pre_sh")
@@ -671,7 +681,8 @@ def ptxas_summary():
             mb = re.search(r"[^_]band_kernelILi(\d+)ELb(\d)ELb(\d)E",
                            m.group(1))
             mm = re.search(r"morph_kernelILi(\d)E", m.group(1))
-            m = re.search(r"(mp2_band|mp2_resident|chunk|resident)_kernel"
+            m = re.search(r"(mp2_band|mp2_coupled|mp2_resident|chunk|"
+                          r"resident)_kernel"
                           r"(?:ILb(\d)E(?:Li(n?)(\d+)E)?(?:Lb(\d)E)?)?",
                           m.group(1))
             name = None
@@ -685,11 +696,11 @@ def ptxas_summary():
             elif m:
                 c = ("" if m.group(4) is None else
                      f" C={'-' if m.group(3) else ''}{m.group(4)}")
-                # mp2_band's one template flag is SHARD, chunk_kernel's
-                # third
-                shard = (m.group(2) if m.group(1) == "mp2_band"
-                         else m.group(5)) == "1"
-                packed = m.group(1) != "mp2_band" and m.group(2) == "1"
+                # K9's banded bodies' one template flag is SHARD,
+                # chunk_kernel's third
+                one = m.group(1) in ("mp2_band", "mp2_coupled")
+                shard = (m.group(2) if one else m.group(5)) == "1"
+                packed = not one and m.group(2) == "1"
                 name = (m.group(1), ("flat", "packed")[packed],
                         c + (" shard" if shard else ""))
             continue
@@ -3185,6 +3196,207 @@ def band_phase(dev, card, u4k, gt4k, v4k, gtc4k, stats, sh_stats,
     band_runs(dev, card, u4k, gt4k, v4k, gtc4k)
 
 
+# K9's band body (phase 28): the whole-image and shard-canvas wrappers,
+# held against the first body's `_v1` launchers; the ragged even shape of
+# the whole-image check (its last tiles partial)
+MP2_BAND_RAGGED = (1000, 1152)
+
+
+def mp2_v1(x, u, cs, p, shard=None):
+    """One launch of K9's first body (the `_v1` launchers)."""
+    return _cuda.launch_mp2(x, u, cs, p, shard=shard, v1=True)
+
+
+def mp2_same(tag, got, old, again):
+    """The band body's launch against the first body's: phi bitwise, the
+    flips equal, the other partial sums equal after their f32 rounding;
+    its second launch bitwise the first."""
+    if not torch.equal(got[0], old[0]):
+        d = got[0] - old[0]
+        raise AssertionError(f"K9 band body {tag}: phi differs from the "
+                             f"first body's at {int((d != 0).sum())} cells, "
+                             f"max |d| {float(d.abs().max())}")
+    if float(got[1][8]) != float(old[1][8]):
+        raise AssertionError(f"K9 band body {tag}: flips "
+                             f"{float(got[1][8])} vs {float(old[1][8])}")
+    if not torch.equal(got[1], old[1]):
+        raise AssertionError(f"K9 band body {tag}: partials {got[1]} vs the "
+                             f"first body's {old[1]}")
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        raise AssertionError(f"K9 band body {tag}: two launches differ")
+
+
+def mp2_band_checks(dev, pm):
+    """Phase 28's checks: the band body against the first body at 4K and
+    the ragged shape, on every shard of the 2x2 and 3x3 grids at D = 4, and
+    over MP_CHAIN_KS launches chained on the 8k-deep canvases (after every
+    launch)."""
+    mk = multiphase_kernel
+    lines = []
+    for h, w in ((H4K, W4K), MP2_BAND_RAGGED):
+        u, phis, cs, _ = mp2_inputs(h, w, dev, pm)
+        got, again = mk.mp2_iteration(phis, u, cs, pm), \
+            mk.mp2_iteration(phis, u, cs, pm)
+        old = mp2_v1(phis, u, cs, pm)
+        torch.cuda.synchronize()
+        mp2_same(f"{h}x{w}", got, old, again)
+    lines.append(f"K9 mp2_iteration 4K and {MP2_BAND_RAGGED[0]}x"
+                 f"{MP2_BAND_RAGGED[1]}: phi bitwise the first body's, flips "
+                 f"and every partial equal, second launch bitwise")
+    u, phis, cs, _ = mp2_inputs(H4K, W4K, dev, pm)
+    for nx, ny in SHARD_GRIDS:
+        n = 0
+        for D, k in ((4, 1),) + tuple((8 * k, k) for k in MP_CHAIN_KS):
+            for pos, x, uc, par, edges, crop in mp_canvases(phis, u, nx, ny,
+                                                            D, dev):
+                sh = _cuda.shard_args(*uc.shape, 1, par, crop, edges)
+                new = old = x
+                for i in range(k):
+                    args = (new, uc, cs, pm, par, edges, crop)
+                    got, again = mk.mp2_iteration_sharded(*args), \
+                        mk.mp2_iteration_sharded(*args)
+                    prev = mp2_v1(old, uc, cs, pm, sh)
+                    torch.cuda.synchronize()
+                    mp2_same(f"shard {pos} of {nx}x{ny} D={D} launch {i + 1}",
+                             got, prev, again)
+                    new, old = got[0], prev[0]
+                    n += 1
+        lines.append(f"K9 mp2_iteration_sharded every shard of {nx}x{ny} at "
+                     f"D=4 and {MP_CHAIN_KS} launches chained on 8k-deep "
+                     f"canvases ({n} launches): phi bitwise the first "
+                     f"body's, flips and every partial equal, second launches "
+                     f"bitwise")
+    return lines
+
+
+def mp2_band_times(dev, card, pm, st9, st9s):
+    """Phase 28's times: the band body against the first body in turns
+    (v1, new, new, v1; queued) at 4K and on the 2x2 canvas of shard (0, 0),
+    beside the bound, the tiling, the card's blocks per SM and the waves."""
+    mk = multiphase_kernel
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    u, phis, cs, _ = mp2_inputs(H4K, W4K, dev, pm)
+    (_, x, uc, par, edges, crop), = [
+        c for c in mp_canvases(phis, u, 2, 2, 4, dev) if c[0] == (0, 0)]
+    sh = _cuda.shard_args(*uc.shape, 1, par, crop, edges)
+    cases = {"4K": ("K9 mp2_iteration", (phis, u, cs, pm), None,
+                    (H4K, W4K), st9),
+             "2x2 canvas": ("K9 mp2_iteration_sharded",
+                            (x, uc, cs, pm, par, edges, crop), sh,
+                            (crop[1] - crop[0], crop[3] - crop[2]), st9s)}
+    out = []
+    for tag, (name, args, shard, (h, w), st) in cases.items():
+        wrapper = (mk.mp2_iteration if shard is None
+                   else mk.mp2_iteration_sharded)
+        xa, ua = args[0], args[1]
+        t = [queued_ms(f, 20) for f in (
+            lambda: mp2_v1(xa, ua, cs, pm, shard),
+            lambda: wrapper(*args), lambda: wrapper(*args),
+            lambda: mp2_v1(xa, ua, cs, pm, shard))]
+        geo, nblocks = _cuda.mp2_plan(*ua.shape, shard, sms)
+        th, tw, fold, px, py, cap = geo
+        threads = -(-px * py // 32) * 32
+        occ = _cuda.mp2_occupancy(shard is not None, threads, cap)
+        b_ms, b_by = bound_mp2(h, w, 1, 1, False)
+        ms, v1_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        st.update(ms=ms, bound_ms=b_ms, bound_by=b_by)
+        out.append(f"{name} {tag}: v1 {t[0]:.4f}, new {t[1]:.4f}, new "
+                   f"{t[2]:.4f}, v1 {t[3]:.4f} ms (new/v1 {ms / v1_ms:.3f}; "
+                   f"bound {b_ms:.4f} {b_by}); tile {th}x{tw} fold {fold}, "
+                   f"{threads} threads, window <= {cap} cells "
+                   f"({_cuda.MP2_BAND_CELL_BYTES * cap} B), {occ} blocks/SM, "
+                   f"{nblocks} blocks = {nblocks / (occ * sms):.2f} waves")
+    print("phase 28 K9 band body vs the first body (queued device ms a "
+          "launch, in turns): " + "; ".join(out) + f" [{card}]", flush=True)
+
+
+@contextlib.contextmanager
+def first_mp2_body_route():
+    """K9's two wrappers replaced by the first body's `_v1` launchers (the
+    same drivers, the kernel before the band body)."""
+    mk = multiphase_kernel
+    saved = (mk.mp2_iteration, mk.mp2_iteration_sharded)
+
+    def whole(phis, u0, cs, p):
+        return mp2_v1(phis, u0, cs, p)
+
+    def shard(phis_canvas, u0_canvas, cs, p, parity, edges, crop):
+        return mp2_v1(phis_canvas, u0_canvas, cs, p, _cuda.shard_args(
+            *u0_canvas.shape, 1, parity, crop, edges))
+    mk.mp2_iteration, mk.mp2_iteration_sharded = whole, shard
+    try:
+        yield
+    finally:
+        mk.mp2_iteration, mk.mp2_iteration_sharded = saved
+
+
+def mp2_band_rates(dev, card, pm):
+    """Phase 28's runs through the entry points: phase 23's three 4-phase
+    runs at 4K (unsharded fixed, 2x2 comm_k 1 and 8), their K9 launches
+    counted (the counts set to 0 just before each), then their rates in
+    turns with the first body (v1, new, new, v1)."""
+    mk = multiphase_kernel
+    mesh = make_grid_mesh(2, 2, [dev] * 4)
+    u = torch.from_numpy(four_regions(H4K, W4K)[0]).to(dev)
+    its = MP_SHARD_ITERS
+    runs = {
+        "unsharded segment_multiphase(fixed)": (lambda: ct.segment_multiphase(
+            u, pm, fixed=True, max_iter=its), {"mp2_iteration": its}),
+        "2x2 comm_k=1": (lambda: segment_multiphase_sharded(
+            u, pm, mesh, max_iter=its, fixed=True),
+            {"mp2_iteration_sharded": 4 * its}),
+        "2x2 comm_k=8": (lambda: segment_multiphase_sharded(
+            u, pm, mesh, max_iter=its, fixed=True, comm_k=SHARD_K),
+            {"mp2_iteration_sharded": 4 * its}),
+    }
+    counted = {}
+    for tag, (fn, want) in runs.items():
+        mk.mp2_iteration.launches = mk.mp2_iteration_sharded.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        have = {n: getattr(mk, n).launches for n in
+                ("mp2_iteration", "mp2_iteration_sharded")
+                if getattr(mk, n).launches}
+        if have != want:
+            raise AssertionError(f"phase 28 {tag} launched {have}, expected "
+                                 f"{want}")
+        with first_mp2_body_route():
+            old = fn()
+        torch.cuda.synchronize()
+        if not (torch.isfinite(res.phis).all()
+                and torch.equal(res.phis, old.phis)):
+            raise AssertionError(f"phase 28 {tag}: the band body's run "
+                                 f"differs from the first body's")
+        counted[tag] = have
+    rates = {}
+    for tag, (fn, _) in runs.items():
+        t = []
+        for v1 in (True, False, False, True):
+            with (first_mp2_body_route() if v1 else contextlib.nullcontext()):
+                t.append(time_ms(fn, 1))
+        rates[tag] = [H4K * W4K * its / (ms * 1e3) for ms in t]
+    print("phase 28 4-phase runs through the band body: "
+          + "; ".join(f"{t} launches {c}, level sets bitwise the first "
+                      f"body's run" for t, c in counted.items())
+          + "; rates at 4K (Mpixel-iters/s, the whole run of "
+          f"{its} iterations; v1, new, new, v1): "
+          + "; ".join(f"{t} " + ", ".join(f"{r:.1f}" for r in rs)
+                      for t, rs in rates.items()) + f" [{card}]", flush=True)
+
+
+def mp2_band_phase(dev, card, st9, st9s):
+    """Phase 28: K9's band body. Registers, spills and blocks an SM, then
+    the checks against the first body, the times and the runs."""
+    regs = [x for x in ptxas_summary().split(", ")
+            if x.startswith(("mp2_coupled", "mp2_band"))]
+    print("phase 28 K9 ptxas: " + ", ".join(regs), flush=True)
+    pm = ct.CVParams(mu=MU_MP, max_iter=500)
+    for line in mp2_band_checks(dev, pm):
+        print(f"phase 28 {line}", flush=True)
+    mp2_band_times(dev, card, pm, st9, st9s)
+    mp2_band_rates(dev, card, pm)
+
+
 def main(argv=()) -> int:
     sass_parent = None
     if argv:
@@ -3682,6 +3894,8 @@ def main(argv=()) -> int:
     ha_stats = halo_phases(dev, card, u4k, gt4k)
     band_phase(dev, card, u4k, gt4k, v4k, gtc4k, stats, sh_stats,
                sass_parent)
+    mp2_band_phase(dev, card, mp_stats["K9 mp2_iteration"],
+                   ms_stats["K9 mp2_iteration_sharded"])
 
     entries = [
         dict(name=name, route="cuda", source=k["source"],

@@ -8,7 +8,8 @@ the bars of the JAX package's own kernel tests
 iteration elementwise, the labels over 25 iterations (the coupling term
 amplifies last-ulp differences about 100x per iteration near phi = 0, so
 longer runs are compared by label). ``cuda``-marked twins hold each kernel
-against its plain version on the card (skipped without a GPU).
+against its plain version on the card, and K9's band body against its
+first body (skipped without a GPU).
 """
 
 import jax.numpy as jnp
@@ -20,9 +21,10 @@ from chan_vese_tpu.models import multiphase as jmp
 from chan_vese_tpu.ops import pallas_multiphase, pallas_packed, pallas_sweep
 from chan_vese_tpu.ops import sweep as jsweep
 from chan_vese_tpu_torch.models import multiphase as tmp
-from chan_vese_tpu_torch.ops import (fused_kernel, multiphase_kernel,
-                                     packed_kernel)
+from chan_vese_tpu_torch.ops import (_cuda, fused_kernel,
+                                     multiphase_kernel, packed_kernel)
 from fixtures import four_regions
+from test_torch_mp2_band_tiling import twin as band_twin
 from torch_port_helpers import cuda_device, params, to_np, to_torch
 
 F32 = np.float32
@@ -70,6 +72,23 @@ def test_mp2_iteration_matches_pallas(shape):
     # the flips are of the 2-bit label
     flips = (_labels(want) != _labels(phis)).sum()
     assert abs(parts[8] - flips) <= 2
+
+
+def test_band_twin_matches_pallas():
+    """K9's band-body tiling, through the plain windowed twin of
+    tests/test_torch_mp2_band_tiling.py, against the JAX kernel in
+    interpret mode at the K9 bars, f32: the inputs of
+    test_mp2_iteration_matches_pallas at 64 x 128, whose compiled kernel
+    this reuses."""
+    u0, phis = _mk((64, 128))
+    pj, pt = params(mu=MU)
+    cs = jnp.stack(jmp.phase_means(jnp.asarray(u0), jnp.asarray(phis),
+                                   pj.eps))
+    want, _ = pallas_multiphase.mp2_iteration(
+        jnp.asarray(phis), jnp.asarray(u0), cs, pj, interpret=True)
+    got = band_twin(to_torch(phis, F32), to_torch(u0, F32),
+                    to_torch(cs, F32), pt, (16, 32, 0))
+    np.testing.assert_allclose(to_np(got), np.asarray(want), **BANDED)
 
 
 @pytest.mark.parametrize("layout", ["flat", "packed"])
@@ -250,3 +269,55 @@ def test_fused_sweep_cuda_matches_plain():
     np.testing.assert_allclose(to_np(got), to_np(want), **BANDED)
     np.testing.assert_allclose(to_np(parts)[2:5], to_np(wparts)[2:5],
                                rtol=1e-4, atol=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 256), (1000, 1152)])
+def test_mp2_band_body_cuda_matches_the_first_body(shape):
+    """K9's band body (the wrapper's launch) against the first body's `_v1`
+    launcher on the same inputs: phi bitwise, the flips equal, the other
+    partial sums equal after their f32 rounding (they add the same per-cell
+    terms in another order, in f64); a second launch bitwise the first."""
+    dev = cuda_device()
+    u0, phis = _mk(shape, seed=8)
+    _, pt = params(mu=MU)
+    u, ph = torch.from_numpy(u0).to(dev), torch.from_numpy(phis).to(dev)
+    cs = torch.stack(tmp.phase_means(u, ph, pt.eps))
+    n = multiphase_kernel.mp2_iteration.launches
+    got, parts = multiphase_kernel.mp2_iteration(ph, u, cs, pt)
+    again, aparts = multiphase_kernel.mp2_iteration(ph, u, cs, pt)
+    old, oparts = _cuda.launch_mp2(ph, u, cs, pt, v1=True)
+    torch.cuda.synchronize()
+    assert multiphase_kernel.mp2_iteration.launches == n + 2
+    assert torch.equal(got, old)
+    assert float(parts[8]) == float(oparts[8])
+    assert torch.equal(parts, oparts)
+    assert torch.equal(got, again) and torch.equal(parts, aparts)
+
+
+@pytest.mark.cuda
+def test_mp2_band_launcher_cuda_refuses_a_wrong_block_count():
+    """cv_mp2_iteration sizes its grid itself (csrc/mp2_band.cu Mp2Axis)
+    and refuses, with cudaErrorInvalidValue, a block count (block_parts'
+    rows, ops/_cuda.py::mp2_axis_tiles) that is not the grid's."""
+    from chan_vese_tpu_torch._build import library
+
+    dev = cuda_device()
+    u0, phis = _mk((256, 256), seed=8)
+    _, pt = params(mu=MU)
+    u, ph = torch.from_numpy(u0).to(dev), torch.from_numpy(phis).to(dev)
+    cs = torch.stack(tmp.phase_means(u, ph, pt.eps)).reshape(4).contiguous()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geo, nblocks = _cuda.mp2_plan(256, 256, None, sms)
+    out = torch.empty_like(ph)
+    block_parts = torch.empty((nblocks + 1, _cuda.MP2_SUMS),
+                              dtype=torch.float64, device=dev)
+    parts = torch.empty(16, dtype=torch.float32, device=dev)
+    pars = (pt.mu, pt.nu, 0.0, 0.0, *_cuda._common_params(pt))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    errs = [library().cv_mp2_iteration(
+        ph.data_ptr(), u.data_ptr(), cs.data_ptr(), out.data_ptr(),
+        block_parts.data_ptr(), parts.data_ptr(), 256, 256, *geo, n, *pars,
+        stream) for n in (nblocks, nblocks + 1, nblocks - 1)]
+    torch.cuda.synchronize()
+    assert errs == [0, 1, 1]  # cudaSuccess, cudaErrorInvalidValue twice

@@ -10,6 +10,8 @@ kinds (acwe_sh, gac_pre_sh) in the port against the JAX reference.
   bottom-right, no and all edge flags; both parities) at the K9 bars of
   tests/test_torch_kernels_mp2.py in f32; the whole canvas is compared
   (the kernel sweeps and stores it).
+- K9's band-body tiling (tests/test_torch_mp2_band_tiling.py's windowed
+  twin) against the JAX kernel in interpret mode on the same canvases.
 - The plain version on the port's narrow canvases of a 2x2 grid: each crop
   bitwise equal to the whole-image K9 iteration's window, and after two
   launches chained on one 16-deep canvas bitwise equal to two whole-image
@@ -19,8 +21,8 @@ kinds (acwe_sh, gac_pre_sh) in the port against the JAX reference.
   against the JAX kernel in interpret mode on the own cells, several pads
   and flags; the argument checks.
 - ``cuda``-marked tests hold each mode against its plain version on the
-  card, with a second launch bitwise equal to the first (skipped without a
-  GPU).
+  card, with a second launch bitwise equal to the first, and K9's shard
+  mode on its band body against its first body (skipped without a GPU).
 """
 
 import jax.numpy as jnp
@@ -31,13 +33,14 @@ import torch
 from chan_vese_tpu.models import multiphase as jmp
 from chan_vese_tpu.ops import pallas_morph, pallas_multiphase, pallas_sweep
 from chan_vese_tpu.ops.morph import inverse_gaussian_gradient as j_igg
-from chan_vese_tpu_torch.ops import fused_kernel, morph_kernel
+from chan_vese_tpu_torch.ops import _cuda, fused_kernel, morph_kernel
 from chan_vese_tpu_torch.ops import multiphase_kernel as mk
 from chan_vese_tpu_torch.parallel import (exchange_halo2d,
                                           exchange_halo2d_batched,
                                           grid_sharding, make_grid_mesh,
                                           shard_grid)
 from fixtures import four_regions
+from test_torch_mp2_band_tiling import twin as band_twin
 from torch_port_helpers import cuda_device, params, to_np, to_torch
 
 F32 = np.float32
@@ -101,6 +104,28 @@ def test_mp2_iteration_sharded_matches_pallas(edges, parity):
     assert abs(parts[8] - wparts[8]) <= 2
     np.testing.assert_allclose(parts[9], wparts[9], rtol=1e-4)
     np.testing.assert_array_equal(parts[10:], 0.0)
+
+
+@pytest.mark.parametrize("edges,parity",
+                         [(e, i % 2) for i, e in enumerate(EDGES[:2])])
+def test_band_twin_matches_pallas_sharded(edges, parity):
+    """K9's band-body tiling of a shard canvas, through the plain windowed
+    twin of tests/test_torch_mp2_band_tiling.py (unfolded and folded),
+    against the JAX kernel in interpret mode at the K9 bars, f32, the
+    whole canvas compared: the inputs of
+    test_mp2_iteration_sharded_matches_pallas, whose compiled kernel this
+    reuses."""
+    u, phis, cs = _mp_inputs((40, 128), F32, seed=parity)
+    pj, pt = params(mu=MU)
+    crop = (4, 36, 4, 68)
+    want, _ = pallas_multiphase.mp2_iteration_sharded(
+        jnp.asarray(phis), jnp.asarray(u), jnp.asarray(cs), pj,
+        jnp.asarray(parity), jnp.asarray(edges, F32), crop, interpret=True)
+    shard = _cuda.shard_args(40, 128, 1, parity, crop, edges)
+    for fold in (0, 1):
+        got = band_twin(to_torch(phis, F32), to_torch(u, F32),
+                        to_torch(cs, F32), pt, (8, 32, fold), shard)
+        np.testing.assert_allclose(to_np(got), np.asarray(want), **BANDED)
 
 
 def _narrow_canvases(phis, u, nx, ny, D):
@@ -267,3 +292,37 @@ def test_shard_modes_cuda_match_plain():
                                           parity0=parity0, **kw))
             assert torch.equal(got, kern(ls, a, flags, pads,
                                          parity0=parity0, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,k", [(4, 1), (16, 2)])
+def test_mp2_shard_band_body_cuda_matches_the_first_body(D, k):
+    """K9's shard mode on its band body against the first body's `_v1`
+    launcher on every shard of a 2x2 grid, one launch on the D = 4 canvas
+    and two chained on a 16-deep one: phi bitwise, the flips equal, the
+    other partial sums equal after their f32 rounding; a second launch
+    bitwise the first."""
+    dev = cuda_device()
+    _, pt = params(mu=MU)
+    u, phis, cs = (to_torch(a, F32).to(dev)
+                   for a in _mp_inputs((96, 256), F32, seed=3))
+    n0 = mk.mp2_iteration_sharded.launches
+    for _, x, uc, par, edges, crop in _narrow_canvases(
+            phis.cpu(), u.cpu(), 2, 2, D):
+        x, uc = x.to(dev).contiguous(), uc.to(dev).contiguous()
+        shard = _cuda.shard_args(*uc.shape, 1, par, crop, edges)
+        got = old = x
+        for _ in range(k):
+            got, parts = mk.mp2_iteration_sharded(got, uc, cs, pt, par,
+                                                  edges, crop)
+            old, oparts = _cuda.launch_mp2(old, uc, cs, pt, shard=shard,
+                                           v1=True)
+        again = mk.mp2_iteration_sharded(x, uc, cs, pt, par, edges, crop)
+        first = mk.mp2_iteration_sharded(x, uc, cs, pt, par, edges, crop)
+        torch.cuda.synchronize()
+        assert torch.equal(got, old), edges
+        assert float(parts[8]) == float(oparts[8])
+        assert torch.equal(parts, oparts)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+    assert mk.mp2_iteration_sharded.launches == n0 + 4 * (k + 2)
