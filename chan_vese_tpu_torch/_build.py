@@ -74,12 +74,28 @@ _MORPH_FUSED = [_P] * 6 + [_I] * 9 + [_P]
 _BAND = [_I] * 6 + [_F] * 9
 _BAND_MC = [_I] * 6 + [_F] * 7
 _MP2_BAND = [_I] * 7 + [_F] * 9
+# K1 and K4 on csrc/sweep.cuh: pointers phi, u0, cc, out, block_parts,
+# counters, parts; H, W, [N or C]; TH, TW, PX, PY, cap and the grid's block
+# count; the params; [the shard ints]; stream. Occupancy: [shard or C],
+# threads, dynamic bytes, int* blocks per SM.
+_SWEEP = [_P] * 7 + [_I, _I]
+_SWEEP_TAIL = [_I] * 6 + [_F] * 9
+_SWEEP_OCC = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
 # the halo ring (csrc/halo_ring.cu, K14): the task array, its length, the
 # element size; stream. Peer access: device, peer.
 _HALO_RING = [_P, _I, _I, _P]
 SIGNATURES = {
-    "cv_fused_iteration": _HEAD + _TAIL,
-    "cv_fused_sweep": _HEAD + _TAIL,
+    "cv_fused_iteration": _SWEEP + _SWEEP_TAIL + [_P],
+    "cv_fused_iteration_shard": _SWEEP + _SWEEP_TAIL + _SHARD,
+    "cv_fused_iteration_batch": _SWEEP + [_I] + _SWEEP_TAIL + [_P],
+    "cv_fused_sweep": _SWEEP + _SWEEP_TAIL + [_P],
+    "cv_fused_sweep_shard": _SWEEP + _SWEEP_TAIL + _SHARD,
+    "cv_fused_iteration_mc": _SWEEP + [_I] + _SWEEP_TAIL[:-2] + [_P],
+    "cv_sweep_occupancy": _SWEEP_OCC,
+    "cv_sweep_occupancy_force": _SWEEP_OCC,
+    "cv_sweep_occupancy_mc": _SWEEP_OCC,
+    "cv_fused_iteration_v1": _HEAD + _TAIL,
+    "cv_fused_sweep_v1": _HEAD + _TAIL,
     "cv_mp2_iteration": _HEAD + _MP2_BAND + [_P],
     "cv_mp2_iteration_shard": _HEAD + _MP2_BAND + _SHARD,
     "cv_mp2_band_occupancy": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
@@ -98,17 +114,17 @@ SIGNATURES = {
     "cv_banded_chunk_v1": _HEAD + [_I] + _TAIL,
     "cv_packed_banded_chunk_v1": _HEAD + [_I] + _TAIL,
     # the batch launcher takes the frame count N where mc ones take C
-    "cv_fused_iteration_batch": _HEAD_MC + _TAIL,
-    "cv_fused_iteration_mc": _HEAD_MC + _TAIL_MC,
+    "cv_fused_iteration_batch_v1": _HEAD_MC + _TAIL,
+    "cv_fused_iteration_mc_v1": _HEAD_MC + _TAIL_MC,
     "cv_banded_chunk_mc_v1": _HEAD_MC + [_I] + _TAIL_MC,
     "cv_packed_banded_chunk_mc_v1": _HEAD_MC + [_I] + _TAIL_MC,
-    "cv_fused_iteration_shard": _HEAD + _TAIL[:-1] + _SHARD,
+    "cv_fused_iteration_shard_v1": _HEAD + _TAIL[:-1] + _SHARD,
     "cv_banded_chunk_shard_v1": _HEAD + [_I] + _TAIL[:-1] + _SHARD,
     "cv_packed_banded_chunk_shard_v1": (_HEAD + [_I] + _TAIL[:-1]
                                         + _SHARD),
     "cv_banded_chunk_mc_shard_v1": (_HEAD_MC + [_I] + _TAIL_MC[:-1]
                                     + _SHARD),
-    "cv_fused_sweep_shard": _HEAD + _TAIL[:-1] + _SHARD,
+    "cv_fused_sweep_shard_v1": _HEAD + _TAIL[:-1] + _SHARD,
     "cv_mp2_iteration_shard_v1": _HEAD + _TAIL[:-1] + _SHARD,
     **{s: _RESIDENT for s in RESIDENT_SYMBOLS},
     **{f"{s}_grid": _GRID for s in RESIDENT_SYMBOLS},

@@ -1,6 +1,7 @@
 """Launch path shared by the red-black kernels (K1-K3 on a scalar image,
-K1 on a stack of frames, K4-K6 on a C-channel image; K2, K3, K5 and K6 on
-the banded body of csrc/band.cuh, the others on csrc/redblack.cuh), the
+K1 on a stack of frames, K4-K6 on a C-channel image; K1 and K4 on the
+single-sweep body of csrc/sweep.cuh, K2, K3, K5 and K6 on the banded body
+of csrc/band.cuh, the first bodies, `_v1`, on csrc/redblack.cuh), the
 exact-means resident kernels (K7 flat, K8 parity planes; scalar, batch and
 C-channel modes) and their frozen-means chunk mode (K13), the 4-phase
 kernels (K9 banded and resident, K10 parity planes), the morphological
@@ -124,6 +125,196 @@ def band_geometry(h: int, w: int, k: int, crop=None, nsums: int = 5,
                          f"band body holds ({BAND_THREADS} threads, "
                          f"{SMEM_LIMIT} B)")
     return min(best)[-1]
+
+
+# csrc/sweep.cuh (K1, K4): rows of a thread's strip, most threads a block
+# (__launch_bounds__ for SWEEP_MIN_BLOCKS of them an SM: 64 registers a
+# thread)
+SWEEP_ROWS, SWEEP_THREADS, SWEEP_MIN_BLOCKS = 6, 256, 4
+SWEEP_REGS = SM_REGS // (SWEEP_THREADS * SWEEP_MIN_BLOCKS)
+# the tile: 44 x 60 cells, a 48 x 64 window of 8 strips of SWEEP_ROWS rows
+# by 32 column pairs, 256 threads (56 columns on a shard canvas, whose
+# windows are two columns wider): the fastest of the tilings tried on an
+# H100 at 4K, 16 x 1080p and 4K RGB (PERF.md §6)
+SWEEP_TILE = (44, 60)
+
+
+def sweep_cell_bytes(c: int) -> int:
+    """Shared memory a window cell of the single-sweep body: phi, the old
+    value and u0 (f in the force mode, C planes for K4)."""
+    return 8 + 4 * max(c, 1)
+
+
+def sweep_static_bytes(nsums: int, cc_len: int) -> int:
+    """Static shared memory of sweep_kernel: the f64 reduction scratch, the
+    means and the last-block flag."""
+    return 8 * nsums * (BAND_THREADS // 32) + 4 * cc_len + 16
+
+
+def sweep_blocks_per_sm(threads: int, cap: int, static: int, c: int) -> int:
+    """Blocks of the single-sweep body an SM holds at ``threads`` threads
+    and ``cap`` window cells, by registers, warps and shared memory (the
+    design's count; the card's own is :func:`sweep_occupancy`)."""
+    warps = -(-threads // 32)
+    return min(SM_REGS // (SWEEP_REGS * 32 * warps), SM_WARPS // warps,
+               SM_SMEM // (sweep_cell_bytes(c) * cap + static + 1024), 32)
+
+
+@functools.lru_cache(maxsize=256)
+def sweep_geometry(h: int, w: int, crop=None):
+    """(TH, TW, PX, PY, cap) of a single-sweep launch (K1 in every mode, K4)
+    on an (h, w) image, or on a canvas whose ``crop`` = (r0, r1, c0, c1)
+    the tiles cover: SWEEP_TILE cut to the tiled region, PX x PY threads
+    (PX pairs across, PY strips of SWEEP_ROWS rows down) for its largest
+    window, the tile plus 2 each way (two columns more on a shard canvas
+    for the even start and width), windows of at most ``cap`` cells."""
+    shard = crop is not None
+    th_all, tw_all = (h, w) if not shard else (crop[1] - crop[0],
+                                               crop[3] - crop[2])
+    th = min(SWEEP_TILE[0], th_all)
+    tw = min(SWEEP_TILE[1] - (4 if shard else 0), tw_all + (tw_all & 1))
+    wh = min(h, th + 4)
+    ww = min(w, tw + 4 + (2 if shard else 0))
+    return th, tw, -(-ww // 2), -(-wh // SWEEP_ROWS), wh * ww
+
+
+def sweep_plan(h: int, w: int, shard=None):
+    """((TH, TW, PX, PY, cap), blocks a frame) of a single-sweep launch;
+    ``shard``: :func:`shard_args`' nine ints of a shard-canvas launch."""
+    crop = None if shard is None else tuple(shard[1:5])
+    geo = sweep_geometry(h, w, crop)
+    th_all, tw_all = (h, w) if crop is None else (crop[1] - crop[0],
+                                                  crop[3] - crop[2])
+    return geo, math.ceil(th_all / geo[0]) * math.ceil(tw_all / geo[1])
+
+
+def sweep_occupancy(c: int, shard: bool, threads: int, cap: int,
+                    force: bool = False) -> int:
+    """The card's blocks per SM of the single-sweep body (C channels, 0:
+    K1; ``force``: its force mode) at ``threads`` threads and ``cap`` window
+    cells (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import ctypes
+
+    from .._build import library
+
+    lib = library()
+    n = ctypes.c_int(0)
+    smem = sweep_cell_bytes(c) * cap
+    if c:
+        if shard:
+            raise ValueError("K4 has no shard-canvas mode")
+        err = lib.cv_sweep_occupancy_mc(c, threads, smem, ctypes.byref(n))
+    elif force:
+        err = lib.cv_sweep_occupancy_force(int(shard), threads, smem,
+                                           ctypes.byref(n))
+    else:
+        err = lib.cv_sweep_occupancy(int(shard), threads, smem,
+                                     ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"sweep occupancy query failed: "
+                           f"{lib.cv_error_string(err).decode()} ({err})")
+    return n.value
+
+
+# one counter word a frame for the single-sweep body's last-block sum, a
+# buffer per (device, stream): launches on one stream never run at once,
+# and each launch leaves its counters at 0
+_SWEEP_COUNTERS = {}
+
+
+def _sweep_counters(dev, stream, n: int):
+    key = (dev.index, stream.cuda_stream)
+    buf = _SWEEP_COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=dev)
+        _SWEEP_COUNTERS[key] = buf
+    return buf
+
+
+def _aligned16(t):
+    """t, or a fresh copy where its data does not start on a 16-byte
+    boundary (the window load's vectors need one)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def launch_sweep(symbol: str, phi, u0, cc, params, c: int = 0,
+                 frames=None, shard=None):
+    """One launch of the single-sweep body (csrc/sweep.cuh): ``symbol``
+    on phi (H, W), or (N, H, W) frames with ``frames`` = N, and u0 of
+    phi's shape (f in the force mode) or channels-first (C, H, W) with
+    ``c`` = C (K4); ``cc`` the means on the device, ``params`` the
+    launcher's floats; ``shard``: :func:`shard_args`' nine ints. Returns
+    (phi_new, partials: (8,), (N, 8) with frames, (C + 4,) for K4)."""
+    from .._build import library
+
+    h, w = phi.shape[-2:]
+    check_even(h, w)
+    dev = phi.device
+    n = frames or 1
+    if not 1 <= n <= MAX_FRAMES:
+        raise ValueError(f"{n} frames; a launch takes 1 to {MAX_FRAMES}")
+    (th, tw, px, py, cap), nblocks = sweep_plan(h, w, shard)
+    phi, u0 = _aligned16(phi), _aligned16(u0)
+    nsums, nout = (c + 4, c + 4) if c else (5, 8)
+    out = torch.empty_like(phi)
+    block_parts = torch.empty((n * nblocks, nsums), dtype=torch.float64,
+                              device=dev)
+    parts = torch.empty(nout if frames is None else (frames, nout),
+                        dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    counters = _sweep_counters(dev, stream, n)
+    extra = (frames,) if frames is not None else (c,) if c else ()
+    lib = library()
+    with torch.cuda.device(dev):
+        err = getattr(lib, symbol)(
+            phi.data_ptr(), u0.data_ptr(), cc.data_ptr(), out.data_ptr(),
+            block_parts.data_ptr(), counters.data_ptr(), parts.data_ptr(), h,
+            w, *extra, th, tw, px, py, cap, nblocks, *params, *(shard or ()),
+            stream.cuda_stream)
+    if err:
+        raise RuntimeError(f"{symbol} launch failed: "
+                           f"{lib.cv_error_string(err).decode()} ({err})")
+    return out, parts
+
+
+def launch_fused(symbol: str, phi, u0, c1, c2, p, shard=None):
+    """K1 (``cv_fused_iteration``, ``_shard``) or its force mode
+    (``cv_fused_sweep``, ``_shard``; u0 is f, the means unused) on sweep.cuh.
+    Returns (phi_new, partials (8,))."""
+    _check_inputs(phi, u0)
+    if u0.shape != phi.shape or phi.ndim != 2:
+        raise ValueError(f"u0 {tuple(u0.shape)} vs phi {tuple(phi.shape)}: "
+                         f"expected one (H, W) shape")
+    params = (p.mu, p.nu, p.lambda1, p.lambda2, *_common_params(p))
+    return launch_sweep(symbol, phi, u0, _means(c1, c2, phi.device), params,
+                        shard=shard)
+
+
+def launch_fused_batch(phis, u0s, c1s, c2s, p):
+    """K1's batch mode on sweep.cuh: each frame of (N, H, W) stacks with
+    per-frame means c1s, c2s (N,). Returns (phis_new, partials (N, 8))."""
+    _check_inputs(phis, u0s)
+    if u0s.shape != phis.shape or phis.ndim != 3:
+        raise ValueError(f"u0 {tuple(u0s.shape)} vs phi {tuple(phis.shape)}: "
+                         f"expected one (N, H, W) shape")
+    n, dev = phis.shape[0], phis.device
+    cc = torch.stack([torch.as_tensor(c, device=dev).reshape(n)
+                      for c in (c1s, c2s)], dim=1).to(torch.float32)
+    params = (p.mu, p.nu, p.lambda1, p.lambda2, *_common_params(p))
+    return launch_sweep("cv_fused_iteration_batch", phis, u0s,
+                        cc.contiguous(), params, frames=n)
+
+
+def launch_fused_mc(phi, u0, c1, c2, p, l1, l2):
+    """K4 on sweep.cuh: u0 channels-first (C, H, W), (C,) means, the
+    per-channel lambda tuples. Returns (phi_new, partials (C + 4,))."""
+    c = mc_channels(phi, u0)
+    _check_inputs(phi, u0)
+    if phi.ndim != 2:
+        raise ValueError(f"phi must be (H, W), got {tuple(phi.shape)}")
+    cc = _mc_means(c1, c2, l1, l2, c, phi.device)
+    return launch_sweep("cv_fused_iteration_mc", phi, u0, cc,
+                        (p.mu, p.nu, *_common_params(p)), c=c)
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,7 +3,9 @@
 Counterpart of ``chan_vese_tpu/ops/pallas_sweep.py`` (``_fused_band_kernel``
 on a whole image and, with ``parity``/``crop``/``edges``, on a shard canvas
 of the sharded solver). On a CUDA tensor :func:`fused_iteration` launches
-the hand-written kernel ``csrc/fused.cu``; on a CPU tensor it runs
+the hand-written kernel ``csrc/fused.cu`` (the single-sweep body of
+``csrc/sweep.cuh``; its first body stays as the ``_v1`` launchers, which
+only the smoke and the cuda-marked tests reach); on a CPU tensor it runs
 :func:`fused_iteration_reference`, the plain PyTorch version.
 :func:`chunk_shard_reference` is the plain version of every shard-canvas
 kernel (K1, K2, K3, K5 shard). The force
@@ -163,16 +165,15 @@ def fused_iteration(phi, u0, c1, c2, p: CVParams, parity=None, crop=None,
     if parity is None and crop is None and edges is None:
         if phi.device.type == "cpu":
             return fused_iteration_reference(phi, u0, c1, c2, p)
-        out = _cuda.launch_chunk("cv_fused_iteration", phi, u0, c1, c2, p,
-                                 None, h, w)
+        out = _cuda.launch_fused("cv_fused_iteration", phi, u0, c1, c2, p)
         fused_iteration.launches += 1
         return out
     shard = _cuda.shard_args(h, w, 1, parity or 0, crop, edges)
     if phi.device.type == "cpu":
         return fused_iteration_reference(phi, u0, c1, c2, p, parity, crop,
                                          edges)
-    out = _cuda.launch_chunk("cv_fused_iteration_shard", phi, u0, c1, c2, p,
-                             None, h, w, shard=shard)
+    out = _cuda.launch_fused("cv_fused_iteration_shard", phi, u0, c1, c2, p,
+                             shard=shard)
     fused_iteration.shard_launches += 1
     return out
 
@@ -208,13 +209,11 @@ def fused_sweep(phi, f, p: CVParams, parity=None):
     if phi.device.type == "cpu":
         return fused_sweep_reference(phi, f, p, parity)
     if parity is None:
-        out = _cuda.launch_chunk("cv_fused_sweep", phi, f, 0.0, 0.0, p,
-                                 None, h, w)
+        out = _cuda.launch_fused("cv_fused_sweep", phi, f, 0.0, 0.0, p)
         fused_sweep.launches += 1
         return out
     # the parity only: the whole image is the crop, no rim
-    out = _cuda.launch_chunk("cv_fused_sweep_shard", phi, f, 0.0, 0.0, p,
-                             None, h, w,
+    out = _cuda.launch_fused("cv_fused_sweep_shard", phi, f, 0.0, 0.0, p,
                              shard=_cuda.shard_args(h, w, 1, parity, None,
                                                     None))
     fused_sweep.parity_launches += 1
@@ -254,8 +253,7 @@ def fused_iteration_batch(phis, u0s, c1s, c2s, p: CVParams):
                          f"{tuple(c2s.shape)} must be ({n},)")
     if phis.device.type == "cpu":
         return fused_iteration_batch_reference(phis, u0s, c1s, c2s, p)
-    out = _cuda.launch_chunk_batch("cv_fused_iteration_batch", phis, u0s,
-                                   c1s, c2s, p, h, w)
+    out = _cuda.launch_fused_batch(phis, u0s, c1s, c2s, p)
     fused_iteration_batch.launches += 1
     return out
 

@@ -5,8 +5,10 @@ Counterpart of ``chan_vese_tpu/ops/pallas_sweep_mc.py``. The level set
 stays scalar; only the data term (Chan-Sandberg-Vese: the channel average
 of the weighted squared distances) and the region-mean partials see the
 channels. u0 is carried channels-first, (C, H, W), as in the reference.
-On a CUDA tensor :func:`fused_iteration_mc` launches ``csrc/fused_mc.cu``;
-on a CPU tensor it runs :func:`fused_iteration_mc_reference`.
+On a CUDA tensor :func:`fused_iteration_mc` launches ``csrc/fused_mc.cu``
+(the single-sweep body of ``csrc/sweep.cuh`` with C channels; its first
+body stays as ``cv_fused_iteration_mc_v1``); on a CPU tensor it runs
+:func:`fused_iteration_mc_reference`.
 
 Partials layout (C+4,): [s_uH per channel..., s_H, s_dphi2, flips,
 s_absdphi], taken over the transition phi -> phi_new.
@@ -86,10 +88,8 @@ def fused_iteration_mc(phi, u0_cfirst, c1, c2, p: CVParams,
     if phi.device.type == "cpu":
         return fused_iteration_mc_reference(phi, u0_cfirst, c1, c2, p,
                                             lambda1, lambda2)
-    h, w = phi.shape
     l1, l2 = p.channel_lambdas(C, lambda1, lambda2)
-    out = _cuda.launch_chunk_mc("cv_fused_iteration_mc", phi, u0_cfirst, c1,
-                                c2, p, None, h, w, l1, l2, C + 4)
+    out = _cuda.launch_fused_mc(phi, u0_cfirst, c1, c2, p, l1, l2)
     fused_iteration_mc.launches += 1
     return out
 

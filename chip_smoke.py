@@ -94,6 +94,20 @@ beside the bound, blocks per SM and waves; and phase 23's three 4-phase
 runs through the entry points, their K9 launches counted and their level
 sets bitwise the first body's runs, with their rates in turns with the
 first body.
+Phase 29 does the same for the single-sweep body of K1 and K4
+(csrc/sweep.cuh): registers and spills of every instantiation; each mode
+(whole image, force mode with and without a parity, batch, shard canvas,
+K4 RGB) against the first body's `_v1` launchers (phi bitwise, flips
+exact, the other partials within 1e-6 relative, second launches bitwise)
+at 512^2, 4K gray and RGB, 16 x 1080p, a ragged shape and every shard of
+the 2x2 and 3x3 grids (each crop bitwise the whole-image launch, each
+batch frame bitwise its own launch) and against its plain version; the
+two bodies in turns at the main path's shapes beside the bound, blocks
+per SM and waves; and segment_stack_fused_fixed (16 x 1080p),
+segment_fused_fixed (4K gray and RGB), the multiphase sweeps route (512^2,
+M = 3) and segment_sharded (2x2, comm_k 1) through the entry points,
+their launches counted and their masks checked, with their rates in
+turns with the first body.
 K1's force mode runs once under torch.cuda.set_sync_debug_mode("error")
 (phase 9).
 Any failure raises and exits non-zero.
@@ -176,7 +190,7 @@ KERNELS = {
         wrapper=fused_kernel.fused_iteration,
         plain=lambda phi, u0, c1, c2, p, k: (
             fused_kernel.fused_iteration_reference(phi, u0, c1, c2, p)),
-        source="chan_vese_tpu_torch/csrc/fused.cu",
+        source="chan_vese_tpu_torch/csrc/sweep.cuh",
         replaces="chan_vese_tpu/ops/pallas_sweep.py:216", ks=(1,),
         packed=False, channels=0),
     "K2 banded_chunk": dict(
@@ -196,7 +210,7 @@ KERNELS = {
         plain=lambda phi, u0, c1, c2, p, k, **lam: (
             fused_kernel_mc.fused_iteration_mc_reference(phi, u0, c1, c2, p,
                                                          **lam)),
-        source="chan_vese_tpu_torch/csrc/fused_mc.cu",
+        source="chan_vese_tpu_torch/csrc/sweep.cuh",
         replaces="chan_vese_tpu/ops/pallas_sweep_mc.py:50", ks=(1,),
         packed=False, channels=RGB),
     "K5 banded_chunk_mc": dict(
@@ -270,7 +284,7 @@ MP2 = {
     "K1 fused_sweep": dict(
         wrapper=fused_kernel.fused_sweep,
         plain=fused_kernel.fused_sweep_reference,
-        source="chan_vese_tpu_torch/csrc/fused_sweep.cu",
+        source="chan_vese_tpu_torch/csrc/sweep.cuh",
         replaces="chan_vese_tpu/ops/pallas_sweep.py:216",
         shapes=((H4K, W4K), (512, 512)), timed=(H4K, W4K)),
     "K9 mp2_iteration": dict(
@@ -368,7 +382,7 @@ COMPAT_SHAPE = (1080, 1920)
 # frame stacks and the layout kernels (phases 15-17)
 STACK = {
     "K1 fused_iteration_batch": dict(
-        source="chan_vese_tpu_torch/csrc/fused.cu",
+        source="chan_vese_tpu_torch/csrc/sweep.cuh",
         replaces="chan_vese_tpu/ops/pallas_sweep.py:216"),
     "K13 packed_chunk (flat)": dict(
         source="chan_vese_tpu_torch/csrc/resident_chunk.cu",
@@ -403,7 +417,7 @@ TOL_STACK, TOL_NOISES = (4, 256, 256), (8.0, 20.0, 20.0, 12.0)
 # k = 1, the RGB per-iteration route)
 SHARD = {
     "K1 fused_iteration (shard)": dict(
-        source="chan_vese_tpu_torch/csrc/fused.cu",
+        source="chan_vese_tpu_torch/csrc/sweep.cuh",
         replaces="chan_vese_tpu/ops/pallas_sweep.py:381", ks=(1,),
         channels=0, counter=(fused_kernel.fused_iteration,
                              "shard_launches")),
@@ -440,7 +454,7 @@ MP_SHARD = {
         replaces="chan_vese_tpu/ops/pallas_multiphase.py:279",
         counter=(multiphase_kernel.mp2_iteration_sharded, "launches")),
     "K1 fused_sweep (parity)": dict(
-        source="chan_vese_tpu_torch/csrc/fused_sweep.cu",
+        source="chan_vese_tpu_torch/csrc/sweep.cuh",
         replaces="chan_vese_tpu/ops/pallas_sweep.py:467",
         counter=(fused_kernel.fused_sweep, "parity_launches")),
     "K11 morph_chunk_shard (acwe_sh)": dict(
@@ -668,7 +682,7 @@ def best_accuracy(pred, gt):
 
 def ptxas_summary():
     """Registers and spill stores of every chunk_kernel, band_kernel,
-    resident_kernel, mp2_band_kernel, mp2_coupled_kernel,
+    sweep_kernel, resident_kernel, mp2_band_kernel, mp2_coupled_kernel,
     mp2_resident_kernel and morph_kernel instance, from ptxas's -v report
     of the build: 'kind flat/packed [C=n]: R regs, S B spill' (C = -1 is
     K1's force mode), 'morph <kind>: ...'."""
@@ -680,6 +694,7 @@ def ptxas_summary():
         if m:  # the lines up to the next entry describe this one
             mb = re.search(r"[^_]band_kernelILi(\d+)ELb(\d)ELb(\d)E",
                            m.group(1))
+            msw = re.search(r"sweep_kernelILi(n?)(\d+)ELb(\d)E", m.group(1))
             mm = re.search(r"morph_kernelILi(\d)E", m.group(1))
             m = re.search(r"(mp2_band|mp2_coupled|mp2_resident|chunk|"
                           r"resident)_kernel"
@@ -691,6 +706,10 @@ def ptxas_summary():
                 name = ("band", ("flat", "packed")[mb.group(3) == "1"],
                         (f" C={nc}" if nc else "")
                         + (" shard" if mb.group(2) == "1" else ""))
+            elif msw:
+                nc = int(msw.group(2)) * (-1 if msw.group(1) else 1)
+                name = ("sweep", "flat", (f" C={nc}" if nc else "")
+                        + (" shard" if msw.group(3) == "1" else ""))
             elif mm:
                 name = ("morph", morph_kinds[int(mm.group(1))], "")
             elif m:
@@ -3397,6 +3416,473 @@ def mp2_band_phase(dev, card, st9, st9s):
     mp2_band_rates(dev, card, pm)
 
 
+# the single-sweep body (phase 29): K1's whole-image, force (with and
+# without a parity), batch and shard-canvas modes and K4 on csrc/sweep.cuh,
+# held against the first body's `_v1` launchers (redblack.cuh chunk_kernel
+# at k = 1); the ragged even shape of the checks (its last tiles partial,
+# inside the fused envelope), the frames of the ragged batch check, and
+# the iterations of phase 29's runs through the entry points
+SWEEP_RAGGED, SWEEP_RAGGED_FRAMES, SWEEP_ITERS = (1000, 1408), 3, 100
+# the other partial sums against the first body's: summed in f64 in
+# another order, rounded to f32
+SWEEP_PARTS_RTOL = 1e-6
+
+
+def sweep_v1(mode):
+    """The first body's launch of ``mode`` ('whole', 'shard', 'sweep',
+    'batch', 'mc') with its wrapper's signature."""
+    if mode in ("whole", "shard"):
+        def run(phi, u0, c1, c2, p, parity=None, crop=None, edges=None):
+            h, w = phi.shape
+            if parity is None and crop is None and edges is None:
+                return _cuda.launch_chunk("cv_fused_iteration_v1", phi, u0,
+                                          c1, c2, p, None, h, w)
+            return _cuda.launch_chunk(
+                "cv_fused_iteration_shard_v1", phi, u0, c1, c2, p, None, h,
+                w, shard=_cuda.shard_args(h, w, 1, parity or 0, crop, edges))
+    elif mode == "sweep":
+        def run(phi, f, p, parity=None):
+            h, w = phi.shape
+            if parity is None:
+                return _cuda.launch_chunk("cv_fused_sweep_v1", phi, f, 0.0,
+                                          0.0, p, None, h, w)
+            return _cuda.launch_chunk(
+                "cv_fused_sweep_shard_v1", phi, f, 0.0, 0.0, p, None, h, w,
+                shard=_cuda.shard_args(h, w, 1, parity, None, None))
+    elif mode == "batch":
+        def run(phis, u0s, c1s, c2s, p):
+            return _cuda.launch_chunk_batch("cv_fused_iteration_batch_v1",
+                                            phis, u0s, c1s, c2s, p,
+                                            *phis.shape[1:])
+    else:
+        def run(phi, u0, c1, c2, p, lambda1=None, lambda2=None):
+            c = u0.shape[0]
+            l1, l2 = p.channel_lambdas(c, lambda1, lambda2)
+            return _cuda.launch_chunk_mc("cv_fused_iteration_mc_v1", phi, u0,
+                                         c1, c2, p, None, *phi.shape, l1, l2,
+                                         c + 4)
+    return run
+
+
+@contextlib.contextmanager
+def first_sweep_body_route():
+    """K1's and K4's wrappers replaced by the first body's `_v1` launchers
+    (the same drivers, the kernels before the single-sweep body)."""
+    saved = (fused_kernel.fused_iteration, fused_kernel.fused_sweep,
+             fused_kernel.fused_iteration_batch,
+             fused_kernel_mc.fused_iteration_mc)
+    (fused_kernel.fused_iteration, fused_kernel.fused_sweep,
+     fused_kernel.fused_iteration_batch,
+     fused_kernel_mc.fused_iteration_mc) = (
+        sweep_v1("whole"), sweep_v1("sweep"), sweep_v1("batch"),
+        sweep_v1("mc"))
+    try:
+        yield
+    finally:
+        (fused_kernel.fused_iteration, fused_kernel.fused_sweep,
+         fused_kernel.fused_iteration_batch,
+         fused_kernel_mc.fused_iteration_mc) = saved
+
+
+def sweep_same(tag, got, old, again, nsums, bitwise):
+    """The single-sweep body's launch against the first body's: phi
+    bitwise, the flips (slot nsums - 2) equal, the other partial sums
+    within SWEEP_PARTS_RTOL relative; its second launch bitwise the first.
+    Records in ``bitwise`` which slots came out bitwise; returns the
+    largest relative difference of the other sums."""
+    if not torch.equal(got[0], old[0]):
+        d = got[0] - old[0]
+        raise AssertionError(f"{tag}: phi differs from the first body's at "
+                             f"{int((d != 0).sum())} cells, max |d| "
+                             f"{float(d.abs().max())}")
+    flip = nsums - 2
+    g, o = got[1][..., :nsums].double(), old[1][..., :nsums].double()
+    if not torch.equal(g[..., flip], o[..., flip]):
+        raise AssertionError(f"{tag}: flips {g[..., flip].tolist()} vs the "
+                             f"first body's {o[..., flip].tolist()}")
+    rel = ((g - o).abs() / o.abs().clamp(min=1e-30)).reshape(-1, nsums)
+    worst = float(rel.max())
+    if worst > SWEEP_PARTS_RTOL:
+        raise AssertionError(f"{tag}: partials {got[1].tolist()} vs the "
+                             f"first body's {old[1].tolist()}")
+    for t in range(nsums):
+        bitwise[t] = bitwise.get(t, True) and bool((rel[:, t] == 0).all())
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        raise AssertionError(f"{tag}: two launches differ")
+    return worst
+
+
+def sweep_checks(dev, p, u4k, v4k, bitwise):
+    """Phase 29's checks: every mode of the single-sweep body against the
+    first body, its plain version (phase 3's bars) and its second launch,
+    at 512^2, 4K gray and RGB, 16 x 1080p, the ragged shape and every shard
+    of the 2x2 and 3x3 grids (each crop bitwise the whole-image launch);
+    each batch frame bitwise its own single-image launch."""
+    fk, fm = fused_kernel, fused_kernel_mc
+    lines, rels = [], []
+    img, _ = two_disks(*SWEEP_RAGGED)
+    rgb, _ = colored_squares(*SWEEP_RAGGED)
+    ur = torch.from_numpy(img).to(dev)
+    vr = torch.from_numpy(rgb).to(dev).permute(2, 0, 1).contiguous()
+    u512 = torch.from_numpy(two_disks(512, 512)[0]).to(dev)
+    v512 = torch.from_numpy(colored_squares(512, 512)[0]).to(dev)
+    v4cf = v4k.permute(2, 0, 1).contiguous()
+    gray = {"512^2": u512, "4K": u4k,
+            f"{SWEEP_RAGGED[0]}x{SWEEP_RAGGED[1]}": ur}
+    color = {"512^2": v512.permute(2, 0, 1).contiguous(), "4K": v4cf,
+             f"{SWEEP_RAGGED[0]}x{SWEEP_RAGGED[1]}": vr}
+    err = {}
+    for tag, u in gray.items():
+        phi, _, c1, c2 = chunk_inputs(u, p)
+        args = (phi, u, c1, c2, p)
+        got, again = fk.fused_iteration(*args), fk.fused_iteration(*args)
+        old = sweep_v1("whole")(*args)
+        torch.cuda.synchronize()
+        rels.append(sweep_same(f"K1 whole {tag}", got, old, again, 5,
+                               bitwise.setdefault("K1 whole", {})))
+        err["K1 fused_iteration"] = max(err.get("K1 fused_iteration", 0.0),
+                                        hold("K1 fused_iteration", got,
+                                             fk.fused_iteration_reference(
+                                                 *args), tag))
+        f = data_term_f(u, c1, c2, p)
+        for par in (None, 1):
+            got = fk.fused_sweep(phi, f, p, par)
+            again = fk.fused_sweep(phi, f, p, par)
+            old = sweep_v1("sweep")(phi, f, p, par)
+            torch.cuda.synchronize()
+            name = "K1 force" + ("" if par is None else " parity")
+            rels.append(sweep_same(f"{name} {tag}", got, old, again, 5,
+                                   bitwise.setdefault(name, {})))
+            ref = fk.fused_sweep_reference(phi, f, p, par)
+            hold(name, (got[0], got[1][2:]), (ref[0], ref[1][2:]), tag)
+    lines.append(f"K1 whole image and force mode (parity none and 1) at "
+                 f"{', '.join(gray)}: phi bitwise the first body's, flips "
+                 f"equal, second launches bitwise, phase 3's bars against "
+                 f"the plain versions")
+    for tag, u in color.items():
+        phi = init_phi(tuple(u.shape[1:]), p.init, torch.float32, device=dev)
+        c1, c2 = region_means(u.permute(1, 2, 0), phi, p.eps)
+        for lam in ({}, LAMBDAS):
+            args = (phi, u, c1, c2, p)
+            got, again = fm.fused_iteration_mc(*args, **lam), \
+                fm.fused_iteration_mc(*args, **lam)
+            old = sweep_v1("mc")(*args, **lam)
+            torch.cuda.synchronize()
+            rels.append(sweep_same(f"K4 {tag}", got, old, again, RGB + 4,
+                                   bitwise.setdefault("K4", {})))
+            err["K4 fused_iteration_mc"] = max(
+                err.get("K4 fused_iteration_mc", 0.0),
+                hold("K4 fused_iteration_mc", got,
+                     fm.fused_iteration_mc_reference(*args, **lam), tag))
+    lines.append(f"K4 at {', '.join(color)} (default and per-channel "
+                 f"lambdas): phi bitwise the first body's, flips equal, "
+                 f"second launches bitwise, phase 3's bars against the plain "
+                 f"version")
+    for n, (h, w) in ((VIDEO_FRAMES, (1080, 1920)),
+                      (SWEEP_RAGGED_FRAMES, SWEEP_RAGGED)):
+        u, _ = frame_stack(n, h, w, dev)
+        phi, _, _, _ = chunk_inputs(u[0], p)
+        phis = phi.expand(n, h, w).contiguous()
+        means = [region_means(fr, phi, p.eps) for fr in u]
+        c1 = torch.stack([m[0] for m in means])
+        c2 = torch.stack([m[1] for m in means])
+        args = (phis, u, c1, c2, p)
+        got = fk.fused_iteration_batch(*args)
+        again = fk.fused_iteration_batch(*args)
+        old = sweep_v1("batch")(*args)
+        single = [fk.fused_iteration(phis[i], u[i], c1[i], c2[i], p)
+                  for i in range(n)]
+        torch.cuda.synchronize()
+        rels.append(sweep_same(f"K1 batch {n}x{h}x{w}", got, old, again, 5,
+                               bitwise.setdefault("K1 batch", {})))
+        if not all(torch.equal(got[0][i], o[0]) and torch.equal(got[1][i],
+                                                                o[1])
+                   for i, o in enumerate(single)):
+            raise AssertionError(f"K1 batch {n}x{h}x{w}: a frame differs "
+                                 f"from its single-image launch")
+    lines.append(f"K1 batch {VIDEO_FRAMES}x1080x1920 and "
+                 f"{SWEEP_RAGGED_FRAMES}x{SWEEP_RAGGED[0]}x{SWEEP_RAGGED[1]}: "
+                 f"phi bitwise the first body's, flips equal, every frame "
+                 f"bitwise its own single-image launch (phi and partials)")
+    phi, _, c1, c2 = chunk_inputs(u4k, p)
+    whole = fk.fused_iteration(phi, u4k, c1, c2, p)[0]
+    n = 0
+    for nx, ny in SHARD_GRIDS:
+        h, w = H4K // nx, W4K // ny
+        for pos, x, uc, par, edges, crop in shard_canvases(phi, u4k, nx, ny,
+                                                           4, dev):
+            args = (x, uc, c1, c2, p, par, crop, edges)
+            got = fk.fused_iteration(*args)
+            again = fk.fused_iteration(*args)
+            old = sweep_v1("shard")(*args)
+            torch.cuda.synchronize()
+            tag = f"K1 shard {pos} of {nx}x{ny}"
+            rels.append(sweep_same(tag, got, old, again, 5,
+                                   bitwise.setdefault("K1 shard", {})))
+            ix, iy = pos
+            if not torch.equal(got[0][4:4 + h, 4:4 + w],
+                               whole[ix * h:(ix + 1) * h,
+                                     iy * w:(iy + 1) * w]):
+                raise AssertionError(f"{tag}: the crop differs from the "
+                                     f"whole-image launch")
+            n += 1
+    lines.append(f"K1 shard every shard of 2x2 and 3x3 at D=4 ({n} canvases): "
+                 f"phi bitwise the first body's and each crop the whole-image "
+                 f"launch's, flips equal, second launches bitwise")
+    lines.append(f"other partial sums within {max(rels):.2e} relative of the "
+                 f"first body's (bar {SWEEP_PARTS_RTOL}); slots bitwise in "
+                 f"every check: " + "; ".join(
+                     f"{m} {[t for t, b in s.items() if b]}"
+                     for m, s in bitwise.items()))
+    return lines, err
+
+
+def data_term_f(u, c1, c2, p):
+    """The gray force f of image u and means c1, c2 (fused_sweep's input)."""
+    d1, d2 = u - c1, u - c2
+    return -p.nu - p.lambda1 * d1 * d1 + p.lambda2 * d2 * d2
+
+
+def sweep_times(dev, card, p, u4k, v4k, stats):
+    """Phase 29's times: the single-sweep body against the first body in
+    turns (v1, new, new, v1; queued) at the main path's shapes, beside the
+    bound, the tiling, the card's blocks per SM and the waves. Fills the
+    kernels' stats (``stats``: name -> its dict)."""
+    fk, fm = fused_kernel, fused_kernel_mc
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    u512 = torch.from_numpy(two_disks(512, 512)[0]).to(dev)
+    phi512, _, c1s, c2s = chunk_inputs(u512, p)
+    f512 = data_term_f(u512, c1s, c2s, p)
+    phi, _, c1, c2 = chunk_inputs(u4k, p)
+    f4k = data_term_f(u4k, c1, c2, p)
+    v4cf = v4k.permute(2, 0, 1).contiguous()
+    cv1, cv2 = region_means(v4k, phi, p.eps)
+    video, _ = frame_stack(VIDEO_FRAMES, 1080, 1920, dev)
+    vphi = phi[:1080, :1920].contiguous().expand(VIDEO_FRAMES, 1080,
+                                                1920).contiguous()
+    vm = [region_means(fr, vphi[0], p.eps) for fr in video]
+    vc1, vc2 = (torch.stack([m[i] for m in vm]) for i in (0, 1))
+    (_, x, uc, par, edges, crop), = [
+        s for s in shard_canvases(phi, u4k, 2, 2, 4, dev) if s[0] == (0, 0)]
+    cases = [  # the stats entry it times (None: reported only), tag,
+        #        wrapper call, v1 call, (h, w, frames, crop, c), force, bound
+        (None, "force 512^2",
+         lambda: fk.fused_sweep(phi512, f512, p),
+         lambda: sweep_v1("sweep")(phi512, f512, p),
+         (512, 512, 1, None, 0), True, bound_sweep(512, 512)),
+        ("K1 fused_sweep", "force 4K",
+         lambda: fk.fused_sweep(phi, f4k, p),
+         lambda: sweep_v1("sweep")(phi, f4k, p),
+         (H4K, W4K, 1, None, 0), True, bound_sweep(H4K, W4K)),
+        ("K1 fused_iteration", "whole 4K",
+         lambda: fk.fused_iteration(phi, u4k, c1, c2, p),
+         lambda: sweep_v1("whole")(phi, u4k, c1, c2, p),
+         (H4K, W4K, 1, None, 0), False, bound(H4K, W4K, 1, 0)),
+        ("K1 fused_sweep (parity)", "force + parity 4K",
+         lambda: fk.fused_sweep(phi, f4k, p, 1),
+         lambda: sweep_v1("sweep")(phi, f4k, p, 1),
+         (H4K, W4K, 1, (0, H4K, 0, W4K), 0), True, bound_sweep(H4K, W4K)),
+        ("K1 fused_iteration_batch", "batch 16x1080p",
+         lambda: fk.fused_iteration_batch(vphi, video, vc1, vc2, p),
+         lambda: sweep_v1("batch")(vphi, video, vc1, vc2, p),
+         (1080, 1920, VIDEO_FRAMES, None, 0), False,
+         bound(1080, 1920, 1, 0, frames=VIDEO_FRAMES)),
+        ("K1 fused_iteration (shard)", "shard 2x2 canvas",
+         lambda: fk.fused_iteration(x, uc, c1, c2, p, par, crop, edges),
+         lambda: sweep_v1("shard")(x, uc, c1, c2, p, par, crop, edges),
+         (*x.shape, 1, crop, 0), False,
+         bound(crop[1] - crop[0], crop[3] - crop[2], 1, 0)),
+        ("K4 fused_iteration_mc", "4K RGB",
+         lambda: fm.fused_iteration_mc(phi, v4cf, cv1, cv2, p),
+         lambda: sweep_v1("mc")(phi, v4cf, cv1, cv2, p),
+         (H4K, W4K, 1, None, RGB), False, bound(H4K, W4K, 1, RGB)),
+    ]
+    out, queued = [], {}
+    for name, tag, new, old, (h, w, n, cr, c), force, (b_ms, b_by) in cases:
+        t = [queued_ms(f, 20) for f in (old, new, new, old)]
+        geo = _cuda.sweep_geometry(h, w, cr)
+        th, tw, px, py, cap = geo
+        threads = -(-px * py // 32) * 32
+        occ = _cuda.sweep_occupancy(c, cr is not None, threads, cap, force)
+        th_all, tw_all = (h, w) if cr is None else (cr[1] - cr[0],
+                                                    cr[3] - cr[2])
+        nblocks = n * math.ceil(th_all / th) * math.ceil(tw_all / tw)
+        ms, v1_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        if name is not None:
+            stats[name].update(ms=ms, bound_ms=b_ms, bound_by=b_by)
+        queued[name or "K1 fused_sweep 512^2"] = ms
+        out.append(f"{name or 'K1 fused_sweep'} {tag}: v1 {t[0]:.4f}, new "
+                   f"{t[1]:.4f}, new "
+                   f"{t[2]:.4f}, v1 {t[3]:.4f} ms (new/v1 {ms / v1_ms:.3f}; "
+                   f"bound {b_ms:.4f} {b_by}, new/bound {ms / b_ms:.2f}); "
+                   f"tile {th}x{tw}, {threads} threads, window <= {cap} "
+                   f"cells ({_cuda.sweep_cell_bytes(c) * cap} B), {occ} "
+                   f"blocks/SM, {nblocks} blocks = "
+                   f"{nblocks / (occ * sms):.2f} waves")
+    print("phase 29 single-sweep body vs the first body (queued device ms a "
+          "launch, in turns): " + "; ".join(out) + f" [{card}]", flush=True)
+    # the host's side of a launch: 512^2 force-mode calls back to back (a
+    # launch's device time is a third of the host's), in turns
+    pace = [host_pace_us(f, 500) for f in (
+        lambda: sweep_v1("sweep")(phi512, f512, p),
+        lambda: fk.fused_sweep(phi512, f512, p),
+        lambda: fk.fused_sweep(phi512, f512, p),
+        lambda: sweep_v1("sweep")(phi512, f512, p))]
+    print(f"phase 29 host's pace of K1's force mode at 512^2 (us a call, "
+          f"calls back to back; v1, new, new, v1): "
+          + ", ".join(f"{t:.2f}" for t in pace) + f" [{card}]", flush=True)
+    return queued
+
+
+def host_pace_us(fn, n):
+    """Mean wall time of n back-to-back calls of fn, in microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def _mask(res):
+    return res.mask if hasattr(res, "mask") else res[1]
+
+
+def sweep_runs(dev, card, u4k, gt4k, v4k, gtc4k, queued):
+    """Phase 29's runs through the entry points, each with its K1/K4
+    launches counted (the counts set to 0 just before it) and its masks
+    against the first body's run of the same entry point (IoU >= 0.999;
+    the sweeps route, which reads no partials, bitwise) and the truth,
+    then their rates in turns with the first body (v1, new, new, v1) and
+    the share of each run that its launches' queued time (``queued``: ms
+    a launch by kernel name, at the run's shape) accounts for: the rest is
+    the host's."""
+    fk, fm = fused_kernel, fused_kernel_mc
+    pt = ct.CVParams(mu=0.001 * 255.0 ** 2, max_iter=500)
+    pv = ct.CVParams(mu=0.0001 * 255.0 ** 2, max_iter=500)
+    pm = ct.CVParams(mu=MU_MP, max_iter=500)
+    mesh = make_grid_mesh(2, 2, [dev] * 4)
+    video, vgts = frame_stack(VIDEO_FRAMES, 1080, 1920, dev)
+    u512, gt512 = four_regions(512, 512)
+    u512 = torch.from_numpy(u512).to(dev)
+    its = SWEEP_ITERS
+    counters = {"fused_iteration": (fk.fused_iteration, "launches"),
+                "fused_iteration shard": (fk.fused_iteration,
+                                          "shard_launches"),
+                "fused_sweep": (fk.fused_sweep, "launches"),
+                "fused_iteration_batch": (fk.fused_iteration_batch,
+                                          "launches"),
+                "fused_iteration_mc": (fm.fused_iteration_mc, "launches")}
+    runs = {  # run, pixels an iteration, launches, the truth, the kernel
+        # whose queued ms (phase 29's times) each launch takes
+        f"segment_stack_fused_fixed {VIDEO_FRAMES}x1080p": (
+            lambda: batchedm.segment_stack_fused_fixed(video, pt, its),
+            video.numel(), {"fused_iteration_batch": its}, vgts,
+            "K1 fused_iteration_batch"),
+        "segment_fused_fixed 4K gray": (
+            lambda: ct.segment_fused_fixed(u4k, pt, its), H4K * W4K,
+            {"fused_iteration": its}, [gt4k], "K1 fused_iteration"),
+        "segment_fused_fixed 4K RGB": (
+            lambda: ct.segment_fused_fixed(v4k, pv, its), H4K * W4K,
+            {"fused_iteration_mc": its}, [gtc4k], "K4 fused_iteration_mc"),
+        "segment_multiphase sweeps 512^2 M=3": (
+            lambda: ct.segment_multiphase(u512, pm, m_sets=3, fixed=True,
+                                          max_iter=its, use_pallas=True),
+            512 * 512, {"fused_sweep": 3 * its}, None,
+            "K1 fused_sweep 512^2"),
+        "segment_sharded 2x2 comm_k=1": (
+            lambda: segment_sharded(u4k, pt, mesh, fixed=True,
+                                    max_iter=its), H4K * W4K,
+            {"fused_iteration shard": 4 * its}, [gt4k],
+            "K1 fused_iteration (shard)"),
+    }
+    lines = []
+    for tag, (fn, _, want, truths, _) in runs.items():
+        for f, attr in counters.values():
+            setattr(f, attr, 0)
+        res = fn()
+        torch.cuda.synchronize()
+        have = {n: getattr(f, a) for n, (f, a) in counters.items()
+                if getattr(f, a)}
+        if have != want:
+            raise AssertionError(f"phase 29 {tag} launched {have}, expected "
+                                 f"{want}")
+        with first_sweep_body_route():
+            old = fn()
+        torch.cuda.synchronize()
+        if truths is None:  # the sweeps route reads no partials: bitwise
+            same = torch.equal(res.phis, old.phis)
+            if not (same and torch.isfinite(res.phis).all()):
+                raise AssertionError(f"phase 29 {tag}: the level sets "
+                                     f"differ from the first body's run")
+            lines.append(f"{tag} launches {have}, level sets bitwise the "
+                         f"first body's run")
+        else:
+            new_m, old_m = _mask(res).cpu(), _mask(old).cpu()
+            new_m = new_m.reshape(-1, *new_m.shape[-2:])
+            old_m = old_m.reshape(-1, *old_m.shape[-2:])
+            same = min(iou(a.numpy(), b.numpy())
+                       for a, b in zip(new_m, old_m))
+            truth = min(iou_phases(m, g) for m, g in zip(new_m, truths))
+            if same < 0.999:
+                raise AssertionError(f"phase 29 {tag}: IoU {same} with the "
+                                     f"first body's run, below 0.999")
+            lines.append(f"{tag} launches {have}, IoU with the first body's "
+                         f"run {same:.6f}, with the truth {truth:.6f}")
+    print("phase 29 runs through the single-sweep body: " + "; ".join(lines),
+          flush=True)
+    rates = []
+    for tag, (fn, pix, want, _, kern) in runs.items():
+        t = []
+        for v1 in (True, False, False, True):
+            with (first_sweep_body_route() if v1
+                  else contextlib.nullcontext()):
+                t.append(time_ms(fn, 1))
+        r = [pix * its / (ms * 1e3) for ms in t]
+        new_ms = (t[1] + t[2]) / 2
+        share = sum(want.values()) * queued[kern] / new_ms
+        rates.append(f"{tag} {its} iterations " + ", ".join(
+            f"{x:.1f}" for x in r) + f" (new/v1 "
+            f"{(t[0] + t[3]) / (t[1] + t[2]):.3f}; {new_ms / its:.4f} ms an "
+            f"iteration, its launches' queued time {share:.1%} of it)")
+    print("phase 29 rates (Mpixel-iters/s, the whole run; v1, new, new, v1): "
+          + "; ".join(rates) + f" [{card}]", flush=True)
+
+
+def sweep_phase(dev, card, u4k, gt4k, v4k, gtc4k, stats):
+    """Phase 29: the single-sweep body. Registers, spills and blocks an
+    SM, then the checks against the first body, the times and the runs.
+    ``stats``: the K1 and K4 entries' stats dicts by name."""
+    regs = [s for s in ptxas_summary().split(", ")
+            if s.startswith("sweep")]
+    # the card's blocks an SM of every instantiation at the 4K tile (the
+    # shard-canvas ones at the 2x2 canvas's)
+    geo = _cuda.sweep_geometry(H4K, W4K)
+    sgeo = _cuda.sweep_geometry(1088, 1928, (4, 1084, 4, 1924))
+    cases = [("K1", 0, False, False, geo), ("K1 shard", 0, True, False, sgeo),
+             ("force", 0, False, True, geo),
+             ("force + parity", 0, True, True, sgeo)] + [
+                 (f"K4 C={c}", c, False, False, geo)
+                 for c in range(1, _cuda.MAX_CHANNELS + 1)]
+    occ = []
+    for tag, c, shard, force, (_, _, px, py, cap) in cases:
+        threads = -(-px * py // 32) * 32
+        n = _cuda.sweep_occupancy(c, shard, threads, cap, force)
+        occ.append(f"{tag} {n}")
+    print("phase 29 single-sweep body ptxas: " + ", ".join(regs)
+          + "; blocks an SM: " + ", ".join(occ), flush=True)
+    p = ct.CVParams()
+    bitwise = {}
+    lines, err = sweep_checks(dev, p, u4k, v4k, bitwise)
+    for line in lines:
+        print(f"phase 29 {line}", flush=True)
+    for name, e in err.items():
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], e)
+    queued = sweep_times(dev, card, p, u4k, v4k, stats)
+    sweep_runs(dev, card, u4k, gt4k, v4k, gtc4k, queued)
+
+
 def main(argv=()) -> int:
     sass_parent = None
     if argv:
@@ -3896,6 +4382,13 @@ def main(argv=()) -> int:
                sass_parent)
     mp2_band_phase(dev, card, mp_stats["K9 mp2_iteration"],
                    ms_stats["K9 mp2_iteration_sharded"])
+    sweep_phase(dev, card, u4k, gt4k, v4k, gtc4k, {
+        "K1 fused_iteration": stats["K1 fused_iteration"],
+        "K4 fused_iteration_mc": stats["K4 fused_iteration_mc"],
+        "K1 fused_sweep": mp_stats["K1 fused_sweep"],
+        "K1 fused_iteration_batch": sk_stats["K1 fused_iteration_batch"],
+        "K1 fused_iteration (shard)": sh_stats["K1 fused_iteration (shard)"],
+        "K1 fused_sweep (parity)": ms_stats["K1 fused_sweep (parity)"]})
 
     entries = [
         dict(name=name, route="cuda", source=k["source"],
