@@ -59,13 +59,21 @@ CHUNK_SYMBOLS = ("cv_resident_chunk", "cv_packed_resident_chunk")
 # parity pack and unpack (csrc/pack.cu, K15/K16): source, destination; N,
 # H, W, vector width; stream
 _PACK = [_P, _P] + [_I] * 4 + [_P]
-# morphological launchers (csrc/morph_band.cu, morph_fused.cu): pointers;
-# H, W, [kind], k, s, parity0, [balloon, thr_b], halo, TH, TW, cap; stream
-_MORPH = [_P] * 3 + [_I] * 7 + [_F] + [_I] * 4 + [_P]
+# morphological launchers on the bit body (csrc/morph_bits.cuh through
+# morph_band.cu, morph_fused.cu): pointers (K12: ls, u0, cc, out,
+# block_parts, counter, parts); H, W, [kind], k, s, parity0, [balloon,
+# thr_b], halo, TH, TW, WW, cap and the grid's block count; stream.
+# Occupancy: [kind], cap, int* blocks per SM.
+_MORPH = [_P] * 3 + [_I] * 7 + [_F] + [_I] * 6 + [_P]
 # the shard kinds' launcher: the same with pt, pb, pcl, pcr and the top,
 # bottom, left, right flags before the stream
 _MORPH_SHARD = _MORPH[:-1] + [_I] * 8 + [_P]
-_MORPH_FUSED = [_P] * 6 + [_I] * 9 + [_P]
+_MORPH_FUSED = [_P] * 7 + [_I] * 11 + [_P]
+# the first body's (csrc/morph.cuh, `_v1`): pointers; H, W, [kind], k, s,
+# parity0, [balloon, thr_b], halo, TH, TW, cap; [the shard ints]; stream
+_MORPH_V1 = [_P] * 3 + [_I] * 7 + [_F] + [_I] * 4 + [_P]
+_MORPH_SHARD_V1 = _MORPH_V1[:-1] + [_I] * 8 + [_P]
+_MORPH_FUSED_V1 = [_P] * 6 + [_I] * 9 + [_P]
 # K2/K5 and K3/K6 on csrc/band.cuh: the scalar or multichannel launcher's
 # pointers and sizes; k, TH, TW, PX, PY, cap; the params; [the shard ints];
 # stream. Occupancy: [C], [shard], threads, dynamic bytes, int* blocks per
@@ -137,6 +145,11 @@ SIGNATURES = {
     "cv_morph_chunk": _MORPH,
     "cv_morph_chunk_shard": _MORPH_SHARD,
     "cv_morph_fused_chunk": _MORPH_FUSED,
+    "cv_morph_bits_occupancy": [_I, _I, ctypes.POINTER(ctypes.c_int)],
+    "cv_morph_fused_bits_occupancy": [_I, ctypes.POINTER(ctypes.c_int)],
+    "cv_morph_chunk_v1": _MORPH_V1,
+    "cv_morph_chunk_shard_v1": _MORPH_SHARD_V1,
+    "cv_morph_fused_chunk_v1": _MORPH_FUSED_V1,
     "cv_halo_ring": _HALO_RING,
     "cv_halo_peer_access": [_I, _I],
 }

@@ -986,65 +986,194 @@ def launch_mp2_resident(symbol: str, phis, u0, p, iters: int, unroll: int,
     return out, parts
 
 
-# the morphological kernels (csrc/morph.cuh): kind codes and shared-memory
-# bytes per window cell (MorphKind, morph_cell_bytes)
-MORPH_KINDS = {"acwe": 0, "gac": 1, "gac_pre": 2, "acwe_sh": 4,
-               "gac_pre_sh": 5}
+# the morphological kernels: kind codes (csrc/morph_bits.cuh BitsKind,
+# csrc/morph.cuh MorphKind) and the first body's shared-memory bytes per
+# window cell (morph_cell_bytes)
+MORPH_KINDS = {"acwe": 0, "gac": 1, "gac_pre": 2, "acwe_fused": 3,
+               "acwe_sh": 4, "gac_pre_sh": 5}
 MORPH_CELL_BYTES = {"acwe": 3, "gac": 11, "gac_pre": 11, "acwe_fused": 3,
                     "acwe_sh": 3, "gac_pre_sh": 11}
+# the bit body (csrc/morph_bits.cuh): threads a block and the blocks an SM
+# its __launch_bounds__ asks for (64 registers a thread); shared-memory
+# words a window word (two state buffers and two force-sign planes, or
+# eight attraction planes, the balloon mask and two state buffers); the
+# words a window row may hold (a warp keeps a row's words in its lanes),
+# those it holds if the halo leaves room, and the tile heights tried,
+# tallest first
+MORPH_THREADS, MORPH_MIN_BLOCKS = 512, 2
+MORPH_WORDS = {"acwe": 4, "acwe_fused": 4, "acwe_sh": 4, "gac": 11,
+               "gac_pre": 11, "gac_pre_sh": 11}
+MORPH_MAX_WORDS, MORPH_ROW_WORDS = 32, 16
+MORPH_TILE_ROWS = (128, 96, 64, 48, 32, 24, 16, 8)
 
 
-def _morph_geometry(kind, ls, aux, k, halo):
-    _check_inputs(ls, aux, ("ls", "u0" if kind == "acwe_fused" else "aux"))
-    h, w = ls.shape
-    return (h, w, *tile_geometry(h, w, k, MORPH_CELL_BYTES[kind],
-                                 span=2 * halo))
+def morph_static_bytes() -> int:
+    """Static shared memory of morph_bits_kernel: the f64 reduction
+    scratch, the four floats of cc and the last-block flag."""
+    return 2 * 8 * (MORPH_THREADS // 32) + 16 + 4
 
 
-def launch_morph(kind: str, ls, aux, k: int, smoothing: int, parity0: int,
-                 balloon: int, thr_b: float, halo: int, shard=None):
-    """One K11 launch (csrc/morph_band.cu) of ``kind`` ('acwe', 'gac',
-    'gac_pre'; 'acwe_sh', 'gac_pre_sh' with ``shard`` = (pt, pb, pcl, pcr,
-    top, bottom, left, right) ints) on an (H, W) binary level set: k
-    iterations with a ``halo``-cell window margin. Returns the new level
-    set."""
+def morph_blocks_per_sm(kind: str, cap: int) -> int:
+    """Blocks of the bit body an SM holds at ``cap`` window words, by
+    registers, warps and shared memory (the design's count; the card's own
+    is :func:`morph_occupancy`)."""
+    warps = MORPH_THREADS // 32
+    regs = SM_REGS // (MORPH_THREADS * MORPH_MIN_BLOCKS)
+    return min(SM_REGS // (regs * 32 * warps), SM_WARPS // warps,
+               SM_SMEM // (4 * MORPH_WORDS[kind] * cap + morph_static_bytes()
+                           + 1024), 32)
+
+
+def _morph_axis(n: int, t: int) -> int:
+    """Tiles of at most t cells over n cells, evened out: the tile size."""
+    return -(-n // -(-n // t))
+
+
+@functools.lru_cache(maxsize=256)
+def morph_geometry(kind: str, h: int, w: int, halo: int, crop=None,
+                   sms: int = SMS):
+    """(TH, TW, WW, cap, nblocks) of a bit-body launch of ``kind`` on an
+    (h, w) image, or on a shard block whose ``crop`` = (r0, r1, c0, c1) the
+    tiles cover, with a ``halo``-cell window margin: tiles as wide as a
+    window of MORPH_ROW_WORDS words leaves room for (MORPH_MAX_WORDS where
+    the halo does not), evened out across the region; windows of at most
+    WW words and cap = WW x rows words; and of the MORPH_TILE_ROWS with
+    shared memory for MORPH_MIN_BLOCKS blocks an SM, the one whose busiest
+    SM has the fewest window rows to load and sweep: ceil(blocks / SMs)
+    times the window's rows (the taller of two equals). An SM's blocks
+    share its issue slots, so the halo's recompute and load, not idle SMs,
+    set the time (PERF.md §6, ``chip_morph_variants.py``: on an H100 this
+    picks the fastest tile height, or one within a few percent of it, at
+    4K and on a 2x2 shard block)."""
+    th_all, tw_all = (h, w) if crop is None else (crop[1] - crop[0],
+                                                  crop[3] - crop[2])
+    if th_all < 1 or tw_all < 1:
+        raise ValueError(f"no cells to tile in {(h, w)} (crop {crop})")
+    words = MORPH_ROW_WORDS
+    if 32 * words - 2 * halo < 64:
+        words = MORPH_MAX_WORDS
+    if 32 * words - 2 * halo < 32:
+        raise ValueError(f"a halo of {halo} cells leaves no tile in a window "
+                         f"row of {MORPH_MAX_WORDS} words")
+    tw = _morph_axis(tw_all, 32 * words - 2 * halo)
+    ww = -(-min(tw + 2 * halo, w) // 32)
+    best = None
+    for rows in MORPH_TILE_ROWS:
+        th = min(rows, th_all)
+        wrows = min(th + 2 * halo, h)
+        cap = wrows * ww
+        if morph_blocks_per_sm(kind, cap) < MORPH_MIN_BLOCKS:
+            continue
+        nblocks = -(-th_all // th) * -(-tw_all // tw)
+        key = (-(-nblocks // sms) * wrows, -th)
+        if best is None or key < best[0]:
+            best = (key, (th, tw, ww, cap, nblocks))
+    if best is None:
+        raise ValueError(f"a halo of {halo} cells needs more shared memory "
+                         f"than {MORPH_MIN_BLOCKS} blocks of the bit body "
+                         f"an SM hold")
+    return best[1]
+
+
+def _morph_crop(h: int, w: int, shard):
+    return None if shard is None else (shard[0], h - shard[1], shard[2],
+                                       w - shard[3])
+
+
+def morph_occupancy(kind: str, cap: int) -> int:
+    """The card's blocks per SM of the bit body's ``kind`` at ``cap``
+    window words (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import ctypes
+
     from .._build import library
 
-    h, w, th, tw, cap = _morph_geometry(kind, ls, aux, k, halo)
-    out = torch.empty_like(ls)
     lib = library()
-    args = (ls.data_ptr(), aux.data_ptr(), out.data_ptr(), h, w,
-            MORPH_KINDS[kind], k, smoothing, parity0, balloon, thr_b, halo,
-            th, tw, cap)
-    stream = torch.cuda.current_stream(ls.device).cuda_stream
-    symbol = "cv_morph_chunk" if shard is None else "cv_morph_chunk_shard"
-    err = getattr(lib, symbol)(*args, *(shard or ()), stream)
+    n = ctypes.c_int(0)
+    if kind == "acwe_fused":
+        err = lib.cv_morph_fused_bits_occupancy(cap, ctypes.byref(n))
+    else:
+        err = lib.cv_morph_bits_occupancy(MORPH_KINDS[kind], cap,
+                                          ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"morph occupancy query failed: "
+                           f"{lib.cv_error_string(err).decode()} ({err})")
+    return n.value
+
+
+def _morph_geometry_v1(kind, h, w, k, halo):
+    return tile_geometry(h, w, k, MORPH_CELL_BYTES[kind], span=2 * halo)
+
+
+def _raise_on(lib, symbol, err):
     if err:
         raise RuntimeError(f"{symbol} launch failed: "
                            f"{lib.cv_error_string(err).decode()} ({err})")
+
+
+def launch_morph(kind: str, ls, aux, k: int, smoothing: int, parity0: int,
+                 balloon: int, thr_b: float, halo: int, shard=None,
+                 v1: bool = False):
+    """One K11 launch (csrc/morph_band.cu) of ``kind`` ('acwe', 'gac',
+    'gac_pre'; 'acwe_sh', 'gac_pre_sh' with ``shard`` = (pt, pb, pcl, pcr,
+    top, bottom, left, right) ints) on an (H, W) binary level set: k
+    iterations with a ``halo``-cell window margin, on the bit body
+    (morph_bits.cuh), or with ``v1`` on the first body (morph.cuh). Returns
+    the new level set."""
+    from .._build import library
+
+    _check_inputs(ls, aux, ("ls", "aux"))
+    h, w = ls.shape
+    out = torch.empty_like(ls)
+    lib = library()
+    stream = torch.cuda.current_stream(ls.device).cuda_stream
+    symbol = "cv_morph_chunk" if shard is None else "cv_morph_chunk_shard"
+    if v1:
+        symbol += "_v1"
+        geo = _morph_geometry_v1(kind, h, w, k, halo)
+    else:
+        geo = morph_geometry(kind, h, w, halo, _morph_crop(h, w, shard))
+    err = getattr(lib, symbol)(
+        ls.data_ptr(), aux.data_ptr(), out.data_ptr(), h, w,
+        MORPH_KINDS[kind], k, smoothing, parity0, balloon, thr_b, halo, *geo,
+        *(shard or ()), stream)
+    _raise_on(lib, symbol, err)
     return out
 
 
 def launch_morph_fused(ls, u0, cc, k: int, smoothing: int, parity0: int,
-                       halo: int):
+                       halo: int, v1: bool = False):
     """One K12 launch (csrc/morph_fused.cu): k MorphACWE iterations with
-    the force from u0 and ``cc`` = (c_in, c_out, l1, l2) on the device.
-    Returns (ls_new, partials (2,) f32: sum ls, sum u0 ls)."""
+    the force from u0 and ``cc`` = (c_in, c_out, l1, l2) on the device, on
+    the bit body (its last block sums the partials), or with ``v1`` on the
+    first body (a second launch sums them). Returns (ls_new, partials (2,)
+    f32: sum ls, sum u0 ls)."""
     from .._build import library
 
-    h, w, th, tw, cap = _morph_geometry("acwe_fused", ls, u0, k, halo)
+    _check_inputs(ls, u0, ("ls", "u0"))
+    h, w = ls.shape
+    dev = ls.device
     out = torch.empty_like(ls)
-    nblocks = math.ceil(h / th) * math.ceil(w / tw)
-    block_parts = torch.empty((nblocks, 2), dtype=torch.float64,
-                              device=ls.device)
-    parts = torch.empty(2, dtype=torch.float32, device=ls.device)
+    parts = torch.empty(2, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev)
     lib = library()
-    err = lib.cv_morph_fused_chunk(
-        ls.data_ptr(), u0.data_ptr(), cc.data_ptr(), out.data_ptr(),
-        block_parts.data_ptr(), parts.data_ptr(), h, w, k, smoothing,
-        parity0, halo, th, tw, cap,
-        torch.cuda.current_stream(ls.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"cv_morph_fused_chunk launch failed: "
-                           f"{lib.cv_error_string(err).decode()} ({err})")
+    if v1:
+        th, tw, cap = _morph_geometry_v1("acwe_fused", h, w, k, halo)
+        nblocks = math.ceil(h / th) * math.ceil(w / tw)
+        block_parts = torch.empty((nblocks, 2), dtype=torch.float64,
+                                  device=dev)
+        err = lib.cv_morph_fused_chunk_v1(
+            ls.data_ptr(), u0.data_ptr(), cc.data_ptr(), out.data_ptr(),
+            block_parts.data_ptr(), parts.data_ptr(), h, w, k, smoothing,
+            parity0, halo, th, tw, cap, stream.cuda_stream)
+        _raise_on(lib, "cv_morph_fused_chunk_v1", err)
+        return out, parts
+    geo = morph_geometry("acwe_fused", h, w, halo)
+    block_parts = torch.empty((geo[-1], 2), dtype=torch.float64, device=dev)
+    counter = _sweep_counters(dev, stream, 1)
+    with torch.cuda.device(dev):
+        err = lib.cv_morph_fused_chunk(
+            ls.data_ptr(), u0.data_ptr(), cc.data_ptr(), out.data_ptr(),
+            block_parts.data_ptr(), counter.data_ptr(), parts.data_ptr(), h,
+            w, k, smoothing, parity0, halo, *geo, stream.cuda_stream)
+    _raise_on(lib, "cv_morph_fused_chunk", err)
     return out, parts

@@ -15,7 +15,7 @@ Schedule (all three): iteration j of a chunk is the force step, then
 ISoSI otherwise. ACWE holds the force f frozen over the chunk (k = 1 is the
 per-iteration-means scheme); GAC has no reduction in its loop, so its chunks
 are the per-iteration trajectory for any k. The level set must hold only
-0.0 and 1.0: the kernels keep it as bytes.
+0.0 and 1.0: the kernels keep it as bits (csrc/morph_bits.cuh).
 
 ``_reach``, ``_halo_morph``, ``band_rows_morph`` and
 ``supports_morph_banded`` (with ``_TILES_BY_KIND``, ``_SCOPED_TILES`` and

@@ -108,6 +108,20 @@ segment_fused_fixed (4K gray and RGB), the multiphase sweeps route (512^2,
 M = 3) and segment_sharded (2x2, comm_k 1) through the entry points,
 their launches counted and their masks checked, with their rates in
 turns with the first body.
+Phase 30 does the same for the bit body of K11 and K12
+(csrc/morph_bits.cuh): registers and spills of every instance and its
+blocks an SM; each kind (acwe, gac, gac_pre, K12; acwe_sh and gac_pre_sh
+on every shard of the 2x2 and 3x3 grids) bitwise against the first body's
+`_v1` launchers (K12's n_in equal, sum_in within 1e-6), its second launch
+and a launch on a second stream, at phase 12's shapes and runs (phases 12
+and 21 hold the same launches against the plain versions); the two bodies
+in turns at 4K and on the 2x2 shard block beside the bound, blocks per SM
+and waves; and segment_morph and segment_morph_iterations (4K gray and
+RGB, fuse_force), segment_gac and segment_gac_iterations (4K, pre_dg both
+ways), compat's GAC (1080p) and the sharded chunked morph and GAC drivers
+(2x2, comm_k 8) through the entry points, their K11/K12 launches counted,
+their level sets bitwise the first body's runs, with their rates in turns
+with the first body.
 K1's force mode runs once under torch.cuda.set_sync_debug_mode("error")
 (phase 9).
 Any failure raises and exits non-zero.
@@ -119,6 +133,7 @@ limit, and {"ok": true, "device": {...}}. Without a CUDA device it exits
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import json
 import math
@@ -376,6 +391,8 @@ MORPH_BYTES = {"acwe": 12, "gac": 12, "gac_pre": 20, "acwe_fused": 12}
 # inverse_gaussian_gradient(alpha=5, sigma=2) and a disk seed 32 px larger
 GAC_RADIUS, GAC_MARGIN, GAC_THRESHOLD = 28 / 96, 32, 0.3
 MORPH_ITERS, MORPH_PLAIN_ITERS = 800, 40
+# iterations of phase 30's fixed-iteration runs
+MORPH_BITS_ITERS = 200
 # the compat entry point's image (1080p)
 COMPAT_SHAPE = (1080, 1920)
 
@@ -683,9 +700,10 @@ def best_accuracy(pred, gt):
 def ptxas_summary():
     """Registers and spill stores of every chunk_kernel, band_kernel,
     sweep_kernel, resident_kernel, mp2_band_kernel, mp2_coupled_kernel,
-    mp2_resident_kernel and morph_kernel instance, from ptxas's -v report
-    of the build: 'kind flat/packed [C=n]: R regs, S B spill' (C = -1 is
-    K1's force mode), 'morph <kind>: ...'."""
+    mp2_resident_kernel, morph_kernel and morph_bits_kernel instance,
+    from ptxas's -v report of the build: 'kind flat/packed [C=n]: R regs,
+    S B spill' (C = -1 is K1's force mode), 'morph <kind>: ...',
+    'morph_bits <kind>: ...'."""
     out, name = {}, None
     morph_kinds = ("acwe", "gac", "gac_pre", "acwe_fused", "acwe_sh",
                    "gac_pre_sh")
@@ -695,7 +713,7 @@ def ptxas_summary():
             mb = re.search(r"[^_]band_kernelILi(\d+)ELb(\d)ELb(\d)E",
                            m.group(1))
             msw = re.search(r"sweep_kernelILi(n?)(\d+)ELb(\d)E", m.group(1))
-            mm = re.search(r"morph_kernelILi(\d)E", m.group(1))
+            mm = re.search(r"morph_(bits_)?kernelILi(\d)E", m.group(1))
             m = re.search(r"(mp2_band|mp2_coupled|mp2_resident|chunk|"
                           r"resident)_kernel"
                           r"(?:ILb(\d)E(?:Li(n?)(\d+)E)?(?:Lb(\d)E)?)?",
@@ -711,7 +729,8 @@ def ptxas_summary():
                 name = ("sweep", "flat", (f" C={nc}" if nc else "")
                         + (" shard" if msw.group(3) == "1" else ""))
             elif mm:
-                name = ("morph", morph_kinds[int(mm.group(1))], "")
+                name = ("morph_bits" if mm.group(1) else "morph",
+                        morph_kinds[int(mm.group(2))], "")
             elif m:
                 c = ("" if m.group(4) is None else
                      f" C={'-' if m.group(3) else ''}{m.group(4)}")
@@ -1062,6 +1081,26 @@ def bound_morph(kind, h, w, k, s, balloon):
     return roofline(MORPH_BYTES[kind] * h * w, h * w * per_pixel)
 
 
+def morph_inputs(dev, p, h, w):
+    """The phase 12 inputs at (h, w): the two-disks image, its
+    checkerboard binary start, frozen force plane, means and lambdas; the
+    GAC scene's edge map, aux stacks (balloon -1, 0, 1) and seed."""
+    u = torch.from_numpy(two_disks(h, w)[0]).to(dev)
+    ls = gacm._init_ls(u, p, None)
+    l1, l2 = morphm._lambdas(u, p, None, None)
+    ci, co = binary_means(u, ls)
+    gimg, _, seed = gac_scene(h, w)
+    g = inverse_gaussian_gradient(
+        torch.from_numpy(gimg).to(dev), 5.0, 2.0).contiguous()
+    # lambdas as device tensors, as the drivers pass them (a Python float
+    # would cost K12's wrapper a host-to-device copy per call)
+    return dict(u=u, ls=ls, f=morphm._force_plane(u, ls, l1, l2), ci=ci,
+                co=co, l1=l1, l2=l2, g=g,
+                seed=torch.from_numpy(seed).to(dev),
+                stacks={b: morph_kernel.gac_aux_stack(g, b, GAC_THRESHOLD)
+                        for b in (-1, 0, 1)})
+
+
 def morph_call(kind, inp, run):
     """A function of ``plain`` that runs one launch of ``kind`` (or its
     plain version) on the phase 12 inputs ``inp`` with ``run`` = (k,
@@ -1154,20 +1193,7 @@ def morph_phases(dev, card):
     p = ct.CVParams()
     mo_stats = {name: dict(max_abs_err=0.0) for name in MORPH}
     for h, w in MORPH_SHAPES:
-        u = torch.from_numpy(two_disks(h, w)[0]).to(dev)
-        ls = gacm._init_ls(u, p, None)
-        l1, l2 = morphm._lambdas(u, p, None, None)
-        ci, co = binary_means(u, ls)
-        gimg, _, seed = gac_scene(h, w)
-        g = inverse_gaussian_gradient(
-            torch.from_numpy(gimg).to(dev), 5.0, 2.0).contiguous()
-        # lambdas as device tensors, as the drivers pass them (a Python
-        # float would cost K12's wrapper a host-to-device copy per call)
-        inp = dict(u=u, ls=ls, f=morphm._force_plane(u, ls, l1, l2), ci=ci,
-                   co=co, l1=l1, l2=l2, g=g,
-                   seed=torch.from_numpy(seed).to(dev),
-                   stacks={b: morph_kernel.gac_aux_stack(g, b, GAC_THRESHOLD)
-                           for b in (-1, 0, 1)})
+        inp = morph_inputs(dev, p, h, w)
         for name, m in MORPH.items():
             st = mo_stats[name]
             for run in MORPH_RUNS[m["kind"]]:
@@ -3194,7 +3220,8 @@ def band_runs(dev, card, u4k, gt4k, v4k, gtc4k):
 def band_phase(dev, card, u4k, gt4k, v4k, gtc4k, stats, sh_stats,
                sass_parent):
     """Phase 27: the band body. Registers, spills and the SASS check
-    against a parent checkout (given), then the checks, times and runs."""
+    against a parent checkout (given), then the checks, times and runs.
+    Returns whether the SASS check ran (it raises where it fails)."""
     regs = [s for s in ptxas_summary().split(", ") if s.startswith("band")]
     print("phase 27 band body ptxas: " + ", ".join(regs), flush=True)
     if sass_parent:
@@ -3213,6 +3240,7 @@ def band_phase(dev, card, u4k, gt4k, v4k, gtc4k, stats, sh_stats,
         print(f"phase 27 {line}", flush=True)
     band_times(dev, card, p, u4k, v4k, stats, sh_stats)
     band_runs(dev, card, u4k, gt4k, v4k, gtc4k)
+    return bool(sass_parent)
 
 
 # K9's band body (phase 28): the whole-image and shard-canvas wrappers,
@@ -3883,6 +3911,316 @@ def sweep_phase(dev, card, u4k, gt4k, v4k, gtc4k, stats):
     sweep_runs(dev, card, u4k, gt4k, v4k, gtc4k, queued)
 
 
+# the bit body (phase 30): K11's five kinds and K12 on csrc/morph_bits.cuh,
+# held against the first body's `_v1` launchers (csrc/morph.cuh); each
+# entry: the stats entry it times, its kind, and whether it runs on a shard
+# block (the 2x2 grid's shard (0, 0) at the driver's D)
+MORPH_BITS = {
+    "K11 morph_chunk": ("acwe", False),
+    "K11 gac_chunk": ("gac", False),
+    "K11 gac_chunk pre_dg": ("gac_pre", False),
+    "K12 morph_chunk_fused": ("acwe_fused", False),
+    "K11 morph_chunk_shard (acwe_sh)": ("acwe_sh", True),
+    "K11 gac_chunk_shard (gac_pre_sh)": ("gac_pre_sh", True),
+}
+
+
+@contextlib.contextmanager
+def first_morph_body_route():
+    """K11's and K12's launches on the first body's `_v1` launchers (the
+    same wrappers and drivers, the kernels before the bit body)."""
+    saved = (_cuda.launch_morph, _cuda.launch_morph_fused)
+    _cuda.launch_morph = functools.partial(saved[0], v1=True)
+    _cuda.launch_morph_fused = functools.partial(saved[1], v1=True)
+    try:
+        yield
+    finally:
+        _cuda.launch_morph, _cuda.launch_morph_fused = saved
+
+
+def morph_bits_same(tag, new, old, again):
+    """The bit body's launch against the first body's: the level set
+    bitwise, K12's n_in exact and sum_in within SUM_IN_RTOL; its second
+    launch bitwise the first. Returns sum_in's relative difference."""
+    (g, gp), (o, op), (a, ap) = new, old, again
+    if not torch.equal(g, o):
+        raise AssertionError(f"{tag}: the level set differs from the first "
+                             f"body's at {int((g != o).sum())} cells")
+    if not torch.equal(g, a) or (gp is not None and not torch.equal(gp, ap)):
+        raise AssertionError(f"{tag}: two launches differ")
+    if gp is None:
+        return 0.0
+    rel = float((gp[1].double() - op[1].double()).abs()
+                / op[1].double().abs())
+    if not (bool(gp[0] == op[0]) and rel <= SUM_IN_RTOL):
+        raise AssertionError(f"{tag}: partials {gp.tolist()} vs the first "
+                             f"body's {op.tolist()}")
+    return rel
+
+
+def morph_bits_checks(dev, p):
+    """Phase 30's checks: every whole-image kind against the first body at
+    phase 12's shapes and runs (4K, 1080p, 1000x1500), a second launch and
+    a launch on a second stream; the shard kinds on every shard of the 2x2
+    and 3x3 grids (phases 12 and 21 hold the same launches against the
+    plain versions and the crops against the whole image)."""
+    lines, worst = [], 0.0
+    side = torch.cuda.Stream()
+    for h, w in MORPH_SHAPES:
+        inp = morph_inputs(dev, p, h, w)
+        n = 0
+        for name, m in MORPH.items():
+            for run in MORPH_RUNS[m["kind"]]:
+                call = morph_call(m["kind"], inp, run)
+                new, again = call(False), call(False)
+                with first_morph_body_route():
+                    old = call(False)
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    other = call(False)
+                torch.cuda.current_stream().wait_stream(side)
+                torch.cuda.synchronize()
+                tag = f"phase 30 {name} {run} at {h}x{w}"
+                worst = max(worst, morph_bits_same(tag, new, old, again))
+                morph_bits_same(tag + " (second stream)", other, old, new)
+                n += 1
+        lines.append(f"{h}x{w}: {n} launches of the four whole-image kinds "
+                     f"bitwise the first body's, their second launches and "
+                     f"launches on a second stream")
+    ls, fm, g = morph_shard_inputs(dev, p)
+    k = MORPH_SHARD_K
+    for gac in (False, True):
+        D = morph_kernel._reach("gac" if gac else "acwe", 1) * k
+        call = morph_shard_call(gac, k, D)
+        for nx, ny in SHARD_GRIDS:
+            for pos, x, a, e in morph_blocks(ls, g if gac else fm, nx, ny, D,
+                                             dev, gac):
+                new, again = (call(x, a, e), None), (call(x, a, e), None)
+                with first_morph_body_route():
+                    old = (call(x, a, e), None)
+                torch.cuda.synchronize()
+                morph_bits_same(f"phase 30 {'gac_pre_sh' if gac else 'acwe_sh'}"
+                                f" shard {pos} of {nx}x{ny}", new, old, again)
+            lines.append(f"{'gac_pre_sh' if gac else 'acwe_sh'} k={k} D={D} "
+                         f"{nx}x{ny}: every block bitwise the first body's")
+    lines.append(f"K12 sum_in within {worst:.3e} relative of the first "
+                 f"body's (bar {SUM_IN_RTOL}), n_in equal")
+    return lines
+
+
+def morph_bits_times(dev, card, p, stats):
+    """Phase 30's times: the bit body against the first body in turns (v1,
+    new, new, v1; queued) at 4K (phase 12's timed runs) and on the 2x2
+    grid's shard (0, 0) block, beside the bound, the tiling, the card's
+    blocks an SM and the waves. Fills the kernels' stats (``stats``: name
+    -> its dict) with the new body's time; returns ms a launch by name."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    inp = morph_inputs(dev, p, H4K, W4K)
+    ls, fm, g = morph_shard_inputs(dev, p)
+    k = MORPH_SHARD_K
+    out, queued = [], {}
+    for name, (kind, shard) in MORPH_BITS.items():
+        if shard:
+            gac = kind == "gac_pre_sh"
+            D = morph_kernel._reach(kind, 1) * k
+            (_, x, a, e), = [b for b in morph_blocks(
+                ls, g if gac else fm, 2, 2, D, dev, gac) if b[0] == (0, 0)]
+            call = morph_shard_call(gac, k, D)
+
+            def fn(c=call, x=x, a=a, e=e):
+                return c(x, a, e)
+            h, w = x.shape
+            crop = (D, h - D, D, w - D)
+            halo, run = D, (k, 1, 0, 1 if gac else 0)
+            b_ms, b_by = bound_morph("gac_pre" if gac else "acwe", h - 2 * D,
+                                     w - 2 * D, k, 1, run[3])
+        else:
+            run = MORPH_RUNS[kind][0]
+            c = morph_call(kind, inp, run)
+
+            def fn(c=c):
+                return c(False)
+            h, w, crop = H4K, W4K, None
+            halo = morph_kernel._reach(kind, run[1]) * run[0]
+            b_ms, b_by = bound_morph(kind, h, w, *run[:2],
+                                     run[3] if len(run) > 3 else 0)
+        t = []
+        for v1 in (True, False, False, True):
+            with (first_morph_body_route() if v1
+                  else contextlib.nullcontext()):
+                t.append(queued_ms(fn, 20))
+        th, tw, ww, cap, nblocks = _cuda.morph_geometry(kind, h, w, halo,
+                                                        crop)
+        occ = _cuda.morph_occupancy(kind, cap)
+        ms, v1_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        stats[name].update(ms=ms, bound_ms=b_ms, bound_by=b_by)
+        queued[name] = ms
+        out.append(f"{name} {run} at {h}x{w}: v1 {t[0]:.4f}, new {t[1]:.4f}, "
+                   f"new {t[2]:.4f}, v1 {t[3]:.4f} ms (v1/new "
+                   f"{v1_ms / ms:.2f}; bound {b_ms:.4f} {b_by}, new/bound "
+                   f"{ms / b_ms:.2f}); tile {th}x{tw}, windows <= {ww} words "
+                   f"x {cap // ww} rows ({4 * _cuda.MORPH_WORDS[kind] * cap} "
+                   f"B), {occ} blocks/SM, {nblocks} blocks = "
+                   f"{nblocks / (occ * sms):.2f} waves")
+    print("phase 30 bit body vs the first body (queued device ms a launch, "
+          "in turns): " + "; ".join(out) + f" [{card}]", flush=True)
+    return queued
+
+
+def morph_bits_runs(dev, card, queued):
+    """Phase 30's runs through the entry points on both bodies, each with
+    its K11/K12 launches counted (the counts set to 0 just before it) and
+    its level set bitwise the first body's run, then their rates in turns
+    (v1, new, new, v1) and the share of each run that its launches' queued
+    time (``queued``) accounts for: the rest is the driver's (the means and
+    the force plane, the exchange)."""
+    p = ct.CVParams()
+    mk = morph_kernel
+    img4k, _ = two_disks(H4K, W4K)
+    u4k = torch.from_numpy(img4k).to(dev)
+    v4k = torch.from_numpy(np.stack(
+        [img4k, 0.5 * img4k + 30.0, 255.0 - img4k], axis=-1)).to(dev)
+    gimg4k, _, seed4k = gac_scene(H4K, W4K)
+    g4k = inverse_gaussian_gradient(
+        torch.from_numpy(gimg4k).to(dev), 5.0, 2.0)
+    s4k = torch.from_numpy(seed4k).to(dev)
+    gimg1k, _, seed1k = gac_scene(*COMPAT_SHAPE)
+    g1k = compat.inverse_gaussian_gradient(gimg1k, 5.0, 2.0, device=dev)
+    gkw = dict(balloon=-1, threshold=GAC_THRESHOLD)
+    mesh = make_grid_mesh(2, 2, [dev] * 4)
+    its = MORPH_BITS_ITERS
+    counters = {"K11 morph_chunk": (mk.morph_chunk, "launches"),
+                "K11 gac_chunk": (mk.gac_chunk, "launches"),
+                "K12 morph_chunk_fused": (mk.morph_chunk_fused, "launches"),
+                "K11 morph_chunk_shard (acwe_sh)": (mk.morph_chunk_shard,
+                                                    "launches"),
+                "K11 gac_chunk_shard (gac_pre_sh)": (mk.gac_chunk_shard,
+                                                     "launches")}
+    kinds = {"gac": "K11 gac_chunk", "gac_pre": "K11 gac_chunk pre_dg"}
+    runs = {  # run, pixels an iteration
+        "segment_morph 4K gray": (lambda: ct.segment_morph(u4k, p),
+                                  H4K * W4K),
+        "segment_morph 4K RGB": (lambda: ct.segment_morph(v4k, p),
+                                 H4K * W4K),
+        f"segment_morph_iterations 4K gray {its}": (
+            lambda: ct.segment_morph_iterations(u4k, p, iters=its),
+            H4K * W4K),
+        f"segment_morph_iterations 4K RGB {its}": (
+            lambda: ct.segment_morph_iterations(v4k, p, iters=its),
+            H4K * W4K),
+        f"segment_morph_iterations fuse_force 4K {its}": (
+            lambda: ct.segment_morph_iterations(u4k, p, iters=its,
+                                                fuse_force=True), H4K * W4K),
+        "segment_gac 4K": (lambda: ct.segment_gac(g4k, p, ls0=s4k, **gkw),
+                           H4K * W4K),
+        f"segment_gac_iterations 4K {its}": (
+            lambda: ct.segment_gac_iterations(g4k, p, iters=its, ls0=s4k,
+                                              **gkw), H4K * W4K),
+        f"segment_gac_iterations pre_dg=False 4K {its}": (
+            lambda: ct.segment_gac_iterations(g4k, p, iters=its, ls0=s4k,
+                                              pre_dg=False, **gkw),
+            H4K * W4K),
+        "compat GAC 1080p 80": (
+            lambda: compat.morphological_geodesic_active_contour(
+                g1k, 80, init_level_set=seed1k, device=dev, **gkw),
+            COMPAT_SHAPE[0] * COMPAT_SHAPE[1]),
+        "segment_morph_sharded_chunked 2x2 comm_k=8": (
+            lambda: segment_morph_sharded_chunked(u4k, p, mesh=mesh,
+                                                  comm_k=MORPH_SHARD_K),
+            H4K * W4K),
+        "segment_gac_sharded_chunked 2x2 comm_k=8": (
+            lambda: segment_gac_sharded_chunked(g4k, p, mesh=mesh, ls0=s4k,
+                                                comm_k=MORPH_SHARD_K, **gkw),
+            H4K * W4K),
+    }
+
+    def count():
+        have = {n: getattr(f, a) for n, (f, a) in counters.items()
+                if getattr(f, a)}
+        if "K11 gac_chunk" in have:
+            del have["K11 gac_chunk"]
+            have.update({kinds[kd]: v for kd, v in
+                         mk.gac_chunk.kind_launches.items() if v})
+        return have
+
+    lines, done = [], {}
+    for tag, (fn, _) in runs.items():
+        for f, a in counters.values():
+            setattr(f, a, 0)
+        mk.gac_chunk.kind_launches = {"gac": 0, "gac_pre": 0}
+        res = fn()
+        torch.cuda.synchronize()
+        have = count()
+        with first_morph_body_route():
+            old = fn()
+        torch.cuda.synchronize()
+        if tag.startswith("compat"):
+            same = np.array_equal(res, old)
+            iters = ""
+        else:
+            same = torch.equal(res.ls, old.ls)
+            iters = f"{res.iters} iterations (first body {old.iters}), "
+        if not have or not same:
+            raise AssertionError(f"phase 30 {tag}: launches {have}, level set "
+                                 f"bitwise the first body's run: {same}")
+        done[tag] = (have, res)
+        lines.append(f"{tag} {iters}launches {have}, level set bitwise the "
+                     f"first body's run")
+    print("phase 30 runs through the bit body: " + "; ".join(lines),
+          flush=True)
+    rates = []
+    for tag, (fn, pix) in runs.items():
+        have, res = done[tag]
+        n = res.iters if hasattr(res, "iters") else 80
+        t = []
+        for v1 in (True, False, False, True):
+            with (first_morph_body_route() if v1
+                  else contextlib.nullcontext()):
+                t.append(time_ms(fn, 1))
+        r = [pix * n / (ms * 1e3) for ms in t]
+        new_ms = (t[1] + t[2]) / 2
+        share = ""
+        if pix == H4K * W4K:  # the queued times are 4K's (the 2x2 block's)
+            kern = sum(c * queued[name] for name, c in have.items())
+            share = (f", its launches' queued time {kern / new_ms:.1%} of "
+                     f"it")
+        rates.append(f"{tag} ({n} iterations) " + ", ".join(
+            f"{x:.1f}" for x in r) + f" (new/v1 "
+            f"{(t[0] + t[3]) / (t[1] + t[2]):.3f}; {new_ms:.3f} ms{share})")
+    print("phase 30 rates (Mpixel-iters/s, the whole run; v1, new, new, v1): "
+          + "; ".join(rates) + f" [{card}]", flush=True)
+
+
+def morph_bits_phase(dev, card, mo_stats, ms_stats, sass_checked):
+    """Phase 30: the bit body of K11 and K12. Registers, spills and blocks
+    an SM, then the checks against the first body, the times and the
+    runs."""
+    regs = [s for s in ptxas_summary().split(", ")
+            if s.startswith("morph_bits")]
+    occ = []
+    for name, (kind, shard) in MORPH_BITS.items():
+        if shard:
+            D = morph_kernel._reach(kind, 1) * MORPH_SHARD_K
+            h, w = H4K // 2 + 2 * D, W4K // 2 + 2 * D
+            geo = _cuda.morph_geometry(kind, h, w, D, (D, h - D, D, w - D))
+        else:
+            run = MORPH_RUNS[kind][0]
+            geo = _cuda.morph_geometry(
+                kind, H4K, W4K, morph_kernel._reach(kind, run[1]) * run[0])
+        occ.append(f"{kind} {_cuda.morph_occupancy(kind, geo[3])}")
+    print("phase 30 bit body ptxas: " + ", ".join(regs) + "; blocks an SM "
+          "(4K, the 2x2 shard block): " + ", ".join(occ) + "; the first "
+          "body's six morph_kernel instances in phase 27's sass_diff check: "
+          + ("passed" if sass_checked else "not run (no --sass-parent)"),
+          flush=True)
+    p = ct.CVParams()
+    for line in morph_bits_checks(dev, p):
+        print(f"phase 30 {line}", flush=True)
+    stats = {**mo_stats, **ms_stats}
+    queued = morph_bits_times(dev, card, p, stats)
+    morph_bits_runs(dev, card, queued)
+
+
 def main(argv=()) -> int:
     sass_parent = None
     if argv:
@@ -4378,8 +4716,8 @@ def main(argv=()) -> int:
     sh_stats = shard_phases(dev, card, u4k, gt4k, v4k, gtc4k)
     ms_stats = mp_morph_shard_phases(dev, card)
     ha_stats = halo_phases(dev, card, u4k, gt4k)
-    band_phase(dev, card, u4k, gt4k, v4k, gtc4k, stats, sh_stats,
-               sass_parent)
+    sass_checked = band_phase(dev, card, u4k, gt4k, v4k, gtc4k, stats,
+                              sh_stats, sass_parent)
     mp2_band_phase(dev, card, mp_stats["K9 mp2_iteration"],
                    ms_stats["K9 mp2_iteration_sharded"])
     sweep_phase(dev, card, u4k, gt4k, v4k, gtc4k, {
@@ -4389,6 +4727,7 @@ def main(argv=()) -> int:
         "K1 fused_iteration_batch": sk_stats["K1 fused_iteration_batch"],
         "K1 fused_iteration (shard)": sh_stats["K1 fused_iteration (shard)"],
         "K1 fused_sweep (parity)": ms_stats["K1 fused_sweep (parity)"]})
+    morph_bits_phase(dev, card, mo_stats, ms_stats, sass_checked)
 
     entries = [
         dict(name=name, route="cuda", source=k["source"],
