@@ -38,17 +38,25 @@ _TAIL_MC = [_I, _I, _I] + [_F] * 7 + [_P]
 # launcher's arguments with parity, r0, r1, c0, c1 and the top, bottom,
 # left, right flags before the stream
 _SHARD = [_I] * 9 + [_P]
-# resident launchers (csrc/resident.cuh CV_RESIDENT_ARGS): 8 pointers;
-# nblocks, N, H, W, C, iters, unroll, batch, nrow; 9 params; stream. Each
-# has a `_grid` twin (C, int* max co-resident blocks).
+# resident launchers on the tile bodies (csrc/resident_tiles.cuh
+# CV_TILE_RESIDENT_ARGS): 9 pointers; nblocks, N, H, W, C, iters, unroll,
+# batch, nrow, TH, TW, GX, u0res, smem; 9 params; stream. Each has a `_grid`
+# twin (C, dynamic bytes, int* max co-resident blocks). The first body's
+# (csrc/resident.cuh CV_RESIDENT_ARGS, `_v1`): 8 pointers; nblocks, N, H,
+# W, C, iters, unroll, batch, nrow; 9 params; stream; `_v1_grid` (C, int*).
+_TILE_RESIDENT = [_P] * 9 + [_I] * 14 + [_F] * 9 + [_P]
+_TILE_GRID = [_I, _I, ctypes.POINTER(ctypes.c_int)]
 _RESIDENT = [_P] * 8 + [_I] * 9 + [_F] * 9 + [_P]
 _GRID = [_I, ctypes.POINTER(ctypes.c_int)]
 RESIDENT_SYMBOLS = ("cv_resident_iterations", "cv_resident_iterations_mc",
                     "cv_packed_resident_iterations",
                     "cv_packed_resident_iterations_mc")
-# 4-phase resident launchers (csrc/mp2.cuh CV_MP2_RESIDENT_ARGS): 7
-# pointers; nblocks, H, W, iters, unroll; 7 params; stream. Each has a
-# `_grid` twin.
+# 4-phase resident launchers on the tile body (csrc/mp2.cuh
+# CV_MP2_TILE_ARGS): 7 pointers; nblocks, H, W, iters, unroll, TH, TW, GX,
+# u0res, smem; 7 params; stream; `_grid` as above. The first body's
+# (CV_MP2_RESIDENT_ARGS, `_v1`): 7 pointers; nblocks, H, W, iters, unroll;
+# 7 params; stream.
+_MP2_TILE = [_P] * 7 + [_I] * 10 + [_F] * 7 + [_P]
 _MP2_RESIDENT = [_P] * 7 + [_I] * 5 + [_F] * 7 + [_P]
 MP2_RESIDENT_SYMBOLS = ("cv_mp2_resident_iterations",
                         "cv_packed_mp2_resident_iterations")
@@ -134,10 +142,14 @@ SIGNATURES = {
                                     + _SHARD),
     "cv_fused_sweep_shard_v1": _HEAD + _TAIL[:-1] + _SHARD,
     "cv_mp2_iteration_shard_v1": _HEAD + _TAIL[:-1] + _SHARD,
-    **{s: _RESIDENT for s in RESIDENT_SYMBOLS},
-    **{f"{s}_grid": _GRID for s in RESIDENT_SYMBOLS},
-    **{s: _MP2_RESIDENT for s in MP2_RESIDENT_SYMBOLS},
-    **{f"{s}_grid": _GRID for s in MP2_RESIDENT_SYMBOLS},
+    **{s: _TILE_RESIDENT for s in RESIDENT_SYMBOLS},
+    **{f"{s}_grid": _TILE_GRID for s in RESIDENT_SYMBOLS},
+    **{f"{s}_v1": _RESIDENT for s in RESIDENT_SYMBOLS},
+    **{f"{s}_v1_grid": _GRID for s in RESIDENT_SYMBOLS},
+    **{s: _MP2_TILE for s in MP2_RESIDENT_SYMBOLS},
+    **{f"{s}_grid": _TILE_GRID for s in MP2_RESIDENT_SYMBOLS},
+    **{f"{s}_v1": _MP2_RESIDENT for s in MP2_RESIDENT_SYMBOLS},
+    **{f"{s}_v1_grid": _GRID for s in MP2_RESIDENT_SYMBOLS},
     **{s: _RESIDENT_CHUNK for s in CHUNK_SYMBOLS},
     **{f"{s}_grid": _GRID for s in CHUNK_SYMBOLS},
     "cv_pack_planes": _PACK,

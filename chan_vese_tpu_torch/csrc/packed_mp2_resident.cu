@@ -3,21 +3,30 @@
 //
 // Replaces chan_vese_tpu/ops/pallas_packed.py::_packed_mp2_resident_kernel
 // (packed_mp2_resident_iterations). As K8 is to K7, the plane layout was a
-// Mosaic workaround: the body is mp2.cuh's mp2_resident_kernel with plane
-// addressing (gaddr<true>) in every read and write.
+// Mosaic workaround: the body is mp2.cuh's tile body with plane
+// addressing (gaddr<true>) where the tiles are loaded and stored;
+// cv_packed_mp2_resident_iterations_v1 is the first body.
 //
-// Bound on the card: as mp2_resident.cu; plane addressing splits each row
-// of reads over two planes, which halves the coalescing of the L2 reads.
+// Bound on the card: as mp2_resident.cu.
 
 #include "mp2.cuh"
 
-extern "C" cudaError_t cv_packed_mp2_resident_iterations(
+extern "C" cudaError_t cv_packed_mp2_resident_iterations(CV_MP2_TILE_ARGS) {
+  return cv::mp2_tile<true>(CV_MP2_TILE_CALL);
+}
+
+extern "C" cudaError_t cv_packed_mp2_resident_iterations_grid(
+    int C, int smem, int* max_blocks) {
+  return cv::mp2_tile<true>({}, {}, 0, smem, nullptr, max_blocks);
+}
+
+extern "C" cudaError_t cv_packed_mp2_resident_iterations_v1(
     CV_MP2_RESIDENT_ARGS) {
   return cv::launch_mp2_resident<true>(CV_MP2_RESIDENT_STRUCTS, nblocks,
                                        (cudaStream_t)stream);
 }
 
-extern "C" cudaError_t cv_packed_mp2_resident_iterations_grid(
+extern "C" cudaError_t cv_packed_mp2_resident_iterations_v1_grid(
     int C, int* max_blocks) {
   return cv::mp2_resident_grid<true>(max_blocks);
 }

@@ -4,19 +4,31 @@
 // Replaces chan_vese_tpu/ops/pallas_packed.py::_packed_resident_kernel and
 // ::_packed_resident_batch_kernel (packed_resident_iterations and _batch).
 // As K3 is to K2, the plane layout was a Mosaic workaround: the body is
-// K7's with plane addressing (gaddr<true>) in every read and write.
+// K7's tile body (resident_tiles.cuh) with plane addressing
+// (gaddr<true>) where a frame is loaded and stored (and u0 read through
+// L2); the sweeps run on the shared-memory tiles, whatever the layout.
+// cv_packed_resident_iterations_v1 is the first body (resident.cuh).
 //
-// Bound on the card: as resident.cu; plane addressing splits each row of
-// reads over two planes, which halves the coalescing of the L2 reads.
+// Bound on the card: as resident.cu.
 
-#include "resident.cuh"
+#include "resident_tiles.cuh"
 
-extern "C" cudaError_t cv_packed_resident_iterations(CV_RESIDENT_ARGS) {
+extern "C" cudaError_t cv_packed_resident_iterations(CV_TILE_RESIDENT_ARGS) {
+  return cv::tile_resident<true, 0>(CV_TILE_RESIDENT_CALL);
+}
+
+extern "C" cudaError_t cv_packed_resident_iterations_grid(int C, int smem,
+                                                          int* max_blocks) {
+  return cv::tile_resident<true, 0>({}, {}, 0, smem, nullptr,
+                                      max_blocks);
+}
+
+extern "C" cudaError_t cv_packed_resident_iterations_v1(CV_RESIDENT_ARGS) {
   return cv::launch_resident<true, 0>(CV_RESIDENT_STRUCTS, nblocks,
                                       (cudaStream_t)stream);
 }
 
-extern "C" cudaError_t cv_packed_resident_iterations_grid(int C,
-                                                          int* max_blocks) {
+extern "C" cudaError_t cv_packed_resident_iterations_v1_grid(
+    int C, int* max_blocks) {
   return cv::resident_grid<true, 0>(max_blocks);
 }

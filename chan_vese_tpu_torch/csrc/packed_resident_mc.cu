@@ -3,19 +3,32 @@
 //
 // Replaces chan_vese_tpu/ops/pallas_packed.py::_packed_resident_mc_kernel
 // (packed_resident_iterations_mc). Channel c's planes start at
-// u0 + c H W, the stride of the flat layout, as in K6.
+// u0 + c H W, the stride of the flat layout, as in K6. The body is
+// resident_tiles.cuh's tile body with plane addressing at the loads and
+// stores; cv_packed_resident_iterations_mc_v1 is the first body.
 //
-// Bound on the card: as resident_mc.cu, with packed_resident.cu's halved
-// coalescing.
+// Bound on the card: as resident_mc.cu.
 
-#include "resident.cuh"
+#include "resident_tiles.cuh"
 
-extern "C" cudaError_t cv_packed_resident_iterations_mc(CV_RESIDENT_ARGS) {
+extern "C" cudaError_t cv_packed_resident_iterations_mc(
+    CV_TILE_RESIDENT_ARGS) {
+  return cv::tile_resident_mc<true>(C, CV_TILE_RESIDENT_CALL);
+}
+
+extern "C" cudaError_t cv_packed_resident_iterations_mc_grid(
+    int C, int smem, int* max_blocks) {
+  return cv::tile_resident_mc<true>(C, {}, {}, 0, smem, nullptr,
+                                       max_blocks);
+}
+
+extern "C" cudaError_t cv_packed_resident_iterations_mc_v1(
+    CV_RESIDENT_ARGS) {
   return cv::launch_resident_mc<true>(C, CV_RESIDENT_STRUCTS, nblocks,
                                       (cudaStream_t)stream);
 }
 
-extern "C" cudaError_t cv_packed_resident_iterations_mc_grid(
+extern "C" cudaError_t cv_packed_resident_iterations_mc_v1_grid(
     int C, int* max_blocks) {
   return cv::resident_grid_mc<true>(C, max_blocks);
 }

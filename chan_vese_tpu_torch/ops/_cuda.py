@@ -8,7 +8,7 @@ kernels (K9 banded and resident, K10 parity planes), the morphological
 kernels (K11, K12) and the parity pack and unpack (K15, K16).
 
 Checks the inputs, chooses the tile geometry (the resident kernels: the
-cooperative grid), allocates the outputs and scratch, and calls the kernel
+cooperative grid of persistent tiles), allocates the outputs and scratch, and calls the kernel
 library (``_build.library()``) on PyTorch's current stream. Nothing here
 synchronizes with the device. A refused launch raises.
 """
@@ -817,40 +817,127 @@ def launch_mp2(phis, u0, cs, p, shard=None, v1=False):
     return out, parts
 
 
-# threads per block of the resident kernels (csrc/resident.cuh kResThreads)
+# threads per block of the resident kernels' first body (csrc/resident.cuh
+# kResThreads)
 RESIDENT_THREADS = 512
+# the tile bodies (csrc/resident_tiles.cuh, mp2.cuh; K7-K10): threads a
+# block, and room left beside the dynamic shared memory for the static part
+# (the reduction scratch and the means, under 2 KB)
+TILE_THREADS = 512
+TILE_STATIC = 2048
+# u32s of a tile-body launch's sync buffer: the grid-wide step's ticket and
+# a spare, then its published words (two u32 each), one a mean
+TILE_SYNC = 2 + 2 * 2 * MAX_CHANNELS
+
+
+def tile_smem_bytes(th: int, tw: int, channels: int, level_sets: int,
+                    u0res: bool) -> int:
+    """Dynamic shared memory of a tile body's block
+    (csrc/resident_tiles.cuh ``tile_smem_bytes``): per level set the
+    tile padded by one cell a side and half a tile for the new values (two
+    level sets: a label byte a cell too), and u0's planes (one a channel)
+    where ``u0res``."""
+    pad = (th + 2) * (tw + 2)
+    if level_sets == 1:
+        return 4 * (pad + th * tw // 2
+                    + (max(channels, 1) * th * tw if u0res else 0))
+    return 4 * (2 * pad + th * tw + (th * tw if u0res else 0)) + th * tw
+
+
+def tile_budget(per_sm: int = 1) -> int:
+    """Dynamic shared memory a tile body's block may take at ``per_sm``
+    blocks an SM: its share of the SM's (1 KB reserved a block), at most a
+    block's limit, less the static part."""
+    return min(SMEM_LIMIT + 1024, SM_SMEM // per_sm - 1024) - TILE_STATIC
 
 
 @functools.lru_cache(maxsize=None)
-def resident_capacity(symbol: str, c: int, device_index: int) -> int:
+def resident_tile_geometry(h: int, w: int, channels: int = 0,
+                           level_sets: int = 1, sms: int = SMS,
+                           per_sm: int = 1):
+    """(TH, TW, GX, GY, u0res, smem) of a tile-body launch on an (h, w)
+    image: a GY x GX grid of TH x TW tiles (TW even; the last row and
+    column ragged) of one block each, ``channels`` u0 planes (0: a scalar
+    image), one level set (K7/K8) or two (K9/K10). Blocks: as many as
+    give every thread a cell pair, at most ``sms`` x ``per_sm``. Of the
+    grids of that many blocks the one whose largest tile, with its ring,
+    has the fewest cells, then the shortest border, then the widest tile. u0 stays in
+    shared memory (u0res) where the block's budget (:func:`tile_budget`)
+    holds it beside the level sets; smem is the block's dynamic bytes.
+    Raises where even the level sets do not fit."""
+    if level_sets not in (1, 2):
+        raise ValueError(f"{level_sets} level sets; the bodies take 1 or 2")
+    if h < 1 or w < 2 or w % 2:
+        raise ValueError(f"image {(h, w)}: the bodies take even widths")
+    want = max(1, min(sms * per_sm, h * w // 2 // TILE_THREADS))
+    best = None
+    for gy in range(1, min(want, h) + 1):
+        gx = want // gy
+        th = -(-h // gy)
+        tw = -(-w // gx)
+        tw += tw & 1
+        key = ((th + 2) * (tw + 2), th + tw, -tw)
+        if best is None or key < best[0]:
+            best = (key, th, tw, -(-w // tw), -(-h // th))
+    _, th, tw, gx, gy = best
+    budget = tile_budget(per_sm)
+    for u0res in (True, False):
+        smem = tile_smem_bytes(th, tw, channels, level_sets, u0res)
+        if smem <= budget:
+            return th, tw, gx, gy, u0res, smem
+    raise ValueError(f"the {(h, w)} image's {th}x{tw} tiles need {smem} B "
+                     f"of shared memory, more than a block's {budget} at "
+                     f"{per_sm} a {sms}-SM card")
+
+
+@functools.lru_cache(maxsize=None)
+def resident_capacity(symbol: str, c: int, device_index: int,
+                      smem=None) -> int:
     """Most blocks of resident kernel ``symbol`` (C channels) that can be
     co-resident on the device: occupancy per SM times the SM count, from
-    the library's ``_grid`` query. Raises where the device cannot launch
-    cooperatively."""
+    the library's ``_grid`` query, at ``smem`` dynamic bytes a block for
+    the tile bodies (None: the first body's and K13's queries, which take
+    none). Raises where the device cannot launch cooperatively."""
     import ctypes
 
     from .._build import library
 
     lib = library()
     n = ctypes.c_int(0)
+    extra = () if smem is None else (smem,)
     with torch.cuda.device(device_index):
-        err = getattr(lib, f"{symbol}_grid")(c, ctypes.byref(n))
+        err = getattr(lib, f"{symbol}_grid")(c, *extra, ctypes.byref(n))
     if err:
         raise RuntimeError(f"{symbol} occupancy query failed: "
                            f"{lib.cv_error_string(err).decode()} ({err})")
     return n.value
 
 
+def _tile_plan(symbol: str, h: int, w: int, c: int, level_sets: int, dev):
+    """The tile geometry of a launch on ``dev`` and its block count,
+    refused (raises) where the card cannot hold that many blocks at once:
+    the spin-waits need every block resident."""
+    geo = resident_tile_geometry(h, w, c, level_sets, _sm_count(dev.index))
+    th, tw, gx, gy, _, smem = geo
+    cap = resident_capacity(symbol, c, dev.index, smem)
+    if gx * gy > cap:
+        raise RuntimeError(f"{symbol}: {gx * gy} blocks of {smem} B cannot "
+                           f"be co-resident on the card ({cap})")
+    return geo, gx * gy
+
+
 def launch_resident(symbol: str, phi, u0, p, iters: int, unroll: int,
                     h: int, w: int, frames: int = 1, batch: bool = False,
-                    l1=None, l2=None):
+                    l1=None, l2=None, v1: bool = False):
     """One cooperative launch of resident kernel ``symbol`` on image
     geometry (h, w): ``iters`` exact-means iterations. phi holds one image
     or ``frames`` of them (flat or parity planes); u0 is phi's shape for a
     scalar image, channels-first (C, *phi.shape) when per-channel lambda
-    tuples ``l1``, ``l2`` are given. Returns (phi_new, partials): rows of
-    8 slots (C + 4 for C channels), one per ``unroll`` iterations, or one
-    per frame when ``batch``."""
+    tuples ``l1``, ``l2`` are given. The tile body
+    (csrc/resident_tiles.cuh); ``v1``: the first body (csrc/resident.cuh,
+    the yardstick the smoke and the cuda-marked tests hold it against).
+    Returns (phi_new, partials): rows of 8 slots (C + 4 for C channels),
+    one per ``unroll`` iterations, or one per frame when ``batch``."""
     from .._build import library
 
     c = 0
@@ -862,28 +949,49 @@ def launch_resident(symbol: str, phi, u0, p, iters: int, unroll: int,
     check_even(h, w)
     dev = phi.device
     nrow = c + 4 if c else 8
-    cap = resident_capacity(symbol, c, dev.index)
-    nblocks = max(1, min(cap, math.ceil(h * w // 2 / RESIDENT_THREADS)))
     out = torch.empty_like(phi)
-    tmp = torch.empty(h * w, dtype=torch.float32, device=dev)
     usum = u0.reshape(c or frames, -1).sum(1, dtype=torch.float64)
     wts = _weights(tuple(l1), tuple(l2), dev) if c else None
-    scratch = torch.empty(nblocks * (max(c, 1) + 4), dtype=torch.float64,
-                          device=dev)
     parts = torch.empty((frames if batch else iters // unroll, nrow),
                         dtype=torch.float32, device=dev)
     scalar_l = (p.lambda1, p.lambda2) if not c else (0.0, 0.0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     lib = library()
+    if v1:
+        symbol += "_v1"
+        cap = resident_capacity(symbol, c, dev.index)
+        nblocks = max(1, min(cap, math.ceil(h * w // 2 / RESIDENT_THREADS)))
+        tmp = torch.empty(h * w, dtype=torch.float32, device=dev)
+        scratch = torch.empty(nblocks * (max(c, 1) + 4),
+                              dtype=torch.float64, device=dev)
+        with torch.cuda.device(dev):
+            err = getattr(lib, symbol)(
+                phi.data_ptr(), out.data_ptr(), tmp.data_ptr(),
+                u0.data_ptr(), usum.data_ptr(),
+                None if wts is None else wts.data_ptr(), scratch.data_ptr(),
+                parts.data_ptr(), nblocks, frames, h, w, c, iters, unroll,
+                int(batch), nrow, p.mu, p.nu, *scalar_l, *_common_params(p),
+                stream)
+        _raise_on(lib, symbol, err)
+        return out, parts
+    (th, tw, gx, _, u0res, smem), nblocks = _tile_plan(symbol, h, w, c, 1,
+                                                       dev)
+    # the blocks' slots, then the totals a row carries
+    scratch = torch.empty((nblocks + 1) * (max(c, 1) + 4),
+                          dtype=torch.float64, device=dev)
+    # the tagged rim words (a float and its iteration's tag), by parity
+    rims = torch.zeros(2 * nblocks * 2 * (th + tw), dtype=torch.int64,
+                       device=dev)
+    sync = torch.zeros(TILE_SYNC, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = getattr(lib, symbol)(
-            phi.data_ptr(), out.data_ptr(), tmp.data_ptr(), u0.data_ptr(),
-            usum.data_ptr(), None if wts is None else wts.data_ptr(),
-            scratch.data_ptr(), parts.data_ptr(), nblocks, frames, h, w, c,
-            iters, unroll, int(batch), nrow, p.mu, p.nu, *scalar_l,
-            *_common_params(p), torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"{symbol} launch failed: "
-                           f"{lib.cv_error_string(err).decode()} ({err})")
+            phi.data_ptr(), out.data_ptr(), u0.data_ptr(), usum.data_ptr(),
+            None if wts is None else wts.data_ptr(), scratch.data_ptr(),
+            rims.data_ptr(), sync.data_ptr(), parts.data_ptr(), nblocks,
+            frames, h, w, c, iters, unroll, int(batch), nrow, th, tw, gx,
+            int(u0res), smem, p.mu, p.nu, *scalar_l, *_common_params(p),
+            stream)
+    _raise_on(lib, symbol, err)
     return out, parts
 
 
@@ -952,11 +1060,13 @@ def launch_pack(symbol: str, src, shape):
 
 
 def launch_mp2_resident(symbol: str, phis, u0, p, iters: int, unroll: int,
-                        h: int, w: int):
+                        h: int, w: int, v1: bool = False):
     """One cooperative launch of 4-phase resident kernel ``symbol`` on image
     geometry (h, w): ``iters`` coupled iterations with exact means. phis
     holds the two level sets, each flat or as parity planes; u0 one image
-    in the same layout. Returns (phis_new, partials (iters // unroll, 8))."""
+    in the same layout. The tile body (csrc/mp2.cuh mp2_tile_kernel);
+    ``v1``: the first body (mp2_resident_kernel). Returns (phis_new,
+    partials (iters // unroll, 8))."""
     from .._build import library
 
     if phis.shape[0] != 2 or tuple(phis.shape[1:]) != tuple(u0.shape):
@@ -965,24 +1075,40 @@ def launch_mp2_resident(symbol: str, phis, u0, p, iters: int, unroll: int,
     _check_inputs(phis, u0)
     check_even(h, w)
     dev = phis.device
-    cap = resident_capacity(symbol, 0, dev.index)
-    nblocks = max(1, min(cap, math.ceil(h * w // 2 / RESIDENT_THREADS)))
     out = torch.empty_like(phis)
-    tmp = torch.empty_like(phis)
-    lab = torch.empty(h * w, dtype=torch.uint8, device=dev)
-    scratch = torch.empty(nblocks * 10, dtype=torch.float64, device=dev)
     parts = torch.empty((iters // unroll, 8), dtype=torch.float32,
                         device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     lib = library()
+    if v1:
+        symbol += "_v1"
+        cap = resident_capacity(symbol, 0, dev.index)
+        nblocks = max(1, min(cap, math.ceil(h * w // 2 / RESIDENT_THREADS)))
+        tmp = torch.empty_like(phis)
+        lab = torch.empty(h * w, dtype=torch.uint8, device=dev)
+        scratch = torch.empty(nblocks * 10, dtype=torch.float64, device=dev)
+        with torch.cuda.device(dev):
+            err = getattr(lib, symbol)(
+                phis.data_ptr(), out.data_ptr(), tmp.data_ptr(),
+                lab.data_ptr(), u0.data_ptr(), scratch.data_ptr(),
+                parts.data_ptr(), nblocks, h, w, iters, unroll, p.mu, p.nu,
+                *_common_params(p), stream)
+        _raise_on(lib, symbol, err)
+        return out, parts
+    (th, tw, gx, _, u0res, smem), nblocks = _tile_plan(symbol, h, w, 0, 2,
+                                                       dev)
+    # the blocks' 10 slots, the tagged rim words of both level sets
+    scratch = torch.empty(nblocks * 10, dtype=torch.float64, device=dev)
+    rims = torch.zeros(2 * 2 * nblocks * 2 * (th + tw), dtype=torch.int64,
+                       device=dev)
+    sync = torch.zeros(TILE_SYNC, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = getattr(lib, symbol)(
-            phis.data_ptr(), out.data_ptr(), tmp.data_ptr(), lab.data_ptr(),
-            u0.data_ptr(), scratch.data_ptr(), parts.data_ptr(), nblocks, h,
-            w, iters, unroll, p.mu, p.nu, *_common_params(p),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"{symbol} launch failed: "
-                           f"{lib.cv_error_string(err).decode()} ({err})")
+            phis.data_ptr(), out.data_ptr(), u0.data_ptr(),
+            scratch.data_ptr(), rims.data_ptr(), sync.data_ptr(),
+            parts.data_ptr(), nblocks, h, w, iters, unroll, th, tw, gx,
+            int(u0res), smem, p.mu, p.nu, *_common_params(p), stream)
+    _raise_on(lib, symbol, err)
     return out, parts
 
 

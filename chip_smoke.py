@@ -122,6 +122,20 @@ ways), compat's GAC (1080p) and the sharded chunked morph and GAC drivers
 (2x2, comm_k 8) through the entry points, their K11/K12 launches counted,
 their level sets bitwise the first body's runs, with their rates in turns
 with the first body.
+Phase 31 does the same for the tile bodies of K7, K8 (every mode), K9's
+resident mode and K10 (csrc/resident_tiles.cuh, mp2.cuh): registers and
+spills of every instance; each mode against the first body's `_v1`
+launchers (phi bitwise over one iteration wherever the f32 means agree,
+flips equal where phi is, else within PHI_ATOL; the 4-phase labels over
+25 iterations within LABELS_FRAC), its second launch and a launch on a
+second stream (bitwise), at phase 6's and 9's shapes and the main path's
+(phases 6 and 9 hold the same launches against the plain versions); the
+two bodies in turns at the main path's shapes (1000 iterations) beside
+the bound, with the tiling, the dynamic shared memory and the blocks an
+SM; and phase 8's and 11's fixed runs (segment_resident_fixed,
+segment_stack_resident_fixed, segment_multiphase(fixed=True)) through the
+entry points on both bodies, the tile bodies' launches counted, with their
+rates in turns with the first body.
 K1's force mode runs once under torch.cuda.set_sync_debug_mode("error")
 (phase 9).
 Any failure raises and exits non-zero.
@@ -699,8 +713,9 @@ def best_accuracy(pred, gt):
 
 def ptxas_summary():
     """Registers and spill stores of every chunk_kernel, band_kernel,
-    sweep_kernel, resident_kernel, mp2_band_kernel, mp2_coupled_kernel,
-    mp2_resident_kernel, morph_kernel and morph_bits_kernel instance,
+    sweep_kernel, resident_kernel, tile_resident_kernel, mp2_band_kernel,
+    mp2_coupled_kernel, mp2_resident_kernel, mp2_tile_kernel, morph_kernel
+    and morph_bits_kernel instance,
     from ptxas's -v report of the build: 'kind flat/packed [C=n]: R regs,
     S B spill' (C = -1 is K1's force mode), 'morph <kind>: ...',
     'morph_bits <kind>: ...'."""
@@ -714,8 +729,8 @@ def ptxas_summary():
                            m.group(1))
             msw = re.search(r"sweep_kernelILi(n?)(\d+)ELb(\d)E", m.group(1))
             mm = re.search(r"morph_(bits_)?kernelILi(\d)E", m.group(1))
-            m = re.search(r"(mp2_band|mp2_coupled|mp2_resident|chunk|"
-                          r"resident)_kernel"
+            m = re.search(r"(mp2_band|mp2_coupled|mp2_resident|mp2_tile|"
+                          r"chunk|tile_resident|resident)_kernel"
                           r"(?:ILb(\d)E(?:Li(n?)(\d+)E)?(?:Lb(\d)E)?)?",
                           m.group(1))
             name = None
@@ -4221,6 +4236,305 @@ def morph_bits_phase(dev, card, mo_stats, ms_stats, sass_checked):
     morph_bits_runs(dev, card, queued)
 
 
+# the tile bodies of K7-K10 (phase 31): the main path's shapes each mode is
+# timed at (h, w, channels or frames), 1000 iterations a launch as phase 8
+RES_TILE_TIMED = {
+    "K8 packed_resident_iterations": ((256, 256), (1024, 1024)),
+    "K8 packed_resident_iterations_mc": ((512, 512),),
+    "K8 packed_resident_iterations_batch": ((256, 256),),
+    "K7 resident_iterations": ((1024, 896),),
+    "K7 resident_iterations_mc": ((512, 384),),
+    "K7 resident_iterations_batch": ((256, 384),),
+}
+MP2_TILE_TIMED = {"K10 packed_mp2_resident_iterations": ((512, 512),),
+                  "K9 mp2_resident_iterations": ((1024, 1024), (512, 384))}
+# 4-phase shapes held against the first body: phase 9's and the main path's
+MP2_TILE_SHAPES = {"K10 packed_mp2_resident_iterations": ((256, 256),
+                                                          (512, 512)),
+                   "K9 mp2_resident_iterations": ((1024, 1024), (512, 384),
+                                                  (512, 512))}
+TILE_FRAMES = 4
+
+
+@contextlib.contextmanager
+def first_resident_body_route():
+    """K7-K10's launches on the first bodies' `_v1` launchers (the same
+    wrappers and drivers, the kernels before the tile bodies)."""
+    saved = (_cuda.launch_resident, _cuda.launch_mp2_resident)
+    _cuda.launch_resident = functools.partial(saved[0], v1=True)
+    _cuda.launch_mp2_resident = functools.partial(saved[1], v1=True)
+    try:
+        yield
+    finally:
+        _cuda.launch_resident, _cuda.launch_mp2_resident = saved
+
+
+def tile_runs(call):
+    """(new, second launch, first body, a launch on a second stream) of
+    ``call``, each (level sets, partials)."""
+    new, again = call(), call()
+    with first_resident_body_route():
+        old = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = call()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    return new, again, old, other
+
+
+def tile_same(tag, runs, flips_col):
+    """The tile body's launch against its second launch and the launch on
+    a second stream (bitwise), and against the first body's: returns
+    (phi bitwise, max |d phi|, flips equal)."""
+    (g, gp), (a, ap), (o, op), (s, sp) = runs
+    for name, (x, xp) in (("second launch", (a, ap)),
+                          ("second stream", (s, sp))):
+        if not (torch.equal(g, x) and torch.equal(gp, xp)):
+            raise AssertionError(f"{tag}: the {name} differs")
+    same = torch.equal(g, o)
+    flips = torch.equal(gp[:, flips_col], op[:, flips_col])
+    if same and not flips:
+        raise AssertionError(f"{tag}: phi bitwise the first body's, the "
+                             f"flips not: {gp[:, flips_col].tolist()} vs "
+                             f"{op[:, flips_col].tolist()}")
+    return same, float((g - o).abs().max()), flips
+
+
+def resident_tile_checks(dev, p, pm):
+    """Phase 31's checks: every two-phase mode at phase 6's shapes (one
+    iteration from the checkerboard, 16 from a circle) and the 4-phase
+    bodies at phase 9's and the main path's (one iteration and 25) against
+    the first body, their second launches and a second stream (phases 6
+    and 9 hold the same launches against the plain versions)."""
+    lines, n_same, n_all = [], 0, 0
+    worst = 0.0
+    for h, w in RES_SHAPES:
+        u0 = torch.from_numpy(two_disks(h, w)[0]).to(dev)
+        ucf = (torch.from_numpy(colored_squares(h, w)[0]).to(dev)
+               .permute(2, 0, 1).contiguous())
+        stack = torch.stack([torch.from_numpy(two_disks(h, w, seed=s)[0])
+                             for s in range(TILE_FRAMES)]).to(dev)
+        starts = {s: init_phi((h, w), s, torch.float32, device=dev)
+                  for s in ("checkerboard", "circle")}
+        for name, r in RESIDENT.items():
+            flips_col = (r["channels"] or 1) + 2
+            for iters, un, start in ((1, 1, "checkerboard"),
+                                     (16, 4, "circle")):
+                args = resident_inputs(r, starts[start], u0, ucf, stack)
+                runs = tile_runs(lambda: r["wrapper"](*args, p, iters,
+                                                      unroll=un))
+                same, err, flips = tile_same(
+                    f"phase 31 {name} {h}x{w} iters={iters}", runs,
+                    flips_col)
+                if iters == 1:
+                    n_same += same
+                    n_all += 1
+                    worst = max(worst, err)
+                    if not same and err > PHI_ATOL:
+                        raise AssertionError(
+                            f"phase 31 {name} {h}x{w}: one iteration "
+                            f"{err} from the first body's")
+        lines.append(f"{h}x{w}: the six K7/K8 modes' second launches and "
+                     f"launches on a second stream bitwise")
+    lines.append(f"one iteration: phi bitwise the first body's (flips "
+                 f"equal) at {n_same} of {n_all} launches, elsewhere within "
+                 f"{worst:.3e} (the f32 means an ulp apart; bar {PHI_ATOL})")
+    n_same = n_all = 0
+    for name, shapes in MP2_TILE_SHAPES.items():
+        kern = MP2[name]
+        for h, w in shapes:
+            u, phis, _, _ = mp2_inputs(h, w, dev, pm)
+            one = tile_runs(lambda: kern["wrapper"](phis, u, pm, 1))
+            same, err, _ = tile_same(f"phase 31 {name} {h}x{w}", one, 0)
+            n_same += same
+            n_all += 1
+            if not same and err > MP2_BARS[name][1]:
+                raise AssertionError(f"phase 31 {name} {h}x{w}: one "
+                                     f"iteration {err} from the first body")
+            many = tile_runs(lambda: kern["wrapper"](phis, u, pm, MP2_ITERS,
+                                                     unroll=5))
+            tile_same(f"phase 31 {name} {h}x{w} {MP2_ITERS}", many, 0)
+            frac = label_frac(many[0][0], many[2][0])
+            flips_d = float((many[0][1][:, 0] - many[2][1][:, 0]).abs().max())
+            if frac > LABELS_FRAC:
+                raise AssertionError(f"phase 31 {name} {h}x{w}: labels "
+                                     f"differ from the first body's at {frac}")
+            lines.append(f"{name} {h}x{w}: one iteration bitwise the first "
+                         f"body's {same} (max |d| {err:.3e}); {MP2_ITERS} "
+                         f"iterations: labels differ at {frac:.3e} of cells "
+                         f"(bar {LABELS_FRAC}), rows' flips |d| <= "
+                         f"{flips_d:g}; second launches and a second stream "
+                         f"bitwise")
+    return lines
+
+
+def tile_plan_line(symbol, h, w, c, levels):
+    """'TH x TW tiles, GX x GY blocks, u0 resident or L2, dynamic bytes,
+    blocks an SM' of a tile-body launch."""
+    th, tw, gx, gy, u0res, smem = _cuda.resident_tile_geometry(
+        h, w, c, levels, _cuda.SMS)
+    per_sm = _cuda.resident_capacity(symbol, c, 0, smem) // _cuda.SMS
+    return (f"{th}x{tw} tiles, {gx * gy} blocks, u0 "
+            f"{'in shared memory' if u0res else 'through L2'}, {smem} B, "
+            f"{per_sm} block(s)/SM")
+
+
+def resident_tile_times(dev, card, p, pm):
+    """Phase 31's times: each body against the first body in turns (v1,
+    new, new, v1; events over 3 calls) at the main path's shapes, 1000
+    iterations a launch, beside the bound."""
+    out, times = [], {}
+    its = THROUGHPUT_ITERS
+    for name, shapes in RES_TILE_TIMED.items():
+        r = RESIDENT[name]
+        for h, w in shapes:
+            u0 = torch.from_numpy(two_disks(h, w)[0]).to(dev)
+            ucf = (torch.from_numpy(colored_squares(h, w)[0]).to(dev)
+                   .permute(2, 0, 1).contiguous())
+            stack = torch.stack([torch.from_numpy(two_disks(h, w, seed=s)[0])
+                                 for s in range(TILE_FRAMES)]).to(dev)
+            phi = init_phi((h, w), "checkerboard", torch.float32, device=dev)
+            args = resident_inputs(r, phi, u0, ucf, stack)
+            frames = TILE_FRAMES if r["mode"] == "_batch" else 1
+            rows = 1 if frames > 1 else its
+            b_ms, b_by = bound(h, w, its, r["channels"], frames, rows=rows)
+            sym = ("cv_packed_resident_iterations" if name.startswith("K8")
+                   else "cv_resident_iterations") + (
+                "_mc" if r["channels"] else "")
+            t = []
+            for v1 in (True, False, False, True):
+                with (first_resident_body_route() if v1
+                      else contextlib.nullcontext()):
+                    t.append(time_ms(lambda: r["wrapper"](*args, p, its), 3))
+            new, old = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            times[(name, (h, w))] = (new, old, b_ms)
+            out.append(
+                f"{name} {h}x{w}{f'x{frames}' if frames > 1 else ''}: v1 "
+                f"{t[0]:.3f}, new {t[1]:.3f}, new {t[2]:.3f}, v1 {t[3]:.3f} "
+                f"ms ({new / its * 1e3:.2f} us an iteration, v1 "
+                f"{old / its * 1e3:.2f}; v1/new {old / new:.2f}; bound "
+                f"{b_ms:.3f} {b_by}, new/bound {new / b_ms:.1f}); "
+                + tile_plan_line(sym, h, w, r["channels"], 1))
+    for name, shapes in MP2_TILE_TIMED.items():
+        kern = MP2[name]
+        sym = ("cv_packed_mp2_resident_iterations" if name.startswith("K10")
+               else "cv_mp2_resident_iterations")
+        for h, w in shapes:
+            u, phis, _, _ = mp2_inputs(h, w, dev, pm)
+            b_ms, b_by = bound_mp2(h, w, its, its, True)
+            t = []
+            for v1 in (True, False, False, True):
+                with (first_resident_body_route() if v1
+                      else contextlib.nullcontext()):
+                    t.append(time_ms(lambda: kern["wrapper"](phis, u, pm, its),
+                                     3))
+            new, old = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            times[(name, (h, w))] = (new, old, b_ms)
+            out.append(
+                f"{name} {h}x{w}: v1 {t[0]:.3f}, new {t[1]:.3f}, new "
+                f"{t[2]:.3f}, v1 {t[3]:.3f} ms ({new / its * 1e3:.2f} us an "
+                f"iteration, v1 {old / its * 1e3:.2f}; v1/new "
+                f"{old / new:.2f}; bound {b_ms:.3f} {b_by}, new/bound "
+                f"{new / b_ms:.1f}); " + tile_plan_line(sym, h, w, 0, 2))
+    print(f"phase 31 tile bodies vs the first bodies ({its} iterations a "
+          f"launch, in turns): " + "; ".join(out) + f" [{card}]", flush=True)
+    return times
+
+
+def resident_tile_rates(dev, card, p, pm):
+    """Phase 31's runs: phase 8's and 11's fixed runs through the entry
+    points on both bodies, the tile body's launches counted (the counts set
+    to 0 just before each run), its mask or labels against the first
+    body's run, then the rates in turns (v1, new, new, v1)."""
+    its = THROUGHPUT_ITERS
+    u256 = torch.from_numpy(two_disks(256, 256)[0]).to(dev)
+    v512 = torch.from_numpy(colored_squares(512, 512)[0]).to(dev)
+    u1k = torch.from_numpy(two_disks(1024, 1024)[0]).to(dev)
+    s256 = torch.stack([torch.from_numpy(two_disks(256, 256, seed=s)[0])
+                        for s in range(8)]).to(dev)
+    m512 = torch.from_numpy(four_regions(512, 512)[0]).to(dev)
+    m1k = torch.from_numpy(four_regions(1024, 1024)[0]).to(dev)
+    runs = {  # run, pixel-iterations, multiphase
+        "segment_resident_fixed 256^2 gray": (
+            lambda: ct.segment_resident_fixed(u256, p, iters=its),
+            256 * 256 * its, False),
+        "segment_resident_fixed 512^2 RGB lambda1=(1.0, 1.2, 0.8)": (
+            lambda: ct.segment_resident_fixed(
+                v512, p, iters=its, lambda1=LAMBDAS["lambda1"]),
+            512 * 512 * its, False),
+        "segment_resident_fixed 1024^2 gray": (
+            lambda: ct.segment_resident_fixed(u1k, p, iters=its),
+            1024 * 1024 * its, False),
+        "segment_stack_resident_fixed 8 x 256^2": (
+            lambda: ct.segment_stack_resident_fixed(s256, p, iters=its),
+            8 * 256 * 256 * its, False),
+        "segment_multiphase(fixed=True) 512^2": (
+            lambda: ct.segment_multiphase(m512, pm, fixed=True,
+                                          max_iter=its), 512 * 512 * its,
+            True),
+        "segment_multiphase(fixed=True) 1024^2": (
+            lambda: ct.segment_multiphase(m1k, pm, fixed=True,
+                                          max_iter=its), 1024 * 1024 * its,
+            True),
+    }
+    counters = {**{n: r["wrapper"] for n, r in RESIDENT.items()},
+                **{n: MP2[n]["wrapper"] for n in MP2_TILE_TIMED}}
+    lines, rates = [], []
+    for tag, (fn, pix, multi) in runs.items():
+        for f in counters.values():
+            f.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        have = {n: f.launches for n, f in counters.items() if f.launches}
+        with first_resident_body_route():
+            old = fn()
+        torch.cuda.synchronize()
+        if multi:
+            agree = 1.0 - label_frac(res.phis, old.phis)
+        else:
+            agree = iou(res[1].cpu(), old[1].cpu())
+        if not have or agree < 0.999:
+            raise AssertionError(f"phase 31 {tag}: launches {have}, "
+                                 f"agreement with the first body's run "
+                                 f"{agree}")
+        lines.append(f"{tag}: launches {have}, "
+                     f"{'labels agree' if multi else 'mask IoU'} with the "
+                     f"first body's run {agree:.6f}")
+        t = []
+        for v1 in (True, False, False, True):
+            with (first_resident_body_route() if v1
+                  else contextlib.nullcontext()):
+                t.append(time_ms(fn, 1))
+        rates.append(f"{tag} " + ", ".join(f"{pix / (ms * 1e3):.1f}"
+                                           for ms in t)
+                     + f" (new/v1 {(t[0] + t[3]) / (t[1] + t[2]):.2f})")
+    print("phase 31 runs through the tile bodies: " + "; ".join(lines),
+          flush=True)
+    print(f"phase 31 rates (Mpixel-iters/s, {its} iterations; v1, new, new, "
+          f"v1): " + "; ".join(rates) + f" [{card}]", flush=True)
+
+
+def resident_tile_phase(dev, card, sass_checked):
+    """Phase 31: the tile bodies of K7, K8 (every mode), K9's resident mode
+    and K10. Registers, spills, dynamic shared memory and blocks an SM,
+    then the checks against the first bodies, the times and the runs."""
+    regs = [s for s in ptxas_summary().split(", ")
+            if s.startswith(("tile_resident", "mp2_tile"))]
+    print("phase 31 tile bodies ptxas: " + ", ".join(regs) + "; the first "
+          "bodies' resident_kernel and mp2_resident_kernel instances in "
+          "phase 27's sass_diff check: "
+          + ("passed" if sass_checked else "not run (no --sass-parent)"),
+          flush=True)
+    p = ct.CVParams()
+    pm = ct.CVParams(mu=MU_MP, max_iter=500)
+    for line in resident_tile_checks(dev, p, pm):
+        print(f"phase 31 {line}", flush=True)
+    resident_tile_times(dev, card, p, pm)
+    resident_tile_rates(dev, card, p, pm)
+
+
 def main(argv=()) -> int:
     sass_parent = None
     if argv:
@@ -4238,11 +4552,12 @@ def main(argv=()) -> int:
     _build.library()
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s "
           f"({len(_build.sources())} sources); ptxas: {ptxas_summary()}; "
-          f"resident co-resident blocks: "
+          f"co-resident blocks of the first resident bodies and K13: "
           + ", ".join(f"{sym} {_cuda.resident_capacity(sym, 3, 0)}"
-                      for sym in (*_build.RESIDENT_SYMBOLS,
-                                  *_build.MP2_RESIDENT_SYMBOLS,
-                                  *_build.CHUNK_SYMBOLS)),
+                      for sym in (*(f"{s}_v1" for s in (
+                          *_build.RESIDENT_SYMBOLS,
+                          *_build.MP2_RESIDENT_SYMBOLS)),
+                          *_build.CHUNK_SYMBOLS)),
           flush=True)
 
     # phase 3: each kernel against its plain version, at the main paths'
@@ -4728,6 +5043,7 @@ def main(argv=()) -> int:
         "K1 fused_iteration (shard)": sh_stats["K1 fused_iteration (shard)"],
         "K1 fused_sweep (parity)": ms_stats["K1 fused_sweep (parity)"]})
     morph_bits_phase(dev, card, mo_stats, ms_stats, sass_checked)
+    resident_tile_phase(dev, card, sass_checked)
 
     entries = [
         dict(name=name, route="cuda", source=k["source"],
