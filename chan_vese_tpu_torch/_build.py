@@ -60,8 +60,11 @@ _MP2_TILE = [_P] * 7 + [_I] * 10 + [_F] * 7 + [_P]
 _MP2_RESIDENT = [_P] * 7 + [_I] * 5 + [_F] * 7 + [_P]
 MP2_RESIDENT_SYMBOLS = ("cv_mp2_resident_iterations",
                         "cv_packed_mp2_resident_iterations")
-# frozen-means resident chunk launchers (csrc/resident_chunk.cu, K13): 7
-# pointers; nblocks, H, W, k; 9 params; stream. Each has a `_grid` twin.
+# frozen-means resident chunk launchers (csrc/resident_chunk.cu, K13) on
+# the tile body: 8 pointers; nblocks, H, W, k, TH, TW, GX, u0res, smem; 9
+# params; stream; `_grid` as the tile bodies'. The first body's (`_v1`): 7
+# pointers; nblocks, H, W, k; 9 params; stream; `_v1_grid` (C, int*).
+_TILE_CHUNK = [_P] * 8 + [_I] * 9 + [_F] * 9 + [_P]
 _RESIDENT_CHUNK = [_P] * 7 + [_I] * 4 + [_F] * 9 + [_P]
 CHUNK_SYMBOLS = ("cv_resident_chunk", "cv_packed_resident_chunk")
 # parity pack and unpack (csrc/pack.cu, K15/K16): source, destination; N,
@@ -97,8 +100,11 @@ _MP2_BAND = [_I] * 7 + [_F] * 9
 _SWEEP = [_P] * 7 + [_I, _I]
 _SWEEP_TAIL = [_I] * 6 + [_F] * 9
 _SWEEP_OCC = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
-# the halo ring (csrc/halo_ring.cu, K14): the task array, its length, the
-# element size; stream. Peer access: device, peer.
+# the halo gather (csrc/halo_gather.cu, K14): the geometry, the pointer
+# array, the element size, the device; stream. The first body's ring
+# (csrc/halo_ring.cu, `_v1`): the task array, its length, the element size;
+# stream. Peer access: device, peer.
+_HALO_GATHER = [_P, _P, _I, _I, _P]
 _HALO_RING = [_P, _I, _I, _P]
 SIGNATURES = {
     "cv_fused_iteration": _SWEEP + _SWEEP_TAIL + [_P],
@@ -150,8 +156,10 @@ SIGNATURES = {
     **{f"{s}_grid": _TILE_GRID for s in MP2_RESIDENT_SYMBOLS},
     **{f"{s}_v1": _MP2_RESIDENT for s in MP2_RESIDENT_SYMBOLS},
     **{f"{s}_v1_grid": _GRID for s in MP2_RESIDENT_SYMBOLS},
-    **{s: _RESIDENT_CHUNK for s in CHUNK_SYMBOLS},
-    **{f"{s}_grid": _GRID for s in CHUNK_SYMBOLS},
+    **{s: _TILE_CHUNK for s in CHUNK_SYMBOLS},
+    **{f"{s}_grid": _TILE_GRID for s in CHUNK_SYMBOLS},
+    **{f"{s}_v1": _RESIDENT_CHUNK for s in CHUNK_SYMBOLS},
+    **{f"{s}_v1_grid": _GRID for s in CHUNK_SYMBOLS},
     "cv_pack_planes": _PACK,
     "cv_unpack_planes": _PACK,
     "cv_morph_chunk": _MORPH,
@@ -162,7 +170,8 @@ SIGNATURES = {
     "cv_morph_chunk_v1": _MORPH_V1,
     "cv_morph_chunk_shard_v1": _MORPH_SHARD_V1,
     "cv_morph_fused_chunk_v1": _MORPH_FUSED_V1,
-    "cv_halo_ring": _HALO_RING,
+    "cv_halo_gather": _HALO_GATHER,
+    "cv_halo_ring_v1": _HALO_RING,
     "cv_halo_peer_access": [_I, _I],
 }
 

@@ -1,5 +1,6 @@
-// K14: the halo exchange's ring shift along one grid axis, written as the
-// padded blocks themselves. Replaces chan_vese_tpu/parallel/halo_rdma.py::
+// K14's first body (`_v1`, the yardstick of halo_gather.cu): the halo
+// exchange's ring shift along one grid axis, written as the padded blocks
+// themselves. Replaces chan_vese_tpu/parallel/halo_rdma.py::
 // _ring_kernel (launched by _ring_exchange, pl.pallas_call at :97), the
 // remote-DMA ring that sends each shard's hi strip into the next shard's
 // from_lo buffer and its lo strip into the previous shard's from_hi buffer.
@@ -106,8 +107,8 @@ bool aligned16(const void* p, long long elems, int esize) {
 
 // Launch one stage: n tasks (1..48) of elements of esize bytes (4 or 8) on
 // `stream`. Returns the launch's error (cudaSuccess when queued).
-extern "C" cudaError_t cv_halo_ring(const RingTask* tasks, int n, int esize,
-                                    void* stream) {
+extern "C" cudaError_t cv_halo_ring_v1(const RingTask* tasks, int n,
+                                       int esize, void* stream) {
   if (n < 1 || n > kMaxTasks || (esize != 4 && esize != 8))
     return cudaErrorInvalidValue;
   Table tab;

@@ -4,17 +4,24 @@
 //
 // Replaces chan_vese_tpu/ops/pallas_packed.py::_flat_chunk_kernel and
 // ::_packed_chunk_kernel (reached through packed_chunk), the reference's
-// A/B of the two layouts at one residency. The body is resident.cuh's
-// persistent cooperative kernel in its frozen-means mode: the
-// counterpart of "the whole image VMEM-resident" is one launch whose
-// working set (phi twice, u0) stays in the 50 MB L2, as for K7/K8; the
-// layout changes only the addressing (gaddr<PACKED>).
+// A/B of the two layouts at one residency. The body is K7/K8's tile body
+// (resident_tiles.cuh tile_resident_kernel<PACKED, 0, true>) in its
+// frozen-means mode: the image lives in shared memory across the SMs, one
+// tile a block, the counterpart of the TPU kernel's whole-image VMEM
+// residency; (c1, c2) come from cc and stay fixed, so the data term is
+// computed once into the tile's shared memory, blocks pass tagged rims to
+// their neighbours every iteration and take no grid-wide step until the
+// last iteration, whose H sums and row sums one step adds in block order. The layout changes only where the tile is loaded and
+// stored (gaddr<PACKED>). The first body, resident.cuh's frozen mode (a
+// grid-stride walk through L2, two grid syncs an iteration), stays as
+// cv_(packed_)resident_chunk_v1.
 //
-// Bound on the card: at 512^2-1024^2 the two grid syncs an iteration,
-// then L2 traffic of the 3x3 reads; device memory is touched once a
-// launch (12 B/pixel).
+// Bound on the card: per iteration 55 operations a cell update and the
+// data term (chip_smoke.py::bound); an iteration's chain of four block
+// barriers and two neighbour waits sets the pace at these sizes. Device
+// memory is touched when the tile is loaded and stored.
 
-#include "resident.cuh"
+#include "resident_tiles.cuh"
 
 namespace {
 
@@ -31,6 +38,43 @@ cudaError_t chunk(const float* phi_in, float* out, float* tmp,
 
 }  // namespace
 
+// The tile body's launchers: pointers phi_in, out, u0, cc, scratch, rims,
+// sync, parts; nblocks, H, W, k, the tiling (TH, TW, GX, u0 resident,
+// dynamic bytes); the nine parameters; the stream. `_grid`: (C, dynamic
+// bytes, int* co-resident blocks).
+#define CV_TILE_CHUNK_ARGS                                                 \
+  const float *phi_in, float *out, const float *u0, const float *cc,      \
+      double *scratch, void *rims, unsigned *sync, float *parts,          \
+      int nblocks, int H, int W, int k, int TH, int TW, int GX, int u0res, \
+      int smem, float mu, float nu, float l1, float l2, float eta2,       \
+      float gdt, float eps, float eps2, float inv_pi, void *stream
+#define CV_TILE_CHUNK_CALL                                                  \
+  cv::TileResidentArgs{phi_in, out, u0, nullptr, cc, scratch,              \
+                       (cv::Word*)rims, sync, parts, 1, H, W, k, k, 0, 8,  \
+                       TH, TW, GX, GX > 0 ? nblocks / GX : 0, u0res},      \
+      cv::Params{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi}, nblocks,   \
+      smem, (cudaStream_t)stream, nullptr
+
+extern "C" cudaError_t cv_resident_chunk(CV_TILE_CHUNK_ARGS) {
+  return cv::tile_resident<false, 0, true>(CV_TILE_CHUNK_CALL);
+}
+
+extern "C" cudaError_t cv_packed_resident_chunk(CV_TILE_CHUNK_ARGS) {
+  return cv::tile_resident<true, 0, true>(CV_TILE_CHUNK_CALL);
+}
+
+extern "C" cudaError_t cv_resident_chunk_grid(int C, int smem,
+                                              int* max_blocks) {
+  return cv::tile_resident<false, 0, true>({}, {}, 0, smem, nullptr,
+                                           max_blocks);
+}
+
+extern "C" cudaError_t cv_packed_resident_chunk_grid(int C, int smem,
+                                                     int* max_blocks) {
+  return cv::tile_resident<true, 0, true>({}, {}, 0, smem, nullptr,
+                                          max_blocks);
+}
+
 #define CV_CHUNK_ARGS                                                     \
   const float *phi_in, float *out, float *tmp, const float *u0,          \
       const float *cc, double *scratch, float *parts, int nblocks, int H, \
@@ -40,19 +84,19 @@ cudaError_t chunk(const float* phi_in, float* out, float* tmp,
   phi_in, out, tmp, u0, cc, scratch, parts, nblocks, H, W, k,         \
       cv::Params{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi}, stream
 
-extern "C" cudaError_t cv_resident_chunk(CV_CHUNK_ARGS) {
+extern "C" cudaError_t cv_resident_chunk_v1(CV_CHUNK_ARGS) {
   return chunk<false>(CV_CHUNK_CALL);
 }
 
-extern "C" cudaError_t cv_packed_resident_chunk(CV_CHUNK_ARGS) {
+extern "C" cudaError_t cv_packed_resident_chunk_v1(CV_CHUNK_ARGS) {
   return chunk<true>(CV_CHUNK_CALL);
 }
 
-extern "C" cudaError_t cv_resident_chunk_grid(int C, int* max_blocks) {
+extern "C" cudaError_t cv_resident_chunk_v1_grid(int C, int* max_blocks) {
   return cv::resident_grid<false, 0>(max_blocks);
 }
 
-extern "C" cudaError_t cv_packed_resident_chunk_grid(int C,
-                                                     int* max_blocks) {
+extern "C" cudaError_t cv_packed_resident_chunk_v1_grid(int C,
+                                                        int* max_blocks) {
   return cv::resident_grid<true, 0>(max_blocks);
 }

@@ -1,8 +1,9 @@
 // The Hopper exact-means resident bodies on persistent shared-memory
 // tiles: the two-phase body of K7 (resident.cu, resident_mc.cu; flat
 // layout) and K8 (packed_resident.cu, packed_resident_mc.cu; parity
-// planes), and the tile, rim and grid-step templates that mp2.cuh's
-// 4-phase body (K9's resident mode, K10) is built on.
+// planes), its frozen-means mode (K13, resident_chunk.cu), and the tile,
+// rim and grid-step templates that mp2.cuh's 4-phase body (K9's resident
+// mode, K10) is built on.
 //
 // What a launch computes: resident.cuh's contract, `iters` exact-means
 // iterations on a scalar image, on each frame of a stack in turn, or on a
@@ -61,6 +62,21 @@
 // Per iteration a block does two barriered half-sweeps on shared memory,
 // one neighbour wait and one grid-wide step; device memory is touched when
 // a frame is loaded and stored (and for u0 where it is not resident).
+//
+// Frozen-means mode (FROZEN, K13: a scalar image, (c1, c2) from `wts`,
+// unroll = iters): the contract of resident.cuh's frozen mode, k
+// iterations and one partials row of the last, [s_uH, s_H] of the phi it
+// leaves and [s_dphi2, flips, s_absdphi] of its transition. With no means
+// to wait for, the tile's shared copy of u0 holds the data term itself
+// (the same expression on the same values, computed once), each black
+// commit is followed by the whole ring of the next iteration read from
+// the iteration's rims, and the only grid-wide step is the last
+// iteration's, which adds the blocks' H sums and row sums in block order.
+// The parity buffers stay safe without the steps: a block writes a
+// parity's rims again two iterations on, only after its own ring waits
+// have seen every side neighbour's commit of the iteration between, which
+// each neighbour makes after its own reads of that parity (the corners
+// included, through the side neighbours they share).
 //
 // Bound on the card: per iteration 55 operations a cell update plus the
 // data term and the means (chip_smoke.py::bound); the neighbour wait and
@@ -336,7 +352,7 @@ struct TileResidentArgs {
   float* out;           // (N, image): the result
   const float* u0;      // (N, image) scalar frames or (C, image) channels
   const double* usum;   // sum of u0 per frame (scalar) or channel (mc)
-  const float* wts;     // mc: [l1/C x C, l2/C x C]; unused for NC = 0
+  const float* wts;     // mc: [l1/C x C, l2/C x C]; frozen: (c1, c2)
   double* scratch;      // (nblocks, C + 4) slots | C + 1 totals
   Word* rims;           // (2, nblocks, rim_len) tagged borders, zeroed
   unsigned* sync;       // SyncBuf, zeroed
@@ -345,9 +361,10 @@ struct TileResidentArgs {
   int TH, TW, GX, GY, u0res;
 };
 
-template <bool PACKED, int NC>
+template <bool PACKED, int NC, bool FROZEN = false>
 __global__ void __launch_bounds__(kTileThreads, 1)
 tile_resident_kernel(TileResidentArgs a, Params P) {
+  static_assert(!FROZEN || NC == 0, "the frozen mode takes a scalar image");
   // slots: H sums [0, kM), then the row's s_dphi2, flips, s_absdphi
   constexpr int kUh = uh_slots<NC>(), kM = kUh + 1, kS = kM + 3;
   extern __shared__ float smem[];
@@ -377,20 +394,28 @@ tile_resident_kernel(TileResidentArgs a, Params P) {
   if constexpr (NC > 0) {
     for (int k = threadIdx.x; k < 2 * NC; k += blockDim.x)
       s_cc[2 * NC + k] = a.wts[k];
+  } else if constexpr (FROZEN) {
+    if (threadIdx.x < 2) s_cc[threadIdx.x] = a.wts[threadIdx.x];
   }
 
   for (int fr = 0; fr < a.N; ++fr) {
     const int64_t off = a.batch ? fr * chan : 0;
     const float* u0 = a.u0 + off;
-    // the data term at cell (i, j) from u0's tile copy or from L2
+    // the data term at cell (i, j) from u0's tile copy or from L2 (frozen:
+    // the tile copy holds the data term itself, the means being fixed)
     auto force = [&](int i, int j) -> float {
-      return a.u0res ? data_term<NC>(U, t.u(i, j), cells, s_cc, P)
-                     : data_term<NC>(u0, gaddr<PACKED>(i, j, H, W), chan,
-                                     s_cc, P);
+      if constexpr (FROZEN) {
+        if (a.u0res) return U[t.u(i, j)];
+        return data_term<NC>(u0, gaddr<PACKED>(i, j, H, W), chan, s_cc, P);
+      } else {
+        return a.u0res ? data_term<NC>(U, t.u(i, j), cells, s_cc, P)
+                       : data_term<NC>(u0, gaddr<PACKED>(i, j, H, W), chan,
+                                       s_cc, P);
+      }
     };
     auto hsums = [&](double* acc, int i, int j, float v) {
       const float h = 0.5f + P.inv_pi * atanf(v / P.eps);
-      if (a.u0res) {
+      if (!FROZEN && a.u0res) {
         const int l = t.u(i, j);
 #pragma unroll
         for (int ch = 0; ch < kUh; ++ch)
@@ -442,23 +467,50 @@ tile_resident_kernel(TileResidentArgs a, Params P) {
 #pragma unroll
     for (int s = 0; s < kS; ++s) acc[s] = 0.0;
     ++tag;
-    for (int k = threadIdx.x; k < cells; k += blockDim.x) {
-      const int i = t.r0 + k / t.tw, j = t.c0 + k % t.tw;
-      const int64_t g = gaddr<PACKED>(i, j, H, W);
-      const float v = a.phi_in[off + g];
-      S[t(i, j)] = v;
-      publish(mine(1), t, a.TH, a.TW, i, j, v, tag);
-      if (a.u0res) {
-#pragma unroll
-        for (int ch = 0; ch < kUh; ++ch)
-          U[ch * cells + t.u(i, j)] = u0[ch * chan + g];
+    if constexpr (FROZEN) {
+      // the loads first, several in flight a thread (a rim store's
+      // memory clobber between them would make each wait for the last),
+      // then the border, then iteration 0's ring: no means to wait for
+      __syncthreads();  // s_cc
+#pragma unroll 4
+      for (int k = threadIdx.x; k < cells; k += blockDim.x) {
+        const int i = t.r0 + k / t.tw, j = t.c0 + k % t.tw;
+        const int64_t g = gaddr<PACKED>(i, j, H, W);
+        S[t(i, j)] = a.phi_in[off + g];
+        if (a.u0res) U[t.u(i, j)] = data_term<NC>(u0, g, chan, s_cc, P);
       }
-      hsums(acc, i, j, v);
+      __syncthreads();
+      for (int k = threadIdx.x; k < 2 * (t.tw + t.th); k += blockDim.x) {
+        const bool row = k < 2 * t.tw;  // top, bottom; then left, right
+        const int n = row ? t.tw : t.th, side = (row ? k : k - 2 * t.tw) / n;
+        const int e = (row ? k : k - 2 * t.tw) - side * n;
+        const int lr = row ? side * (t.th - 1) : e;
+        const int lc = row ? e : side * (t.tw - 1);
+        st_relaxed(mine(1) + (row ? side * a.TW + e
+                                  : 2 * a.TW + side * a.TH + e),
+                   tagged(S[t(t.r0 + lr, t.c0 + lc)], tag));
+      }
+      fill_ring(S, rims(1), t, a.TH, a.TW, a.GX, a.GY, false, tag);
+      __syncthreads();
+    } else {
+      for (int k = threadIdx.x; k < cells; k += blockDim.x) {
+        const int i = t.r0 + k / t.tw, j = t.c0 + k % t.tw;
+        const int64_t g = gaddr<PACKED>(i, j, H, W);
+        const float v = a.phi_in[off + g];
+        S[t(i, j)] = v;
+        publish(mine(1), t, a.TH, a.TW, i, j, v, tag);
+        if (a.u0res) {
+#pragma unroll
+          for (int ch = 0; ch < kUh; ++ch)
+            U[ch * cells + t.u(i, j)] = u0[ch * chan + g];
+        }
+        hsums(acc, i, j, v);
+      }
+      f_row = false, f_more = true, ring_q = 1;
+      post_sums(acc, 0, kM, slots, s_red);
+      grid_step<kS>(slots, 0, kM, sync, step++, s_tot, g_tot, 0, s_cc,
+                    2 * kUh, &s_last, means, finish, ring);
     }
-    f_row = false, f_more = true, ring_q = 1;
-    post_sums(acc, 0, kM, slots, s_red);
-    grid_step<kS>(slots, 0, kM, sync, step++, s_tot, g_tot, 0, s_cc,
-                  2 * kUh, &s_last, means, finish, ring);
 
     for (int it = 0; it < a.iters; ++it) {
       const bool row = a.batch ? it == a.iters - 1
@@ -488,7 +540,11 @@ tile_resident_kernel(TileResidentArgs a, Params P) {
             acc[kM + 1] += ((nv >= 0.0f) != (old >= 0.0f)) ? 1.0 : 0.0;
             acc[kM + 2] += (double)fabsf(d);
           }
-          if (more) hsums(acc, i, j, nv);
+          if constexpr (FROZEN) {  // the H sums of the phi k iterations leave
+            if (!more) hsums(acc, i, j, nv);
+          } else {
+            if (more) hsums(acc, i, j, nv);
+          }
           publish(mine(par), t, a.TH, a.TW, i, j, nv, tag + 1);
         }
         if (color == 0) {  // the sides' new red cells for the black sweep
@@ -497,7 +553,22 @@ tile_resident_kernel(TileResidentArgs a, Params P) {
         }
       }
       ++tag;
-      if (row || more) {
+      if constexpr (FROZEN) {
+        if (more) {  // the next iteration's ring, once its owners commit
+          fill_ring(S, rims(par), t, a.TH, a.TW, a.GX, a.GY, false, tag);
+          __syncthreads();
+        } else {  // the one grid-wide step: the row of the last iteration
+          post_sums(acc, 0, kS, slots, s_red);
+          grid_step<kS>(
+              slots, 0, kS, sync, step++, s_tot, g_tot, 0, s_cc, 0, &s_last,
+              means,
+              [&](const double* tot) {
+                for (int s = 0; s < kS; ++s) a.parts[s] = (float)tot[s];
+                for (int s = kS; s < a.nrow; ++s) a.parts[s] = 0.0f;
+              },
+              [](int) {});
+        }
+      } else if (row || more) {
         f_row = row, f_more = more, f_it = it, ring_q = par;
         post_sums(acc, more ? 0 : kM, row ? kS : kM, slots, s_red);
         grid_step<kS>(slots, more ? 0 : kM, row ? kS : kM, sync, step++,
@@ -561,18 +632,20 @@ cudaError_t tile_launch(K kernel, A a, Params P, int nblocks, int smem,
                                      dim3(kTileThreads), args, smem, stream);
 }
 
-// The two-phase body after checking the tiling and that smem is its size
-// for it; with `capacity`, the co-resident blocks at smem bytes instead.
-template <bool PACKED, int NC>
+// The two-phase body (FROZEN: its frozen-means chunk mode) after checking
+// the tiling and that smem is its size for it; with `capacity`, the
+// co-resident blocks at smem bytes instead.
+template <bool PACKED, int NC, bool FROZEN = false>
 cudaError_t tile_resident(TileResidentArgs a, Params P, int nblocks,
                           int smem, cudaStream_t stream, int* capacity) {
   if (capacity)
-    return tile_capacity(tile_resident_kernel<PACKED, NC>, smem, capacity);
+    return tile_capacity(tile_resident_kernel<PACKED, NC, FROZEN>, smem,
+                         capacity);
   if (!tile_grid_ok(a.H, a.W, a.TH, a.TW, a.GX, nblocks) ||
       smem != tile_smem_bytes(a.TH, a.TW, uh_slots<NC>(), 1, a.u0res))
     return cudaErrorInvalidValue;
-  return tile_launch(tile_resident_kernel<PACKED, NC>, a, P, nblocks, smem,
-                     stream);
+  return tile_launch(tile_resident_kernel<PACKED, NC, FROZEN>, a, P, nblocks,
+                     smem, stream);
 }
 
 // C-channel image: the runtime channel count C picks the instance.

@@ -996,10 +996,12 @@ def launch_resident(symbol: str, phi, u0, p, iters: int, unroll: int,
 
 
 def launch_resident_chunk(symbol: str, phi, u0, c1, c2, p, k: int, h: int,
-                          w: int):
+                          w: int, v1: bool = False):
     """One cooperative launch of frozen-means chunk kernel ``symbol`` (K13)
     on image geometry (h, w), phi and u0 flat or as parity planes: k
-    iterations with means c1, c2. Returns (phi_new, partials (8,) f32 of
+    iterations with means c1, c2. The tile body (csrc/resident_tiles.cuh's
+    frozen mode, tiles from :func:`resident_tile_geometry`); ``v1``: the
+    first body (csrc/resident.cuh). Returns (phi_new, partials (8,) f32 of
     the last iteration)."""
     from .._build import library
 
@@ -1010,25 +1012,41 @@ def launch_resident_chunk(symbol: str, phi, u0, c1, c2, p, k: int, h: int,
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     dev = phi.device
-    cap = resident_capacity(symbol, 0, dev.index)
-    nblocks = max(1, min(cap, math.ceil(h * w // 2 / RESIDENT_THREADS)))
     out = torch.empty_like(phi)
-    tmp = torch.empty(h * w, dtype=torch.float32, device=dev)
-    cc = torch.stack([torch.as_tensor(c1, device=dev),
-                      torch.as_tensor(c2, device=dev)]).to(torch.float32)
-    # (nblocks, 2) H sums and (nblocks, 3) row sums
-    scratch = torch.empty(nblocks * 5, dtype=torch.float64, device=dev)
+    cc = _means(c1, c2, dev)
     parts = torch.empty(8, dtype=torch.float32, device=dev)
+    params = (p.mu, p.nu, p.lambda1, p.lambda2, *_common_params(p))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     lib = library()
+    if v1:
+        symbol += "_v1"
+        cap = resident_capacity(symbol, 0, dev.index)
+        nblocks = max(1, min(cap, math.ceil(h * w // 2 / RESIDENT_THREADS)))
+        tmp = torch.empty(h * w, dtype=torch.float32, device=dev)
+        # (nblocks, 2) H sums and (nblocks, 3) row sums
+        scratch = torch.empty(nblocks * 5, dtype=torch.float64, device=dev)
+        with torch.cuda.device(dev):
+            err = getattr(lib, symbol)(
+                phi.data_ptr(), out.data_ptr(), tmp.data_ptr(),
+                u0.data_ptr(), cc.data_ptr(), scratch.data_ptr(),
+                parts.data_ptr(), nblocks, h, w, k, *params, stream)
+        _raise_on(lib, symbol, err)
+        return out, parts
+    (th, tw, gx, _, u0res, smem), nblocks = _tile_plan(symbol, h, w, 0, 1,
+                                                       dev)
+    # the blocks' slots (H sums, then the row's sums), and the totals
+    scratch = torch.empty((nblocks + 1) * 5, dtype=torch.float64, device=dev)
+    # the tagged rim words and then the sync words, zeroed in one launch
+    nrim = 2 * nblocks * 2 * (th + tw)
+    words = torch.zeros(nrim + TILE_SYNC // 2, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         err = getattr(lib, symbol)(
-            phi.data_ptr(), out.data_ptr(), tmp.data_ptr(), u0.data_ptr(),
-            cc.data_ptr(), scratch.data_ptr(), parts.data_ptr(), nblocks, h,
-            w, k, p.mu, p.nu, p.lambda1, p.lambda2, *_common_params(p),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"{symbol} launch failed: "
-                           f"{lib.cv_error_string(err).decode()} ({err})")
+            phi.data_ptr(), out.data_ptr(), u0.data_ptr(), cc.data_ptr(),
+            scratch.data_ptr(), words.data_ptr(),
+            words.data_ptr() + 8 * nrim,
+            parts.data_ptr(), nblocks, h, w, k, th, tw, gx, int(u0res), smem,
+            *params, stream)
+    _raise_on(lib, symbol, err)
     return out, parts
 
 

@@ -27,7 +27,8 @@ compat.morphological_geodesic_active_contour through the kernels, and the
 morph-acwe / morph-gac throughput at 4K, and check that the binary
 morph start built on the card equals the one built on the CPU. Phases
 15-17 do the same for frame stacks and the layout kernels: K1's batch
-mode, K13 (packed_chunk, flat and packed) and the parity pack/unpack
+mode, K13 (packed_chunk, flat and packed, on the tile body; phi bitwise
+its first body, timed in turns with it) and the parity pack/unpack
 K15/K16 each against its plain version (the pack bitwise) at the shapes
 the main path gives it, segment_stack_sharded on a one-device data mesh
 (64 x 512^2 through K8 batch, 16 x 1080p through K1 batch, tolerance
@@ -59,16 +60,19 @@ the multiphase sweeps with the lattice offset, each against the unsharded
 run of its trajectory class, with every launch counted, and the times:
 each run's throughput beside the unsharded route, each mode per launch,
 and the halo exchange a chunk. Phases 24-26 do the same for the halo
-mechanisms: K14 (exchange_halo2d_rdma) bitwise against its plain version
-and exchange_halo2d on every shard of a 2x2 and a 3x3 grid of the 4K
+mechanisms: K14 (exchange_halo2d_rdma, one clamped-gather launch an
+exchange) bitwise against its first body (two ring stages), its plain
+version and exchange_halo2d on every shard of a 2x2 and a 3x3 grid of the 4K
 image and on the 1x1 self-ring at D = 4, 32 and 64, for the image and a
 stack of two level sets (and on a grid over the cards where there are
 several), segment_sharded (comm_k 8 and 1), segment_multiphase_sharded
 (K9's shard mode, comm_k 1 and 8) and segment_sharded_fixed_trace with
 halo='rdma' bitwise equal to halo='ppermute', K14's launches counted,
 halo='overlap' (the kernels' hybrid at 4K against ppermute, the plain
-route bitwise at 1080p), and the times: K14 an exchange beside
-exchange_halo2d and its bound, and the 4K rates of the three mechanisms.
+route bitwise at 1080p), and the times: K14 an exchange, in turns with
+its first body, device and host ms, beside exchange_halo2d and its bound
+(the image at D = 4, 32, 64; the two level sets at D = 4, 64), and the 4K
+rates of the three mechanisms.
 Phase 27 does the same for the banded body of K2, K3, K5 and K6
 (csrc/band.cuh, K3 and K6 on parity planes): registers, spills and (with
 --sass-parent DIR, a checkout of the parent package) sass_diff.py's check
@@ -522,11 +526,11 @@ MP_ENERGY_RTOL, MP_ENERGY_SELF_RTOL = 1e-3, 1e-5
 # printed, without a bar.
 MU_MP_SHARD = 0.001 * 255.0 ** 2
 
-# the halo mechanisms (phases 24-26): K14's ring shifts, the exchange of
+# the halo mechanisms (phases 24-26): K14's clamped gather, the exchange of
 # halo='rdma'; the counter its wrapper adds to where it launches
 HALO = {
     "K14 exchange_halo2d_rdma": dict(
-        source="chan_vese_tpu_torch/csrc/halo_ring.cu",
+        source="chan_vese_tpu_torch/csrc/halo_gather.cu",
         replaces="chan_vese_tpu/parallel/halo_rdma.py:54",
         counter=(exchange_halo2d_rdma, "launches")),
 }
@@ -534,6 +538,9 @@ HALO = {
 # comm_k = 8 chunk (D = 32) and the multiphase one (D = 64); the JSON line
 # carries K14's numbers at D = 32
 HALO_DEPTHS, HALO_TIMED = (4, 32, 64), 32
+# K14 launches an exchange on the main path: one a device, the four shards
+# on the one card (the first body: two, a ring stage each)
+K14_PER_EXCHANGE = 1
 # iterations of the plain overlap route held bitwise at 1080p, and of the
 # 4K overlap runs at comm_k 8 and 1: its rim strips are plain-torch
 # launches, host-bound at 0.2-0.25 s a chunk on the 2x2 grid of an H100
@@ -714,11 +721,12 @@ def best_accuracy(pred, gt):
 def ptxas_summary():
     """Registers and spill stores of every chunk_kernel, band_kernel,
     sweep_kernel, resident_kernel, tile_resident_kernel, mp2_band_kernel,
-    mp2_coupled_kernel, mp2_resident_kernel, mp2_tile_kernel, morph_kernel
-    and morph_bits_kernel instance,
+    mp2_coupled_kernel, mp2_resident_kernel, mp2_tile_kernel, morph_kernel,
+    morph_bits_kernel and halo_gather_kernel instance,
     from ptxas's -v report of the build: 'kind flat/packed [C=n]: R regs,
-    S B spill' (C = -1 is K1's force mode), 'morph <kind>: ...',
-    'morph_bits <kind>: ...'."""
+    S B spill' (C = -1 is K1's force mode; 'frozen' the tile body's
+    frozen-means mode, K13), 'morph <kind>: ...', 'morph_bits <kind>:
+    ...', 'halo_gather f32/f64: ...'."""
     out, name = {}, None
     morph_kinds = ("acwe", "gac", "gac_pre", "acwe_fused", "acwe_sh",
                    "gac_pre_sh")
@@ -729,6 +737,7 @@ def ptxas_summary():
                            m.group(1))
             msw = re.search(r"sweep_kernelILi(n?)(\d+)ELb(\d)E", m.group(1))
             mm = re.search(r"morph_(bits_)?kernelILi(\d)E", m.group(1))
+            mh = re.search(r"halo_gather_kernelI([fd])", m.group(1))
             m = re.search(r"(mp2_band|mp2_coupled|mp2_resident|mp2_tile|"
                           r"chunk|tile_resident|resident)_kernel"
                           r"(?:ILb(\d)E(?:Li(n?)(\d+)E)?(?:Lb(\d)E)?)?",
@@ -746,6 +755,9 @@ def ptxas_summary():
             elif mm:
                 name = ("morph_bits" if mm.group(1) else "morph",
                         morph_kinds[int(mm.group(2))], "")
+            elif mh:
+                name = ("halo_gather", f"f{32 if mh.group(1) == 'f' else 64}",
+                        "")
             elif m:
                 c = ("" if m.group(4) is None else
                      f" C={'-' if m.group(3) else ''}{m.group(4)}")
@@ -754,8 +766,10 @@ def ptxas_summary():
                 one = m.group(1) in ("mp2_band", "mp2_coupled")
                 shard = (m.group(2) if one else m.group(5)) == "1"
                 packed = not one and m.group(2) == "1"
+                flag = (" frozen" if m.group(1) == "tile_resident" else
+                        " shard")
                 name = (m.group(1), ("flat", "packed")[packed],
-                        c + (" shard" if shard else ""))
+                        c + (flag if shard else ""))
             continue
         if name is None:
             continue
@@ -1387,10 +1401,17 @@ def hold(name, got, ref, tag):
     return err
 
 
+def k13_v1(args, p, k, packed):
+    """packed_chunk on K13's first body (resident.cuh's frozen mode)."""
+    with first_resident_body_route():
+        return packed_kernel.packed_chunk(*args, p, k, packed=packed)
+
+
 def check_stack_kernels(dev, p, img4k, rgb4k_cf):
     """Phase 15: K1 batch, K13 (both layouts) and K15/K16 against their
-    plain versions; a second launch of each bitwise equal to the first.
-    Returns the stats dict of the five entries."""
+    plain versions; a second launch of each bitwise equal to the first;
+    K13 on the tile body bitwise its first body in phi, timed in turns
+    with it. Returns the stats dict of the five entries."""
     st = {name: dict(max_abs_err=0.0) for name in STACK}
     # K1 batch: each frame also bitwise the single-image K1 launch
     for n, h, w in K1B_STACKS:
@@ -1432,7 +1453,8 @@ def check_stack_kernels(dev, p, img4k, rgb4k_cf):
                     phis, u, c1, c2, p), 2)
             b["bound_ms"], b["bound_by"] = bound(h, w, 1, 0, frames=n)
             b["timed"] = f"{n}x{h}x{w}"
-    # K13: against its plain version and against K2 on the card
+    # K13: against its first body (phi bitwise: the means are frozen), its
+    # plain version and K2 on the card
     for h, w in K13_SHAPES:
         args = chunk_inputs(torch.from_numpy(two_disks(h, w)[0]).to(dev), p)
         for k in K13_KS:
@@ -1444,31 +1466,57 @@ def check_stack_kernels(dev, p, img4k, rgb4k_cf):
                 got = packed_kernel.packed_chunk(*args, p, k, packed=packed)
                 again = packed_kernel.packed_chunk(*args, p, k,
                                                    packed=packed)
+                old = k13_v1(args, p, k, packed)
                 torch.cuda.synchronize()
                 if not (torch.equal(got[0], again[0])
                         and torch.equal(got[1], again[1])):
                     raise AssertionError(f"{name} k={k} at {h}x{w}: two "
                                          f"launches differ")
+                if not (torch.equal(got[0], old[0])
+                        and torch.equal(got[1][3], old[1][3])):
+                    raise AssertionError(f"{name} k={k} at {h}x{w}: phi or "
+                                         f"the flips differ from the first "
+                                         f"body")
                 err = hold(name, got, ref, f"{h}x{w} k={k}")
                 err_band = hold(name, got, band, f"{h}x{w} k={k} vs K2")
+                hold(name, got, old, f"{h}x{w} k={k} vs the first body")
                 st[name]["max_abs_err"] = max(st[name]["max_abs_err"], err)
-                print(f"phase 15 {name} {h}x{w} k={k}: phi max|d| vs plain "
-                      f"{err:.3e}, vs K2 banded_chunk {err_band:.3e}; parts "
-                      f"max|d| vs plain "
+                print(f"phase 15 {name} {h}x{w} k={k}: phi bitwise equal to "
+                      f"the first body (parts max|d| "
+                      f"{float((got[1] - old[1]).abs().max()):.3e}); phi "
+                      f"max|d| vs plain {err:.3e}, vs K2 banded_chunk "
+                      f"{err_band:.3e}; parts max|d| vs plain "
                       f"{float((got[1] - ref[1]).abs().max()):.3e} (phase "
                       f"3's bars); second launch bitwise equal", flush=True)
+                if k == K13_KS[-1]:
+                    # queued, in turns with the first body: with the pack
+                    # inside, four launches whose host-side cost is about
+                    # their device time
+                    t = {False: [], True: []}
+                    for v1 in (True, False, False, True):
+                        t[v1].append(queued_ms(
+                            (lambda: k13_v1(args, p, k, packed)) if v1 else
+                            (lambda: packed_kernel.packed_chunk(
+                                *args, p, k, packed=packed)), 20))
+                    st[name].setdefault("turns", {})[h, w] = (
+                        t[True][0], t[False][0], t[False][1], t[True][1],
+                        bound(h, w, k, 0)[0])
                 if (h, w) == K13_TIMED and k == K13_KS[-1]:
-                    # queued: with the pack inside, four launches whose
-                    # host-side cost is about their device time
-                    st[name]["ms"] = queued_ms(lambda: packed_kernel.
-                                               packed_chunk(*args, p, k,
-                                                            packed=packed),
-                                               20)
+                    st[name]["ms"] = sum(t[False]) / 2
                     st[name]["plain_ms"] = time_ms(
                         lambda: packed_kernel.packed_chunk_reference(
                             *args, p, k), 2)
                     st[name]["bound_ms"], st[name]["bound_by"] = bound(
                         h, w, k, 0)
+    print(f"phase 15 K13 k={K13_KS[-1]} (queued device ms a call, in turns "
+          f"first body, tile body, tile body, first body; bound): "
+          + "; ".join(
+              f"{n} {h}x{w} " + ", ".join(f"{v:.4f}" for v in t)
+              for n in STACK if "K13" in n
+              for (h, w), t in st[n]["turns"].items())
+          + "; tiles (TH, TW, GX, GY, u0 resident, bytes) " + ", ".join(
+              f"{h}x{w} {_cuda.resident_tile_geometry(h, w)}"
+              for h, w in K13_SHAPES), flush=True)
     # K15/K16 bitwise, on the main paths' images
     inputs = {(H4K, W4K): img4k, (RGB, H4K, W4K): rgb4k_cf}
     for shape in PACK_SHAPES:
@@ -2634,12 +2682,14 @@ def grids_equal(a, b):
 
 
 def check_halo_kernel(dev, u4k, st):
-    """Phase 24: K14 against its plain version and against exchange_halo2d,
-    bitwise, on every shard of a 2x2 and a 3x3 grid of the 4K image and on
-    the 1x1 self-ring, at the main path's depths, for the image and for a
-    stack of two level sets (the multiphase exchange); a second launch
-    bitwise the first; and, where there is more than one CUDA device, a
-    2x2 grid laid over the cards (peer stores)."""
+    """Phase 24: K14 against its first body (the two ring stages, `_v1`),
+    its plain version and exchange_halo2d, bitwise, on every shard of a
+    2x2 and a 3x3 grid of the 4K image and on the 1x1 self-ring, at the
+    main path's depths, for the image and for a stack of two level sets
+    (the multiphase exchange); a second launch bitwise the first; one
+    launch an exchange; and, where there is more than one CUDA device, a
+    2x2 grid laid over the cards (peer reads; the first body's peer
+    stores)."""
     phis = mpm.init_multiphase((H4K, W4K), 2, device=dev)
     err = 0.0
     for nx, ny in SHARD_GRIDS + ((1, 1),):
@@ -2648,24 +2698,30 @@ def check_halo_kernel(dev, u4k, st):
                   "2 level sets": _shard_phis(phis, mesh)}
         for D in HALO_DEPTHS:
             for tag, blocks in inputs.items():
+                n0 = exchange_halo2d_rdma.launches
                 got = exchange_halo2d_rdma(blocks, D)
+                once = exchange_halo2d_rdma.launches - n0
                 again = exchange_halo2d_rdma(blocks, D)
+                old = exchange_halo2d_rdma(blocks, D, v1=True)
                 plain = halo_rdma.exchange_halo2d_rdma_reference(blocks, D)
                 cat = exchange_halo2d(blocks, D)
                 torch.cuda.synchronize()
                 err = max(err, grids_err(got, plain))
                 if not (grids_equal(got, plain) and grids_equal(got, cat)
-                        and grids_equal(got, again)):
+                        and grids_equal(got, again)
+                        and grids_equal(got, old) and once == 1):
                     raise AssertionError(
                         f"K14 on the {nx}x{ny} grid, {tag}, D={D}: not "
-                        f"bitwise its plain version, exchange_halo2d and "
-                        f"its own second launch (max|d| {err})")
+                        f"bitwise its first body, its plain version, "
+                        f"exchange_halo2d and its own second launch (max|d| "
+                        f"{err}), or {once} launches")
         print(f"phase 24 K14 {nx}x{ny} grid of the 4K image "
               f"({H4K // nx}x{W4K // ny} shards"
               + (", the self-ring" if nx * ny == 1 else "")
-              + f"), D={HALO_DEPTHS}, the image and two level sets: bitwise "
-              f"equal to its plain version and to exchange_halo2d; second "
-              f"launches bitwise equal", flush=True)
+              + f"), D={HALO_DEPTHS}, the image and two level sets: one "
+              f"launch an exchange, bitwise equal to the first body, to its "
+              f"plain version and to exchange_halo2d; second launches "
+              f"bitwise equal", flush=True)
     st["max_abs_err"] = err
     n = torch.cuda.device_count()
     if n < 2:
@@ -2676,14 +2732,20 @@ def check_halo_kernel(dev, u4k, st):
     mesh = make_grid_mesh(2, 2, cards)
     blocks = shard_grid(u4k, grid_sharding(mesh))
     for D in HALO_DEPTHS:
+        n0 = exchange_halo2d_rdma.launches
         got = exchange_halo2d_rdma(blocks, D)
+        once = exchange_halo2d_rdma.launches - n0
+        old = exchange_halo2d_rdma(blocks, D, v1=True)
         plain = halo_rdma.exchange_halo2d_rdma_reference(blocks, D)
         torch.cuda.synchronize()
-        if not grids_equal(got, plain):
+        if not (grids_equal(got, plain) and grids_equal(got, old)
+                and once == len(set(cards))):
             raise AssertionError(f"K14 across {n} cards, D={D}: not bitwise "
-                                 f"its plain version")
-    print(f"phase 24 K14 2x2 grid over {n} cards (peer stores), "
-          f"D={HALO_DEPTHS}: bitwise equal to its plain version", flush=True)
+                                 f"its plain version and first body, or "
+                                 f"{once} launches")
+    print(f"phase 24 K14 2x2 grid over {n} cards (peer reads), "
+          f"D={HALO_DEPTHS}: one launch a card, bitwise equal to its plain "
+          f"version and to the first body (peer stores)", flush=True)
 
 
 def halo_main_paths(dev, card, u4k, gt4k, st):
@@ -2701,18 +2763,18 @@ def halo_main_paths(dev, card, u4k, gt4k, st):
                 u4k, pt, mesh, fixed=True, max_iter=iters, comm_k=k,
                 halo=halo, use_pallas=use_pallas)
 
-    runs = {  # tag: (run with a halo, K14 launches of its rdma run)
-        "gray comm_k=8": (gray(SHARD_K), 2 * (SHARD_ITERS // SHARD_K)),
-        "gray comm_k=1": (gray(1), 2 * SHARD_ITERS_K1),
+    runs = {  # tag: (run with a halo, exchanges of its rdma run)
+        "gray comm_k=8": (gray(SHARD_K), SHARD_ITERS // SHARD_K),
+        "gray comm_k=1": (gray(1), SHARD_ITERS_K1),
         "multiphase comm_k=1": (lambda halo: segment_multiphase_sharded(
             u_mp, pm, mesh, max_iter=MP_SHARD_ITERS, fixed=True, halo=halo),
-            2 * MP_SHARD_ITERS),
+            MP_SHARD_ITERS),
         "multiphase comm_k=8": (lambda halo: segment_multiphase_sharded(
             u_mp, pm, mesh, max_iter=MP_SHARD_ITERS, fixed=True,
-            comm_k=SHARD_K, halo=halo), 2 * -(-MP_SHARD_ITERS // SHARD_K)),
+            comm_k=SHARD_K, halo=halo), -(-MP_SHARD_ITERS // SHARD_K)),
         "trace": (lambda halo: segment_sharded_fixed_trace(
             u4k, ct.CVParams(), mesh, iters=TRACE_ITERS, halo=halo),
-            2 * TRACE_ITERS),
+            TRACE_ITERS),
     }
     k9 = multiphase_kernel.mp2_iteration_sharded
     exchange_halo2d_rdma.launches = 0
@@ -2790,7 +2852,7 @@ def halo_main_paths(dev, card, u4k, gt4k, st):
     if not all(plain_same.values()):
         raise AssertionError(f"the plain overlap route differs from "
                              f"exchange-then-sweep: {plain_same}")
-    want = {tag: n for tag, (_, n) in runs.items()}
+    want = {tag: n * K14_PER_EXCHANGE for tag, (_, n) in runs.items()}
     if launches != want:
         raise AssertionError(f"K14 launched {launches}, expected {want}")
     if k9_launches != 4 * 2 * MP_SHARD_ITERS:
@@ -2800,36 +2862,76 @@ def halo_main_paths(dev, card, u4k, gt4k, st):
     return runs
 
 
+def host_ms(fn, n):
+    """Host ms a call of fn over n calls, the stream drained before and
+    after (what the caller's thread spends queueing one)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
 def halo_rates(dev, card, u4k, st, runs):
-    """Phase 26: K14 per exchange at the main path's depths (queued device
-    ms) beside exchange_halo2d (its torch.cat route), the plain version and
-    the bound, and the 4K 2x2 rates of the three halo mechanisms."""
+    """Phase 26: K14 per exchange at the main path's depths, the gather and
+    its first body in turns (queued device ms, host ms a call), beside
+    exchange_halo2d (its torch.cat route), the plain version and the
+    bound; the two-level-set exchanges of phase 25's multiphase runs (D = 4
+    at comm_k 1, 64 at comm_k 8) timed the same way; and the 4K 2x2 rates
+    of the three halo mechanisms."""
     mesh = make_grid_mesh(2, 2, [dev] * 4)
     blocks = shard_grid(u4k, grid_sharding(mesh))
+    sets = _shard_phis(mpm.init_multiphase((H4K, W4K), 2, device=dev), mesh)
     h, w = H4K // 2, W4K // 2
     per_depth = []
-    for D in HALO_DEPTHS:
-        ms = queued_ms(lambda: exchange_halo2d_rdma(blocks, D), 20)
-        lib_ms = queued_ms(lambda: exchange_halo2d(blocks, D), 20)
-        plain_ms = time_ms(
-            lambda: halo_rdma.exchange_halo2d_rdma_reference(blocks, D), 5)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            exchange_halo2d_rdma(blocks, D)
-        host = (time.perf_counter() - t0) / 20 * 1e3
-        torch.cuda.synchronize()
-        nbytes = 4 * 4 * (h * w + (h + 2 * D) * (w + 2 * D))
-        b_ms, b_by = roofline(nbytes, 0)
-        per_depth.append(f"D={D} {ms:.4f} ms (exchange_halo2d {lib_ms:.4f}, "
-                         f"plain {plain_ms:.4f}, bound {b_ms:.4f} {b_by}, "
-                         f"{nbytes / 1e6:.1f} MB; host {host:.3f} ms an "
-                         f"exchange)")
-        if D == HALO_TIMED:
-            st.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                      library_ms=lib_ms)
+    for tag, xs, depths in (("image", blocks, HALO_DEPTHS),
+                            ("two level sets", sets, (4, 64))):
+        m = xs[0][0].numel() // (h * w)
+        for D in depths:
+            t = {False: [], True: []}
+            host = {False: [], True: []}
+            for v1 in (True, False, False, True):
+                t[v1].append(queued_ms(
+                    lambda: exchange_halo2d_rdma(xs, D, v1=v1), 20))
+                host[v1].append(host_ms(
+                    lambda: exchange_halo2d_rdma(xs, D, v1=v1), 20))
+            ms, v1_ms = sum(t[False]) / 2, sum(t[True]) / 2
+            lib_ms = queued_ms(lambda: exchange_halo2d(xs, D), 20)
+            plain_ms = time_ms(
+                lambda: halo_rdma.exchange_halo2d_rdma_reference(xs, D), 5)
+            nbytes = 4 * 4 * m * (h * w + (h + 2 * D) * (w + 2 * D))
+            b_ms, b_by = roofline(nbytes, 0)
+            per_depth.append(
+                f"{tag} D={D} {ms:.4f} ms [{t[False][0]:.4f}, "
+                f"{t[False][1]:.4f}] (first body {v1_ms:.4f} "
+                f"[{t[True][0]:.4f}, {t[True][1]:.4f}], exchange_halo2d "
+                f"{lib_ms:.4f}, plain "
+                f"{plain_ms:.4f}, bound {b_ms:.4f} {b_by}, "
+                f"{nbytes / 1e6:.1f} MB; host ms a call "
+                f"{min(host[False]):.4f} (first body {min(host[True]):.4f}))")
+            st.setdefault("times", {})[(tag, D)] = (ms, v1_ms, b_ms)
+            if tag == "image" and D == HALO_TIMED:
+                st.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib_ms)
     print(f"phase 26 K14 an exchange of the four {h}x{w} shards (queued "
-          "device ms): " + "; ".join(per_depth) + f" [{card}]", flush=True)
+          "device ms, the gather and the first body in turns first, "
+          "gather, gather, first): " + "; ".join(per_depth) + f" [{card}]",
+          flush=True)
+    # launches x (ms - bound) over phase 25's 363 exchanges
+    times = st["times"]
+    counts = {("image", 4): SHARD_ITERS_K1 + TRACE_ITERS,
+              ("image", 32): SHARD_ITERS // SHARD_K,
+              ("two level sets", 4): MP_SHARD_ITERS,
+              ("two level sets", 64): -(-MP_SHARD_ITERS // SHARD_K)}
+    print("phase 26 K14 over phase 25's exchanges, count x (ms - bound ms) "
+          "(first body in brackets): " + "; ".join(
+              f"{tag} D={D} {n} x ({times[tag, D][0]:.4f} - "
+              f"{times[tag, D][2]:.4f}) = "
+              f"{n * (times[tag, D][0] - times[tag, D][2]):.2f} ms "
+              f"[{n * (times[tag, D][1] - times[tag, D][2]):.2f}]"
+              for (tag, D), n in counts.items()) + f" [{card}]", flush=True)
     rates = []
     for k, iters in ((SHARD_K, SHARD_ITERS), (1, SHARD_ITERS_K1)):
         fn = runs[f"gray comm_k={k}"][0]
@@ -4258,15 +4360,18 @@ TILE_FRAMES = 4
 
 @contextlib.contextmanager
 def first_resident_body_route():
-    """K7-K10's launches on the first bodies' `_v1` launchers (the same
-    wrappers and drivers, the kernels before the tile bodies)."""
-    saved = (_cuda.launch_resident, _cuda.launch_mp2_resident)
+    """K7-K10's and K13's launches on the first bodies' `_v1` launchers
+    (the same wrappers and drivers, the kernels before the tile bodies)."""
+    saved = (_cuda.launch_resident, _cuda.launch_mp2_resident,
+             _cuda.launch_resident_chunk)
     _cuda.launch_resident = functools.partial(saved[0], v1=True)
     _cuda.launch_mp2_resident = functools.partial(saved[1], v1=True)
+    _cuda.launch_resident_chunk = functools.partial(saved[2], v1=True)
     try:
         yield
     finally:
-        _cuda.launch_resident, _cuda.launch_mp2_resident = saved
+        (_cuda.launch_resident, _cuda.launch_mp2_resident,
+         _cuda.launch_resident_chunk) = saved
 
 
 def tile_runs(call):
@@ -4552,12 +4657,12 @@ def main(argv=()) -> int:
     _build.library()
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s "
           f"({len(_build.sources())} sources); ptxas: {ptxas_summary()}; "
-          f"co-resident blocks of the first resident bodies and K13: "
+          f"co-resident blocks of the first resident bodies: "
           + ", ".join(f"{sym} {_cuda.resident_capacity(sym, 3, 0)}"
-                      for sym in (*(f"{s}_v1" for s in (
+                      for sym in (f"{s}_v1" for s in (
                           *_build.RESIDENT_SYMBOLS,
-                          *_build.MP2_RESIDENT_SYMBOLS)),
-                          *_build.CHUNK_SYMBOLS)),
+                          *_build.MP2_RESIDENT_SYMBOLS,
+                          *_build.CHUNK_SYMBOLS))),
           flush=True)
 
     # phase 3: each kernel against its plain version, at the main paths'

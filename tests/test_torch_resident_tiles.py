@@ -1,5 +1,5 @@
-"""The tile bodies of the exact-means resident kernels
-(``csrc/resident_tiles.cuh``: K7, K8 in every mode; ``csrc/mp2.cuh``
+"""The tile bodies of the resident kernels (``csrc/resident_tiles.cuh``:
+K7, K8 in every mode, and K13, its frozen-means mode; ``csrc/mp2.cuh``
 ``mp2_tile_kernel``: K9's resident mode, K10) checked on the CPU through a
 plain PyTorch twin of their schedule, and on the card against their first
 bodies (the ``_v1`` launchers) and plain versions.
@@ -22,7 +22,11 @@ bitwise against ``resident_iterations(_batch, _mc)_reference`` and
 ``mp2_resident_iterations_reference`` in the flat and the plane layout
 (tiles loaded and stored at ``_cuda.plane_offset``), at ragged tilings; an
 in-place half-sweep (the diagonals read after their update) is not
-bitwise. The geometry is checked over the routing envelopes: every cell in
+bitwise. K13's frozen mode has no grid-wide step before its last
+iteration: after each black commit a block fills its whole ring from the
+rims of the iteration, and the twin of that schedule is held bitwise
+against ``packed_chunk_reference`` (f32 and f64, k = 1, 3, 8, both
+layouts). The geometry is checked over the routing envelopes: every cell in
 one tile, the shared-memory budget at one block an SM, u0 out of shared
 memory exactly where the budget demands it. The ``cuda``-marked tests hold
 each body against its first body, its plain version, a second launch and a
@@ -44,7 +48,7 @@ from chan_vese_tpu_torch.ops import resident_kernel as rk
 from chan_vese_tpu_torch.ops.fused_kernel_mc import data_term_mc
 from chan_vese_tpu_torch.ops.numerics import heaviside
 from chan_vese_tpu_torch.ops.reductions import (data_term, means_from_sums,
-                                                phase_means)
+                                                phase_means, region_means)
 from chan_vese_tpu_torch.ops.sweep import _update_all
 from chan_vese_tpu_torch.utils.init_phi import init_phi
 from torch_port_helpers import cuda_device
@@ -308,6 +312,34 @@ def twin_mp2(phis, u0, p, iters, unroll, tiling, packed=False):
             torch.stack(rows))
 
 
+def twin_frozen(phi, u, c1, c2, p, k, tiling, packed=False):
+    """K13's schedule (the frozen-means mode): the force from the fixed
+    means, k iterations of the two barriered half-sweeps, the red-only
+    ring before the black one, the whole ring from the iteration's rims
+    after its black commit (no grid-wide step), and the partials of the
+    last iteration; the contract of ``packed_chunk``."""
+    h, w = phi.shape
+    T = Tiles(h, w, *tiling, 1, phi.dtype)
+    T.load(0, _layout(phi, packed), packed)
+    f = data_term(u, c1, c2, p.nu, p.lambda1, p.lambda2)
+    for it in range(k):
+        par = it & 1
+        old = T.image(0)
+        for colour in (0, 1):
+            for t in T.tiles:
+                T.fill(0, par ^ colour ^ 1, t, red_only=colour == 1)
+                T.commit(0, par, t, T.sweep(0, t, f, p, colour), colour)
+    new = T.image(0)
+    hh, d = heaviside(new, p.eps), new - old
+    zero = torch.zeros((), dtype=phi.dtype)
+    row = torch.stack([torch.sum(u * hh), torch.sum(hh), torch.sum(d * d),
+                       torch.sum(((new >= 0) != (old >= 0)).to(phi.dtype)),
+                       torch.sum(torch.abs(d))] + [zero] * 3)
+    out = torch.empty(h * w, dtype=phi.dtype)
+    T.store(0, out, packed)
+    return _unlayout(out, h, w, packed), row
+
+
 # inputs --------------------------------------------------------------------
 
 def _image(h, w, seed=0, dtype=torch.float32):
@@ -411,6 +443,48 @@ def test_twin_notices_a_schedule_fault():
     assert not torch.equal(got[0], want[0])
 
 
+def _frozen_inputs(dtype, start="checkerboard", seed=0):
+    u = _image(24, 40, seed, dtype)
+    phi = init_phi((24, 40), start, dtype)
+    c1, c2 = means_from_sums(
+        torch.sum(u * heaviside(phi, P.eps)).reshape(1),
+        torch.sum(heaviside(phi, P.eps)), torch.sum(u).reshape(1),
+        torch.tensor(float(phi.numel()), dtype=dtype))
+    return phi, u, c1[0], c2[0]
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("tiling", TILINGS)
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_frozen_twin_is_bitwise_packed_chunk_reference(tiling, packed, k,
+                                                       dtype):
+    phi, u, c1, c2 = _frozen_inputs(dtype, "circle" if k == 3 else
+                                    "checkerboard", seed=k)
+    got = twin_frozen(phi, u, c1, c2, P, k, tiling, packed)
+    want = pk.packed_chunk_reference(phi, u, c1, c2, P, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_frozen_twin_notices_a_schedule_fault():
+    """Without a grid-wide step the whole ring must come from the rims of
+    the iteration just committed: read from the other parity's (the
+    iteration before), the frozen twin is not bitwise."""
+    phi, u, c1, c2 = _frozen_inputs(torch.float32, "circle")
+    saved = Tiles.fill
+
+    def stale(self, level, par, t, red_only):
+        return saved(self, level, par if red_only else par ^ 1, t, red_only)
+
+    Tiles.fill = stale
+    try:
+        got = twin_frozen(phi, u, c1, c2, P, 3, (7, 12))
+    finally:
+        Tiles.fill = saved
+    want = pk.packed_chunk_reference(phi, u, c1, c2, P, 3)
+    assert not torch.equal(got[0], want[0])
+
+
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("tiling", [(7, 12), (5, 6), (24, 40)])
 def test_twin_is_bitwise_mp2_reference(tiling, packed):
@@ -465,6 +539,7 @@ ENVELOPES = {
     "K8": (pk.supports_packed_resident, 256, 16, 0, 1),
     "K9": (mk.supports_mp2_resident, 128, 8, 0, 2),
     "K10": (pk.supports_packed_mp2_resident, 256, 16, 0, 2),
+    "K13": (pk.supports_packed, 256, 16, 0, 1),
     **{f"K7 mc C={c}": (lambda h, w, c=c: rk.supports_resident_mc(h, w, c),
                         128, 8, c, 1) for c in range(1, 9)},
     **{f"K8 mc C={c}": (lambda h, w, c=c: pk.supports_packed_resident_mc(
@@ -521,6 +596,18 @@ def test_launchers_signatures():
         assert len(_build.SIGNATURES[f"{s}_v1"]) == 20
 
 
+def test_chunk_launchers_signatures():
+    """K13's launchers on the tile body (8 pointers, 9 ints, 9 params, the
+    stream; `_grid` the tile bodies' query) and its first body's."""
+    from chan_vese_tpu_torch import _build
+    for s in _build.CHUNK_SYMBOLS:
+        assert len(_build.SIGNATURES[s]) == 27
+        assert _build.SIGNATURES[f"{s}_grid"] == _build.SIGNATURES[
+            "cv_resident_iterations_grid"]
+        assert len(_build.SIGNATURES[f"{s}_v1"]) == 21
+        assert len(_build.SIGNATURES[f"{s}_v1_grid"]) == 2
+
+
 # on the card: the tile bodies against their first bodies --------------------
 
 def _card(x):
@@ -530,14 +617,18 @@ def _card(x):
 def _v1(fn):
     """fn with the resident launches on the first body."""
     def run(*a, **k):
-        saved = (_cuda.launch_resident, _cuda.launch_mp2_resident)
+        saved = (_cuda.launch_resident, _cuda.launch_mp2_resident,
+                 _cuda.launch_resident_chunk)
         _cuda.launch_resident = lambda *x, **y: saved[0](*x, v1=True, **y)
         _cuda.launch_mp2_resident = lambda *x, **y: saved[1](*x, v1=True,
                                                              **y)
+        _cuda.launch_resident_chunk = lambda *x, **y: saved[2](*x, v1=True,
+                                                               **y)
         try:
             return fn(*a, **k)
         finally:
-            _cuda.launch_resident, _cuda.launch_mp2_resident = saved
+            (_cuda.launch_resident, _cuda.launch_mp2_resident,
+             _cuda.launch_resident_chunk) = saved
     return run
 
 
@@ -608,6 +699,48 @@ def test_tiles_cuda_mp2_match_v1_and_plain(name, shape):
     frac = float((mpm.labels_from_phis(n25) != mpm.labels_from_phis(o25))
                  .double().mean())
     assert frac <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("shape", [(512, 512), (1024, 1024), (720, 1280)])
+def test_tiles_cuda_frozen_chunk_matches_v1_and_plain(shape, packed):
+    """K13 on the tile body: phi bitwise its first body at k = 1, 3, 8 (the
+    means are frozen) and the flips equal, the partials within phase 3's
+    bars of it and of the plain version (f64 sums in tile order), a second
+    launch and a launch on a second stream bitwise; one iteration's phi
+    within phase 3's bars of the plain version. Deeper chunks are held to
+    the plain version on the smoke's images (phase 15) and by
+    test_torch_layout.py: from this noisier image the f32 trajectory of
+    either body leaves those bars at up to 2.4e-4 of the cells by k = 8
+    (last-ulp differences of rsqrtf and FMA contraction, amplified)."""
+    u = _card(_image(*shape))
+    phi = _card(init_phi(shape, "circle", torch.float32))
+    c1, c2 = region_means(u, phi, P.eps)
+    n0 = dict(pk.packed_chunk.launches)
+    for k in (1, 3, 8):
+        new = pk.packed_chunk(phi, u, c1, c2, P, k, packed=packed)
+        again = pk.packed_chunk(phi, u, c1, c2, P, k, packed=packed)
+        old = _v1(pk.packed_chunk)(phi, u, c1, c2, P, k, packed=packed)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            second = pk.packed_chunk(phi, u, c1, c2, P, k, packed=packed)
+        want = pk.packed_chunk_reference(phi, u, c1, c2, P, k)
+        torch.cuda.synchronize()
+        assert torch.equal(new[0], old[0])
+        assert torch.equal(new[0], again[0]) and torch.equal(new[1],
+                                                             again[1])
+        assert torch.equal(new[0], second[0]) and torch.equal(new[1],
+                                                              second[1])
+        assert torch.equal(new[1][3], old[1][3])  # the flips
+        torch.testing.assert_close(new[1], old[1], rtol=1e-4, atol=16.0)
+        torch.testing.assert_close(new[1], want[1], rtol=1e-4, atol=16.0)
+        if k == 1:
+            torch.testing.assert_close(new[0], want[0], rtol=1e-4,
+                                       atol=1e-4)
+    layout = "packed" if packed else "flat"
+    assert pk.packed_chunk.launches[layout] == n0[layout] + 3 * 4
 
 
 @pytest.mark.cuda
