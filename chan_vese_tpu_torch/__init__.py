@@ -16,7 +16,11 @@ and MorphGAC (``segment_gac``, ``segment_gac_fixed``,
 ``segment_gac_iterations``) over K11 and K12, with the scikit-image
 compatible front ends in ``compat``; and frame stacks (``segment_batch``,
 ``segment_stack_fixed``, ``segment_stack_fused_fixed`` over K1's batch
-mode, and ``parallel.segment_stack_sharded`` over a data mesh). Every
+mode, and ``parallel.segment_stack_sharded`` over a data mesh); the
+coarse-to-fine pyramids (``segment_pyramid`` and its multiphase, sharded,
+MorphACWE and MorphGAC forms), the reinit cadence of every PDE driver
+(``CVParams.reinit_every``) over the redistance kernel R1, and the
+Perona-Malik pre-smoothing (``ops.perona_malik``). Every
 packed route packs through K15/K16; K13 (``ops.packed_kernel.
 packed_chunk``) is the layout A/B. CPU tensors run the plain PyTorch
 versions of the kernels; CUDA tensors launch the kernels in ``csrc/``,
@@ -39,6 +43,11 @@ from .models.morph import (MorphResult, MorphTrace, segment_morph,
                            segment_morph_fixed, segment_morph_iterations)
 from .models.morph_gac import (GACResult, GACTrace, segment_gac,
                                segment_gac_fixed, segment_gac_iterations)
+from .models.pyramid import (MorphPyramidResult, MultiphasePyramidResult,
+                             PyramidResult, segment_pyramid,
+                             segment_pyramid_gac, segment_pyramid_morph,
+                             segment_pyramid_multiphase,
+                             segment_pyramid_sharded)
 from . import parallel
 
 __all__ = [
@@ -56,6 +65,10 @@ __all__ = [
     "MorphResult", "MorphTrace",
     "segment_gac", "segment_gac_fixed", "segment_gac_iterations",
     "GACResult", "GACTrace",
+    "segment_pyramid", "segment_pyramid_multiphase",
+    "segment_pyramid_sharded", "segment_pyramid_morph",
+    "segment_pyramid_gac", "PyramidResult", "MultiphasePyramidResult",
+    "MorphPyramidResult",
     "parallel",
 ]
 

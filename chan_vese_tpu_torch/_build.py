@@ -106,6 +106,9 @@ _SWEEP_OCC = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
 # stream. Peer access: device, peer.
 _HALO_GATHER = [_P, _P, _I, _I, _P]
 _HALO_RING = [_P, _I, _I, _P]
+# the redistance (csrc/reinit.cu, R1): phi, aux, flags, buf0, buf1; B, H,
+# W, steps; dtau, h (double); f64; stream
+_REINIT = [_P] * 5 + [_I] * 4 + [ctypes.c_double] * 2 + [_I, _P]
 SIGNATURES = {
     "cv_fused_iteration": _SWEEP + _SWEEP_TAIL + [_P],
     "cv_fused_iteration_shard": _SWEEP + _SWEEP_TAIL + _SHARD,
@@ -173,6 +176,7 @@ SIGNATURES = {
     "cv_halo_gather": _HALO_GATHER,
     "cv_halo_ring_v1": _HALO_RING,
     "cv_halo_peer_access": [_I, _I],
+    "cv_reinit": _REINIT,
 }
 
 

@@ -10,6 +10,8 @@
     python -m chan_vese_tpu_torch image.npy --mesh 2 2 --comm-k 8 --iters 800
     python -m chan_vese_tpu_torch image.npy --mesh 2 2 --multiphase 2
     python -m chan_vese_tpu_torch image.npy --mesh 2 2 --morph-gac --comm-k 8
+    python -m chan_vese_tpu_torch image.npy --pyramid -1 --reinit-every 10
+    python -m chan_vese_tpu_torch image.npy --smooth 10 --smooth-kappa 12
 
 Flag names and defaults follow the reference. ``--device`` picks the torch
 device (default ``cuda``; it raises when no GPU is present rather than
@@ -47,8 +49,19 @@ run equals. ``--halo`` picks the sharded PDE's exchange: ``ppermute``
 with ``--device cpu``) or ``overlap`` (the interior swept while the
 exchange runs on a second stream, then the rim stitched), with the
 reference's raises (gray only for the two-phase PDE; no ``--comm-k`` with
-multiphase ``overlap``). ``--trace-energy``, ``--evolution-gif`` (ROADMAP
-M12) and ``--checkpoint-dir`` (M13e) raise.
+multiphase ``overlap``). ``--smooth STEPS`` runs Perona-Malik
+pre-smoothing (``--smooth-kappa``) on the image first;
+``--reinit-every K`` redistances the level set every K iterations (R1 on
+the card; the banded and resident routes give way to the fused one).
+``--pyramid L`` runs the tolerance solve coarse-to-fine over L 2x
+decimations (-1: as many as ``plan_levels`` allows): ``segment_pyramid``,
+``segment_pyramid_multiphase``, ``segment_pyramid_sharded`` with
+``--mesh``, ``segment_pyramid_morph`` / ``segment_pyramid_gac`` (which take
+L as given, so -1 runs no level below the image, as in the reference); it
+is dropped with a warning with ``--iters``, with ``--mesh`` and
+``--multiphase`` together, and with ``--mesh`` on the morphological paths.
+``--trace-energy``, ``--evolution-gif`` (ROADMAP M12) and
+``--checkpoint-dir`` (M13e) raise.
 """
 
 from __future__ import annotations
@@ -95,6 +108,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "Gauss-Seidel; parity mode)")
     ap.add_argument("--color", action="store_true",
                     help="vector-valued (RGB) energy on color images")
+    ap.add_argument("--pyramid", type=int, default=0, metavar="L",
+                    help="coarse-to-fine multiscale: segment an L-times "
+                         "2x-decimated copy first and refine upward "
+                         "(tolerance mode; -1 = auto depth)")
     ap.add_argument("--multiphase", type=int, default=0, metavar="M",
                     help="multiphase Vese-Chan with M level sets (2^M "
                          "phases); writes a label map")
@@ -121,6 +138,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gac-threshold", default="auto",
                     help="balloon activation threshold on the edge map "
                          "('auto' = 40th percentile)")
+    ap.add_argument("--smooth", type=int, default=0, metavar="STEPS",
+                    help="Perona-Malik pre-smoothing steps")
+    ap.add_argument("--smooth-kappa", type=float, default=10.0)
+    ap.add_argument("--reinit-every", type=int, default=d.reinit_every,
+                    help="redistance the level set every K iterations "
+                         "(0 = never)")
     ap.add_argument("--mesh", type=int, nargs=2, default=None,
                     metavar=("NX", "NY"),
                     help="shard the image over an NX x NY grid mesh "
@@ -183,19 +206,31 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     u0 = torch.from_numpy(np.ascontiguousarray(img)).to(device)
+    if args.smooth:
+        from .ops.diffusion import perona_malik
+
+        u0 = perona_malik(u0, steps=args.smooth, kappa=args.smooth_kappa)
 
     p = CVParams(mu=args.mu, nu=args.nu, lambda1=args.lambda1[0],
                  lambda2=args.lambda2[0], dt=args.dt, eps=args.eps,
                  tol=args.tol, max_iter=args.max_iter, init=args.init,
-                 order=args.order)
+                 order=args.order, reinit_every=args.reinit_every)
+    if args.pyramid and (args.iters is not None
+                         or (args.mesh is not None and args.multiphase)):
+        # a tolerance-mode surface; the sharded multiphase driver has no
+        # pyramid
+        _warn_dropped("fixed-iteration/sharded-multiphase", "--pyramid")
+        args.pyramid = 0
     if (args.morph or args.morph_gac) and args.multiphase:
         # the morphological schemes are two-phase; M coupled level sets
         # stay on the PDE multiphase path
-        dropped = [n for n, v in (("--morph", args.morph),
-                                  ("--morph-gac", args.morph_gac)) if v]
-        print(f"warning: {', '.join(dropped)} not supported on the "
-              f"multiphase path; ignored", file=sys.stderr)
+        _warn_dropped("multiphase", *(n for n, v in (
+            ("--morph", args.morph), ("--morph-gac", args.morph_gac)) if v))
         args.morph = args.morph_gac = False
+    if args.pyramid and args.mesh is not None and (args.morph
+                                                   or args.morph_gac):
+        _warn_dropped("sharded morphological", "--pyramid")
+        args.pyramid = 0
     for flag, value, module in (
             ("--trace-energy", args.trace_energy, "M12"),
             ("--evolution-gif", args.evolution_gif, "M12"),
@@ -215,6 +250,14 @@ def main(argv=None) -> int:
 
     if args.mesh is not None:
         mask, iters, c1, c2 = _sharded(args, u0, p, lam1, lam2)
+    elif args.pyramid:
+        from .models.pyramid import segment_pyramid
+
+        res = segment_pyramid(u0, p, levels=_levels(args), lambda1=lam1,
+                              lambda2=lam2)
+        print(f"pyramid per-level iters (coarse -> fine): "
+              f"{res.level_iters}", file=sys.stderr)
+        mask, iters, c1, c2 = res.mask, res.iters, res.c1, res.c2
     elif args.iters is not None:
         if args.color:
             tr = segment_vector_fixed(u0, p, iters=args.iters, lambda1=lam1,
@@ -245,6 +288,16 @@ def main(argv=None) -> int:
     return 0
 
 
+def _warn_dropped(path_name, *flags):
+    print(f"warning: {', '.join(flags)} not supported on the {path_name} "
+          f"path; ignored", file=sys.stderr)
+
+
+def _levels(args):
+    """--pyramid's level count for the PDE pyramids: -1 = auto (None)."""
+    return None if args.pyramid < 0 else args.pyramid
+
+
 def _mesh(args, u0):
     """The --mesh grid: NX*NY CPU devices for a CPU tensor, else the CUDA
     devices, taken in turn where there are fewer than shards (one process
@@ -271,7 +324,15 @@ def _sharded(args, u0, p: CVParams, lam1, lam2):
     kw = dict(lambda1=lam1, lambda2=lam2, comm_k=args.comm_k,
               use_pallas=False if args.no_fused else None, halo=args.halo)
     if args.iters is None:
-        res = segment_sharded(u0, p, mesh, fixed=False, **kw)
+        if args.pyramid:
+            from .models.pyramid import segment_pyramid_sharded
+
+            res = segment_pyramid_sharded(u0, p, mesh, levels=_levels(args),
+                                          **kw)
+            print(f"pyramid per-level iters (coarse -> fine): "
+                  f"{res.level_iters}", file=sys.stderr)
+        else:
+            res = segment_sharded(u0, p, mesh, fixed=False, **kw)
         return res.mask, res.iters, res.c1, res.c2
     res = segment_sharded(u0, p, mesh, max_iter=args.iters, fixed=True, **kw)
     return res.mask, args.iters, res.c1, res.c2
@@ -315,6 +376,14 @@ def _multiphase(args, u0, p: CVParams) -> int:
                                       m_sets=args.multiphase,
                                       use_pallas=use_pallas)
         labels, iters, signals = tr.labels, args.iters, (tr.energy[-1],)
+    elif args.pyramid:
+        from .models.pyramid import segment_pyramid_multiphase
+
+        res = segment_pyramid_multiphase(u0, p, m_sets=args.multiphase,
+                                         levels=_levels(args))
+        labels, iters, signals = res.labels, res.iters, (res.cs, res.delta)
+        print(f"pyramid levels: {res.level_iters} iters coarse->fine",
+              file=sys.stderr)
     else:
         res = segment_multiphase(u0, p, m_sets=args.multiphase,
                                  use_pallas=use_pallas)
@@ -334,7 +403,16 @@ def _morph(args, u0, p: CVParams, lam1, lam2) -> int:
     from .utils import image_io
 
     kw = dict(smoothing=args.morph_smoothing, lambda1=lam1, lambda2=lam2)
-    if args.iters is not None:
+    if args.pyramid:
+        from .models.pyramid import segment_pyramid_morph
+        from .ops.morph import binary_means
+
+        res = segment_pyramid_morph(u0, p, levels=args.pyramid, **kw)
+        print(f"pyramid levels (coarse->fine iters): {res.level_iters}",
+              file=sys.stderr)
+        c1, c2 = binary_means(u0, res.ls)
+        mask, iters, delta = res.mask, res.iters, res.delta
+    elif args.iters is not None:
         tr = segment_morph_fixed(u0, p, iters=args.iters, **kw)
         mask, iters = tr.mask, args.iters
         c1, c2, delta = tr.c1[-1], tr.c2[-1], tr.delta[-1]
@@ -376,7 +454,16 @@ def _morph_gac(args, u0, p: CVParams) -> int:
            if args.gac_threshold == "auto" else float(args.gac_threshold))
     kw = dict(smoothing=args.morph_smoothing, balloon=args.balloon,
               threshold=thr)
-    if args.iters is not None:
+    if args.pyramid:
+        from .models.pyramid import segment_pyramid_gac
+
+        res = segment_pyramid_gac(u0, p, levels=args.pyramid,
+                                  gac_alpha=args.gac_alpha,
+                                  gac_sigma=args.gac_sigma, **kw)
+        print(f"pyramid levels (coarse->fine iters): {res.level_iters}",
+              file=sys.stderr)
+        mask, iters, delta = res.mask, res.iters, res.delta
+    elif args.iters is not None:
         tr = segment_gac_fixed(g, p, iters=args.iters, **kw)
         mask, iters, delta = tr.mask, args.iters, tr.delta[-1]
     elif args.mesh is not None:

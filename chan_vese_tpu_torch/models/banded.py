@@ -16,8 +16,8 @@ reads the chunk's delta back once per chunk.
 Routing follows the reference exactly (``auto_config``/``_supported``,
 ``auto_config_mc``/``_supported_mc``): a call takes the same route, and so
 the same trajectory class, as in ``chan_vese_tpu`` at every shape. Off
-the banded envelope it runs the fused driver (K1/K4), which itself falls
-back to the plain path.
+the banded envelope, or with a reinit cadence, it runs the fused driver
+(K1/K4), which itself falls back to the plain path.
 """
 
 from __future__ import annotations
@@ -31,19 +31,19 @@ from ..ops import banded_kernel, packed_kernel
 from ..ops.reductions import means_from_sums, region_means
 from ..params import CVParams
 from .fused import _delta_from_partials, _kernel_image, _lambdas
-from .scalar import SegResult, _check_ported, _phi0
+from .scalar import SegResult, _phi0
 
 
 def _supported(u0, p: CVParams, k: int) -> bool:
-    # reinit already raised in _check_ported
+    # a reinit cadence needs a boundary every iteration: the fused route
     return (banded_kernel.supports_banded(*u0.shape, k)
-            and p.order == "redblack")
+            and p.order == "redblack" and not p.reinit_every)
 
 
 def _supported_mc(u0, p: CVParams, k: int) -> bool:
     H, W, C = u0.shape
     return (banded_kernel.supports_banded_mc(H, W, k, C)
-            and p.order == "redblack")
+            and p.order == "redblack" and not p.reinit_every)
 
 
 def auto_config(H, W, k=None, unroll=None, packed=None, fuse=None):
@@ -177,7 +177,6 @@ def segment_banded_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
     Returns (phi, mask). (H, W, C) images run the multichannel kernels
     with per-channel lambda tuples. Off the banded envelope it runs
     :func:`.fused.segment_fused_fixed`."""
-    _check_ported(u0, p)
     k, unroll, packed, fuse, p, lambda1, lambda2, ok = _route(
         u0, p, k, unroll, packed, fuse, lambda1, lambda2)
     if not ok or iters < 1:
@@ -204,7 +203,6 @@ def segment_banded(u0, p: CVParams = CVParams(),
     """Tolerance-mode banded segmentation (chunk-granular convergence).
     (H, W, C) images run the multichannel kernels with per-channel lambda
     tuples. Off the banded envelope it runs :func:`.fused.segment_fused`."""
-    _check_ported(u0, p)
     k, unroll, packed, fuse, p, lambda1, lambda2, ok = _route(
         u0, p, k, unroll, packed, fuse, lambda1, lambda2)
     if not ok:

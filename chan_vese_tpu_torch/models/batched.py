@@ -15,6 +15,10 @@ vectorizes the frames (``vmap``); frames are independent, so here:
   frame, the next means per frame from its partials on the device, no
   device-to-host read in the loop. It is what the resident stack driver
   runs off its envelope.
+
+With ``p.reinit_every > 0`` each frame is redistanced on its own cadence
+(one R1 chain for the stack on the card), and the batch route takes every
+frame's means anew on every iteration, as the reference.
 """
 
 from __future__ import annotations
@@ -25,8 +29,9 @@ import torch
 
 from ..ops import fused_kernel
 from ..ops.reductions import means_from_sums, region_means
+from ..ops.reinit import maybe_reinit
 from ..params import CVParams
-from .scalar import SegResult, _check_ported, _phi0, segment, step
+from .scalar import SegResult, _phi0, segment, step
 
 
 def _stack_phi0(u0, p: CVParams, phi0):
@@ -36,13 +41,19 @@ def _stack_phi0(u0, p: CVParams, phi0):
     return phi0
 
 
+def _frame_means(u0, phis, eps: float):
+    """(c1, c2) of every frame, stacked: the smooth-Heaviside region
+    means of each frame's level set."""
+    return (torch.stack(c) for c in zip(*(
+        region_means(u, phi, eps) for u, phi in zip(u0, phis))))
+
+
 def segment_batch(u0, p: CVParams = CVParams(),
                   phi0: Optional[torch.Tensor] = None,
                   lambda1=None, lambda2=None) -> SegResult:
     """Tolerance-mode segmentation of every frame of an (N, H, W[, C])
     stack. Returns a SegResult with a leading frame axis on every field:
     ``iters`` is an (N,) int64 tensor of per-frame iteration counts."""
-    _check_ported(u0, p)
     runs = [segment(u, p, phi, lambda1=lambda1, lambda2=lambda2)
             for u, phi in zip(u0, _stack_phi0(u0, p, phi0))]
     phi = torch.stack([r.phi for r in runs])
@@ -59,11 +70,10 @@ def segment_stack_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
                         lambda1=None, lambda2=None):
     """Fixed-iteration plain segmentation of every frame of an
     (N, H, W[, C]) stack. Returns (phi, mask)."""
-    _check_ported(u0, p)
     phis = []
     for u, phi in zip(u0, _stack_phi0(u0, p, phi0)):
-        for _ in range(iters):
-            phi = step(phi, u, p, lambda1, lambda2)[0]
+        for n in range(iters):
+            phi = maybe_reinit(step(phi, u, p, lambda1, lambda2)[0], n, p)
         phis.append(phi)
     phis = torch.stack(phis)
     return phis, phis >= 0
@@ -75,16 +85,19 @@ def segment_stack_fused_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
     batch mode, one launch per iteration for all frames; shapes off the
     fused envelope and other sweep orders run :func:`segment_stack_fixed`.
     Returns (phi, mask)."""
-    _check_ported(u0, p)
     N, H, W = u0.shape
     if not fused_kernel.supports(H, W) or p.order != "redblack":
         return segment_stack_fixed(u0, p, iters, phi0)
     phis = _stack_phi0(u0, p, phi0)
     n_pix = torch.tensor(H * W, dtype=u0.dtype, device=u0.device)
     sum_u = torch.sum(u0, dim=(1, 2))
-    c1, c2 = (torch.stack(c) for c in zip(*(
-        region_means(u, phi, p.eps) for u, phi in zip(u0, phis))))
-    for _ in range(iters):
+    c1, c2 = _frame_means(u0, phis, p.eps)
+    for n in range(iters):
         phis, parts = fused_kernel.fused_iteration_batch(phis, u0, c1, c2, p)
         c1, c2 = means_from_sums(parts[:, 0], parts[:, 1], sum_u, n_pix)
+        if p.reinit_every:
+            # every frame redistanced on its own (one R1 chain for the
+            # stack), the means of every frame taken anew
+            phis = maybe_reinit(phis, n, p)
+            c1, c2 = _frame_means(u0, phis, p.eps)
     return phis, phis >= 0

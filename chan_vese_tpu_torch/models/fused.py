@@ -8,7 +8,11 @@ image); the next iteration's means come from its partials, so the
 trajectory is exactly the plain red-black path's. Shapes outside the
 reference's fused envelopes (``supports``, ``supports_mc``) and orders
 other than red-black run :mod:`.scalar` (:mod:`.vector` for C channels,
-with the per-channel lambda tuples), as in the reference.
+with the per-channel lambda tuples), as in the reference. With
+``p.reinit_every > 0`` each iteration ends with the cadence's redistance
+(R1 on the card) and means taken anew from the level set, as the
+reference's ``_reinit_and_refresh_means`` does on every iteration; the
+convergence metric stays the kernel's, from before the redistance.
 """
 
 from __future__ import annotations
@@ -21,10 +25,10 @@ import torch
 
 from ..ops import fused_kernel, fused_kernel_mc
 from ..ops.reductions import loop_continue, means_from_sums, region_means
+from ..ops.reinit import maybe_reinit
 from ..params import CVParams
-from .scalar import (SegResult, _check_ported, _phi0,
-                     segment as _segment_plain, segment_fixed,
-                     step as _step_plain)
+from .scalar import (SegResult, _phi0, segment as _segment_plain,
+                     segment_fixed, step as _step_plain)
 
 
 def _delta_from_partials(parts, n_pixels, p: CVParams, offset: int = 0):
@@ -67,10 +71,12 @@ def _kernel_image(u0):
 
 class _Iteration:
     """The kernel route of one image: its channels-first copy, the sums
-    behind the means, and one kernel iteration with the means refresh."""
+    behind the means, and one kernel iteration with the means refresh
+    (and the reinit cadence)."""
 
     def __init__(self, u0, p: CVParams, phi0, lambda1, lambda2):
         self.p, self.lambda1, self.lambda2 = p, lambda1, lambda2
+        self.image, self.n = u0, 0
         self.phi = _phi0(u0, p, phi0)
         self.n_pix = torch.tensor(self.phi.numel(), dtype=u0.dtype,
                                   device=u0.device)
@@ -91,6 +97,12 @@ class _Iteration:
             sum_uh = parts[0]
         self.c1, self.c2 = means_from_sums(sum_uh, parts[self.offset + 1],
                                            self.sum_u, self.n_pix)
+        if self.p.reinit_every:
+            # a redistance rescales |phi| and so H_eps everywhere: the
+            # partials' means are stale on every iteration, fired or not
+            self.phi = maybe_reinit(self.phi, self.n, self.p)
+            self.c1, self.c2 = region_means(self.image, self.phi, self.p.eps)
+        self.n += 1
         return parts
 
 
@@ -117,7 +129,6 @@ def segment_fused(u0, p: CVParams = CVParams(),
     """Tolerance-mode segmentation on the fused kernel; ``fixed=True`` runs
     exactly ``max_iter`` (or p.max_iter) iterations. (H, W, C) images run
     the multichannel kernel with per-channel lambda tuples."""
-    _check_ported(u0, p)
     cap = p.max_iter if max_iter is None else max_iter
     p, lambda1, lambda2 = _lambdas(u0, p, lambda1, lambda2)
     if not _routed(u0, p):
@@ -148,7 +159,6 @@ def segment_fused_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
                         phi0: Optional[torch.Tensor] = None,
                         lambda1=None, lambda2=None):
     """Fixed-iteration fused run. Returns (phi, mask)."""
-    _check_ported(u0, p)
     p, lambda1, lambda2 = _lambdas(u0, p, lambda1, lambda2)
     if not _routed(u0, p):
         if u0.ndim == 3:
@@ -157,8 +167,8 @@ def segment_fused_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
                                lambda2=l2)
             return tr.phi, tr.mask
         phi = _phi0(u0, p, phi0)
-        for _ in range(iters):
-            phi = _step_plain(phi, u0, p)[0]
+        for n in range(iters):
+            phi = maybe_reinit(_step_plain(phi, u0, p)[0], n, p)
         return phi, phi >= 0
     it = _Iteration(u0, p, phi0, lambda1, lambda2)
     for _ in range(iters):

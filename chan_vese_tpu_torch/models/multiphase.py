@@ -21,6 +21,11 @@ through K1's force mode (``fused_sweep``), the coupling terms in plain
 PyTorch. ``use_pallas=None`` takes the kernels on a CUDA tensor and the
 plain path on a CPU one (the reference: kernels on a TPU backend only).
 CUDA tensors launch the kernels; CPU tensors run their plain versions.
+With ``p.reinit_every > 0`` every level set is redistanced on the cadence
+(one R1 chain for the stack on the card) after an iteration's energy and
+flips; the resident route is refused (it runs between launches) and K9's
+banded route takes its next means from the redistanced level sets on every
+iteration, as the reference.
 """
 
 from __future__ import annotations
@@ -37,10 +42,10 @@ import torch
 from ..ops import fused_kernel, multiphase_kernel, packed_kernel
 from ..ops.numerics import dirac, grad_forward, heaviside
 from ..ops.reductions import loop_continue, phase_means, phase_weights
+from ..ops.reinit import maybe_reinit
 from ..ops.sweep import semi_implicit_step
 from ..params import CVParams
 from ..utils.init_phi import checkerboard, circle
-from .scalar import _check_ported
 
 _TINY = 1e-30
 
@@ -245,6 +250,10 @@ def _mp2_banded_loop(u0, p: CVParams, phis0, fixed: bool, cap: int):
         # 0 * s_dphi2 NaN-poisons the flip metric when a phi went
         # non-finite (labels of NaN fields are finite garbage)
         delta = parts[8] / n_pix + 0.0 * parts[9]
+        if p.reinit_every:
+            # the redistance moves H_eps: the partials' means go stale
+            phis = maybe_reinit(phis, n, p)
+            cs = torch.stack(phase_means(u0, phis, p.eps))
         if not fixed:
             delta_f = float(delta)
             # compared in delta's dtype, as the reference's device loop does
@@ -335,7 +344,6 @@ def segment_multiphase(u0, p: CVParams = CVParams(), m_sets: int = 2,
     """Segment into 2^m_sets phases; converges on the label-flip fraction
     (every route ignores ``p.conv_norm``, as the reference). ``fixed=True``
     runs exactly ``max_iter`` (or p.max_iter) iterations."""
-    _check_ported(u0, p)
     route = _mp2_route(u0, p, m_sets, use_pallas)
     cap = p.max_iter if max_iter is None else max_iter
     phis0 = _default_phis(u0, m_sets, phis0)
@@ -354,7 +362,7 @@ def segment_multiphase(u0, p: CVParams = CVParams(), m_sets: int = 2,
             if not fixed:
                 delta_f = float(delta)
                 streak = streak + 1 if bool(delta < p.tol) else 0
-            phis = new
+            phis = maybe_reinit(new, iters, p)
             iters += 1
     cs = torch.stack(phase_means(u0, phis, p.eps))
     return MultiphaseResult(phis, labels_from_phis(phis), iters, delta, cs)
@@ -368,25 +376,27 @@ def segment_multiphase_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
     """Fixed-iteration run with the energy and label-flip fraction of every
     iteration. The energy is evaluated in plain PyTorch between iterations,
     so the resident route is excluded; K9's banded mode still applies."""
-    _check_ported(u0, p)
     route = _mp2_route(u0, p, m_sets, use_pallas, allow_resident=False)
     phis = _default_phis(u0, m_sets, phis0)
     es, ds = [], []
     if route == "banded":
         n_pix = float(u0.numel())
         cs = torch.stack(phase_means(u0, phis, p.eps))
-        for _ in range(iters):
+        for n in range(iters):
             phis, parts = multiphase_kernel.mp2_iteration(phis, u0, cs, p)
             cs = parts[0:4] / torch.clamp(parts[4:8], min=_TINY)
             ds.append(parts[8] / n_pix)
             es.append(multiphase_energy(u0, phis, p))
+            if p.reinit_every:
+                phis = maybe_reinit(phis, n, p)
+                cs = torch.stack(phase_means(u0, phis, p.eps))
     else:
-        for _ in range(iters):
+        for n in range(iters):
             new, _ = multiphase_step(phis, u0, p, route == "sweeps")
             ds.append(torch.mean((labels_from_phis(new)
                                   != labels_from_phis(phis)).to(u0.dtype)))
             es.append(multiphase_energy(u0, new, p))
-            phis = new
+            phis = maybe_reinit(new, n, p)
     stack = (lambda xs: torch.stack(xs) if xs
              else torch.empty(0, dtype=u0.dtype, device=u0.device))
     return MultiphaseTrace(phis, labels_from_phis(phis), stack(es),

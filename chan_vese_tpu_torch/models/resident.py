@@ -10,9 +10,10 @@ Routing is the reference's: (H, W, C) images take the packed mc kernel
 where ``supports_packed_resident_mc`` holds (unroll 2 for an even
 iteration count), else the flat mc kernel; grayscale images the packed
 kernel where ``supports_packed_resident`` holds (``_auto_unroll`` at up to
-256^2, else 1), else the flat one. Off the resident envelope, or for
-another sweep order, the drivers run ``segment_fused(_fixed)`` (the stack
-driver ``models/batched.py``).
+256^2, else 1), else the flat one. Off the resident envelope, for another
+sweep order, or with a reinit cadence (it runs between launches), the
+drivers run ``segment_fused(_fixed)`` (the stack driver
+``models/batched.py``).
 
 Tolerance mode runs chunks of ``chunk`` iterations per launch and reads
 each chunk's per-iteration convergence rows back once: the streak runs
@@ -33,7 +34,7 @@ from ..ops.reductions import region_means
 from ..params import CVParams
 from .batched import _stack_phi0
 from .fused import _delta_from_partials, _fold_scalar_lambdas
-from .scalar import SegResult, _check_ported, _phi0
+from .scalar import SegResult, _phi0
 
 
 def _auto_unroll(iters: int, cap: int = 4) -> int:
@@ -50,11 +51,10 @@ def segment_resident_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
                            lambda1=None, lambda2=None):
     """Fixed-iteration resident run in one launch. Returns (phi, mask).
     (H, W, C) images run the mc kernels with per-channel lambda tuples."""
-    _check_ported(u0, p)
     if u0.ndim == 3:
         H, W, C = u0.shape
         if (not resident_kernel.supports_resident_mc(H, W, C)
-                or p.order != "redblack"):
+                or p.order != "redblack" or p.reinit_every):
             from .fused import segment_fused_fixed
             return segment_fused_fixed(u0, p, iters, phi0, lambda1=lambda1,
                                        lambda2=lambda2)
@@ -70,7 +70,8 @@ def segment_resident_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
         return phi, phi >= 0
     p = _fold_scalar_lambdas(p, lambda1, lambda2)
     H, W = u0.shape
-    if not resident_kernel.supports_resident(H, W) or p.order != "redblack":
+    if (not resident_kernel.supports_resident(H, W)
+            or p.order != "redblack" or p.reinit_every):
         from .fused import segment_fused_fixed
         return segment_fused_fixed(u0, p, iters, phi0)
     phi0 = _phi0(u0, p, phi0)
@@ -90,13 +91,13 @@ def segment_resident(u0, p: CVParams = CVParams(),
     """Tolerance-mode resident segmentation, ``chunk`` iterations per
     launch. (H, W, C) images run :func:`.fused.segment_fused`, as in the
     reference (its mc kernel has no per-iteration convergence rows)."""
-    _check_ported(u0, p)
     if u0.ndim == 3:
         from .fused import segment_fused
         return segment_fused(u0, p, phi0, lambda1=lambda1, lambda2=lambda2)
     p = _fold_scalar_lambdas(p, lambda1, lambda2)
     H, W = u0.shape
-    if not resident_kernel.supports_resident(H, W) or p.order != "redblack":
+    if (not resident_kernel.supports_resident(H, W)
+            or p.order != "redblack" or p.reinit_every):
         from .fused import segment_fused
         return segment_fused(u0, p, phi0)
     if chunk < 1:
@@ -148,10 +149,10 @@ def segment_stack_resident_fixed(u0, p: CVParams = CVParams(),
     """Fixed-iteration segmentation of an (N, H, W) grayscale stack, every
     frame in one launch. Off the resident envelope it runs
     :func:`.batched.segment_stack_fused_fixed`. Returns (phi, mask)."""
-    _check_ported(u0, p)
     p = _fold_scalar_lambdas(p, lambda1, lambda2)
     N, H, W = u0.shape
-    if not resident_kernel.supports_resident(H, W) or p.order != "redblack":
+    if (not resident_kernel.supports_resident(H, W)
+            or p.order != "redblack" or p.reinit_every):
         from .batched import segment_stack_fused_fixed
         return segment_stack_fused_fixed(u0, p, iters, phi0)
     phi0 = _stack_phi0(u0, p, phi0)

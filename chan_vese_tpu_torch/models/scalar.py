@@ -8,6 +8,7 @@ host loop whose body launches device work. Per iteration:
     f      = data_term(u0, c1, c2, ...)
     phi    = semi_implicit_step(phi, f)
     delta  = ||phi' - phi|| per pixel
+    phi    = maybe_reinit(phi, n)          # every p.reinit_every iterations
 
 The tolerance loop reads delta back once per iteration to decide whether
 to stop.
@@ -22,17 +23,10 @@ import torch
 
 from ..ops.reductions import (data_term, delta_norm, energy, loop_continue,
                               region_means)
+from ..ops.reinit import maybe_reinit
 from ..ops.sweep import semi_implicit_step
 from ..params import CVParams
 from ..utils.init_phi import init_phi
-
-
-def _check_ported(u0, p: CVParams) -> None:
-    """Raise for the parts of the reference this port does not cover yet."""
-    if p.reinit_every:
-        raise NotImplementedError(
-            "reinit_every > 0 needs ops/reinit.py, not ported yet "
-            "(ROADMAP M10)")
 
 
 class SegResult(NamedTuple):
@@ -75,13 +69,13 @@ def _phi0(u0, p: CVParams, phi0):
 def segment(u0, p: CVParams = CVParams(), phi0: Optional[torch.Tensor] = None,
             lambda1=None, lambda2=None) -> SegResult:
     """Segment to convergence (per-pixel tol) or max_iter."""
-    _check_ported(u0, p)
     phi = _phi0(u0, p, phi0)
     n, streak = 0, 0
     delta = torch.tensor(math.inf, dtype=u0.dtype, device=u0.device)
     delta_f = math.inf
     while loop_continue(n, delta_f, streak, p):
         phi, _, _, delta = step(phi, u0, p, lambda1, lambda2)
+        phi = maybe_reinit(phi, n, p)
         delta_f = float(delta)
         # compared in delta's dtype, as the reference's device loop does
         streak = streak + 1 if bool(delta < p.tol) else 0
@@ -95,15 +89,15 @@ def segment_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
                   lambda1=None, lambda2=None, start_iter=0) -> SegTrace:
     """Fixed-iteration run returning the per-iteration energy trace
     (energy after each sweep, with means recomputed from the post-sweep
-    phi). ``start_iter`` only shifts the reinit cadence in the reference
-    and is accepted for signature parity."""
-    _check_ported(u0, p)
+    phi, before the redistance). ``start_iter`` is the index of the first
+    iteration, which shifts the reinit cadence."""
     phi = _phi0(u0, p, phi0)
     es, ds, c1s, c2s = [], [], [], []
-    for _ in range(iters):
+    for n in range(start_iter, start_iter + iters):
         phi, c1, c2, delta = step(phi, u0, p, lambda1, lambda2)
         c1n, c2n = region_means(u0, phi, p.eps)
         es.append(energy(u0, phi, c1n, c2n, p, lambda1, lambda2))
+        phi = maybe_reinit(phi, n, p)
         ds.append(delta)
         c1s.append(c1)
         c2s.append(c2)

@@ -5,7 +5,8 @@ of csrc/band.cuh, the first bodies, `_v1`, on csrc/redblack.cuh), the
 exact-means resident kernels (K7 flat, K8 parity planes; scalar, batch and
 C-channel modes) and their frozen-means chunk mode (K13), the 4-phase
 kernels (K9 banded and resident, K10 parity planes), the morphological
-kernels (K11, K12) and the parity pack and unpack (K15, K16).
+kernels (K11, K12), the parity pack and unpack (K15, K16) and the
+redistance (R1).
 
 Checks the inputs, chooses the tile geometry (the resident kernels: the
 cooperative grid of persistent tiles), allocates the outputs and scratch, and calls the kernel
@@ -1321,3 +1322,34 @@ def launch_morph_fused(ls, u0, cc, k: int, smoothing: int, parity0: int,
             w, k, smoothing, parity0, halo, *geo, stream.cuda_stream)
     _raise_on(lib, "cv_morph_fused_chunk", err)
     return out, parts
+
+
+def launch_reinit(phi, steps: int, dtau: float, h: float):
+    """One redistance on R1 (csrc/reinit.cu): the prepass and ``steps``
+    step launches on an (H, W) level set or a (B, H, W) stack of them,
+    float32 or float64, each frame on its own. Returns the redistanced
+    tensor (a new one, ``phi``'s shape)."""
+    from .._build import library
+
+    if phi.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"R1 takes float32 or float64, got {phi.dtype}")
+    if phi.ndim not in (2, 3) or min(phi.shape) < 1:
+        raise ValueError(f"R1 takes (H, W) or (B, H, W), got "
+                         f"{tuple(phi.shape)}")
+    b, h_, w = (1, *phi.shape) if phi.ndim == 2 else phi.shape
+    if b > MAX_FRAMES:
+        raise ValueError(f"R1 takes at most {MAX_FRAMES} frames, got {b}")
+    phi = phi.contiguous()
+    dev = phi.device
+    aux = torch.empty_like(phi)
+    flags = torch.empty(phi.shape, dtype=torch.uint8, device=dev)
+    bufs = (torch.empty_like(phi), torch.empty_like(phi))
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.cv_reinit(
+            phi.data_ptr(), aux.data_ptr(), flags.data_ptr(),
+            bufs[0].data_ptr(), bufs[1].data_ptr(), b, h_, w, steps,
+            float(dtau), float(h), int(phi.dtype == torch.float64),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, "cv_reinit", err)
+    return bufs[(steps - 1) % 2]

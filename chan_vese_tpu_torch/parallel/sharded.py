@@ -38,8 +38,14 @@ mesh's first device (the reference returns arrays sharded over the mesh);
 the kernels' canvases are (h + 2D, w + 2D), rounded up to an even width,
 without the reference's 128/256-lane pad (a TPU layout need), while the
 routing predicates are evaluated on the lane-padded geometry, so that a
-call takes the reference's route. ``reinit_every > 0`` (M10) raises
-``NotImplementedError``.
+call takes the reference's route.
+
+``reinit_every > 0`` (per-iteration routes only, as the reference) ends
+every reinit_every-th iteration with a redistance of each shard: one
+exchange of a ``reinit_steps``-deep halo (whatever ``halo`` says), the
+redistance of the padded block (R1 on the card), the crop; the two-phase
+solver then takes its means anew from the shards' sums, the multiphase
+one from its next iteration's phase sums.
 
 ``halo`` picks the exchange of the level sets, with the reference's
 routing and raises: 'ppermute' (:func:`.halo.exchange_halo2d`), 'rdma'
@@ -56,6 +62,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+from importlib import import_module
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -78,6 +85,10 @@ from .data_parallel import _on
 from .halo import exchange_halo2d, exchange_halo2d_batched
 from .halo_rdma import exchange_halo2d_rdma
 from .mesh import Mesh, gather_grid, grid_sharding, shard_grid
+
+# ops.reinit the module (the ops package exports the function under its
+# name), so that R1 is reached through one attribute by every caller
+_reinit = import_module("..ops.reinit", __package__)
 
 _D = 4  # halo depth of the per-iteration exchange
 
@@ -389,14 +400,16 @@ class _Shards(_Grid):
         self.phi0 = (_make_phi0(u0.shape[:2], p.init, u0.dtype, mesh)
                      if phi0 is None else shard_grid(phi0,
                                                      grid_sharding(mesh)))
-        # the means of the start: the smooth-Heaviside sums, summed over
-        # the shards
-        parts = self.psum(self._each(lambda pos, u, ph: _partials(
-            ph, ph, u, p.eps), self.u0, self.phi0))
         c = self.nchan
         self.sum_u = self.psum(self._each(
             lambda pos, u: torch.sum(u, dim=(0, 1)).reshape(c), self.u0))
-        self.c1, self.c2 = self.means(parts)
+        self.c1, self.c2 = self.means_of(self.phi0)
+
+    def means_of(self, phi):
+        """The means of a state: the smooth-Heaviside sums, summed over
+        the shards."""
+        return self.means(self.psum(self._each(lambda pos, u, ph: _partials(
+            ph, ph, u, self.p.eps), self.u0, phi)))
 
     def means(self, parts):
         c = self.nchan
@@ -714,6 +727,22 @@ def _drive(g: _Grid, max_iter, fixed, comm_k, chunked, advance):
     return n, delta
 
 
+def _sharded_reinit(g: _Grid, blocks, n: int):
+    """The reinit cadence on a grid of (h, w) blocks or (M, h, w) stacks:
+    after iteration ``n``, every p.reinit_every-th, one exchange of a
+    ``reinit_steps``-deep halo, the redistance of each padded block (each
+    level set on its own) and the crop: the redistance propagates a cell
+    a step, so the crop sees no edge of the pad. Returns the blocks, or
+    None where the cadence does not fire."""
+    p = g.p
+    if not _reinit.reinit_fires(n, p):
+        return None
+    D = p.reinit_steps
+    return g.grid(g._each(
+        lambda pos, pad: _reinit.reinit(pad, D)[..., D:D + g.h, D:D + g.w],
+        exchange_halo2d(blocks, D)))
+
+
 def _run_sharded(sh: _Shards, max_iter, fixed, use_pallas, comm_k, packed,
                  halo):
     """The solver over the shards: (phi blocks, c1, c2, iters, delta)."""
@@ -724,25 +753,23 @@ def _run_sharded(sh: _Shards, max_iter, fixed, use_pallas, comm_k, packed,
     if packed:
         phi = [[packed_kernel.pack_planes(b) for b in row] for row in phi]
     c1, c2 = sh.c1, sh.c2
+    n = 0
 
     def advance(size):
-        nonlocal phi, c1, c2
+        nonlocal phi, c1, c2, n
         phi, parts = step.run(phi, c1, c2, size)
         c1, c2 = sh.means(parts)
+        redistanced = _sharded_reinit(sh, phi, n)
+        if redistanced is not None:  # comm_k = 1 here: size is 1
+            phi = redistanced
+            c1, c2 = sh.means_of(phi)
+        n += size
         return sh.delta(parts)
 
     n, delta = _drive(sh, max_iter, fixed, comm_k, chunked, advance)
     if packed:  # one unpack (K16) a shard
         phi = [[packed_kernel.unpack_planes(b) for b in row] for row in phi]
     return phi, c1, c2, n, delta
-
-
-def _check_ported(p: CVParams):
-    """Raise for the options whose modules are not ported yet."""
-    if p.reinit_every:
-        raise NotImplementedError(
-            "reinit_every > 0 needs ops/reinit.py and the sharded "
-            "redistance, not ported yet (ROADMAP M10)")
 
 
 def _on_mesh(x, mesh: Mesh):
@@ -849,8 +876,6 @@ def segment_sharded(u0, p: CVParams = CVParams(), mesh: Optional[Mesh] = None,
             f"packed sharded banded path unsupported for shard "
             f"({tuple(u0.shape)}, mesh ({nx}, {ny}), comm_k={comm_k}, "
             f"halo={halo!r}, use_pallas={use_pallas})")
-    _check_ported(p)
-
     u0 = _on_mesh(u0, mesh)
     if phi0 is not None:
         phi0 = _on_mesh(phi0, mesh)
@@ -889,9 +914,10 @@ def segment_sharded_fixed_trace(u0, p: CVParams = CVParams(),
     means traces (the parity artifact of BASELINE.json:5, computed from
     the shards' sums without a gather): the energy after each sweep, with
     means from the post-sweep phi; c1/c2 are the means each iteration
-    used, as ``models.scalar.segment_fixed``'s trace. The per-iteration
-    route only (K1's shard mode on the kernels, gray), through any
-    ``halo``; nothing is read back to the host."""
+    used, as ``models.scalar.segment_fixed``'s trace (the energy before
+    the cadence's redistance). The per-iteration route only (K1's shard
+    mode on the kernels, gray), through any ``halo``; nothing is read
+    back to the host."""
     if mesh is None:
         raise ValueError("segment_sharded_fixed_trace needs a mesh")
     nx, ny = mesh.shape["x"], mesh.shape["y"]
@@ -916,15 +942,13 @@ def segment_sharded_fixed_trace(u0, p: CVParams = CVParams(),
     elif use_pallas and (vec or not ok):
         raise ValueError(f"pallas path unsupported for shard "
                          f"({tuple(u0.shape)}, mesh ({nx}, {ny}))")
-    _check_ported(p)
-
     u0 = _on_mesh(u0, mesh)
     sh = _Shards(u0, p, mesh, lambdas,
                  None if phi0 is None else _on_mesh(phi0, mesh))
     step = _Step(sh, bool(use_pallas), _D, False, False, halo)
     phi, c1, c2 = sh.phi0, sh.c1, sh.c2
     es, ds, c1s, c2s = [], [], [], []
-    for _ in range(iters):
+    for n in range(iters):
         phi, parts = step.run(phi, c1, c2, 1)
         c1n, c2n = sh.means(parts)
         es.append(_energy(sh, phi, c1n, c2n))
@@ -932,6 +956,10 @@ def segment_sharded_fixed_trace(u0, p: CVParams = CVParams(),
         c1s.append(c1)
         c2s.append(c2)
         c1, c2 = c1n, c2n
+        redistanced = _sharded_reinit(sh, phi, n)
+        if redistanced is not None:
+            phi = redistanced
+            c1, c2 = sh.means_of(phi)
     first = sh.first
 
     def stack(xs):
@@ -1154,8 +1182,7 @@ def _mp_step(g: _Grid, use_pallas: bool, comm_k: int, halo: str):
 
 def _check_multiphase(u0, p: CVParams, mesh, halo, comm_k, m_sets,
                       use_pallas, depth):
-    """The reference's argument checks (ValueError), then the port's
-    unported options (NotImplementedError); returns use_pallas
+    """The reference's argument checks (ValueError); returns use_pallas
     resolved."""
     if mesh is None:
         raise ValueError("needs a mesh (parallel.mesh.make_grid_mesh)")
@@ -1192,7 +1219,6 @@ def _check_multiphase(u0, p: CVParams, mesh, halo, comm_k, m_sets,
             f"{tuple(u0.shape)} on mesh ({nx}, {ny}) with halo={halo!r} "
             f"(needs M=2 grayscale, redblack order, no reinit, "
             f"8-row-aligned shards, non-overlap halos)")
-    _check_ported(p)
     return bool(use_pallas)
 
 
@@ -1229,8 +1255,9 @@ def segment_multiphase_sharded(u0, p: CVParams = CVParams(),
     are its metric; patience counts iterations), a remainder chunk ending
     the run. halo: 'ppermute', 'rdma' (K14, every route) or 'overlap'
     (the plain per-iteration route only, shards of at least 16x16).
-    reinit_every > 0 (M10) raises NotImplementedError after the
-    reference's ValueErrors.
+    reinit_every > 0 (the plain per-iteration route, comm_k = 1)
+    redistances every level set on the cadence, after the iteration's
+    flips.
     """
     depth = 8 * comm_k if comm_k > 1 else _D
     use_pallas = _check_multiphase(u0, p, mesh, halo, comm_k, m_sets,
@@ -1243,9 +1270,15 @@ def segment_multiphase_sharded(u0, p: CVParams = CVParams(),
     cs = (torch.stack(_sharded_phase_means(g, phis)) if use_pallas
           else _sharded_phase_means(g, phis) if comm_k > 1 else None)
 
+    n = 0
+
     def advance(size):
-        nonlocal phis, cs
+        nonlocal phis, cs, n
         phis, cs, delta = step(phis, cs, size)
+        redistanced = _sharded_reinit(g, phis, n)
+        if redistanced is not None:  # the plain route: cs is None
+            phis = redistanced
+        n += size
         return delta
 
     iters, delta = _drive(g, cap, fixed, comm_k, comm_k > 1, advance)
@@ -1312,10 +1345,13 @@ def segment_multiphase_sharded_fixed_trace(
     step = _mp_step(g, use_pallas, 1, halo)
     cs = torch.stack(_sharded_phase_means(g, phis)) if use_pallas else None
     es, ds = [], []
-    for _ in range(iters):
+    for n in range(iters):
         phis, cs, delta = step(phis, cs, 1)
         es.append(_sharded_multiphase_energy(g, phis))
         ds.append(delta)
+        redistanced = _sharded_reinit(g, phis, n)
+        if redistanced is not None:
+            phis = redistanced
 
     def stack(xs):
         return (torch.stack(xs) if xs

@@ -39,8 +39,8 @@ class CVParams:
       eta2: curvature-denominator regularizer inside the sqrt.
       conv_norm: 'flips' (fraction of mask sign changes), 'rms' or
         'mean_abs'.
-      reinit_every: if > 0, redistance phi every K iterations (not ported
-        yet: the drivers raise).
+      reinit_every: if > 0, redistance phi every K iterations
+        (ops/reinit.py).
       reinit_steps: upwind redistancing steps per reinit call.
       order: 'redblack' | 'jacobi' | 'wavefront' (exact raster
         Gauss-Seidel, parity mode).

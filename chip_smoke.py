@@ -140,6 +140,24 @@ SM; and phase 8's and 11's fixed runs (segment_resident_fixed,
 segment_stack_resident_fixed, segment_multiphase(fixed=True)) through the
 entry points on both bodies, the tile bodies' launches counted, with their
 rates in turns with the first body.
+Phase 32 does the same for M10 and R1, the redistance kernel
+(csrc/reinit.cu, the port's kernel for the reference's jnp
+ops/reinit.py::reinit): R1's registers and spills; R1 against its plain
+version (20 steps, bitwise, or identical signs and within 1e-5 of max
+|phi|) at 4K, at the pyramid's four coarser level shapes and on stacks of
+two 1080p and two 4K level sets, f32 and f64; its queued times a
+redistance beside the plain version and the bound at every level shape;
+segment_pyramid on the 4K pyramid cell (bench_families.py:166-180: the
+time to the converged mask after a warm run, level_iters, R1's device
+time from torch.profiler, the mask against the disk and the direct
+segment_banded run, the finest level's iterations fewer than the direct
+run's, one redistance a level boundary); segment_fused_fixed at 4K with
+reinit_every = 10 against the plain route (and its rate beside the run
+without a cadence) and segment_sharded on a 2x2 grid on the card (comm_k
+1, reinit_every = 10) against the unsharded fused route, R1's and K1's
+launches counted; and the CLI with --pyramid -1 --smooth 10
+--reinit-every 10 on a 1080p image (.npy: the card's machine has no
+Pillow), its mask against the truth.
 K1's force mode runs once under torch.cuda.set_sync_debug_mode("error")
 (phase 9).
 Any failure raises and exits non-zero.
@@ -158,6 +176,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -190,6 +209,15 @@ from chan_vese_tpu_torch.parallel.sharded import _shard_phis  # noqa: E402
 from chan_vese_tpu_torch.parallel.sharded_morph import (  # noqa: E402
     segment_gac_sharded_chunked, segment_morph_sharded_chunked)
 from chan_vese_tpu_torch.utils.init_phi import init_phi  # noqa: E402
+from chan_vese_tpu_torch import cli as tcli  # noqa: E402
+
+# the module of R1's wrapper (the ops package exports the function under
+# the module's name), through which every caller reaches it
+reinitm = sys.modules["chan_vese_tpu_torch.ops.reinit"]
+
+
+def reinit_plain(phi, steps=20, dtau=0.5, h=1.0):
+    return reinitm.reinit_reference(phi, steps, dtau, h)
 
 H4K, W4K = 2160, 3840
 SHAPES = ((H4K, W4K), (1080, 1920), (1000, 1500))  # 4K, 1080p, ragged
@@ -541,6 +569,42 @@ HALO_DEPTHS, HALO_TIMED = (4, 32, 64), 32
 # K14 launches an exchange on the main path: one a device, the four shards
 # on the one card (the first body: two, a ring stage each)
 K14_PER_EXCHANGE = 1
+
+# the redistance (phase 32): R1, the port's kernel for the reference's jnp
+# ops/reinit.py::reinit, counted a launch: a prepass and one launch a step
+REINIT = {
+    "R1 reinit": dict(
+        source="chan_vese_tpu_torch/csrc/reinit.cu",
+        replaces="chan_vese_tpu/ops/reinit.py:61 (jnp, no Pallas kernel)"),
+}
+# the pyramid's levels at 4K (plan_levels(2160, 3840) = 4), coarse to
+# fine, and the redistance's steps (CVParams.reinit_steps)
+PYRAMID_SHAPES = ((135, 240), (270, 480), (540, 960), (1080, 1920),
+                  (H4K, W4K))
+REINIT_STEPS = 20
+R1_LAUNCHES = 1 + REINIT_STEPS  # a redistance
+# operations a cell of the redistance needs (one of each pair of branches
+# the plain version computes on every cell): the prepass (central
+# differences and halvings 4, |grad|^2 3, the crossing test 11, and the
+# smoothed sign or the clipped subcell estimate 6); a step off the
+# crossing (4 differences, 4 clamps, 4 squares, 2 maxima, a sum, a square
+# root: one Godunov branch; the PDE update 4) and on it (the subcell
+# update 5)
+OPS_REINIT_PRE, OPS_REINIT_PDE, OPS_REINIT_SUB = 24, 20, 5
+# f64 outside the tensor cores (NVIDIA's H100 SXM data sheet)
+PEAK_F64 = 34e12
+# R1 against its plain version where it is not bitwise: identical signs,
+# max |difference| within this fraction of max |phi|
+REINIT_RTOL = 1e-5
+# the pyramid cell (bench_families.py:166-180): a 4K disk of radius 800,
+# 200 on 0, noise 5, from the circle start
+PYR_PARAMS = dict(init="circle", tol=1e-4, patience=4, min_iter=4)
+# iterations of the direct run carried on to the disk (segment_banded
+# from the same start stops at ~320 by the tolerance, IoU 0.79 to the
+# disk, its contour still travelling: the pyramid's basin-rescue case)
+PYR_DIRECT_ITERS = 2400
+# the cadence runs: iterations and the cadence
+CADENCE_ITERS, CADENCE_EVERY = 100, 10
 # iterations of the plain overlap route held bitwise at 1080p, and of the
 # 4K overlap runs at comm_k 8 and 1: its rim strips are plain-torch
 # launches, host-bound at 0.2-0.25 s a chunk on the 2x2 grid of an H100
@@ -802,6 +866,9 @@ def plain_route():
     saved_morph = {n: getattr(morph_kernel, n) for n in morph_names}
     for n in morph_names:
         setattr(morph_kernel, n, getattr(morph_kernel, f"{n}_reference"))
+    # R1, reached through its module by every caller
+    saved_reinit = reinitm.reinit
+    reinitm.reinit = reinit_plain
     # K1 batch, K13 and the pack pair (every packed route packs through it)
     saved_stack = (fused_kernel.fused_iteration_batch,
                    packed_kernel.packed_chunk, packed_kernel.pack_planes,
@@ -843,6 +910,7 @@ def plain_route():
             setattr(morph_kernel, n, fn)
         (fused_kernel.fused_iteration_batch, packed_kernel.packed_chunk,
          packed_kernel.pack_planes, packed_kernel.unpack_planes) = saved_stack
+        reinitm.reinit = saved_reinit
 
 
 def check_kernel(name, kern, args, c1, c2, p, k, h, w, lam):
@@ -4640,6 +4708,294 @@ def resident_tile_phase(dev, card, sass_checked):
     resident_tile_rates(dev, card, p, pm)
 
 
+R1_WRAPPER = reinitm.reinit
+
+
+def reinit_ptxas():
+    """Registers and spill stores of R1's kernels from ptxas's report:
+    'prepass f32: R regs, S B spill', ..."""
+    out, name = {}, None
+    for line in _build.ptxas_report().splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"reinit_(prepass|step)I([fd])E", m.group(1))
+            name = (f"{k.group(1)} f{32 if k.group(2) == 'f' else 64}"
+                    if k else None)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out.setdefault(name, {})["spill"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["regs"] = int(m.group(1))
+    return ", ".join(f"{n}: {v.get('regs')} regs {v.get('spill')} B spill"
+                     for n, v in sorted(out.items()))
+
+
+def bound_reinit(x, steps):
+    """(ms, "bytes" or "operations"): the least time of one redistance of
+    ``x``: phi read once and the result written once, against the prepass
+    and ``steps`` steps of the operations this level set's cells need (its
+    crossing cells the subcell update, the others the PDE's), at the
+    card's f32 or f64 rate."""
+    f64 = x.dtype == torch.float64
+    cells = x.numel()
+    crossing = int(reinitm.crossings(x).sum())
+    nbytes = (16 if f64 else 8) * cells
+    ops = cells * OPS_REINIT_PRE + steps * (
+        crossing * OPS_REINIT_SUB + (cells - crossing) * OPS_REINIT_PDE)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / (PEAK_F64 if f64 else PEAK_F32) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reinit_input(shape, dev, dtype, seed=0):
+    """Level sets as the main path hands R1 (a frame, or a stack of them):
+    a steep two-disks distance function (slope 40, as a converged coarse
+    level set upsampled), noise, exact zeros on a row."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    b, h, w = shape if len(shape) == 3 else (1, *shape)
+    i, j = np.mgrid[0:h, 0:w].astype(np.float64)
+    for m in range(b):
+        d1 = 0.15 * min(h, w) - np.hypot(i - (0.3 + 0.05 * m) * h, j - 0.3 * w)
+        d2 = 0.2 * min(h, w) - np.hypot(i - 0.68 * h, j - 0.65 * w)
+        phi = 40.0 * np.maximum(d1, d2) + rng.standard_normal((h, w))
+        phi[h // 3, : w // 4] = 0.0
+        frames.append(phi)
+    x = torch.from_numpy(np.stack(frames)).to(dev, dtype)
+    return x if len(shape) == 3 else x[0]
+
+
+def check_reinit(x):
+    """R1 against its plain version on ``x``: (bitwise, max |diff|). Where
+    not bitwise, the signs must agree everywhere and the difference stay
+    within REINIT_RTOL of max |phi|."""
+    got = R1_WRAPPER(x, REINIT_STEPS)
+    want = reinitm.reinit_reference(x, REINIT_STEPS)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    bitwise = torch.equal(got, want)
+    if not bitwise and not (
+            torch.equal(torch.sign(got), torch.sign(want))
+            and err <= REINIT_RTOL * float(want.abs().max())):
+        raise AssertionError(f"R1 {tuple(x.shape)} {x.dtype}: max |diff| "
+                             f"{err} or signs differ from the plain version")
+    return bitwise, err
+
+
+def device_ms(prof, pattern=None):
+    """Device time (ms) of the kernels a profile recorded, those whose name
+    holds ``pattern`` where given."""
+    from torch.autograd import DeviceType
+
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and (pattern is None or pattern in e.name)) / 1e3
+
+
+def reinit_checks(dev, card, stat):
+    """R1 against its plain version at the pyramid's five level shapes and
+    a stack, f32 and f64, and its times at 4K beside the bound."""
+    print(f"phase 32 R1 ptxas: {reinit_ptxas()}", flush=True)
+    results = []
+    shapes = list(PYRAMID_SHAPES) + [(2, 1080, 1920), (2, H4K, W4K)]
+    for dtype in (torch.float32, torch.float64):
+        for shape in shapes:
+            x = reinit_input(shape, dev, dtype)
+            bitwise, err = check_reinit(x)
+            stat["max_abs_err"] = max(stat["max_abs_err"], err)
+            stat["bitwise"] = stat["bitwise"] and bitwise
+            results.append(f"{'x'.join(map(str, shape))} "
+                           f"{str(dtype)[6:]} {'bitwise' if bitwise else err}")
+    print("phase 32 R1 against its plain version (steps 20): "
+          + ", ".join(results), flush=True)
+    times = []
+    for dtype in (torch.float32, torch.float64):
+        for shape in PYRAMID_SHAPES:
+            x = reinit_input(shape, dev, dtype)
+            ms = queued_ms(lambda: R1_WRAPPER(x, REINIT_STEPS), 10)
+            # ~1000 eager launches a call: the host's pace at small shapes
+            plain = time_ms(
+                lambda: reinitm.reinit_reference(x, REINIT_STEPS), 2)
+            b_ms, b_by = bound_reinit(x, REINIT_STEPS)
+            times.append(f"{shape[0]}x{shape[1]} {str(dtype)[6:]} "
+                         f"{ms:.4f} (plain {plain:.3f}, bound {b_ms:.4f} "
+                         f"{b_by})")
+            if dtype == torch.float32 and shape == (H4K, W4K):
+                stat.update(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                            bound_by=b_by)
+    print("phase 32 R1 queued ms a redistance (a prepass and 20 step "
+          "launches; the plain version's ms at the host's pace): "
+          + ", ".join(times) + f" [{card}]", flush=True)
+
+
+def pyramid_run(dev, card, stat):
+    """segment_pyramid on the pyramid cell's 4K scene: the time to the
+    converged mask after a warm run, level_iters, R1's share (profiler)
+    and the masks against the disk and the direct segment_banded run."""
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[:H4K, :W4K]
+    disk = (yy - 1080.0) ** 2 + (xx - 1920.0) ** 2 < 800.0 ** 2
+    img = torch.from_numpy((np.where(disk, 200.0, 0.0)
+                            + rng.normal(0, 5, (H4K, W4K)))
+                           .astype(np.float32)).to(dev)
+    pp = ct.CVParams(**PYR_PARAMS)
+    ct.segment_pyramid(img, pp)
+    torch.cuda.synchronize()
+    counted = {"K1": fused_kernel.fused_iteration,
+               "K2": banded_kernel.banded_chunk,
+               "K3": packed_kernel.packed_banded_chunk}
+    for fn in (R1_WRAPPER, *counted.values()):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = ct.segment_pyramid(img, pp)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    stat["launches"] = R1_WRAPPER.launches
+    kern = {k: fn.launches for k, fn in counted.items()}
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ct.segment_pyramid(img, pp)
+        torch.cuda.synchronize()
+    r1_ms, dev_ms = device_ms(prof, "reinit_"), device_ms(prof)
+    ct.segment_banded(img, pp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct = ct.segment_banded(img, pp)
+    torch.cuda.synchronize()
+    direct_ms = (time.perf_counter() - t0) * 1e3
+    # the direct run's tolerance stops it while its contour still travels
+    # toward the disk (the scene's basin-rescue case): the same solver run
+    # on from the same start to PYR_DIRECT_ITERS is the fixed point held
+    # against the pyramid
+    far = ct.segment_banded_fixed(img, pp, iters=PYR_DIRECT_ITERS)[1]
+    info = {"direct tolerance run IoU vs disk": iou(direct.mask.cpu(), disk),
+            "pyramid IoU vs the direct tolerance run": iou(
+                res.mask.cpu(), direct.mask.cpu())}
+    checks = {
+        "pyramid IoU vs disk": (iou(res.mask.cpu(), disk), 0.99),
+        f"direct {PYR_DIRECT_ITERS}-iteration run IoU vs disk": (
+            iou(far.cpu(), disk), 0.99),
+        f"pyramid IoU vs the direct {PYR_DIRECT_ITERS}-iteration run": (
+            iou(res.mask.cpu(), far.cpu()), 0.99),
+    }
+    print(f"phase 32 segment_pyramid 4K (bench_families.py:166-180 scene): "
+          f"time to the converged mask {ms:.1f} ms (warm), level_iters "
+          f"{res.level_iters} at "
+          f"{', '.join(f'{h}x{w}' for h, w in PYRAMID_SHAPES)}; "
+          f"direct segment_banded {direct.iters} iters {direct_ms:.1f} ms; "
+          f"R1 {stat['launches']} launches "
+          f"({stat['launches'] // R1_LAUNCHES} redistances), "
+          f"{r1_ms:.3f} ms of device "
+          f"time in a profiled run ({100 * r1_ms / ms:.2f}% of the warm "
+          f"run's {ms:.1f} ms, {100 * r1_ms / dev_ms:.2f}% of its "
+          f"{dev_ms:.2f} ms of kernel time); kernel launches "
+          + ", ".join(f"{k}={v}" for k, v in kern.items()) + "; "
+          + "; ".join(f"{k} {v:.6f}" for k, v in info.items()) + "; "
+          + "; ".join(f"{k} {v:.6f} (>= {m})" for k, (v, m) in checks.items())
+          + f" [{card}]", flush=True)
+    if not res.iters < direct.iters:
+        raise AssertionError(f"the pyramid's finest level ran {res.iters} "
+                             f"iterations, the direct run {direct.iters}")
+    if stat["launches"] != (len(PYRAMID_SHAPES) - 1) * R1_LAUNCHES:
+        raise AssertionError(f"R1 launched {stat['launches']} times on the "
+                             f"pyramid, not one redistance a level "
+                             f"boundary")
+    check_masks(checks)
+
+
+def cadence_runs(dev, card, u4k, gt4k):
+    """reinit_every = 10 through segment_fused_fixed (K1, R1) and
+    segment_sharded on a 2x2 grid on the card (K1's shard mode, R1 on each
+    padded shard), against the plain route and the unsharded fused route,
+    with the rates and the launches; then the CLI's --pyramid, --smooth
+    and --reinit-every on a 1080p image."""
+    pc = ct.CVParams(mu=0.001 * 255.0 ** 2, reinit_every=CADENCE_EVERY)
+    p0 = pc.replace(reinit_every=0)
+    n_pix = H4K * W4K
+    rates = {}
+    for tag, p in (("no cadence", p0), ("reinit_every=10", pc)):
+        ct.segment_fused_fixed(u4k, p, iters=CADENCE_ITERS)
+        torch.cuda.synchronize()
+        R1_WRAPPER.launches = fused_kernel.fused_iteration.launches = 0
+        t0 = time.perf_counter()
+        phi, mask = ct.segment_fused_fixed(u4k, p, iters=CADENCE_ITERS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rates[tag] = (ms, n_pix * CADENCE_ITERS / (ms * 1e3),
+                      R1_WRAPPER.launches,
+                      fused_kernel.fused_iteration.launches)
+    with plain_route():
+        plain = ct.segment_fused_fixed(u4k, pc, iters=CADENCE_ITERS)[1]
+    mesh = make_grid_mesh(2, 2, [dev] * 4)
+    ref = ct.segment_fused(u4k, pc, fixed=True, max_iter=CADENCE_ITERS)
+    segment_sharded(u4k, pc, mesh, fixed=True, max_iter=CADENCE_ITERS)
+    torch.cuda.synchronize()
+    R1_WRAPPER.launches = fused_kernel.fused_iteration.shard_launches = 0
+    t0 = time.perf_counter()
+    sh = segment_sharded(u4k, pc, mesh, fixed=True, max_iter=CADENCE_ITERS)
+    torch.cuda.synchronize()
+    sh_ms = (time.perf_counter() - t0) * 1e3
+    sh_r1 = R1_WRAPPER.launches
+    sh_k1 = fused_kernel.fused_iteration.shard_launches
+    checks = {
+        "segment_fused_fixed reinit IoU vs plain route": (
+            iou(mask.cpu(), plain.cpu()), 0.999),
+        "segment_sharded 2x2 reinit IoU vs segment_fused": (
+            iou(sh.mask.cpu(), ref.mask.cpu()), 0.999),
+    }
+    print(f"phase 32 cadence, 4K gray {CADENCE_ITERS} iterations, mu 0.001 "
+          f"255^2: segment_fused_fixed "
+          + ", ".join(f"{t} {ms:.1f} ms = {r:.1f} Mpixel-iters/s (R1 "
+                      f"launches {n1}, K1 {nk})" for t, (ms, r, n1, nk)
+                      in rates.items())
+          + f"; segment_sharded 2x2 comm_k 1 reinit_every=10 {sh_ms:.1f} ms "
+          f"= {n_pix * CADENCE_ITERS / (sh_ms * 1e3):.1f} Mpixel-iters/s "
+          f"(R1 {sh_r1} launches on the shards, K1 shard {sh_k1}); "
+          + "; ".join(f"{k} {v:.6f} (>= {m})" for k, (v, m) in checks.items())
+          + f" [{card}]", flush=True)
+    fired = CADENCE_ITERS // CADENCE_EVERY * R1_LAUNCHES
+    if rates["reinit_every=10"][2] != fired or sh_r1 != 4 * fired \
+            or sh_k1 < 1:
+        raise AssertionError("the cadence runs did not launch R1 once a "
+                             "cadence (a shard)")
+    check_masks(checks)
+    img, gt = two_disks(1080, 1920)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = f"{tmp}/img.npy", f"{tmp}/mask.npy"
+        np.save(src, img)
+        R1_WRAPPER.launches = 0
+        t0 = time.perf_counter()
+        rc = tcli.main([src, "--pyramid", "-1", "--smooth", "10",
+                        "--reinit-every", "10", "-o", out])
+        cli_s = time.perf_counter() - t0
+        mask = np.load(out) > 0
+    checks = {"CLI --pyramid -1 --smooth 10 --reinit-every 10 1080p IoU vs "
+              "truth": (iou(mask, gt), 0.99)}
+    print(f"phase 32 CLI: exit {rc}, {cli_s:.2f} s, R1 "
+          f"{R1_WRAPPER.launches} launches; "
+          + "; ".join(f"{k} {v:.6f} (>= {m})" for k, (v, m) in checks.items()),
+          flush=True)
+    if rc != 0 or R1_WRAPPER.launches < 1:
+        raise AssertionError(f"the CLI exited {rc}, R1 "
+                             f"{R1_WRAPPER.launches} launches")
+    check_masks(checks)
+
+
+def reinit_phase(dev, card, u4k, gt4k):
+    """Phase 32: R1 against its plain version and its times, the 4K
+    pyramid, the cadence routes and the CLI. Returns R1's stats."""
+    stat = dict(max_abs_err=0.0, bitwise=True)
+    reinit_checks(dev, card, stat)
+    pyramid_run(dev, card, stat)
+    cadence_runs(dev, card, u4k, gt4k)
+    return {"R1 reinit": stat}
+
+
 def main(argv=()) -> int:
     sass_parent = None
     if argv:
@@ -5149,6 +5505,7 @@ def main(argv=()) -> int:
         "K1 fused_sweep (parity)": ms_stats["K1 fused_sweep (parity)"]})
     morph_bits_phase(dev, card, mo_stats, ms_stats, sass_checked)
     resident_tile_phase(dev, card, sass_checked)
+    re_stats = reinit_phase(dev, card, u4k, gt4k)
 
     entries = [
         dict(name=name, route="cuda", source=k["source"],
@@ -5159,7 +5516,8 @@ def main(argv=()) -> int:
         for table, stat in ((KERNELS, stats), (RESIDENT, res_stats),
                             (MP2, mp_stats), (MORPH, mo_stats),
                             (STACK, sk_stats), (SHARD, sh_stats),
-                            (MP_SHARD, ms_stats), (HALO, ha_stats))
+                            (MP_SHARD, ms_stats), (HALO, ha_stats),
+                            (REINIT, re_stats))
         for name, k in table.items() for st in (stat[name],)]
     print(json.dumps({"kernels": entries}))
     print(f"card: {card}")

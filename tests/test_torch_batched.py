@@ -17,6 +17,8 @@ parallel/) against the JAX reference.
   and against single-image launches on the card (skipped without a GPU).
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -259,8 +261,27 @@ def test_segment_batch_start_and_reinit():
     got = tbatched.segment_batch(to_torch(u0s), pt, phi0=phi0)
     one = tbatched.segment(to_torch(u0s[1]), pt, phi0[1])
     torch.testing.assert_close(got.phi[1], one.phi, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="M10"):
-        tbatched.segment_batch(to_torch(u0s), params(reinit_every=3)[1])
+    # a reinit cadence (M10, once unported): every frame redistanced on
+    # its own cadence, in the tolerance driver, the plain stack loop and
+    # K1's batch route (its plain version; the reference in interpret
+    # mode), each against the reference in f64
+    pj, pt = params(init="circle", reinit_every=3, reinit_steps=5,
+                    max_iter=40)
+    want = jbatched.segment_batch(jnp.asarray(u0s), pj)
+    got = tbatched.segment_batch(to_torch(u0s), pt)
+    np.testing.assert_array_equal(to_np(got.iters), np.asarray(want.iters))
+    np.testing.assert_array_equal(to_np(got.mask), np.asarray(want.mask))
+    assert_rel(got.phi, want.phi, 1e-10)
+    for fused in (False, True):
+        u = u0s if fused else u0s[..., :48]
+        run = (functools.partial(jbatched.segment_stack_fused_fixed,
+                                 interpret=True) if fused
+               else jbatched.segment_stack_fixed)
+        want = run(jnp.asarray(u), pj, iters=7)
+        got = (tbatched.segment_stack_fused_fixed if fused
+               else tbatched.segment_stack_fixed)(to_torch(u), pt, iters=7)
+        np.testing.assert_array_equal(to_np(got[1]), np.asarray(want[1]))
+        assert_rel(got[0], want[0], 1e-10)
 
 
 # the data mesh ----------------------------------------------------------------

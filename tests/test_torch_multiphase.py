@@ -192,12 +192,34 @@ def test_supports_predicates_match_reference():
 
 
 def test_reinit_raises_in_every_driver():
-    _, pt = params(reinit_every=5)
-    u = torch.zeros(32, 128)
-    for call in (lambda: tmp.segment_multiphase(u, pt),
-                 lambda: tmp.segment_multiphase_fixed(u, pt, iters=3)):
-        with pytest.raises(NotImplementedError, match="M10"):
-            call()
+    """A reinit cadence (M10, once unported) runs in every multiphase
+    driver against the reference in f64: the plain route (tolerance and
+    the fixed trace, the energy before the redistance) and K9's banded
+    route (its plain version), whose next means come from the redistanced
+    level sets, both against the reference's plain route (its K9 in
+    interpret mode takes an f32-accurate atan in f64); the resident route
+    is refused, as the reference's. Six fixed iterations at the file's
+    bars, the tolerance runs' iterations and labels equal."""
+    img = four_regions(32, 128, noise=4.0)[0]
+    pj, pt = params(mu=0.003 * 255.0 ** 2, reinit_every=2, reinit_steps=5,
+                    max_iter=30)
+    u = to_torch(img)
+    assert tmp._mp2_route(u, pt, 2, True) == "banded"
+    assert jmp._mp2_route(jnp.asarray(img), pj, 2, True) == "banded"
+    want = jmp.segment_multiphase(jnp.asarray(img), pj, use_pallas=False)
+    want_fixed = jmp.segment_multiphase_fixed(jnp.asarray(img), pj, iters=6,
+                                              use_pallas=False)
+    for use_pallas in (False, True):
+        got = tmp.segment_multiphase(u, pt, use_pallas=use_pallas)
+        assert got.iters == int(want.iters)
+        np.testing.assert_array_equal(to_np(got.labels),
+                                      np.asarray(want.labels))
+        got = tmp.segment_multiphase_fixed(u, pt, iters=6,
+                                           use_pallas=use_pallas)
+        np.testing.assert_array_equal(to_np(got.labels),
+                                      np.asarray(want_fixed.labels))
+        assert_rel(got.phis, want_fixed.phis, PHIS_RTOL)
+        assert_rel(got.energy, want_fixed.energy, RTOL)
 
 
 # the kernel routes on the CPU ---------------------------------------------

@@ -398,15 +398,39 @@ def test_fallbacks_match_reference():
     torch.testing.assert_close(got.phi, ref.phi, rtol=0, atol=0)
 
 
-def test_reinit_raises_in_every_driver():
-    _, pt = params(reinit_every=5)
-    u = torch.zeros(32, 128)
-    for call in (lambda: tres.segment_resident(u, pt),
-                 lambda: tres.segment_resident_fixed(u, pt, iters=4),
-                 lambda: tres.segment_stack_resident_fixed(u[None], pt,
-                                                           iters=4)):
-        with pytest.raises(NotImplementedError, match="M10"):
-            call()
+def test_reinit_raises_in_every_driver(monkeypatch):
+    """With a reinit cadence (M10, once unported) every resident driver
+    falls through to its fused driver, as the reference's do (the cadence
+    runs between launches): the same result bitwise, no resident
+    launch."""
+    _, pt = params(init="circle", reinit_every=3, reinit_steps=5,
+                   max_iter=20)
+    img = two_disks(32, 128, noise=8.0)[0]
+    u = to_torch(img)
+    rgb = to_torch(colored_squares(32, 128, noise=8.0, seed=3)[0])
+    assert resident_kernel.supports_resident(32, 128)
+    assert resident_kernel.supports_resident_mc(32, 128, 3)
+    for name in ("resident_iterations", "resident_iterations_mc",
+                 "resident_iterations_batch"):
+        monkeypatch.setattr(tres.resident_kernel, name,
+                            lambda *a, **k: pytest.fail("resident launch"))
+    for name in ("packed_resident_iterations",
+                 "packed_resident_iterations_mc",
+                 "packed_resident_iterations_batch"):
+        monkeypatch.setattr(tres.packed_kernel, name,
+                            lambda *a, **k: pytest.fail("resident launch"))
+    got = tres.segment_resident(u, pt)
+    ref = tfused.segment_fused(u, pt)
+    assert got.iters == ref.iters
+    torch.testing.assert_close(got.phi, ref.phi, rtol=0, atol=0)
+    for x in (u, rgb):
+        got = tres.segment_resident_fixed(x, pt, iters=7)[0]
+        ref = tfused.segment_fused_fixed(x, pt, iters=7)[0]
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    stack = torch.stack([u, u.flip(1)])
+    got = tres.segment_stack_resident_fixed(stack, pt, iters=7)[0]
+    ref = tbatched.segment_stack_fused_fixed(stack, pt, iters=7)[0]
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("layout,op,unroll", [

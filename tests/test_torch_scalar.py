@@ -12,7 +12,7 @@ import torch
 from chan_vese_tpu.models import scalar as jscalar
 from chan_vese_tpu.utils.trace import read_energy_csv
 from chan_vese_tpu_torch.models import scalar as tscalar
-from fixtures import two_disks
+from fixtures import colored_squares, two_disks
 from torch_port_helpers import assert_rel, params, to_np, to_torch
 
 GOLD = Path(__file__).resolve().parents[1] / "goldens"
@@ -78,15 +78,29 @@ def test_segment_divergence_aborts_like_reference():
     assert not np.isfinite(float(got.delta))
 
 
-def test_unported_inputs_raise_with_roadmap_item():
-    """Reinitialization is not ported yet (M10), for gray and RGB images;
-    RGB images themselves run (M6, tests/test_torch_vector.py)."""
-    _, pt = params()
-    with pytest.raises(NotImplementedError, match="M10"):
-        tscalar.segment_fixed(torch.zeros(8, 8), pt.replace(reinit_every=5))
-    with pytest.raises(NotImplementedError, match="M10"):
-        tscalar.segment(torch.zeros(8, 8, 3), pt.replace(reinit_every=5))
-    res = tscalar.segment(torch.zeros(8, 8, 3), pt.replace(max_iter=2))
+def test_unported_inputs_raise_with_roadmap_item(image):
+    """Reinitialization (M10, once unported) runs in the plain drivers, gray
+    and RGB, against the reference in f64: segment_fixed's trace with the
+    cadence shifted by start_iter (the energy before the redistance), and
+    segment on an RGB image (its iterations and mask: phi's last-ulp
+    differences grow fast there, with or without a cadence); RGB images
+    run without a cadence too (M6, tests/test_torch_vector.py)."""
+    pj, pt = params(init="circle", reinit_every=2, reinit_steps=6)
+    for start in (0, 1):
+        want = jscalar.segment_fixed(jnp.asarray(image), pj, iters=6,
+                                     start_iter=start)
+        got = tscalar.segment_fixed(to_torch(image), pt, iters=6,
+                                    start_iter=start)
+        np.testing.assert_array_equal(to_np(got.mask), np.asarray(want.mask))
+        for name in ("phi", "energy", "delta", "c1", "c2"):
+            assert_rel(getattr(got, name), getattr(want, name), 1e-10)
+    rgb = colored_squares(32, 48, noise=8.0)[0]
+    want = jscalar.segment(jnp.asarray(rgb), pj.replace(max_iter=60))
+    got = tscalar.segment(to_torch(rgb), pt.replace(max_iter=60))
+    assert got.iters == int(want.iters)
+    np.testing.assert_array_equal(to_np(got.mask), np.asarray(want.mask))
+    res = tscalar.segment(torch.zeros(8, 8, 3), pt.replace(max_iter=2,
+                                                           reinit_every=0))
     assert res.iters == 2 and tuple(res.c1.shape) == (3,)
 
 

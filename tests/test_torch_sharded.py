@@ -288,8 +288,38 @@ def test_arguments_raise_where_the_reference_raises(jgrid):
             jnp.asarray(img), pj, jgrid, iters=2, use_pallas=False,
             interpret=True, halo=halo)
         assert_rel(got.energy, want.energy, 1e-10)
-    with pytest.raises(NotImplementedError, match="M10"):
-        segment_sharded(u, pt.replace(reinit_every=5, reinit_steps=4), mesh)
+    # a reinit cadence (M10, once unported): each shard redistanced on a
+    # reinit_steps-deep halo and the means taken anew, gray (through every
+    # halo mechanism) and RGB: six fixed iterations within 1e-10, the
+    # tolerance runs' iterations and masks equal; the trace
+    pjr, ptr = params(reinit_every=2, reinit_steps=4, init="circle",
+                      max_iter=30)
+    rgb = colored_squares(48, 96, noise=6.0)[0]
+    for x, halo in ((img, "ppermute"), (img, "rdma"), (img, "overlap"),
+                    (rgb, "ppermute")):
+        for fixed in (True, False):
+            kw = dict(use_pallas=False, halo=halo, fixed=fixed,
+                      max_iter=6 if fixed else None)
+            got = segment_sharded(to_torch(x), ptr, mesh, **kw)
+            want = jsharded.segment_sharded(jnp.asarray(x), pjr, jgrid,
+                                            interpret=True, **kw)
+            assert got.iters == int(want.iters)
+            np.testing.assert_array_equal(to_np(got.mask),
+                                          np.asarray(want.mask))
+            if fixed:
+                for name in ("phi", "c1", "c2"):
+                    assert_rel(getattr(got, name), getattr(want, name),
+                               1e-10)
+    got = segment_sharded_fixed_trace(to_torch(img), ptr, mesh, iters=5,
+                                      use_pallas=False)
+    want = jsharded.segment_sharded_fixed_trace(
+        jnp.asarray(img), pjr, jgrid, iters=5, use_pallas=False,
+        interpret=True)
+    for name in ("phi", "energy", "c1", "c2"):
+        assert_rel(getattr(got, name), getattr(want, name), 1e-10)
+    with pytest.raises(ValueError, match="exceeds the shard"):
+        segment_sharded(torch.zeros(32, 64), pt.replace(reinit_every=5),
+                        mesh)
     with pytest.raises(ValueError, match="reinit cadence"):
         segment_sharded(u, pt.replace(reinit_every=5), mesh, comm_k=2)
     with pytest.raises(ValueError, match="pallas path unsupported"):

@@ -34,6 +34,7 @@ from chan_vese_tpu_torch.ops import multiphase_kernel
 from chan_vese_tpu_torch.parallel import (
     make_grid_mesh, segment_multiphase_sharded,
     segment_multiphase_sharded_fixed_trace)
+from chan_vese_tpu_torch.parallel import sharded as tsharded
 from fixtures import four_regions
 from torch_port_helpers import (assert_rel, cuda_device, params, to_np,
                                 to_torch)
@@ -212,8 +213,28 @@ def test_arguments_raise_where_the_reference_raises(jgrid):
         want = jsharded.segment_multiphase_sharded_fixed_trace(
             jnp.asarray(img), pj, jgrid, iters=2, halo=halo, interpret=True)
         assert_rel(got.energy, want.energy, 1e-10)
-    with pytest.raises(NotImplementedError, match="M10"):
-        segment_multiphase_sharded(u, pt.replace(reinit_every=5), mesh)
+    # a reinit cadence (M10, once unported): every level set of each shard
+    # redistanced on a reinit_steps-deep halo, the plain route (tolerance
+    # mode and the trace, the energy before the redistance)
+    pjr, ptr = params(mu=MU, reinit_every=2, reinit_steps=4, max_iter=20)
+    assert not tsharded._mp_pallas_ok(ptr, to_torch(img), 2, 4, 2)
+    for fixed in (True, False):
+        kw = dict(fixed=fixed, max_iter=6 if fixed else None)
+        got = segment_multiphase_sharded(to_torch(img), ptr, mesh, **kw)
+        want = jsharded.segment_multiphase_sharded(
+            jnp.asarray(img), pjr, jgrid, interpret=True, **kw)
+        assert got.iters == int(want.iters)
+        np.testing.assert_array_equal(to_np(got.labels),
+                                      np.asarray(want.labels))
+        if fixed:
+            assert_rel(got.phis, want.phis, 1e-10)
+    got = segment_multiphase_sharded_fixed_trace(to_torch(img), ptr, mesh,
+                                                 iters=5)
+    want = jsharded.segment_multiphase_sharded_fixed_trace(
+        jnp.asarray(img), pjr, jgrid, iters=5, interpret=True)
+    np.testing.assert_array_equal(to_np(got.labels), np.asarray(want.labels))
+    assert_rel(got.phis, want.phis, 1e-10)
+    assert_rel(got.energy, want.energy, 1e-10)
 
 
 @pytest.mark.parametrize("extra", [["--max-iter", "60"],

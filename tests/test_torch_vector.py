@@ -241,9 +241,27 @@ def test_auto_config_mc_routes_like_reference():
 
 
 def test_unported_reinit_raises_for_rgb():
-    _, pt = params(reinit_every=5)
-    with pytest.raises(NotImplementedError, match="M10"):
-        tbanded.segment_banded(torch.zeros(16, 128, 3), pt)
+    """An RGB image with a reinit cadence (M10, once unported) is refused
+    the banded route and runs the fused one (K4's plain version here; the
+    reference's kernel in interpret mode), with the means taken anew every
+    iteration: 6 fixed iterations within 1e-10 in f64, the tolerance run's
+    iterations and mask equal (phi's last-ulp differences grow fast on
+    this image, with or without a cadence)."""
+    rgb = colored_squares(32, 128, noise=8.0, seed=3)[0]
+    pj, pt = params(init="circle", reinit_every=2, reinit_steps=5,
+                    max_iter=40)
+    u = to_torch(rgb)
+    assert tbanded._supported_mc(u, pt.replace(reinit_every=0), 1)
+    assert not tbanded._supported_mc(u, pt, 1)
+    want = jbanded.segment_banded_fixed(jnp.asarray(rgb), pj, iters=6, k=1,
+                                        interpret=True)
+    got = tbanded.segment_banded_fixed(u, pt, iters=6, k=1)
+    np.testing.assert_array_equal(to_np(got[1]), np.asarray(want[1]))
+    assert_rel(got[0], want[0], 1e-10)
+    want = jbanded.segment_banded(jnp.asarray(rgb), pj, k=1, interpret=True)
+    got = tbanded.segment_banded(u, pt, k=1)
+    assert got.iters == int(want.iters)
+    np.testing.assert_array_equal(to_np(got.mask), np.asarray(want.mask))
 
 
 # the CLI's colour route ---------------------------------------------------
