@@ -106,9 +106,13 @@ _SWEEP_OCC = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
 # stream. Peer access: device, peer.
 _HALO_GATHER = [_P, _P, _I, _I, _P]
 _HALO_RING = [_P, _I, _I, _P]
-# the redistance (csrc/reinit.cu, R1): phi, aux, flags, buf0, buf1; B, H,
-# W, steps; dtau, h (double); f64; stream
-_REINIT = [_P] * 5 + [_I] * 4 + [ctypes.c_double] * 2 + [_I, _P]
+# the redistance (csrc/reinit.cu, R1) on the tile body: phi, buf0, buf1;
+# B, H, W, steps, k, TH, TW, PX, PY, RS; dtau, h (double); f64; stream.
+# Occupancy: f64, threads, dynamic bytes, int* blocks per SM. The first
+# body's (`_v1`): phi, aux, flags, buf0, buf1; B, H, W, steps; dtau, h; f64;
+# stream.
+_REINIT = [_P] * 3 + [_I] * 10 + [ctypes.c_double] * 2 + [_I, _P]
+_REINIT_V1 = [_P] * 5 + [_I] * 4 + [ctypes.c_double] * 2 + [_I, _P]
 SIGNATURES = {
     "cv_fused_iteration": _SWEEP + _SWEEP_TAIL + [_P],
     "cv_fused_iteration_shard": _SWEEP + _SWEEP_TAIL + _SHARD,
@@ -177,6 +181,8 @@ SIGNATURES = {
     "cv_halo_ring_v1": _HALO_RING,
     "cv_halo_peer_access": [_I, _I],
     "cv_reinit": _REINIT,
+    "cv_reinit_occupancy": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
+    "cv_reinit_v1": _REINIT_V1,
 }
 
 

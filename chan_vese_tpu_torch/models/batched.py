@@ -18,7 +18,7 @@ vectorizes the frames (``vmap``); frames are independent, so here:
 
 With ``p.reinit_every > 0`` each frame is redistanced on its own cadence
 (one R1 chain for the stack on the card), and the batch route takes every
-frame's means anew on every iteration, as the reference.
+frame's means anew after a redistance, from the partials otherwise.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import torch
 
 from ..ops import fused_kernel
 from ..ops.reductions import means_from_sums, region_means
-from ..ops.reinit import maybe_reinit
+from ..ops.reinit import maybe_reinit, reinit_fires
 from ..params import CVParams
 from .scalar import SegResult, _phi0, segment, step
 
@@ -95,7 +95,7 @@ def segment_stack_fused_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
     for n in range(iters):
         phis, parts = fused_kernel.fused_iteration_batch(phis, u0, c1, c2, p)
         c1, c2 = means_from_sums(parts[:, 0], parts[:, 1], sum_u, n_pix)
-        if p.reinit_every:
+        if reinit_fires(n, p):
             # every frame redistanced on its own (one R1 chain for the
             # stack), the means of every frame taken anew
             phis = maybe_reinit(phis, n, p)

@@ -9,10 +9,13 @@ trajectory is exactly the plain red-black path's. Shapes outside the
 reference's fused envelopes (``supports``, ``supports_mc``) and orders
 other than red-black run :mod:`.scalar` (:mod:`.vector` for C channels,
 with the per-channel lambda tuples), as in the reference. With
-``p.reinit_every > 0`` each iteration ends with the cadence's redistance
-(R1 on the card) and means taken anew from the level set, as the
-reference's ``_reinit_and_refresh_means`` does on every iteration; the
-convergence metric stays the kernel's, from before the redistance.
+``p.reinit_every > 0`` every reinit_every-th iteration ends with the
+cadence's redistance (R1 on the card) and means taken anew from the
+redistanced level set; on the other iterations the kernel's partials give
+the means, as without a cadence (the reference's
+``_reinit_and_refresh_means`` takes them anew on every iteration, its
+sharded route only after a redistance, as here). The convergence metric
+stays the kernel's, from before the redistance.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 
 from ..ops import fused_kernel, fused_kernel_mc
 from ..ops.reductions import loop_continue, means_from_sums, region_means
-from ..ops.reinit import maybe_reinit
+from ..ops.reinit import maybe_reinit, reinit_fires
 from ..params import CVParams
 from .scalar import (SegResult, _phi0, segment as _segment_plain,
                      segment_fixed, step as _step_plain)
@@ -97,9 +100,9 @@ class _Iteration:
             sum_uh = parts[0]
         self.c1, self.c2 = means_from_sums(sum_uh, parts[self.offset + 1],
                                            self.sum_u, self.n_pix)
-        if self.p.reinit_every:
+        if reinit_fires(self.n, self.p):
             # a redistance rescales |phi| and so H_eps everywhere: the
-            # partials' means are stale on every iteration, fired or not
+            # partials' means are stale after it, and only after it
             self.phi = maybe_reinit(self.phi, self.n, self.p)
             self.c1, self.c2 = region_means(self.image, self.phi, self.p.eps)
         self.n += 1

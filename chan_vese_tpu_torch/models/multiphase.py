@@ -24,8 +24,8 @@ CUDA tensors launch the kernels; CPU tensors run their plain versions.
 With ``p.reinit_every > 0`` every level set is redistanced on the cadence
 (one R1 chain for the stack on the card) after an iteration's energy and
 flips; the resident route is refused (it runs between launches) and K9's
-banded route takes its next means from the redistanced level sets on every
-iteration, as the reference.
+banded route takes its next means from the redistanced level sets after a
+redistance, from the kernel's partials otherwise.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ import torch
 from ..ops import fused_kernel, multiphase_kernel, packed_kernel
 from ..ops.numerics import dirac, grad_forward, heaviside
 from ..ops.reductions import loop_continue, phase_means, phase_weights
-from ..ops.reinit import maybe_reinit
+from ..ops.reinit import maybe_reinit, reinit_fires
 from ..ops.sweep import semi_implicit_step
 from ..params import CVParams
 from ..utils.init_phi import checkerboard, circle
@@ -250,7 +250,7 @@ def _mp2_banded_loop(u0, p: CVParams, phis0, fixed: bool, cap: int):
         # 0 * s_dphi2 NaN-poisons the flip metric when a phi went
         # non-finite (labels of NaN fields are finite garbage)
         delta = parts[8] / n_pix + 0.0 * parts[9]
-        if p.reinit_every:
+        if reinit_fires(n, p):
             # the redistance moves H_eps: the partials' means go stale
             phis = maybe_reinit(phis, n, p)
             cs = torch.stack(phase_means(u0, phis, p.eps))
@@ -387,7 +387,7 @@ def segment_multiphase_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
             cs = parts[0:4] / torch.clamp(parts[4:8], min=_TINY)
             ds.append(parts[8] / n_pix)
             es.append(multiphase_energy(u0, phis, p))
-            if p.reinit_every:
+            if reinit_fires(n, p):
                 phis = maybe_reinit(phis, n, p)
                 cs = torch.stack(phase_means(u0, phis, p.eps))
     else:

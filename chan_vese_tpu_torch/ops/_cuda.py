@@ -1324,10 +1324,121 @@ def launch_morph_fused(ls, u0, cc, k: int, smoothing: int, parity0: int,
     return out, parts
 
 
-def launch_reinit(phi, steps: int, dtau: float, h: float):
-    """One redistance on R1 (csrc/reinit.cu): the prepass and ``steps``
-    step launches on an (H, W) level set or a (B, H, W) stack of them,
-    float32 or float64, each frame on its own. Returns the redistanced
+# csrc/reinit.cu's tile body (R1): most threads a block and rows a strip,
+# registers a thread under __launch_bounds__ (two blocks an SM in f32, one
+# in f64), the pass depths and the block shapes (PX columns, PY strips of
+# RS rows: the window) the geometry chooses among, those that
+# chip_reinit_variants.py times
+REINIT_THREADS, REINIT_ROWS = 512, 16
+REINIT_REGS = {4: 64, 8: 128}
+REINIT_DEPTHS = (5, 10, 20)
+REINIT_BLOCKS = ((128, 4, 16), (128, 4, 8), (128, 4, 12), (128, 2, 16),
+                 (256, 2, 16), (256, 2, 8), (160, 3, 16), (96, 5, 16),
+                 (64, 8, 8), (64, 4, 8), (32, 8, 4), (32, 16, 4))
+# the geometry's cost model, in issue cycles of an SM: instructions a cell
+# step, the warps an SM needs to issue at its rate, a launch's fixed cost,
+# the bytes an SM's share of the memory rate moves a cycle, fitted to
+# chip_reinit_variants.py's times on an H100 (PERF.md §6)
+REINIT_CPI, REINIT_WARPS = 50, 8
+REINIT_LAUNCH, REINIT_BYTES = 4000, 14
+
+
+def reinit_smem(h: int, w: int, k: int, th: int, tw: int,
+                itemsize: int) -> int:
+    """Shared memory of the tile body's window: psi's two planes and the
+    prepass values, each min(TH + 2k, H) + 2 rows by min(TW + 2k, W) + 2
+    columns (csrc/reinit.cu tile_smem)."""
+    return (min(th + 2 * k, h) + 2) * (min(tw + 2 * k, w) + 2) * 3 * itemsize
+
+
+def reinit_blocks_per_sm(threads: int, smem: int, itemsize: int) -> int:
+    """Blocks of the tile body an SM holds by registers, warps and shared
+    memory (the design's count; the card's own is
+    :func:`reinit_occupancy`)."""
+    warps = -(-threads // 32)
+    return min(SM_REGS // (REINIT_REGS[itemsize] * 32 * warps),
+               SM_WARPS // warps, SM_SMEM // (smem + 1024), 32)
+
+
+def reinit_passes(steps: int, k: int):
+    """The steps of each of the ceil(steps / k) passes, split evenly
+    (csrc/reinit.cu launch_tile)."""
+    n = -(-steps // k)
+    return [steps // n + (i < steps % n) for i in range(n)]
+
+
+def _reinit_axis(n: int, window: int, k: int):
+    """Tile extent on an axis of n cells for a window of ``window``: the
+    whole axis where it fits, else the window less a halo each way."""
+    return n if n <= window else window - 2 * k
+
+
+@functools.lru_cache(maxsize=256)
+def reinit_geometry(b: int, h: int, w: int, steps: int, itemsize: int = 4,
+                    sms: int = SMS):
+    """(k, TH, TW, PX, PY, RS) of a redistance of ``steps`` steps on a (b,
+    h, w) stack of ``itemsize``-byte cells on the tile body: passes of at
+    most k steps, TH x TW tiles, PX x PY threads of RS-row strips. Among
+    the depths of REINIT_DEPTHS (and ``steps`` below them) and the block
+    shapes of REINIT_BLOCKS, the least cost by a model of the busiest SM:
+    the cells its blocks compute in each step (the window shrinking a cell
+    a step from each cut side) at REINIT_CPI instructions, slowed where
+    the SM holds fewer than REINIT_WARPS warps, against its share of the
+    window loads and stores, plus a launch a pass."""
+    best = None
+    for k in sorted({min(d, steps) for d in REINIT_DEPTHS}):
+        passes = reinit_passes(steps, k)
+        for px, py, rs in REINIT_BLOCKS:
+            th, tw = _reinit_axis(h, py * rs, k), _reinit_axis(w, px, k)
+            if th < 1 or tw < 1:
+                continue
+            smem = reinit_smem(h, w, k, th, tw, itemsize)
+            bps = reinit_blocks_per_sm(px * py, smem, itemsize)
+            if bps < 1:
+                continue
+            per_sm = -(-(b * -(-h // th) * -(-w // tw)) // sms)
+            wh, ww = min(th + 2 * k, h), min(tw + 2 * k, w)
+            warps = min(bps, per_sm) * -(-px * py // 32)
+            rate = min(1.0, warps / REINIT_WARPS)
+            cost = 0
+            for n_steps in passes:
+                cells = sum(min(th + 2 * (k - n), h) * min(tw + 2 * (k - n), w)
+                            for n in range(1, n_steps + 1))
+                issue = per_sm * cells * REINIT_CPI / 128 / rate
+                moved = per_sm * (2 * wh * ww + th * tw) * itemsize
+                cost += max(issue, moved / REINIT_BYTES) + REINIT_LAUNCH
+            key = (cost, -th * tw, px * py)
+            if best is None or key < best[0]:
+                best = (key, (k, th, tw, px, py, rs))
+    if best is None:
+        raise ValueError(f"no tile of the redistance fits ({h} x {w})")
+    return best[1]
+
+
+def reinit_occupancy(threads: int, smem: int, f64: bool,
+                     device_index: int = 0) -> int:
+    """Blocks of the tile body an SM of the card holds at ``threads``
+    threads and ``smem`` bytes of window (cudaOccupancy...)."""
+    import ctypes
+
+    from .._build import library
+
+    lib = library()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.cv_reinit_occupancy(int(f64), threads, smem,
+                                      ctypes.byref(n))
+    _raise_on(lib, "cv_reinit_occupancy", err)
+    return n.value
+
+
+def launch_reinit(phi, steps: int, dtau: float, h: float,
+                  v1: bool = False, geometry=None):
+    """One redistance on R1 (csrc/reinit.cu) of an (H, W) level set or a
+    (B, H, W) stack of them, float32 or float64, each frame on its own: the
+    tile body's ceil(steps / k) passes at ``geometry`` = (k, TH, TW, PX,
+    PY, RS) (default :func:`reinit_geometry`), or with ``v1`` the first
+    body's prepass and ``steps`` step launches. Returns the redistanced
     tensor (a new one, ``phi``'s shape)."""
     from .._build import library
 
@@ -1341,15 +1452,24 @@ def launch_reinit(phi, steps: int, dtau: float, h: float):
         raise ValueError(f"R1 takes at most {MAX_FRAMES} frames, got {b}")
     phi = phi.contiguous()
     dev = phi.device
-    aux = torch.empty_like(phi)
-    flags = torch.empty(phi.shape, dtype=torch.uint8, device=dev)
+    f64 = int(phi.dtype == torch.float64)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     bufs = (torch.empty_like(phi), torch.empty_like(phi))
     lib = library()
+    if v1:
+        aux = torch.empty_like(phi)
+        flags = torch.empty(phi.shape, dtype=torch.uint8, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.cv_reinit_v1(
+                phi.data_ptr(), aux.data_ptr(), flags.data_ptr(),
+                bufs[0].data_ptr(), bufs[1].data_ptr(), b, h_, w, steps,
+                float(dtau), float(h), f64, stream)
+        _raise_on(lib, "cv_reinit_v1", err)
+        return bufs[(steps - 1) % 2]
+    geo = geometry or reinit_geometry(b, h_, w, steps, phi.element_size())
     with torch.cuda.device(dev):
-        err = lib.cv_reinit(
-            phi.data_ptr(), aux.data_ptr(), flags.data_ptr(),
-            bufs[0].data_ptr(), bufs[1].data_ptr(), b, h_, w, steps,
-            float(dtau), float(h), int(phi.dtype == torch.float64),
-            torch.cuda.current_stream(dev).cuda_stream)
+        err = lib.cv_reinit(phi.data_ptr(), bufs[0].data_ptr(),
+                            bufs[1].data_ptr(), b, h_, w, steps, *geo,
+                            float(dtau), float(h), f64, stream)
     _raise_on(lib, "cv_reinit", err)
-    return bufs[(steps - 1) % 2]
+    return bufs[(len(reinit_passes(steps, geo[0])) - 1) % 2]

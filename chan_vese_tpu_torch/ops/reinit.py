@@ -13,8 +13,8 @@ zero crossing stays in place. Boundaries are clamped, as the shifts of
 
 :func:`reinit` takes an (H, W) level set or a (B, H, W) stack, each frame
 redistanced on its own. CPU tensors run :func:`reinit_reference`, the
-plain version; CUDA tensors launch R1 (``csrc/reinit.cu``: one prepass,
-then one launch a step) or raise.
+plain version; CUDA tensors launch R1 (``csrc/reinit.cu``: passes of up
+to k steps on deep-halo shared-memory tiles, one launch a pass) or raise.
 """
 
 from __future__ import annotations
@@ -93,8 +93,8 @@ def reinit(phi, steps: int = 20, dtau: float = 0.5, h: float = 1.0):
     ``steps * dtau`` is the distance band (in pixels) that becomes exact.
     CPU tensors run the plain version; CUDA tensors (float32 or float64)
     launch R1, bitwise the plain version on the card, or raise.
-    ``reinit.launches`` counts R1's launches on the card: one prepass and
-    ``steps`` step launches a redistance."""
+    ``reinit.launches`` counts R1's launches on the card: ceil(steps / k)
+    a redistance, k the pass depth ``_cuda.reinit_geometry`` picks."""
     if phi.ndim not in (2, 3):
         raise ValueError(f"reinit takes (H, W) or (B, H, W), got "
                          f"{tuple(phi.shape)}")
@@ -103,7 +103,9 @@ def reinit(phi, steps: int = 20, dtau: float = 0.5, h: float = 1.0):
     if steps < 1:
         return phi
     out = _cuda.launch_reinit(phi, steps, dtau, h)
-    reinit.launches += 1 + steps
+    b, hh, w = (1, *out.shape) if out.ndim == 2 else out.shape
+    k = _cuda.reinit_geometry(b, hh, w, steps, out.element_size())[0]
+    reinit.launches += len(_cuda.reinit_passes(steps, k))
     return out
 
 

@@ -142,11 +142,14 @@ entry points on both bodies, the tile bodies' launches counted, with their
 rates in turns with the first body.
 Phase 32 does the same for M10 and R1, the redistance kernel
 (csrc/reinit.cu, the port's kernel for the reference's jnp
-ops/reinit.py::reinit): R1's registers and spills; R1 against its plain
-version (20 steps, bitwise, or identical signs and within 1e-5 of max
+ops/reinit.py::reinit): the registers and spills of R1's tile body and
+first body; R1 against its first body (bitwise, the input left as it was)
+and its plain version (bitwise, or identical signs and within 1e-5 of max
 |phi|) at 4K, at the pyramid's four coarser level shapes and on stacks of
-two 1080p and two 4K level sets, f32 and f64; its queued times a
-redistance beside the plain version and the bound at every level shape;
+two 1080p and two 4K level sets (20 steps), and at 257x131 and the 1080p
+stack at 1 and 9 steps, f32 and f64; the two bodies' queued times a
+redistance in turns beside the plain version and the bound at every level
+shape, with the tile body's geometry, launches and blocks an SM;
 segment_pyramid on the 4K pyramid cell (bench_families.py:166-180: the
 time to the converged mask after a warm run, level_iters, R1's device
 time from torch.profiler, the mask against the disk and the direct
@@ -571,7 +574,8 @@ HALO_DEPTHS, HALO_TIMED = (4, 32, 64), 32
 K14_PER_EXCHANGE = 1
 
 # the redistance (phase 32): R1, the port's kernel for the reference's jnp
-# ops/reinit.py::reinit, counted a launch: a prepass and one launch a step
+# ops/reinit.py::reinit, counted a launch: a pass of the tile body
+# (ceil(steps / k) a redistance, r1_launches)
 REINIT = {
     "R1 reinit": dict(
         source="chan_vese_tpu_torch/csrc/reinit.cu",
@@ -582,7 +586,10 @@ REINIT = {
 PYRAMID_SHAPES = ((135, 240), (270, 480), (540, 960), (1080, 1920),
                   (H4K, W4K))
 REINIT_STEPS = 20
-R1_LAUNCHES = 1 + REINIT_STEPS  # a redistance
+# the shapes R1 is held against its first body and plain version at every
+# step count of STEP_COUNTS: a ragged one and a stack
+REINIT_RAGGED, REINIT_STACK = (257, 131), (2, 1080, 1920)
+STEP_COUNTS = (1, 9, 20)
 # operations a cell of the redistance needs (one of each pair of branches
 # the plain version computes on every cell): the prepass (central
 # differences and halvings 4, |grad|^2 3, the crossing test 11, and the
@@ -4711,14 +4718,30 @@ def resident_tile_phase(dev, card, sass_checked):
 R1_WRAPPER = reinitm.reinit
 
 
+def r1_launches(shape, dtype=torch.float32, steps=REINIT_STEPS):
+    """R1's launches a redistance of an (H, W) level set or a (B, H, W)
+    stack: a pass of the tile body each, ceil(steps / k) at the depth k
+    that _cuda.reinit_geometry picks."""
+    b, h, w = shape if len(shape) == 3 else (1, *shape)
+    k = _cuda.reinit_geometry(b, h, w, steps,
+                              torch.finfo(dtype).bits // 8)[0]
+    return len(_cuda.reinit_passes(steps, k))
+
+
+def reinit_v1(x, steps=REINIT_STEPS):
+    """R1's first body (a prepass and a launch a step), the yardstick."""
+    return _cuda.launch_reinit(x, steps, 0.5, 1.0, v1=True)
+
+
 def reinit_ptxas():
     """Registers and spill stores of R1's kernels from ptxas's report:
-    'prepass f32: R regs, S B spill', ..."""
+    'prepass f32: R regs, S B spill', ..., 'tile f32: ...' the tile
+    body's."""
     out, name = {}, None
     for line in _build.ptxas_report().splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:
-            k = re.search(r"reinit_(prepass|step)I([fd])E", m.group(1))
+            k = re.search(r"reinit_(prepass|step|tile)I([fd])E", m.group(1))
             name = (f"{k.group(1)} f{32 if k.group(2) == 'f' else 64}"
                     if k else None)
             continue
@@ -4769,13 +4792,20 @@ def reinit_input(shape, dev, dtype, seed=0):
     return x if len(shape) == 3 else x[0]
 
 
-def check_reinit(x):
+def check_reinit(x, steps=REINIT_STEPS):
     """R1 against its plain version on ``x``: (bitwise, max |diff|). Where
     not bitwise, the signs must agree everywhere and the difference stay
-    within REINIT_RTOL of max |phi|."""
-    got = R1_WRAPPER(x, REINIT_STEPS)
-    want = reinitm.reinit_reference(x, REINIT_STEPS)
+    within REINIT_RTOL of max |phi|. The tile body must also equal its
+    first body bitwise, and leave ``x`` as it was."""
+    kept = x.clone()
+    got = R1_WRAPPER(x, steps)
+    want = reinitm.reinit_reference(x, steps)
+    first = reinit_v1(x, steps)
     torch.cuda.synchronize()
+    if not torch.equal(got, first) or not torch.equal(x, kept):
+        raise AssertionError(f"R1 {tuple(x.shape)} {x.dtype} steps {steps}: "
+                             f"the tile body differs from its first body "
+                             f"or changed its input")
     err = float((got - want).abs().max())
     bitwise = torch.equal(got, want)
     if not bitwise and not (
@@ -4797,39 +4827,63 @@ def device_ms(prof, pattern=None):
 
 
 def reinit_checks(dev, card, stat):
-    """R1 against its plain version at the pyramid's five level shapes and
-    a stack, f32 and f64, and its times at 4K beside the bound."""
+    """R1 against its first body and its plain version at the pyramid's
+    five level shapes and stacks (20 steps), and at a ragged shape and a
+    stack at every step count of STEP_COUNTS, f32 and f64; then the two
+    bodies' queued times in turns at every level shape beside the plain
+    version and the bound, with the tile body's geometry and the blocks an
+    SM the card gives it."""
     print(f"phase 32 R1 ptxas: {reinit_ptxas()}", flush=True)
     results = []
-    shapes = list(PYRAMID_SHAPES) + [(2, 1080, 1920), (2, H4K, W4K)]
+    cases = [(shape, REINIT_STEPS) for shape in
+             list(PYRAMID_SHAPES) + [(2, 1080, 1920), (2, H4K, W4K)]]
+    cases += [(shape, n) for shape in (REINIT_RAGGED, REINIT_STACK)
+              for n in STEP_COUNTS if n != REINIT_STEPS]
     for dtype in (torch.float32, torch.float64):
-        for shape in shapes:
-            x = reinit_input(shape, dev, dtype)
-            bitwise, err = check_reinit(x)
+        for shape, steps in cases:
+            x = reinit_input(shape, dev, dtype, seed=steps)
+            bitwise, err = check_reinit(x, steps)
             stat["max_abs_err"] = max(stat["max_abs_err"], err)
             stat["bitwise"] = stat["bitwise"] and bitwise
             results.append(f"{'x'.join(map(str, shape))} "
-                           f"{str(dtype)[6:]} {'bitwise' if bitwise else err}")
-    print("phase 32 R1 against its plain version (steps 20): "
-          + ", ".join(results), flush=True)
+                           f"{str(dtype)[6:]} steps {steps} "
+                           f"{'bitwise' if bitwise else err}")
+    print("phase 32 R1 (the tile body, bitwise its first body) against its "
+          "plain version: " + ", ".join(results), flush=True)
     times = []
     for dtype in (torch.float32, torch.float64):
         for shape in PYRAMID_SHAPES:
             x = reinit_input(shape, dev, dtype)
-            ms = queued_ms(lambda: R1_WRAPPER(x, REINIT_STEPS), 10)
+            tile = lambda: R1_WRAPPER(x, REINIT_STEPS)  # noqa: E731
+            first = lambda: reinit_v1(x)  # noqa: E731
+            turns = [queued_ms(fn, 10) for fn in (tile, first, first, tile)]
+            ms, v1_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
             # ~1000 eager launches a call: the host's pace at small shapes
             plain = time_ms(
                 lambda: reinitm.reinit_reference(x, REINIT_STEPS), 2)
             b_ms, b_by = bound_reinit(x, REINIT_STEPS)
+            k, th, tw, px, py, rs = _cuda.reinit_geometry(
+                1, *shape, REINIT_STEPS, x.element_size())
+            occ = _cuda.reinit_occupancy(
+                px * py, _cuda.reinit_smem(*shape, k, th, tw,
+                                           x.element_size()),
+                dtype == torch.float64)
             times.append(f"{shape[0]}x{shape[1]} {str(dtype)[6:]} "
-                         f"{ms:.4f} (plain {plain:.3f}, bound {b_ms:.4f} "
-                         f"{b_by})")
+                         f"{ms:.4f} ({turns[0]:.4f}, {turns[3]:.4f}; "
+                         f"{ms / b_ms:.1f}x the bound) [v1 {v1_ms:.4f} "
+                         f"({turns[1]:.4f}, {turns[2]:.4f}); "
+                         f"{v1_ms / b_ms:.1f}x] (plain {plain:.3f}, bound "
+                         f"{b_ms:.4f} {b_by}; k {k}, {th}x{tw} tiles, "
+                         f"{px}x{py} threads of {rs} rows, "
+                         f"{r1_launches(shape, dtype)} launches, {occ} "
+                         f"blocks/SM)")
             if dtype == torch.float32 and shape == (H4K, W4K):
                 stat.update(ms=ms, plain_ms=plain, bound_ms=b_ms,
                             bound_by=b_by)
-    print("phase 32 R1 queued ms a redistance (a prepass and 20 step "
-          "launches; the plain version's ms at the host's pace): "
-          + ", ".join(times) + f" [{card}]", flush=True)
+    print("phase 32 R1 queued ms a redistance (20 steps), the tile body "
+          "[its first body, a prepass and 20 step launches] in turns; the "
+          "plain version's ms at the host's pace: " + ", ".join(times)
+          + f" [{card}]", flush=True)
 
 
 def pyramid_run(dev, card, stat):
@@ -4888,8 +4942,8 @@ def pyramid_run(dev, card, stat):
           f"{res.level_iters} at "
           f"{', '.join(f'{h}x{w}' for h, w in PYRAMID_SHAPES)}; "
           f"direct segment_banded {direct.iters} iters {direct_ms:.1f} ms; "
-          f"R1 {stat['launches']} launches "
-          f"({stat['launches'] // R1_LAUNCHES} redistances), "
+          f"R1 {stat['launches']} launches (4 redistances, "
+          f"{'+'.join(str(r1_launches(x)) for x in PYRAMID_SHAPES[1:])}), "
           f"{r1_ms:.3f} ms of device "
           f"time in a profiled run ({100 * r1_ms / ms:.2f}% of the warm "
           f"run's {ms:.1f} ms, {100 * r1_ms / dev_ms:.2f}% of its "
@@ -4901,7 +4955,7 @@ def pyramid_run(dev, card, stat):
     if not res.iters < direct.iters:
         raise AssertionError(f"the pyramid's finest level ran {res.iters} "
                              f"iterations, the direct run {direct.iters}")
-    if stat["launches"] != (len(PYRAMID_SHAPES) - 1) * R1_LAUNCHES:
+    if stat["launches"] != sum(r1_launches(x) for x in PYRAMID_SHAPES[1:]):
         raise AssertionError(f"R1 launched {stat['launches']} times on the "
                              f"pyramid, not one redistance a level "
                              f"boundary")
@@ -4958,8 +5012,10 @@ def cadence_runs(dev, card, u4k, gt4k):
           f"(R1 {sh_r1} launches on the shards, K1 shard {sh_k1}); "
           + "; ".join(f"{k} {v:.6f} (>= {m})" for k, (v, m) in checks.items())
           + f" [{card}]", flush=True)
-    fired = CADENCE_ITERS // CADENCE_EVERY * R1_LAUNCHES
-    if rates["reinit_every=10"][2] != fired or sh_r1 != 4 * fired \
+    fired = CADENCE_ITERS // CADENCE_EVERY
+    padded = (H4K // 2 + 2 * REINIT_STEPS, W4K // 2 + 2 * REINIT_STEPS)
+    if rates["reinit_every=10"][2] != fired * r1_launches((H4K, W4K)) \
+            or sh_r1 != 4 * fired * r1_launches(padded) \
             or sh_k1 < 1:
         raise AssertionError("the cadence runs did not launch R1 once a "
                              "cadence (a shard)")

@@ -1,14 +1,19 @@
 """R1 (csrc/reinit.cu), the redistance kernel, against its plain version
 ``ops.reinit.reinit_reference`` on the card: bitwise in f32 and f64, on a
 single level set and a stack (each frame its own), at odd shapes and at
-the steps the drivers use. The tests are ``cuda``-marked and skip
+the steps the drivers use; the tile body also bitwise its first body
+(``_cuda.launch_reinit(..., v1=True)``) at the 4K pyramid's five level
+shapes, a ragged shape and a stack, on a second launch and a second
+stream, its input left as it was. The tests are ``cuda``-marked and skip
 without a GPU; on the CPU ``reinit`` runs the plain version itself
-(tests/test_torch_reinit.py holds that against the reference)."""
+(tests/test_torch_reinit.py holds that against the reference, and
+tests/test_torch_reinit_tiling.py the tile body's schedule)."""
 
 import numpy as np
 import pytest
 import torch
 
+from chan_vese_tpu_torch.ops import _cuda
 from chan_vese_tpu_torch.ops import reinit as reinit_fn
 from chan_vese_tpu_torch.ops.reinit import reinit_reference
 
@@ -45,7 +50,7 @@ def test_r1_is_its_plain_version_bitwise(dtype, shape, steps):
     got = reinit_fn(x, steps)
     want = reinit_reference(x, steps)
     torch.cuda.synchronize()
-    assert reinit_fn.launches == before + 1 + steps  # prepass and steps
+    assert reinit_fn.launches == before + _passes(x, steps)  # a pass each
     assert got.shape == x.shape and got.dtype == dtype
     assert torch.equal(got, want)
     assert torch.equal(x, phi[0] if shape[0] == 1 else phi)  # input kept
@@ -68,3 +73,68 @@ def test_r1_refuses_what_it_does_not_take():
         reinit_fn(torch.zeros(8, 8, device=dev, dtype=torch.float16), 2)
     with pytest.raises(ValueError, match="takes"):
         reinit_fn(torch.zeros(2, 2, 8, 8, device=dev), 2)
+
+
+def _passes(x, steps):
+    b, h, w = (1, *x.shape) if x.ndim == 2 else x.shape
+    return -(-steps // _cuda.reinit_geometry(b, h, w, steps,
+                                             x.element_size())[0])
+
+
+# the 4K pyramid's five level shapes, a ragged shape and a stack
+TILE_SHAPES = [(1, 135, 240), (1, 270, 480), (1, 540, 960), (1, 1080, 1920),
+               (1, 2160, 3840), (1, 257, 131), (2, 1080, 1920)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("steps", [1, 9, 20])
+@pytest.mark.parametrize("shape", TILE_SHAPES)
+def test_tile_body_is_its_first_body_and_plain_version(shape, steps, dtype):
+    dev = _card()
+    phi = torch.from_numpy(_level_sets(*shape, seed=steps)).to(dev, dtype)
+    x = phi[0] if shape[0] == 1 else phi
+    kept = x.clone()
+    before = reinit_fn.launches
+    got = reinit_fn(x, steps)
+    assert reinit_fn.launches == before + _passes(x, steps)
+    v1 = _cuda.launch_reinit(x, steps, 0.5, 1.0, v1=True)
+    want = reinit_reference(x, steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, v1)
+    assert torch.equal(got, want)
+    assert torch.equal(x, kept)  # the input left as it was
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tile_body_second_launch_and_stream_are_the_first(dtype):
+    dev = _card()
+    x = torch.from_numpy(_level_sets(2, 540, 960, seed=5)).to(dev, dtype)
+    first = reinit_fn(x, 20)
+    again = reinit_fn(x, 20)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        other = reinit_fn(x, 20)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(again, first)
+    assert torch.equal(other, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", list(_cuda.REINIT_DEPTHS))
+def test_tile_body_is_bitwise_at_every_depth(depth):
+    """Each pass depth the geometry chooses among, under a small tile (so
+    every window is cut), against the first body."""
+    dev = _card()
+    x = torch.from_numpy(_level_sets(1, 257, 131, seed=depth)[0]).to(
+        dev, torch.float32)
+    for steps in (1, 9, 20):
+        k = min(depth, steps)
+        geo = (k, 64 - 2 * k, 64 - 2 * k, 64, 8, 8)
+        got = _cuda.launch_reinit(x, steps, 0.5, 1.0, geometry=geo)
+        want = _cuda.launch_reinit(x, steps, 0.5, 1.0, v1=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (depth, steps)
