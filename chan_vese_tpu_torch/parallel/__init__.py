@@ -3,7 +3,8 @@ plain one in ``halo``, K14's ring shifts in ``halo_rdma``), the spatially
 sharded two-phase and multiphase solvers (``sharded``), the sharded
 morphological solvers (``sharded_morph``) and data-parallel frame stacks.
 Counterpart of ``chan_vese_tpu/parallel``. One process drives every device
-of a mesh; multihost runs are ROADMAP M13e."""
+of a mesh; ``multihost`` joins several processes into a
+``torch.distributed`` group."""
 
 from .data_parallel import segment_stack_sharded, shard_stack
 from .halo import exchange_halo2d, exchange_halo2d_batched
@@ -15,6 +16,7 @@ from .sharded import (MultiphaseShardedTrace, ShardedTrace,
                       segment_multiphase_sharded,
                       segment_multiphase_sharded_fixed_trace,
                       segment_sharded, segment_sharded_fixed_trace)
+from . import multihost
 
 __all__ = [
     "Mesh", "Sharding", "make_grid_mesh", "make_data_mesh",
@@ -24,5 +26,5 @@ __all__ = [
     "segment_sharded", "segment_sharded_fixed_trace", "ShardedTrace",
     "segment_multiphase_sharded", "segment_multiphase_sharded_fixed_trace",
     "MultiphaseShardedTrace",
-    "segment_stack_sharded", "shard_stack",
+    "segment_stack_sharded", "shard_stack", "multihost",
 ]

@@ -161,6 +161,24 @@ without a cadence) and segment_sharded on a 2x2 grid on the card (comm_k
 launches counted; and the CLI with --pyramid -1 --smooth 10
 --reinit-every 10 on a 1080p image (.npy: the card's machine has no
 Pillow), its mask against the truth.
+Phase 33 drives the new modules' paths through the existing kernels at
+4K gray: segment_sharded_with_checkpoints on a 2x2 grid on the card
+(comm_k 8, 800 iterations, every 200: K2's shard mode) against the
+unchunked segment_sharded, a run failed after its second save (a wrapped
+save_sharded raises) and resumed bitwise the uninterrupted one, a torn
+.tmp directory never picked by latest_sharded, the 1x1 packed (K3's shard
+mode) and comm_k 1 halo='rdma' (K1's shard mode, K14) checkpointed runs;
+the multiphase checkpoints at 1024^2 (K9 resident; K9's shard mode on the
+2x2 grid) against the unchunked runs; the CLI's --mesh --trace-energy
+(K1's shard mode) within 1e-5 of the unsharded segment_fixed's energy and
+its --checkpoint-dir; the GIF helpers' last frames bitwise their main
+runs' level sets (the sharded branch and the fixed one at 1080p), the
+launches of every run, and the times of the checkpointed run beside the
+plain one and of one save_sharded. Phase 34: utils.profiling.trace around
+two K2 chunks (its JSON names the band kernel), time_fn against the CUDA
+events, graft_entry.entry() against its plain version,
+dryrun_multichip(4) on the card and demo.main into a temporary
+directory (the .npy/.csv artifacts; the PNGs only with Pillow).
 K1's force mode runs once under torch.cuda.set_sync_debug_mode("error")
 (phase 9).
 Any failure raises and exits non-zero.
@@ -181,6 +199,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -213,6 +232,11 @@ from chan_vese_tpu_torch.parallel.sharded_morph import (  # noqa: E402
     segment_gac_sharded_chunked, segment_morph_sharded_chunked)
 from chan_vese_tpu_torch.utils.init_phi import init_phi  # noqa: E402
 from chan_vese_tpu_torch import cli as tcli  # noqa: E402
+from chan_vese_tpu_torch import demo, graft_entry  # noqa: E402
+from chan_vese_tpu_torch.utils import checkpoint as ckptm  # noqa: E402
+from chan_vese_tpu_torch.utils import checkpoint_sharded as cks  # noqa: E402
+from chan_vese_tpu_torch.utils import profiling  # noqa: E402
+from chan_vese_tpu_torch.utils import trace as tracem  # noqa: E402
 
 # the module of R1's wrapper (the ops package exports the function under
 # the module's name), through which every caller reaches it
@@ -5052,6 +5076,413 @@ def reinit_phase(dev, card, u4k, gt4k):
     return {"R1 reinit": stat}
 
 
+# checkpoints, traces, GIF frames (phase 33) and the profiling and driver
+# hooks (phase 34): existing kernels on the new modules' paths
+# the 4K 2x2 comm_k 8 checkpointed run, and the shorter ones of the 1x1
+# packed mesh (K3's shard mode) and of comm_k 1 with halo='rdma' (K1's
+# shard mode, K14)
+CKPT_ITERS, CKPT_EVERY = 800, 200
+CKPT_SHORT_ITERS, CKPT_SHORT_EVERY = 96, 48
+# the multiphase checkpoints: 1024^2, M = 2, every 50 of 200 iterations;
+# chunked labels against the unchunked run within PERF.md section 2's bar
+MP_CKPT_SHAPE, MP_CKPT_ITERS, MP_CKPT_EVERY = (1024, 1024), 200, 50
+LABELS_BAR = 1e-3
+# the CLI's sharded trace (comm_k 1), and the fixed branch's GIF frames
+CLI_TRACE_ITERS = 100
+GIF_ITERS, GIF_EVERY = 40, 10
+# the time of the checkpointed run beside the plain one, and of a save
+SAVE_REPS = 3
+# time_fn against time_ms on the same call: two chained K2 chunks at 4K
+# with k = 21 (phase 27's deepest; ~3.4 ms of device time), so the host's
+# cost of a call alone (~0.13 ms for one k = 8 chunk on an H100 80GB HBM3
+# at 700 W, whose events read 0.65 ms) stays inside the bar
+PROFILE_K, TIME_FN_RTOL = 21, 0.1
+
+
+class InjectedFault(Exception):
+    """Raised from a wrapped save_sharded after its second save."""
+
+
+PATH_COUNTERS = {
+    "K1 fused_iteration": (fused_kernel.fused_iteration, "launches"),
+    "K1 fused_iteration (shard)": (fused_kernel.fused_iteration,
+                                   "shard_launches"),
+    "K2 banded_chunk": (banded_kernel.banded_chunk, "launches"),
+    "K2 banded_chunk_sharded": (banded_kernel.banded_chunk_sharded,
+                                "launches"),
+    "K3 packed_banded_chunk_sharded": (
+        packed_kernel.packed_banded_chunk_sharded, "launches"),
+    "K9 mp2_iteration_sharded": (multiphase_kernel.mp2_iteration_sharded,
+                                 "launches"),
+    "K9 mp2_resident_iterations": (
+        multiphase_kernel.mp2_resident_iterations, "launches"),
+    "K10 packed_mp2_resident_iterations": (
+        packed_kernel.packed_mp2_resident_iterations, "launches"),
+    "K14 exchange_halo2d_rdma": (exchange_halo2d_rdma, "launches"),
+}
+
+
+def counted(fn):
+    """(fn(), {kernel: launches}) with every counter of PATH_COUNTERS set
+    to 0 just before and read just after (kernels launched at least
+    once)."""
+    for obj, attr in PATH_COUNTERS.values():
+        setattr(obj, attr, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: getattr(obj, attr)
+                 for name, (obj, attr) in PATH_COUNTERS.items()
+                 if getattr(obj, attr)}
+
+
+def need_launches(tag, counts, *names):
+    missing = [n for n in names if not counts.get(n)]
+    if missing:
+        raise AssertionError(f"{tag}: {', '.join(missing)} not launched "
+                             f"({counts})")
+
+
+def launch_line(counts):
+    return ", ".join(f"{n.split()[0]}{' shard' if 'shard' in n else ''}"
+                     f"={v}" for n, v in counts.items())
+
+
+def wall_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def sharded_checkpoints(dev, card, u4k, gt4k, root):
+    """The 4K checkpointed sharded runs against the unchunked ones, the
+    injected fault and its resume, a torn save, the launches and times.
+    Returns the uninterrupted 2x2 comm_k 8 checkpointed result."""
+    pt = ct.CVParams(mu=0.001 * 255.0 ** 2, max_iter=500)
+    mesh = make_grid_mesh(2, 2, [dev] * 4)
+    mesh1 = make_grid_mesh(1, 1, [dev])
+
+    def run_ck(d, every=CKPT_EVERY):
+        return cks.segment_sharded_with_checkpoints(
+            u4k, pt, mesh, CKPT_ITERS, d, every=every, comm_k=SHARD_K)
+
+    ref, ref_n = counted(lambda: segment_sharded(
+        u4k, pt, mesh, fixed=True, max_iter=CKPT_ITERS, comm_k=SHARD_K))
+    full, full_n = counted(lambda: run_ck(root / "full"))
+    saved = sorted(f.name for f in (root / "full").iterdir())
+    want = [f"ckpt_{s:08d}" for s in range(CKPT_EVERY, CKPT_ITERS + 1,
+                                            CKPT_EVERY)]
+    if saved != want:
+        raise AssertionError(f"checkpoint directory holds {saved}")
+    need_launches("2x2 comm_k 8 checkpointed", full_n,
+                  "K2 banded_chunk_sharded")
+
+    real_save, calls = cks.save_sharded, [0]
+
+    def save_then_fail(*a, **kw):
+        out = real_save(*a, **kw)
+        calls[0] += 1
+        if calls[0] == 2:
+            raise InjectedFault(f"after save {calls[0]}")
+        return out
+
+    cks.save_sharded = save_then_fail
+    try:
+        run_ck(root / "fault")
+        raise AssertionError("the injected fault did not fire")
+    except InjectedFault:
+        pass
+    finally:
+        cks.save_sharded = real_save
+    # a torn save of the next checkpoint left in the directory
+    torn = root / "fault" / f".tmp_ckpt_{3 * CKPT_EVERY:08d}"
+    torn.mkdir()
+    (torn / ".metadata").write_bytes(b"partial write")
+    picked = cks.latest_sharded(root / "fault").name
+    if picked != f"ckpt_{2 * CKPT_EVERY:08d}":
+        raise AssertionError(f"latest_sharded picked {picked}")
+    resumed, res_n = counted(lambda: run_ck(root / "fault"))
+    resumed_bitwise = torch.equal(resumed.phi, full.phi)
+
+    packed1, packed_n = counted(lambda: cks.segment_sharded_with_checkpoints(
+        u4k, pt, mesh1, CKPT_SHORT_ITERS, root / "packed",
+        every=CKPT_SHORT_EVERY, comm_k=SHARD_K, packed=True))
+    packed_ref = segment_sharded(u4k, pt, mesh1, fixed=True,
+                                 max_iter=CKPT_SHORT_ITERS, comm_k=SHARD_K,
+                                 packed=True)
+    need_launches("1x1 packed checkpointed", packed_n,
+                  "K3 packed_banded_chunk_sharded")
+    rdma, rdma_n = counted(lambda: cks.segment_sharded_with_checkpoints(
+        u4k, pt, mesh, CKPT_SHORT_ITERS, root / "rdma",
+        every=CKPT_SHORT_EVERY, halo="rdma"))
+    rdma_ref = segment_sharded(u4k, pt, mesh, fixed=True,
+                               max_iter=CKPT_SHORT_ITERS, halo="rdma")
+    need_launches("2x2 comm_k 1 rdma checkpointed", rdma_n,
+                  "K1 fused_iteration (shard)", "K14 exchange_halo2d_rdma")
+    torch.cuda.synchronize()
+    checks = {
+        "2x2 comm_k 8 checkpointed IoU vs unchunked": (
+            iou(full.mask.cpu(), ref.mask.cpu()), 0.999),
+        "2x2 comm_k 8 checkpointed IoU vs truth": (
+            iou_phases(full.mask.cpu(), gt4k), 0.99),
+        "1x1 packed checkpointed IoU vs unchunked": (
+            iou(packed1.mask.cpu(), packed_ref.mask.cpu()), 0.999),
+        "2x2 rdma checkpointed IoU vs unchunked": (
+            iou(rdma.mask.cpu(), rdma_ref.mask.cpu()), 0.999),
+    }
+    errs = {t: float((a.phi - b.phi).abs().max()) for t, a, b in (
+        ("2x2 comm_k 8", full, ref), ("1x1 packed", packed1, packed_ref),
+        ("2x2 rdma", rdma, rdma_ref))}
+    print(f"phase 33 sharded checkpoints, 4K gray, mu 0.001 255^2: "
+          f"segment_sharded_with_checkpoints 2x2 comm_k {SHARD_K} "
+          f"{CKPT_ITERS} iterations every {CKPT_EVERY} (saved {saved}), "
+          f"1x1 packed and 2x2 comm_k 1 halo='rdma' {CKPT_SHORT_ITERS} "
+          f"every {CKPT_SHORT_EVERY}, each against the unchunked "
+          f"segment_sharded: phi max|d| "
+          + ", ".join(f"{t} {e:.3e}" for t, e in errs.items()) + "; "
+          + "; ".join(f"{k} {v:.6f} (>= {m})" for k, (v, m) in checks.items())
+          + f"; a run failed after its second save and resumed from "
+          f"{picked} (a torn {torn.name} beside it) bitwise the "
+          f"uninterrupted run: {resumed_bitwise}; launches: unchunked "
+          f"{launch_line(ref_n)}; checkpointed {launch_line(full_n)}; "
+          f"resumed {launch_line(res_n)}; 1x1 packed "
+          f"{launch_line(packed_n)}; rdma {launch_line(rdma_n)}", flush=True)
+    check_masks(checks)
+    if not resumed_bitwise:
+        raise AssertionError("the resumed run differs from the "
+                             "uninterrupted one")
+    n_pix = H4K * W4K
+    plain_ms = wall_ms(lambda: segment_sharded(
+        u4k, pt, mesh, fixed=True, max_iter=CKPT_ITERS, comm_k=SHARD_K))[0]
+    ck_ms = wall_ms(lambda: run_ck(root / "timed"))[0]
+    saves = [wall_ms(lambda: cks.save_sharded(root / "saves", CKPT_ITERS,
+                                              full.phi, full.c1, full.c2))[0]
+             for _ in range(SAVE_REPS)]
+    mb = full.phi.numel() * full.phi.element_size() / 1e6
+    print(f"phase 33 times, 4K 2x2 comm_k {SHARD_K} {CKPT_ITERS} "
+          f"iterations (wall clock, synchronized): segment_sharded "
+          f"{plain_ms:.1f} ms = {n_pix * CKPT_ITERS / (plain_ms * 1e3):.1f} "
+          f"Mpixel-iters/s; segment_sharded_with_checkpoints every "
+          f"{CKPT_EVERY} {ck_ms:.1f} ms = "
+          f"{n_pix * CKPT_ITERS / (ck_ms * 1e3):.1f} Mpixel-iters/s; one "
+          f"save_sharded of the {mb:.1f} MB level set "
+          + ", ".join(f"{s:.1f}" for s in saves) + f" ms [{card}]",
+          flush=True)
+    return pt, mesh, full
+
+
+def multiphase_checkpoints(dev, card, root):
+    """The multiphase checkpoints at 1024^2, unsharded (K9 resident) and
+    on the 2x2 grid (K9's shard mode), against the unchunked runs."""
+    pm = ct.CVParams(mu=MU_MP, max_iter=500)
+    img, gt = four_regions(*MP_CKPT_SHAPE)
+    u = torch.from_numpy(img).to(dev)
+    mesh = make_grid_mesh(2, 2, [dev] * 4)
+    runs = {
+        "unsharded": (
+            lambda: ct.segment_multiphase(u, pm, fixed=True,
+                                          max_iter=MP_CKPT_ITERS),
+            lambda: ckptm.segment_multiphase_with_checkpoints(
+                u, pm, MP_CKPT_ITERS, root / "mp", every=MP_CKPT_EVERY),
+            ("K9 mp2_resident_iterations",)),
+        "2x2": (
+            lambda: segment_multiphase_sharded(
+                u, pm, mesh, fixed=True, max_iter=MP_CKPT_ITERS),
+            lambda: cks.segment_multiphase_sharded_with_checkpoints(
+                u, pm, mesh, MP_CKPT_ITERS, root / "mps",
+                every=MP_CKPT_EVERY),
+            ("K9 mp2_iteration_sharded",)),
+    }
+    out = {}
+    for tag, (plain_fn, ck_fn, kernels) in runs.items():
+        ref, ref_n = counted(plain_fn)
+        got, got_n = counted(ck_fn)
+        need_launches(f"multiphase {tag} checkpointed", got_n, *kernels)
+        out[tag] = (label_frac(got.phis, ref.phis),
+                    torch.equal(got.phis, ref.phis),
+                    best_accuracy(got.labels.cpu(), gt), ref_n, got_n)
+    print(f"phase 33 multiphase checkpoints {MP_CKPT_SHAPE[0]}x"
+          f"{MP_CKPT_SHAPE[1]} M=2, every {MP_CKPT_EVERY} of "
+          f"{MP_CKPT_ITERS} iterations: "
+          + "; ".join(f"{t} labels differing from the unchunked run "
+                      f"{fr:.3e} (<= {LABELS_BAR}), level sets bitwise "
+                      f"{eq}, accuracy vs truth {acc:.6f}, launches "
+                      f"unchunked {launch_line(rn)}, checkpointed "
+                      f"{launch_line(gn)}"
+                      for t, (fr, eq, acc, rn, gn) in out.items()), flush=True)
+    for tag, (frac, _, _, _, _) in out.items():
+        if not frac <= LABELS_BAR:
+            raise AssertionError(f"multiphase {tag} checkpointed labels "
+                                 f"differ at {frac}")
+
+
+def cli_trace_and_frames(dev, card, u4k, pt, mesh, full, root):
+    """The CLI's --mesh --trace-energy against the unsharded trace, its
+    --checkpoint-dir, and the GIF helpers' last frames against the main
+    runs (the sharded branch and the fixed branch at 1080p)."""
+    src = str(root / "img4k.npy")
+    np.save(src, u4k.cpu().numpy())
+    csv = root / "trace.csv"
+    rc, trace_n = counted(lambda: tcli.main(
+        [src, "--mesh", "2", "2", "--iters", str(CLI_TRACE_ITERS),
+         "--trace-energy", str(csv), "--quiet",
+         "-o", str(root / "mask_trace.npy")]))
+    energy = torch.from_numpy(tracem.read_energy_csv(csv)["energy"])
+    plain = ct.segment_fixed(u4k, ct.CVParams(),
+                             iters=CLI_TRACE_ITERS).energy.double().cpu()
+    e_rel = float(((energy - plain).abs() / plain.abs()).max())
+    need_launches("CLI sharded trace", trace_n, "K1 fused_iteration (shard)")
+
+    # the sharded branch: the CLI's checkpointed run, its GIF frames at
+    # the checkpoints' chunks
+    mu = str(pt.mu)
+    ck = root / "cli_ck"
+    argv = [src, "--mesh", "2", "2", "--iters", str(CKPT_ITERS), "--mu", mu,
+            "--comm-k", str(SHARD_K), "--gif-every", str(CKPT_EVERY)]
+    rc2, cli_n = counted(lambda: tcli.main(
+        argv + ["--checkpoint-dir", str(ck), "--checkpoint-every",
+                str(CKPT_EVERY), "--quiet", "-o",
+                str(root / "mask_ck.npy")]))
+    final = cks.restore_sharded(cks.latest_sharded(ck), mesh, (H4K, W4K),
+                                torch.float32)
+    args = tcli.build_parser().parse_args(argv)
+    frames, gif_n = counted(lambda: tcli._sharded_frames(
+        args, u4k, pt, mesh, None, None, SHARD_K))
+    sharded_equal = (torch.equal(frames[-1], final["phi"].cpu())
+                     and torch.equal(final["phi"], full.phi))
+    need_launches("CLI sharded checkpointed", cli_n,
+                  "K2 banded_chunk_sharded")
+    need_launches("sharded GIF frames", gif_n, "K2 banded_chunk_sharded")
+
+    # the fixed branch at 1080p: segment_fixed, the plain per-iteration
+    # driver (means from the level set every iteration, so chunks agree)
+    p = ct.CVParams()
+    u1k = torch.from_numpy(two_disks(1080, 1920)[0]).to(dev)
+    args = tcli.build_parser().parse_args(
+        [src, "--iters", str(GIF_ITERS), "--gif-every", str(GIF_EVERY)])
+    fixed_frames = tcli._fixed_frames(args, u1k, p, None, None)
+    main_phi = ct.segment_fixed(u1k, p, iters=GIF_ITERS).phi
+    fixed_equal = torch.equal(fixed_frames[-1], main_phi.cpu())
+    # --f64: the plain fixed driver runs in float64 on the card; the
+    # kernel routes take float32 only and raise, as their drivers do
+    src1k = str(root / "img1k.npy")
+    np.save(src1k, u1k.cpu().numpy())
+    rc64 = tcli.main([src1k, "--iters", "10", "--f64", "--quiet",
+                      "--trace-energy", str(root / "trace64.csv")])
+    e64 = tracem.read_energy_csv(root / "trace64.csv")["energy"]
+    try:
+        tcli.main([src1k, "--f64", "--max-iter", "10", "--quiet"])
+        f64_kernel = "ran"
+    except TypeError as e:
+        f64_kernel = f"TypeError: {e}"
+    print(f"phase 33 CLI: --mesh 2 2 --iters {CLI_TRACE_ITERS} "
+          f"--trace-energy exit {rc}, energy max rel diff vs the unsharded "
+          f"segment_fixed {e_rel:.3e} (<= {TRACE_RTOL}), launches "
+          f"{launch_line(trace_n)}; --mesh 2 2 --comm-k {SHARD_K} --iters "
+          f"{CKPT_ITERS} --checkpoint-dir exit {rc2}, launches "
+          f"{launch_line(cli_n)}; GIF frames: sharded branch "
+          f"{len(frames)} frames (launches {launch_line(gif_n)}), the last "
+          f"bitwise the checkpointed run's final level set {sharded_equal} "
+          f"(max|d| to the unchunked run "
+          f"{float((frames[-1] - full.phi.cpu()).abs().max()):.3e}); fixed "
+          f"branch 1080p {len(fixed_frames)} frames of {GIF_EVERY} "
+          f"iterations, the last bitwise segment_fixed's {GIF_ITERS}-"
+          f"iteration level set {fixed_equal}; --f64 --iters 10 at 1080p "
+          f"exit {rc64} (energy {e64[-1]:.17g}), --f64 on the banded route: "
+          f"{f64_kernel}", flush=True)
+    if rc64 != 0 or not f64_kernel.startswith("TypeError"):
+        raise AssertionError("--f64 on the card: the plain driver must run "
+                             "and the float32 kernels must refuse")
+    if rc != 0 or rc2 != 0:
+        raise AssertionError(f"the CLI exited {rc}, {rc2}")
+    if not e_rel <= TRACE_RTOL:
+        raise AssertionError(f"the CLI's sharded trace is {e_rel} from the "
+                             f"unsharded one")
+    if not (sharded_equal and fixed_equal):
+        raise AssertionError("a GIF helper's last frame differs from its "
+                             "main run's level set")
+
+
+def ckpt_phase(dev, card, u4k, gt4k):
+    """Phase 33: checkpoints, traces and GIF frames on the card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        pt, mesh, full = sharded_checkpoints(dev, card, u4k, gt4k, root)
+        multiphase_checkpoints(dev, card, root)
+        cli_trace_and_frames(dev, card, u4k, pt, mesh, full, root)
+
+
+def hooks_phase(dev, card, u4k):
+    """Phase 34: utils.profiling around K2's chunk, the driver hooks
+    (graft_entry) and the demo."""
+    p = ct.CVParams()
+    phi = init_phi((H4K, W4K), p.init, torch.float32, device=dev)
+    c1, c2 = region_means(u4k, phi, p.eps)
+
+    def chunks():
+        out, _ = banded_kernel.banded_chunk(phi, u4k, c1, c2, p, k=PROFILE_K)
+        return banded_kernel.banded_chunk(out, u4k, c1, c2, p, k=PROFILE_K)
+
+    chunks()
+    with tempfile.TemporaryDirectory() as tmp:
+        banded_kernel.banded_chunk.launches = 0
+        with profiling.trace(tmp) as log_dir:
+            chunks()
+        n_chunk = banded_kernel.banded_chunk.launches
+        with open(Path(log_dir) / "trace.json") as fh:
+            events = json.load(fh)["traceEvents"]
+    names = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    band = [n for n in names if "band_kernel" in n]
+    fn_s, _ = profiling.time_fn(chunks, warmup=2, reps=20)
+    ev_ms = time_ms(chunks, 20)
+    rel = abs(fn_s * 1e3 - ev_ms) / ev_ms
+    print(f"phase 34 profiling: trace of two chained K2 chunks at 4K k="
+          f"{PROFILE_K} "
+          f"({n_chunk} launches) names {band[:1]} among {len(names)} "
+          f"kernels; time_fn {fn_s * 1e3:.4f} ms (best of 20, wall) vs "
+          f"time_ms {ev_ms:.4f} ms (CUDA events, mean of 20), rel "
+          f"{rel:.3f} (<= {TIME_FN_RTOL}); roofline() default "
+          f"{profiling.roofline(H4K, W4K):.1f} Mpixel-iters/s [{card}]",
+          flush=True)
+    if not band or n_chunk != 2:
+        raise AssertionError(f"the trace names no band kernel ({names})")
+    if not rel <= TIME_FN_RTOL:
+        raise AssertionError(f"time_fn {fn_s * 1e3} ms vs time_ms {ev_ms}")
+
+    fn, args = graft_entry.entry()
+    (got_phi, got_parts), entry_n = counted(lambda: fn(*args))
+    ref_phi, ref_parts = banded_kernel.banded_chunk_reference(
+        *args, ct.CVParams(), graft_entry.ENTRY_K)
+    err = float((got_phi - ref_phi).abs().max())
+    sure = ref_phi.abs() > PHI_ATOL
+    entry_ok = (torch.allclose(got_phi, ref_phi, rtol=PHI_RTOL,
+                               atol=PHI_ATOL)
+                and bool(((got_phi >= 0) == (ref_phi >= 0))[sure].all())
+                and torch.allclose(got_parts, ref_parts, rtol=PARTS_RTOL,
+                                   atol=PARTS_ATOL))
+    dry, dry_n = counted(lambda: graft_entry.dryrun_multichip(4))
+    need_launches("graft_entry.entry", entry_n, "K2 banded_chunk")
+    need_launches("dryrun_multichip(4)", dry_n, "K2 banded_chunk_sharded")
+    with tempfile.TemporaryDirectory() as tmp:
+        demo_n = counted(lambda: demo.main(tmp))[1]
+        files = sorted(f.name for f in Path(tmp).iterdir())
+    need = {"scalar_mask.npy", "scalar_trace.csv", "rgb_mask.npy",
+            "multiphase_labels.npy"}
+    print(f"phase 34 hooks: graft_entry.entry() K2 chunk 512^2 k="
+          f"{graft_entry.ENTRY_K} phi max|d| vs plain {err:.3e} (phi rtol "
+          f"{PHI_RTOL} atol {PHI_ATOL}, parts rtol {PARTS_RTOL} atol "
+          f"{PARTS_ATOL}) ok {entry_ok}, launches {launch_line(entry_n)}; "
+          f"dryrun_multichip(4) layout {dry['layout']} on {dev}, launches "
+          f"{launch_line(dry_n)}; demo.main wrote {files}, launches "
+          f"{launch_line(demo_n)}", flush=True)
+    if not entry_ok or dry["layout"] != (1, 2, 2):
+        raise AssertionError("graft_entry disagrees with its plain version "
+                             "or the dry run's layout")
+    if not need <= set(files):
+        raise AssertionError(f"demo.main wrote {files}")
+
+
 def main(argv=()) -> int:
     sass_parent = None
     if argv:
@@ -5562,6 +5993,8 @@ def main(argv=()) -> int:
     morph_bits_phase(dev, card, mo_stats, ms_stats, sass_checked)
     resident_tile_phase(dev, card, sass_checked)
     re_stats = reinit_phase(dev, card, u4k, gt4k)
+    ckpt_phase(dev, card, u4k, gt4k)
+    hooks_phase(dev, card, u4k)
 
     entries = [
         dict(name=name, route="cuda", source=k["source"],

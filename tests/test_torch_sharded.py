@@ -351,10 +351,12 @@ def test_cli_mesh_writes_the_reference_mask(tmp_path):
                                       np.load(tmp_path / ref))
     # --multiphase, --morph and --morph-gac run sharded
     # (tests/test_torch_sharded_multiphase.py, test_torch_sharded_morph.py);
-    # the flags of unported modules raise naming them
-    for flag, module in ((["--trace-energy", "t.csv"], "M12"),
-                         (["--evolution-gif", "e.gif"], "M12"),
-                         (["--checkpoint-dir", "ck"], "M13e")):
-        with pytest.raises(NotImplementedError, match=module):
-            tcli.main([str(src), "--mesh", "2", "2", "--device", "cpu",
-                       "--iters", "2", *flag])
+    # the trace, GIF and checkpoint flags write their artifacts
+    # (tests/test_torch_cli_m12.py holds them against the reference's)
+    for flag, out in ((["--trace-energy"], "t.csv"),
+                      (["--evolution-gif"], "e.gif"),
+                      (["--checkpoint-dir"], "ck")):
+        assert tcli.main([str(src), "--mesh", "2", "2", "--device", "cpu",
+                          "--iters", "2", *flag, str(tmp_path / out)]) == 0
+        assert (tmp_path / out).exists()
+    assert (tmp_path / "ck" / "ckpt_00000002").is_dir()

@@ -240,7 +240,7 @@ def test_arguments_raise_where_the_reference_raises(jgrid):
 @pytest.mark.parametrize("extra", [["--max-iter", "60"],
                                    ["--iters", "6", "--comm-k", "2"]])
 def test_cli_mesh_multiphase_writes_the_reference_labels(extra, tmp_path):
-    """Both CLIs in float32 (the port's has no --f64 yet, ROADMAP M12):
+    """Both CLIs in float32:
     the label maps agree but for 1e-3 of the cells (chip_smoke.py's
     LABELS_FRAC for f32 multiphase runs)."""
     src = tmp_path / "img.npy"
