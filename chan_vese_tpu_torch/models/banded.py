@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from .. import spans
 from ..ops import banded_kernel, packed_kernel
 from ..ops.reductions import means_from_sums, region_means
 from ..params import CVParams
@@ -109,7 +110,9 @@ class _Chunker:
         H, W = u0.shape[:2]
         self.p, self.unroll, self.fuse = p, unroll, fuse
         self.lambda1, self.lambda2 = lambda1, lambda2
-        self.n_pix = torch.tensor(H * W, dtype=u0.dtype, device=u0.device)
+        with spans.span("cv.sync.n_pix"):
+            self.n_pix = torch.tensor(H * W, dtype=u0.dtype,
+                                      device=u0.device)
         self.c1, self.c2 = region_means(u0, phi0, p.eps)
         img, self.sum_u, self.nchan = _kernel_image(u0)
         self.offset = max(self.nchan, 1) - 1
@@ -142,8 +145,9 @@ class _Chunker:
             self.phi, parts = op(self.phi, self.u0, self.c1, self.c2, self.p,
                                  size, unroll=un, fuse=self.fuse)
             sum_uh = parts[0]
-        self.c1, self.c2 = means_from_sums(sum_uh, parts[self.offset + 1],
-                                           self.sum_u, self.n_pix)
+        with spans.span("cv.drv.means"):
+            self.c1, self.c2 = means_from_sums(
+                sum_uh, parts[self.offset + 1], self.sum_u, self.n_pix)
         return parts
 
     def image(self):
@@ -177,20 +181,22 @@ def segment_banded_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
     Returns (phi, mask). (H, W, C) images run the multichannel kernels
     with per-channel lambda tuples. Off the banded envelope it runs
     :func:`.fused.segment_fused_fixed`."""
-    k, unroll, packed, fuse, p, lambda1, lambda2, ok = _route(
-        u0, p, k, unroll, packed, fuse, lambda1, lambda2)
-    if not ok or iters < 1:
+    with spans.span("cv.drv.setup"):
+        k, unroll, packed, fuse, p, lambda1, lambda2, ok = _route(
+            u0, p, k, unroll, packed, fuse, lambda1, lambda2)
+        ch = (_Chunker(u0, p, _phi0(u0, p, phi0), k, unroll, packed, fuse,
+                       lambda1, lambda2) if ok and iters >= 1 else None)
+    if ch is None:
         from .fused import segment_fused_fixed
         return segment_fused_fixed(u0, p, iters, phi0, lambda1=lambda1,
                                    lambda2=lambda2)
-    ch = _Chunker(u0, p, _phi0(u0, p, phi0), k, unroll, packed, fuse,
-                  lambda1, lambda2)
-    for _ in range(iters // k):
-        ch.run(k)
-    if iters % k:
-        ch.run(iters % k)
-    phi = ch.image()
-    return phi, phi >= 0
+    sizes = [k] * (iters // k) + ([iters % k] if iters % k else [])
+    for size in sizes:
+        with spans.span("cv.drv.step"):
+            ch.run(size)
+    with spans.span("cv.drv.finish"):
+        phi = ch.image()
+        return phi, phi >= 0
 
 
 def segment_banded(u0, p: CVParams = CVParams(),
@@ -203,37 +209,63 @@ def segment_banded(u0, p: CVParams = CVParams(),
     """Tolerance-mode banded segmentation (chunk-granular convergence).
     (H, W, C) images run the multichannel kernels with per-channel lambda
     tuples. Off the banded envelope it runs :func:`.fused.segment_fused`."""
-    k, unroll, packed, fuse, p, lambda1, lambda2, ok = _route(
-        u0, p, k, unroll, packed, fuse, lambda1, lambda2)
+    with spans.span("cv.drv.setup"):
+        k, unroll, packed, fuse, p, lambda1, lambda2, ok = _route(
+            u0, p, k, unroll, packed, fuse, lambda1, lambda2)
+        if ok:
+            # validate conv_norm before any work (same contract as the
+            # reference)
+            _delta_from_partials(torch.zeros(16, dtype=u0.dtype), 1.0, p)
+            ch = _Chunker(u0, p, _phi0(u0, p, phi0), k, unroll, packed,
+                          fuse, lambda1, lambda2)
+            with spans.span("cv.sync.inf"):
+                delta = torch.tensor(math.inf, dtype=u0.dtype,
+                                     device=u0.device)
     if not ok:
         from .fused import segment_fused
         return segment_fused(u0, p, phi0, lambda1=lambda1, lambda2=lambda2)
-    # validate conv_norm before any work (same contract as the reference)
-    _delta_from_partials(torch.zeros(16, dtype=u0.dtype), 1.0, p)
-    ch = _Chunker(u0, p, _phi0(u0, p, phi0), k, unroll, packed, fuse,
-                  lambda1, lambda2)
     n, streak = 0, 0
-    delta = torch.tensor(math.inf, dtype=u0.dtype, device=u0.device)
 
     def not_stopped():
-        done = streak >= p.patience and n >= p.min_iter
-        diverged = n > 0 and not math.isfinite(float(delta))
-        return not (done or diverged)
+        with spans.span("cv.drv.stop"):
+            done = streak >= p.patience and n >= p.min_iter
+            if n == 0:
+                return not done
+            with spans.span("cv.sync.diverged"):
+                diverged = not math.isfinite(float(delta))
+            return not (done or diverged)
 
     def run_chunk(size):
         nonlocal n, delta, streak
         parts = ch.run(size)
-        delta = _delta_from_partials(parts, ch.n_pix, p, ch.offset)
-        # a below-tol chunk credits its full size: patience stays
-        # iteration-denominated across drivers
-        streak = streak + size if bool(delta < p.tol) else 0
+        with spans.span("cv.drv.stop"):
+            delta = _delta_from_partials(parts, ch.n_pix, p, ch.offset)
+            with spans.span("cv.sync.tol"):
+                below = bool(delta < p.tol)
+            # a below-tol chunk credits its full size: patience stays
+            # iteration-denominated across drivers
+            streak = streak + size if below else 0
         n += size
 
     full = (p.max_iter // k) * k
-    while n < full and not_stopped():
-        run_chunk(k)
     rem = p.max_iter - full
-    if rem and n < p.max_iter and not_stopped():
-        run_chunk(rem)
-    phi = ch.image()
-    return SegResult(phi, phi >= 0, n, delta, ch.c1, ch.c2)
+
+    def next_size():
+        """The next chunk's size, 0 where the run stops: full k-chunks,
+        then one remainder chunk."""
+        if n < full and not_stopped():
+            return k
+        if rem and n < p.max_iter and not_stopped():
+            return rem
+        return 0
+
+    # a step ends with the decision on the next chunk, so that the host's
+    # turn between two chunks' reads lies inside one step
+    size = next_size()
+    while size:
+        with spans.span("cv.drv.step"):
+            run_chunk(size)
+            size = next_size()
+    with spans.span("cv.drv.finish"):
+        phi = ch.image()
+        return SegResult(phi, phi >= 0, n, delta, ch.c1, ch.c2)

@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from .. import spans
 from ..ops import packed_kernel, resident_kernel
 from ..ops.reductions import region_means
 from ..params import CVParams
@@ -149,18 +150,22 @@ def segment_stack_resident_fixed(u0, p: CVParams = CVParams(),
     """Fixed-iteration segmentation of an (N, H, W) grayscale stack, every
     frame in one launch. Off the resident envelope it runs
     :func:`.batched.segment_stack_fused_fixed`. Returns (phi, mask)."""
-    p = _fold_scalar_lambdas(p, lambda1, lambda2)
-    N, H, W = u0.shape
-    if (not resident_kernel.supports_resident(H, W)
-            or p.order != "redblack" or p.reinit_every):
+    with spans.span("cv.drv.setup"):
+        p = _fold_scalar_lambdas(p, lambda1, lambda2)
+        N, H, W = u0.shape
+        ok = (resident_kernel.supports_resident(H, W)
+              and p.order == "redblack" and not p.reinit_every)
+        if ok:
+            phi0 = _stack_phi0(u0, p, phi0)
+            packed = packed_kernel.supports_packed_resident(H, W)
+    if not ok:
         from .batched import segment_stack_fused_fixed
         return segment_stack_fused_fixed(u0, p, iters, phi0)
-    phi0 = _stack_phi0(u0, p, phi0)
-    if packed_kernel.supports_packed_resident(H, W):
-        un = 2 if iters % 2 == 0 else 1
+    if packed:
         phis, _ = packed_kernel.packed_resident_iterations_batch(
-            phi0, u0, p, iters, unroll=un)
+            phi0, u0, p, iters, unroll=2 if iters % 2 == 0 else 1)
     else:
         phis, _ = resident_kernel.resident_iterations_batch(phi0, u0, p,
                                                             iters)
-    return phis, phis >= 0
+    with spans.span("cv.drv.finish"):
+        return phis, phis >= 0

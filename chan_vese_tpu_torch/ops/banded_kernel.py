@@ -31,6 +31,7 @@ from typing import Tuple
 
 import torch
 
+from .. import spans
 from ..params import CVParams
 from . import _cuda
 from .fused_kernel import _VMEM_LIMIT, chunk_reference, chunk_shard_reference
@@ -82,13 +83,15 @@ def banded_chunk(phi, u0, c1, c2, p: CVParams, k: int = 8,
     for signature parity with the reference; they changed only the TPU
     grid, never the values, and the Hopper kernel ignores them.
     """
-    if unroll < 1 or k % unroll:
-        raise ValueError(f"unroll must divide k (got k={k}, unroll={unroll})")
-    if phi.device.type == "cpu":
-        return banded_chunk_reference(phi, u0, c1, c2, p, k)
-    out = _cuda.launch_band(phi, u0, c1, c2, p, k)
-    banded_chunk.launches += 1
-    return out
+    with spans.span("cv.launch.banded_chunk"):
+        if unroll < 1 or k % unroll:
+            raise ValueError(f"unroll must divide k (got k={k}, "
+                             f"unroll={unroll})")
+        if phi.device.type == "cpu":
+            return banded_chunk_reference(phi, u0, c1, c2, p, k)
+        out = _cuda.launch_band(phi, u0, c1, c2, p, k)
+        banded_chunk.launches += 1
+        return out
 
 
 banded_chunk.launches = 0
@@ -122,16 +125,18 @@ def banded_chunk_sharded(canvas, u0_canvas, c1, c2, p: CVParams, k: int,
     ``cv_banded_chunk_shard`` (``csrc/banded.cu``, the band body) or
     raise.
     """
-    if unroll < 1 or k % unroll:
-        raise ValueError(f"unroll must divide k (got k={k}, unroll={unroll})")
-    h, w = canvas.shape
-    shard = _cuda.shard_args(h, w, k, parity, crop, edges)
-    if canvas.device.type == "cpu":
-        return banded_chunk_sharded_reference(canvas, u0_canvas, c1, c2, p,
-                                              k, parity, edges, crop)
-    out = _cuda.launch_band(canvas, u0_canvas, c1, c2, p, k, shard=shard)
-    banded_chunk_sharded.launches += 1
-    return out
+    with spans.span("cv.launch.banded_chunk_sharded"):
+        if unroll < 1 or k % unroll:
+            raise ValueError(f"unroll must divide k (got k={k}, "
+                             f"unroll={unroll})")
+        h, w = canvas.shape
+        shard = _cuda.shard_args(h, w, k, parity, crop, edges)
+        if canvas.device.type == "cpu":
+            return banded_chunk_sharded_reference(canvas, u0_canvas, c1, c2, p,
+                                                  k, parity, edges, crop)
+        out = _cuda.launch_band(canvas, u0_canvas, c1, c2, p, k, shard=shard)
+        banded_chunk_sharded.launches += 1
+        return out
 
 
 banded_chunk_sharded.launches = 0
@@ -169,16 +174,18 @@ def banded_chunk_mc(phi, u0_cfirst, c1, c2, p: CVParams, k: int = 8,
     s_dphi2, flips, s_absdphi, 0...] of the last iteration's transition.
     ``unroll``/``fuse``: as :func:`banded_chunk`.
     """
-    if unroll < 1 or k % unroll:
-        raise ValueError(f"unroll must divide k (got k={k}, unroll={unroll})")
-    C = _cuda.mc_channels(phi, u0_cfirst)
-    if phi.device.type == "cpu":
-        return banded_chunk_mc_reference(phi, u0_cfirst, c1, c2, p, k,
-                                         lambda1, lambda2)
-    l1, l2 = p.channel_lambdas(C, lambda1, lambda2)
-    out = _cuda.launch_band(phi, u0_cfirst, c1, c2, p, k, l1=l1, l2=l2)
-    banded_chunk_mc.launches += 1
-    return out
+    with spans.span("cv.launch.banded_chunk_mc"):
+        if unroll < 1 or k % unroll:
+            raise ValueError(f"unroll must divide k (got k={k}, "
+                             f"unroll={unroll})")
+        C = _cuda.mc_channels(phi, u0_cfirst)
+        if phi.device.type == "cpu":
+            return banded_chunk_mc_reference(phi, u0_cfirst, c1, c2, p, k,
+                                             lambda1, lambda2)
+        l1, l2 = p.channel_lambdas(C, lambda1, lambda2)
+        out = _cuda.launch_band(phi, u0_cfirst, c1, c2, p, k, l1=l1, l2=l2)
+        banded_chunk_mc.launches += 1
+        return out
 
 
 banded_chunk_mc.launches = 0
@@ -209,20 +216,22 @@ def banded_chunk_mc_sharded(canvas, u0_canvas_cfirst, c1, c2, p: CVParams,
     contract; returns (canvas_new, partials (16,)) restricted to the crop.
     CPU tensors run the plain version; CUDA tensors launch
     ``cv_banded_chunk_mc_shard`` (``csrc/banded_mc.cu``) or raise."""
-    if unroll < 1 or k % unroll:
-        raise ValueError(f"unroll must divide k (got k={k}, unroll={unroll})")
-    C = _cuda.mc_channels(canvas, u0_canvas_cfirst)
-    h, w = canvas.shape
-    shard = _cuda.shard_args(h, w, k, parity, crop, edges)
-    if canvas.device.type == "cpu":
-        return banded_chunk_mc_sharded_reference(
-            canvas, u0_canvas_cfirst, c1, c2, p, k, parity, edges, crop,
-            lambda1, lambda2)
-    l1, l2 = p.channel_lambdas(C, lambda1, lambda2)
-    out = _cuda.launch_band(canvas, u0_canvas_cfirst, c1, c2, p, k,
-                            shard=shard, l1=l1, l2=l2)
-    banded_chunk_mc_sharded.launches += 1
-    return out
+    with spans.span("cv.launch.banded_chunk_mc_sharded"):
+        if unroll < 1 or k % unroll:
+            raise ValueError(f"unroll must divide k (got k={k}, "
+                             f"unroll={unroll})")
+        C = _cuda.mc_channels(canvas, u0_canvas_cfirst)
+        h, w = canvas.shape
+        shard = _cuda.shard_args(h, w, k, parity, crop, edges)
+        if canvas.device.type == "cpu":
+            return banded_chunk_mc_sharded_reference(
+                canvas, u0_canvas_cfirst, c1, c2, p, k, parity, edges, crop,
+                lambda1, lambda2)
+        l1, l2 = p.channel_lambdas(C, lambda1, lambda2)
+        out = _cuda.launch_band(canvas, u0_canvas_cfirst, c1, c2, p, k,
+                                shard=shard, l1=l1, l2=l2)
+        banded_chunk_mc_sharded.launches += 1
+        return out
 
 
 banded_chunk_mc_sharded.launches = 0

@@ -50,6 +50,7 @@ parity planes, with K9's contract ((2, H, W) in and out, rows
 
 from __future__ import annotations
 
+from .. import spans
 from ..params import CVParams
 from . import _cuda
 from .banded_kernel import (banded_chunk_mc_reference, banded_chunk_reference,
@@ -93,13 +94,14 @@ def pack_planes(x):
     H/2, W/2) (a frame or channel axis), contiguous; plane (a, b) holds
     x[2r + a, 2c + b]. CPU tensors run the plain version; CUDA tensors
     (float32) launch K15 or raise."""
-    n, h, w = _image_shape(x)
-    if x.device.type == "cpu":
-        return pack_planes_reference(x)
-    out = _cuda.launch_pack("cv_pack_planes", x.reshape(n or 1, h, w),
-                            (n or 1, 2, 2, h // 2, w // 2))
-    pack_planes.launches += 1
-    return out if n is not None else out[0]
+    with spans.span("cv.launch.pack_planes"):
+        n, h, w = _image_shape(x)
+        if x.device.type == "cpu":
+            return pack_planes_reference(x)
+        out = _cuda.launch_pack("cv_pack_planes", x.reshape(n or 1, h, w),
+                                (n or 1, 2, 2, h // 2, w // 2))
+        pack_planes.launches += 1
+        return out if n is not None else out[0]
 
 
 pack_planes.launches = 0
@@ -127,14 +129,15 @@ def unpack_planes(planes):
     """Inverse of :func:`pack_planes`: (2, 2, H/2, W/2) -> (H, W) or
     (N, 2, 2, H/2, W/2) -> (N, H, W). CPU tensors run the plain version;
     CUDA tensors (float32) launch K16 or raise."""
-    n, h, w = _planes_shape(planes)
-    if planes.device.type == "cpu":
-        return unpack_planes_reference(planes)
-    out = _cuda.launch_pack("cv_unpack_planes",
-                            planes.reshape(n or 1, 2, 2, h // 2, w // 2),
-                            (n or 1, h, w))
-    unpack_planes.launches += 1
-    return out if n is not None else out[0]
+    with spans.span("cv.launch.unpack_planes"):
+        n, h, w = _planes_shape(planes)
+        if planes.device.type == "cpu":
+            return unpack_planes_reference(planes)
+        out = _cuda.launch_pack("cv_unpack_planes",
+                                planes.reshape(n or 1, 2, 2, h // 2, w // 2),
+                                (n or 1, h, w))
+        unpack_planes.launches += 1
+        return out if n is not None else out[0]
 
 
 unpack_planes.launches = 0
@@ -174,17 +177,19 @@ def packed_banded_chunk(phi_planes, u0_planes, c1, c2, p: CVParams,
     """k frozen-means iterations on pre-packed planes; returns
     (phi_planes_new, partials (8,)). ``unroll``/``fuse``: as
     :func:`..banded_kernel.banded_chunk`."""
-    if unroll < 1 or k % unroll:
-        raise ValueError(f"unroll must divide k (got k={k}, unroll={unroll})")
-    if phi_planes.ndim != 4 or tuple(phi_planes.shape[:2]) != (2, 2):
-        raise ValueError(f"expected (2, 2, H/2, W/2) planes, got "
-                         f"{tuple(phi_planes.shape)}")
-    if phi_planes.device.type == "cpu":
-        return packed_banded_chunk_reference(phi_planes, u0_planes, c1, c2,
-                                             p, k)
-    out = _cuda.launch_band(phi_planes, u0_planes, c1, c2, p, k)
-    packed_banded_chunk.launches += 1
-    return out
+    with spans.span("cv.launch.packed_banded_chunk"):
+        if unroll < 1 or k % unroll:
+            raise ValueError(f"unroll must divide k (got k={k}, "
+                             f"unroll={unroll})")
+        if phi_planes.ndim != 4 or tuple(phi_planes.shape[:2]) != (2, 2):
+            raise ValueError(f"expected (2, 2, H/2, W/2) planes, got "
+                             f"{tuple(phi_planes.shape)}")
+        if phi_planes.device.type == "cpu":
+            return packed_banded_chunk_reference(phi_planes, u0_planes, c1, c2,
+                                                 p, k)
+        out = _cuda.launch_band(phi_planes, u0_planes, c1, c2, p, k)
+        packed_banded_chunk.launches += 1
+        return out
 
 
 packed_banded_chunk.launches = 0
@@ -225,18 +230,20 @@ def packed_banded_chunk_sharded(canvas_planes, u0_canvas_planes, c1, c2,
     ``unroll``: as :func:`packed_banded_chunk`. CPU tensors run the plain
     version; CUDA tensors launch ``cv_packed_banded_chunk_shard``
     (``csrc/packed.cu``) or raise."""
-    if unroll < 1 or k % unroll:
-        raise ValueError(f"unroll must divide k (got k={k}, unroll={unroll})")
-    _check_plane_canvas(canvas_planes, u0_canvas_planes, crop)
-    _, _, hp, wp = canvas_planes.shape
-    shard = _cuda.shard_args(2 * hp, 2 * wp, k, 0, crop, edges)
-    if canvas_planes.device.type == "cpu":
-        return packed_banded_chunk_sharded_reference(
-            canvas_planes, u0_canvas_planes, c1, c2, p, k, edges, crop)
-    out = _cuda.launch_band(canvas_planes, u0_canvas_planes, c1, c2, p, k,
-                            shard=shard)
-    packed_banded_chunk_sharded.launches += 1
-    return out
+    with spans.span("cv.launch.packed_banded_chunk_sharded"):
+        if unroll < 1 or k % unroll:
+            raise ValueError(f"unroll must divide k (got k={k}, "
+                             f"unroll={unroll})")
+        _check_plane_canvas(canvas_planes, u0_canvas_planes, crop)
+        _, _, hp, wp = canvas_planes.shape
+        shard = _cuda.shard_args(2 * hp, 2 * wp, k, 0, crop, edges)
+        if canvas_planes.device.type == "cpu":
+            return packed_banded_chunk_sharded_reference(
+                canvas_planes, u0_canvas_planes, c1, c2, p, k, edges, crop)
+        out = _cuda.launch_band(canvas_planes, u0_canvas_planes, c1, c2, p, k,
+                                shard=shard)
+        packed_banded_chunk_sharded.launches += 1
+        return out
 
 
 packed_banded_chunk_sharded.launches = 0
@@ -280,20 +287,22 @@ def packed_banded_chunk_mc(phi_planes, u0_planes, c1, c2, p: CVParams,
     u0 (C, 2, 2, H/2, W/2); c1, c2: (C,) means. Returns (phi_planes_new,
     partials (16,)) in :func:`..banded_kernel.banded_chunk_mc`'s layout.
     ``unroll``/``fuse``: as :func:`..banded_kernel.banded_chunk`."""
-    if unroll < 1 or k % unroll:
-        raise ValueError(f"unroll must divide k (got k={k}, unroll={unroll})")
-    if phi_planes.ndim != 4 or tuple(phi_planes.shape[:2]) != (2, 2):
-        raise ValueError(f"expected (2, 2, H/2, W/2) planes, got "
-                         f"{tuple(phi_planes.shape)}")
-    C = _cuda.mc_channels(phi_planes, u0_planes)
-    if phi_planes.device.type == "cpu":
-        return packed_banded_chunk_mc_reference(phi_planes, u0_planes, c1,
-                                                c2, p, k, lambda1, lambda2)
-    l1, l2 = p.channel_lambdas(C, lambda1, lambda2)
-    out = _cuda.launch_band(phi_planes, u0_planes, c1, c2, p, k, l1=l1,
-                            l2=l2)
-    packed_banded_chunk_mc.launches += 1
-    return out
+    with spans.span("cv.launch.packed_banded_chunk_mc"):
+        if unroll < 1 or k % unroll:
+            raise ValueError(f"unroll must divide k (got k={k}, "
+                             f"unroll={unroll})")
+        if phi_planes.ndim != 4 or tuple(phi_planes.shape[:2]) != (2, 2):
+            raise ValueError(f"expected (2, 2, H/2, W/2) planes, got "
+                             f"{tuple(phi_planes.shape)}")
+        C = _cuda.mc_channels(phi_planes, u0_planes)
+        if phi_planes.device.type == "cpu":
+            return packed_banded_chunk_mc_reference(phi_planes, u0_planes, c1,
+                                                    c2, p, k, lambda1, lambda2)
+        l1, l2 = p.channel_lambdas(C, lambda1, lambda2)
+        out = _cuda.launch_band(phi_planes, u0_planes, c1, c2, p, k, l1=l1,
+                                l2=l2)
+        packed_banded_chunk_mc.launches += 1
+        return out
 
 
 packed_banded_chunk_mc.launches = 0
@@ -329,28 +338,30 @@ def packed_chunk(phi, u0, c1, c2, p: CVParams, k: int = 8, unroll: int = 1,
     CPU tensors run the plain version; CUDA tensors (float32) launch
     ``csrc/resident_chunk.cu`` (one cooperative launch) or raise.
     """
-    if phi.ndim != 2 or u0.shape != phi.shape:
-        raise ValueError(f"phi {tuple(phi.shape)} and u0 "
-                         f"{tuple(u0.shape)} must be one (H, W) shape")
-    h, w = phi.shape
-    if not supports_packed(h, w):
-        raise ValueError(f"packed resident unsupported for {(h, w)}")
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    if unroll < 1 or k % unroll:
-        raise ValueError(f"unroll must divide k (got k={k}, unroll={unroll})")
-    if phi.device.type == "cpu":
-        return packed_chunk_reference(phi, u0, c1, c2, p, k)
-    if packed:
-        out, parts = _cuda.launch_resident_chunk(
-            "cv_packed_resident_chunk", pack_planes(phi), pack_planes(u0),
-            c1, c2, p, k, h, w)
-        out = unpack_planes(out)
-    else:
-        out, parts = _cuda.launch_resident_chunk(
-            "cv_resident_chunk", phi, u0, c1, c2, p, k, h, w)
-    packed_chunk.launches["packed" if packed else "flat"] += 1
-    return out, parts
+    with spans.span("cv.launch.packed_chunk"):
+        if phi.ndim != 2 or u0.shape != phi.shape:
+            raise ValueError(f"phi {tuple(phi.shape)} and u0 "
+                             f"{tuple(u0.shape)} must be one (H, W) shape")
+        h, w = phi.shape
+        if not supports_packed(h, w):
+            raise ValueError(f"packed resident unsupported for {(h, w)}")
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        if unroll < 1 or k % unroll:
+            raise ValueError(f"unroll must divide k (got k={k}, "
+                             f"unroll={unroll})")
+        if phi.device.type == "cpu":
+            return packed_chunk_reference(phi, u0, c1, c2, p, k)
+        if packed:
+            out, parts = _cuda.launch_resident_chunk(
+                "cv_packed_resident_chunk", pack_planes(phi), pack_planes(u0),
+                c1, c2, p, k, h, w)
+            out = unpack_planes(out)
+        else:
+            out, parts = _cuda.launch_resident_chunk(
+                "cv_resident_chunk", phi, u0, c1, c2, p, k, h, w)
+        packed_chunk.launches["packed" if packed else "flat"] += 1
+        return out, parts
 
 
 # one count per layout: the two layouts are two kernels
@@ -375,20 +386,21 @@ def packed_resident_iterations(phi, u0, p: CVParams, iters: int,
                                unroll: int = 1):
     """K7's :func:`..resident_kernel.resident_iterations` contract ((H, W)
     in and out, partials (iters // unroll, 8)) on parity planes."""
-    check_iters(iters, unroll)
-    if phi.ndim != 2 or u0.shape != phi.shape:
-        raise ValueError(f"phi {tuple(phi.shape)} and u0 "
-                         f"{tuple(u0.shape)} must be one (H, W) shape")
-    if phi.device.type == "cpu":
-        return packed_resident_iterations_reference(phi, u0, p, iters,
-                                                    unroll)
-    h, w = phi.shape
-    _cuda.check_even(h, w)
-    out, parts = _cuda.launch_resident(
-        "cv_packed_resident_iterations", pack_planes(phi), pack_planes(u0),
-        p, iters, unroll, h, w)
-    packed_resident_iterations.launches += 1
-    return unpack_planes(out), parts
+    with spans.span("cv.launch.packed_resident_iterations"):
+        check_iters(iters, unroll)
+        if phi.ndim != 2 or u0.shape != phi.shape:
+            raise ValueError(f"phi {tuple(phi.shape)} and u0 "
+                             f"{tuple(u0.shape)} must be one (H, W) shape")
+        if phi.device.type == "cpu":
+            return packed_resident_iterations_reference(phi, u0, p, iters,
+                                                        unroll)
+        h, w = phi.shape
+        _cuda.check_even(h, w)
+        out, parts = _cuda.launch_resident(
+            "cv_packed_resident_iterations", pack_planes(phi), pack_planes(u0),
+            p, iters, unroll, h, w)
+        packed_resident_iterations.launches += 1
+        return unpack_planes(out), parts
 
 
 packed_resident_iterations.launches = 0
@@ -404,18 +416,19 @@ def packed_resident_iterations_batch(phis, u0s, p: CVParams, iters: int,
                                      unroll: int = 1):
     """K7's batch contract ((N, H, W) in and out, partials (N, 8), each
     frame's last iteration) on parity planes, all frames in one launch."""
-    check_iters(iters, unroll)
-    check_stack(phis, u0s)
-    if phis.device.type == "cpu":
-        return packed_resident_iterations_batch_reference(phis, u0s, p,
-                                                          iters, unroll)
-    n, h, w = phis.shape
-    _cuda.check_even(h, w)
-    out, parts = _cuda.launch_resident(
-        "cv_packed_resident_iterations", pack_planes(phis),
-        pack_planes(u0s), p, iters, unroll, h, w, frames=n, batch=True)
-    packed_resident_iterations_batch.launches += 1
-    return unpack_planes(out), parts
+    with spans.span("cv.launch.packed_resident_iterations_batch"):
+        check_iters(iters, unroll)
+        check_stack(phis, u0s)
+        if phis.device.type == "cpu":
+            return packed_resident_iterations_batch_reference(phis, u0s, p,
+                                                              iters, unroll)
+        n, h, w = phis.shape
+        _cuda.check_even(h, w)
+        out, parts = _cuda.launch_resident(
+            "cv_packed_resident_iterations", pack_planes(phis),
+            pack_planes(u0s), p, iters, unroll, h, w, frames=n, batch=True)
+        packed_resident_iterations_batch.launches += 1
+        return unpack_planes(out), parts
 
 
 packed_resident_iterations_batch.launches = 0
@@ -434,19 +447,20 @@ def packed_resident_iterations_mc(phi, u0_cfirst, p: CVParams, iters: int,
                                   unroll: int = 1):
     """K7's mc contract ((H, W) phi, (C, H, W) image, partials
     (iters // unroll, C + 4)) on parity planes."""
-    check_iters(iters, unroll)
-    C = _cuda.mc_channels(phi, u0_cfirst)
-    if phi.device.type == "cpu":
-        return packed_resident_iterations_mc_reference(
-            phi, u0_cfirst, p, iters, lambda1, lambda2, unroll)
-    h, w = phi.shape
-    _cuda.check_even(h, w)
-    l1, l2 = p.channel_lambdas(C, lambda1, lambda2)
-    out, parts = _cuda.launch_resident(
-        "cv_packed_resident_iterations_mc", pack_planes(phi),
-        pack_planes(u0_cfirst), p, iters, unroll, h, w, l1=l1, l2=l2)
-    packed_resident_iterations_mc.launches += 1
-    return unpack_planes(out), parts
+    with spans.span("cv.launch.packed_resident_iterations_mc"):
+        check_iters(iters, unroll)
+        C = _cuda.mc_channels(phi, u0_cfirst)
+        if phi.device.type == "cpu":
+            return packed_resident_iterations_mc_reference(
+                phi, u0_cfirst, p, iters, lambda1, lambda2, unroll)
+        h, w = phi.shape
+        _cuda.check_even(h, w)
+        l1, l2 = p.channel_lambdas(C, lambda1, lambda2)
+        out, parts = _cuda.launch_resident(
+            "cv_packed_resident_iterations_mc", pack_planes(phi),
+            pack_planes(u0_cfirst), p, iters, unroll, h, w, l1=l1, l2=l2)
+        packed_resident_iterations_mc.launches += 1
+        return unpack_planes(out), parts
 
 
 packed_resident_iterations_mc.launches = 0
@@ -471,19 +485,21 @@ def packed_mp2_resident_iterations(phis, u0, p: CVParams, iters: int,
     """K9's :func:`..multiphase_kernel.mp2_resident_iterations` contract
     ((2, H, W) in and out, partials (iters // unroll, 8)) on parity planes,
     packed inside."""
-    check_mp2(phis, u0, supports_packed_mp2_resident, "packed mp2 resident")
-    if iters < 1 or unroll < 1 or iters % unroll:
-        raise ValueError(f"unroll must divide iters (iters={iters}, "
-                         f"unroll={unroll})")
-    if phis.device.type == "cpu":
-        return packed_mp2_resident_iterations_reference(phis, u0, p, iters,
-                                                        unroll)
-    h, w = u0.shape
-    out, parts = _cuda.launch_mp2_resident(
-        "cv_packed_mp2_resident_iterations", pack_planes(phis),
-        pack_planes(u0), p, iters, unroll, h, w)
-    packed_mp2_resident_iterations.launches += 1
-    return unpack_planes(out), parts
+    with spans.span("cv.launch.packed_mp2_resident_iterations"):
+        check_mp2(phis, u0, supports_packed_mp2_resident,
+                  "packed mp2 resident")
+        if iters < 1 or unroll < 1 or iters % unroll:
+            raise ValueError(f"unroll must divide iters (iters={iters}, "
+                             f"unroll={unroll})")
+        if phis.device.type == "cpu":
+            return packed_mp2_resident_iterations_reference(phis, u0, p, iters,
+                                                            unroll)
+        h, w = u0.shape
+        out, parts = _cuda.launch_mp2_resident(
+            "cv_packed_mp2_resident_iterations", pack_planes(phis),
+            pack_planes(u0), p, iters, unroll, h, w)
+        packed_mp2_resident_iterations.launches += 1
+        return unpack_planes(out), parts
 
 
 packed_mp2_resident_iterations.launches = 0

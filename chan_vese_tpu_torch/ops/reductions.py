@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from .. import spans
 from .numerics import dirac, grad_forward, heaviside
 
 
@@ -29,7 +30,8 @@ def region_sums(u0, phi, eps: float):
         sum_uh = torch.sum(u0 * h)
         sum_u = torch.sum(u0)
     sum_h = torch.sum(h)
-    n = torch.tensor(phi.numel(), dtype=phi.dtype, device=phi.device)
+    with spans.span("cv.sync.region_n"):
+        n = torch.tensor(phi.numel(), dtype=phi.dtype, device=phi.device)
     return sum_uh, sum_h, sum_u, n
 
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
 from ..params import CVParams
 from . import _cuda
 from .fused_kernel import _VMEM_LIMIT
@@ -103,16 +104,17 @@ def resident_iterations(phi, u0, p: CVParams, iters: int, unroll: int = 1):
     CPU tensors run the plain version; CUDA tensors (float32, contiguous,
     even H and W) launch ``csrc/resident.cu`` or raise.
     """
-    check_iters(iters, unroll)
-    if phi.ndim != 2 or u0.shape != phi.shape:
-        raise ValueError(f"phi {tuple(phi.shape)} and u0 "
-                         f"{tuple(u0.shape)} must be one (H, W) shape")
-    if phi.device.type == "cpu":
-        return resident_iterations_reference(phi, u0, p, iters, unroll)
-    out = _cuda.launch_resident("cv_resident_iterations", phi, u0, p, iters,
-                                unroll, *phi.shape)
-    resident_iterations.launches += 1
-    return out
+    with spans.span("cv.launch.resident_iterations"):
+        check_iters(iters, unroll)
+        if phi.ndim != 2 or u0.shape != phi.shape:
+            raise ValueError(f"phi {tuple(phi.shape)} and u0 "
+                             f"{tuple(u0.shape)} must be one (H, W) shape")
+        if phi.device.type == "cpu":
+            return resident_iterations_reference(phi, u0, p, iters, unroll)
+        out = _cuda.launch_resident("cv_resident_iterations", phi, u0, p,
+                                    iters, unroll, *phi.shape)
+        resident_iterations.launches += 1
+        return out
 
 
 resident_iterations.launches = 0
@@ -138,16 +140,17 @@ def resident_iterations_batch(phis, u0s, p: CVParams, iters: int,
     """``iters`` exact-means iterations on every frame of an (N, H, W)
     stack, all frames in one launch; returns (phis_new, partials (N, 8)),
     each frame's row from its last iteration."""
-    check_iters(iters, unroll)
-    check_stack(phis, u0s)
-    if phis.device.type == "cpu":
-        return resident_iterations_batch_reference(phis, u0s, p, iters,
-                                                   unroll)
-    n, h, w = phis.shape
-    out = _cuda.launch_resident("cv_resident_iterations", phis, u0s, p,
-                                iters, unroll, h, w, frames=n, batch=True)
-    resident_iterations_batch.launches += 1
-    return out
+    with spans.span("cv.launch.resident_iterations_batch"):
+        check_iters(iters, unroll)
+        check_stack(phis, u0s)
+        if phis.device.type == "cpu":
+            return resident_iterations_batch_reference(phis, u0s, p, iters,
+                                                       unroll)
+        n, h, w = phis.shape
+        out = _cuda.launch_resident("cv_resident_iterations", phis, u0s, p,
+                                    iters, unroll, h, w, frames=n, batch=True)
+        resident_iterations_batch.launches += 1
+        return out
 
 
 resident_iterations_batch.launches = 0
@@ -174,16 +177,18 @@ def resident_iterations_mc(phi, u0_cfirst, p: CVParams, iters: int,
     CPU tensors run the plain version; CUDA tensors (float32, contiguous,
     even H and W, 1 <= C <= 8) launch ``csrc/resident_mc.cu`` or raise.
     """
-    check_iters(iters, unroll)
-    C = _cuda.mc_channels(phi, u0_cfirst)
-    if phi.device.type == "cpu":
-        return resident_iterations_mc_reference(phi, u0_cfirst, p, iters,
-                                                lambda1, lambda2, unroll)
-    l1, l2 = p.channel_lambdas(C, lambda1, lambda2)
-    out = _cuda.launch_resident("cv_resident_iterations_mc", phi, u0_cfirst,
-                                p, iters, unroll, *phi.shape, l1=l1, l2=l2)
-    resident_iterations_mc.launches += 1
-    return out
+    with spans.span("cv.launch.resident_iterations_mc"):
+        check_iters(iters, unroll)
+        C = _cuda.mc_channels(phi, u0_cfirst)
+        if phi.device.type == "cpu":
+            return resident_iterations_mc_reference(phi, u0_cfirst, p, iters,
+                                                    lambda1, lambda2, unroll)
+        l1, l2 = p.channel_lambdas(C, lambda1, lambda2)
+        out = _cuda.launch_resident("cv_resident_iterations_mc", phi,
+                                    u0_cfirst, p, iters, unroll, *phi.shape,
+                                    l1=l1, l2=l2)
+        resident_iterations_mc.launches += 1
+        return out
 
 
 resident_iterations_mc.launches = 0

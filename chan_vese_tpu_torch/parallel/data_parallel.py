@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from .. import spans
 from ..models.batched import segment_batch, segment_stack_fixed
 from ..models.resident import segment_stack_resident_fixed
 from ..models.scalar import SegResult
@@ -68,7 +69,17 @@ def segment_stack_sharded(u0, p: CVParams = CVParams(), mesh: Mesh = None,
     if mesh is None:
         raise ValueError("segment_stack_sharded needs a mesh "
                          "(parallel.mesh.make_data_mesh)")
-    shards = shard_stack(u0, mesh)
+    with spans.span("cv.drv.setup"):
+        shards = shard_stack(u0, mesh)
+        if use_pallas is None:
+            use_pallas = (all(d.type == "cuda" for d in mesh.devices)
+                          and u0.ndim == 3
+                          and fused_kernel.supports(*u0.shape[1:3]))
+        # the reference's _build_fused_stack: the kernel route's
+        # per-device work is the resident stack driver (K1 batch off its
+        # envelope)
+        run = (segment_stack_resident_fixed if use_pallas
+               else segment_stack_fixed)
     first = mesh.devices[0]
     if iters is None:
         runs = []
@@ -77,16 +88,10 @@ def segment_stack_sharded(u0, p: CVParams = CVParams(), mesh: Mesh = None,
                 runs.append(segment_batch(shard, p))
         return SegResult(*(torch.cat([getattr(r, f).to(first) for r in runs])
                            for f in SegResult._fields))
-    if use_pallas is None:
-        use_pallas = (all(d.type == "cuda" for d in mesh.devices)
-                      and u0.ndim == 3
-                      and fused_kernel.supports(*u0.shape[1:3]))
-    # the reference's _build_fused_stack: the kernel route's per-device
-    # work is the resident stack driver (K1 batch off its envelope)
-    run = segment_stack_resident_fixed if use_pallas else segment_stack_fixed
     outs = []
     for dev, shard in zip(mesh.devices, shards):
-        with _on(dev):
+        with spans.span("cv.drv.step"), _on(dev):
             outs.append(run(shard, p, iters=iters))
-    phis = torch.cat([phi.to(first) for phi, _ in outs])
-    return phis, phis >= 0
+    with spans.span("cv.drv.finish"):
+        phis = torch.cat([phi.to(first) for phi, _ in outs])
+        return phis, phis >= 0

@@ -6,7 +6,13 @@ Counterpart of ``chan_vese_tpu/utils/profiling.py``:
   CUDA device the output lies on before the clock is read.
 - ``trace``: context manager around ``torch.profiler.profile`` (CPU and,
   where present, CUDA activities) that writes a Chrome/Perfetto trace JSON
-  into a directory.
+  into a directory. Around any driver call it holds, beside the device's
+  kernels and copies and on their clock, the port's own spans
+  (:mod:`..spans`): ``cv.drv.setup``, ``cv.drv.step``, ``cv.drv.means``,
+  ``cv.drv.stop`` and ``cv.drv.finish`` in the banded and stack drivers,
+  ``cv.launch.<wrapper>`` around each kernel wrapper that counts its
+  launches, and ``cv.sync.<site>`` around each host wait on those routes
+  (``n_pix``, ``region_n``, ``inf``, ``tol``, ``diverged``).
 - ``roofline``: the memory-bound ceiling of the fused iteration on a given
   card, to sanity-check measured numbers (the sweep moves ~12 B per
   pixel-iteration: read phi, read u0, write phi, all f32).
