@@ -40,11 +40,12 @@ _TAIL_MC = [_I, _I, _I] + [_F] * 7 + [_P]
 _SHARD = [_I] * 9 + [_P]
 # resident launchers on the tile bodies (csrc/resident_tiles.cuh
 # CV_TILE_RESIDENT_ARGS): 9 pointers; nblocks, N, H, W, C, iters, unroll,
-# batch, nrow, TH, TW, GX, u0res, smem; 9 params; stream. Each has a `_grid`
-# twin (C, dynamic bytes, int* max co-resident blocks). The first body's
-# (csrc/resident.cuh CV_RESIDENT_ARGS, `_v1`): 8 pointers; nblocks, N, H,
-# W, C, iters, unroll, batch, nrow; 9 params; stream; `_v1_grid` (C, int*).
-_TILE_RESIDENT = [_P] * 9 + [_I] * 14 + [_F] * 9 + [_P]
+# batch, nrow, TH, TW, GX, u0res, smem, frame groups; 9 params; stream.
+# Each has a `_grid` twin (C, dynamic bytes, int* max co-resident blocks).
+# The first body's (csrc/resident.cuh CV_RESIDENT_ARGS, `_v1`): 8
+# pointers; nblocks, N, H, W, C, iters, unroll, batch, nrow; 9 params;
+# stream; `_v1_grid` (C, int*).
+_TILE_RESIDENT = [_P] * 9 + [_I] * 15 + [_F] * 9 + [_P]
 _TILE_GRID = [_I, _I, ctypes.POINTER(ctypes.c_int)]
 _RESIDENT = [_P] * 8 + [_I] * 9 + [_F] * 9 + [_P]
 _GRID = [_I, ctypes.POINTER(ctypes.c_int)]

@@ -6,7 +6,7 @@
 // mode, K10) is built on.
 //
 // What a launch computes: resident.cuh's contract, `iters` exact-means
-// iterations on a scalar image, on each frame of a stack in turn, or on a
+// iterations on a scalar image, on each frame of a stack, or on a
 // C-channel image, with the partials rows [s_uH per channel..., s_H,
 // s_dphi2, flips, s_absdphi, 0...] of every `unroll`-th iteration (a
 // stack: each frame's last). A cell's update is redblack.cuh's
@@ -59,9 +59,20 @@
 //   one), and the wrapper zeroes the rims and the sync words. Spin-waits
 //   need every block resident: the launch is cooperative and a grid above
 //   capacity is refused.
+// - Frame groups (a stack). The grid is G groups of B blocks (blocks
+//   [g B, (g + 1) B) form group g, ops/_cuda.py frame_groups picks G from
+//   the stack's shape); group g runs frames g, g + G, g + 2G, ... in turn,
+//   its B tiles covering one frame. Everything above is scoped to the
+//   group: its blocks' rims, its slots and totals in `scratch`, its own
+//   SyncBuf (ticket and words), its block order for the sums, and a step
+//   of its B blocks. Groups never wait on each other, so one iteration's
+//   skeleton (waits, step) serves G frames. The instance with GROUPS
+//   takes a stack of G > 1 groups; the others are the one-group body on
+//   the whole grid (a scalar or C-channel image, K13, a stack of G = 1),
+//   compiled as before the groups, as is K9/K10's body (mp2.cuh).
 // Per iteration a block does two barriered half-sweeps on shared memory,
-// one neighbour wait and one grid-wide step; device memory is touched when
-// a frame is loaded and stored (and for u0 where it is not resident).
+// one neighbour wait and one step of its group; device memory is touched
+// when a frame is loaded and stored (and for u0 where it is not resident).
 //
 // Frozen-means mode (FROZEN, K13: a scalar image, (c1, c2) from `wts`,
 // unroll = iters): the contract of resident.cuh's frozen mode, k
@@ -147,6 +158,9 @@ __device__ __forceinline__ float wait_word(const Word* p, unsigned tag) {
 // The sync buffer (u32, zeroed by the wrapper for every launch): the
 // grid-wide step's arrival ticket and a spare, then the words the step
 // publishes (one a mean, 2 kMaxChannels at most; ops/_cuda.py TILE_SYNC).
+// A frame group's starts kSyncStride u32s after the group before's, on a
+// cache line of its own (ops/_cuda.py TILE_SYNC_STRIDE).
+constexpr int kSyncStride = 64;
 struct SyncBuf {
   unsigned* ticket;
   Word* words;
@@ -154,8 +168,9 @@ struct SyncBuf {
       : ticket(sync), words((Word*)(sync + 2)) {}
 };
 
-// Block blockIdx.x's rectangle: tile (by, bx) of a GY x GX grid of TH x TW
-// tiles, rows [r0, r1) x cols [c0, c1). As an index functor: the offset of
+// Block b's rectangle (b: blockIdx.x unless given, a frame group's own
+// block index): tile (by, bx) of a GY x GX grid of TH x TW tiles, rows
+// [r0, r1) x cols [c0, c1). As an index functor: the offset of
 // global cell (i, j) in the tile padded by one cell a side, split by
 // colour: plane (i + j) & 1 of (th + 2) rows of pw = (tw + 2) / 2 cells,
 // cell (i, j) at its row's column (j - c0 + 1) / 2 (a row's cells of one
@@ -164,8 +179,17 @@ struct SyncBuf {
 struct Tile {
   int by, bx, r0, r1, c0, c1, th, tw, pw;
   __device__ Tile(int H, int W, int TH, int TW, int GX) {
-    by = blockIdx.x / GX;
-    bx = blockIdx.x - by * GX;
+    place(blockIdx.x, H, W, TH, TW, GX);
+  }
+  __device__ Tile(int H, int W, int TH, int TW, int GX, int b) {
+    place(b, H, W, TH, TW, GX);
+  }
+  // B: unsigned for blockIdx.x, so the one-group bodies and mp2.cuh's
+  // compile to the instructions they had before the frame groups
+  template <class B>
+  __device__ void place(B b, int H, int W, int TH, int TW, int GX) {
+    by = b / GX;
+    bx = b - by * GX;
     r0 = by * TH;
     c0 = bx * TW;
     r1 = min(r0 + TH, H);
@@ -272,12 +296,13 @@ __device__ __forceinline__ void fill_ring(float* S, const Word* rims,
   }
 }
 
-// Posts the block's f64 sums v[lo, hi) to its row of `slots` (K a row):
-// each warp's sum by a shuffle tree, then the warps' sums in warp order.
+// Posts the block's f64 sums v[lo, hi) to its row of `slots` (K a row;
+// row b, blockIdx.x unless given): each warp's sum by a shuffle tree, then
+// the warps' sums in warp order.
 template <int K>
 __device__ __forceinline__ void post_sums(const double (&v)[K], int lo,
                                           int hi, double* slots,
-                                          double (*s_red)[K]) {
+                                          double (*s_red)[K], int b = -1) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
   for (int s = 0; s < K; ++s) {
@@ -291,29 +316,31 @@ __device__ __forceinline__ void post_sums(const double (&v)[K], int lo,
   if (s >= lo && s < hi) {
     double x = 0.0;
     for (int w = 0; w < kTileWarps; ++w) x += s_red[w][s];
-    __stcg(slots + (int64_t)blockIdx.x * K + s, x);
+    __stcg(slots + (b < 0 ? (int64_t)blockIdx.x : (int64_t)b) * K + s, x);
   }
 }
 
-// The grid-wide step `step` (0, 1, ... alike in every block). Every block
-// has posted its slots [lo, hi) (rows of K). The last block to arrive (an
-// acq_rel ticket) adds each slot over the blocks in block order into
-// s_tot[0, K) while its last warp reads the ncarry doubles `carry` (an
-// earlier step's) into s_tot[K, K + ncarry); then its thread t < nw
-// computes word(t, s_tot) and publishes it, tagged with the step, in
-// sync.words[t] (a release store), and finish(s_tot) runs on its thread
-// nw. The other blocks' threads t < nw wait for their word's tag (then an
-// acquire fence). Meanwhile every block's threads from nw on run
-// during(nw) (the next iteration's ring). On return s_val[t < nw] holds
-// the words in every block.
+// The grid-wide step `step` (0, 1, ... alike in every block) of `nblk`
+// blocks (0: the grid; a frame group's B, with the group's slots and
+// SyncBuf). Every block has posted its slots [lo, hi) (rows of K). The last
+// block to arrive (an acq_rel ticket) adds each slot over the blocks in
+// block order into s_tot[0, K) while its last warp reads the ncarry doubles
+// `carry` (an earlier step's) into s_tot[K, K + ncarry); then its thread t <
+// nw computes word(t, s_tot) and publishes it, tagged with the step, in
+// sync.words[t] (a release store), and finish(s_tot) runs on its thread nw.
+// The other blocks' threads t < nw wait for their word's tag (then an
+// acquire fence). Meanwhile every block's threads from nw on run during(nw)
+// (the next iteration's ring). On return s_val[t < nw] holds the words in
+// every block.
 template <int K, class Mean, class Finish, class During>
 __device__ __forceinline__ void grid_step(const double* slots, int lo,
                                           int hi, SyncBuf sync, unsigned step,
                                           double* s_tot, const double* carry,
                                           int ncarry, float* s_val, int nw,
                                           int* s_last, Mean word,
-                                          Finish finish, During during) {
-  const unsigned nb = gridDim.x;
+                                          Finish finish, During during,
+                                          int nblk = 0) {
+  const unsigned nb = nblk > 0 ? nblk : gridDim.x;
   const unsigned tag = step + 1;
   __syncthreads();
   if (threadIdx.x == 0)
@@ -353,18 +380,20 @@ struct TileResidentArgs {
   const float* u0;      // (N, image) scalar frames or (C, image) channels
   const double* usum;   // sum of u0 per frame (scalar) or channel (mc)
   const float* wts;     // mc: [l1/C x C, l2/C x C]; frozen: (c1, c2)
-  double* scratch;      // (nblocks, C + 4) slots | C + 1 totals
+  double* scratch;      // (nblocks, C + 4) slots | C + 4 totals a group
   Word* rims;           // (2, nblocks, rim_len) tagged borders, zeroed
-  unsigned* sync;       // SyncBuf, zeroed
+  unsigned* sync;       // a SyncBuf a group, kSyncStride apart, zeroed
   float* parts;         // partials rows of nrow floats
   int N, H, W, iters, unroll, batch, nrow;
-  int TH, TW, GX, GY, u0res;
+  int TH, TW, GX, GY, u0res;  // a frame group's GY x GX tiles
 };
 
-template <bool PACKED, int NC, bool FROZEN = false>
+template <bool PACKED, int NC, bool FROZEN = false, bool GROUPS = false>
 __global__ void __launch_bounds__(kTileThreads, 1)
 tile_resident_kernel(TileResidentArgs a, Params P) {
   static_assert(!FROZEN || NC == 0, "the frozen mode takes a scalar image");
+  static_assert(!GROUPS || (NC == 0 && !FROZEN),
+                "frame groups take a stack of scalar frames");
   // slots: H sums [0, kM), then the row's s_dphi2, flips, s_absdphi
   constexpr int kUh = uh_slots<NC>(), kM = kUh + 1, kS = kM + 3;
   extern __shared__ float smem[];
@@ -373,9 +402,15 @@ tile_resident_kernel(TileResidentArgs a, Params P) {
   __shared__ float s_cc[cc_len<NC>()];
   __shared__ int s_last;
 
-  const int H = a.H, W = a.W, nb = gridDim.x;
-  const Tile t(H, W, a.TH, a.TW, a.GX);
-  const SyncBuf sync(a.sync);
+  // this block's frame group and its index there (nb blocks a group;
+  // without GROUPS the grid, and -1 and 0 pick the helpers' defaults)
+  const int H = a.H, W = a.W, nb = GROUPS ? a.GX * a.GY : gridDim.x;
+  const int ngroups = GROUPS ? gridDim.x / nb : 1;
+  const int grp = GROUPS ? blockIdx.x / nb : 0;
+  const int lb = GROUPS ? blockIdx.x - grp * nb : -1, nblk = GROUPS ? nb : 0;
+  const Tile t = GROUPS ? Tile(H, W, a.TH, a.TW, a.GX, lb)
+                        : Tile(H, W, a.TH, a.TW, a.GX);
+  const SyncBuf sync(a.sync + grp * kSyncStride);
   const int hw = t.tw >> 1, npairs = t.th * hw, cells = t.th * t.tw;
   const Pairs pr(hw);
   const int64_t chan = (int64_t)H * W;
@@ -384,12 +419,18 @@ tile_resident_kernel(TileResidentArgs a, Params P) {
   float* S = smem;
   float* N = S + (a.TH + 2) * (a.TW + 2);
   float* U = N + a.TH * a.TW / 2;
-  double* slots = a.scratch;
-  double* g_tot = a.scratch + (int64_t)nb * kS;
+  double* slots = a.scratch + (int64_t)grp * nb * kS;
+  double* g_tot = a.scratch + ((int64_t)nb * ngroups + grp) * kS;
   unsigned step = 0, tag = 0;
-  // parity q's rims, this block's
-  auto rims = [&](int64_t q) { return a.rims + q * nb * len; };
-  auto mine = [&](int64_t q) { return rims(q) + blockIdx.x * len; };
+  // the group's rims of parity q, this block's
+  auto rims = [&](int64_t q) {
+    if constexpr (GROUPS) return a.rims + (q * gridDim.x + grp * nb) * len;
+    else return a.rims + q * nb * len;
+  };
+  auto mine = [&](int64_t q) {
+    if constexpr (GROUPS) return rims(q) + lb * len;
+    else return rims(q) + blockIdx.x * len;
+  };
 
   if constexpr (NC > 0) {
     for (int k = threadIdx.x; k < 2 * NC; k += blockDim.x)
@@ -398,7 +439,7 @@ tile_resident_kernel(TileResidentArgs a, Params P) {
     if (threadIdx.x < 2) s_cc[threadIdx.x] = a.wts[threadIdx.x];
   }
 
-  for (int fr = 0; fr < a.N; ++fr) {
+  for (int fr = grp; fr < a.N; fr += ngroups) {
     const int64_t off = a.batch ? fr * chan : 0;
     const float* u0 = a.u0 + off;
     // the data term at cell (i, j) from u0's tile copy or from L2 (frozen:
@@ -507,9 +548,9 @@ tile_resident_kernel(TileResidentArgs a, Params P) {
         hsums(acc, i, j, v);
       }
       f_row = false, f_more = true, ring_q = 1;
-      post_sums(acc, 0, kM, slots, s_red);
+      post_sums(acc, 0, kM, slots, s_red, lb);
       grid_step<kS>(slots, 0, kM, sync, step++, s_tot, g_tot, 0, s_cc,
-                    2 * kUh, &s_last, means, finish, ring);
+                    2 * kUh, &s_last, means, finish, ring, nblk);
     }
 
     for (int it = 0; it < a.iters; ++it) {
@@ -558,7 +599,7 @@ tile_resident_kernel(TileResidentArgs a, Params P) {
           fill_ring(S, rims(par), t, a.TH, a.TW, a.GX, a.GY, false, tag);
           __syncthreads();
         } else {  // the one grid-wide step: the row of the last iteration
-          post_sums(acc, 0, kS, slots, s_red);
+          post_sums(acc, 0, kS, slots, s_red, lb);
           grid_step<kS>(
               slots, 0, kS, sync, step++, s_tot, g_tot, 0, s_cc, 0, &s_last,
               means,
@@ -566,14 +607,14 @@ tile_resident_kernel(TileResidentArgs a, Params P) {
                 for (int s = 0; s < kS; ++s) a.parts[s] = (float)tot[s];
                 for (int s = kS; s < a.nrow; ++s) a.parts[s] = 0.0f;
               },
-              [](int) {});
+              [](int) {}, nblk);
         }
       } else if (row || more) {
         f_row = row, f_more = more, f_it = it, ring_q = par;
-        post_sums(acc, more ? 0 : kM, row ? kS : kM, slots, s_red);
+        post_sums(acc, more ? 0 : kM, row ? kS : kM, slots, s_red, lb);
         grid_step<kS>(slots, more ? 0 : kM, row ? kS : kM, sync, step++,
                       s_tot, g_tot, row ? kM : 0, s_cc, 2 * kUh, &s_last,
-                      means, finish, ring);
+                      means, finish, ring, nblk);
       }
     }
 
@@ -632,18 +673,28 @@ cudaError_t tile_launch(K kernel, A a, Params P, int nblocks, int smem,
                                      dim3(kTileThreads), args, smem, stream);
 }
 
-// The two-phase body (FROZEN: its frozen-means chunk mode) after checking
-// the tiling and that smem is its size for it; with `capacity`, the
-// co-resident blocks at smem bytes instead.
+// The two-phase body (FROZEN: its frozen-means chunk mode) on `groups`
+// frame groups of nblocks / groups blocks (more than one: a stack alone)
+// after checking each group's tiling and that smem is its size for it;
+// with `capacity`, the co-resident blocks at smem bytes instead.
 template <bool PACKED, int NC, bool FROZEN = false>
 cudaError_t tile_resident(TileResidentArgs a, Params P, int nblocks,
-                          int smem, cudaStream_t stream, int* capacity) {
+                          int smem, cudaStream_t stream, int* capacity,
+                          int groups = 1) {
   if (capacity)
     return tile_capacity(tile_resident_kernel<PACKED, NC, FROZEN>, smem,
                          capacity);
-  if (!tile_grid_ok(a.H, a.W, a.TH, a.TW, a.GX, nblocks) ||
+  if (groups < 1 || nblocks % groups || (groups > 1 && !a.batch) ||
+      !tile_grid_ok(a.H, a.W, a.TH, a.TW, a.GX, nblocks / groups) ||
+      a.GX * a.GY != nblocks / groups ||
       smem != tile_smem_bytes(a.TH, a.TW, uh_slots<NC>(), 1, a.u0res))
     return cudaErrorInvalidValue;
+  if (groups > 1) {
+    if constexpr (NC == 0 && !FROZEN)
+      return tile_launch(tile_resident_kernel<PACKED, 0, false, true>, a, P,
+                         nblocks, smem, stream);
+    return cudaErrorInvalidValue;
+  }
   return tile_launch(tile_resident_kernel<PACKED, NC, FROZEN>, a, P, nblocks,
                      smem, stream);
 }
@@ -652,12 +703,13 @@ cudaError_t tile_resident(TileResidentArgs a, Params P, int nblocks,
 template <bool PACKED, int NC = 1>
 cudaError_t tile_resident_mc(int C, TileResidentArgs a, Params P,
                              int nblocks, int smem, cudaStream_t stream,
-                             int* capacity) {
+                             int* capacity, int groups = 1) {
   if (C == NC)
-    return tile_resident<PACKED, NC>(a, P, nblocks, smem, stream, capacity);
+    return tile_resident<PACKED, NC>(a, P, nblocks, smem, stream, capacity,
+                                     groups);
   if constexpr (NC < kMaxChannels)
     return tile_resident_mc<PACKED, NC + 1>(C, a, P, nblocks, smem, stream,
-                                            capacity);
+                                            capacity, groups);
   return cudaErrorInvalidValue;
 }
 
@@ -666,21 +718,23 @@ cudaError_t tile_resident_mc(int C, TileResidentArgs a, Params P,
 
 // The plain C interface of the two-phase launchers on the tile body:
 // pointers; grid size, frames, geometry, channels, iterations, the rows;
-// the tiling (TH, TW, GX, u0 resident, dynamic bytes); the nine
-// parameters of redblack.cuh's Params; the stream. Each has a `_grid`
+// the tiling (TH, TW, GX, u0 resident, dynamic bytes, frame groups); the
+// nine parameters of redblack.cuh's Params; the stream. Each has a `_grid`
 // twin (C, dynamic bytes, int* co-resident blocks).
 #define CV_TILE_RESIDENT_ARGS                                             \
   const float *phi_in, float *out, const float *u0, const double *usum,  \
       const float *wts, double *scratch, void *rims, unsigned *sync,     \
       float *parts, int nblocks, int N, int H, int W, int C, int iters,  \
       int unroll, int batch, int nrow, int TH, int TW, int GX, int u0res, \
-      int smem, float mu, float nu, float l1, float l2, float eta2,      \
-      float gdt, float eps, float eps2, float inv_pi, void *stream
+      int smem, int groups, float mu, float nu, float l1, float l2,      \
+      float eta2, float gdt, float eps, float eps2, float inv_pi,        \
+      void *stream
 // tile_resident(_mc)'s arguments (after C) from CV_TILE_RESIDENT_ARGS
 #define CV_TILE_RESIDENT_CALL                                               \
   cv::TileResidentArgs{phi_in, out, u0, usum, wts, scratch,                \
                        (cv::Word*)rims, sync,                              \
                        parts, N, H, W, iters, unroll, batch, nrow, TH, TW, \
-                       GX, GX > 0 ? nblocks / GX : 0, u0res},              \
+                       GX, GX > 0 && groups > 0 ? nblocks / groups / GX : 0, \
+                       u0res},                                             \
       cv::Params{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi}, nblocks,   \
-      smem, (cudaStream_t)stream, nullptr
+      smem, (cudaStream_t)stream, nullptr, groups

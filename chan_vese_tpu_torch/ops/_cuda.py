@@ -16,10 +16,13 @@ synchronizes with the device. A refused launch raises.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
 import torch
+
+from .. import spans
 
 # output tiles (rows, cols), largest first; 512 threads per block
 TILES = ((64, 128), (32, 128), (32, 64), (16, 64), (16, 32))
@@ -827,8 +830,15 @@ RESIDENT_THREADS = 512
 TILE_THREADS = 512
 TILE_STATIC = 2048
 # u32s of a tile-body launch's sync buffer: the grid-wide step's ticket and
-# a spare, then its published words (two u32 each), one a mean
+# a spare, then its published words (two u32 each), one a mean; a frame
+# group's buffer starts TILE_SYNC_STRIDE u32s after the one before
+# (csrc/resident_tiles.cuh kSyncStride), on a cache line of its own
 TILE_SYNC = 2 + 2 * 2 * MAX_CHANNELS
+TILE_SYNC_STRIDE = 64
+# the frame-group rule's price of a group's iteration skeleton (the rim
+# waits, the group's step), in the cells of a block's tile whose sweeps
+# take as long (chip_resident_variants.py --groups on the card)
+GROUP_STEP_CELLS = 2800
 
 
 def tile_smem_bytes(th: int, tw: int, channels: int, level_sets: int,
@@ -914,17 +924,54 @@ def resident_capacity(symbol: str, c: int, device_index: int,
     return n.value
 
 
-def _tile_plan(symbol: str, h: int, w: int, c: int, level_sets: int, dev):
-    """The tile geometry of a launch on ``dev`` and its block count,
-    refused (raises) where the card cannot hold that many blocks at once:
-    the spin-waits need every block resident."""
-    geo = resident_tile_geometry(h, w, c, level_sets, _sm_count(dev.index))
+@functools.lru_cache(maxsize=None)
+def frame_groups(n: int, h: int, w: int, channels: int = 0,
+                 sms: int = SMS):
+    """(G, geometry) of a two-phase tile-body launch on ``n`` frames of
+    (h, w) (``channels`` u0 planes, 0: scalar): G frame groups, group g
+    running frames g, g + G, ... on the tiles of
+    ``resident_tile_geometry(h, w, channels, 1, sms // G)``, one block
+    each (csrc/resident_tiles.cuh). A group's iteration costs its skeleton
+    (:data:`GROUP_STEP_CELLS`) plus its largest tile's cells; G makes
+    ceil(n / G) of them the least, of the G whose tiles keep u0 in shared
+    memory (G = 1 always qualifies; ties go to the smaller G). One frame:
+    G = 1, today's geometry."""
+    best = None
+    for g in range(1, min(n, sms) + 1):
+        try:
+            geo = resident_tile_geometry(h, w, channels, 1, sms // g)
+        except ValueError:
+            if g == 1:
+                raise
+            continue
+        if g > 1 and not geo[4]:
+            continue
+        cost = -(-n // g) * (GROUP_STEP_CELLS + geo[0] * geo[1])
+        if best is None or cost < best[0]:
+            best = (cost, g, geo)
+    return best[1], best[2]
+
+
+def group_plan(symbol: str, h: int, w: int, c: int, level_sets: int, dev,
+               frames: int = 1):
+    """The tile geometry of a launch on ``dev``, its frame groups (a
+    stack's, :func:`frame_groups`; one for a single image) and the grid's
+    block count, refused (raises) where the card cannot hold that many
+    blocks at once: the spin-waits need every block resident.
+    ``group_plan.launches`` counts the launches of more than one group
+    (``launch_resident``)."""
+    sms = _sm_count(dev.index)
+    g, geo = (frame_groups(frames, h, w, c, sms) if frames > 1 else
+              (1, resident_tile_geometry(h, w, c, level_sets, sms)))
     th, tw, gx, gy, _, smem = geo
     cap = resident_capacity(symbol, c, dev.index, smem)
-    if gx * gy > cap:
-        raise RuntimeError(f"{symbol}: {gx * gy} blocks of {smem} B cannot "
-                           f"be co-resident on the card ({cap})")
-    return geo, gx * gy
+    if g * gx * gy > cap:
+        raise RuntimeError(f"{symbol}: {g} x {gx * gy} blocks of {smem} B "
+                           f"cannot be co-resident on the card ({cap})")
+    return geo, g, g * gx * gy
+
+
+group_plan.launches = 0
 
 
 def launch_resident(symbol: str, phi, u0, p, iters: int, unroll: int,
@@ -935,8 +982,9 @@ def launch_resident(symbol: str, phi, u0, p, iters: int, unroll: int,
     or ``frames`` of them (flat or parity planes); u0 is phi's shape for a
     scalar image, channels-first (C, *phi.shape) when per-channel lambda
     tuples ``l1``, ``l2`` are given. The tile body
-    (csrc/resident_tiles.cuh); ``v1``: the first body (csrc/resident.cuh,
-    the yardstick the smoke and the cuda-marked tests hold it against).
+    (csrc/resident_tiles.cuh; a stack's frames in the groups of
+    :func:`group_plan`); ``v1``: the first body (csrc/resident.cuh, the
+    yardstick the smoke and the cuda-marked tests hold it against).
     Returns (phi_new, partials): rows of 8 slots (C + 4 for C channels),
     one per ``unroll`` iterations, or one per frame when ``batch``."""
     from .._build import library
@@ -975,24 +1023,30 @@ def launch_resident(symbol: str, phi, u0, p, iters: int, unroll: int,
                 stream)
         _raise_on(lib, symbol, err)
         return out, parts
-    (th, tw, gx, _, u0res, smem), nblocks = _tile_plan(symbol, h, w, c, 1,
-                                                       dev)
-    # the blocks' slots, then the totals a row carries
-    scratch = torch.empty((nblocks + 1) * (max(c, 1) + 4),
+    (th, tw, gx, gy, u0res, smem), groups, nblocks = group_plan(
+        symbol, h, w, c, 1, dev, frames if batch else 1)
+    # the blocks' slots, then the totals a row carries, a set a group
+    scratch = torch.empty((nblocks + groups) * (max(c, 1) + 4),
                           dtype=torch.float64, device=dev)
     # the tagged rim words (a float and its iteration's tag), by parity
     rims = torch.zeros(2 * nblocks * 2 * (th + tw), dtype=torch.int64,
                        device=dev)
-    sync = torch.zeros(TILE_SYNC, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    sync = torch.zeros(max(TILE_SYNC, groups * TILE_SYNC_STRIDE),
+                       dtype=torch.int32, device=dev)
+    # a stack's frame groups, named in the profiler's trace
+    grouped = (spans.span(f"cv.tile.groups.G{groups}xB{gx * gy}")
+               if groups > 1 else contextlib.nullcontext())
+    with torch.cuda.device(dev), grouped:
         err = getattr(lib, symbol)(
             phi.data_ptr(), out.data_ptr(), u0.data_ptr(), usum.data_ptr(),
             None if wts is None else wts.data_ptr(), scratch.data_ptr(),
             rims.data_ptr(), sync.data_ptr(), parts.data_ptr(), nblocks,
             frames, h, w, c, iters, unroll, int(batch), nrow, th, tw, gx,
-            int(u0res), smem, p.mu, p.nu, *scalar_l, *_common_params(p),
-            stream)
+            int(u0res), smem, groups, p.mu, p.nu, *scalar_l,
+            *_common_params(p), stream)
     _raise_on(lib, symbol, err)
+    if groups > 1:
+        group_plan.launches += 1
     return out, parts
 
 
@@ -1033,8 +1087,8 @@ def launch_resident_chunk(symbol: str, phi, u0, c1, c2, p, k: int, h: int,
                 parts.data_ptr(), nblocks, h, w, k, *params, stream)
         _raise_on(lib, symbol, err)
         return out, parts
-    (th, tw, gx, _, u0res, smem), nblocks = _tile_plan(symbol, h, w, 0, 1,
-                                                       dev)
+    (th, tw, gx, _, u0res, smem), _, nblocks = group_plan(symbol, h, w, 0,
+                                                          1, dev)
     # the blocks' slots (H sums, then the row's sums), and the totals
     scratch = torch.empty((nblocks + 1) * 5, dtype=torch.float64, device=dev)
     # the tagged rim words and then the sync words, zeroed in one launch
@@ -1114,8 +1168,8 @@ def launch_mp2_resident(symbol: str, phis, u0, p, iters: int, unroll: int,
                 *_common_params(p), stream)
         _raise_on(lib, symbol, err)
         return out, parts
-    (th, tw, gx, _, u0res, smem), nblocks = _tile_plan(symbol, h, w, 0, 2,
-                                                       dev)
+    (th, tw, gx, _, u0res, smem), _, nblocks = group_plan(symbol, h, w, 0,
+                                                          2, dev)
     # the blocks' 10 slots, the tagged rim words of both level sets
     scratch = torch.empty(nblocks * 10, dtype=torch.float64, device=dev)
     rims = torch.zeros(2 * 2 * nblocks * 2 * (th + tw), dtype=torch.int64,

@@ -18,7 +18,10 @@ writes them into its Perfetto trace. Names are ``cv.<layer>.<what>``:
   ``cv.drv.finish``: a driver's set-up, one pass of its loop, the means
   between chunks, the stop decision and the result;
 - ``cv.sync.<site>``: a place where the host waits for the device (a read
-  of a device number, a copy of a host number to the device).
+  of a device number, a copy of a host number to the device);
+- ``cv.tile.groups.G<g>xB<b>``: a tile-body launch on a stack's frames in
+  g frame groups of b blocks (``ops/_cuda.py::launch_resident``), inside
+  its wrapper's ``cv.launch`` span.
 
 This module imports nothing of the package, so any module may import it.
 """

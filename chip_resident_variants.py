@@ -2,6 +2,7 @@
 NVIDIA GPU.
 
     python3 chip_resident_variants.py
+    python3 chip_resident_variants.py --groups
 
 The measurements behind PERF.md's account of csrc/resident_tiles.cuh and
 mp2.cuh's tile body: builds the package's kernels, then compiles variants
@@ -38,7 +39,17 @@ and 1024^2 gray, K8 mc 512^2 RGB, K10 512^2, K9 1024^2):
 The exact variants (gridsync, unroll2, u0_l2) are checked bitwise
 against the package's launch; the others (two_per_sm, threads1024 and
 cluster add the f64 sums in another order, nosweep is not a body) print
-their mask IoU (labels agreement) with it over the 1000 iterations. Prints the card's name and power limit. Exits
+their mask IoU (labels agreement) with it over the 1000 iterations.
+
+``--groups`` builds no variant: it times the package's K8 batch launch
+(30 iterations, a stack of noisy two-disk frames on parity planes) at
+each frame-group count G that keeps u0 in shared memory, against the
+count ``_cuda.frame_groups`` picks, in turns (rule, G, G, rule), at 256 x
+512^2, 64 x 256^2 and 16 x 1024^2. It prints each G's time, its time a
+group step and a frame step, the tile, phi's agreement with G = 1 (bitwise
+or the largest difference) and, from all of them, the least-squares fit of
+a group step's time to a + b x the tile's cells, whose a / b is
+``_cuda.GROUP_STEP_CELLS``. Prints the card's name and power limit. Exits
 non-zero without a CUDA device or when a variant fails.
 """
 
@@ -59,6 +70,7 @@ if not torch.cuda.is_available():
 import chip_smoke as cs  # noqa: E402
 from chan_vese_tpu_torch import _build  # noqa: E402
 from chan_vese_tpu_torch.ops import _cuda  # noqa: E402
+from chan_vese_tpu_torch.ops import packed_kernel as pk  # noqa: E402
 
 CSRC = Path(_build.__file__).resolve().parent / "csrc"
 OUT = Path(_build.__file__).resolve().parent / "_build" / "resident_variants"
@@ -405,6 +417,7 @@ def using(lib=None, per_sm=1, u0res=True, threads=512, sms=_cuda.SMS):
     blocks an SM, threads a block, SM count and u0 residency."""
     saved = (_build.library, _cuda.resident_tile_geometry,
              _cuda.TILE_THREADS)
+    _cuda.frame_groups.cache_clear()
     package = saved[0]()
 
     def geometry(h, w, c=0, levels=1, _sms=None):
@@ -427,6 +440,7 @@ def using(lib=None, per_sm=1, u0res=True, threads=512, sms=_cuda.SMS):
          _cuda.TILE_THREADS) = saved
         saved[1].cache_clear()
         _cuda.resident_capacity.cache_clear()
+        _cuda.frame_groups.cache_clear()
 
 
 def cases(dev):
@@ -466,11 +480,97 @@ def agree(a, b, multi):
     return cs.iou((a >= 0).cpu(), (b >= 0).cpu())
 
 
+# --groups: the stacks (frames, h, w) and the iterations of a launch
+GROUP_STACKS = ((256, 512, 512), (64, 256, 256), (16, 1024, 1024))
+GROUP_ITERS = 30
+
+
+@contextlib.contextmanager
+def forced_groups(g):
+    """The package's launches with G frame groups (None: the rule's)."""
+    saved = _cuda.frame_groups
+    if g is not None:
+        _cuda.frame_groups = lambda n, h, w, c=0, sms=_cuda.SMS: (
+            g, _cuda.resident_tile_geometry(h, w, c, 1, sms // g))
+    try:
+        yield
+    finally:
+        _cuda.frame_groups = saved
+
+
+def u0_resident(h, w, blocks):
+    """Whether (h, w)'s tiles over ``blocks`` blocks keep u0 in shared
+    memory (False where not even the level set fits)."""
+    try:
+        return _cuda.resident_tile_geometry(h, w, 0, 1, blocks)[4]
+    except ValueError:
+        return False
+
+
+def groups_main(card) -> int:
+    dev = torch.device("cuda", 0)
+    p = cs.ct.CVParams()
+    sms = _cuda._sm_count(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fits = []
+    for n, h, w in GROUP_STACKS:
+        base = torch.from_numpy(cs.two_disks(h, w)[0]).to(dev)
+        u0 = (base + 8.0 * torch.randn((n, h, w), generator=gen,
+                                       device=dev)).contiguous()
+        phi = cs.init_phi((h, w), "checkerboard", torch.float32,
+                          device=dev).expand(n, h, w).contiguous()
+        pu, pphi = pk.pack_planes(u0), pk.pack_planes(phi)
+
+        def run():
+            return _cuda.launch_resident(
+                "cv_packed_resident_iterations", pphi, pu, p, GROUP_ITERS, 1,
+                h, w, frames=n, batch=True)
+
+        rule = _cuda.frame_groups(n, h, w, 0, sms)[0]
+        with forced_groups(1):
+            ref = run()
+        counts = [g for g in range(1, min(n, sms) + 1)
+                  if g == 1 or u0_resident(h, w, sms // g)]
+        lines = []
+        for g in counts:
+            with forced_groups(g):
+                got = run()
+            torch.cuda.synchronize()
+            diff = float((got[0] - ref[0]).abs().max())
+            t = []
+            for forced in (False, True, True, False):
+                with forced_groups(g if forced else None):
+                    t.append(cs.time_ms(run, 3))
+            ms, rule_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            th, tw, gx, gy = _cuda.resident_tile_geometry(
+                h, w, 0, 1, sms // g)[:4]
+            steps = -(-n // g) * (GROUP_ITERS + 1)
+            fits.append((th * tw, ms * 1e3 / steps))
+            lines.append(
+                f"G {g} B {gx * gy} ({th}x{tw} tiles): {ms:.3f} ms "
+                f"(rule {rule_ms:.3f}), {ms * 1e3 / steps:.2f} us a group "
+                f"step, {ms * 1e3 / (n * (GROUP_ITERS + 1)):.3f} us a frame "
+                f"step; phi " + ("bitwise G 1" if diff == 0.0 else
+                                 f"max |diff| {diff:.3g} from G 1"))
+        print(f"K8 batch {n} x {h}x{w}, {GROUP_ITERS} iterations (rule: G "
+              f"{rule}): " + "; ".join(lines), flush=True)
+    x = torch.tensor([c for c, _ in fits], dtype=torch.float64)
+    y = torch.tensor([t for _, t in fits], dtype=torch.float64)
+    a_mat = torch.stack([torch.ones_like(x), x], 1)
+    a, b = torch.linalg.lstsq(a_mat, y[:, None]).solution[:, 0].tolist()
+    print(f"fit: a group step {a:.3f} us + {b * 1e3:.4f} ns a tile cell "
+          f"(a / b = {a / b:.0f} cells)")
+    print(f"card: {card}")
+    return 0
+
+
 def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     _build.library()
+    if "--groups" in sys.argv[1:]:
+        return groups_main(card)
     texts = variants()
     libs = build(texts)
     dev = torch.device("cuda", 0)

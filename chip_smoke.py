@@ -4574,15 +4574,17 @@ def resident_tile_checks(dev, p, pm):
     return lines
 
 
-def tile_plan_line(symbol, h, w, c, levels):
-    """'TH x TW tiles, GX x GY blocks, u0 resident or L2, dynamic bytes,
-    blocks an SM' of a tile-body launch."""
-    th, tw, gx, gy, u0res, smem = _cuda.resident_tile_geometry(
-        h, w, c, levels, _cuda.SMS)
+def tile_plan_line(symbol, h, w, c, levels, frames=1):
+    """'TH x TW tiles, GX x GY blocks (G frame groups of them), u0 resident
+    or L2, dynamic bytes, blocks an SM' of a tile-body launch."""
+    groups, (th, tw, gx, gy, u0res, smem) = (
+        _cuda.frame_groups(frames, h, w, c, _cuda.SMS) if levels == 1
+        else (1, _cuda.resident_tile_geometry(h, w, c, levels, _cuda.SMS)))
     per_sm = _cuda.resident_capacity(symbol, c, 0, smem) // _cuda.SMS
-    return (f"{th}x{tw} tiles, {gx * gy} blocks, u0 "
-            f"{'in shared memory' if u0res else 'through L2'}, {smem} B, "
-            f"{per_sm} block(s)/SM")
+    return (f"{th}x{tw} tiles, {gx * gy} blocks"
+            + (f" x {groups} frame groups" if groups > 1 else "")
+            + f", u0 {'in shared memory' if u0res else 'through L2'}, "
+            f"{smem} B, {per_sm} block(s)/SM")
 
 
 def resident_tile_times(dev, card, p, pm):
@@ -4620,7 +4622,7 @@ def resident_tile_times(dev, card, p, pm):
                 f"ms ({new / its * 1e3:.2f} us an iteration, v1 "
                 f"{old / its * 1e3:.2f}; v1/new {old / new:.2f}; bound "
                 f"{b_ms:.3f} {b_by}, new/bound {new / b_ms:.1f}); "
-                + tile_plan_line(sym, h, w, r["channels"], 1))
+                + tile_plan_line(sym, h, w, r["channels"], 1, frames))
     for name, shapes in MP2_TILE_TIMED.items():
         kern = MP2[name]
         sym = ("cv_packed_mp2_resident_iterations" if name.startswith("K10")

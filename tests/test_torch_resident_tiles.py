@@ -26,9 +26,15 @@ bitwise. K13's frozen mode has no grid-wide step before its last
 iteration: after each black commit a block fills its whole ring from the
 rims of the iteration, and the twin of that schedule is held bitwise
 against ``packed_chunk_reference`` (f32 and f64, k = 1, 3, 8, both
-layouts). The geometry is checked over the routing envelopes: every cell in
+layouts). A stack's frame groups (K7/K8 batch: group g of G runs frames g,
+g + G, ... on its own tiles, rims, ticket, words and slots, the groups side
+by side) have a twin held bitwise against the batch references with N not
+a multiple of G, which notices a group on another group's rims or ticket.
+The geometry is checked over the routing envelopes: every cell in
 one tile, the shared-memory budget at one block an SM, u0 out of shared
-memory exactly where the budget demands it. The ``cuda``-marked tests hold
+memory exactly where the budget demands it; ``_cuda.frame_groups`` keeps a
+single image on one group and fits a stack's groups to the card. The
+``cuda``-marked tests hold
 each body against its first body, its plain version, a second launch and a
 launch on a second stream.
 """
@@ -312,6 +318,107 @@ def twin_mp2(phis, u0, p, iters, unroll, tiling, packed=False):
             torch.stack(rows))
 
 
+class ScheduleFault(AssertionError):
+    """A block of the grouped twin read its group's words under another
+    tag than the step it waits for: the kernel would spin there."""
+
+
+def twin_grouped(phis, u0s, p, iters, tiling, groups, packed=False,
+                 fault=None):
+    """K7/K8 batch's frame-group schedule: the stack's frames dealt to
+    ``groups`` groups (group g runs frames g, g + G, ...), each group's
+    blocks on the tiles of one frame with the group's own rims, ticket,
+    words and slots. The groups run side by side: their phases (a frame's
+    load, a half-sweep, a step) interleave round-robin and no group waits
+    on another. At a step each block posts its tile to its slot and takes
+    the group's ticket; the block that takes it last puts the frame
+    together from the slots in block order, computes the next means and
+    the frame's row, and publishes them tagged with the step; the others
+    read them, and a read under another tag is a ScheduleFault. ``fault``:
+    'rims' (group 0 reads and writes group 1's rims) or 'ticket' (one
+    ticket for every group). Returns (phis, rows (N, 8)), the contract of
+    ``resident_iterations_batch_reference``."""
+    n, h, w = phis.shape
+    T = [Tiles(h, w, *tiling, 1, phis.dtype) for _ in range(groups)]
+    if fault == "rims":
+        T[0].rims = T[1].rims
+    nb = len(T[0].tiles)
+    tickets = [0] * groups
+    words = [(0, None)] * groups
+    slots = [[None] * nb for _ in range(groups)]
+    outs, rows = [None] * n, [None] * n
+    zero = torch.zeros((), dtype=phis.dtype)
+    n_pix = torch.tensor(h * w, dtype=phis.dtype)
+
+    def step(g, k, u, old, last):
+        """Step k of group g: the means of the frame's phi and, where
+        ``last``, the row of the iteration that left it (from ``old``)."""
+        for b, t in enumerate(T[g].tiles):
+            slots[g][b] = t["S"][0][1:-1, 1:-1].clone()
+            q = 0 if fault == "ticket" else g
+            tickets[q] += 1
+            if tickets[q] != (k + 1) * nb:
+                continue
+            new = torch.empty((h, w), dtype=phis.dtype)
+            for tb, sl in zip(T[g].tiles, slots[g]):
+                new[tb["r0"]:tb["r1"], tb["c0"]:tb["c1"]] = sl
+            hh = heaviside(new, p.eps)
+            sums = [torch.sum(u * hh), torch.sum(hh)]
+            c1, c2 = means_from_sums(sums[0].reshape(1), sums[1],
+                                     torch.sum(u).reshape(1), n_pix)
+            row = None
+            if last:
+                d = new - old
+                row = [torch.sum(d * d),
+                       torch.sum(((new >= 0) != (old >= 0)).to(phis.dtype)),
+                       torch.sum(torch.abs(d))]
+            words[g] = (k + 1, (c1, c2, sums, row))
+
+    def read(g, k):
+        tag, value = words[g]
+        if tag != k + 1:
+            raise ScheduleFault(f"group {g} waits for step {k}, reads {tag}")
+        return value
+
+    def group(g):
+        k = 0
+        for fr in range(g, n, groups):
+            u = u0s[fr]
+            T[g].load(0, _layout(phis[fr], packed), packed)
+            step(g, k, u, None, False)
+            yield
+            for it in range(iters):
+                par = it & 1
+                c1, c2, carry, _ = read(g, k)
+                k += 1
+                f = data_term(u, c1[0], c2[0], p.nu, p.lambda1, p.lambda2)
+                old = T[g].image(0)
+                for colour in (0, 1):
+                    for t in T[g].tiles:
+                        T[g].fill(0, par ^ colour ^ 1, t,
+                                  red_only=colour == 1)
+                        T[g].commit(0, par, t, T[g].sweep(0, t, f, p, colour),
+                                    colour)
+                    yield
+                step(g, k, u, old, it == iters - 1)
+                yield
+            row = read(g, k)[3]
+            k += 1
+            rows[fr] = torch.stack(carry + row + [zero] * 3)
+            out = torch.empty(h * w, dtype=phis.dtype)
+            T[g].store(0, out, packed)
+            outs[fr] = _unlayout(out, h, w, packed)
+
+    running = [group(g) for g in range(groups)]
+    while running:
+        for gen in list(running):
+            try:
+                next(gen)
+            except StopIteration:
+                running.remove(gen)
+    return torch.stack(outs), torch.stack(rows)
+
+
 def twin_frozen(phi, u, c1, c2, p, k, tiling, packed=False):
     """K13's schedule (the frozen-means mode): the force from the fixed
     means, k iterations of the two barriered half-sweeps, the red-only
@@ -421,6 +528,44 @@ def test_in_place_half_sweep_is_not_bitwise():
     got = _gray_twin(phi, u, (7, 12), inplace=True, iters=1, unroll=1)
     assert not torch.equal(got[0], want[0])
     assert float((got[0] - want[0]).abs().max()) > 1e-3
+
+
+def _stack(n, dtype=torch.float32):
+    frames = torch.stack([_image(24, 40, s, dtype) for s in range(n)])
+    starts = [init_phi((24, 40), "circle" if s % 2 else "checkerboard",
+                       dtype) for s in range(n)]
+    return torch.stack(starts), frames
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("n,groups", [(3, 2), (8, 4), (9, 4)])
+def test_grouped_twin_is_bitwise_batch_reference(n, groups, packed):
+    """Frames dealt to groups side by side (n not a multiple of G, so the
+    groups run different numbers of frames) give each frame's phi and row
+    bitwise the plain batch version's, in both layouts."""
+    phis, frames = _stack(n)
+    got = twin_grouped(phis, frames, P, 3, (7, 12), groups, packed)
+    ref = (pk.packed_resident_iterations_batch_reference if packed
+           else rk.resident_iterations_batch_reference)
+    want = ref(phis, frames, P, 3)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_grouped_twin_notices_a_group_on_another_groups_rims():
+    """Group 0 on group 1's rims reads group 1's frame in its ring."""
+    phis, frames = _stack(4)
+    got = twin_grouped(phis, frames, P, 3, (7, 12), 2, fault="rims")
+    want = rk.resident_iterations_batch_reference(phis, frames, P, 3)
+    assert not torch.equal(got[0], want[0])
+
+
+def test_grouped_twin_notices_groups_on_one_ticket():
+    """With one ticket for every group the last block of a group's step
+    is not the one the ticket names, so no one publishes its means and
+    its blocks would wait for ever: the twin raises at the read."""
+    phis, frames = _stack(4)
+    with pytest.raises(ScheduleFault):
+        twin_grouped(phis, frames, P, 3, (7, 12), 2, fault="ticket")
 
 
 def test_twin_notices_a_schedule_fault():
@@ -564,6 +709,54 @@ def test_geometry_budget_holds_over_the_routing_envelope(name):
         assert u0res == (with_u0 <= budget), (h, w)
 
 
+@pytest.mark.parametrize("name", [k for k, v in ENVELOPES.items()
+                                  if v[4] == 1])
+def test_frame_groups_keep_one_frame_on_one_group(name):
+    """A single image (K7/K8 scalar and mc, K13's shapes) is one group on
+    the whole grid: today's geometry."""
+    pred, sw, sh, c, _ = ENVELOPES[name]
+    for h, w in _envelope(pred, sw, sh):
+        assert _cuda.frame_groups(1, h, w, c, SMS) == (
+            1, _cuda.resident_tile_geometry(h, w, c, 1, SMS)), (h, w)
+
+
+# stacks (frames, h, w, channels) and SM counts
+GROUP_CASES = [
+    (256, 512, 512, 0, SMS), (9, 256, 256, 0, SMS), (3, 24, 40, 0, SMS),
+    (16, 1024, 1024, 0, SMS), (5, 250, 398, 0, SMS), (4, 256, 384, 0, SMS),
+    (7, 512, 512, 3, SMS), (256, 512, 512, 0, 114), (200, 2, 2, 0, SMS),
+    (2, 1152, 1152, 0, SMS),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,sms", GROUP_CASES)
+def test_frame_groups_cover_each_frame_once_within_the_card(n, h, w, c,
+                                                            sms):
+    """G groups of B blocks fit the card (G B <= SMs, at most one group a
+    frame); each group's tiles cover a frame once; a block's shared memory
+    fits at one an SM, with u0 in it wherever G > 1."""
+    g, geo = _cuda.frame_groups(n, h, w, c, sms)
+    th, tw, gx, gy, u0res, smem = geo
+    assert 1 <= g <= min(n, sms) and g * gx * gy <= sms
+    assert geo == _cuda.resident_tile_geometry(h, w, c, 1, sms // g)
+    count = torch.zeros((h, w), dtype=torch.int32)
+    for by, bx in itertools.product(range(gy), range(gx)):
+        assert by * th < h and bx * tw < w
+        count[by * th:(by + 1) * th, bx * tw:(bx + 1) * tw] += 1
+    assert bool((count == 1).all())
+    assert smem <= _cuda.tile_budget(1)
+    assert u0res or g == 1
+
+
+def test_frame_groups_of_the_benchmark_stack():
+    """256 frames of 512^2 on 132 SMs: the G of PERF.md's K8 batch row,
+    the largest that keeps u0 in shared memory (12 groups would not)."""
+    g, (th, tw, gx, gy, u0res, smem) = _cuda.frame_groups(256, 512, 512, 0,
+                                                          132)
+    assert (g, gx * gy, th, tw, u0res) == (11, 12, 171, 128, True)
+    assert not _cuda.resident_tile_geometry(512, 512, 0, 1, 132 // 12)[4]
+
+
 def test_geometry_sends_u0_through_l2_only_where_needed():
     # the mc envelope's edge at C = 8 keeps u0 (216 KB a block); eight
     # channels of a 1024^2 image (past the envelope) do not fit beside phi
@@ -587,7 +780,7 @@ def test_geometry_refuses_what_no_block_holds():
 def test_launchers_signatures():
     from chan_vese_tpu_torch import _build
     for s in _build.RESIDENT_SYMBOLS:
-        assert len(_build.SIGNATURES[s]) == 33
+        assert len(_build.SIGNATURES[s]) == 34
         assert len(_build.SIGNATURES[f"{s}_v1"]) == 27
         assert len(_build.SIGNATURES[f"{s}_grid"]) == 3
         assert len(_build.SIGNATURES[f"{s}_v1_grid"]) == 2
@@ -773,13 +966,16 @@ def test_tiles_cuda_refuse_a_wrong_tiling():
     lib = _build.library()
     usum = torch.zeros(1, dtype=torch.float64, device=dev)
     words = torch.zeros(4096, dtype=torch.int64, device=dev)
-    for bad in ((th, tw, gx, gx * gy + 1, smem),
-                (th, tw + 1, gx, gx * gy, smem),
-                (th, tw, gx, gx * gy, smem + 4)):
+    # (TH, TW, GX, blocks, dynamic bytes, frame groups); two groups of one
+    # image (not a stack) are refused too
+    for bad in ((th, tw, gx, gx * gy + 1, smem, 1),
+                (th, tw + 1, gx, gx * gy, smem, 1),
+                (th, tw, gx, gx * gy, smem + 4, 1),
+                (th, tw, gx, 2 * gx * gy, smem, 2)):
         err = lib.cv_resident_iterations(
             phi.data_ptr(), phi.data_ptr(), phi.data_ptr(), usum.data_ptr(),
             None, words.data_ptr(), words.data_ptr(), words.data_ptr(),
             phi.data_ptr(), bad[3], 1, 256, 256, 0, 1, 1, 0,
-            8, bad[0], bad[1], bad[2], int(u0res), bad[4], *([1.0] * 9),
-            torch.cuda.current_stream().cuda_stream)
+            8, bad[0], bad[1], bad[2], int(u0res), bad[4], bad[5],
+            *([1.0] * 9), torch.cuda.current_stream().cuda_stream)
         assert err != 0
