@@ -39,6 +39,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import spans
 from ..ops import fused_kernel, multiphase_kernel, packed_kernel
 from ..ops.numerics import dirac, grad_forward, heaviside
 from ..ops.reductions import loop_continue, phase_means, phase_weights
@@ -168,6 +169,14 @@ def _checkerboard_factor(n: int, dtype):
     return np.sin(x)
 
 
+@functools.lru_cache(maxsize=64)
+def _checkerboard_factor_on(n: int, dtype, device):
+    """:func:`_checkerboard_factor` on ``device``, taken and uploaded once
+    per (n, dtype, device): the start of a later call of that shape waits
+    for nothing. The tensor is shared, so callers never write to it."""
+    return _upload(_checkerboard_factor(n, dtype), device)
+
+
 def _reference_circles(shape, m_sets: int, dtype):
     """The reference's staggered circles on the host in numpy, bitwise
     equal to its CPU start (torch's CPU sqrt is not correctly rounded)."""
@@ -183,6 +192,13 @@ def _reference_circles(shape, m_sets: int, dtype):
     return torch.from_numpy(np.stack(phis).astype(npdt))
 
 
+def _upload(values, device):
+    """Host values (a numpy array or a CPU tensor) on ``device``: a wait
+    for the device where it is one."""
+    with spans.span("cv.sync.mp_init"):
+        return torch.as_tensor(values).to(device)
+
+
 def init_multiphase(shape, m_sets: int = 2, kind: str = "checkerboard",
                     dtype=torch.float32, device=None):
     """Default multiphase start: phase-shifted checkerboards (level set m
@@ -191,8 +207,9 @@ def init_multiphase(shape, m_sets: int = 2, kind: str = "checkerboard",
 
     In float32 and float64 the values are the reference's bit for bit: the
     checkerboard is separable, so its H + W sines are taken on the host as
-    the reference's CPU build takes them (:func:`_checkerboard_factor`)
-    and multiplied on ``device``; the circles are built on the host. Other
+    the reference's CPU build takes them (:func:`_checkerboard_factor`),
+    kept on ``device`` for later calls of the shape, and multiplied there;
+    the circles are built on the host. Other
     dtypes use the port's ``checkerboard`` and ``circle``."""
     if kind not in ("checkerboard", "circles"):
         raise ValueError(f"unknown multiphase init {kind!r}")
@@ -200,15 +217,15 @@ def init_multiphase(shape, m_sets: int = 2, kind: str = "checkerboard",
     h, w = shape
     if kind == "checkerboard":
         if exact:
-            fi, fj = (torch.from_numpy(_checkerboard_factor(n, dtype))
-                      .to(device) for n in shape)
+            fi, fj = (_checkerboard_factor_on(n, dtype, device)
+                      for n in shape)
             base = fi[:, None] * fj[None, :]
         else:
             base = checkerboard(shape, dtype, device=device)
         return torch.stack([torch.roll(base, (5 * m) // 2 + 1, dims=1)
                             if m else base for m in range(m_sets)])
     if exact:
-        return _reference_circles(shape, m_sets, dtype).to(device)
+        return _upload(_reference_circles(shape, m_sets, dtype), device)
     return torch.stack([
         circle(shape, dtype, center=(h * (0.35 + 0.3 * (m % 2)),
                                      w * (0.35 + 0.3 * ((m // 2) % 2))),
@@ -232,7 +249,19 @@ class MultiphaseTrace(NamedTuple):
 
 
 def _inf(u0):
-    return torch.tensor(math.inf, dtype=u0.dtype, device=u0.device)
+    with spans.span("cv.sync.inf"):
+        return torch.tensor(math.inf, dtype=u0.dtype, device=u0.device)
+
+
+def _stop_reads(delta, p: CVParams):
+    """(delta as a float, whether delta < tol): the two reads of a
+    per-iteration tolerance loop, the test in delta's dtype as the
+    reference's device loop makes it."""
+    with spans.span("cv.drv.stop"):
+        with spans.span("cv.sync.mp_delta"):
+            delta_f = float(delta)
+        with spans.span("cv.sync.mp_tol"):
+            return delta_f, bool(delta < p.tol)
 
 
 def _mp2_banded_loop(u0, p: CVParams, phis0, fixed: bool, cap: int):
@@ -241,43 +270,46 @@ def _mp2_banded_loop(u0, p: CVParams, phis0, fixed: bool, cap: int):
     are the means the next iteration starts from). Returns (phis, iters,
     delta)."""
     n_pix = float(u0.numel())
-    cs = torch.stack(phase_means(u0, phis0, p.eps))
+    with spans.span("cv.drv.means"):
+        cs = torch.stack(phase_means(u0, phis0, p.eps))
     phis, n, streak = phis0, 0, 0
     delta, delta_f = _inf(u0), math.inf
     while (n < cap) if fixed else loop_continue(n, delta_f, streak, p, cap):
-        phis, parts = multiphase_kernel.mp2_iteration(phis, u0, cs, p)
-        cs = parts[0:4] / torch.clamp(parts[4:8], min=_TINY)
-        # 0 * s_dphi2 NaN-poisons the flip metric when a phi went
-        # non-finite (labels of NaN fields are finite garbage)
-        delta = parts[8] / n_pix + 0.0 * parts[9]
-        if reinit_fires(n, p):
-            # the redistance moves H_eps: the partials' means go stale
-            phis = maybe_reinit(phis, n, p)
-            cs = torch.stack(phase_means(u0, phis, p.eps))
-        if not fixed:
-            delta_f = float(delta)
-            # compared in delta's dtype, as the reference's device loop does
-            streak = streak + 1 if bool(delta < p.tol) else 0
-        n += 1
+        with spans.span("cv.drv.step"):
+            phis, parts = multiphase_kernel.mp2_iteration(phis, u0, cs, p)
+            cs = parts[0:4] / torch.clamp(parts[4:8], min=_TINY)
+            # 0 * s_dphi2 NaN-poisons the flip metric when a phi went
+            # non-finite (labels of NaN fields are finite garbage)
+            delta = parts[8] / n_pix + 0.0 * parts[9]
+            if reinit_fires(n, p):
+                # the redistance moves H_eps: the partials' means go stale
+                phis = maybe_reinit(phis, n, p)
+                cs = torch.stack(phase_means(u0, phis, p.eps))
+            if not fixed:
+                delta_f, below = _stop_reads(delta, p)
+                streak = streak + 1 if below else 0
+            n += 1
     return phis, n, delta
 
 
 def _mp2_resident_loop(u0, p: CVParams, phis0, fixed: bool, cap: int,
-                       chunk: int = 32):
+                       chunk: int = 32, planes=None):
     """Chunks of resident launches (K10 where the packed envelope holds,
     else K9 flat). Tolerance mode reads each chunk's per-iteration rows
     back once: the streak runs over every row, a non-finite row stops the
     run, and the max_iter cap is exact (full chunks, then the remainder).
     Fixed mode is one launch; it asks for unroll 2, which, as in the
     reference, reaches only the packed kernel (the flat call drops it).
-    Returns (phis, iters, delta)."""
+    ``planes``: phis0's parity planes where the caller keeps them (a kept
+    start), handed to the first launch. Returns (phis, iters, delta)."""
     use_packed = packed_kernel.supports_packed_mp2_resident(*u0.shape)
 
     def run_kernel(phis, size, unroll=1):
         if use_packed:
             un = unroll if size % unroll == 0 else 1
             return packed_kernel.packed_mp2_resident_iterations(
-                phis, u0, p, size, unroll=un)
+                phis, u0, p, size, unroll=un,
+                planes=planes if phis is phis0 else None)
         return multiphase_kernel.mp2_resident_iterations(phis, u0, p, size)
 
     n_pix = float(u0.numel())
@@ -288,8 +320,9 @@ def _mp2_resident_loop(u0, p: CVParams, phis0, fixed: bool, cap: int,
     if fixed:
         if cap < 1:
             return phis0, 0, _inf(u0)
-        phis, parts = run_kernel(phis0, cap, unroll=2)
-        return phis, cap, delta_rows(parts)[-1]
+        with spans.span("cv.drv.step"):
+            phis, parts = run_kernel(phis0, cap, unroll=2)
+            return phis, cap, delta_rows(parts)[-1]
 
     phis, n, streak, diverged = phis0, 0, 0, False
     delta = _inf(u0)
@@ -302,22 +335,26 @@ def _mp2_resident_loop(u0, p: CVParams, phis0, fixed: bool, cap: int,
         nonlocal phis, n, delta, streak, diverged
         phis, parts = run_kernel(phis, size)
         deltas = delta_rows(parts)
-        # one device-to-host read per chunk: the rows and their tol test,
-        # compared in the rows' dtype as the reference's scan does
-        rows = torch.stack((deltas, (deltas < p.tol).to(deltas.dtype)))
-        rows = rows.cpu()
-        for below in rows[1].tolist():
-            streak = streak + 1 if below else 0
-        diverged = not bool(torch.isfinite(rows[0]).all())
+        with spans.span("cv.drv.stop"):
+            # one device-to-host read per chunk: the rows and their tol
+            # test, compared in the rows' dtype as the reference's scan does
+            rows = torch.stack((deltas, (deltas < p.tol).to(deltas.dtype)))
+            with spans.span("cv.sync.mp_rows"):
+                rows = rows.cpu()
+            for below in rows[1].tolist():
+                streak = streak + 1 if below else 0
+            diverged = not bool(torch.isfinite(rows[0]).all())
         delta = deltas[-1]
         n += size
 
     full = (cap // chunk) * chunk
     while n < full and not_stopped():
-        run_chunk(chunk)
+        with spans.span("cv.drv.step"):
+            run_chunk(chunk)
     rem = cap - full
     if rem and n < cap and not_stopped():
-        run_chunk(rem)
+        with spans.span("cv.drv.step"):
+            run_chunk(rem)
     return phis, n, delta
 
 
@@ -326,6 +363,21 @@ def _default_phis(u0, m_sets: int, phis0):
         return init_multiphase(u0.shape[:2], m_sets, dtype=u0.dtype,
                                device=u0.device)
     return phis0
+
+
+@functools.lru_cache(maxsize=16)
+def _kept_start(shape, m_sets: int, dtype, device):
+    """The resident route's default start, :func:`init_multiphase`'s, made
+    once per (shape, m_sets, dtype, device) and kept there with its parity
+    planes where K10 takes it on the card (else None): a later call of the
+    shape launches K10 after packing u0 alone. Shared between calls, so
+    read only: the resident kernels never write their input."""
+    phis = init_multiphase(shape, m_sets, dtype=dtype, device=device)
+    planes = None
+    if (device.type == "cuda" and dtype == torch.float32
+            and packed_kernel.supports_packed_mp2_resident(*shape)):
+        planes = packed_kernel.pack_planes(phis)
+    return phis, planes
 
 
 def _label_flips(new, old, u0):
@@ -344,12 +396,21 @@ def segment_multiphase(u0, p: CVParams = CVParams(), m_sets: int = 2,
     """Segment into 2^m_sets phases; converges on the label-flip fraction
     (every route ignores ``p.conv_norm``, as the reference). ``fixed=True``
     runs exactly ``max_iter`` (or p.max_iter) iterations."""
-    route = _mp2_route(u0, p, m_sets, use_pallas)
-    cap = p.max_iter if max_iter is None else max_iter
-    phis0 = _default_phis(u0, m_sets, phis0)
+    with spans.span("cv.drv.setup"):
+        route = _mp2_route(u0, p, m_sets, use_pallas)
+        cap = p.max_iter if max_iter is None else max_iter
+        planes = None
+        if route == "resident" and phis0 is None:
+            phis0, planes = _kept_start(tuple(u0.shape[:2]), m_sets,
+                                        u0.dtype, u0.device)
+        else:
+            phis0 = _default_phis(u0, m_sets, phis0)
 
     if route == "resident":
-        phis, iters, delta = _mp2_resident_loop(u0, p, phis0, fixed, cap)
+        phis, iters, delta = _mp2_resident_loop(u0, p, phis0, fixed, cap,
+                                                planes=planes)
+        if iters == 0:  # the start itself, which a kept start shares
+            phis = phis.clone()
     elif route == "banded":
         phis, iters, delta = _mp2_banded_loop(u0, p, phis0, fixed, cap)
     else:
@@ -357,15 +418,18 @@ def segment_multiphase(u0, p: CVParams = CVParams(), m_sets: int = 2,
         delta, delta_f = _inf(u0), math.inf
         while (iters < cap) if fixed else loop_continue(iters, delta_f,
                                                         streak, p, cap):
-            new, _ = multiphase_step(phis, u0, p, route == "sweeps")
-            delta = _label_flips(new, phis, u0)
-            if not fixed:
-                delta_f = float(delta)
-                streak = streak + 1 if bool(delta < p.tol) else 0
-            phis = maybe_reinit(new, iters, p)
-            iters += 1
-    cs = torch.stack(phase_means(u0, phis, p.eps))
-    return MultiphaseResult(phis, labels_from_phis(phis), iters, delta, cs)
+            with spans.span("cv.drv.step"):
+                new, _ = multiphase_step(phis, u0, p, route == "sweeps")
+                delta = _label_flips(new, phis, u0)
+                if not fixed:
+                    delta_f, below = _stop_reads(delta, p)
+                    streak = streak + 1 if below else 0
+                phis = maybe_reinit(new, iters, p)
+                iters += 1
+    with spans.span("cv.drv.finish"):
+        cs = torch.stack(phase_means(u0, phis, p.eps))
+        return MultiphaseResult(phis, labels_from_phis(phis), iters, delta,
+                                cs)
 
 
 def segment_multiphase_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
@@ -376,28 +440,35 @@ def segment_multiphase_fixed(u0, p: CVParams = CVParams(), iters: int = 100,
     """Fixed-iteration run with the energy and label-flip fraction of every
     iteration. The energy is evaluated in plain PyTorch between iterations,
     so the resident route is excluded; K9's banded mode still applies."""
-    route = _mp2_route(u0, p, m_sets, use_pallas, allow_resident=False)
-    phis = _default_phis(u0, m_sets, phis0)
+    with spans.span("cv.drv.setup"):
+        route = _mp2_route(u0, p, m_sets, use_pallas, allow_resident=False)
+        phis = _default_phis(u0, m_sets, phis0)
     es, ds = [], []
     if route == "banded":
         n_pix = float(u0.numel())
-        cs = torch.stack(phase_means(u0, phis, p.eps))
+        with spans.span("cv.drv.means"):
+            cs = torch.stack(phase_means(u0, phis, p.eps))
         for n in range(iters):
-            phis, parts = multiphase_kernel.mp2_iteration(phis, u0, cs, p)
-            cs = parts[0:4] / torch.clamp(parts[4:8], min=_TINY)
-            ds.append(parts[8] / n_pix)
-            es.append(multiphase_energy(u0, phis, p))
-            if reinit_fires(n, p):
-                phis = maybe_reinit(phis, n, p)
-                cs = torch.stack(phase_means(u0, phis, p.eps))
+            with spans.span("cv.drv.step"):
+                phis, parts = multiphase_kernel.mp2_iteration(phis, u0, cs,
+                                                              p)
+                cs = parts[0:4] / torch.clamp(parts[4:8], min=_TINY)
+                ds.append(parts[8] / n_pix)
+                es.append(multiphase_energy(u0, phis, p))
+                if reinit_fires(n, p):
+                    phis = maybe_reinit(phis, n, p)
+                    cs = torch.stack(phase_means(u0, phis, p.eps))
     else:
         for n in range(iters):
-            new, _ = multiphase_step(phis, u0, p, route == "sweeps")
-            ds.append(torch.mean((labels_from_phis(new)
-                                  != labels_from_phis(phis)).to(u0.dtype)))
-            es.append(multiphase_energy(u0, new, p))
-            phis = maybe_reinit(new, n, p)
-    stack = (lambda xs: torch.stack(xs) if xs
-             else torch.empty(0, dtype=u0.dtype, device=u0.device))
-    return MultiphaseTrace(phis, labels_from_phis(phis), stack(es),
-                           stack(ds))
+            with spans.span("cv.drv.step"):
+                new, _ = multiphase_step(phis, u0, p, route == "sweeps")
+                ds.append(torch.mean((labels_from_phis(new)
+                                      != labels_from_phis(phis))
+                                     .to(u0.dtype)))
+                es.append(multiphase_energy(u0, new, p))
+                phis = maybe_reinit(new, n, p)
+    with spans.span("cv.drv.finish"):
+        stack = (lambda xs: torch.stack(xs) if xs
+                 else torch.empty(0, dtype=u0.dtype, device=u0.device))
+        return MultiphaseTrace(phis, labels_from_phis(phis), stack(es),
+                               stack(ds))

@@ -1170,15 +1170,17 @@ def launch_mp2_resident(symbol: str, phis, u0, p, iters: int, unroll: int,
         return out, parts
     (th, tw, gx, _, u0res, smem), _, nblocks = group_plan(symbol, h, w, 0,
                                                           2, dev)
-    # the blocks' 10 slots, the tagged rim words of both level sets
+    # the blocks' 10 slots
     scratch = torch.empty(nblocks * 10, dtype=torch.float64, device=dev)
-    rims = torch.zeros(2 * 2 * nblocks * 2 * (th + tw), dtype=torch.int64,
-                       device=dev)
-    sync = torch.zeros(TILE_SYNC, dtype=torch.int32, device=dev)
+    # the tagged rim words of both level sets and then the sync words,
+    # zeroed in one launch
+    nrim = 2 * 2 * nblocks * 2 * (th + tw)
+    words = torch.zeros(nrim + TILE_SYNC // 2, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         err = getattr(lib, symbol)(
             phis.data_ptr(), out.data_ptr(), u0.data_ptr(),
-            scratch.data_ptr(), rims.data_ptr(), sync.data_ptr(),
+            scratch.data_ptr(), words.data_ptr(),
+            words.data_ptr() + 8 * nrim,
             parts.data_ptr(), nblocks, h, w, iters, unroll, th, tw, gx,
             int(u0res), smem, p.mu, p.nu, *_common_params(p), stream)
     _raise_on(lib, symbol, err)

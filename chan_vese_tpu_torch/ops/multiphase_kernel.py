@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
 from ..params import CVParams
 from . import _cuda
 from .fused_kernel import _HALO, _VMEM_LIMIT, resync_rim
@@ -142,12 +143,13 @@ def mp2_iteration(phis, u0, cs, p: CVParams):
     CPU tensors run the plain version; CUDA tensors (float32, contiguous)
     launch ``csrc/mp2_band.cu`` or raise.
     """
-    check_mp2(phis, u0, supports_mp2, "mp2 fast path")
-    if phis.device.type == "cpu":
-        return mp2_iteration_reference(phis, u0, cs, p)
-    out = _cuda.launch_mp2(phis, u0, cs, p)
-    mp2_iteration.launches += 1
-    return out
+    with spans.span("cv.launch.mp2_iteration"):
+        check_mp2(phis, u0, supports_mp2, "mp2 fast path")
+        if phis.device.type == "cpu":
+            return mp2_iteration_reference(phis, u0, cs, p)
+        out = _cuda.launch_mp2(phis, u0, cs, p)
+        mp2_iteration.launches += 1
+        return out
 
 
 mp2_iteration.launches = 0
@@ -197,19 +199,20 @@ def mp2_iteration_sharded(phis_canvas, u0_canvas, cs, p: CVParams, parity,
     even Hc and Wc) launch ``csrc/mp2_band.cu``'s
     ``cv_mp2_iteration_shard`` or raise.
     """
-    if phis_canvas.ndim != 3 or phis_canvas.shape[0] != 2:
-        raise ValueError("mp2 kernel is specialized to M = 2 level sets")
-    if tuple(u0_canvas.shape) != tuple(phis_canvas.shape[1:]):
-        raise ValueError(f"u0 {tuple(u0_canvas.shape)} vs phis "
-                         f"{tuple(phis_canvas.shape[1:])}")
-    h, w = u0_canvas.shape
-    shard = _cuda.shard_args(h, w, 1, parity, crop, edges)
-    if phis_canvas.device.type == "cpu":
-        return mp2_iteration_sharded_reference(phis_canvas, u0_canvas, cs, p,
-                                               parity, edges, crop)
-    out = _cuda.launch_mp2(phis_canvas, u0_canvas, cs, p, shard=shard)
-    mp2_iteration_sharded.launches += 1
-    return out
+    with spans.span("cv.launch.mp2_iteration_sharded"):
+        if phis_canvas.ndim != 3 or phis_canvas.shape[0] != 2:
+            raise ValueError("mp2 kernel is specialized to M = 2 level sets")
+        if tuple(u0_canvas.shape) != tuple(phis_canvas.shape[1:]):
+            raise ValueError(f"u0 {tuple(u0_canvas.shape)} vs phis "
+                             f"{tuple(phis_canvas.shape[1:])}")
+        h, w = u0_canvas.shape
+        shard = _cuda.shard_args(h, w, 1, parity, crop, edges)
+        if phis_canvas.device.type == "cpu":
+            return mp2_iteration_sharded_reference(
+                phis_canvas, u0_canvas, cs, p, parity, edges, crop)
+        out = _cuda.launch_mp2(phis_canvas, u0_canvas, cs, p, shard=shard)
+        mp2_iteration_sharded.launches += 1
+        return out
 
 
 mp2_iteration_sharded.launches = 0
@@ -244,15 +247,17 @@ def mp2_resident_iterations(phis, u0, p: CVParams, iters: int,
     CPU tensors run the plain version; CUDA tensors (float32, contiguous)
     launch ``csrc/mp2_resident.cu`` or raise.
     """
-    check_mp2(phis, u0, supports_mp2_resident, "mp2 resident")
-    check_iters(iters, unroll)
-    if phis.device.type == "cpu":
-        return mp2_resident_iterations_reference(phis, u0, p, iters, unroll)
-    h, w = u0.shape
-    out = _cuda.launch_mp2_resident("cv_mp2_resident_iterations", phis, u0,
-                                    p, iters, unroll, h, w)
-    mp2_resident_iterations.launches += 1
-    return out
+    with spans.span("cv.launch.mp2_resident_iterations"):
+        check_mp2(phis, u0, supports_mp2_resident, "mp2 resident")
+        check_iters(iters, unroll)
+        if phis.device.type == "cpu":
+            return mp2_resident_iterations_reference(phis, u0, p, iters,
+                                                     unroll)
+        h, w = u0.shape
+        out = _cuda.launch_mp2_resident("cv_mp2_resident_iterations", phis,
+                                        u0, p, iters, unroll, h, w)
+        mp2_resident_iterations.launches += 1
+        return out
 
 
 mp2_resident_iterations.launches = 0

@@ -481,10 +481,12 @@ def packed_mp2_resident_iterations_reference(phis, u0, p: CVParams,
 
 
 def packed_mp2_resident_iterations(phis, u0, p: CVParams, iters: int,
-                                   unroll: int = 1):
+                                   unroll: int = 1, planes=None):
     """K9's :func:`..multiphase_kernel.mp2_resident_iterations` contract
     ((2, H, W) in and out, partials (iters // unroll, 8)) on parity planes,
-    packed inside."""
+    packed inside; ``planes``, where given, are phis's parity planes
+    (:func:`pack_planes`), which the caller keeps, so phis is not packed
+    again."""
     with spans.span("cv.launch.packed_mp2_resident_iterations"):
         check_mp2(phis, u0, supports_packed_mp2_resident,
                   "packed mp2 resident")
@@ -496,7 +498,8 @@ def packed_mp2_resident_iterations(phis, u0, p: CVParams, iters: int,
                                                             unroll)
         h, w = u0.shape
         out, parts = _cuda.launch_mp2_resident(
-            "cv_packed_mp2_resident_iterations", pack_planes(phis),
+            "cv_packed_mp2_resident_iterations",
+            pack_planes(phis) if planes is None else planes,
             pack_planes(u0), p, iters, unroll, h, w)
         packed_mp2_resident_iterations.launches += 1
         return unpack_planes(out), parts

@@ -68,6 +68,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import spans
 from ..models.fused import (_delta_from_partials, _fold_scalar_lambdas,
                             segment_fused)
 from ..models.multiphase import (MultiphaseResult, _coupling_term,
@@ -1260,31 +1261,35 @@ def segment_multiphase_sharded(u0, p: CVParams = CVParams(),
     flips.
     """
     depth = 8 * comm_k if comm_k > 1 else _D
-    use_pallas = _check_multiphase(u0, p, mesh, halo, comm_k, m_sets,
-                                   use_pallas, depth)
-    cap = max_iter if max_iter is not None else p.max_iter
-    u0 = _on_mesh(u0, mesh)
-    g = _Grid(u0, p, mesh)
-    phis = _mp_start(u0, m_sets, phis0, mesh)
-    step = _mp_step(g, use_pallas, comm_k, halo)
-    cs = (torch.stack(_sharded_phase_means(g, phis)) if use_pallas
-          else _sharded_phase_means(g, phis) if comm_k > 1 else None)
+    with spans.span("cv.drv.setup"):
+        use_pallas = _check_multiphase(u0, p, mesh, halo, comm_k, m_sets,
+                                       use_pallas, depth)
+        cap = max_iter if max_iter is not None else p.max_iter
+        u0 = _on_mesh(u0, mesh)
+        g = _Grid(u0, p, mesh)
+        phis = _mp_start(u0, m_sets, phis0, mesh)
+        step = _mp_step(g, use_pallas, comm_k, halo)
+        cs = (torch.stack(_sharded_phase_means(g, phis)) if use_pallas
+              else _sharded_phase_means(g, phis) if comm_k > 1 else None)
 
     n = 0
 
     def advance(size):
         nonlocal phis, cs, n
-        phis, cs, delta = step(phis, cs, size)
-        redistanced = _sharded_reinit(g, phis, n)
-        if redistanced is not None:  # the plain route: cs is None
-            phis = redistanced
-        n += size
-        return delta
+        with spans.span("cv.drv.step"):
+            phis, cs, delta = step(phis, cs, size)
+            redistanced = _sharded_reinit(g, phis, n)
+            if redistanced is not None:  # the plain route: cs is None
+                phis = redistanced
+            n += size
+            return delta
 
     iters, delta = _drive(g, cap, fixed, comm_k, comm_k > 1, advance)
-    phis = _gather_phis(phis, mesh)
-    cs = torch.stack(phase_means(u0, phis, p.eps))
-    return MultiphaseResult(phis, labels_from_phis(phis), iters, delta, cs)
+    with spans.span("cv.drv.finish"):
+        phis = _gather_phis(phis, mesh)
+        cs = torch.stack(phase_means(u0, phis, p.eps))
+        return MultiphaseResult(phis, labels_from_phis(phis), iters, delta,
+                                cs)
 
 
 def _sharded_multiphase_energy(g: _Grid, phis):
