@@ -11,7 +11,12 @@ remainder chunk, so the max_iter cap is exact.
 Convergence and divergence are evaluated at chunk boundaries from the last
 in-chunk iteration's partials; ``patience`` is iteration-denominated (a
 below-tol chunk credits its full size to the streak). The tolerance loop
-reads the chunk's delta back once per chunk.
+runs one chunk ahead: it queues chunk n + 1 on chunk n's iterate and means
+before it reads chunk n's delta (on a CUDA device a non-blocking copy into
+pinned memory, queued before chunk n + 1, and a wait on an event after
+it), so the device runs the next chunk while the host reads and decides.
+A stop throws the chunk ahead away and keeps chunk n's state, so the
+answer is the one-chunk-at-a-time loop's, bit for bit. One read a chunk.
 
 Routing follows the reference exactly (``auto_config``/``_supported``,
 ``auto_config_mc``/``_supported_mc``): a call takes the same route, and so
@@ -224,48 +229,67 @@ def segment_banded(u0, p: CVParams = CVParams(),
     if not ok:
         from .fused import segment_fused
         return segment_fused(u0, p, phi0, lambda1=lambda1, lambda2=lambda2)
-    n, streak = 0, 0
+    def done(n, streak):
+        return streak >= p.patience and n >= p.min_iter
 
-    def not_stopped():
-        with spans.span("cv.drv.stop"):
-            done = streak >= p.patience and n >= p.min_iter
-            if n == 0:
-                return not done
-            with spans.span("cv.sync.diverged"):
-                diverged = not math.isfinite(float(delta))
-            return not (done or diverged)
+    # the schedule, known without a read: full k-chunks, then one
+    # remainder chunk, so the max_iter cap is exact
+    sizes = [] if done(0, 0) else (
+        [k] * (p.max_iter // k) + ([p.max_iter % k] if p.max_iter % k
+                                   else []))
+    # the stop metric is compared in its own dtype, as ``delta < tol`` on
+    # the device rounds tol to it
+    tol = torch.tensor(p.tol, dtype=delta.dtype).item()
+    cuda = delta.device.type == "cuda"
+    if cuda:
+        # two slots: chunk n + 1's copy is queued before chunk n's is read
+        slots = torch.empty(2, dtype=delta.dtype, pin_memory=True)
+        ready = (torch.cuda.Event(), torch.cuda.Event())
+        stream = torch.cuda.current_stream(delta.device)
 
-    def run_chunk(size):
-        nonlocal n, delta, streak
-        parts = ch.run(size)
-        with spans.span("cv.drv.stop"):
-            delta = _delta_from_partials(parts, ch.n_pix, p, ch.offset)
-            with spans.span("cv.sync.tol"):
-                below = bool(delta < p.tol)
-            # a below-tol chunk credits its full size: patience stays
-            # iteration-denominated across drivers
-            streak = streak + size if below else 0
-        n += size
+    def queue(i):
+        """Queue chunk i of the schedule and the copy of its stop metric to
+        the host: (phi, c1, c2, delta, the host's copy, its event)."""
+        parts = ch.run(sizes[i])
+        d = _delta_from_partials(parts, ch.n_pix, p, ch.offset)
+        if not cuda:
+            return ch.phi, ch.c1, ch.c2, d, d, None
+        slots[i % 2].copy_(d, non_blocking=True)
+        ready[i % 2].record(stream)
+        return ch.phi, ch.c1, ch.c2, d, slots[i % 2], ready[i % 2]
 
-    full = (p.max_iter // k) * k
-    rem = p.max_iter - full
-
-    def next_size():
-        """The next chunk's size, 0 where the run stops: full k-chunks,
-        then one remainder chunk."""
-        if n < full and not_stopped():
-            return k
-        if rem and n < p.max_iter and not_stopped():
-            return rem
-        return 0
-
-    # a step ends with the decision on the next chunk, so that the host's
-    # turn between two chunks' reads lies inside one step
-    size = next_size()
-    while size:
+    n, streak, ahead = 0, 0, None
+    for i, size in enumerate(sizes):
         with spans.span("cv.drv.step"):
-            run_chunk(size)
-            size = next_size()
+            phi, c1, c2, d, host, event = ahead or queue(i)
+            ahead = None
+            if i + 1 < len(sizes):
+                with spans.span("cv.drv.ahead"):
+                    ahead = queue(i + 1)
+                _counts.ahead += 1
+            with spans.span("cv.drv.stop"):
+                with spans.span("cv.sync.stop"):
+                    if event is not None:
+                        event.synchronize()
+                    value = float(host)
+                # a below-tol chunk credits its full size: patience stays
+                # iteration-denominated across drivers
+                streak = streak + size if value < tol else 0
+                n, delta = n + size, d
+                if done(n, streak) or not math.isfinite(value):
+                    if ahead is not None:
+                        with spans.span("cv.drv.discard"):
+                            ch.phi, ch.c1, ch.c2 = phi, c1, c2
+                        _counts.discarded += 1
+                    break
     with spans.span("cv.drv.finish"):
         phi = ch.image()
         return SegResult(phi, phi >= 0, n, delta, ch.c1, ch.c2)
+
+
+# chunks queued before the previous chunk's verdict, and those of them
+# thrown away at a stop; counted on the function as defined here (under a
+# name of its own, since a caller may put a wrapper in its place)
+segment_banded.ahead = 0
+segment_banded.discarded = 0
+_counts = segment_banded

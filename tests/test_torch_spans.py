@@ -114,29 +114,57 @@ def _counting_reads(monkeypatch):
 
 
 def test_tolerance_driver_spans(gray, monkeypatch):
-    """Each step's host waits lie in its stop decisions, and there is one
-    ``cv.sync.*`` span for each read the loop makes."""
+    """One step a chunk read: the chunk ahead queued in its own span, then
+    the one host wait of the step inside its stop decision, a read a chunk;
+    the chunk ahead thrown away at a tolerance stop, none queued past the
+    schedule at a ``max_iter`` stop."""
     reads = _counting_reads(monkeypatch)
-    res, got = _traced(lambda: _tol(gray))
-    setup, = _named(got, "cv.drv.setup")
-    steps = _named(got, "cv.drv.step")
-    assert 0 < res.iters < P.max_iter
-    # one step a chunk: its launch, the means, the stop metric's read and
-    # the decision on the next chunk, which reads the metric again
-    assert len(steps) == res.iters // 8
-    loop_syncs = [s for s in _named(got, "cv.sync.")
-                  if s not in _inside(got, setup, "cv.sync.")]
-    for step in steps:
-        assert len(_inside(got, step, "cv.launch.")) == 1
-        assert len(_inside(got, step, "cv.drv.means")) == 1
-        assert [s[2] for s in _inside(got, step, "cv.sync.")] == [
-            "cv.sync.tol", "cv.sync.diverged"]
-        held = [s for stop in _inside(got, step, "cv.drv.stop")
-                for s in _inside(got, stop, "cv.sync.")]
-        assert sorted(held) == _inside(got, step, "cv.sync.")
-    assert len(loop_syncs) == len(reads) == 2 * len(steps)
-    assert {s[2] for s in _inside(got, setup, "cv.sync.")} == {
-        "cv.sync.n_pix", "cv.sync.region_n", "cv.sync.inf"}
+    for p in (P, P.replace(tol=-1.0, max_iter=20)):
+        del reads[:]
+        ahead = banded.segment_banded.ahead
+        discarded = banded.segment_banded.discarded
+        res, got = _traced(lambda: banded.segment_banded(gray, p, k=8,
+                                                         packed=True))
+        setup, = _named(got, "cv.drv.setup")
+        steps = _named(got, "cv.drv.step")
+        at_tol = p.tol > 0
+        if at_tol:
+            assert 0 < res.iters < p.max_iter and res.iters % 8 == 0
+        else:
+            assert res.iters == p.max_iter  # chunks of 8, 8 and 4
+        # one step a chunk whose verdict is read: the first step also
+        # queues the first chunk, every step with a next chunk in the
+        # schedule queues it ahead, before the wait
+        assert len(steps) == -(-res.iters // 8)
+        chunks = len(steps) + at_tol
+        for i, step in enumerate(steps):
+            last = i == len(steps) - 1
+            ahead_spans = _inside(got, step, "cv.drv.ahead")
+            assert len(ahead_spans) == (0 if last and not at_tol else 1)
+            for a in ahead_spans:
+                assert len(_inside(got, a, "cv.launch.")) == 1
+                assert len(_inside(got, a, "cv.drv.means")) == 1
+                assert not _inside(got, a, "cv.sync.")
+            assert len(_inside(got, step, "cv.launch.")) == (
+                1 + (i == 0) - (last and not at_tol))
+            stop, = _inside(got, step, "cv.drv.stop")
+            sync, = _inside(got, step, "cv.sync.")
+            assert sync[2] == "cv.sync.stop"
+            assert _inside(got, stop, "cv.sync.") == [sync]
+            assert all(a[1] <= sync[0] for a in ahead_spans)
+            assert len(_inside(got, step, "cv.drv.discard")) == (
+                last and at_tol)
+        assert len(_named(got, "cv.drv.discard")) == at_tol
+        assert len(_named(got, "cv.launch.packed_banded_chunk")) == chunks
+        assert banded.segment_banded.ahead - ahead == chunks - 1
+        assert banded.segment_banded.discarded - discarded == at_tol
+        # one read a chunk, not the two (the metric against tol, then
+        # again for divergence) of a loop that reads before it queues
+        loop_syncs = [s for s in _named(got, "cv.sync.")
+                      if s not in _inside(got, setup, "cv.sync.")]
+        assert len(loop_syncs) == len(reads) == len(steps)
+        assert {s[2] for s in _inside(got, setup, "cv.sync.")} == {
+            "cv.sync.n_pix", "cv.sync.region_n", "cv.sync.inf"}
 
 
 def test_sharded_stack_spans(stack):
