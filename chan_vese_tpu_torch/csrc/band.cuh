@@ -1,14 +1,12 @@
 // The banded chunk body of K2 (banded.cu, NC = 0) and K5 (banded_mc.cu,
 // NC = C), in their whole-image and shard-canvas modes (SHARD), and of K3
 // (packed.cu, both modes) and K6 (packed_mc.cu) on parity planes
-// (PACKED). It computes what redblack.cuh's chunk_kernel computes for
-// those kernels: k red-black iterations with c1/c2 frozen, the shard
-// canvas's lattice parity, crop, edge flags and depth-2 rim refresh after
-// every half-sweep, the canvas outside the crop copied through, and the
-// partials of the last iteration in the same slots, summed in f64 in a
-// fixed order. Every cell goes through redblack.cuh's update_cell_at and
-// the same Heaviside and partials expressions, so the level set comes out
-// bitwise equal to chunk_kernel's. Replaces, like chunk_kernel did,
+// (PACKED). It computes redblack.cuh's contract for those kernels: k
+// red-black iterations with c1/c2 frozen, the shard canvas's lattice
+// parity, crop, edge flags and depth-2 rim refresh after every
+// half-sweep, the canvas outside the crop copied through, and the
+// partials of the last iteration, summed in f64 in a fixed order. Every
+// cell goes through redblack.cuh's update_cell_at. Replaces
 // chan_vese_tpu/ops/pallas_banded.py::_banded_kernel (:104, _fusej :230,
 // the sharded branch of banded_chunk_sharded :399), _banded_mc_kernel
 // (:507, _fusej :625, banded_chunk_mc :776, banded_chunk_mc_sharded :800),
@@ -30,7 +28,7 @@
 // Bound on the card: the update's arithmetic (4 rsqrt and a divide on the
 // MUFU pipe, ~55 FP32 operations) over every window cell, not DRAM (12
 // B/pixel per k iterations for a gray image). What the design does about
-// it, against chunk_kernel:
+// it:
 // - A symmetric 2k halo. The wrong values that the clamped reads at a
 //   window edge make move one cell per half-sweep (an update reads its
 //   3x3 neighbourhood), so after the 2k half-sweeps of a chunk they reach
@@ -54,7 +52,7 @@
 //   words), plus the cell's force from a colour-split plane (f of colour
 //   c at [c][r][q], consecutive across a warp). The 3x3 neighbourhood is
 //   handed to update_cell_at as a 3 x 3 register grid.
-// - Shared memory is phi and f, 8 B a window cell (10 before), and the
+// - Shared memory is phi and f, 8 B a window cell, and the
 //   tile and thread count are chosen on the host
 //   (chan_vese_tpu_torch/ops/_cuda.py::band_geometry) so that two or more
 //   blocks fit on an SM at the main path's shapes.
@@ -166,8 +164,9 @@ __device__ __forceinline__ void band_store(float* cur, const BandWin& B,
   }
 }
 
-// The depth-2 rim refresh of redblack.cuh::resync_rim, rows then columns,
-// in a block that holds a replica and its source (the caller's test).
+// The depth-2 rim refresh (redblack.cuh, "Shard canvases"), rows then
+// columns, in a block that holds a replica and its source (the caller's
+// test).
 __device__ __forceinline__ void band_rim(float* cur, const BandWin& B,
                                          const Shard& S) {
   const int wr1 = B.wr0 + B.wh, wc1 = B.wc0 + B.ww;
@@ -402,8 +401,7 @@ band_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
 // Sums the (nblocks, NSUMS) per-block partials in f64 into parts[nout]
 // (slots from NSUMS on are 0) in one pass: thread t adds blocks t, t +
 // 256, ... of every slot, then the warps' shuffles and warp 0's order fix
-// the rest, so the result is deterministic. One barrier, where
-// redblack.cuh's reduce_parts_kernel takes a tree of barriers per slot.
+// the rest, so the result is deterministic. One barrier.
 template <int NSUMS>
 __global__ void __launch_bounds__(256)
 band_reduce_kernel(const double* __restrict__ block_parts, int nblocks,

@@ -8,12 +8,9 @@
 //
 // Bound on the card: device memory. Each iteration reads phi and u0 and
 // writes phi (12 B/pixel), so at 4K one call moves about 100 MB. The
-// launchers the wrappers call run sweep.cuh's single-sweep body (a halo of
-// 2, small blocks, 16-byte window loads, u0 read once, the partials summed
-// in the same launch); the `_v1` launchers keep the first body,
-// redblack.cuh's chunk_kernel at k = 1 (4/2 halos, 10 B of shared memory a
-// window cell, 64 x 128 tiles, a second launch for the partials), as the
-// yardstick the smoke and the cuda-marked tests hold the new one against.
+// launchers run sweep.cuh's single-sweep body (a halo of 2, small blocks,
+// 16-byte window loads, u0 read once, the partials summed in the same
+// launch).
 
 #include "redblack.cuh"
 #include "sweep.cuh"
@@ -77,48 +74,6 @@ extern "C" cudaError_t cv_sweep_occupancy(int shard, int threads, int smem,
                                           int* blocks) {
   return shard ? cv::sweep_occupancy<0, true>(threads, smem, blocks)
                : cv::sweep_occupancy<0, false>(threads, smem, blocks);
-}
-
-// The first K1 body (redblack.cuh chunk_kernel at k = 1), kept under `_v1`
-// names as the yardstick of the sweep.cuh launchers above: no wrapper or
-// driver reaches it.
-
-extern "C" cudaError_t cv_fused_iteration_v1(
-    const float* phi, const float* u0, const float* cc, float* out,
-    double* block_parts, float* parts, int H, int W, int TH, int TW,
-    int cap, float mu, float nu, float l1, float l2, float eta2, float gdt,
-    float eps, float eps2, float inv_pi, void* stream) {
-  const cv::Params P{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi};
-  return cv::launch_chunk<false, 0>(phi, u0, cc, out, block_parts, parts, H,
-                                    W, 1, TH, TW, cap, 8, P,
-                                    (cudaStream_t)stream);
-}
-
-// The first body's batch mode: redblack.cuh's frame axis (blockIdx.z) and
-// one reduction block per frame.
-extern "C" cudaError_t cv_fused_iteration_batch_v1(
-    const float* phi, const float* u0, const float* cc, float* out,
-    double* block_parts, float* parts, int H, int W, int N, int TH, int TW,
-    int cap, float mu, float nu, float l1, float l2, float eta2, float gdt,
-    float eps, float eps2, float inv_pi, void* stream) {
-  const cv::Params P{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi};
-  return cv::launch_chunk<false, 0>(phi, u0, cc, out, block_parts, parts, H,
-                                    W, 1, TH, TW, cap, 8, P,
-                                    (cudaStream_t)stream, N);
-}
-
-// The first body's shard-canvas mode (redblack.cuh SHARD).
-extern "C" cudaError_t cv_fused_iteration_shard_v1(
-    const float* phi, const float* u0, const float* cc, float* out,
-    double* block_parts, float* parts, int H, int W, int TH, int TW, int cap,
-    float mu, float nu, float l1, float l2, float eta2, float gdt, float eps,
-    float eps2, float inv_pi, int parity, int r0, int r1, int c0, int c1,
-    int top, int bottom, int left, int right, void* stream) {
-  const cv::Params P{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi};
-  const cv::Shard S{parity, r0, r1, c0, c1, top, bottom, left, right};
-  return cv::launch_chunk<false, 0, true>(phi, u0, cc, out, block_parts,
-                                          parts, H, W, 1, TH, TW, cap, 8, P,
-                                          (cudaStream_t)stream, 1, S);
 }
 
 // Name of a CUDA error code, for the Python wrappers' exceptions.

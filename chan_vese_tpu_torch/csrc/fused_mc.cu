@@ -7,8 +7,7 @@
 // the window holds the C channels of u0 beside phi, the swept cell
 // computes the data term (the channel average of the weighted squared
 // distances) from them, and the partials carry one s_uH per channel, C + 4
-// slots in all, read from the same window. The `_v1` launcher keeps the
-// first body (redblack.cuh's chunk_kernel at k = 1) as the yardstick.
+// slots in all, read from the same window.
 //
 // Bound on the card: device memory. Each iteration reads phi and the C
 // channels of u0 and writes phi (8 + 4C B/pixel: 20 at RGB, against 12
@@ -36,17 +35,4 @@ extern "C" cudaError_t cv_fused_iteration_mc(
 extern "C" cudaError_t cv_sweep_occupancy_mc(int C, int threads, int smem,
                                              int* blocks) {
   return cv::sweep_occupancy_mc(C, threads, smem, blocks);
-}
-
-// The first K4 body (redblack.cuh chunk_kernel at k = 1, NC = C), kept
-// under a `_v1` name; no wrapper or driver reaches it.
-extern "C" cudaError_t cv_fused_iteration_mc_v1(
-    const float* phi, const float* u0, const float* cc, float* out,
-    double* block_parts, float* parts, int H, int W, int C, int TH, int TW,
-    int cap, float mu, float nu, float eta2, float gdt, float eps,
-    float eps2, float inv_pi, void* stream) {
-  const cv::Params P = cv::mc_params(mu, nu, eta2, gdt, eps, eps2, inv_pi);
-  return cv::launch_chunk_mc<false>(phi, u0, cc, out, block_parts, parts, H,
-                                    W, C, 1, TH, TW, cap, C + 4, P,
-                                    (cudaStream_t)stream);
 }

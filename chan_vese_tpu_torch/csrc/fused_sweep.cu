@@ -9,8 +9,7 @@
 // NC = kForce: the window loads f where K1 loads u0, and the swept cell
 // reads it as its force. Partials [f H, H, s_dphi2, flips, s_absdphi, 0,
 // 0, 0]; the first two carry no meaning in this mode, as in the
-// reference. The `_v1` launchers keep the first body (redblack.cuh's
-// chunk_kernel at k = 1) as the yardstick.
+// reference.
 //
 // Bound on the card: device memory, as fused.cu (phi and f read, phi
 // written: 12 B/pixel). At 512^2, where the sweeps route launches it, a
@@ -60,31 +59,4 @@ extern "C" cudaError_t cv_sweep_occupancy_force(int shard, int threads,
   return shard ? cv::sweep_occupancy<cv::kForce, true>(threads, smem, blocks)
                : cv::sweep_occupancy<cv::kForce, false>(threads, smem,
                                                          blocks);
-}
-
-// The first body's force mode (redblack.cuh chunk_kernel, NC = kForce),
-// kept under `_v1` names; no wrapper or driver reaches it.
-extern "C" cudaError_t cv_fused_sweep_v1(
-    const float* phi, const float* f, const float* cc, float* out,
-    double* block_parts, float* parts, int H, int W, int TH, int TW,
-    int cap, float mu, float nu, float l1, float l2, float eta2, float gdt,
-    float eps, float eps2, float inv_pi, void* stream) {
-  const cv::Params P{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi};
-  return cv::launch_chunk<false, cv::kForce>(phi, f, cc, out, block_parts,
-                                             parts, H, W, 1, TH, TW, cap, 8,
-                                             P, (cudaStream_t)stream);
-}
-
-// The first body's force mode with a parity (its shard instantiation).
-extern "C" cudaError_t cv_fused_sweep_shard_v1(
-    const float* phi, const float* f, const float* cc, float* out,
-    double* block_parts, float* parts, int H, int W, int TH, int TW, int cap,
-    float mu, float nu, float l1, float l2, float eta2, float gdt, float eps,
-    float eps2, float inv_pi, int parity, int r0, int r1, int c0, int c1,
-    int top, int bottom, int left, int right, void* stream) {
-  const cv::Params P{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi};
-  const cv::Shard S{parity, r0, r1, c0, c1, top, bottom, left, right};
-  return cv::launch_chunk<false, cv::kForce, true>(
-      phi, f, cc, out, block_parts, parts, H, W, 1, TH, TW, cap, 8, P,
-      (cudaStream_t)stream, 1, S);
 }

@@ -14,11 +14,9 @@
 // planes), wherever D is at most every shard's height and width (then a
 // padded row reads the shard's own grid row and its neighbours' only).
 //
-// Design. The first body (halo_ring.cu, `_v1`) runs the reference's two
-// stages: two launches a device, each copying whole blocks into freshly
-// allocated larger ones, about twice the bytes the exchange needs, and a
-// task table the wrapper builds anew on every call. Here one launch on a
-// device writes every padded block that lies on it. Each warp owns one
+// Design. The reference's two stages copy whole blocks into larger ones,
+// about twice the bytes the exchange needs. Here one launch on a device
+// writes every padded block that lies on it. Each warp owns one
 // padded destination row of one shard and slice: the global row
 // clamp(r0 - D + i) is found in the grid row above, the shard's own or the
 // one below, and the warp writes the row's three runs from that grid row:
@@ -206,4 +204,26 @@ extern "C" cudaError_t cv_halo_gather(const GatherGeo* geo,
     if (err == cudaSuccess) err = back;
   }
   return err;
+}
+
+// Let `dev` store into `peer`'s memory (once per ordered pair; a pair
+// already enabled is no error). The caller's current device is kept.
+extern "C" cudaError_t cv_halo_peer_access(int dev, int peer) {
+  int can = 0;
+  cudaError_t err = cudaDeviceCanAccessPeer(&can, dev, peer);
+  if (err != cudaSuccess) return err;
+  if (!can) return cudaErrorPeerAccessUnsupported;
+  int cur = 0;
+  err = cudaGetDevice(&cur);
+  if (err != cudaSuccess) return err;
+  err = cudaSetDevice(dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceEnablePeerAccess(peer, 0);
+    if (err == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();  // clear the error it recorded
+      err = cudaSuccess;
+    }
+  }
+  const cudaError_t back = cudaSetDevice(cur);
+  return err != cudaSuccess ? err : back;
 }

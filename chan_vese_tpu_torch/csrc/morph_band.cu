@@ -15,13 +15,7 @@
 // one integer instruction a cell; the shard kinds clamp at the crop on the
 // global-edge sides, which is the replica ring's refresh. Bound on the
 // card: device memory, 12 B/pixel a launch (20 for gac_pre).
-//
-// The first body (morph.cuh: one byte a cell, 3x3 byte reads an op, the
-// ring refreshed with two barriers an op) stays as cv_morph_chunk_v1 and
-// cv_morph_chunk_shard_v1, the yardstick of the bit body; the package
-// reaches them only through ops/_cuda.py launch_morph(..., v1=True).
 
-#include "morph.cuh"
 #include "morph_bits.cuh"
 
 namespace {
@@ -124,58 +118,6 @@ extern "C" cudaError_t cv_morph_bits_occupancy(int kind, int cap,
       return cv::bits::occupancy<cv::bits::kAcweSh>(cap, blocks);
     case cv::bits::kGacPreSh:
       return cv::bits::occupancy<cv::bits::kGacPreSh>(cap, blocks);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// the first body (morph.cuh) ---------------------------------------------
-
-extern "C" cudaError_t cv_morph_chunk_v1(const float* ls, const float* aux,
-                                         float* out, int H, int W,
-                                         int kind, int k, int s, int parity0,
-                                         int balloon, float thr_b, int halo,
-                                         int TH, int TW, int cap,
-                                         void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (kind) {
-    case cv::kMorphAcwe:
-      return cv::launch_morph<cv::kMorphAcwe>(ls, aux, nullptr, out, nullptr,
-                                              nullptr, H, W, k, s, parity0,
-                                              0, 0.0f, halo, TH, TW, cap, st);
-    case cv::kMorphGac:
-      return cv::launch_morph<cv::kMorphGac>(ls, aux, nullptr, out, nullptr,
-                                             nullptr, H, W, k, s, parity0,
-                                             balloon, thr_b, halo, TH, TW,
-                                             cap, st);
-    case cv::kMorphGacPre:
-      return cv::launch_morph<cv::kMorphGacPre>(
-          ls, aux, nullptr, out, nullptr, nullptr, H, W, k, s, parity0,
-          balloon, thr_b, halo, TH, TW, cap, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// K11's shard kinds (acwe_sh = 4, gac_pre_sh = 5) on a shard's padded
-// (H, W) block whose own cells are [pt, H - pb) x [pcl, W - pcr); top,
-// bottom, left, right flag the global-edge sides.
-extern "C" cudaError_t cv_morph_chunk_shard_v1(
-    const float* ls, const float* aux, float* out, int H, int W, int kind,
-    int k, int s, int parity0, int balloon, float thr_b, int halo, int TH,
-    int TW, int cap, int pt, int pb, int pcl, int pcr, int top, int bottom,
-    int left, int right, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const cv::Shard S{0, pt, H - pb, pcl, W - pcr, top, bottom, left, right};
-  switch (kind) {
-    case cv::kMorphAcweSh:
-      return cv::launch_morph<cv::kMorphAcweSh>(
-          ls, aux, nullptr, out, nullptr, nullptr, H, W, k, s, parity0, 0,
-          0.0f, halo, TH, TW, cap, st, S);
-    case cv::kMorphGacPreSh:
-      return cv::launch_morph<cv::kMorphGacPreSh>(
-          ls, aux, nullptr, out, nullptr, nullptr, H, W, k, s, parity0,
-          balloon, thr_b, halo, TH, TW, cap, st, S);
     default:
       return cudaErrorInvalidValue;
   }

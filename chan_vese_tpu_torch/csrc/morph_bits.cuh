@@ -1,14 +1,28 @@
 // The bit-packed morphological body of the Hopper kernels K11 (morph_band.cu:
 // kinds acwe, gac, gac_pre and the shard kinds acwe_sh, gac_pre_sh) and K12
 // (morph_fused.cu: acwe with the force computed in the kernel and the region
-// partials of the final state). One body, templated on the kind; the first
-// body (morph.cuh, one byte a cell) stays as the `_v1` launchers.
+// partials of the final state). One body, templated on the kind.
 //
-// What a launch computes is morph.cuh's contract, bit for bit: k MorphACWE
-// or MorphGAC iterations on a binary level set; iteration j is the force
-// step (GAC: the balloon op where balloon != 0, then the attraction), then
-// `s` smoothing cycles, cycle c SIoIS (inf-sup, then sup-inf) when (parity0
-// + j s + c) is even and ISoSI otherwise; any k >= 1, either parity0.
+// What a launch computes: k MorphACWE or MorphGAC iterations on a binary
+// level set, the contract of chan_vese_tpu/ops/pallas_morph.py
+// ::_morph_banded_kernel and ::_morph_fused_kernel. Iteration j is the
+// force step (GAC: the balloon op where balloon != 0, then the attraction),
+// then `s` smoothing cycles, cycle c SIoIS (inf-sup, then sup-inf) when
+// (parity0 + j s + c) is even and ISoSI otherwise; any k >= 1, either
+// parity0 (the TPU kernel baked the parity in and needed (k s) even).
+//   acwe   : aux is the frozen force f; a cell whose level set has a
+//            nonzero central difference takes 1 where f < 0 and 0 where
+//            f > 0 (a zero or NaN force keeps it).
+//   fused  : aux is the image u0 and f = l1 (u0 - c_in)^2 - l2 (u0 -
+//            c_out)^2 from the four floats cc; the launch also returns
+//            (sum ls, sum u0 ls) of the final state over owned cells.
+//   gac    : aux is the edge map g; dgx, dgy (central differences, halved)
+//            and the balloon mask g > thr_b are computed once at load.
+//   gac_pre: aux is the (3, H, W) stack (dgx, dgy, mask) of gac_aux_stack.
+//   GAC iteration: where the mask is set, the 3x3 dilation (balloon > 0)
+//   or erosion (balloon < 0); then the attraction a = dgx dux + dgy duy
+//   with dux, duy in {-1/2, 0, 1/2}: a > 0 -> 1, a < 0 -> 0.
+// A launch is bitwise equal to its plain version.
 //
 // Bits. The state is kept as 32-bit words of 32 cells along a window row
 // (bit b of word j is window column 32 j + b). An elementary op computes a
@@ -57,8 +71,9 @@
 // rows of one word column, keeping the row above and its own in registers.
 //
 // Shard blocks (acwe_sh, gac_pre_sh: a shard's halo-padded (H, W) block of
-// the sharded solver, own cells the crop [r0, r1) x [c0, c1)). The first
-// body refreshes the depth-1 replica ring on the flagged (global-edge)
+// the sharded solver, own cells the crop [r0, r1) x [c0, c1); the contract
+// of _morph_banded_kernel with `pads` and its `rim` callback). The
+// contract refreshes the depth-1 replica ring on the flagged (global-edge)
 // sides before every elementary op, rows first, then columns. The crop's
 // cells then read, at every op, their own edge cell where they read the
 // ring: the replica convention at the crop's edge, corner included. So
@@ -68,7 +83,8 @@
 // crop. Cells outside the crop come back as they went in.
 //
 // K12 (fused): the force f = l1 (u0 - c_in)^2 - l2 (u0 - c_out)^2 from u0
-// and cc = (c_in, c_out, l1, l2), rounded op by op as morph.cuh; the store
+// and cc = (c_in, c_out, l1, l2), rounded op by op (no FMA) as the plain
+// version computes it; the store
 // sums the owned cells' ls (an exact integer) and u0 ls (f64 of the f32
 // product, u0 re-read), and the last block of the launch to finish sums
 // the blocks' partials in a fixed order (one counter word a stream, which
@@ -90,7 +106,7 @@ namespace cv {
 namespace bits {
 namespace {
 
-// kind codes (ops/_cuda.py MORPH_KINDS, morph.cuh's MorphKind)
+// kind codes (ops/_cuda.py MORPH_KINDS)
 enum BitsKind { kAcwe = 0, kGac = 1, kGacPre = 2, kFused = 3, kAcweSh = 4,
                 kGacPreSh = 5 };
 

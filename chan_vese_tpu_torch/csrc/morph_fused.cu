@@ -13,12 +13,7 @@
 // blocks in a fixed order (one launch; a counter word a stream). Bound on
 // the card: device memory, 12 B/pixel a launch; no force plane is written
 // or read between chunks.
-//
-// The first body (morph.cuh's kMorphFused, its block sums reduced by a
-// second launch) stays as cv_morph_fused_chunk_v1, reached only through
-// ops/_cuda.py launch_morph_fused(..., v1=True).
 
-#include "morph.cuh"
 #include "morph_bits.cuh"
 
 // TH x TW tiles, windows of WW words and cap = rows x WW words (ops/_cuda.py
@@ -54,14 +49,4 @@ extern "C" cudaError_t cv_morph_fused_chunk(
 
 extern "C" cudaError_t cv_morph_fused_bits_occupancy(int cap, int* blocks) {
   return cv::bits::occupancy<cv::bits::kFused>(cap, blocks);
-}
-
-// the first body
-extern "C" cudaError_t cv_morph_fused_chunk_v1(
-    const float* ls, const float* u0, const float* cc, float* out,
-    double* block_parts, float* parts, int H, int W, int k, int s,
-    int parity0, int halo, int TH, int TW, int cap, void* stream) {
-  return cv::launch_morph<cv::kMorphFused>(
-      ls, u0, cc, out, block_parts, parts, H, W, k, s, parity0, 0, 0.0f, halo,
-      TH, TW, cap, (cudaStream_t)stream);
 }

@@ -12,18 +12,11 @@
 //        pointwise at each cell;
 //   phi1 <- red, then black half-sweep on f1 (Dirac of old phi1).
 // The update is redblack.cuh's update_cell_at, replica-eval Neumann at the
-// image edges.
-//
-// Banded mode (mp2_band.cu's mp2_band_kernel): one launch per coupled
-// iteration, means given. A block owns a TH x TW tile and loads phi0, phi1
-// and u0 over a window clipped to the image and extended by 8 rows/cols
-// up/left and 4 down/right, the reach of a coupled iteration
-// (chunk_kernel's window at k = 2). In shared memory it runs phi0's two
-// half-sweeps on the whole window, builds f1 from the window's new phi0,
-// runs phi1's two half-sweeps, and writes out its tile. Partials (16
-// slots), over owned cells of the new level sets: [s_uw_0..3, s_w_0..3,
-// label_flips, s_dphi2, 0 x 6], w_s the soft phase weights; flips are of
-// the 2-bit label. Per block f64 sums, then redblack.cuh's fixed-order reduction.
+// image edges. Partials (16 slots of the banded mode), over owned cells of
+// the new level sets: [s_uw_0..3, s_w_0..3, label_flips, s_dphi2, 0 x 6],
+// w_s the soft phase weights; flips are of the 2-bit label. This header
+// holds the forces, the label and the phase sums every body shares; the
+// banded mode's body is mp2_band.cu's.
 //
 // Resident mode, tile body (mp2_tile_kernel<PACKED>, the launchers
 // cv_(packed_)mp2_resident_iterations): `iters` coupled iterations in one
@@ -37,51 +30,24 @@
 //       rim; the four side neighbours' red cells of phi0 into the ring;
 //   (c) phi0 black (force from old phi1) into N0 and phi1 red (force from
 //       the new red phi0 at the cell, final after (b)) into N1, committed
-//       together: one phase, as in the first body; phi0's black and phi1's
-//       red border to the rims; the side neighbours' red cells of phi1 in;
+//       together: phi1's red half reads phi0's new value only at its own
+//       red cell, so the two share a phase; phi0's black and phi1's red
+//       border to the rims; the side neighbours' red cells of phi1 in;
 //   (d) phi1 black: N1, committed, with the next iteration's phase sums
 //       and the row sums; phi1's black border to its rim; the grid-wide
 //       step (means, the row), during which both rings are read for the
 //       next iteration.
-// So two neighbour waits and one grid-wide step an iteration, in place of
-// three grid syncs and an all-block means reduction. The old 2-bit label
-// of a row iteration is kept at the commits of (b) and (c) (old phi0 at
-// hand, phi1 still old) and compared at those of (c) and (d). The update,
-// the forces and the phase sums are the first body's functions on the
-// same values: phi is bitwise the first body's wherever the f32 means
-// agree (the f64 sums are added by tile, in another order).
-//
-// Resident mode, first body (mp2_resident_kernel<PACKED>, the `_v1`
-// launchers): `iters` coupled iterations in one cooperative launch, the
-// means exact at every iteration, as resident.cuh's K7/K8. Per
-// iteration, with the buffers A (the result,
-// phi0 | phi1), B (scratch, phi0 | phi1):
-//   (a) means: every block reduces all blocks' 8 f64 slots in one order;
-//   (b) phi0 red: A0 -> B0 (red new, black copied); grid sync;
-//   (c) phi0 black: B0 -> A0; and phi1 red: A1 -> B1. phi1's red half reads
-//       phi0's new value only at its own red cell, final after (b), so the
-//       two halves share a phase: three grid syncs per iteration, not four,
-//       with the same values; grid sync;
-//   (d) phi1 black: B1 -> A1, with the next iteration's phase sums and the
-//       row partials; grid sync.
+// So two neighbour waits and one grid-wide step an iteration. The old
+// 2-bit label of a row iteration is kept at the commits of (b) and (c)
+// (old phi0 at hand, phi1 still old) and compared at those of (c) and
+// (d); the label flips are not the sum of each level set's own flips.
 // Partials rows (8 slots, one per `unroll` iterations, the last of each
-// group): [label_flips, s_dphi2, 0 x 6]. Old phi0 is overwritten in (c)
-// before phi1's new values exist, so on a row iteration (c) stores each
-// cell's old 2-bit label in a byte buffer that (d) compares with the new
-// one; the label flips are not the sum of each level set's own flips.
-// Iteration 0's phase sums come from a pass over the input. Buffers
-// written in the launch are read with plain loads (resident.cuh,
-// "Coherence").
+// group): [label_flips, s_dphi2, 0 x 6]. The f64 phase sums are added by
+// tile, in block order.
 //
-// Bound on the card. Banded: shared memory and the rsqrt/divide pipe (two
-// cell updates, four squared distances and two atan per cell); device
-// memory moves 20 B/pixel per iteration (phi0, phi1, u0 read; phi0, phi1
-// written) plus the halo overlap, (TH + 12)(TW + 12) / (TH TW) = 1.3x at
-// 64 x 128. Resident, first body: the three grid syncs and the all-block
-// means reduction per iteration, a fixed cost that dominates small images,
-// and the L2 reads of the 3x3 neighbourhoods. Tile body: the operations
-// of two cell updates, four distances and two atan a cell an iteration,
-// and the fixed cost of two neighbour waits and one grid-wide step.
+// Bound on the card, tile body: the operations of two cell updates, four
+// distances and two atan a cell an iteration, and the fixed cost of two
+// neighbour waits and one grid-wide step.
 
 #pragma once
 
@@ -135,185 +101,6 @@ __device__ __forceinline__ void add_phase_sums(double* acc, float u,
   for (int s = 0; s < 4; ++s) {
     acc[s] += (double)(u * w[s]);
     acc[4 + s] += (double)w[s];
-  }
-}
-
-struct Mp2ResidentArgs {
-  const float* phi_in;  // (2, image): the start, never written
-  float* out;           // (2, image): buffer A, holds the result
-  float* tmp;           // (2, image): buffer B
-  unsigned char* lab;   // (image): old labels of a row iteration
-  const float* u0;      // (image)
-  double* scratch;      // (nblocks, 8) phase sums | (nblocks, 2) row sums
-  float* parts;         // (iters / unroll, 8) rows
-  int H, W, iters, unroll;
-};
-
-template <bool PACKED>
-__global__ void __launch_bounds__(kResThreads)
-mp2_resident_kernel(Mp2ResidentArgs a, Params P) {
-  __shared__ double red_scratch[kResThreads / 32];
-  __shared__ double s_tot[10];
-  __shared__ float s_c[4];
-  cg::grid_group grid = cg::this_grid();
-
-  const int H = a.H, W = a.W, hw = W >> 1, npairs = H * hw;
-  const int64_t plane = (int64_t)H * W;
-  const int nb = gridDim.x;
-  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int gstride = nb * blockDim.x;
-  const ImageIdx<PACKED> idx{H, W};
-  double* means_parts = a.scratch;
-  double* row_parts = a.scratch + (int64_t)nb * 8;
-  const float* u0 = a.u0;
-  const float* start0 = a.phi_in;
-  const float* start1 = a.phi_in + plane;
-  float* A0 = a.out;
-  float* A1 = a.out + plane;
-  float* B0 = a.tmp;
-  float* B1 = a.tmp + plane;
-
-  double acc[8];
-  // phase sums of the input: iteration 0's means
-#pragma unroll
-  for (int s = 0; s < 8; ++s) acc[s] = 0.0;
-  for (int t = gtid; t < npairs; t += gstride) {
-    const int i = t / hw, j0 = 2 * (t - i * hw);
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int64_t g = idx(i, j0 + e);
-      add_phase_sums(acc, u0[g], start0[g], start1[g], P);
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < 8; ++s) {
-    const double v = block_sum(acc[s], red_scratch);
-    if (threadIdx.x == 0) means_parts[blockIdx.x * 8 + s] = v;
-  }
-  grid.sync();
-
-  for (int it = 0; it < a.iters; ++it) {
-    const float* cur0 = it == 0 ? start0 : A0;
-    const float* cur1 = it == 0 ? start1 : A1;
-    const bool row = it % a.unroll == a.unroll - 1;
-    const bool more = it + 1 < a.iters;
-
-    // (a) means: every block reduces all blocks' slots in one order
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      double v = 0.0;
-      for (int b = threadIdx.x; b < nb; b += blockDim.x)
-        v += means_parts[b * 8 + s];
-      v = block_sum(v, red_scratch);
-      if (threadIdx.x == 0) s_tot[s] = v;
-    }
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-        s_c[s] = (float)(s_tot[s] / fmax(s_tot[4 + s], 1e-30));
-    }
-    __syncthreads();
-
-    // (b) phi0 red half-sweep: cur0 -> B0
-    for (int t = gtid; t < npairs; t += gstride) {
-      const int i = t / hw, q = t - i * hw;
-      const int jr = 2 * q + (i & 1), jb = 2 * q + 1 - (i & 1);
-      const int64_t gr = idx(i, jr), gb = idx(i, jb);
-      const float fv = force0(u0[gr], cur1[gr], s_c, P);
-      B0[gr] = update_cell_at(cur0, [fv] { return fv; }, i, jr, H, W, idx,
-                              P);
-      B0[gb] = cur0[gb];
-    }
-    grid.sync();
-
-    // (c) phi0 black half-sweep: B0 -> A0; phi1 red half-sweep: cur1 -> B1
-    double d2 = 0.0, fl = 0.0;
-    for (int t = gtid; t < npairs; t += gstride) {
-      const int i = t / hw, q = t - i * hw;
-      const int jr = 2 * q + (i & 1), jb = 2 * q + 1 - (i & 1);
-      const int64_t gr = idx(i, jr), gb = idx(i, jb);
-      const float f0 = force0(u0[gb], cur1[gb], s_c, P);
-      const float n0b = update_cell_at(B0, [f0] { return f0; }, i, jb, H, W,
-                                       idx, P);
-      const float n0r = B0[gr];
-      const float o0r = cur0[gr], o0b = B0[gb];
-      A0[gr] = n0r;
-      A0[gb] = n0b;
-      const float f1 = force1(u0[gr], n0r, s_c, P);
-      const float o1r = cur1[gr], o1b = cur1[gb];
-      B1[gr] = update_cell_at(cur1, [f1] { return f1; }, i, jr, H, W, idx,
-                              P);
-      B1[gb] = o1b;
-      if (row) {
-        const float dr = n0r - o0r, db = n0b - o0b;
-        d2 += (double)(dr * dr) + (double)(db * db);
-        a.lab[gr] = (unsigned char)label2(o0r, o1r);
-        a.lab[gb] = (unsigned char)label2(o0b, o1b);
-      }
-    }
-    grid.sync();
-
-    // (d) phi1 black half-sweep: B1 -> A1, with the row partials and the
-    // next iteration's phase sums
-#pragma unroll
-    for (int s = 0; s < 8; ++s) acc[s] = 0.0;
-    for (int t = gtid; t < npairs; t += gstride) {
-      const int i = t / hw, q = t - i * hw;
-      const int jr = 2 * q + (i & 1), jb = 2 * q + 1 - (i & 1);
-      const int64_t gr = idx(i, jr), gb = idx(i, jb);
-      const float n0r = A0[gr], n0b = A0[gb];
-      const float f1 = force1(u0[gb], n0b, s_c, P);
-      const float n1b = update_cell_at(B1, [f1] { return f1; }, i, jb, H, W,
-                                       idx, P);
-      const float n1r = B1[gr];
-      if (row) {
-        const float dr = n1r - cur1[gr], db = n1b - B1[gb];
-        d2 += (double)(dr * dr) + (double)(db * db);
-        fl += (label2(n0r, n1r) != (int)a.lab[gr] ? 1.0 : 0.0)
-              + (label2(n0b, n1b) != (int)a.lab[gb] ? 1.0 : 0.0);
-      }
-      A1[gr] = n1r;
-      A1[gb] = n1b;
-      if (more) {
-        add_phase_sums(acc, u0[gr], n0r, n1r, P);
-        add_phase_sums(acc, u0[gb], n0b, n1b, P);
-      }
-    }
-    if (more) {
-#pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        const double v = block_sum(acc[s], red_scratch);
-        if (threadIdx.x == 0) means_parts[blockIdx.x * 8 + s] = v;
-      }
-    }
-    if (row) {
-      const double v0 = block_sum(fl, red_scratch);
-      const double v1 = block_sum(d2, red_scratch);
-      if (threadIdx.x == 0) {
-        row_parts[blockIdx.x * 2 + 0] = v0;
-        row_parts[blockIdx.x * 2 + 1] = v1;
-      }
-    }
-    grid.sync();
-
-    // block 0 writes the row; the next write of row_parts is three grid
-    // syncs away
-    if (row && blockIdx.x == 0) {
-      for (int s = 0; s < 2; ++s) {
-        double v = 0.0;
-        for (int b = threadIdx.x; b < nb; b += blockDim.x)
-          v += row_parts[b * 2 + s];
-        v = block_sum(v, red_scratch);
-        if (threadIdx.x == 0) s_tot[8 + s] = v;
-      }
-      if (threadIdx.x == 0) {
-        float* dst = a.parts + (int64_t)(it / a.unroll) * kMp2Row;
-        dst[0] = (float)s_tot[8];
-        dst[1] = (float)s_tot[9];
-        for (int s = 2; s < kMp2Row; ++s) dst[s] = 0.0f;
-      }
-      __syncthreads();
-    }
   }
 }
 
@@ -525,48 +312,9 @@ cudaError_t mp2_tile(Mp2TileArgs a, Params P, int nblocks, int smem,
   return tile_launch(mp2_tile_kernel<PACKED>, a, P, nblocks, smem, stream);
 }
 
-// Host side, as resident.cuh's resident_grid / launch_resident.
-template <bool PACKED>
-cudaError_t mp2_resident_grid(int* max_blocks) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, mp2_resident_kernel<PACKED>, kResThreads, 0);
-  if (err != cudaSuccess) return err;
-  *max_blocks = per_sm * sms;
-  return cudaSuccess;
-}
-
-template <bool PACKED>
-cudaError_t launch_mp2_resident(Mp2ResidentArgs a, Params P, int nblocks,
-                                cudaStream_t stream) {
-  void* args[] = {(void*)&a, (void*)&P};
-  return cudaLaunchCooperativeKernel(
-      (const void*)mp2_resident_kernel<PACKED>, dim3(nblocks),
-      dim3(kResThreads), args, 0, stream);
-}
-
 }  // namespace
 }  // namespace cv
 
-// The plain C interface of the two resident launchers on the first body
-// (`_v1`): pointers, grid size, geometry, the parameters of the update,
-// the stream.
-#define CV_MP2_RESIDENT_ARGS                                            \
-  const float *phi_in, float *out, float *tmp, unsigned char *lab,     \
-  const float *u0, double *scratch, float *parts, int nblocks, int H,  \
-  int W, int iters, int unroll, float mu, float nu, float eta2,        \
-  float gdt, float eps, float eps2, float inv_pi, void *stream
-#define CV_MP2_RESIDENT_STRUCTS                                         \
-  cv::Mp2ResidentArgs{phi_in, out, tmp, lab, u0, scratch, parts, H, W, \
-                      iters, unroll},                                   \
-  cv::Params{mu, nu, 0.0f, 0.0f, eta2, gdt, eps, eps2, inv_pi}
 // The plain C interface of the two resident launchers on the tile body:
 // pointers; grid size, geometry, iterations; the tiling (TH, TW, GX, u0
 // resident, dynamic bytes); the parameters of the update; the stream.

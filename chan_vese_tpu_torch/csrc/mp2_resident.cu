@@ -6,8 +6,6 @@
 // tile body (mp2_tile_kernel) on the flat layout: each block keeps its
 // tiles of phi0, phi1 and u0 in shared memory for the whole run, with two
 // neighbour waits and one grid-wide step an iteration.
-// cv_mp2_resident_iterations_v1 is the first body (mp2_resident_kernel:
-// three grid syncs an iteration), the yardstick it is held against.
 //
 // Bound on the card: the operations of two cell updates, the forces and
 // the phase sums a cell; the waits and the step are a fixed cost an
@@ -22,14 +20,4 @@ extern "C" cudaError_t cv_mp2_resident_iterations(CV_MP2_TILE_ARGS) {
 extern "C" cudaError_t cv_mp2_resident_iterations_grid(int C, int smem,
                                                        int* max_blocks) {
   return cv::mp2_tile<false>({}, {}, 0, smem, nullptr, max_blocks);
-}
-
-extern "C" cudaError_t cv_mp2_resident_iterations_v1(CV_MP2_RESIDENT_ARGS) {
-  return cv::launch_mp2_resident<false>(CV_MP2_RESIDENT_STRUCTS, nblocks,
-                                        (cudaStream_t)stream);
-}
-
-extern "C" cudaError_t cv_mp2_resident_iterations_v1_grid(int C,
-                                                          int* max_blocks) {
-  return cv::mp2_resident_grid<false>(max_blocks);
 }

@@ -8,13 +8,11 @@
 // in the global addresses: element (i, j) lives at
 // planes[i & 1][j & 1][i >> 1][j >> 1].
 //
-// Bound on the card: as K2 (the update's arithmetic). The launchers the
-// wrappers call run band.cuh's body with PACKED = true (2k halos, 8 B of
-// shared memory a window cell, two or more blocks an SM; loads, stores and
-// partials coalesced within each plane), so a launch is bitwise K2's on
-// the unpacked image. The `_v1` launchers keep the first body,
-// redblack.cuh's chunk_kernel<PACKED = true>, as the yardstick the smoke
-// and the cuda-marked tests hold the new one against.
+// Bound on the card: as K2 (the update's arithmetic). The launchers run
+// band.cuh's body with PACKED = true (2k halos, 8 B of shared memory a
+// window cell, two or more blocks an SM; loads, stores and partials
+// coalesced within each plane), so a launch is bitwise K2's on the
+// unpacked image.
 
 #include "band.cuh"
 #include "redblack.cuh"
@@ -61,32 +59,4 @@ extern "C" cudaError_t cv_packed_band_occupancy(int shard, int threads,
                                                 int smem, int* blocks) {
   return shard ? cv::band_occupancy<0, true, true>(threads, smem, blocks)
                : cv::band_occupancy<0, false, true>(threads, smem, blocks);
-}
-
-// The first K3 body (redblack.cuh chunk_kernel on planes, 4k/2k halos),
-// kept under `_v1` names as the yardstick of the band.cuh launchers above:
-// no wrapper or driver reaches it.
-
-extern "C" cudaError_t cv_packed_banded_chunk_v1(
-    const float* phi, const float* u0, const float* cc, float* out,
-    double* block_parts, float* parts, int H, int W, int k, int TH, int TW,
-    int cap, float mu, float nu, float l1, float l2, float eta2, float gdt,
-    float eps, float eps2, float inv_pi, void* stream) {
-  const cv::Params P{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi};
-  return cv::launch_chunk<true, 0>(phi, u0, cc, out, block_parts, parts, H,
-                                   W, k, TH, TW, cap, 8, P,
-                                   (cudaStream_t)stream);
-}
-
-extern "C" cudaError_t cv_packed_banded_chunk_shard_v1(
-    const float* phi, const float* u0, const float* cc, float* out,
-    double* block_parts, float* parts, int H, int W, int k, int TH, int TW,
-    int cap, float mu, float nu, float l1, float l2, float eta2, float gdt,
-    float eps, float eps2, float inv_pi, int parity, int r0, int r1, int c0,
-    int c1, int top, int bottom, int left, int right, void* stream) {
-  const cv::Params P{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi};
-  const cv::Shard S{parity, r0, r1, c0, c1, top, bottom, left, right};
-  return cv::launch_chunk<true, 0, true>(phi, u0, cc, out, block_parts,
-                                         parts, H, W, k, TH, TW, cap, 8, P,
-                                         (cudaStream_t)stream, 1, S);
 }

@@ -8,10 +8,8 @@
 // addressing in the global loads and stores. Channel c's planes start at
 // u0 + c H W, the same channel stride as the flat layout.
 //
-// Bound on the card: as K5. The launcher the wrappers call runs band.cuh's
-// body with PACKED = true, bitwise K5's on the unpacked image; the `_v1`
-// launcher keeps redblack.cuh's chunk_kernel<PACKED = true> as the
-// yardstick (see packed.cu).
+// Bound on the card: as K5. The launcher runs band.cuh's body with
+// PACKED = true, bitwise K5's on the unpacked image.
 
 #include "band.cuh"
 #include "redblack.cuh"
@@ -35,17 +33,4 @@ extern "C" cudaError_t cv_packed_banded_chunk_mc(
 extern "C" cudaError_t cv_packed_band_occupancy_mc(int C, int threads,
                                                    int smem, int* blocks) {
   return cv::band_occupancy_mc<false, true>(C, threads, smem, blocks);
-}
-
-// The first K6 body (redblack.cuh chunk_kernel on planes), kept under a
-// `_v1` name; no wrapper or driver reaches it.
-extern "C" cudaError_t cv_packed_banded_chunk_mc_v1(
-    const float* phi, const float* u0, const float* cc, float* out,
-    double* block_parts, float* parts, int H, int W, int C, int k, int TH,
-    int TW, int cap, float mu, float nu, float eta2, float gdt, float eps,
-    float eps2, float inv_pi, void* stream) {
-  const cv::Params P = cv::mc_params(mu, nu, eta2, gdt, eps, eps2, inv_pi);
-  return cv::launch_chunk_mc<true>(phi, u0, cc, out, block_parts, parts, H,
-                                   W, C, k, TH, TW, cap, 16, P,
-                                   (cudaStream_t)stream);
 }

@@ -4,8 +4,7 @@
 // Replaces chan_vese_tpu/ops/pallas_packed.py::_packed_mp2_resident_kernel
 // (packed_mp2_resident_iterations). As K8 is to K7, the plane layout was a
 // Mosaic workaround: the body is mp2.cuh's tile body with plane
-// addressing (gaddr<true>) where the tiles are loaded and stored;
-// cv_packed_mp2_resident_iterations_v1 is the first body.
+// addressing (gaddr<true>) where the tiles are loaded and stored.
 //
 // Bound on the card: as mp2_resident.cu.
 
@@ -18,15 +17,4 @@ extern "C" cudaError_t cv_packed_mp2_resident_iterations(CV_MP2_TILE_ARGS) {
 extern "C" cudaError_t cv_packed_mp2_resident_iterations_grid(
     int C, int smem, int* max_blocks) {
   return cv::mp2_tile<true>({}, {}, 0, smem, nullptr, max_blocks);
-}
-
-extern "C" cudaError_t cv_packed_mp2_resident_iterations_v1(
-    CV_MP2_RESIDENT_ARGS) {
-  return cv::launch_mp2_resident<true>(CV_MP2_RESIDENT_STRUCTS, nblocks,
-                                       (cudaStream_t)stream);
-}
-
-extern "C" cudaError_t cv_packed_mp2_resident_iterations_v1_grid(
-    int C, int* max_blocks) {
-  return cv::mp2_resident_grid<true>(max_blocks);
 }

@@ -7,7 +7,6 @@
 // K7's tile body (resident_tiles.cuh) with plane addressing
 // (gaddr<true>) where a frame is loaded and stored (and u0 read through
 // L2); the sweeps run on the shared-memory tiles, whatever the layout.
-// cv_packed_resident_iterations_v1 is the first body (resident.cuh).
 //
 // Bound on the card: as resident.cu.
 
@@ -21,14 +20,4 @@ extern "C" cudaError_t cv_packed_resident_iterations_grid(int C, int smem,
                                                           int* max_blocks) {
   return cv::tile_resident<true, 0>({}, {}, 0, smem, nullptr,
                                       max_blocks);
-}
-
-extern "C" cudaError_t cv_packed_resident_iterations_v1(CV_RESIDENT_ARGS) {
-  return cv::launch_resident<true, 0>(CV_RESIDENT_STRUCTS, nblocks,
-                                      (cudaStream_t)stream);
-}
-
-extern "C" cudaError_t cv_packed_resident_iterations_v1_grid(
-    int C, int* max_blocks) {
-  return cv::resident_grid<true, 0>(max_blocks);
 }

@@ -5,7 +5,7 @@
 // (packed_resident_iterations_mc). Channel c's planes start at
 // u0 + c H W, the stride of the flat layout, as in K6. The body is
 // resident_tiles.cuh's tile body with plane addressing at the loads and
-// stores; cv_packed_resident_iterations_mc_v1 is the first body.
+// stores.
 //
 // Bound on the card: as resident_mc.cu.
 
@@ -20,15 +20,4 @@ extern "C" cudaError_t cv_packed_resident_iterations_mc_grid(
     int C, int smem, int* max_blocks) {
   return cv::tile_resident_mc<true>(C, {}, {}, 0, smem, nullptr,
                                        max_blocks);
-}
-
-extern "C" cudaError_t cv_packed_resident_iterations_mc_v1(
-    CV_RESIDENT_ARGS) {
-  return cv::launch_resident_mc<true>(C, CV_RESIDENT_STRUCTS, nblocks,
-                                      (cudaStream_t)stream);
-}
-
-extern "C" cudaError_t cv_packed_resident_iterations_mc_v1_grid(
-    int C, int* max_blocks) {
-  return cv::resident_grid_mc<true>(C, max_blocks);
 }

@@ -14,15 +14,7 @@
 // update; 5 for the subcell update on it): at 20 steps ~424 a cell,
 // 0.05 ms at 4K against 0.02 ms of bytes.
 //
-// Two bodies. The first (reinit_prepass, reinit_step; cv_reinit_v1, kept
-// as the yardstick) is simple and memory-bound: one prepass launch
-// computes what depends on phi0 alone into one value and one flags byte a
-// cell (the subcell distance estimate on crossing cells, the smoothed sign
-// on the others; bit 0 phi0 > 0, bit 1 the crossing), then one launch a
-// step reads psi's five-point stencil, the value and the flags and writes
-// psi, ping-ponging two buffers: 13 B a cell a step in f32.
-//
-// The tile body (reinit_tile; cv_reinit) runs a pass of up to k steps in
+// The body (reinit_tile; cv_reinit) runs a pass of up to k steps in
 // one launch. A block owns a TH x TW tile of one frame (frames on
 // blockIdx.z) and holds its window, the tile plus k cells each way cut at
 // the image, in shared memory:
@@ -78,7 +70,6 @@
 
 namespace {
 
-constexpr int kBlockX = 32, kBlockY = 8;
 constexpr int kMaxFrames = 65535;
 
 template <typename T>
@@ -123,144 +114,9 @@ struct R<double> {
 };
 
 template <typename T>
-__device__ __forceinline__ bool isnan_(T x) {
-  return x != x;
-}
-
-// torch.maximum: NaN if either is NaN
-template <typename T>
-__device__ __forceinline__ T nmax(T x, T y) {
-  return isnan_(x) ? x : (isnan_(y) ? y : (x > y ? x : y));
-}
-
-// torch.clamp(x, min=0) and torch.clamp(x, max=0): NaN stays NaN
-template <typename T>
-__device__ __forceinline__ T pos(T x) {
-  return x < T(0) ? T(0) : x;
-}
-
-template <typename T>
-__device__ __forceinline__ T neg(T x) {
-  return x > T(0) ? T(0) : x;
-}
-
-template <typename T>
 __device__ __forceinline__ T sq(T x) {
   return R<T>::mul(x, x);
 }
-
-struct Cell {
-  int64_t c, up, dn, lf, rt;
-};
-
-// the cell (i, j) of frame z and its four clamped neighbours
-__device__ __forceinline__ bool locate(int H, int W, Cell& at) {
-  const int j = blockIdx.x * kBlockX + threadIdx.x;
-  const int i = blockIdx.y * kBlockY + threadIdx.y;
-  if (i >= H || j >= W) return false;
-  const int64_t base = (int64_t)blockIdx.z * H * W;
-  const int64_t row = base + (int64_t)i * W;
-  at.c = row + j;
-  at.up = base + (int64_t)(i > 0 ? i - 1 : 0) * W + j;
-  at.dn = base + (int64_t)(i < H - 1 ? i + 1 : H - 1) * W + j;
-  at.lf = row + (j > 0 ? j - 1 : 0);
-  at.rt = row + (j < W - 1 ? j + 1 : W - 1);
-  return true;
-}
-
-// what depends on phi0 alone: aux = the clipped subcell distance estimate
-// on crossing cells, the smoothed sign elsewhere; flags bit 0 = phi0 > 0,
-// bit 1 = crossing
-template <typename T>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-reinit_prepass(const T* __restrict__ phi, T* __restrict__ aux,
-               uint8_t* __restrict__ flags, int H, int W, T h, T hh, T lo,
-               T hi) {
-  using O = R<T>;
-  Cell at;
-  if (!locate(H, W, at)) return;
-  const T c = __ldg(phi + at.c), up = __ldg(phi + at.up),
-          dn = __ldg(phi + at.dn), lf = __ldg(phi + at.lf),
-          rt = __ldg(phi + at.rt);
-  const T gx = O::mul(T(0.5), O::sub(dn, up));
-  const T gy = O::mul(T(0.5), O::sub(rt, lf));
-  const T gn2 = O::add(O::mul(gx, gx), O::mul(gy, gy));
-  const bool crosses = O::mul(c, up) < T(0) || O::mul(c, dn) < T(0) ||
-                       O::mul(c, lf) < T(0) || O::mul(c, rt) < T(0);
-  T v;
-  if (crosses) {
-    T s = O::sqrt(gn2);
-    s = s < T(1e-12) ? T(1e-12) : s;
-    v = O::div(O::mul(h, c), s);
-    v = v < lo ? lo : (v > hi ? hi : v);
-  } else {
-    v = O::div(c, O::sqrt(O::add(O::add(O::mul(c, c), O::mul(gn2, hh)),
-                                 T(1e-30))));
-  }
-  aux[at.c] = v;
-  flags[at.c] = (uint8_t)((c > T(0) ? 1 : 0) | (crosses ? 2 : 0));
-}
-
-// one step: the subcell relaxation on crossing cells, the upwind PDE (its
-// Godunov branch by the sign of phi0) elsewhere
-template <typename T>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-reinit_step(const T* __restrict__ psi, const T* __restrict__ aux,
-            const uint8_t* __restrict__ flags, T* __restrict__ out, int H,
-            int W, T dtau, T dth) {
-  using O = R<T>;
-  Cell at;
-  if (!locate(H, W, at)) return;
-  const T c = __ldg(psi + at.c);
-  const T v = __ldg(aux + at.c);
-  const uint8_t f = __ldg(flags + at.c);
-  T r;
-  if (f & 2) {
-    // sign(phi0) is +-1 on a crossing cell (phi0 != 0 there)
-    const T s = (f & 1) ? T(1) : T(-1);
-    r = O::sub(c, O::mul(dth, O::sub(O::mul(s, fabs(c)), v)));
-  } else {
-    const T up = __ldg(psi + at.up), dn = __ldg(psi + at.dn),
-            lf = __ldg(psi + at.lf), rt = __ldg(psi + at.rt);
-    const T a = O::sub(c, up), b = O::sub(dn, c), cc = O::sub(c, lf),
-            d = O::sub(rt, c);
-    T g;
-    if (f & 1)
-      g = O::sqrt(O::add(nmax(sq(pos(a)), sq(neg(b))),
-                         nmax(sq(pos(cc)), sq(neg(d)))));
-    else
-      g = O::sqrt(O::add(nmax(sq(neg(a)), sq(pos(b))),
-                         nmax(sq(neg(cc)), sq(pos(d)))));
-    r = O::sub(c, O::mul(O::mul(dtau, v), O::sub(g, T(1))));
-  }
-  out[at.c] = r;
-}
-
-template <typename T>
-cudaError_t launch(const T* phi, T* aux, uint8_t* flags, T* buf0, T* buf1,
-                   int B, int H, int W, int steps, double dtau, double h,
-                   cudaStream_t s) {
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY,
-                  B);
-  reinit_prepass<T><<<grid, block, 0, s>>>(phi, aux, flags, H, W, (T)h,
-                                           (T)(h * h), (T)(-1.5 * h),
-                                           (T)(1.5 * h));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const T* src = phi;
-  for (int n = 0; n < steps; ++n) {
-    T* dst = (n & 1) ? buf1 : buf0;
-    reinit_step<T><<<grid, block, 0, s>>>(src, aux, flags, dst, H, W,
-                                          (T)dtau, (T)(dtau / h));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    src = dst;
-  }
-  return cudaSuccess;
-}
-
-// ---- the tile body ----
 
 constexpr int kTileThreads = 512;  // most threads a block
 constexpr int kStripRows = 16;     // most rows of a thread's strip
@@ -284,7 +140,7 @@ __device__ __forceinline__ double max_nan(double x, double y) {
   return (x != x || x > y) ? x : y;
 }
 
-// One step of a cell: reinit_step's result, bitwise. Off the crossing,
+// One step of a cell: the plain version's step, bitwise. Off the crossing,
 // with a = c - up, b = dn - c, e = c - dn (= -b up to the sign of a
 // zero, which the squares drop) and s = sign(phi0) as +-1: phi0 > 0
 // takes max(pos(a)^2, neg(b)^2) = pos(max(a, e))^2, phi0 <= 0
@@ -508,26 +364,6 @@ cudaError_t launch_tile(const T* phi, T* buf0, T* buf1, int B, int H, int W,
 }
 
 }  // namespace
-
-// The first body: phi (B, H, W) -> the redistanced stack in buf0 (odd
-// steps) or buf1 (even steps); aux (B, H, W) of phi's type and flags (B,
-// H, W) bytes are scratch. f64 selects double. The prepass and the `steps`
-// step launches go on `stream`, none of them synchronizing.
-extern "C" cudaError_t cv_reinit_v1(const void* phi, void* aux, void* flags,
-                                 void* buf0, void* buf1, int B, int H, int W,
-                                 int steps, double dtau, double h, int f64,
-                                 void* stream) {
-  if (B < 1 || B > kMaxFrames || H < 1 || W < 1 || steps < 1)
-    return cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (f64)
-    return launch<double>((const double*)phi, (double*)aux, (uint8_t*)flags,
-                          (double*)buf0, (double*)buf1, B, H, W, steps, dtau,
-                          h, s);
-  return launch<float>((const float*)phi, (float*)aux, (uint8_t*)flags,
-                       (float*)buf0, (float*)buf1, B, H, W, steps, dtau, h,
-                       s);
-}
 
 // The tile body: phi (B, H, W) -> the redistanced stack, ceil(steps / k)
 // passes of reinit_tile on TH x TW tiles (a halo of k), PX x PY threads of

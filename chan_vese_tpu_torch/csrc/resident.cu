@@ -10,8 +10,7 @@
 // iteration; batch mode deals the frames to groups of blocks that run side
 // by side (ops/_cuda.py frame_groups), each group looping over its frames
 // inside the launch as the reference's outer grid axis does, and writes
-// each frame's last-iteration row. cv_resident_iterations_v1 is the first
-// body (resident.cuh), the yardstick it is held against.
+// each frame's last-iteration row.
 //
 // Bound on the card: the operations of the cell updates and the means;
 // the neighbour wait and the grid-wide step an iteration are a fixed cost
@@ -27,14 +26,4 @@ extern "C" cudaError_t cv_resident_iterations_grid(int C, int smem,
                                                    int* max_blocks) {
   return cv::tile_resident<false, 0>({}, {}, 0, smem, nullptr,
                                        max_blocks);
-}
-
-extern "C" cudaError_t cv_resident_iterations_v1(CV_RESIDENT_ARGS) {
-  return cv::launch_resident<false, 0>(CV_RESIDENT_STRUCTS, nblocks,
-                                       (cudaStream_t)stream);
-}
-
-extern "C" cudaError_t cv_resident_iterations_v1_grid(int C,
-                                                      int* max_blocks) {
-  return cv::resident_grid<false, 0>(max_blocks);
 }

@@ -11,10 +11,9 @@
 // residency; (c1, c2) come from cc and stay fixed, so the data term is
 // computed once into the tile's shared memory, blocks pass tagged rims to
 // their neighbours every iteration and take no grid-wide step until the
-// last iteration, whose H sums and row sums one step adds in block order. The layout changes only where the tile is loaded and
-// stored (gaddr<PACKED>). The first body, resident.cuh's frozen mode (a
-// grid-stride walk through L2, two grid syncs an iteration), stays as
-// cv_(packed_)resident_chunk_v1.
+// last iteration, whose H sums and row sums one step adds in block order.
+// The layout changes only where the tile is loaded and stored
+// (gaddr<PACKED>).
 //
 // Bound on the card: per iteration 55 operations a cell update and the
 // data term (chip_smoke.py::bound); an iteration's chain of four block
@@ -22,21 +21,6 @@
 // memory is touched when the tile is loaded and stored.
 
 #include "resident_tiles.cuh"
-
-namespace {
-
-template <bool PACKED>
-cudaError_t chunk(const float* phi_in, float* out, float* tmp,
-                  const float* u0, const float* cc, double* scratch,
-                  float* parts, int nblocks, int H, int W, int k, cv::Params P,
-                  void* stream) {
-  // one frame, one row (unroll = k: the last iteration's), 8 slots
-  const cv::ResidentArgs a{phi_in, out, tmp, u0, nullptr, nullptr, scratch,
-                           parts, 1, H, W, k, k, 0, 8, cc};
-  return cv::launch_resident<PACKED, 0>(a, P, nblocks, (cudaStream_t)stream);
-}
-
-}  // namespace
 
 // The tile body's launchers: pointers phi_in, out, u0, cc, scratch, rims,
 // sync, parts; nblocks, H, W, k, the tiling (TH, TW, GX, u0 resident,
@@ -73,30 +57,4 @@ extern "C" cudaError_t cv_packed_resident_chunk_grid(int C, int smem,
                                                      int* max_blocks) {
   return cv::tile_resident<true, 0, true>({}, {}, 0, smem, nullptr,
                                           max_blocks);
-}
-
-#define CV_CHUNK_ARGS                                                     \
-  const float *phi_in, float *out, float *tmp, const float *u0,          \
-      const float *cc, double *scratch, float *parts, int nblocks, int H, \
-      int W, int k, float mu, float nu, float l1, float l2, float eta2,  \
-      float gdt, float eps, float eps2, float inv_pi, void *stream
-#define CV_CHUNK_CALL                                                  \
-  phi_in, out, tmp, u0, cc, scratch, parts, nblocks, H, W, k,         \
-      cv::Params{mu, nu, l1, l2, eta2, gdt, eps, eps2, inv_pi}, stream
-
-extern "C" cudaError_t cv_resident_chunk_v1(CV_CHUNK_ARGS) {
-  return chunk<false>(CV_CHUNK_CALL);
-}
-
-extern "C" cudaError_t cv_packed_resident_chunk_v1(CV_CHUNK_ARGS) {
-  return chunk<true>(CV_CHUNK_CALL);
-}
-
-extern "C" cudaError_t cv_resident_chunk_v1_grid(int C, int* max_blocks) {
-  return cv::resident_grid<false, 0>(max_blocks);
-}
-
-extern "C" cudaError_t cv_packed_resident_chunk_v1_grid(int C,
-                                                        int* max_blocks) {
-  return cv::resident_grid<true, 0>(max_blocks);
 }

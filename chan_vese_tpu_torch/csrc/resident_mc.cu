@@ -6,8 +6,7 @@
 // every iteration, the Chan-Sandberg-Vese data term with weights l[c]/C,
 // partials rows of C + 4 slots. The runtime C (1..8) picks the instance.
 // cv_resident_iterations_mc runs resident_tiles.cuh's tile body (u0's C
-// planes kept in shared memory where they fit, else read through L2);
-// cv_resident_iterations_mc_v1 is the first body (resident.cuh).
+// planes kept in shared memory where they fit, else read through L2).
 //
 // Bound on the card: as resident.cu; each channel adds a distance to the
 // data term and one f64 sum a block to the grid-wide step.
@@ -22,14 +21,4 @@ extern "C" cudaError_t cv_resident_iterations_mc_grid(int C, int smem,
                                                       int* max_blocks) {
   return cv::tile_resident_mc<false>(C, {}, {}, 0, smem, nullptr,
                                         max_blocks);
-}
-
-extern "C" cudaError_t cv_resident_iterations_mc_v1(CV_RESIDENT_ARGS) {
-  return cv::launch_resident_mc<false>(C, CV_RESIDENT_STRUCTS, nblocks,
-                                       (cudaStream_t)stream);
-}
-
-extern "C" cudaError_t cv_resident_iterations_mc_v1_grid(int C,
-                                                         int* max_blocks) {
-  return cv::resident_grid_mc<false>(C, max_blocks);
 }

@@ -5,19 +5,22 @@
 // rim and grid-step templates that mp2.cuh's 4-phase body (K9's resident
 // mode, K10) is built on.
 //
-// What a launch computes: resident.cuh's contract, `iters` exact-means
-// iterations on a scalar image, on each frame of a stack, or on a
-// C-channel image, with the partials rows [s_uH per channel..., s_H,
-// s_dphi2, flips, s_absdphi, 0...] of every `unroll`-th iteration (a
-// stack: each frame's last). A cell's update is redblack.cuh's
-// update_cell_at and data_term on the same values as the first body's, so
-// phi is bitwise the first body's wherever the f32 means agree; the f64
-// sums behind the means are added in another order (by tile, not by grid
-// stride), which may move a mean by an ulp on rare iterations.
+// What a launch computes: `iters` full Chan-Vese iterations with the
+// region means recomputed from the current phi at every iteration (no
+// frozen-means chunk, no lag), the contract of
+// chan_vese_tpu/ops/pallas_resident.py::_kernel/_kernel_batch/_kernel_mc
+// and ops/pallas_packed.py::_packed_resident_*kernel, on a scalar image,
+// on each frame of a stack, or on a C-channel image. Per iteration
+//   c1 = s_uH / max(s_H, 1e-30), c2 = (sum u - s_uH) / max(n - s_H, 1e-30)
+// per channel, from the phi the iteration starts from; the data term of
+// redblack.cuh::data_term (l[c]/C weights for C channels); the red, then
+// the black half-sweep of redblack.cuh::update_cell_at (_update_all's
+// semantics, replica-eval Neumann at the image edges). The partials rows
+// [s_uH per channel..., s_H, s_dphi2, flips, s_absdphi, 0...] describe
+// every `unroll`-th iteration (a stack: each frame's last). The f64 sums
+// behind the means are added by tile, in block order.
 //
-// Design (the first body, resident.cuh, walks cell pairs with a grid
-// stride through L2 and pays two grid.sync() and an all-block re-reduction
-// of the means an iteration):
+// Design:
 // - Tiles. One cooperative grid of at most the co-resident blocks, one an
 //   SM (ops/_cuda.py resident_tile_geometry picks a GY x GX grid of
 //   TH x TW tiles, TW even, the last row and column ragged). Block b owns
@@ -75,9 +78,10 @@
 // when a frame is loaded and stored (and for u0 where it is not resident).
 //
 // Frozen-means mode (FROZEN, K13: a scalar image, (c1, c2) from `wts`,
-// unroll = iters): the contract of resident.cuh's frozen mode, k
-// iterations and one partials row of the last, [s_uH, s_H] of the phi it
-// leaves and [s_dphi2, flips, s_absdphi] of its transition. With no means
+// unroll = iters): the contract of ops/pallas_packed.py::packed_chunk and
+// of banded_chunk, k iterations with (c1, c2) held fixed and one partials
+// row of the last, [s_uH, s_H] of the phi it leaves and [s_dphi2, flips,
+// s_absdphi] of its transition. With no means
 // to wait for, the tile's shared copy of u0 holds the data term itself
 // (the same expression on the same values, computed once), each black
 // commit is followed by the whole ring of the next iteration read from
@@ -96,7 +100,7 @@
 
 #pragma once
 
-#include "resident.cuh"
+#include "redblack.cuh"
 
 namespace cv {
 namespace {

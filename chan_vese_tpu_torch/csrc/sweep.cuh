@@ -2,12 +2,9 @@
 // shard canvas; fused_sweep.cu: the force mode, with and without a
 // lattice parity) and K4 (fused_mc.cu, NC = C): one red-black iteration
 // with the means frozen, then the partials of that transition, summed in
-// f64 in a fixed order. It computes what redblack.cuh's chunk_kernel
-// computes for those kernels at k = 1 (the `_v1` launchers keep that first
-// body as the yardstick): the same cells, through redblack.cuh's
-// update_cell_at and data_term and the same Heaviside and partials
-// expressions, so phi and the flips come out bitwise the first body's.
-// Replaces, like chunk_kernel did, chan_vese_tpu/ops/pallas_sweep.py::
+// f64 in a fixed order: redblack.cuh's contract at k = 1, every cell
+// through redblack.cuh's update_cell_at and data_term. Replaces
+// chan_vese_tpu/ops/pallas_sweep.py::
 // _fused_band_kernel (:216; fused_iteration :381 with _resync_rim :137,
 // fused_sweep :467, fused_iteration_batch :494, pallas_call in _call_fused
 // :427/:430) and chan_vese_tpu/ops/pallas_sweep_mc.py::_kernel (:50,
@@ -15,8 +12,8 @@
 //
 // Bound on the card: device memory. A launch reads phi and u0 (or f, or C
 // channels) and writes phi once: 12 B a pixel (8 + 4C), against about 7
-// MUFU operations and ~80 FP32 ones a pixel. What the design does about it,
-// against chunk_kernel at k = 1:
+// MUFU operations and ~80 FP32 ones a pixel. What the design does about
+// it:
 // - A halo of 2 each way (band.cuh's 2k at k = 1; tests/test_torch_
 //   band_tiling.py proves 2 exact and 1 not), so a window is the tile plus
 //   2 cells, cut at the image; on a shard canvas the even start and width

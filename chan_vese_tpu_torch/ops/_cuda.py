@@ -1,17 +1,17 @@
 """Launch path shared by the red-black kernels (K1-K3 on a scalar image,
 K1 on a stack of frames, K4-K6 on a C-channel image; K1 and K4 on the
 single-sweep body of csrc/sweep.cuh, K2, K3, K5 and K6 on the banded body
-of csrc/band.cuh, the first bodies, `_v1`, on csrc/redblack.cuh), the
-exact-means resident kernels (K7 flat, K8 parity planes; scalar, batch and
-C-channel modes) and their frozen-means chunk mode (K13), the 4-phase
-kernels (K9 banded and resident, K10 parity planes), the morphological
-kernels (K11, K12), the parity pack and unpack (K15, K16) and the
-redistance (R1).
+of csrc/band.cuh), the exact-means resident kernels (K7 flat, K8 parity
+planes; scalar, batch and C-channel modes) and their frozen-means chunk
+mode (K13), the 4-phase kernels (K9 banded and resident, K10 parity
+planes), the morphological kernels (K11, K12), the parity pack and unpack
+(K15, K16) and the redistance (R1).
 
 Checks the inputs, chooses the tile geometry (the resident kernels: the
-cooperative grid of persistent tiles), allocates the outputs and scratch, and calls the kernel
-library (``_build.library()``) on PyTorch's current stream. Nothing here
-synchronizes with the device. A refused launch raises.
+cooperative grid of persistent tiles), allocates the outputs and scratch,
+and calls the kernel library (``_build.library()``) on PyTorch's current
+stream. Nothing here synchronizes with the device. A refused launch
+raises.
 """
 
 from __future__ import annotations
@@ -24,29 +24,12 @@ import torch
 
 from .. import spans
 
-# output tiles (rows, cols), largest first; 512 threads per block
-TILES = ((64, 128), (32, 128), (32, 64), (16, 64), (16, 32))
 # H100 shared memory per block (232,448 B) less room for the static part
 SMEM_LIMIT = 232448 - 1024
 # channel counts the multichannel kernels are compiled for
 MAX_CHANNELS = 8
 # frames of one batch launch: the grid's z limit
 MAX_FRAMES = 65535
-
-
-def tile_geometry(h: int, w: int, k: int, cell_bytes: int = 10,
-                  span=None):
-    """(TH, TW, cap) for k iterations per launch: the largest tile whose
-    window (tile + ``span`` rows/cols of halo, 6k by default, clipped to the
-    image) fits in shared memory at ``cell_bytes`` per window cell (10 for
-    the red-black kernels: phi, f, half a buffer)."""
-    span = 6 * k if span is None else span
-    for th, tw in TILES:
-        cap = min(h, th + span) * min(w, tw + span)
-        if cell_bytes * cap <= SMEM_LIMIT:
-            return th, tw, cap
-    raise ValueError(f"k={k} needs more shared memory than a block has "
-                     f"(window of the smallest tile exceeds {SMEM_LIMIT} B)")
 
 
 # csrc/band.cuh (K2, K3, K5, K6): rows of a thread's strip, most threads a
@@ -440,20 +423,6 @@ def _means(c1, c2, dev):
                         torch.as_tensor(c2, device=dev)]).to(torch.float32)
 
 
-def launch_chunk(symbol: str, phi, u0, c1, c2, p, k, h: int, w: int,
-                 shard=None):
-    """Run scalar kernel ``symbol`` on image geometry (h, w); phi/u0 hold
-    it flat or as parity planes. ``shard``: the :func:`shard_args` of a
-    shard-canvas launch. Returns (phi_new, partials (8,) f32)."""
-    _check_inputs(phi, u0)
-    if u0.shape != phi.shape:
-        raise ValueError(f"u0 {tuple(u0.shape)} vs phi {tuple(phi.shape)}")
-    cc = _means(c1, c2, phi.device)
-    params = (p.mu, p.nu, p.lambda1, p.lambda2, *_common_params(p))
-    return _launch(symbol, phi, u0, cc, (), k, h, w, 5, 8, params,
-                   shard=shard)
-
-
 def _mc_means(c1, c2, l1, l2, c, dev):
     """The [c1 x C, c2 x C, l1/C x C, l2/C x C] cc of a multichannel
     launch."""
@@ -550,100 +519,11 @@ def _weights(l1, l2, device):
                         dtype=torch.float32, device=device)
 
 
-def launch_chunk_mc(symbol: str, phi, u0, c1, c2, p, k, h: int, w: int,
-                    l1, l2, nout: int, shard=None):
-    """Run multichannel kernel ``symbol``: u0 is channels-first
-    (C, *phi.shape); c1, c2 are (C,) means; l1, l2 the per-channel lambda
-    tuples; ``shard`` as :func:`launch_chunk`. Returns (phi_new, partials
-    (nout,) f32)."""
-    c = mc_channels(phi, u0)
-    _check_inputs(phi, u0)
-    cc = _mc_means(c1, c2, l1, l2, c, phi.device)
-    params = (p.mu, p.nu, *_common_params(p))
-    return _launch(symbol, phi, u0, cc, (c,), k, h, w, c + 4, nout, params,
-                   shard=shard)
-
-
-def launch_chunk_batch(symbol: str, phis, u0s, c1s, c2s, p, h: int, w: int):
-    """Run scalar kernel ``symbol`` on each frame of (N, h, w) stacks with
-    per-frame means c1s, c2s (N,). Returns (phis_new, partials (N, 8))."""
-    _check_inputs(phis, u0s)
-    if u0s.shape != phis.shape:
-        raise ValueError(f"u0 {tuple(u0s.shape)} vs phi {tuple(phis.shape)}")
-    n = phis.shape[0]
-    if not 1 <= n <= MAX_FRAMES:
-        raise ValueError(f"{n} frames; a batch launch takes 1 to "
-                         f"{MAX_FRAMES}")
-    dev = phis.device
-    cc = torch.stack([torch.as_tensor(c, device=dev).reshape(n)
-                      for c in (c1s, c2s)], dim=1).to(torch.float32)
-    params = (p.mu, p.nu, p.lambda1, p.lambda2, *_common_params(p))
-    return _launch(symbol, phis, u0s, cc.contiguous(), (n,), None, h, w, 5,
-                   8, params, frames=n)
-
-
 def check_even(h: int, w: int):
     if h % 2 or w % 2:
         raise ValueError(f"the kernels need even H and W, got {(h, w)}")
 
 
-def crop_tiles(n: int, lo: int, hi: int, t: int) -> int:
-    """Tiles of t cells along an axis of n cells cut at lo and hi (the
-    whole-canvas tiling of K9's first body's shard mode, csrc/mp2_band.cu
-    crop_tiles)."""
-    return math.ceil(lo / t) + math.ceil((hi - lo) / t) + math.ceil((n - hi)
-                                                                     / t)
-
-
-def _launch(symbol, phi, u0, cc, chan, k, h, w, nsums, nout, params,
-            reach=None, cell_bytes=10, frames=None, shard=None,
-            canvas_tiles=False):
-    """``reach``: the iterations whose halo the tiles carry (default k, or
-    1 for the fused kernels, which take no k). ``frames``: phi and u0 hold
-    that many images and the partials are (frames, nout). ``shard``: the
-    nine ints of a shard-canvas launch, whose tiles cover the crop (the
-    whole canvas, cut at the crop, with ``canvas_tiles``) and whose
-    windows are two cells wider (an even start and width)."""
-    from .._build import library
-
-    check_even(h, w)
-    if k is not None and k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    reach = reach or k or 1
-    th, tw, cap = tile_geometry(
-        h, w, reach, cell_bytes, span=None if shard is None else 6 * reach + 2)
-    dev = phi.device
-    out = torch.empty_like(phi)
-    if canvas_tiles:
-        nblocks = (crop_tiles(h, shard[1], shard[2], th)
-                   * crop_tiles(w, shard[3], shard[4], tw))
-    else:
-        th_all, tw_all = (h, w) if shard is None else (shard[2] - shard[1],
-                                                       shard[4] - shard[3])
-        nblocks = math.ceil(th_all / th) * math.ceil(tw_all / tw)
-    block_parts = torch.empty(((frames or 1) * nblocks, nsums),
-                              dtype=torch.float64, device=dev)
-    parts = torch.empty(nout if frames is None else (frames, nout),
-                        dtype=torch.float32, device=dev)
-    ptrs = (phi.data_ptr(), u0.data_ptr(), cc.data_ptr(), out.data_ptr(),
-            block_parts.data_ptr(), parts.data_ptr())
-    ks = () if k is None else (k,)
-    lib = library()
-    err = getattr(lib, symbol)(*ptrs, h, w, *chan, *ks, th, tw, cap, *params,
-                               *(shard or ()),
-                               torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"{symbol} launch failed: "
-                           f"{lib.cv_error_string(err).decode()} ({err})")
-    return out, parts
-
-
-# the first banded 4-phase body (csrc/mp2_band.cu mp2_band_kernel, the
-# `_v1` launchers): shared-memory bytes per window cell (kMp2CellBytes:
-# phi0, phi1, u0, f and half a buffer); its window carries the halo of two
-# red-black iterations
-MP2_CELL_BYTES = 18
-MP2_REACH = 2
 # the band body of K9 (csrc/mp2_band.cu mp2_coupled_kernel): the coupled
 # iteration's halo (kMp2Halo), rows of a thread's strip (kMp2Rows),
 # shared-memory bytes per window cell (phi0, phi1, u0 and the aux plane),
@@ -777,13 +657,11 @@ def mp2_plan(h: int, w: int, shard=None, sms: int = SMS):
     return mp2_tiling(h, w, crop, *mp2_geometry(h, w, crop, sms)[:3])
 
 
-def launch_mp2(phis, u0, cs, p, shard=None, v1=False):
-    """One banded 4-phase iteration (csrc/mp2_band.cu) on (2, H, W) level
-    sets (shapes checked by the wrapper) with the four phase means ``cs``;
-    with ``shard`` (:func:`shard_args`' nine ints) on a shard canvas, every
-    cell swept. The band body; ``v1``: the first body (the yardstick the
-    smoke and the cuda-marked tests hold it against). Returns (phis_new,
-    partials (16,) f32)."""
+def launch_mp2(phis, u0, cs, p, shard=None):
+    """One banded 4-phase iteration (csrc/mp2_band.cu's band body) on (2,
+    H, W) level sets (shapes checked by the wrapper) with the four phase
+    means ``cs``; with ``shard`` (:func:`shard_args`' nine ints) on a shard
+    canvas, every cell swept. Returns (phis_new, partials (16,) f32)."""
     from .._build import library
 
     _check_inputs(phis, u0)
@@ -791,12 +669,6 @@ def launch_mp2(phis, u0, cs, p, shard=None, v1=False):
     cc = torch.as_tensor(cs, device=phis.device).to(torch.float32)
     cc = cc.reshape(4).contiguous()
     params = (p.mu, p.nu, 0.0, 0.0, *_common_params(p))
-    if v1:
-        symbol = ("cv_mp2_iteration_v1" if shard is None
-                  else "cv_mp2_iteration_shard_v1")
-        return _launch(symbol, phis, u0, cc, (), None, h, w, 10, 16, params,
-                       reach=MP2_REACH, cell_bytes=MP2_CELL_BYTES,
-                       shard=shard, canvas_tiles=shard is not None)
     check_even(h, w)
     if phis.data_ptr() % 8 or u0.data_ptr() % 8:
         raise ValueError("the band body reads 8-byte pairs: phis and u0 must "
@@ -821,9 +693,6 @@ def launch_mp2(phis, u0, cs, p, shard=None, v1=False):
     return out, parts
 
 
-# threads per block of the resident kernels' first body (csrc/resident.cuh
-# kResThreads)
-RESIDENT_THREADS = 512
 # the tile bodies (csrc/resident_tiles.cuh, mp2.cuh; K7-K10): threads a
 # block, and room left beside the dynamic shared memory for the static part
 # (the reduction scratch and the means, under 2 KB)
@@ -903,21 +772,19 @@ def resident_tile_geometry(h: int, w: int, channels: int = 0,
 
 @functools.lru_cache(maxsize=None)
 def resident_capacity(symbol: str, c: int, device_index: int,
-                      smem=None) -> int:
+                      smem: int) -> int:
     """Most blocks of resident kernel ``symbol`` (C channels) that can be
     co-resident on the device: occupancy per SM times the SM count, from
-    the library's ``_grid`` query, at ``smem`` dynamic bytes a block for
-    the tile bodies (None: the first body's and K13's queries, which take
-    none). Raises where the device cannot launch cooperatively."""
+    the library's ``_grid`` query, at ``smem`` dynamic bytes a block.
+    Raises where the device cannot launch cooperatively."""
     import ctypes
 
     from .._build import library
 
     lib = library()
     n = ctypes.c_int(0)
-    extra = () if smem is None else (smem,)
     with torch.cuda.device(device_index):
-        err = getattr(lib, f"{symbol}_grid")(c, *extra, ctypes.byref(n))
+        err = getattr(lib, f"{symbol}_grid")(c, smem, ctypes.byref(n))
     if err:
         raise RuntimeError(f"{symbol} occupancy query failed: "
                            f"{lib.cv_error_string(err).decode()} ({err})")
@@ -976,17 +843,16 @@ group_plan.launches = 0
 
 def launch_resident(symbol: str, phi, u0, p, iters: int, unroll: int,
                     h: int, w: int, frames: int = 1, batch: bool = False,
-                    l1=None, l2=None, v1: bool = False):
+                    l1=None, l2=None):
     """One cooperative launch of resident kernel ``symbol`` on image
     geometry (h, w): ``iters`` exact-means iterations. phi holds one image
     or ``frames`` of them (flat or parity planes); u0 is phi's shape for a
     scalar image, channels-first (C, *phi.shape) when per-channel lambda
-    tuples ``l1``, ``l2`` are given. The tile body
+    tuples ``l1``, ``l2`` are given, on the tile body
     (csrc/resident_tiles.cuh; a stack's frames in the groups of
-    :func:`group_plan`); ``v1``: the first body (csrc/resident.cuh, the
-    yardstick the smoke and the cuda-marked tests hold it against).
-    Returns (phi_new, partials): rows of 8 slots (C + 4 for C channels),
-    one per ``unroll`` iterations, or one per frame when ``batch``."""
+    :func:`group_plan`). Returns (phi_new, partials): rows of 8 slots (C +
+    4 for C channels), one per ``unroll`` iterations, or one per frame when
+    ``batch``."""
     from .._build import library
 
     c = 0
@@ -1006,23 +872,6 @@ def launch_resident(symbol: str, phi, u0, p, iters: int, unroll: int,
     scalar_l = (p.lambda1, p.lambda2) if not c else (0.0, 0.0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = library()
-    if v1:
-        symbol += "_v1"
-        cap = resident_capacity(symbol, c, dev.index)
-        nblocks = max(1, min(cap, math.ceil(h * w // 2 / RESIDENT_THREADS)))
-        tmp = torch.empty(h * w, dtype=torch.float32, device=dev)
-        scratch = torch.empty(nblocks * (max(c, 1) + 4),
-                              dtype=torch.float64, device=dev)
-        with torch.cuda.device(dev):
-            err = getattr(lib, symbol)(
-                phi.data_ptr(), out.data_ptr(), tmp.data_ptr(),
-                u0.data_ptr(), usum.data_ptr(),
-                None if wts is None else wts.data_ptr(), scratch.data_ptr(),
-                parts.data_ptr(), nblocks, frames, h, w, c, iters, unroll,
-                int(batch), nrow, p.mu, p.nu, *scalar_l, *_common_params(p),
-                stream)
-        _raise_on(lib, symbol, err)
-        return out, parts
     (th, tw, gx, gy, u0res, smem), groups, nblocks = group_plan(
         symbol, h, w, c, 1, dev, frames if batch else 1)
     # the blocks' slots, then the totals a row carries, a set a group
@@ -1051,13 +900,12 @@ def launch_resident(symbol: str, phi, u0, p, iters: int, unroll: int,
 
 
 def launch_resident_chunk(symbol: str, phi, u0, c1, c2, p, k: int, h: int,
-                          w: int, v1: bool = False):
+                          w: int):
     """One cooperative launch of frozen-means chunk kernel ``symbol`` (K13)
     on image geometry (h, w), phi and u0 flat or as parity planes: k
-    iterations with means c1, c2. The tile body (csrc/resident_tiles.cuh's
-    frozen mode, tiles from :func:`resident_tile_geometry`); ``v1``: the
-    first body (csrc/resident.cuh). Returns (phi_new, partials (8,) f32 of
-    the last iteration)."""
+    iterations with means c1, c2 on the tile body (csrc/resident_tiles.cuh's
+    frozen mode, tiles from :func:`resident_tile_geometry`). Returns
+    (phi_new, partials (8,) f32 of the last iteration)."""
     from .._build import library
 
     if u0.shape != phi.shape:
@@ -1073,20 +921,6 @@ def launch_resident_chunk(symbol: str, phi, u0, c1, c2, p, k: int, h: int,
     params = (p.mu, p.nu, p.lambda1, p.lambda2, *_common_params(p))
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = library()
-    if v1:
-        symbol += "_v1"
-        cap = resident_capacity(symbol, 0, dev.index)
-        nblocks = max(1, min(cap, math.ceil(h * w // 2 / RESIDENT_THREADS)))
-        tmp = torch.empty(h * w, dtype=torch.float32, device=dev)
-        # (nblocks, 2) H sums and (nblocks, 3) row sums
-        scratch = torch.empty(nblocks * 5, dtype=torch.float64, device=dev)
-        with torch.cuda.device(dev):
-            err = getattr(lib, symbol)(
-                phi.data_ptr(), out.data_ptr(), tmp.data_ptr(),
-                u0.data_ptr(), cc.data_ptr(), scratch.data_ptr(),
-                parts.data_ptr(), nblocks, h, w, k, *params, stream)
-        _raise_on(lib, symbol, err)
-        return out, parts
     (th, tw, gx, _, u0res, smem), _, nblocks = group_plan(symbol, h, w, 0,
                                                           1, dev)
     # the blocks' slots (H sums, then the row's sums), and the totals
@@ -1133,13 +967,12 @@ def launch_pack(symbol: str, src, shape):
 
 
 def launch_mp2_resident(symbol: str, phis, u0, p, iters: int, unroll: int,
-                        h: int, w: int, v1: bool = False):
+                        h: int, w: int):
     """One cooperative launch of 4-phase resident kernel ``symbol`` on image
-    geometry (h, w): ``iters`` coupled iterations with exact means. phis
-    holds the two level sets, each flat or as parity planes; u0 one image
-    in the same layout. The tile body (csrc/mp2.cuh mp2_tile_kernel);
-    ``v1``: the first body (mp2_resident_kernel). Returns (phis_new,
-    partials (iters // unroll, 8))."""
+    geometry (h, w): ``iters`` coupled iterations with exact means on the
+    tile body (csrc/mp2.cuh mp2_tile_kernel). phis holds the two level
+    sets, each flat or as parity planes; u0 one image in the same layout.
+    Returns (phis_new, partials (iters // unroll, 8))."""
     from .._build import library
 
     if phis.shape[0] != 2 or tuple(phis.shape[1:]) != tuple(u0.shape):
@@ -1153,21 +986,6 @@ def launch_mp2_resident(symbol: str, phis, u0, p, iters: int, unroll: int,
                         device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = library()
-    if v1:
-        symbol += "_v1"
-        cap = resident_capacity(symbol, 0, dev.index)
-        nblocks = max(1, min(cap, math.ceil(h * w // 2 / RESIDENT_THREADS)))
-        tmp = torch.empty_like(phis)
-        lab = torch.empty(h * w, dtype=torch.uint8, device=dev)
-        scratch = torch.empty(nblocks * 10, dtype=torch.float64, device=dev)
-        with torch.cuda.device(dev):
-            err = getattr(lib, symbol)(
-                phis.data_ptr(), out.data_ptr(), tmp.data_ptr(),
-                lab.data_ptr(), u0.data_ptr(), scratch.data_ptr(),
-                parts.data_ptr(), nblocks, h, w, iters, unroll, p.mu, p.nu,
-                *_common_params(p), stream)
-        _raise_on(lib, symbol, err)
-        return out, parts
     (th, tw, gx, _, u0res, smem), _, nblocks = group_plan(symbol, h, w, 0,
                                                           2, dev)
     # the blocks' 10 slots
@@ -1187,13 +1005,9 @@ def launch_mp2_resident(symbol: str, phis, u0, p, iters: int, unroll: int,
     return out, parts
 
 
-# the morphological kernels: kind codes (csrc/morph_bits.cuh BitsKind,
-# csrc/morph.cuh MorphKind) and the first body's shared-memory bytes per
-# window cell (morph_cell_bytes)
+# the morphological kernels' kind codes (csrc/morph_bits.cuh BitsKind)
 MORPH_KINDS = {"acwe": 0, "gac": 1, "gac_pre": 2, "acwe_fused": 3,
                "acwe_sh": 4, "gac_pre_sh": 5}
-MORPH_CELL_BYTES = {"acwe": 3, "gac": 11, "gac_pre": 11, "acwe_fused": 3,
-                    "acwe_sh": 3, "gac_pre_sh": 11}
 # the bit body (csrc/morph_bits.cuh): threads a block and the blocks an SM
 # its __launch_bounds__ asks for (64 registers a thread); shared-memory
 # words a window word (two state buffers and two force-sign planes, or
@@ -1301,10 +1115,6 @@ def morph_occupancy(kind: str, cap: int) -> int:
     return n.value
 
 
-def _morph_geometry_v1(kind, h, w, k, halo):
-    return tile_geometry(h, w, k, MORPH_CELL_BYTES[kind], span=2 * halo)
-
-
 def _raise_on(lib, symbol, err):
     if err:
         raise RuntimeError(f"{symbol} launch failed: "
@@ -1312,14 +1122,12 @@ def _raise_on(lib, symbol, err):
 
 
 def launch_morph(kind: str, ls, aux, k: int, smoothing: int, parity0: int,
-                 balloon: int, thr_b: float, halo: int, shard=None,
-                 v1: bool = False):
+                 balloon: int, thr_b: float, halo: int, shard=None):
     """One K11 launch (csrc/morph_band.cu) of ``kind`` ('acwe', 'gac',
     'gac_pre'; 'acwe_sh', 'gac_pre_sh' with ``shard`` = (pt, pb, pcl, pcr,
     top, bottom, left, right) ints) on an (H, W) binary level set: k
     iterations with a ``halo``-cell window margin, on the bit body
-    (morph_bits.cuh), or with ``v1`` on the first body (morph.cuh). Returns
-    the new level set."""
+    (morph_bits.cuh). Returns the new level set."""
     from .._build import library
 
     _check_inputs(ls, aux, ("ls", "aux"))
@@ -1328,11 +1136,7 @@ def launch_morph(kind: str, ls, aux, k: int, smoothing: int, parity0: int,
     lib = library()
     stream = torch.cuda.current_stream(ls.device).cuda_stream
     symbol = "cv_morph_chunk" if shard is None else "cv_morph_chunk_shard"
-    if v1:
-        symbol += "_v1"
-        geo = _morph_geometry_v1(kind, h, w, k, halo)
-    else:
-        geo = morph_geometry(kind, h, w, halo, _morph_crop(h, w, shard))
+    geo = morph_geometry(kind, h, w, halo, _morph_crop(h, w, shard))
     err = getattr(lib, symbol)(
         ls.data_ptr(), aux.data_ptr(), out.data_ptr(), h, w,
         MORPH_KINDS[kind], k, smoothing, parity0, balloon, thr_b, halo, *geo,
@@ -1342,12 +1146,11 @@ def launch_morph(kind: str, ls, aux, k: int, smoothing: int, parity0: int,
 
 
 def launch_morph_fused(ls, u0, cc, k: int, smoothing: int, parity0: int,
-                       halo: int, v1: bool = False):
+                       halo: int):
     """One K12 launch (csrc/morph_fused.cu): k MorphACWE iterations with
     the force from u0 and ``cc`` = (c_in, c_out, l1, l2) on the device, on
-    the bit body (its last block sums the partials), or with ``v1`` on the
-    first body (a second launch sums them). Returns (ls_new, partials (2,)
-    f32: sum ls, sum u0 ls)."""
+    the bit body (its last block sums the partials). Returns (ls_new,
+    partials (2,) f32: sum ls, sum u0 ls)."""
     from .._build import library
 
     _check_inputs(ls, u0, ("ls", "u0"))
@@ -1357,17 +1160,6 @@ def launch_morph_fused(ls, u0, cc, k: int, smoothing: int, parity0: int,
     parts = torch.empty(2, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev)
     lib = library()
-    if v1:
-        th, tw, cap = _morph_geometry_v1("acwe_fused", h, w, k, halo)
-        nblocks = math.ceil(h / th) * math.ceil(w / tw)
-        block_parts = torch.empty((nblocks, 2), dtype=torch.float64,
-                                  device=dev)
-        err = lib.cv_morph_fused_chunk_v1(
-            ls.data_ptr(), u0.data_ptr(), cc.data_ptr(), out.data_ptr(),
-            block_parts.data_ptr(), parts.data_ptr(), h, w, k, smoothing,
-            parity0, halo, th, tw, cap, stream.cuda_stream)
-        _raise_on(lib, "cv_morph_fused_chunk_v1", err)
-        return out, parts
     geo = morph_geometry("acwe_fused", h, w, halo)
     block_parts = torch.empty((geo[-1], 2), dtype=torch.float64, device=dev)
     counter = _sweep_counters(dev, stream, 1)
@@ -1488,13 +1280,11 @@ def reinit_occupancy(threads: int, smem: int, f64: bool,
     return n.value
 
 
-def launch_reinit(phi, steps: int, dtau: float, h: float,
-                  v1: bool = False, geometry=None):
+def launch_reinit(phi, steps: int, dtau: float, h: float, geometry=None):
     """One redistance on R1 (csrc/reinit.cu) of an (H, W) level set or a
     (B, H, W) stack of them, float32 or float64, each frame on its own: the
     tile body's ceil(steps / k) passes at ``geometry`` = (k, TH, TW, PX,
-    PY, RS) (default :func:`reinit_geometry`), or with ``v1`` the first
-    body's prepass and ``steps`` step launches. Returns the redistanced
+    PY, RS) (default :func:`reinit_geometry`). Returns the redistanced
     tensor (a new one, ``phi``'s shape)."""
     from .._build import library
 
@@ -1512,16 +1302,6 @@ def launch_reinit(phi, steps: int, dtau: float, h: float,
     stream = torch.cuda.current_stream(dev).cuda_stream
     bufs = (torch.empty_like(phi), torch.empty_like(phi))
     lib = library()
-    if v1:
-        aux = torch.empty_like(phi)
-        flags = torch.empty(phi.shape, dtype=torch.uint8, device=dev)
-        with torch.cuda.device(dev):
-            err = lib.cv_reinit_v1(
-                phi.data_ptr(), aux.data_ptr(), flags.data_ptr(),
-                bufs[0].data_ptr(), bufs[1].data_ptr(), b, h_, w, steps,
-                float(dtau), float(h), f64, stream)
-        _raise_on(lib, "cv_reinit_v1", err)
-        return bufs[(steps - 1) % 2]
     geo = geometry or reinit_geometry(b, h_, w, steps, phi.element_size())
     with torch.cuda.device(dev):
         err = lib.cv_reinit(phi.data_ptr(), bufs[0].data_ptr(),

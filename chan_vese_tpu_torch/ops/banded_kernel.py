@@ -9,11 +9,7 @@ CUDA tensor :func:`banded_chunk` launches ``csrc/banded.cu`` and
 modes :func:`banded_chunk_sharded` and :func:`banded_chunk_mc_sharded` the
 same files' shard launchers, all four on the body of ``csrc/band.cuh``
 (:func:`._cuda.launch_band`); on a CPU tensor each runs its ``_reference``
-plain version. The first body's launchers (``cv_banded_chunk_v1``,
-``cv_banded_chunk_shard_v1``, ``cv_banded_chunk_mc_v1``,
-``cv_banded_chunk_mc_shard_v1``, through :func:`._cuda.launch_chunk` and
-:func:`._cuda.launch_chunk_mc`) stay in the library as the yardstick of
-the smoke and the cuda-marked tests; nothing here calls them.
+plain version.
 
 Trajectory class: c1/c2 stay frozen across the k iterations of a chunk;
 the partials describe the LAST iteration's transition. k = 1 is the fused

@@ -4,8 +4,7 @@ Counterpart of ``chan_vese_tpu/ops/pallas_sweep.py`` (``_fused_band_kernel``
 on a whole image and, with ``parity``/``crop``/``edges``, on a shard canvas
 of the sharded solver). On a CUDA tensor :func:`fused_iteration` launches
 the hand-written kernel ``csrc/fused.cu`` (the single-sweep body of
-``csrc/sweep.cuh``; its first body stays as the ``_v1`` launchers, which
-only the smoke and the cuda-marked tests reach); on a CPU tensor it runs
+``csrc/sweep.cuh``); on a CPU tensor it runs
 :func:`fused_iteration_reference`, the plain PyTorch version.
 :func:`chunk_shard_reference` is the plain version of every shard-canvas
 kernel (K1, K2, K3, K5 shard). The force

@@ -6,8 +6,8 @@ stays scalar; only the data term (Chan-Sandberg-Vese: the channel average
 of the weighted squared distances) and the region-mean partials see the
 channels. u0 is carried channels-first, (C, H, W), as in the reference.
 On a CUDA tensor :func:`fused_iteration_mc` launches ``csrc/fused_mc.cu``
-(the single-sweep body of ``csrc/sweep.cuh`` with C channels; its first
-body stays as ``cv_fused_iteration_mc_v1``); on a CPU tensor it runs
+(the single-sweep body of ``csrc/sweep.cuh`` with C channels); on a CPU
+tensor it runs
 :func:`fused_iteration_mc_reference`.
 
 Partials layout (C+4,): [s_uH per channel..., s_H, s_dphi2, flips,

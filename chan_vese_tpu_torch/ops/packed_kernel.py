@@ -11,10 +11,7 @@ holds P[a][b][r, c] = phi[2r+a, 2c+b]. On a CUDA tensor
 :func:`packed_banded_chunk_mc` ``csrc/packed_mc.cu``, both on the band body
 of ``csrc/band.cuh`` (:func:`._cuda.launch_band`, K2's and K5's geometry
 and cell order, so a launch is bitwise K2's or K5's on the unpacked
-image); on a CPU tensor they run their ``_reference`` plain versions. The
-first bodies (``cv_packed_banded_chunk_v1``, ``_shard_v1``, ``_mc_v1``)
-stay in the library as the yardstick of the band body; no wrapper reaches
-them.
+image); on a CPU tensor they run their ``_reference`` plain versions.
 
 K15/K16 (:func:`pack_planes`, :func:`unpack_planes`) are the parity pack
 and its inverse for (H, W) and (N, H, W) inputs (a frame or channel

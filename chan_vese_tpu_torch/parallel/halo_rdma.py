@@ -21,10 +21,8 @@ built once per grid and kept (:func:`_gather_plan`); a call allocates
 each device's padded blocks as one buffer and fills only the base
 pointers. Sources on another card are read through peer pointers over
 NVLink; CUDA stream waits order the launch after each source's work and
-the source's later work after the launch. ``v1=True`` runs the first body
-(``csrc/halo_ring.cu``, :func:`_ring_shift`): the two ring stages, a launch
-a device each, every shard storing its strips into its neighbours' padded
-blocks. On CPU devices the plain version runs
+the source's later work after the launch. On CPU devices the plain
+version runs
 (:func:`exchange_halo2d_rdma_reference`): strips moved by list rotation
 (:func:`_ring_shift_reference`), replicas and ``torch.cat``. Launches are
 counted in ``exchange_halo2d_rdma.launches``.
@@ -41,23 +39,8 @@ import torch
 
 from .halo import _check_depth
 
-# tasks a launch of the first body takes (csrc/halo_ring.cu kMaxTasks):
-# three a shard
-_MAX_TASKS = 48
 # shards of a grid the gather takes (csrc/halo_gather.cu kMaxShards)
 _MAX_SHARDS = 64
-
-
-class _Task(ctypes.Structure):
-    """csrc/halo_ring.cu's RingTask: rows x cols elements of each of
-    ``batch`` slices from src to dst, strides in elements (src_row 0 or
-    src_col 0: a row or column replica)."""
-    _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
-                ("src_batch", ctypes.c_longlong),
-                ("dst_batch", ctypes.c_longlong),
-                ("src_row", ctypes.c_int), ("src_col", ctypes.c_int),
-                ("dst_row", ctypes.c_int), ("rows", ctypes.c_int),
-                ("cols", ctypes.c_int), ("batch", ctypes.c_int)]
 
 
 def _rings(blocks, dim: int):
@@ -108,13 +91,6 @@ def exchange_halo2d_rdma_reference(blocks, depth: int = 4):
                                depth, -1)
 
 
-def _slices(x):
-    """x as an (N, h, w) view whose rows are contiguous (a copy where
-    that needs one)."""
-    x3 = x.reshape(-1, *x.shape[-2:])
-    return x3 if x3.stride(-1) == 1 else x3.contiguous()
-
-
 @functools.lru_cache(maxsize=None)
 def _enable_peer(dev: int, peer: int):
     """Let device ``dev`` store into ``peer``'s memory (CUDA keeps it for
@@ -126,107 +102,6 @@ def _enable_peer(dev: int, peer: int):
     if err:
         raise RuntimeError(f"peer access cuda:{dev} -> cuda:{peer} failed: "
                            f"{lib.cv_error_string(err).decode()} ({err})")
-
-
-def _ring_tasks(xs, outs, depth: int, dim: int):
-    """K14's tasks of one stage, by the launching (source) device. Per
-    shard: its centre copy; its hi strip into the next shard's leading
-    halo, or where the ring wraps its edge replica into its own trailing
-    halo; its lo strip into the previous shard's trailing halo, or the
-    replica into its own leading one. Each task is (the RingTask fields,
-    the destination's grid position), from ``data_ptr`` and offsets in
-    elements: no views are made, so the host's cost stays small."""
-    row = dim == -2
-    tasks = {}
-    for ring in _rings(xs, dim):
-        geo = []
-        for ix, iy in ring:
-            x, o = xs[ix][iy], outs[ix][iy]
-            n, h, w = x.shape
-            geo.append(dict(
-                x=x.data_ptr(), xb=x.stride(0), xr=x.stride(1), n=n, h=h,
-                w=w, o=o.data_ptr(), ob=o.shape[1] * o.shape[2],
-                orow=o.shape[2], es=x.element_size(), dev=x.device,
-                pos=(ix, iy)))
-        for i, g in enumerate(geo):
-            es, xr, orow = g["es"], g["xr"], g["orow"]
-            ext = g["h"] if row else g["w"]           # cells along dim
-            sx, so = (xr, orow) if row else (1, 1)    # elements a step
-            rows, cols = (depth, g["w"]) if row else (g["h"], depth)
-            rep = (0, 1) if row else (xr, 0)  # src_row 0 / src_col 0
-            out = tasks.setdefault(g["dev"], [])
-            out.append(((g["x"], g["o"] + depth * so * es, g["xb"], g["ob"],
-                         xr, 1, orow, g["h"], g["w"], g["n"]), g["pos"]))
-            if i + 1 < len(geo):
-                nx = geo[i + 1]
-                out.append(((g["x"] + (ext - depth) * sx * es, nx["o"],
-                             g["xb"], nx["ob"], xr, 1, nx["orow"], rows, cols,
-                             g["n"]), nx["pos"]))
-            else:
-                out.append(((g["x"] + (ext - 1) * sx * es,
-                             g["o"] + (depth + ext) * so * es, g["xb"],
-                             g["ob"], *rep, orow, rows, cols, g["n"]),
-                            g["pos"]))
-            if i > 0:
-                pv = geo[i - 1]
-                p_ext, p_so = ((pv["h"], pv["orow"]) if row
-                               else (pv["w"], 1))
-                out.append(((g["x"], pv["o"] + (depth + p_ext) * p_so * es,
-                             g["xb"], pv["ob"], xr, 1, pv["orow"], rows, cols,
-                             g["n"]), pv["pos"]))
-            else:
-                out.append(((g["x"], g["o"], g["xb"], g["ob"], *rep, orow,
-                             rows, cols, g["n"]), g["pos"]))
-    return tasks
-
-
-def _ring_shift(blocks, depth: int, dim: int):
-    """One stage of the first body on CUDA devices: K14 ``_v1`` launched
-    once on each device that holds a shard (a launch per 16 shards), every
-    block extended by ``depth`` along ``dim``. Returns the grid of new
-    blocks."""
-    from .._build import library
-
-    xs = [[_slices(x) for x in row] for row in blocks]
-    outs = []
-    for row in xs:
-        out_row = []
-        for x in row:
-            ext = list(x.shape)
-            ext[dim] += 2 * depth
-            out_row.append(torch.empty(ext, dtype=x.dtype, device=x.device))
-        outs.append(out_row)
-    tasks = _ring_tasks(xs, outs, depth, dim)
-    streams = {d: torch.cuda.current_stream(d) for d in tasks}
-    # the barrier: a launch on d stores into e's buffers only after e's
-    # stream has allocated them, and e's later work waits for the stores
-    remote = {(d, outs[ix][iy].device) for d, ts in tasks.items()
-              for _, (ix, iy) in ts if outs[ix][iy].device != d}
-    for d, e in remote:
-        _enable_peer(d.index, e.index)
-        streams[d].wait_stream(torch.cuda.current_stream(e))
-    lib = library()
-    esize = xs[0][0].element_size()
-    for d, ts in tasks.items():
-        for k in range(0, len(ts), _MAX_TASKS):
-            chunk = ts[k:k + _MAX_TASKS]
-            arr = (_Task * len(chunk))(*(_Task(*t) for t, _ in chunk))
-            with torch.cuda.device(d):
-                err = lib.cv_halo_ring_v1(ctypes.addressof(arr), len(chunk),
-                                          esize, streams[d].cuda_stream)
-            if err:
-                raise RuntimeError(f"cv_halo_ring_v1 launch failed: "
-                                   f"{lib.cv_error_string(err).decode()} "
-                                   f"({err})")
-            exchange_halo2d_rdma.launches += 1
-    for d, e in remote:
-        torch.cuda.current_stream(e).wait_stream(streams[d])
-    for d, ts in tasks.items():
-        for _, (ix, iy) in ts:
-            if outs[ix][iy].device != d:
-                outs[ix][iy].record_stream(streams[d])
-    return [[o.reshape(*b.shape[:-2], *o.shape[-2:])
-             for o, b in zip(orow, brow)] for orow, brow in zip(outs, blocks)]
 
 
 class _GatherGeo(ctypes.Structure):
@@ -413,20 +288,17 @@ def _gather(xs, ny: int, plan: _Plan):
     return [outs[i:i + ny] for i in range(0, len(outs), ny)]
 
 
-def exchange_halo2d_rdma(blocks, depth: int = 4, v1: bool = False):
+def exchange_halo2d_rdma(blocks, depth: int = 4):
     """Pad each (..., h, w) block of the grid to (..., h + 2 depth, w + 2
     depth) with halos: exactly :func:`.halo.exchange_halo2d` (and its
     batched form). CUDA blocks (every shard's device a CUDA device;
-    elements of 4 or 8 bytes) launch K14 once a device; ``v1`` the first
-    body, two ring stages a device. CPU blocks run the plain version. A
-    mesh mixing the two raises."""
+    elements of 4 or 8 bytes) launch K14 once a device. CPU blocks run the
+    plain version. A mesh mixing the two raises."""
     ny = len(blocks[0])
     xs = [x for row in blocks for x in row]
     plan = _gather_plan(_key(xs, depth, len(blocks), ny))
     if plan is None:
         return exchange_halo2d_rdma_reference(blocks, depth)
-    if v1:
-        return _ring_shift(_ring_shift(blocks, depth, -2), depth, -1)
     return _gather(xs, ny, plan)
 
 

@@ -75,8 +75,7 @@ def variants():
             text = text.replace(a, b)
         files = {"morph_bits.cuh": text}
         for src in ("morph_band.cu", "morph_fused.cu"):
-            files[src] = (CSRC / src).read_text().replace(
-                '#include "morph.cuh"', f'#include "{CSRC / "morph.cuh"}"')
+            files[src] = (CSRC / src).read_text()
         out[name] = (files, exact)
     return out
 

@@ -1,5 +1,4 @@
-"""Pass depths and tiles of R1's tile body timed against its first body on
-one NVIDIA GPU.
+"""Pass depths and tiles of R1's tile body timed on one NVIDIA GPU.
 
     python3 chip_reinit_variants.py [--out FILE]
 
@@ -7,11 +6,10 @@ The measurements behind ``_cuda.reinit_geometry`` and the tile body's
 design (csrc/reinit.cu reinit_tile): builds the package's kernels, prints
 ptxas's registers and spills of the tile body, then for each shape the
 main path redistances (the 4K pyramid's five level shapes, f32, and 4K
-f64) times the first body (``_v1``: a prepass and a launch a step), the
-geometry's own choice and every pass depth of REINIT_DEPTHS under a set
-of block shapes (PX columns, PY strips of RS rows), in turns (first body,
-geometries, first body; device time queued behind a spin, so the host's
-pace does not enter), with the blocks an SM the card gives each. Then it
+f64) times the geometry's own choice and every pass depth of
+REINIT_DEPTHS under a set of block shapes (PX columns, PY strips of RS
+rows; device time queued behind a spin, so the host's pace does not
+enter), with the blocks an SM the card gives each. Then it
 compiles variants of the body from modified copies of csrc/reinit.cu into
 chan_vese_tpu_torch/_build/reinit_variants/ (each its own library with
 the same C launcher) and times the best geometries of each at 4K f32 and
@@ -35,7 +33,7 @@ f64, 1080p and 135x240:
 - sign_branch:   the sign of phi0 picking maxima or minima of the
                  differences (two predicated forms) in place of the
                  differences times sign(phi0);
-- old_godunov:   the Godunov gradient as reinit_step spells it (both
+- old_godunov:   the Godunov gradient as the plain version spells it (both
                  branches' clamps and NaN-checked maxima of the squares);
 - one_block:     __launch_bounds__ asking for one block an SM in f32;
 
@@ -44,7 +42,8 @@ fast_sqrt (the square root an rsqrt and a product), no_update (a step a
 sum of the stencil's loads) and no_sync (the steps without barriers).
 
 Every timed geometry of every exact variant is checked bitwise against
-the first body on the same input. Prints a table a shape, the card's name
+the plain version (``ops/reinit.py::reinit_reference``) on the same
+input. Prints a table a shape, the card's name
 and power limit, and writes every number to ``--out`` (default
 chiprun_out/reinit_variants.json). Exits non-zero without a CUDA device
 or when a geometry disagrees.
@@ -68,6 +67,7 @@ if not torch.cuda.is_available():
 
 from chan_vese_tpu_torch import _build  # noqa: E402
 from chan_vese_tpu_torch.ops import _cuda  # noqa: E402
+from chan_vese_tpu_torch.ops.reinit import reinit_reference  # noqa: E402
 
 STEPS = 20
 SHAPES = [((1, 2160, 3840), torch.float32), ((1, 2160, 3840), torch.float64),
@@ -79,14 +79,35 @@ BLOCKS = _cuda.REINIT_BLOCKS
 SPIN = 20_000_000
 CSRC = Path(_build.__file__).resolve().parent / "csrc"
 OUT = Path(_build.__file__).resolve().parent / "_build" / "reinit_variants"
+# the NaN-keeping helpers of the registers and old_godunov variants
+# (torch.maximum, torch.clamp(min=0) and torch.clamp(max=0))
+NAN_HELPERS = r'''template <typename T>
+__device__ __forceinline__ bool isnan_(T x) {
+  return x != x;
+}
+
+template <typename T>
+__device__ __forceinline__ T nmax(T x, T y) {
+  return isnan_(x) ? x : (isnan_(y) ? y : (x > y ? x : y));
+}
+
+template <typename T>
+__device__ __forceinline__ T pos(T x) {
+  return x < T(0) ? T(0) : x;
+}
+
+template <typename T>
+__device__ __forceinline__ T neg(T x) {
+  return x > T(0) ? T(0) : x;
+}
+
+'''
 # the first form of the tile body, in place of the package's section from
 # TILE_START to TILE_END: registers for the strip's prepass values, flags
 # and new values, one shared plane of psi
-TILE_START = "// ---- the tile body ----"
+TILE_START = "constexpr int kTileThreads = 512;  // most threads a block"
 TILE_END = "// reinit_tile<T>'s dynamic shared-memory limit"
-REGISTERS = r'''// ---- the tile body ----
-
-constexpr int kTileThreads = 512;  // most threads a block
+REGISTERS = NAN_HELPERS + r'''constexpr int kTileThreads = 512;  // most threads a block
 constexpr int kTileRows = 16;      // most rows of a thread's strip
 constexpr int kMaxDevices = 64;
 
@@ -97,7 +118,8 @@ struct TileBlocks {
   static constexpr int value = sizeof(T) == 4 ? 2 : 1;
 };
 
-// one step of a cell off or on the crossing (reinit_step's expressions)
+// one step of a cell off or on the crossing (the plain version's
+// expressions)
 template <typename T>
 __device__ __forceinline__ T tile_update(T c, T up, T dn, T lf, T rt, T v,
                                          bool positive, bool crossing,
@@ -266,7 +288,7 @@ SELECTED = """  T x, y;
     y = min_nan(min_nan(l, r), T(0));
   }
   const T g = O::sqrt(O::add(sq(x), sq(y)));"""
-TILE_UPDATE = "// One step of a cell: reinit_step's result, bitwise."
+TILE_UPDATE = "// One step of a cell: the plain version's step, bitwise."
 # the package's step loop, a row at a time, and the same loop 4 rows
 # at a time (their loads, then their updates, then their stores)
 ONE_ROW = """        for (int r = rlo; r < rhi; ++r, i += stride, m >>= 2) {
@@ -367,7 +389,8 @@ VARIANTS = {
     "batched": [(ONE_ROW, BATCHED)],
     "border_inline": [(UPDATE, UPDATE_INLINE), (BORDER, "")],
     "rolled_loads": [(FETCH, ROLLED), (LATER, ROLLED_LATER)],
-    "old_godunov": [(OLD_GODUNOV, """  const T b = O::sub(dn, c), d = O::sub(rt, c);
+    "old_godunov": [(TILE_UPDATE, NAN_HELPERS + TILE_UPDATE),
+                    (OLD_GODUNOV, """  const T b = O::sub(dn, c), d = O::sub(rt, c);
   T g;
   if (f & 1)
     g = O::sqrt(O::add(nmax(sq(pos(a)), sq(neg(b))),
@@ -542,7 +565,7 @@ def variants(record, card, only=None):
         for shape, dtype in VARIANT_SHAPES:
             x = level_sets(shape, dtype, dev)
             b, h, w = shape
-            ref = _cuda.launch_reinit(x, STEPS, 0.5, 1.0, v1=True)
+            ref = reinit_reference(x, STEPS)
             size = x.element_size()
             cands = [g for g in geometries(b, h, w, size)
                      if g[5] <= VARIANT_ROWS.get(name, _cuda.REINIT_ROWS)
@@ -606,10 +629,8 @@ def main(argv=None) -> int:
         b, h, w = shape
         x = level_sets(shape, dtype, dev)
         itemsize = x.element_size()
-        ref = _cuda.launch_reinit(x, STEPS, 0.5, 1.0, v1=True)
+        ref = reinit_reference(x, STEPS)
         rows = []
-        v1 = [queued_ms(lambda: _cuda.launch_reinit(
-            x, STEPS, 0.5, 1.0, v1=True), 10)]
         for geo in geometries(b, h, w, itemsize):
             got = _cuda.launch_reinit(x, STEPS, 0.5, 1.0, geometry=geo)
             same = torch.equal(got, ref)
@@ -623,12 +644,10 @@ def main(argv=None) -> int:
             rows.append(dict(geometry=geo, ms=ms, bitwise=same,
                              blocks_per_sm=bps,
                              passes=len(_cuda.reinit_passes(STEPS, k))))
-        v1.append(queued_ms(lambda: _cuda.launch_reinit(
-            x, STEPS, 0.5, 1.0, v1=True), 10))
         chosen = rows[0]
         ranked = sorted(rows, key=lambda r: r["ms"])
         tag = f"{'x'.join(map(str, shape))} {str(dtype)[6:]}"
-        print(f"{tag}: v1 {v1[0]:.4f} / {v1[1]:.4f} ms; geometry's choice "
+        print(f"{tag}: geometry's choice "
               f"{chosen['geometry']} {chosen['ms']:.4f} ms (rank "
               f"{ranked.index(chosen) + 1} of {len(rows)}); fastest "
               + ", ".join(f"{r['geometry']} {r['ms']:.4f} ({r['passes']} "
@@ -636,14 +655,14 @@ def main(argv=None) -> int:
                           for r in ranked[:6])
               + f" [{card}]", flush=True)
         record["shapes"].append(dict(shape=shape, dtype=str(dtype)[6:],
-                                     v1_ms=v1, rows=rows))
+                                     rows=rows))
     if not args.no_variants:
         failed |= not variants(record, card, args.only)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(record, indent=1))
     print(f"{card}", flush=True)
     if failed:
-        print("a geometry disagreed with the first body", flush=True)
+        print("a geometry disagreed with the plain version", flush=True)
         return 1
     return 0
 

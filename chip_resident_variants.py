@@ -344,8 +344,7 @@ def variants():
         for a, b in pairs:
             files = {f: (a.sub(b, t) if isinstance(a, re.Pattern)
                          else t.replace(a, b)) for f, t in files.items()}
-        for src in ("resident.cuh", "redblack.cuh"):
-            files[src] = (CSRC / src).read_text()
+        files["redblack.cuh"] = (CSRC / "redblack.cuh").read_text()
         sources = SOURCES
         if name == "cluster":
             files["cluster.cu"] = CLUSTER_CU

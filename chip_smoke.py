@@ -27,8 +27,8 @@ compat.morphological_geodesic_active_contour through the kernels, and the
 morph-acwe / morph-gac throughput at 4K, and check that the binary
 morph start built on the card equals the one built on the CPU. Phases
 15-17 do the same for frame stacks and the layout kernels: K1's batch
-mode, K13 (packed_chunk, flat and packed, on the tile body; phi bitwise
-its first body, timed in turns with it) and the parity pack/unpack
+mode, K13 (packed_chunk, flat and packed, on the tile body) and the
+parity pack/unpack
 K15/K16 each against its plain version (the pack bitwise) at the shapes
 the main path gives it, segment_stack_sharded on a one-device data mesh
 (64 x 512^2 through K8 batch, 16 x 1080p through K1 batch, tolerance
@@ -61,95 +61,83 @@ run of its trajectory class, with every launch counted, and the times:
 each run's throughput beside the unsharded route, each mode per launch,
 and the halo exchange a chunk. Phases 24-26 do the same for the halo
 mechanisms: K14 (exchange_halo2d_rdma, one clamped-gather launch an
-exchange) bitwise against its first body (two ring stages), its plain
-version and exchange_halo2d on every shard of a 2x2 and a 3x3 grid of the 4K
+exchange) bitwise against its plain version and exchange_halo2d on
+every shard of a 2x2 and a 3x3 grid of the 4K
 image and on the 1x1 self-ring at D = 4, 32 and 64, for the image and a
 stack of two level sets (and on a grid over the cards where there are
 several), segment_sharded (comm_k 8 and 1), segment_multiphase_sharded
 (K9's shard mode, comm_k 1 and 8) and segment_sharded_fixed_trace with
 halo='rdma' bitwise equal to halo='ppermute', K14's launches counted,
 halo='overlap' (the kernels' hybrid at 4K against ppermute, the plain
-route bitwise at 1080p), and the times: K14 an exchange, in turns with
-its first body, device and host ms, beside exchange_halo2d and its bound
+route bitwise at 1080p), and the times: K14 an exchange, device and host
+ms, beside exchange_halo2d and its bound
 (the image at D = 4, 32, 64; the two level sets at D = 4, 64), and the 4K
 rates of the three mechanisms.
 Phase 27 does the same for the banded body of K2, K3, K5 and K6
 (csrc/band.cuh, K3 and K6 on parity planes): registers, spills and (with
 --sass-parent DIR, a checkout of the parent package) sass_diff.py's check
 that every kernel body of the parent compiles as before; each mode (whole
-image and shard canvas) against the first body's `_v1` launchers (phi
-bitwise, flips exact), its plain version and its own second launch at 4K
-gray and RGB (k = 1, 8, 21), a ragged shape and every shard of the 2x2
-and 3x3 grids and the 1x1 canvas (each crop bitwise equal to the
-whole-image launch), K3 and K6 also bitwise K2's and K5's launch on the
-unpacked inputs in phi and every partial; the two bodies in turns at the
-main path's shapes beside the bound, blocks per SM and waves; and phase
-19's sharded runs (the 1x1 mesh also packed) and the 4K
+image and shard canvas) against its plain version and its own second
+launch at 4K gray and RGB (k = 1, 8, 21), a ragged shape and every shard
+of the 2x2 and 3x3 grids and the 1x1 canvas (each crop bitwise equal to
+the whole-image launch), K3 and K6 also bitwise K2's and K5's launch on
+the unpacked inputs in phi and every partial; the body's queued times at
+the main path's shapes beside the bound, blocks per SM and waves; and
+phase 19's sharded runs (the 1x1 mesh also packed) and the 4K
 segment_banded_fixed runs, flat and default-routed (packed), through the
 entry points, their masks against the truth and every K2/K3/K5/K6 launch
-counted, with their rates (the default route also on the first body).
+counted, with their rates.
 Phase 28 does the same for K9's band body (csrc/mp2_band.cu's
-mp2_coupled_kernel, both modes): registers, spills, each mode against the
-first body's `_v1` launchers (phi bitwise, the flips and every partial
-equal, second launches bitwise) at 4K, a ragged shape and every shard of
-the 2x2 and 3x3 grids at D = 4 and over 2 and 8 launches chained on
-8k-deep canvases; the two bodies in turns at 4K and on the 2x2 canvas
-beside the bound, blocks per SM and waves; and phase 23's three 4-phase
-runs through the entry points, their K9 launches counted and their level
-sets bitwise the first body's runs, with their rates in turns with the
-first body.
+mp2_coupled_kernel, both modes): registers, spills, each mode's second
+launches bitwise at 4K, a ragged shape and every shard of the 2x2 and 3x3
+grids at D = 4 and over 2 and 8 launches chained on 8k-deep canvases
+(phases 9 and 21 hold them against the plain versions); the body's
+queued times at 4K and on the 2x2 canvas beside the bound, blocks per SM
+and waves; and phase 23's three 4-phase runs through the entry points,
+their K9 launches counted, with their rates.
 Phase 29 does the same for the single-sweep body of K1 and K4
 (csrc/sweep.cuh): registers and spills of every instantiation; each mode
 (whole image, force mode with and without a parity, batch, shard canvas,
-K4 RGB) against the first body's `_v1` launchers (phi bitwise, flips
-exact, the other partials within 1e-6 relative, second launches bitwise)
-at 512^2, 4K gray and RGB, 16 x 1080p, a ragged shape and every shard of
-the 2x2 and 3x3 grids (each crop bitwise the whole-image launch, each
-batch frame bitwise its own launch) and against its plain version; the
-two bodies in turns at the main path's shapes beside the bound, blocks
-per SM and waves; and segment_stack_fused_fixed (16 x 1080p),
-segment_fused_fixed (4K gray and RGB), the multiphase sweeps route (512^2,
-M = 3) and segment_sharded (2x2, comm_k 1) through the entry points,
-their launches counted and their masks checked, with their rates in
-turns with the first body.
+K4 RGB) against its second launch at 512^2, 4K gray and RGB, 16 x 1080p,
+a ragged shape and every shard of the 2x2 and 3x3 grids (each crop
+bitwise the whole-image launch, each batch frame bitwise its own launch)
+and against its plain version; the body's queued times at the main
+path's shapes beside the bound, blocks per SM and waves; and
+segment_stack_fused_fixed (16 x 1080p), segment_fused_fixed (4K gray and
+RGB), the multiphase sweeps route (512^2, M = 3) and segment_sharded
+(2x2, comm_k 1) through the entry points, their launches counted and
+their masks checked, with their rates.
 Phase 30 does the same for the bit body of K11 and K12
 (csrc/morph_bits.cuh): registers and spills of every instance and its
 blocks an SM; each kind (acwe, gac, gac_pre, K12; acwe_sh and gac_pre_sh
-on every shard of the 2x2 and 3x3 grids) bitwise against the first body's
-`_v1` launchers (K12's n_in equal, sum_in within 1e-6), its second launch
-and a launch on a second stream, at phase 12's shapes and runs (phases 12
-and 21 hold the same launches against the plain versions); the two bodies
-in turns at 4K and on the 2x2 shard block beside the bound, blocks per SM
+on every shard of the 2x2 and 3x3 grids) bitwise its second launch and a
+launch on a second stream, at phase 12's shapes and runs (phases 12 and
+21 hold the same launches against the plain versions); the body's queued
+times at 4K and on the 2x2 shard block beside the bound, blocks per SM
 and waves; and segment_morph and segment_morph_iterations (4K gray and
 RGB, fuse_force), segment_gac and segment_gac_iterations (4K, pre_dg both
 ways), compat's GAC (1080p) and the sharded chunked morph and GAC drivers
 (2x2, comm_k 8) through the entry points, their K11/K12 launches counted,
-their level sets bitwise the first body's runs, with their rates in turns
-with the first body.
+with their rates.
 Phase 31 does the same for the tile bodies of K7, K8 (every mode), K9's
 resident mode and K10 (csrc/resident_tiles.cuh, mp2.cuh): registers and
-spills of every instance; each mode against the first body's `_v1`
-launchers (phi bitwise over one iteration wherever the f32 means agree,
-flips equal where phi is, else within PHI_ATOL; the 4-phase labels over
-25 iterations within LABELS_FRAC), its second launch and a launch on a
-second stream (bitwise), at phase 6's and 9's shapes and the main path's
+spills of every instance; each mode bitwise its second launch and a
+launch on a second stream at phase 6's and 9's shapes and the main path's
 (phases 6 and 9 hold the same launches against the plain versions); the
-two bodies in turns at the main path's shapes (1000 iterations) beside
-the bound, with the tiling, the dynamic shared memory and the blocks an
-SM; and phase 8's and 11's fixed runs (segment_resident_fixed,
+bodies' times at the main path's shapes (1000 iterations) beside the
+bound, with the tiling, the dynamic shared memory and the blocks an SM;
+and phase 8's and 11's fixed runs (segment_resident_fixed,
 segment_stack_resident_fixed, segment_multiphase(fixed=True)) through the
-entry points on both bodies, the tile bodies' launches counted, with their
-rates in turns with the first body.
+entry points, the tile bodies' launches counted, with their rates.
 Phase 32 does the same for M10 and R1, the redistance kernel
 (csrc/reinit.cu, the port's kernel for the reference's jnp
-ops/reinit.py::reinit): the registers and spills of R1's tile body and
-first body; R1 against its first body (bitwise, the input left as it was)
-and its plain version (bitwise, or identical signs and within 1e-5 of max
-|phi|) at 4K, at the pyramid's four coarser level shapes and on stacks of
-two 1080p and two 4K level sets (20 steps), and at 257x131 and the 1080p
-stack at 1 and 9 steps, f32 and f64; the two bodies' queued times a
-redistance in turns beside the plain version and the bound at every level
-shape, with the tile body's geometry, launches and blocks an SM;
+ops/reinit.py::reinit): the registers and spills of R1's tile body; R1
+against its plain version (bitwise, or identical signs and within 1e-5 of
+max |phi|; the input left as it was) at 4K, at the pyramid's four coarser
+level shapes and on stacks of two 1080p and two 4K level sets (20 steps),
+and at 257x131 and the 1080p stack at 1 and 9 steps, f32 and f64; its
+queued times a redistance beside the plain version and the bound at every
+level shape, with the tile body's geometry, launches and blocks an SM;
 segment_pyramid on the 4K pyramid cell (bench_families.py:166-180: the
 time to the converged mask after a warm run, level_iters, R1's device
 time from torch.profiler, the mask against the disk and the direct
@@ -190,7 +178,6 @@ limit, and {"ok": true, "device": {...}}. Without a CUDA device it exits
 from __future__ import annotations
 
 import contextlib
-import functools
 import itertools
 import json
 import math
@@ -594,7 +581,7 @@ HALO = {
 # carries K14's numbers at D = 32
 HALO_DEPTHS, HALO_TIMED = (4, 32, 64), 32
 # K14 launches an exchange on the main path: one a device, the four shards
-# on the one card (the first body: two, a ring stage each)
+# on the one card
 K14_PER_EXCHANGE = 1
 
 # the redistance (phase 32): R1, the port's kernel for the reference's jnp
@@ -610,8 +597,8 @@ REINIT = {
 PYRAMID_SHAPES = ((135, 240), (270, 480), (540, 960), (1080, 1920),
                   (H4K, W4K))
 REINIT_STEPS = 20
-# the shapes R1 is held against its first body and plain version at every
-# step count of STEP_COUNTS: a ragged one and a stack
+# the shapes R1 is held against its plain version at every step count of
+# STEP_COUNTS: a ragged one and a stack
 REINIT_RAGGED, REINIT_STACK = (257, 131), (2, 1080, 1920)
 STEP_COUNTS = (1, 9, 20)
 # operations a cell of the redistance needs (one of each pair of branches
@@ -814,14 +801,12 @@ def best_accuracy(pred, gt):
 
 
 def ptxas_summary():
-    """Registers and spill stores of every chunk_kernel, band_kernel,
-    sweep_kernel, resident_kernel, tile_resident_kernel, mp2_band_kernel,
-    mp2_coupled_kernel, mp2_resident_kernel, mp2_tile_kernel, morph_kernel,
-    morph_bits_kernel and halo_gather_kernel instance,
-    from ptxas's -v report of the build: 'kind flat/packed [C=n]: R regs,
-    S B spill' (C = -1 is K1's force mode; 'frozen' the tile body's
-    frozen-means mode, K13), 'morph <kind>: ...', 'morph_bits <kind>:
-    ...', 'halo_gather f32/f64: ...'."""
+    """Registers and spill stores of every band_kernel, sweep_kernel,
+    tile_resident_kernel, mp2_coupled_kernel, mp2_tile_kernel,
+    morph_bits_kernel and halo_gather_kernel instance, from ptxas's -v
+    report of the build: 'kind flat/packed [C=n]: R regs, S B spill' (C =
+    -1 is K1's force mode; 'frozen' the tile body's frozen-means mode,
+    K13), 'morph_bits <kind>: ...', 'halo_gather f32/f64: ...'."""
     out, name = {}, None
     morph_kinds = ("acwe", "gac", "gac_pre", "acwe_fused", "acwe_sh",
                    "gac_pre_sh")
@@ -831,10 +816,9 @@ def ptxas_summary():
             mb = re.search(r"[^_]band_kernelILi(\d+)ELb(\d)ELb(\d)E",
                            m.group(1))
             msw = re.search(r"sweep_kernelILi(n?)(\d+)ELb(\d)E", m.group(1))
-            mm = re.search(r"morph_(bits_)?kernelILi(\d)E", m.group(1))
+            mm = re.search(r"morph_bits_kernelILi(\d)E", m.group(1))
             mh = re.search(r"halo_gather_kernelI([fd])", m.group(1))
-            m = re.search(r"(mp2_band|mp2_coupled|mp2_resident|mp2_tile|"
-                          r"chunk|tile_resident|resident)_kernel"
+            m = re.search(r"(mp2_coupled|mp2_tile|tile_resident)_kernel"
                           r"(?:ILb(\d)E(?:Li(n?)(\d+)E)?(?:Lb(\d)E)?)?",
                           m.group(1))
             name = None
@@ -848,17 +832,15 @@ def ptxas_summary():
                 name = ("sweep", "flat", (f" C={nc}" if nc else "")
                         + (" shard" if msw.group(3) == "1" else ""))
             elif mm:
-                name = ("morph_bits" if mm.group(1) else "morph",
-                        morph_kinds[int(mm.group(2))], "")
+                name = ("morph_bits", morph_kinds[int(mm.group(1))], "")
             elif mh:
                 name = ("halo_gather", f"f{32 if mh.group(1) == 'f' else 64}",
                         "")
             elif m:
                 c = ("" if m.group(4) is None else
                      f" C={'-' if m.group(3) else ''}{m.group(4)}")
-                # K9's banded bodies' one template flag is SHARD,
-                # chunk_kernel's third
-                one = m.group(1) in ("mp2_band", "mp2_coupled")
+                # K9's band body's one template flag is SHARD
+                one = m.group(1) == "mp2_coupled"
                 shard = (m.group(2) if one else m.group(5)) == "1"
                 packed = not one and m.group(2) == "1"
                 flag = (" frozen" if m.group(1) == "tile_resident" else
@@ -1500,17 +1482,11 @@ def hold(name, got, ref, tag):
     return err
 
 
-def k13_v1(args, p, k, packed):
-    """packed_chunk on K13's first body (resident.cuh's frozen mode)."""
-    with first_resident_body_route():
-        return packed_kernel.packed_chunk(*args, p, k, packed=packed)
-
-
 def check_stack_kernels(dev, p, img4k, rgb4k_cf):
     """Phase 15: K1 batch, K13 (both layouts) and K15/K16 against their
     plain versions; a second launch of each bitwise equal to the first;
-    K13 on the tile body bitwise its first body in phi, timed in turns
-    with it. Returns the stats dict of the five entries."""
+    K13 on the tile body timed queued. Returns the stats dict of the five
+    entries."""
     st = {name: dict(max_abs_err=0.0) for name in STACK}
     # K1 batch: each frame also bitwise the single-image K1 launch
     for n, h, w in K1B_STACKS:
@@ -1552,8 +1528,7 @@ def check_stack_kernels(dev, p, img4k, rgb4k_cf):
                     phis, u, c1, c2, p), 2)
             b["bound_ms"], b["bound_by"] = bound(h, w, 1, 0, frames=n)
             b["timed"] = f"{n}x{h}x{w}"
-    # K13: against its first body (phi bitwise: the means are frozen), its
-    # plain version and K2 on the card
+    # K13: against its plain version and K2 on the card
     for h, w in K13_SHAPES:
         args = chunk_inputs(torch.from_numpy(two_disks(h, w)[0]).to(dev), p)
         for k in K13_KS:
@@ -1565,50 +1540,35 @@ def check_stack_kernels(dev, p, img4k, rgb4k_cf):
                 got = packed_kernel.packed_chunk(*args, p, k, packed=packed)
                 again = packed_kernel.packed_chunk(*args, p, k,
                                                    packed=packed)
-                old = k13_v1(args, p, k, packed)
                 torch.cuda.synchronize()
                 if not (torch.equal(got[0], again[0])
                         and torch.equal(got[1], again[1])):
                     raise AssertionError(f"{name} k={k} at {h}x{w}: two "
                                          f"launches differ")
-                if not (torch.equal(got[0], old[0])
-                        and torch.equal(got[1][3], old[1][3])):
-                    raise AssertionError(f"{name} k={k} at {h}x{w}: phi or "
-                                         f"the flips differ from the first "
-                                         f"body")
                 err = hold(name, got, ref, f"{h}x{w} k={k}")
                 err_band = hold(name, got, band, f"{h}x{w} k={k} vs K2")
-                hold(name, got, old, f"{h}x{w} k={k} vs the first body")
                 st[name]["max_abs_err"] = max(st[name]["max_abs_err"], err)
-                print(f"phase 15 {name} {h}x{w} k={k}: phi bitwise equal to "
-                      f"the first body (parts max|d| "
-                      f"{float((got[1] - old[1]).abs().max()):.3e}); phi "
+                print(f"phase 15 {name} {h}x{w} k={k}: phi "
                       f"max|d| vs plain {err:.3e}, vs K2 banded_chunk "
                       f"{err_band:.3e}; parts max|d| vs plain "
                       f"{float((got[1] - ref[1]).abs().max()):.3e} (phase "
                       f"3's bars); second launch bitwise equal", flush=True)
                 if k == K13_KS[-1]:
-                    # queued, in turns with the first body: with the pack
-                    # inside, four launches whose host-side cost is about
-                    # their device time
-                    t = {False: [], True: []}
-                    for v1 in (True, False, False, True):
-                        t[v1].append(queued_ms(
-                            (lambda: k13_v1(args, p, k, packed)) if v1 else
-                            (lambda: packed_kernel.packed_chunk(
-                                *args, p, k, packed=packed)), 20))
+                    # queued: with the pack inside, four launches whose
+                    # host-side cost is about their device time
+                    t = [queued_ms(lambda: packed_kernel.packed_chunk(
+                        *args, p, k, packed=packed), 20) for _ in range(2)]
                     st[name].setdefault("turns", {})[h, w] = (
-                        t[True][0], t[False][0], t[False][1], t[True][1],
-                        bound(h, w, k, 0)[0])
+                        *t, bound(h, w, k, 0)[0])
                 if (h, w) == K13_TIMED and k == K13_KS[-1]:
-                    st[name]["ms"] = sum(t[False]) / 2
+                    st[name]["ms"] = sum(t) / 2
                     st[name]["plain_ms"] = time_ms(
                         lambda: packed_kernel.packed_chunk_reference(
                             *args, p, k), 2)
                     st[name]["bound_ms"], st[name]["bound_by"] = bound(
                         h, w, k, 0)
-    print(f"phase 15 K13 k={K13_KS[-1]} (queued device ms a call, in turns "
-          f"first body, tile body, tile body, first body; bound): "
+    print(f"phase 15 K13 k={K13_KS[-1]} (queued device ms a call, two "
+          f"runs; bound): "
           + "; ".join(
               f"{n} {h}x{w} " + ", ".join(f"{v:.4f}" for v in t)
               for n in STACK if "K13" in n
@@ -2781,14 +2741,13 @@ def grids_equal(a, b):
 
 
 def check_halo_kernel(dev, u4k, st):
-    """Phase 24: K14 against its first body (the two ring stages, `_v1`),
-    its plain version and exchange_halo2d, bitwise, on every shard of a
+    """Phase 24: K14 against its plain version and exchange_halo2d,
+    bitwise, on every shard of a
     2x2 and a 3x3 grid of the 4K image and on the 1x1 self-ring, at the
     main path's depths, for the image and for a stack of two level sets
     (the multiphase exchange); a second launch bitwise the first; one
     launch an exchange; and, where there is more than one CUDA device, a
-    2x2 grid laid over the cards (peer reads; the first body's peer
-    stores)."""
+    2x2 grid laid over the cards (peer reads)."""
     phis = mpm.init_multiphase((H4K, W4K), 2, device=dev)
     err = 0.0
     for nx, ny in SHARD_GRIDS + ((1, 1),):
@@ -2801,25 +2760,23 @@ def check_halo_kernel(dev, u4k, st):
                 got = exchange_halo2d_rdma(blocks, D)
                 once = exchange_halo2d_rdma.launches - n0
                 again = exchange_halo2d_rdma(blocks, D)
-                old = exchange_halo2d_rdma(blocks, D, v1=True)
                 plain = halo_rdma.exchange_halo2d_rdma_reference(blocks, D)
                 cat = exchange_halo2d(blocks, D)
                 torch.cuda.synchronize()
                 err = max(err, grids_err(got, plain))
                 if not (grids_equal(got, plain) and grids_equal(got, cat)
-                        and grids_equal(got, again)
-                        and grids_equal(got, old) and once == 1):
+                        and grids_equal(got, again) and once == 1):
                     raise AssertionError(
                         f"K14 on the {nx}x{ny} grid, {tag}, D={D}: not "
-                        f"bitwise its first body, its plain version, "
-                        f"exchange_halo2d and its own second launch (max|d| "
+                        f"bitwise its plain version, exchange_halo2d and "
+                        f"its own second launch (max|d| "
                         f"{err}), or {once} launches")
         print(f"phase 24 K14 {nx}x{ny} grid of the 4K image "
               f"({H4K // nx}x{W4K // ny} shards"
               + (", the self-ring" if nx * ny == 1 else "")
               + f"), D={HALO_DEPTHS}, the image and two level sets: one "
-              f"launch an exchange, bitwise equal to the first body, to its "
-              f"plain version and to exchange_halo2d; second launches "
+              f"launch an exchange, bitwise equal to its plain version and "
+              f"to exchange_halo2d; second launches "
               f"bitwise equal", flush=True)
     st["max_abs_err"] = err
     n = torch.cuda.device_count()
@@ -2834,17 +2791,14 @@ def check_halo_kernel(dev, u4k, st):
         n0 = exchange_halo2d_rdma.launches
         got = exchange_halo2d_rdma(blocks, D)
         once = exchange_halo2d_rdma.launches - n0
-        old = exchange_halo2d_rdma(blocks, D, v1=True)
         plain = halo_rdma.exchange_halo2d_rdma_reference(blocks, D)
         torch.cuda.synchronize()
-        if not (grids_equal(got, plain) and grids_equal(got, old)
-                and once == len(set(cards))):
+        if not (grids_equal(got, plain) and once == len(set(cards))):
             raise AssertionError(f"K14 across {n} cards, D={D}: not bitwise "
-                                 f"its plain version and first body, or "
-                                 f"{once} launches")
+                                 f"its plain version, or {once} launches")
     print(f"phase 24 K14 2x2 grid over {n} cards (peer reads), "
           f"D={HALO_DEPTHS}: one launch a card, bitwise equal to its plain "
-          f"version and to the first body (peer stores)", flush=True)
+          f"version", flush=True)
 
 
 def halo_main_paths(dev, card, u4k, gt4k, st):
@@ -2974,8 +2928,8 @@ def host_ms(fn, n):
 
 
 def halo_rates(dev, card, u4k, st, runs):
-    """Phase 26: K14 per exchange at the main path's depths, the gather and
-    its first body in turns (queued device ms, host ms a call), beside
+    """Phase 26: K14 per exchange at the main path's depths, the gather
+    twice (queued device ms, host ms a call), beside
     exchange_halo2d (its torch.cat route), the plain version and the
     bound; the two-level-set exchanges of phase 25's multiphase runs (D = 4
     at comm_k 1, 64 at comm_k 8) timed the same way; and the 4K 2x2 rates
@@ -2989,34 +2943,27 @@ def halo_rates(dev, card, u4k, st, runs):
                             ("two level sets", sets, (4, 64))):
         m = xs[0][0].numel() // (h * w)
         for D in depths:
-            t = {False: [], True: []}
-            host = {False: [], True: []}
-            for v1 in (True, False, False, True):
-                t[v1].append(queued_ms(
-                    lambda: exchange_halo2d_rdma(xs, D, v1=v1), 20))
-                host[v1].append(host_ms(
-                    lambda: exchange_halo2d_rdma(xs, D, v1=v1), 20))
-            ms, v1_ms = sum(t[False]) / 2, sum(t[True]) / 2
+            t, host = [], []
+            for _ in range(2):
+                t.append(queued_ms(lambda: exchange_halo2d_rdma(xs, D), 20))
+                host.append(host_ms(lambda: exchange_halo2d_rdma(xs, D), 20))
+            ms = sum(t) / 2
             lib_ms = queued_ms(lambda: exchange_halo2d(xs, D), 20)
             plain_ms = time_ms(
                 lambda: halo_rdma.exchange_halo2d_rdma_reference(xs, D), 5)
             nbytes = 4 * 4 * m * (h * w + (h + 2 * D) * (w + 2 * D))
             b_ms, b_by = roofline(nbytes, 0)
             per_depth.append(
-                f"{tag} D={D} {ms:.4f} ms [{t[False][0]:.4f}, "
-                f"{t[False][1]:.4f}] (first body {v1_ms:.4f} "
-                f"[{t[True][0]:.4f}, {t[True][1]:.4f}], exchange_halo2d "
-                f"{lib_ms:.4f}, plain "
+                f"{tag} D={D} {ms:.4f} ms [{t[0]:.4f}, {t[1]:.4f}] "
+                f"(exchange_halo2d {lib_ms:.4f}, plain "
                 f"{plain_ms:.4f}, bound {b_ms:.4f} {b_by}, "
-                f"{nbytes / 1e6:.1f} MB; host ms a call "
-                f"{min(host[False]):.4f} (first body {min(host[True]):.4f}))")
-            st.setdefault("times", {})[(tag, D)] = (ms, v1_ms, b_ms)
+                f"{nbytes / 1e6:.1f} MB; host ms a call {min(host):.4f})")
+            st.setdefault("times", {})[(tag, D)] = (ms, b_ms)
             if tag == "image" and D == HALO_TIMED:
                 st.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                           bound_by=b_by, library_ms=lib_ms)
     print(f"phase 26 K14 an exchange of the four {h}x{w} shards (queued "
-          "device ms, the gather and the first body in turns first, "
-          "gather, gather, first): " + "; ".join(per_depth) + f" [{card}]",
+          "device ms, two runs): " + "; ".join(per_depth) + f" [{card}]",
           flush=True)
     # launches x (ms - bound) over phase 25's 363 exchanges
     times = st["times"]
@@ -3024,12 +2971,11 @@ def halo_rates(dev, card, u4k, st, runs):
               ("image", 32): SHARD_ITERS // SHARD_K,
               ("two level sets", 4): MP_SHARD_ITERS,
               ("two level sets", 64): -(-MP_SHARD_ITERS // SHARD_K)}
-    print("phase 26 K14 over phase 25's exchanges, count x (ms - bound ms) "
-          "(first body in brackets): " + "; ".join(
+    print("phase 26 K14 over phase 25's exchanges, count x (ms - bound "
+          "ms): " + "; ".join(
               f"{tag} D={D} {n} x ({times[tag, D][0]:.4f} - "
-              f"{times[tag, D][2]:.4f}) = "
-              f"{n * (times[tag, D][0] - times[tag, D][2]):.2f} ms "
-              f"[{n * (times[tag, D][1] - times[tag, D][2]):.2f}]"
+              f"{times[tag, D][1]:.4f}) = "
+              f"{n * (times[tag, D][0] - times[tag, D][1]):.2f} ms"
               for (tag, D), n in counts.items()) + f" [{card}]", flush=True)
     rates = []
     for k, iters in ((SHARD_K, SHARD_ITERS), (1, SHARD_ITERS_K1)):
@@ -3064,8 +3010,8 @@ def halo_phases(dev, card, u4k, gt4k):
 
 # the band body (phase 27): K2 and K5 on csrc/band.cuh, K3 and K6 on it
 # with parity planes, in their whole-image and shard-canvas modes, against
-# the first body (redblack.cuh, the `_v1` launchers), their plain versions
-# and their second launches: (channels, shard mode, packed, the counter
+# their plain versions and their second launches: (channels, shard mode,
+# packed, the counter
 # each wrapper adds to where it launches)
 BAND = {
     "K2 banded_chunk": (0, False, False, banded_kernel.banded_chunk),
@@ -3094,25 +3040,11 @@ def band_counts():
     return {name: fn.launches for name, (*_, fn) in BAND.items()}
 
 
-def band_call(c, p, k, v1=False, packed=False):
+def band_call(c, p, k, packed=False):
     """fn(phi, image, c1, c2, shard ints or None) -> (phi, partials) of the
-    band body through its wrappers, or of the first body's `_v1`
-    launchers; the image channels-first for K5 and K6; with ``packed``
-    (K3, K6) phi and the image are parity planes, and the shard ints
-    those of the unpacked canvas (lattice parity 0)."""
-    pre = "cv_packed_banded_chunk" if packed else "cv_banded_chunk"
-    if v1:
-        def run(x, u, a, b, shard):
-            suffix = "_v1" if shard is None else "_shard_v1"
-            h, w = (2 * x.shape[-2], 2 * x.shape[-1]) if packed else x.shape
-            if c:
-                l1, l2 = p.channel_lambdas(c)
-                return _cuda.launch_chunk_mc(
-                    pre + "_mc" + suffix, x, u, a, b, p, k, h, w, l1, l2, 16,
-                    shard=shard)
-            return _cuda.launch_chunk(pre + suffix, x, u, a, b, p, k, h, w,
-                                      shard=shard)
-        return run
+    band body through its wrappers; the image channels-first for K5 and
+    K6; with ``packed`` (K3, K6) phi and the image are parity planes, and
+    the shard ints those of the unpacked canvas (lattice parity 0)."""
     if packed:
         def run(x, u, a, b, shard):
             if shard is None:
@@ -3161,15 +3093,13 @@ def band_plain(c, p, k, packed=False):
 
 
 def check_band(name, c, p, k, args, tag, packed=False):
-    """The band body's launch against the first body's (phi bitwise, the
-    flips exactly), its plain version (phase 3's bars) and its own second
-    launch (bitwise); a packed launch (K3, K6) also against the flat
-    kernel's launch on the unpacked inputs, packed (phi and every partial
-    bitwise). Returns (phi, partials, max |d phi| vs plain, max relative
-    difference of the other partial sums from the first body's)."""
+    """The band body's launch against its plain version (phase 3's bars)
+    and its own second launch (bitwise); a packed launch (K3, K6) also
+    against the flat kernel's launch on the unpacked inputs, packed (phi
+    and every partial bitwise). Returns ((phi, partials), max |d phi| vs
+    plain)."""
     got = band_call(c, p, k, packed=packed)(*args)
     again = band_call(c, p, k, packed=packed)(*args)
-    old = band_call(c, p, k, v1=True, packed=packed)(*args)
     ref = band_plain(c, p, k, packed=packed)(*args)
     if packed:
         x, u, a, b, shard = args
@@ -3181,22 +3111,9 @@ def check_band(name, c, p, k, args, tag, packed=False):
             raise AssertionError(f"{name} {tag}: differs from the flat "
                                  f"kernel's launch on the unpacked inputs")
     torch.cuda.synchronize()
-    flip = (c or 1) + 2
-    if not torch.equal(got[0], old[0]):
-        d = got[0] - old[0]
-        raise AssertionError(f"{name} {tag}: phi differs from the first "
-                             f"body's at {int((d != 0).sum())} cells, max "
-                             f"|d| {float(d.abs().max())}")
-    if float(got[1][flip]) != float(old[1][flip]):
-        raise AssertionError(f"{name} {tag}: flips {float(got[1][flip])} "
-                             f"vs the first body's {float(old[1][flip])}")
     if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
         raise AssertionError(f"{name} {tag}: two launches differ")
-    err = hold(name, got, ref, tag)
-    n = (c or 1) + 4
-    rel = float(((got[1][:n].double() - old[1][:n].double()).abs()
-                 / old[1][:n].double().abs().clamp(min=1e-30)).max())
-    return got, err, rel
+    return got, hold(name, got, ref, tag)
 
 
 def band_inputs(dev, p, u4k, v4k):
@@ -3210,8 +3127,8 @@ def band_inputs(dev, p, u4k, v4k):
 
 def band_checks(dev, p, u4k, v4k, stats):
     """Phase 27's checks: every band launch of the listed shapes against
-    the first body, the plain version and itself; each shard crop bitwise
-    equal to the whole-image launch's window."""
+    the plain version and itself; each shard crop bitwise equal to the
+    whole-image launch's window."""
     phi, inputs = band_inputs(dev, p, u4k, v4k)
     img, _ = two_disks(*BAND_RAGGED)
     rgb, _ = colored_squares(*BAND_RAGGED)
@@ -3231,18 +3148,16 @@ def band_checks(dev, p, u4k, v4k, stats):
         if not shard:
             whole = [(phi, inputs, H4K, W4K, k) for k in BAND_KS] + [
                 (phir, ragged, *BAND_RAGGED, 8)]
-            rels = []
             for x, inp, h, w, k in whole:
                 u, c1, c2 = inp[c]
-                _, err, rel = check_band(name, c, p, k,
-                                         (lay(x), lay(u), c1, c2, None),
-                                         f"{h}x{w} k={k}", packed)
+                _, err = check_band(name, c, p, k,
+                                    (lay(x), lay(u), c1, c2, None),
+                                    f"{h}x{w} k={k}", packed)
                 st["max_abs_err"] = max(st["max_abs_err"], err)
-                rels.append(rel)
             lines.append(f"{name} 4K k={BAND_KS} and {BAND_RAGGED[0]}x"
-                         f"{BAND_RAGGED[1]} k=8: phi bitwise the first "
-                         f"body's, flips equal, other sums within "
-                         f"{max(rels):.2e} relative of its{also}")
+                         f"{BAND_RAGGED[1]} k=8: within phase 3's bars of "
+                         f"the plain version, second launches bitwise"
+                         f"{also}")
             continue
         u, c1, c2 = inputs[c]
         for k in BAND_SHARD_KS if c else BAND_SHARD_KS[:1]:
@@ -3250,18 +3165,16 @@ def band_checks(dev, p, u4k, v4k, stats):
             whole = band_call(c, p, k, packed=packed)(lay(phi), lay(u), c1,
                                                       c2, None)[0]
             whole = unpack(whole) if packed else whole
-            rels = []
             for nx, ny in SHARD_GRIDS + ((1, 1),):
                 h, w = H4K // nx, W4K // ny
                 for pos, x, uc, par, edges, crop in shard_canvases(
                         phi, u, nx, ny, D, dev):
                     sh = _cuda.shard_args(*x.shape, k, par, crop, edges)
                     tag = f"k={k} shard {pos} of {nx}x{ny}"
-                    got, err, rel = check_band(
+                    got, err = check_band(
                         name, c, p, k, (lay(x), lay(uc), c1, c2, sh), tag,
                         packed)
                     st["max_abs_err"] = max(st["max_abs_err"], err)
-                    rels.append(rel)
                     ix, iy = pos
                     mine = unpack(got[0]) if packed else got[0]
                     if not torch.equal(mine[D:D + h, D:D + w],
@@ -3271,16 +3184,16 @@ def band_checks(dev, p, u4k, v4k, stats):
                                              f"differs from the whole-image "
                                              f"launch")
             lines.append(f"{name} k={k} every shard of 2x2, 3x3 and the 1x1 "
-                         f"canvas: phi bitwise the first body's and each "
-                         f"crop the whole-image launch's, flips equal, other "
-                         f"sums within {max(rels):.2e} relative{also}")
+                         f"canvas: within phase 3's bars of the plain "
+                         f"version, each crop bitwise the whole-image "
+                         f"launch's{also}")
     return lines
 
 
 def band_times(dev, card, p, u4k, v4k, stats, sh_stats):
-    """Phase 27's times: the band body against the first body in turns
-    (v1, new, new, v1; queued) at the main path's shapes, beside the bound,
-    the card's blocks per SM and the waves a launch takes."""
+    """Phase 27's times: the band body twice (queued) at the main path's
+    shapes, beside the bound, the card's blocks per SM and the waves a
+    launch takes."""
     phi, inputs = band_inputs(dev, p, u4k, v4k)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = [("K2 banded_chunk", "4K", 8, None),
@@ -3311,51 +3224,22 @@ def band_times(dev, card, p, u4k, v4k, stats, sh_stats):
             (c or 1) + 4 if c else 5, 4 * c if c else 2, sms)
         args = (lay(x), lay(uc), c1, c2, sh)
         new = band_call(c, p, k, packed=packed)
-        old = band_call(c, p, k, v1=True, packed=packed)
-        t = [queued_ms(lambda f=f: f(*args), 20)
-             for f in (old, new, new, old)]
+        t = [queued_ms(lambda: new(*args), 20) for _ in range(2)]
         th, tw, px, py, cap = geo
         occ = _cuda.band_occupancy(c, sh is not None, px * py, cap, packed)
         nblocks = math.ceil(h / th) * math.ceil(w / tw)
         b_ms, b_by = bound(h, w, k, c)
-        ms, v1_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-        out.append(f"{name} {tag} k={k}: v1 {t[0]:.4f}, new {t[1]:.4f}, new "
-                   f"{t[2]:.4f}, v1 {t[3]:.4f} ms (new/v1 {ms / v1_ms:.3f}; "
-                   f"bound {b_ms:.4f} {b_by}); tile {th}x{tw}, "
+        ms = sum(t) / 2
+        out.append(f"{name} {tag} k={k}: {t[0]:.4f}, {t[1]:.4f} ms (bound "
+                   f"{b_ms:.4f} {b_by}); tile {th}x{tw}, "
                    f"{-(-px * py // 32) * 32} threads, window <= {cap} "
                    f"cells ({8 * cap} B), {occ} blocks/SM, {nblocks} blocks "
                    f"= {nblocks / (occ * sms):.2f} waves")
         st = (stats if grid is None else sh_stats)[name]
         if k == 8 and tag != "1x1 canvas":
             st.update(ms=ms, bound_ms=b_ms, bound_by=b_by)
-    print("phase 27 band body vs the first body (queued device ms a launch, "
-          "in turns): " + "; ".join(out) + f" [{card}]", flush=True)
-
-
-@contextlib.contextmanager
-def first_body_route():
-    """The packed wrappers K3 and K6 replaced by the first body's `_v1`
-    launchers (the same driver code, the kernels before the band body)."""
-    saved = (packed_kernel.packed_banded_chunk,
-             packed_kernel.packed_banded_chunk_mc)
-
-    def k3(phi, u0, c1, c2, p, k=8, unroll=1, fuse=False):
-        return band_call(0, p, k, v1=True, packed=True)(phi, u0, c1, c2,
-                                                        None)
-
-    def k6(phi, u0, c1, c2, p, k=8, unroll=1, fuse=False, lambda1=None,
-           lambda2=None):
-        l1, l2 = p.channel_lambdas(u0.shape[0], lambda1, lambda2)
-        return _cuda.launch_chunk_mc(
-            "cv_packed_banded_chunk_mc_v1", phi, u0, c1, c2, p, k,
-            2 * phi.shape[-2], 2 * phi.shape[-1], l1, l2, 16)
-    packed_kernel.packed_banded_chunk = k3
-    packed_kernel.packed_banded_chunk_mc = k6
-    try:
-        yield
-    finally:
-        (packed_kernel.packed_banded_chunk,
-         packed_kernel.packed_banded_chunk_mc) = saved
+    print("phase 27 band body (queued device ms a launch, two runs): "
+          + "; ".join(out) + f" [{card}]", flush=True)
 
 
 def band_runs(dev, card, u4k, gt4k, v4k, gtc4k):
@@ -3363,7 +3247,7 @@ def band_runs(dev, card, u4k, gt4k, v4k, gtc4k):
     (gray and RGB k = 8, RGB k = 1, the 1x1 mesh flat and packed) and the
     flat and default-routed (packed) 4K segment_banded_fixed runs, their
     masks against the truth and their K2/K3/K5/K6 launches counted; then
-    their rates, the default route's also on the first body."""
+    their rates."""
     pt = ct.CVParams(mu=0.001 * 255.0 ** 2, max_iter=500)
     pv = ct.CVParams(mu=0.0001 * 255.0 ** 2, max_iter=500)
     mesh = make_grid_mesh(2, 2, [dev] * 4)
@@ -3422,10 +3306,6 @@ def band_runs(dev, card, u4k, gt4k, v4k, gtc4k):
     check_masks(checks)
     rates = {tag: (it, time_ms(fn, 1))
              for tag, (fn, _, it, _) in runs.items()}
-    with first_body_route():
-        for tag in ("4K gray default route", "4K rgb default route"):
-            fn, _, it, _ = runs[tag]
-            rates[f"{tag} on the first body"] = (it, time_ms(fn, 1))
     print("phase 27 rates at 4K (Mpixel-iters/s, the whole run): "
           + "; ".join(f"{t} {it} iterations {ms:.3f} ms = "
                       f"{H4K * W4K * it / (ms * 1e3):.1f}"
@@ -3459,83 +3339,59 @@ def band_phase(dev, card, u4k, gt4k, v4k, gtc4k, stats, sh_stats,
     return bool(sass_parent)
 
 
-# K9's band body (phase 28): the whole-image and shard-canvas wrappers,
-# held against the first body's `_v1` launchers; the ragged even shape of
-# the whole-image check (its last tiles partial)
+# K9's band body (phase 28): the whole-image and shard-canvas wrappers
+# (phases 9 and 21 hold them against their plain versions); the ragged
+# even shape of the whole-image check (its last tiles partial)
 MP2_BAND_RAGGED = (1000, 1152)
 
 
-def mp2_v1(x, u, cs, p, shard=None):
-    """One launch of K9's first body (the `_v1` launchers)."""
-    return _cuda.launch_mp2(x, u, cs, p, shard=shard, v1=True)
-
-
-def mp2_same(tag, got, old, again):
-    """The band body's launch against the first body's: phi bitwise, the
-    flips equal, the other partial sums equal after their f32 rounding;
-    its second launch bitwise the first."""
-    if not torch.equal(got[0], old[0]):
-        d = got[0] - old[0]
-        raise AssertionError(f"K9 band body {tag}: phi differs from the "
-                             f"first body's at {int((d != 0).sum())} cells, "
-                             f"max |d| {float(d.abs().max())}")
-    if float(got[1][8]) != float(old[1][8]):
-        raise AssertionError(f"K9 band body {tag}: flips "
-                             f"{float(got[1][8])} vs {float(old[1][8])}")
-    if not torch.equal(got[1], old[1]):
-        raise AssertionError(f"K9 band body {tag}: partials {got[1]} vs the "
-                             f"first body's {old[1]}")
+def mp2_same(tag, got, again):
+    """The band body's second launch bitwise its first."""
     if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
         raise AssertionError(f"K9 band body {tag}: two launches differ")
 
 
 def mp2_band_checks(dev, pm):
-    """Phase 28's checks: the band body against the first body at 4K and
-    the ragged shape, on every shard of the 2x2 and 3x3 grids at D = 4, and
+    """Phase 28's checks: the band body's second launches at 4K and the
+    ragged shape, on every shard of the 2x2 and 3x3 grids at D = 4, and
     over MP_CHAIN_KS launches chained on the 8k-deep canvases (after every
-    launch)."""
+    launch), bitwise its first."""
     mk = multiphase_kernel
     lines = []
     for h, w in ((H4K, W4K), MP2_BAND_RAGGED):
         u, phis, cs, _ = mp2_inputs(h, w, dev, pm)
         got, again = mk.mp2_iteration(phis, u, cs, pm), \
             mk.mp2_iteration(phis, u, cs, pm)
-        old = mp2_v1(phis, u, cs, pm)
         torch.cuda.synchronize()
-        mp2_same(f"{h}x{w}", got, old, again)
+        mp2_same(f"{h}x{w}", got, again)
     lines.append(f"K9 mp2_iteration 4K and {MP2_BAND_RAGGED[0]}x"
-                 f"{MP2_BAND_RAGGED[1]}: phi bitwise the first body's, flips "
-                 f"and every partial equal, second launch bitwise")
+                 f"{MP2_BAND_RAGGED[1]}: second launch bitwise")
     u, phis, cs, _ = mp2_inputs(H4K, W4K, dev, pm)
     for nx, ny in SHARD_GRIDS:
         n = 0
         for D, k in ((4, 1),) + tuple((8 * k, k) for k in MP_CHAIN_KS):
             for pos, x, uc, par, edges, crop in mp_canvases(phis, u, nx, ny,
                                                             D, dev):
-                sh = _cuda.shard_args(*uc.shape, 1, par, crop, edges)
-                new = old = x
+                new = x
                 for i in range(k):
                     args = (new, uc, cs, pm, par, edges, crop)
                     got, again = mk.mp2_iteration_sharded(*args), \
                         mk.mp2_iteration_sharded(*args)
-                    prev = mp2_v1(old, uc, cs, pm, sh)
                     torch.cuda.synchronize()
                     mp2_same(f"shard {pos} of {nx}x{ny} D={D} launch {i + 1}",
-                             got, prev, again)
-                    new, old = got[0], prev[0]
+                             got, again)
+                    new = got[0]
                     n += 1
         lines.append(f"K9 mp2_iteration_sharded every shard of {nx}x{ny} at "
                      f"D=4 and {MP_CHAIN_KS} launches chained on 8k-deep "
-                     f"canvases ({n} launches): phi bitwise the first "
-                     f"body's, flips and every partial equal, second launches "
-                     f"bitwise")
+                     f"canvases ({n} launches): second launches bitwise")
     return lines
 
 
 def mp2_band_times(dev, card, pm, st9, st9s):
-    """Phase 28's times: the band body against the first body in turns
-    (v1, new, new, v1; queued) at 4K and on the 2x2 canvas of shard (0, 0),
-    beside the bound, the tiling, the card's blocks per SM and the waves."""
+    """Phase 28's times: the band body twice (queued) at 4K and on the 2x2
+    canvas of shard (0, 0), beside the bound, the tiling, the card's
+    blocks per SM and the waves."""
     mk = multiphase_kernel
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     u, phis, cs, _ = mp2_inputs(H4K, W4K, dev, pm)
@@ -3551,53 +3407,29 @@ def mp2_band_times(dev, card, pm, st9, st9s):
     for tag, (name, args, shard, (h, w), st) in cases.items():
         wrapper = (mk.mp2_iteration if shard is None
                    else mk.mp2_iteration_sharded)
-        xa, ua = args[0], args[1]
-        t = [queued_ms(f, 20) for f in (
-            lambda: mp2_v1(xa, ua, cs, pm, shard),
-            lambda: wrapper(*args), lambda: wrapper(*args),
-            lambda: mp2_v1(xa, ua, cs, pm, shard))]
+        ua = args[1]
+        t = [queued_ms(lambda: wrapper(*args), 20) for _ in range(2)]
         geo, nblocks = _cuda.mp2_plan(*ua.shape, shard, sms)
         th, tw, fold, px, py, cap = geo
         threads = -(-px * py // 32) * 32
         occ = _cuda.mp2_occupancy(shard is not None, threads, cap)
         b_ms, b_by = bound_mp2(h, w, 1, 1, False)
-        ms, v1_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        ms = sum(t) / 2
         st.update(ms=ms, bound_ms=b_ms, bound_by=b_by)
-        out.append(f"{name} {tag}: v1 {t[0]:.4f}, new {t[1]:.4f}, new "
-                   f"{t[2]:.4f}, v1 {t[3]:.4f} ms (new/v1 {ms / v1_ms:.3f}; "
-                   f"bound {b_ms:.4f} {b_by}); tile {th}x{tw} fold {fold}, "
+        out.append(f"{name} {tag}: {t[0]:.4f}, {t[1]:.4f} ms (bound "
+                   f"{b_ms:.4f} {b_by}); tile {th}x{tw} fold {fold}, "
                    f"{threads} threads, window <= {cap} cells "
                    f"({_cuda.MP2_BAND_CELL_BYTES * cap} B), {occ} blocks/SM, "
                    f"{nblocks} blocks = {nblocks / (occ * sms):.2f} waves")
-    print("phase 28 K9 band body vs the first body (queued device ms a "
-          "launch, in turns): " + "; ".join(out) + f" [{card}]", flush=True)
-
-
-@contextlib.contextmanager
-def first_mp2_body_route():
-    """K9's two wrappers replaced by the first body's `_v1` launchers (the
-    same drivers, the kernel before the band body)."""
-    mk = multiphase_kernel
-    saved = (mk.mp2_iteration, mk.mp2_iteration_sharded)
-
-    def whole(phis, u0, cs, p):
-        return mp2_v1(phis, u0, cs, p)
-
-    def shard(phis_canvas, u0_canvas, cs, p, parity, edges, crop):
-        return mp2_v1(phis_canvas, u0_canvas, cs, p, _cuda.shard_args(
-            *u0_canvas.shape, 1, parity, crop, edges))
-    mk.mp2_iteration, mk.mp2_iteration_sharded = whole, shard
-    try:
-        yield
-    finally:
-        mk.mp2_iteration, mk.mp2_iteration_sharded = saved
+    print("phase 28 K9 band body (queued device ms a launch, two runs): "
+          + "; ".join(out) + f" [{card}]", flush=True)
 
 
 def mp2_band_rates(dev, card, pm):
     """Phase 28's runs through the entry points: phase 23's three 4-phase
     runs at 4K (unsharded fixed, 2x2 comm_k 1 and 8), their K9 launches
-    counted (the counts set to 0 just before each), then their rates in
-    turns with the first body (v1, new, new, v1)."""
+    counted (the counts set to 0 just before each), then their rates, two
+    runs each."""
     mk = multiphase_kernel
     mesh = make_grid_mesh(2, 2, [dev] * 4)
     u = torch.from_numpy(four_regions(H4K, W4K)[0]).to(dev)
@@ -3623,35 +3455,27 @@ def mp2_band_rates(dev, card, pm):
         if have != want:
             raise AssertionError(f"phase 28 {tag} launched {have}, expected "
                                  f"{want}")
-        with first_mp2_body_route():
-            old = fn()
-        torch.cuda.synchronize()
-        if not (torch.isfinite(res.phis).all()
-                and torch.equal(res.phis, old.phis)):
-            raise AssertionError(f"phase 28 {tag}: the band body's run "
-                                 f"differs from the first body's")
+        if not torch.isfinite(res.phis).all():
+            raise AssertionError(f"phase 28 {tag}: the band body's run is "
+                                 f"not finite")
         counted[tag] = have
     rates = {}
     for tag, (fn, _) in runs.items():
-        t = []
-        for v1 in (True, False, False, True):
-            with (first_mp2_body_route() if v1 else contextlib.nullcontext()):
-                t.append(time_ms(fn, 1))
+        t = [time_ms(fn, 1) for _ in range(2)]
         rates[tag] = [H4K * W4K * its / (ms * 1e3) for ms in t]
     print("phase 28 4-phase runs through the band body: "
-          + "; ".join(f"{t} launches {c}, level sets bitwise the first "
-                      f"body's run" for t, c in counted.items())
+          + "; ".join(f"{t} launches {c}" for t, c in counted.items())
           + "; rates at 4K (Mpixel-iters/s, the whole run of "
-          f"{its} iterations; v1, new, new, v1): "
+          f"{its} iterations; two runs): "
           + "; ".join(f"{t} " + ", ".join(f"{r:.1f}" for r in rs)
                       for t, rs in rates.items()) + f" [{card}]", flush=True)
 
 
 def mp2_band_phase(dev, card, st9, st9s):
     """Phase 28: K9's band body. Registers, spills and blocks an SM, then
-    the checks against the first body, the times and the runs."""
+    the checks, the times and the runs."""
     regs = [x for x in ptxas_summary().split(", ")
-            if x.startswith(("mp2_coupled", "mp2_band"))]
+            if x.startswith("mp2_coupled")]
     print("phase 28 K9 ptxas: " + ", ".join(regs), flush=True)
     pm = ct.CVParams(mu=MU_MP, max_iter=500)
     for line in mp2_band_checks(dev, pm):
@@ -3661,109 +3485,29 @@ def mp2_band_phase(dev, card, st9, st9s):
 
 
 # the single-sweep body (phase 29): K1's whole-image, force (with and
-# without a parity), batch and shard-canvas modes and K4 on csrc/sweep.cuh,
-# held against the first body's `_v1` launchers (redblack.cuh chunk_kernel
-# at k = 1); the ragged even shape of the checks (its last tiles partial,
-# inside the fused envelope), the frames of the ragged batch check, and
-# the iterations of phase 29's runs through the entry points
+# without a parity), batch and shard-canvas modes and K4 on csrc/sweep.cuh;
+# the ragged even shape of the checks (its last tiles partial, inside the
+# fused envelope), the frames of the ragged batch check, and the
+# iterations of phase 29's runs through the entry points
 SWEEP_RAGGED, SWEEP_RAGGED_FRAMES, SWEEP_ITERS = (1000, 1408), 3, 100
-# the other partial sums against the first body's: summed in f64 in
-# another order, rounded to f32
-SWEEP_PARTS_RTOL = 1e-6
 
 
-def sweep_v1(mode):
-    """The first body's launch of ``mode`` ('whole', 'shard', 'sweep',
-    'batch', 'mc') with its wrapper's signature."""
-    if mode in ("whole", "shard"):
-        def run(phi, u0, c1, c2, p, parity=None, crop=None, edges=None):
-            h, w = phi.shape
-            if parity is None and crop is None and edges is None:
-                return _cuda.launch_chunk("cv_fused_iteration_v1", phi, u0,
-                                          c1, c2, p, None, h, w)
-            return _cuda.launch_chunk(
-                "cv_fused_iteration_shard_v1", phi, u0, c1, c2, p, None, h,
-                w, shard=_cuda.shard_args(h, w, 1, parity or 0, crop, edges))
-    elif mode == "sweep":
-        def run(phi, f, p, parity=None):
-            h, w = phi.shape
-            if parity is None:
-                return _cuda.launch_chunk("cv_fused_sweep_v1", phi, f, 0.0,
-                                          0.0, p, None, h, w)
-            return _cuda.launch_chunk(
-                "cv_fused_sweep_shard_v1", phi, f, 0.0, 0.0, p, None, h, w,
-                shard=_cuda.shard_args(h, w, 1, parity, None, None))
-    elif mode == "batch":
-        def run(phis, u0s, c1s, c2s, p):
-            return _cuda.launch_chunk_batch("cv_fused_iteration_batch_v1",
-                                            phis, u0s, c1s, c2s, p,
-                                            *phis.shape[1:])
-    else:
-        def run(phi, u0, c1, c2, p, lambda1=None, lambda2=None):
-            c = u0.shape[0]
-            l1, l2 = p.channel_lambdas(c, lambda1, lambda2)
-            return _cuda.launch_chunk_mc("cv_fused_iteration_mc_v1", phi, u0,
-                                         c1, c2, p, None, *phi.shape, l1, l2,
-                                         c + 4)
-    return run
-
-
-@contextlib.contextmanager
-def first_sweep_body_route():
-    """K1's and K4's wrappers replaced by the first body's `_v1` launchers
-    (the same drivers, the kernels before the single-sweep body)."""
-    saved = (fused_kernel.fused_iteration, fused_kernel.fused_sweep,
-             fused_kernel.fused_iteration_batch,
-             fused_kernel_mc.fused_iteration_mc)
-    (fused_kernel.fused_iteration, fused_kernel.fused_sweep,
-     fused_kernel.fused_iteration_batch,
-     fused_kernel_mc.fused_iteration_mc) = (
-        sweep_v1("whole"), sweep_v1("sweep"), sweep_v1("batch"),
-        sweep_v1("mc"))
-    try:
-        yield
-    finally:
-        (fused_kernel.fused_iteration, fused_kernel.fused_sweep,
-         fused_kernel.fused_iteration_batch,
-         fused_kernel_mc.fused_iteration_mc) = saved
-
-
-def sweep_same(tag, got, old, again, nsums, bitwise):
-    """The single-sweep body's launch against the first body's: phi
-    bitwise, the flips (slot nsums - 2) equal, the other partial sums
-    within SWEEP_PARTS_RTOL relative; its second launch bitwise the first.
-    Records in ``bitwise`` which slots came out bitwise; returns the
-    largest relative difference of the other sums."""
-    if not torch.equal(got[0], old[0]):
-        d = got[0] - old[0]
-        raise AssertionError(f"{tag}: phi differs from the first body's at "
-                             f"{int((d != 0).sum())} cells, max |d| "
-                             f"{float(d.abs().max())}")
-    flip = nsums - 2
-    g, o = got[1][..., :nsums].double(), old[1][..., :nsums].double()
-    if not torch.equal(g[..., flip], o[..., flip]):
-        raise AssertionError(f"{tag}: flips {g[..., flip].tolist()} vs the "
-                             f"first body's {o[..., flip].tolist()}")
-    rel = ((g - o).abs() / o.abs().clamp(min=1e-30)).reshape(-1, nsums)
-    worst = float(rel.max())
-    if worst > SWEEP_PARTS_RTOL:
-        raise AssertionError(f"{tag}: partials {got[1].tolist()} vs the "
-                             f"first body's {old[1].tolist()}")
-    for t in range(nsums):
-        bitwise[t] = bitwise.get(t, True) and bool((rel[:, t] == 0).all())
+def sweep_same(tag, got, again):
+    """The single-sweep body's second launch bitwise its first."""
+    torch.cuda.synchronize()
     if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
         raise AssertionError(f"{tag}: two launches differ")
-    return worst
 
 
-def sweep_checks(dev, p, u4k, v4k, bitwise):
-    """Phase 29's checks: every mode of the single-sweep body against the
-    first body, its plain version (phase 3's bars) and its second launch,
+def sweep_checks(dev, p, u4k, v4k):
+    """Phase 29's checks: every mode of the single-sweep body against its
+    plain version (phase 3's bars; the force mode's last three sums) and
+    its second launch,
     at 512^2, 4K gray and RGB, 16 x 1080p, the ragged shape and every shard
     of the 2x2 and 3x3 grids (each crop bitwise the whole-image launch);
     each batch frame bitwise its own single-image launch."""
     fk, fm = fused_kernel, fused_kernel_mc
-    lines, rels = [], []
+    lines = []
     img, _ = two_disks(*SWEEP_RAGGED)
     rgb, _ = colored_squares(*SWEEP_RAGGED)
     ur = torch.from_numpy(img).to(dev)
@@ -3780,10 +3524,7 @@ def sweep_checks(dev, p, u4k, v4k, bitwise):
         phi, _, c1, c2 = chunk_inputs(u, p)
         args = (phi, u, c1, c2, p)
         got, again = fk.fused_iteration(*args), fk.fused_iteration(*args)
-        old = sweep_v1("whole")(*args)
-        torch.cuda.synchronize()
-        rels.append(sweep_same(f"K1 whole {tag}", got, old, again, 5,
-                               bitwise.setdefault("K1 whole", {})))
+        sweep_same(f"K1 whole {tag}", got, again)
         err["K1 fused_iteration"] = max(err.get("K1 fused_iteration", 0.0),
                                         hold("K1 fused_iteration", got,
                                              fk.fused_iteration_reference(
@@ -3792,17 +3533,13 @@ def sweep_checks(dev, p, u4k, v4k, bitwise):
         for par in (None, 1):
             got = fk.fused_sweep(phi, f, p, par)
             again = fk.fused_sweep(phi, f, p, par)
-            old = sweep_v1("sweep")(phi, f, p, par)
-            torch.cuda.synchronize()
             name = "K1 force" + ("" if par is None else " parity")
-            rels.append(sweep_same(f"{name} {tag}", got, old, again, 5,
-                                   bitwise.setdefault(name, {})))
+            sweep_same(f"{name} {tag}", got, again)
             ref = fk.fused_sweep_reference(phi, f, p, par)
             hold(name, (got[0], got[1][2:]), (ref[0], ref[1][2:]), tag)
     lines.append(f"K1 whole image and force mode (parity none and 1) at "
-                 f"{', '.join(gray)}: phi bitwise the first body's, flips "
-                 f"equal, second launches bitwise, phase 3's bars against "
-                 f"the plain versions")
+                 f"{', '.join(gray)}: second launches bitwise, phase 3's "
+                 f"bars against the plain versions")
     for tag, u in color.items():
         phi = init_phi(tuple(u.shape[1:]), p.init, torch.float32, device=dev)
         c1, c2 = region_means(u.permute(1, 2, 0), phi, p.eps)
@@ -3810,18 +3547,14 @@ def sweep_checks(dev, p, u4k, v4k, bitwise):
             args = (phi, u, c1, c2, p)
             got, again = fm.fused_iteration_mc(*args, **lam), \
                 fm.fused_iteration_mc(*args, **lam)
-            old = sweep_v1("mc")(*args, **lam)
-            torch.cuda.synchronize()
-            rels.append(sweep_same(f"K4 {tag}", got, old, again, RGB + 4,
-                                   bitwise.setdefault("K4", {})))
+            sweep_same(f"K4 {tag}", got, again)
             err["K4 fused_iteration_mc"] = max(
                 err.get("K4 fused_iteration_mc", 0.0),
                 hold("K4 fused_iteration_mc", got,
                      fm.fused_iteration_mc_reference(*args, **lam), tag))
     lines.append(f"K4 at {', '.join(color)} (default and per-channel "
-                 f"lambdas): phi bitwise the first body's, flips equal, "
-                 f"second launches bitwise, phase 3's bars against the plain "
-                 f"version")
+                 f"lambdas): second launches bitwise, phase 3's bars against "
+                 f"the plain version")
     for n, (h, w) in ((VIDEO_FRAMES, (1080, 1920)),
                       (SWEEP_RAGGED_FRAMES, SWEEP_RAGGED)):
         u, _ = frame_stack(n, h, w, dev)
@@ -3833,12 +3566,9 @@ def sweep_checks(dev, p, u4k, v4k, bitwise):
         args = (phis, u, c1, c2, p)
         got = fk.fused_iteration_batch(*args)
         again = fk.fused_iteration_batch(*args)
-        old = sweep_v1("batch")(*args)
         single = [fk.fused_iteration(phis[i], u[i], c1[i], c2[i], p)
                   for i in range(n)]
-        torch.cuda.synchronize()
-        rels.append(sweep_same(f"K1 batch {n}x{h}x{w}", got, old, again, 5,
-                               bitwise.setdefault("K1 batch", {})))
+        sweep_same(f"K1 batch {n}x{h}x{w}", got, again)
         if not all(torch.equal(got[0][i], o[0]) and torch.equal(got[1][i],
                                                                 o[1])
                    for i, o in enumerate(single)):
@@ -3846,8 +3576,8 @@ def sweep_checks(dev, p, u4k, v4k, bitwise):
                                  f"from its single-image launch")
     lines.append(f"K1 batch {VIDEO_FRAMES}x1080x1920 and "
                  f"{SWEEP_RAGGED_FRAMES}x{SWEEP_RAGGED[0]}x{SWEEP_RAGGED[1]}: "
-                 f"phi bitwise the first body's, flips equal, every frame "
-                 f"bitwise its own single-image launch (phi and partials)")
+                 f"every frame bitwise its own single-image launch (phi and "
+                 f"partials), second launches bitwise")
     phi, _, c1, c2 = chunk_inputs(u4k, p)
     whole = fk.fused_iteration(phi, u4k, c1, c2, p)[0]
     n = 0
@@ -3858,11 +3588,8 @@ def sweep_checks(dev, p, u4k, v4k, bitwise):
             args = (x, uc, c1, c2, p, par, crop, edges)
             got = fk.fused_iteration(*args)
             again = fk.fused_iteration(*args)
-            old = sweep_v1("shard")(*args)
-            torch.cuda.synchronize()
             tag = f"K1 shard {pos} of {nx}x{ny}"
-            rels.append(sweep_same(tag, got, old, again, 5,
-                                   bitwise.setdefault("K1 shard", {})))
+            sweep_same(tag, got, again)
             ix, iy = pos
             if not torch.equal(got[0][4:4 + h, 4:4 + w],
                                whole[ix * h:(ix + 1) * h,
@@ -3871,13 +3598,8 @@ def sweep_checks(dev, p, u4k, v4k, bitwise):
                                      f"whole-image launch")
             n += 1
     lines.append(f"K1 shard every shard of 2x2 and 3x3 at D=4 ({n} canvases): "
-                 f"phi bitwise the first body's and each crop the whole-image "
-                 f"launch's, flips equal, second launches bitwise")
-    lines.append(f"other partial sums within {max(rels):.2e} relative of the "
-                 f"first body's (bar {SWEEP_PARTS_RTOL}); slots bitwise in "
-                 f"every check: " + "; ".join(
-                     f"{m} {[t for t, b in s.items() if b]}"
-                     for m, s in bitwise.items()))
+                 f"each crop bitwise the whole-image launch's, second "
+                 f"launches bitwise")
     return lines, err
 
 
@@ -3888,10 +3610,10 @@ def data_term_f(u, c1, c2, p):
 
 
 def sweep_times(dev, card, p, u4k, v4k, stats):
-    """Phase 29's times: the single-sweep body against the first body in
-    turns (v1, new, new, v1; queued) at the main path's shapes, beside the
-    bound, the tiling, the card's blocks per SM and the waves. Fills the
-    kernels' stats (``stats``: name -> its dict)."""
+    """Phase 29's times: the single-sweep body twice (queued) at the main
+    path's shapes, beside the bound, the tiling, the card's blocks per SM
+    and the waves. Fills the kernels' stats (``stats``: name -> its
+    dict)."""
     fk, fm = fused_kernel, fused_kernel_mc
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     u512 = torch.from_numpy(two_disks(512, 512)[0]).to(dev)
@@ -3909,41 +3631,34 @@ def sweep_times(dev, card, p, u4k, v4k, stats):
     (_, x, uc, par, edges, crop), = [
         s for s in shard_canvases(phi, u4k, 2, 2, 4, dev) if s[0] == (0, 0)]
     cases = [  # the stats entry it times (None: reported only), tag,
-        #        wrapper call, v1 call, (h, w, frames, crop, c), force, bound
+        #        wrapper call, (h, w, frames, crop, c), force, bound
         (None, "force 512^2",
          lambda: fk.fused_sweep(phi512, f512, p),
-         lambda: sweep_v1("sweep")(phi512, f512, p),
          (512, 512, 1, None, 0), True, bound_sweep(512, 512)),
         ("K1 fused_sweep", "force 4K",
          lambda: fk.fused_sweep(phi, f4k, p),
-         lambda: sweep_v1("sweep")(phi, f4k, p),
          (H4K, W4K, 1, None, 0), True, bound_sweep(H4K, W4K)),
         ("K1 fused_iteration", "whole 4K",
          lambda: fk.fused_iteration(phi, u4k, c1, c2, p),
-         lambda: sweep_v1("whole")(phi, u4k, c1, c2, p),
          (H4K, W4K, 1, None, 0), False, bound(H4K, W4K, 1, 0)),
         ("K1 fused_sweep (parity)", "force + parity 4K",
          lambda: fk.fused_sweep(phi, f4k, p, 1),
-         lambda: sweep_v1("sweep")(phi, f4k, p, 1),
          (H4K, W4K, 1, (0, H4K, 0, W4K), 0), True, bound_sweep(H4K, W4K)),
         ("K1 fused_iteration_batch", "batch 16x1080p",
          lambda: fk.fused_iteration_batch(vphi, video, vc1, vc2, p),
-         lambda: sweep_v1("batch")(vphi, video, vc1, vc2, p),
          (1080, 1920, VIDEO_FRAMES, None, 0), False,
          bound(1080, 1920, 1, 0, frames=VIDEO_FRAMES)),
         ("K1 fused_iteration (shard)", "shard 2x2 canvas",
          lambda: fk.fused_iteration(x, uc, c1, c2, p, par, crop, edges),
-         lambda: sweep_v1("shard")(x, uc, c1, c2, p, par, crop, edges),
          (*x.shape, 1, crop, 0), False,
          bound(crop[1] - crop[0], crop[3] - crop[2], 1, 0)),
         ("K4 fused_iteration_mc", "4K RGB",
          lambda: fm.fused_iteration_mc(phi, v4cf, cv1, cv2, p),
-         lambda: sweep_v1("mc")(phi, v4cf, cv1, cv2, p),
          (H4K, W4K, 1, None, RGB), False, bound(H4K, W4K, 1, RGB)),
     ]
     out, queued = [], {}
-    for name, tag, new, old, (h, w, n, cr, c), force, (b_ms, b_by) in cases:
-        t = [queued_ms(f, 20) for f in (old, new, new, old)]
+    for name, tag, new, (h, w, n, cr, c), force, (b_ms, b_by) in cases:
+        t = [queued_ms(new, 20) for _ in range(2)]
         geo = _cuda.sweep_geometry(h, w, cr)
         th, tw, px, py, cap = geo
         threads = -(-px * py // 32) * 32
@@ -3951,29 +3666,25 @@ def sweep_times(dev, card, p, u4k, v4k, stats):
         th_all, tw_all = (h, w) if cr is None else (cr[1] - cr[0],
                                                     cr[3] - cr[2])
         nblocks = n * math.ceil(th_all / th) * math.ceil(tw_all / tw)
-        ms, v1_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        ms = sum(t) / 2
         if name is not None:
             stats[name].update(ms=ms, bound_ms=b_ms, bound_by=b_by)
         queued[name or "K1 fused_sweep 512^2"] = ms
-        out.append(f"{name or 'K1 fused_sweep'} {tag}: v1 {t[0]:.4f}, new "
-                   f"{t[1]:.4f}, new "
-                   f"{t[2]:.4f}, v1 {t[3]:.4f} ms (new/v1 {ms / v1_ms:.3f}; "
-                   f"bound {b_ms:.4f} {b_by}, new/bound {ms / b_ms:.2f}); "
+        out.append(f"{name or 'K1 fused_sweep'} {tag}: {t[0]:.4f}, "
+                   f"{t[1]:.4f} ms (bound {b_ms:.4f} {b_by}, ms/bound "
+                   f"{ms / b_ms:.2f}); "
                    f"tile {th}x{tw}, {threads} threads, window <= {cap} "
                    f"cells ({_cuda.sweep_cell_bytes(c) * cap} B), {occ} "
                    f"blocks/SM, {nblocks} blocks = "
                    f"{nblocks / (occ * sms):.2f} waves")
-    print("phase 29 single-sweep body vs the first body (queued device ms a "
-          "launch, in turns): " + "; ".join(out) + f" [{card}]", flush=True)
+    print("phase 29 single-sweep body (queued device ms a launch, two "
+          "runs): " + "; ".join(out) + f" [{card}]", flush=True)
     # the host's side of a launch: 512^2 force-mode calls back to back (a
-    # launch's device time is a third of the host's), in turns
-    pace = [host_pace_us(f, 500) for f in (
-        lambda: sweep_v1("sweep")(phi512, f512, p),
-        lambda: fk.fused_sweep(phi512, f512, p),
-        lambda: fk.fused_sweep(phi512, f512, p),
-        lambda: sweep_v1("sweep")(phi512, f512, p))]
+    # launch's device time is a third of the host's)
+    pace = [host_pace_us(lambda: fk.fused_sweep(phi512, f512, p), 500)
+            for _ in range(2)]
     print(f"phase 29 host's pace of K1's force mode at 512^2 (us a call, "
-          f"calls back to back; v1, new, new, v1): "
+          f"calls back to back; two runs): "
           + ", ".join(f"{t:.2f}" for t in pace) + f" [{card}]", flush=True)
     return queued
 
@@ -3996,12 +3707,10 @@ def _mask(res):
 def sweep_runs(dev, card, u4k, gt4k, v4k, gtc4k, queued):
     """Phase 29's runs through the entry points, each with its K1/K4
     launches counted (the counts set to 0 just before it) and its masks
-    against the first body's run of the same entry point (IoU >= 0.999;
-    the sweeps route, which reads no partials, bitwise) and the truth,
-    then their rates in turns with the first body (v1, new, new, v1) and
-    the share of each run that its launches' queued time (``queued``: ms
-    a launch by kernel name, at the run's shape) accounts for: the rest is
-    the host's."""
+    against the truth (the sweeps route: its level sets finite), then
+    their rates (two runs) and the share of each run that its launches'
+    queued time (``queued``: ms a launch by kernel name, at the run's
+    shape) accounts for: the rest is the host's."""
     fk, fm = fused_kernel, fused_kernel_mc
     pt = ct.CVParams(mu=0.001 * 255.0 ** 2, max_iter=500)
     pv = ct.CVParams(mu=0.0001 * 255.0 ** 2, max_iter=500)
@@ -4052,51 +3761,35 @@ def sweep_runs(dev, card, u4k, gt4k, v4k, gtc4k, queued):
         if have != want:
             raise AssertionError(f"phase 29 {tag} launched {have}, expected "
                                  f"{want}")
-        with first_sweep_body_route():
-            old = fn()
-        torch.cuda.synchronize()
-        if truths is None:  # the sweeps route reads no partials: bitwise
-            same = torch.equal(res.phis, old.phis)
-            if not (same and torch.isfinite(res.phis).all()):
-                raise AssertionError(f"phase 29 {tag}: the level sets "
-                                     f"differ from the first body's run")
-            lines.append(f"{tag} launches {have}, level sets bitwise the "
-                         f"first body's run")
+        if truths is None:
+            if not torch.isfinite(res.phis).all():
+                raise AssertionError(f"phase 29 {tag}: the level sets are "
+                                     f"not finite")
+            lines.append(f"{tag} launches {have}, level sets finite")
         else:
-            new_m, old_m = _mask(res).cpu(), _mask(old).cpu()
+            new_m = _mask(res).cpu()
             new_m = new_m.reshape(-1, *new_m.shape[-2:])
-            old_m = old_m.reshape(-1, *old_m.shape[-2:])
-            same = min(iou(a.numpy(), b.numpy())
-                       for a, b in zip(new_m, old_m))
             truth = min(iou_phases(m, g) for m, g in zip(new_m, truths))
-            if same < 0.999:
-                raise AssertionError(f"phase 29 {tag}: IoU {same} with the "
-                                     f"first body's run, below 0.999")
-            lines.append(f"{tag} launches {have}, IoU with the first body's "
-                         f"run {same:.6f}, with the truth {truth:.6f}")
+            lines.append(f"{tag} launches {have}, IoU with the truth "
+                         f"{truth:.6f}")
     print("phase 29 runs through the single-sweep body: " + "; ".join(lines),
           flush=True)
     rates = []
     for tag, (fn, pix, want, _, kern) in runs.items():
-        t = []
-        for v1 in (True, False, False, True):
-            with (first_sweep_body_route() if v1
-                  else contextlib.nullcontext()):
-                t.append(time_ms(fn, 1))
+        t = [time_ms(fn, 1) for _ in range(2)]
         r = [pix * its / (ms * 1e3) for ms in t]
-        new_ms = (t[1] + t[2]) / 2
+        new_ms = sum(t) / 2
         share = sum(want.values()) * queued[kern] / new_ms
         rates.append(f"{tag} {its} iterations " + ", ".join(
-            f"{x:.1f}" for x in r) + f" (new/v1 "
-            f"{(t[0] + t[3]) / (t[1] + t[2]):.3f}; {new_ms / its:.4f} ms an "
+            f"{x:.1f}" for x in r) + f" ({new_ms / its:.4f} ms an "
             f"iteration, its launches' queued time {share:.1%} of it)")
-    print("phase 29 rates (Mpixel-iters/s, the whole run; v1, new, new, v1): "
+    print("phase 29 rates (Mpixel-iters/s, the whole run; two runs): "
           + "; ".join(rates) + f" [{card}]", flush=True)
 
 
 def sweep_phase(dev, card, u4k, gt4k, v4k, gtc4k, stats):
     """Phase 29: the single-sweep body. Registers, spills and blocks an
-    SM, then the checks against the first body, the times and the runs.
+    SM, then the checks, the times and the runs.
     ``stats``: the K1 and K4 entries' stats dicts by name."""
     regs = [s for s in ptxas_summary().split(", ")
             if s.startswith("sweep")]
@@ -4117,8 +3810,7 @@ def sweep_phase(dev, card, u4k, gt4k, v4k, gtc4k, stats):
     print("phase 29 single-sweep body ptxas: " + ", ".join(regs)
           + "; blocks an SM: " + ", ".join(occ), flush=True)
     p = ct.CVParams()
-    bitwise = {}
-    lines, err = sweep_checks(dev, p, u4k, v4k, bitwise)
+    lines, err = sweep_checks(dev, p, u4k, v4k)
     for line in lines:
         print(f"phase 29 {line}", flush=True)
     for name, e in err.items():
@@ -4127,10 +3819,9 @@ def sweep_phase(dev, card, u4k, gt4k, v4k, gtc4k, stats):
     sweep_runs(dev, card, u4k, gt4k, v4k, gtc4k, queued)
 
 
-# the bit body (phase 30): K11's five kinds and K12 on csrc/morph_bits.cuh,
-# held against the first body's `_v1` launchers (csrc/morph.cuh); each
-# entry: the stats entry it times, its kind, and whether it runs on a shard
-# block (the 2x2 grid's shard (0, 0) at the driver's D)
+# the bit body (phase 30): K11's five kinds and K12 on csrc/morph_bits.cuh;
+# each entry: the stats entry it times, its kind, and whether it runs on a
+# shard block (the 2x2 grid's shard (0, 0) at the driver's D)
 MORPH_BITS = {
     "K11 morph_chunk": ("acwe", False),
     "K11 gac_chunk": ("gac", False),
@@ -4141,46 +3832,22 @@ MORPH_BITS = {
 }
 
 
-@contextlib.contextmanager
-def first_morph_body_route():
-    """K11's and K12's launches on the first body's `_v1` launchers (the
-    same wrappers and drivers, the kernels before the bit body)."""
-    saved = (_cuda.launch_morph, _cuda.launch_morph_fused)
-    _cuda.launch_morph = functools.partial(saved[0], v1=True)
-    _cuda.launch_morph_fused = functools.partial(saved[1], v1=True)
-    try:
-        yield
-    finally:
-        _cuda.launch_morph, _cuda.launch_morph_fused = saved
-
-
-def morph_bits_same(tag, new, old, again):
-    """The bit body's launch against the first body's: the level set
-    bitwise, K12's n_in exact and sum_in within SUM_IN_RTOL; its second
-    launch bitwise the first. Returns sum_in's relative difference."""
-    (g, gp), (o, op), (a, ap) = new, old, again
-    if not torch.equal(g, o):
-        raise AssertionError(f"{tag}: the level set differs from the first "
-                             f"body's at {int((g != o).sum())} cells")
+def morph_bits_same(tag, new, again):
+    """The bit body's second launch (the level set and K12's partials)
+    bitwise its first."""
+    (g, gp), (a, ap) = new, again
     if not torch.equal(g, a) or (gp is not None and not torch.equal(gp, ap)):
         raise AssertionError(f"{tag}: two launches differ")
-    if gp is None:
-        return 0.0
-    rel = float((gp[1].double() - op[1].double()).abs()
-                / op[1].double().abs())
-    if not (bool(gp[0] == op[0]) and rel <= SUM_IN_RTOL):
-        raise AssertionError(f"{tag}: partials {gp.tolist()} vs the first "
-                             f"body's {op.tolist()}")
-    return rel
 
 
 def morph_bits_checks(dev, p):
-    """Phase 30's checks: every whole-image kind against the first body at
-    phase 12's shapes and runs (4K, 1080p, 1000x1500), a second launch and
-    a launch on a second stream; the shard kinds on every shard of the 2x2
-    and 3x3 grids (phases 12 and 21 hold the same launches against the
-    plain versions and the crops against the whole image)."""
-    lines, worst = [], 0.0
+    """Phase 30's checks: every whole-image kind's second launch and a
+    launch on a second stream bitwise its first at phase 12's shapes and
+    runs (4K, 1080p, 1000x1500); the shard kinds' second launches on every
+    shard of the 2x2 and 3x3 grids (phases 12 and 21 hold the same
+    launches against the plain versions and the crops against the whole
+    image)."""
+    lines = []
     side = torch.cuda.Stream()
     for h, w in MORPH_SHAPES:
         inp = morph_inputs(dev, p, h, w)
@@ -4189,20 +3856,18 @@ def morph_bits_checks(dev, p):
             for run in MORPH_RUNS[m["kind"]]:
                 call = morph_call(m["kind"], inp, run)
                 new, again = call(False), call(False)
-                with first_morph_body_route():
-                    old = call(False)
                 side.wait_stream(torch.cuda.current_stream())
                 with torch.cuda.stream(side):
                     other = call(False)
                 torch.cuda.current_stream().wait_stream(side)
                 torch.cuda.synchronize()
                 tag = f"phase 30 {name} {run} at {h}x{w}"
-                worst = max(worst, morph_bits_same(tag, new, old, again))
-                morph_bits_same(tag + " (second stream)", other, old, new)
+                morph_bits_same(tag, new, again)
+                morph_bits_same(tag + " (second stream)", other, new)
                 n += 1
         lines.append(f"{h}x{w}: {n} launches of the four whole-image kinds "
-                     f"bitwise the first body's, their second launches and "
-                     f"launches on a second stream")
+                     f"bitwise their second launches and launches on a "
+                     f"second stream")
     ls, fm, g = morph_shard_inputs(dev, p)
     k = MORPH_SHARD_K
     for gac in (False, True):
@@ -4212,24 +3877,19 @@ def morph_bits_checks(dev, p):
             for pos, x, a, e in morph_blocks(ls, g if gac else fm, nx, ny, D,
                                              dev, gac):
                 new, again = (call(x, a, e), None), (call(x, a, e), None)
-                with first_morph_body_route():
-                    old = (call(x, a, e), None)
                 torch.cuda.synchronize()
                 morph_bits_same(f"phase 30 {'gac_pre_sh' if gac else 'acwe_sh'}"
-                                f" shard {pos} of {nx}x{ny}", new, old, again)
+                                f" shard {pos} of {nx}x{ny}", new, again)
             lines.append(f"{'gac_pre_sh' if gac else 'acwe_sh'} k={k} D={D} "
-                         f"{nx}x{ny}: every block bitwise the first body's")
-    lines.append(f"K12 sum_in within {worst:.3e} relative of the first "
-                 f"body's (bar {SUM_IN_RTOL}), n_in equal")
+                         f"{nx}x{ny}: every block bitwise its second launch")
     return lines
 
 
 def morph_bits_times(dev, card, p, stats):
-    """Phase 30's times: the bit body against the first body in turns (v1,
-    new, new, v1; queued) at 4K (phase 12's timed runs) and on the 2x2
-    grid's shard (0, 0) block, beside the bound, the tiling, the card's
-    blocks an SM and the waves. Fills the kernels' stats (``stats``: name
-    -> its dict) with the new body's time; returns ms a launch by name."""
+    """Phase 30's times: the bit body twice (queued) at 4K (phase 12's
+    timed runs) and on the 2x2 grid's shard (0, 0) block, beside the bound,
+    the tiling, the card's blocks an SM and the waves. Fills the kernels'
+    stats (``stats``: name -> its dict); returns ms a launch by name."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     inp = morph_inputs(dev, p, H4K, W4K)
     ls, fm, g = morph_shard_inputs(dev, p)
@@ -4260,34 +3920,28 @@ def morph_bits_times(dev, card, p, stats):
             halo = morph_kernel._reach(kind, run[1]) * run[0]
             b_ms, b_by = bound_morph(kind, h, w, *run[:2],
                                      run[3] if len(run) > 3 else 0)
-        t = []
-        for v1 in (True, False, False, True):
-            with (first_morph_body_route() if v1
-                  else contextlib.nullcontext()):
-                t.append(queued_ms(fn, 20))
+        t = [queued_ms(fn, 20) for _ in range(2)]
         th, tw, ww, cap, nblocks = _cuda.morph_geometry(kind, h, w, halo,
                                                         crop)
         occ = _cuda.morph_occupancy(kind, cap)
-        ms, v1_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        ms = sum(t) / 2
         stats[name].update(ms=ms, bound_ms=b_ms, bound_by=b_by)
         queued[name] = ms
-        out.append(f"{name} {run} at {h}x{w}: v1 {t[0]:.4f}, new {t[1]:.4f}, "
-                   f"new {t[2]:.4f}, v1 {t[3]:.4f} ms (v1/new "
-                   f"{v1_ms / ms:.2f}; bound {b_ms:.4f} {b_by}, new/bound "
-                   f"{ms / b_ms:.2f}); tile {th}x{tw}, windows <= {ww} words "
+        out.append(f"{name} {run} at {h}x{w}: {t[0]:.4f}, {t[1]:.4f} ms "
+                   f"(bound {b_ms:.4f} {b_by}, ms/bound {ms / b_ms:.2f}); "
+                   f"tile {th}x{tw}, windows <= {ww} words "
                    f"x {cap // ww} rows ({4 * _cuda.MORPH_WORDS[kind] * cap} "
                    f"B), {occ} blocks/SM, {nblocks} blocks = "
                    f"{nblocks / (occ * sms):.2f} waves")
-    print("phase 30 bit body vs the first body (queued device ms a launch, "
-          "in turns): " + "; ".join(out) + f" [{card}]", flush=True)
+    print("phase 30 bit body (queued device ms a launch, two runs): "
+          + "; ".join(out) + f" [{card}]", flush=True)
     return queued
 
 
 def morph_bits_runs(dev, card, queued):
-    """Phase 30's runs through the entry points on both bodies, each with
-    its K11/K12 launches counted (the counts set to 0 just before it) and
-    its level set bitwise the first body's run, then their rates in turns
-    (v1, new, new, v1) and the share of each run that its launches' queued
+    """Phase 30's runs through the entry points, each with its K11/K12
+    launches counted (the counts set to 0 just before it), then their
+    rates (two runs) and the share of each run that its launches' queued
     time (``queued``) accounts for: the rest is the driver's (the means and
     the force plane, the exchange)."""
     p = ct.CVParams()
@@ -4367,50 +4021,35 @@ def morph_bits_runs(dev, card, queued):
         res = fn()
         torch.cuda.synchronize()
         have = count()
-        with first_morph_body_route():
-            old = fn()
-        torch.cuda.synchronize()
-        if tag.startswith("compat"):
-            same = np.array_equal(res, old)
-            iters = ""
-        else:
-            same = torch.equal(res.ls, old.ls)
-            iters = f"{res.iters} iterations (first body {old.iters}), "
-        if not have or not same:
-            raise AssertionError(f"phase 30 {tag}: launches {have}, level set "
-                                 f"bitwise the first body's run: {same}")
+        iters = ("" if tag.startswith("compat")
+                 else f"{res.iters} iterations, ")
+        if not have:
+            raise AssertionError(f"phase 30 {tag}: no K11/K12 launch")
         done[tag] = (have, res)
-        lines.append(f"{tag} {iters}launches {have}, level set bitwise the "
-                     f"first body's run")
+        lines.append(f"{tag} {iters}launches {have}")
     print("phase 30 runs through the bit body: " + "; ".join(lines),
           flush=True)
     rates = []
     for tag, (fn, pix) in runs.items():
         have, res = done[tag]
         n = res.iters if hasattr(res, "iters") else 80
-        t = []
-        for v1 in (True, False, False, True):
-            with (first_morph_body_route() if v1
-                  else contextlib.nullcontext()):
-                t.append(time_ms(fn, 1))
+        t = [time_ms(fn, 1) for _ in range(2)]
         r = [pix * n / (ms * 1e3) for ms in t]
-        new_ms = (t[1] + t[2]) / 2
+        new_ms = sum(t) / 2
         share = ""
         if pix == H4K * W4K:  # the queued times are 4K's (the 2x2 block's)
             kern = sum(c * queued[name] for name, c in have.items())
             share = (f", its launches' queued time {kern / new_ms:.1%} of "
                      f"it")
         rates.append(f"{tag} ({n} iterations) " + ", ".join(
-            f"{x:.1f}" for x in r) + f" (new/v1 "
-            f"{(t[0] + t[3]) / (t[1] + t[2]):.3f}; {new_ms:.3f} ms{share})")
-    print("phase 30 rates (Mpixel-iters/s, the whole run; v1, new, new, v1): "
+            f"{x:.1f}" for x in r) + f" ({new_ms:.3f} ms{share})")
+    print("phase 30 rates (Mpixel-iters/s, the whole run; two runs): "
           + "; ".join(rates) + f" [{card}]", flush=True)
 
 
 def morph_bits_phase(dev, card, mo_stats, ms_stats, sass_checked):
     """Phase 30: the bit body of K11 and K12. Registers, spills and blocks
-    an SM, then the checks against the first body, the times and the
-    runs."""
+    an SM, then the checks, the times and the runs."""
     regs = [s for s in ptxas_summary().split(", ")
             if s.startswith("morph_bits")]
     occ = []
@@ -4425,8 +4064,8 @@ def morph_bits_phase(dev, card, mo_stats, ms_stats, sass_checked):
                 kind, H4K, W4K, morph_kernel._reach(kind, run[1]) * run[0])
         occ.append(f"{kind} {_cuda.morph_occupancy(kind, geo[3])}")
     print("phase 30 bit body ptxas: " + ", ".join(regs) + "; blocks an SM "
-          "(4K, the 2x2 shard block): " + ", ".join(occ) + "; the first "
-          "body's six morph_kernel instances in phase 27's sass_diff check: "
+          "(4K, the 2x2 shard block): " + ", ".join(occ) + "; phase 27's "
+          "sass_diff check: "
           + ("passed" if sass_checked else "not run (no --sass-parent)"),
           flush=True)
     p = ct.CVParams()
@@ -4449,7 +4088,7 @@ RES_TILE_TIMED = {
 }
 MP2_TILE_TIMED = {"K10 packed_mp2_resident_iterations": ((512, 512),),
                   "K9 mp2_resident_iterations": ((1024, 1024), (512, 384))}
-# 4-phase shapes held against the first body: phase 9's and the main path's
+# 4-phase shapes of the checks: phase 9's and the main path's
 MP2_TILE_SHAPES = {"K10 packed_mp2_resident_iterations": ((256, 256),
                                                           (512, 512)),
                    "K9 mp2_resident_iterations": ((1024, 1024), (512, 384),
@@ -4457,63 +4096,36 @@ MP2_TILE_SHAPES = {"K10 packed_mp2_resident_iterations": ((256, 256),
 TILE_FRAMES = 4
 
 
-@contextlib.contextmanager
-def first_resident_body_route():
-    """K7-K10's and K13's launches on the first bodies' `_v1` launchers
-    (the same wrappers and drivers, the kernels before the tile bodies)."""
-    saved = (_cuda.launch_resident, _cuda.launch_mp2_resident,
-             _cuda.launch_resident_chunk)
-    _cuda.launch_resident = functools.partial(saved[0], v1=True)
-    _cuda.launch_mp2_resident = functools.partial(saved[1], v1=True)
-    _cuda.launch_resident_chunk = functools.partial(saved[2], v1=True)
-    try:
-        yield
-    finally:
-        (_cuda.launch_resident, _cuda.launch_mp2_resident,
-         _cuda.launch_resident_chunk) = saved
-
-
 def tile_runs(call):
-    """(new, second launch, first body, a launch on a second stream) of
-    ``call``, each (level sets, partials)."""
+    """(launch, second launch, a launch on a second stream) of ``call``,
+    each (level sets, partials)."""
     new, again = call(), call()
-    with first_resident_body_route():
-        old = call()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         other = call()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    return new, again, old, other
+    return new, again, other
 
 
-def tile_same(tag, runs, flips_col):
+def tile_same(tag, runs):
     """The tile body's launch against its second launch and the launch on
-    a second stream (bitwise), and against the first body's: returns
-    (phi bitwise, max |d phi|, flips equal)."""
-    (g, gp), (a, ap), (o, op), (s, sp) = runs
+    a second stream: bitwise."""
+    (g, gp), (a, ap), (s, sp) = runs
     for name, (x, xp) in (("second launch", (a, ap)),
                           ("second stream", (s, sp))):
         if not (torch.equal(g, x) and torch.equal(gp, xp)):
             raise AssertionError(f"{tag}: the {name} differs")
-    same = torch.equal(g, o)
-    flips = torch.equal(gp[:, flips_col], op[:, flips_col])
-    if same and not flips:
-        raise AssertionError(f"{tag}: phi bitwise the first body's, the "
-                             f"flips not: {gp[:, flips_col].tolist()} vs "
-                             f"{op[:, flips_col].tolist()}")
-    return same, float((g - o).abs().max()), flips
 
 
 def resident_tile_checks(dev, p, pm):
     """Phase 31's checks: every two-phase mode at phase 6's shapes (one
     iteration from the checkerboard, 16 from a circle) and the 4-phase
-    bodies at phase 9's and the main path's (one iteration and 25) against
-    the first body, their second launches and a second stream (phases 6
-    and 9 hold the same launches against the plain versions)."""
-    lines, n_same, n_all = [], 0, 0
-    worst = 0.0
+    bodies at phase 9's and the main path's (one iteration and 25), each
+    against its second launch and a second stream (phases 6 and 9 hold the
+    same launches against the plain versions)."""
+    lines = []
     for h, w in RES_SHAPES:
         u0 = torch.from_numpy(two_disks(h, w)[0]).to(dev)
         ucf = (torch.from_numpy(colored_squares(h, w)[0]).to(dev)
@@ -4523,54 +4135,25 @@ def resident_tile_checks(dev, p, pm):
         starts = {s: init_phi((h, w), s, torch.float32, device=dev)
                   for s in ("checkerboard", "circle")}
         for name, r in RESIDENT.items():
-            flips_col = (r["channels"] or 1) + 2
             for iters, un, start in ((1, 1, "checkerboard"),
                                      (16, 4, "circle")):
                 args = resident_inputs(r, starts[start], u0, ucf, stack)
-                runs = tile_runs(lambda: r["wrapper"](*args, p, iters,
-                                                      unroll=un))
-                same, err, flips = tile_same(
-                    f"phase 31 {name} {h}x{w} iters={iters}", runs,
-                    flips_col)
-                if iters == 1:
-                    n_same += same
-                    n_all += 1
-                    worst = max(worst, err)
-                    if not same and err > PHI_ATOL:
-                        raise AssertionError(
-                            f"phase 31 {name} {h}x{w}: one iteration "
-                            f"{err} from the first body's")
+                tile_same(f"phase 31 {name} {h}x{w} iters={iters}",
+                          tile_runs(lambda: r["wrapper"](*args, p, iters,
+                                                         unroll=un)))
         lines.append(f"{h}x{w}: the six K7/K8 modes' second launches and "
                      f"launches on a second stream bitwise")
-    lines.append(f"one iteration: phi bitwise the first body's (flips "
-                 f"equal) at {n_same} of {n_all} launches, elsewhere within "
-                 f"{worst:.3e} (the f32 means an ulp apart; bar {PHI_ATOL})")
-    n_same = n_all = 0
     for name, shapes in MP2_TILE_SHAPES.items():
         kern = MP2[name]
         for h, w in shapes:
             u, phis, _, _ = mp2_inputs(h, w, dev, pm)
-            one = tile_runs(lambda: kern["wrapper"](phis, u, pm, 1))
-            same, err, _ = tile_same(f"phase 31 {name} {h}x{w}", one, 0)
-            n_same += same
-            n_all += 1
-            if not same and err > MP2_BARS[name][1]:
-                raise AssertionError(f"phase 31 {name} {h}x{w}: one "
-                                     f"iteration {err} from the first body")
-            many = tile_runs(lambda: kern["wrapper"](phis, u, pm, MP2_ITERS,
-                                                     unroll=5))
-            tile_same(f"phase 31 {name} {h}x{w} {MP2_ITERS}", many, 0)
-            frac = label_frac(many[0][0], many[2][0])
-            flips_d = float((many[0][1][:, 0] - many[2][1][:, 0]).abs().max())
-            if frac > LABELS_FRAC:
-                raise AssertionError(f"phase 31 {name} {h}x{w}: labels "
-                                     f"differ from the first body's at {frac}")
-            lines.append(f"{name} {h}x{w}: one iteration bitwise the first "
-                         f"body's {same} (max |d| {err:.3e}); {MP2_ITERS} "
-                         f"iterations: labels differ at {frac:.3e} of cells "
-                         f"(bar {LABELS_FRAC}), rows' flips |d| <= "
-                         f"{flips_d:g}; second launches and a second stream "
-                         f"bitwise")
+            tile_same(f"phase 31 {name} {h}x{w}",
+                      tile_runs(lambda: kern["wrapper"](phis, u, pm, 1)))
+            tile_same(f"phase 31 {name} {h}x{w} {MP2_ITERS}",
+                      tile_runs(lambda: kern["wrapper"](
+                          phis, u, pm, MP2_ITERS, unroll=5)))
+            lines.append(f"{name} {h}x{w}: one iteration and {MP2_ITERS}, "
+                         f"second launches and a second stream bitwise")
     return lines
 
 
@@ -4588,9 +4171,8 @@ def tile_plan_line(symbol, h, w, c, levels, frames=1):
 
 
 def resident_tile_times(dev, card, p, pm):
-    """Phase 31's times: each body against the first body in turns (v1,
-    new, new, v1; events over 3 calls) at the main path's shapes, 1000
-    iterations a launch, beside the bound."""
+    """Phase 31's times: each body twice (events over 3 calls) at the main
+    path's shapes, 1000 iterations a launch, beside the bound."""
     out, times = [], {}
     its = THROUGHPUT_ITERS
     for name, shapes in RES_TILE_TIMED.items():
@@ -4609,19 +4191,15 @@ def resident_tile_times(dev, card, p, pm):
             sym = ("cv_packed_resident_iterations" if name.startswith("K8")
                    else "cv_resident_iterations") + (
                 "_mc" if r["channels"] else "")
-            t = []
-            for v1 in (True, False, False, True):
-                with (first_resident_body_route() if v1
-                      else contextlib.nullcontext()):
-                    t.append(time_ms(lambda: r["wrapper"](*args, p, its), 3))
-            new, old = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-            times[(name, (h, w))] = (new, old, b_ms)
+            t = [time_ms(lambda: r["wrapper"](*args, p, its), 3)
+                 for _ in range(2)]
+            new = sum(t) / 2
+            times[(name, (h, w))] = (new, b_ms)
             out.append(
-                f"{name} {h}x{w}{f'x{frames}' if frames > 1 else ''}: v1 "
-                f"{t[0]:.3f}, new {t[1]:.3f}, new {t[2]:.3f}, v1 {t[3]:.3f} "
-                f"ms ({new / its * 1e3:.2f} us an iteration, v1 "
-                f"{old / its * 1e3:.2f}; v1/new {old / new:.2f}; bound "
-                f"{b_ms:.3f} {b_by}, new/bound {new / b_ms:.1f}); "
+                f"{name} {h}x{w}{f'x{frames}' if frames > 1 else ''}: "
+                f"{t[0]:.3f}, {t[1]:.3f} ms ({new / its * 1e3:.2f} us an "
+                f"iteration; bound {b_ms:.3f} {b_by}, ms/bound "
+                f"{new / b_ms:.1f}); "
                 + tile_plan_line(sym, h, w, r["channels"], 1, frames))
     for name, shapes in MP2_TILE_TIMED.items():
         kern = MP2[name]
@@ -4630,30 +4208,24 @@ def resident_tile_times(dev, card, p, pm):
         for h, w in shapes:
             u, phis, _, _ = mp2_inputs(h, w, dev, pm)
             b_ms, b_by = bound_mp2(h, w, its, its, True)
-            t = []
-            for v1 in (True, False, False, True):
-                with (first_resident_body_route() if v1
-                      else contextlib.nullcontext()):
-                    t.append(time_ms(lambda: kern["wrapper"](phis, u, pm, its),
-                                     3))
-            new, old = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-            times[(name, (h, w))] = (new, old, b_ms)
+            t = [time_ms(lambda: kern["wrapper"](phis, u, pm, its), 3)
+                 for _ in range(2)]
+            new = sum(t) / 2
+            times[(name, (h, w))] = (new, b_ms)
             out.append(
-                f"{name} {h}x{w}: v1 {t[0]:.3f}, new {t[1]:.3f}, new "
-                f"{t[2]:.3f}, v1 {t[3]:.3f} ms ({new / its * 1e3:.2f} us an "
-                f"iteration, v1 {old / its * 1e3:.2f}; v1/new "
-                f"{old / new:.2f}; bound {b_ms:.3f} {b_by}, new/bound "
-                f"{new / b_ms:.1f}); " + tile_plan_line(sym, h, w, 0, 2))
-    print(f"phase 31 tile bodies vs the first bodies ({its} iterations a "
-          f"launch, in turns): " + "; ".join(out) + f" [{card}]", flush=True)
+                f"{name} {h}x{w}: {t[0]:.3f}, {t[1]:.3f} ms "
+                f"({new / its * 1e3:.2f} us an iteration; bound {b_ms:.3f} "
+                f"{b_by}, ms/bound {new / b_ms:.1f}); "
+                + tile_plan_line(sym, h, w, 0, 2))
+    print(f"phase 31 tile bodies ({its} iterations a launch, two runs): "
+          + "; ".join(out) + f" [{card}]", flush=True)
     return times
 
 
 def resident_tile_rates(dev, card, p, pm):
     """Phase 31's runs: phase 8's and 11's fixed runs through the entry
-    points on both bodies, the tile body's launches counted (the counts set
-    to 0 just before each run), its mask or labels against the first
-    body's run, then the rates in turns (v1, new, new, v1)."""
+    points, the tile body's launches counted (the counts set to 0 just
+    before each run), then the rates (two runs)."""
     its = THROUGHPUT_ITERS
     u256 = torch.from_numpy(two_disks(256, 256)[0]).to(dev)
     v512 = torch.from_numpy(colored_squares(512, 512)[0]).to(dev)
@@ -4694,43 +4266,28 @@ def resident_tile_rates(dev, card, p, pm):
         res = fn()
         torch.cuda.synchronize()
         have = {n: f.launches for n, f in counters.items() if f.launches}
-        with first_resident_body_route():
-            old = fn()
-        torch.cuda.synchronize()
-        if multi:
-            agree = 1.0 - label_frac(res.phis, old.phis)
-        else:
-            agree = iou(res[1].cpu(), old[1].cpu())
-        if not have or agree < 0.999:
-            raise AssertionError(f"phase 31 {tag}: launches {have}, "
-                                 f"agreement with the first body's run "
-                                 f"{agree}")
-        lines.append(f"{tag}: launches {have}, "
-                     f"{'labels agree' if multi else 'mask IoU'} with the "
-                     f"first body's run {agree:.6f}")
-        t = []
-        for v1 in (True, False, False, True):
-            with (first_resident_body_route() if v1
-                  else contextlib.nullcontext()):
-                t.append(time_ms(fn, 1))
+        phi = res.phis if multi else res[0]
+        if not have or not torch.isfinite(phi).all():
+            raise AssertionError(f"phase 31 {tag}: launches {have}, or its "
+                                 f"level sets not finite")
+        lines.append(f"{tag}: launches {have}")
+        t = [time_ms(fn, 1) for _ in range(2)]
         rates.append(f"{tag} " + ", ".join(f"{pix / (ms * 1e3):.1f}"
-                                           for ms in t)
-                     + f" (new/v1 {(t[0] + t[3]) / (t[1] + t[2]):.2f})")
+                                           for ms in t))
     print("phase 31 runs through the tile bodies: " + "; ".join(lines),
           flush=True)
-    print(f"phase 31 rates (Mpixel-iters/s, {its} iterations; v1, new, new, "
-          f"v1): " + "; ".join(rates) + f" [{card}]", flush=True)
+    print(f"phase 31 rates (Mpixel-iters/s, {its} iterations; two runs): "
+          + "; ".join(rates) + f" [{card}]", flush=True)
 
 
 def resident_tile_phase(dev, card, sass_checked):
     """Phase 31: the tile bodies of K7, K8 (every mode), K9's resident mode
     and K10. Registers, spills, dynamic shared memory and blocks an SM,
-    then the checks against the first bodies, the times and the runs."""
+    then the checks, the times and the runs."""
     regs = [s for s in ptxas_summary().split(", ")
             if s.startswith(("tile_resident", "mp2_tile"))]
-    print("phase 31 tile bodies ptxas: " + ", ".join(regs) + "; the first "
-          "bodies' resident_kernel and mp2_resident_kernel instances in "
-          "phase 27's sass_diff check: "
+    print("phase 31 tile bodies ptxas: " + ", ".join(regs) + "; phase 27's "
+          "sass_diff check: "
           + ("passed" if sass_checked else "not run (no --sass-parent)"),
           flush=True)
     p = ct.CVParams()
@@ -4754,20 +4311,14 @@ def r1_launches(shape, dtype=torch.float32, steps=REINIT_STEPS):
     return len(_cuda.reinit_passes(steps, k))
 
 
-def reinit_v1(x, steps=REINIT_STEPS):
-    """R1's first body (a prepass and a launch a step), the yardstick."""
-    return _cuda.launch_reinit(x, steps, 0.5, 1.0, v1=True)
-
-
 def reinit_ptxas():
-    """Registers and spill stores of R1's kernels from ptxas's report:
-    'prepass f32: R regs, S B spill', ..., 'tile f32: ...' the tile
-    body's."""
+    """Registers and spill stores of R1's tile body from ptxas's report:
+    'tile f32: R regs, S B spill', 'tile f64: ...'."""
     out, name = {}, None
     for line in _build.ptxas_report().splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:
-            k = re.search(r"reinit_(prepass|step|tile)I([fd])E", m.group(1))
+            k = re.search(r"reinit_(tile)I([fd])E", m.group(1))
             name = (f"{k.group(1)} f{32 if k.group(2) == 'f' else 64}"
                     if k else None)
             continue
@@ -4821,17 +4372,15 @@ def reinit_input(shape, dev, dtype, seed=0):
 def check_reinit(x, steps=REINIT_STEPS):
     """R1 against its plain version on ``x``: (bitwise, max |diff|). Where
     not bitwise, the signs must agree everywhere and the difference stay
-    within REINIT_RTOL of max |phi|. The tile body must also equal its
-    first body bitwise, and leave ``x`` as it was."""
+    within REINIT_RTOL of max |phi|. R1 must also leave ``x`` as it
+    was."""
     kept = x.clone()
     got = R1_WRAPPER(x, steps)
     want = reinitm.reinit_reference(x, steps)
-    first = reinit_v1(x, steps)
     torch.cuda.synchronize()
-    if not torch.equal(got, first) or not torch.equal(x, kept):
+    if not torch.equal(x, kept):
         raise AssertionError(f"R1 {tuple(x.shape)} {x.dtype} steps {steps}: "
-                             f"the tile body differs from its first body "
-                             f"or changed its input")
+                             f"changed its input")
     err = float((got - want).abs().max())
     bitwise = torch.equal(got, want)
     if not bitwise and not (
@@ -4853,12 +4402,11 @@ def device_ms(prof, pattern=None):
 
 
 def reinit_checks(dev, card, stat):
-    """R1 against its first body and its plain version at the pyramid's
-    five level shapes and stacks (20 steps), and at a ragged shape and a
-    stack at every step count of STEP_COUNTS, f32 and f64; then the two
-    bodies' queued times in turns at every level shape beside the plain
-    version and the bound, with the tile body's geometry and the blocks an
-    SM the card gives it."""
+    """R1 against its plain version at the pyramid's five level shapes and
+    stacks (20 steps), and at a ragged shape and a stack at every step
+    count of STEP_COUNTS, f32 and f64; then its queued times (two runs) at
+    every level shape beside the plain version and the bound, with the
+    tile body's geometry and the blocks an SM the card gives it."""
     print(f"phase 32 R1 ptxas: {reinit_ptxas()}", flush=True)
     results = []
     cases = [(shape, REINIT_STEPS) for shape in
@@ -4874,16 +4422,15 @@ def reinit_checks(dev, card, stat):
             results.append(f"{'x'.join(map(str, shape))} "
                            f"{str(dtype)[6:]} steps {steps} "
                            f"{'bitwise' if bitwise else err}")
-    print("phase 32 R1 (the tile body, bitwise its first body) against its "
-          "plain version: " + ", ".join(results), flush=True)
+    print("phase 32 R1 (the tile body) against its plain version: "
+          + ", ".join(results), flush=True)
     times = []
     for dtype in (torch.float32, torch.float64):
         for shape in PYRAMID_SHAPES:
             x = reinit_input(shape, dev, dtype)
-            tile = lambda: R1_WRAPPER(x, REINIT_STEPS)  # noqa: E731
-            first = lambda: reinit_v1(x)  # noqa: E731
-            turns = [queued_ms(fn, 10) for fn in (tile, first, first, tile)]
-            ms, v1_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            turns = [queued_ms(lambda: R1_WRAPPER(x, REINIT_STEPS), 10)
+                     for _ in range(2)]
+            ms = sum(turns) / 2
             # ~1000 eager launches a call: the host's pace at small shapes
             plain = time_ms(
                 lambda: reinitm.reinit_reference(x, REINIT_STEPS), 2)
@@ -4895,10 +4442,9 @@ def reinit_checks(dev, card, stat):
                                            x.element_size()),
                 dtype == torch.float64)
             times.append(f"{shape[0]}x{shape[1]} {str(dtype)[6:]} "
-                         f"{ms:.4f} ({turns[0]:.4f}, {turns[3]:.4f}; "
-                         f"{ms / b_ms:.1f}x the bound) [v1 {v1_ms:.4f} "
-                         f"({turns[1]:.4f}, {turns[2]:.4f}); "
-                         f"{v1_ms / b_ms:.1f}x] (plain {plain:.3f}, bound "
+                         f"{ms:.4f} ({turns[0]:.4f}, {turns[1]:.4f}; "
+                         f"{ms / b_ms:.1f}x the bound) (plain {plain:.3f}, "
+                         f"bound "
                          f"{b_ms:.4f} {b_by}; k {k}, {th}x{tw} tiles, "
                          f"{px}x{py} threads of {rs} rows, "
                          f"{r1_launches(shape, dtype)} launches, {occ} "
@@ -4906,9 +4452,9 @@ def reinit_checks(dev, card, stat):
             if dtype == torch.float32 and shape == (H4K, W4K):
                 stat.update(ms=ms, plain_ms=plain, bound_ms=b_ms,
                             bound_by=b_by)
-    print("phase 32 R1 queued ms a redistance (20 steps), the tile body "
-          "[its first body, a prepass and 20 step launches] in turns; the "
-          "plain version's ms at the host's pace: " + ", ".join(times)
+    print("phase 32 R1 queued ms a redistance (20 steps), the tile body, "
+          "two runs; the plain version's ms at the host's pace: "
+          + ", ".join(times)
           + f" [{card}]", flush=True)
 
 
@@ -5501,13 +5047,7 @@ def main(argv=()) -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s "
-          f"({len(_build.sources())} sources); ptxas: {ptxas_summary()}; "
-          f"co-resident blocks of the first resident bodies: "
-          + ", ".join(f"{sym} {_cuda.resident_capacity(sym, 3, 0)}"
-                      for sym in (f"{s}_v1" for s in (
-                          *_build.RESIDENT_SYMBOLS,
-                          *_build.MP2_RESIDENT_SYMBOLS,
-                          *_build.CHUNK_SYMBOLS))),
+          f"({len(_build.sources())} sources); ptxas: {ptxas_summary()}",
           flush=True)
 
     # phase 3: each kernel against its plain version, at the main paths'

@@ -17,8 +17,7 @@ One case holds the twin against the JAX package's red-black sweep.
 
 The remaining cases check ``_cuda.band_geometry``: every window of its
 tiling fits the block it names, the main path's shapes fit the shared
-memory with two blocks an SM, and every k up to 21 that the first
-body's geometry (``tile_geometry``) takes is taken.
+memory with two blocks an SM, and every k up to 21 is taken.
 """
 
 import jax.numpy as jnp
@@ -249,8 +248,13 @@ def test_main_path_geometry_fits_two_blocks_an_sm(shape, crop, c):
     assert 8 * cap + static <= _cuda.SMEM_LIMIT + 1024
     assert px * py <= _cuda.BAND_THREADS
     assert _cuda.band_blocks_per_sm(px * py, cap, static) >= 2
-    # the windows are at most 2.25x the tiles (the first body's: 2.41x)
+    # the windows are at most 2.25x the tiles
     assert cap <= 2.25 * th * tw
+
+
+# the chunk depths the band geometry must take on every shape (a chunk of
+# 32 at 4K does not fit a block's window)
+BAND_KS = tuple(range(1, 22))
 
 
 @pytest.mark.parametrize("shape,crop", [((2160, 3840), None),
@@ -259,16 +263,11 @@ def test_main_path_geometry_fits_two_blocks_an_sm(shape, crop, c):
                                         ((200, 300), None),
                                         ((16, 8), None),
                                         ((90, 140), (10, 80, 10, 130))])
-def test_geometry_takes_every_k_the_first_body_takes(shape, crop):
-    """Every k up to 21, the most the first body's tiles take on a large
-    image, wherever ``tile_geometry`` takes it."""
+def test_geometry_takes_every_k_up_to_21(shape, crop):
+    """Every k of BAND_KS on every shape: windows the threads cover, even,
+    within the capacity."""
     h, w = shape
-    for k in range(1, 22):
-        try:
-            _cuda.tile_geometry(h, w, k, span=None if crop is None
-                                else 6 * k + 2)
-        except ValueError:
-            continue
+    for k in BAND_KS:
         for c in (0, 3):
             th, tw, px, py, cap = _cuda.band_geometry(h, w, k, crop,
                                                       *_sums(c))

@@ -60,10 +60,10 @@ def _stack(n, h, w, dev):
 def test_grouped_batch_matches_frames_launched_alone(name, n, h, w):
     """phi bitwise each frame's own launch wherever the f32 means agree
     (the f64 sums behind them are added over other tiles), else within
-    the batch bars of test_tiles_cuda_two_phase_match_v1_and_plain; each
-    frame's row within those bars, its flips equal where phi is; a second
-    launch bitwise; one grouped launch counted, none for the frames
-    alone."""
+    the batch bars of
+    test_tiles_cuda_two_phase_match_first_body_and_plain; each frame's row
+    within those bars, its flips equal where phi is; a second launch
+    bitwise; one grouped launch counted, none for the frames alone."""
     dev = _card()
     batch, single = MODES[name]
     phis, u0s = _stack(n, h, w, dev)

@@ -1,5 +1,5 @@
 """The port's halo exchange on the card (parallel/halo_rdma.py, K14: the
-clamped gather, and the ring shifts of its first body) and ``halo='rdma'``
+clamped gather) and ``halo='rdma'``
 through the sharded drivers, against the port's plain exchange and the JAX
 reference, on grids of CPU devices.
 
@@ -13,15 +13,12 @@ reference, on grids of CPU devices.
   interpreter of csrc/halo_gather.cu's row rule (each padded row from the
   grid row that owns its clamped global row: west run, centre, east run,
   replicas at the image edges), gives ``exchange_halo2d`` bitwise on 1x1,
-  1x3, 2x2, 2x4, 3x3 and ragged grids at depths 1, 4 and min(h, w), f32 and
-  f64, for images, two-level-set stacks and parity-plane stacks, and the
+  1x3, 2x2, 2x4, 3x3, 4x5 and ragged grids at depths 1, 3, 4 and min(h,
+  w), f32 and f64, for images, two-level-set stacks and parity-plane
+  stacks, and the
   reference's ``exchange_halo2d_rdma(interpret=True)`` bitwise where the
   grid fits the 8-device mesh; one launch a device; the table is built
   once per geometry and reused; grids it does not take raise.
-- The first body's task table: the tasks ``_ring_shift`` builds, carried
-  out on the CPU by a copy that follows csrc/halo_ring.cu's contract (row
-  copies, zero-stride replicas), give ``exchange_halo2d`` bitwise, with
-  one launch a stage (two where a device holds more than 16 shards).
 - ``halo='rdma'`` end to end: bitwise the port's ``halo='ppermute'``, and
   within 1e-10 of the reference's ``halo='rdma'`` (same masks and
   iteration counts), for ``segment_sharded`` (per iteration and comm_k 2,
@@ -29,11 +26,11 @@ reference, on grids of CPU devices.
   ``segment_multiphase_sharded`` (M = 2 and 3, the kernel route, the
   trace).
 - ``cuda``-marked: K14 on the card bitwise its plain version, its first
-  body and ``exchange_halo2d``, one launch an exchange, a second stream
-  bitwise the first, and the CLI's ``--mesh 2 2 --halo rdma`` on one card.
+  body's recorded output (tests/card_digests.json) and
+  ``exchange_halo2d``, one launch an exchange, a second stream bitwise the
+  first, and the CLI's ``--mesh 2 2 --halo rdma`` on one card.
 """
 
-import contextlib
 import ctypes
 import subprocess
 import sys
@@ -54,8 +51,8 @@ from chan_vese_tpu_torch.parallel import (
     segment_sharded, segment_sharded_fixed_trace, shard_grid)
 from chan_vese_tpu_torch.parallel import halo_rdma as trdma
 from fixtures import four_regions, two_disks
-from torch_port_helpers import (assert_rel, cuda_device, params, to_np,
-                                to_torch)
+from torch_port_helpers import (assert_digest, assert_rel, cuda_device, params,
+                                to_np, to_torch)
 
 CPU = torch.device("cpu")
 MU_MP = 0.003 * 255.0 ** 2
@@ -155,62 +152,6 @@ def test_ring_shift_reference_equals_reference_ring_kernel():
     np.testing.assert_array_equal(got, want)
 
 
-class _Stream:
-    cuda_stream = 0
-
-
-class _RingCopies:
-    """csrc/halo_ring.cu's contract carried out on CPU memory: each task
-    copies rows x cols elements of each slice, row by row; src_row 0
-    repeats source row 0, src_col 0 repeats each row's first element."""
-
-    def __init__(self):
-        self.launches = []
-
-    def cv_halo_ring_v1(self, addr, n, esize, stream):
-        assert 1 <= n <= trdma._MAX_TASKS and esize in (4, 8)
-        self.launches.append(n)
-        for t in (trdma._Task * n).from_address(addr):
-            for b in range(t.batch):
-                for r in range(t.rows):
-                    src = t.src + (b * t.src_batch + r * t.src_row) * esize
-                    dst = t.dst + (b * t.dst_batch + r * t.dst_row) * esize
-                    if t.src_col:
-                        ctypes.memmove(dst, src, t.cols * esize)
-                    else:
-                        for c in range(t.cols):
-                            ctypes.memmove(dst + c * esize, src, esize)
-        return 0
-
-
-@pytest.mark.parametrize("nx,ny,depth", [(2, 4, 4), (1, 1, 3), (3, 3, 2),
-                                         (4, 5, 1)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_ring_tasks_build_the_exchange(monkeypatch, nx, ny, depth, dtype):
-    """The tasks _ring_shift hands K14, carried out by _RingCopies: every
-    padded block bitwise exchange_halo2d's, a stack too, one launch a
-    stage (a 4x5 grid's 60 tasks a stage take two launches)."""
-    lib = _RingCopies()
-    monkeypatch.setattr(tbuild, "library", lambda: lib)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
-    img = np.random.default_rng(nx * ny).standard_normal((12 * nx, 10 * ny))
-    blocks = shard_grid(to_torch(img).to(dtype),
-                        grid_sharding(cpu_grid(nx, ny)))
-    n0 = exchange_halo2d_rdma.launches
-    got = trdma._ring_shift(trdma._ring_shift(blocks, depth, -2), depth, -1)
-    assert equal_grids(got, exchange_halo2d(blocks, depth))
-    per_stage = -(-3 * nx * ny // trdma._MAX_TASKS)
-    assert exchange_halo2d_rdma.launches - n0 == 2 * per_stage
-    assert lib.launches == [min(3 * nx * ny - i * trdma._MAX_TASKS,
-                                trdma._MAX_TASKS)
-                            for i in range(per_stage)] * 2
-    stack = [[torch.stack([b, 1 - b]) for b in row] for row in blocks]
-    got = trdma._ring_shift(trdma._ring_shift(stack, depth, -2), depth, -1)
-    assert equal_grids(got, exchange_halo2d(stack, depth))
-
-
 class _GatherRows:
     """csrc/halo_gather.cu's row rule carried out on CPU memory: padded
     row r of the launch belongs to dst[k] (the last whose row0 <= r), slice
@@ -304,11 +245,11 @@ def _stacks(blocks):
                                for b in row] for row in blocks]}
 
 
-GATHER_GRIDS = [(1, 1), (1, 3), (2, 2), (2, 4), (3, 3)]
+GATHER_GRIDS = [(1, 1), (1, 3), (2, 2), (2, 4), (3, 3), (4, 5)]
 
 
 @pytest.mark.parametrize("nx,ny", GATHER_GRIDS)
-@pytest.mark.parametrize("depth", [1, 4, "min"])
+@pytest.mark.parametrize("depth", [1, 3, 4, "min"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_gather_table_builds_the_exchange(gather_lib, nx, ny, depth, dtype):
     """The geometry _gather hands K14, executed by _GatherRows: every padded
@@ -583,18 +524,19 @@ def test_k14_cuda_equals_plain_version(nx, ny, depth):
                                                                  depth))
     assert equal_grids(got, exchange_halo2d(blocks, depth))
     assert equal_grids(got, again)
-    n0 = exchange_halo2d_rdma.launches
-    assert equal_grids(got, exchange_halo2d_rdma(blocks, depth, v1=True))
-    assert exchange_halo2d_rdma.launches - n0 == 2
+    assert_digest(f"K14 {nx}x{ny} D={depth}",
+                  *(x for row in got for x in row))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("depth", [4, 32, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_k14_cuda_stacks_match_v1_and_a_second_stream(depth, dtype):
+def test_k14_cuda_stacks_match_first_body_and_a_second_stream(depth,
+                                                               dtype):
     """Two level sets and parity planes of a 2x2 grid on the card: the
-    gather bitwise its first body, the plain version and exchange_halo2d;
-    the same exchange on a second stream bitwise the first."""
+    gather bitwise its first body's recorded output, the plain version and
+    exchange_halo2d; the same exchange on a second stream bitwise the
+    first."""
     dev = cuda_device()
     img = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (2, 256, 384))).to(dtype).to(dev)
@@ -603,16 +545,17 @@ def test_k14_cuda_stacks_match_v1_and_a_second_stream(depth, dtype):
     sets = [[b.permute(2, 0, 1) for b in row] for row in sets]
     planes = [[b.reshape(2, 64, 2, 96, 2).permute(0, 2, 4, 1, 3)
                .contiguous() for b in row] for row in sets]
-    for xs in (sets, planes):
+    for tag, xs in (("sets", sets), ("planes", planes)):
         d = min(depth, *xs[0][0].shape[-2:])
         got = exchange_halo2d_rdma(xs, d)
-        old = exchange_halo2d_rdma(xs, d, v1=True)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             second = exchange_halo2d_rdma(xs, d)
         torch.cuda.synchronize()
-        assert equal_grids(got, old) and equal_grids(got, second)
+        assert_digest(f"K14 2x2 {tag} D={d} {dtype}",
+                      *(x for row in got for x in row))
+        assert equal_grids(got, second)
         assert equal_grids(got, trdma.exchange_halo2d_rdma_reference(xs, d))
         assert equal_grids(got, exchange_halo2d(xs, d))
 

@@ -17,11 +17,12 @@ import torch
 
 from chan_vese_tpu.ops import pallas_banded, pallas_packed, pallas_sweep
 from chan_vese_tpu.ops.reductions import region_means as j_region_means
-from chan_vese_tpu_torch.ops import _cuda, banded_kernel, fused_kernel, \
+from chan_vese_tpu_torch.ops import banded_kernel, fused_kernel, \
     packed_kernel
-from chan_vese_tpu_torch.ops._cuda import tile_geometry
+from chan_vese_tpu_torch.ops._cuda import SMEM_LIMIT, band_geometry
 from chan_vese_tpu_torch.ops.reductions import region_means
-from torch_port_helpers import cuda_device, params, to_np, to_torch
+from torch_port_helpers import assert_digest, cuda_device, params, to_np, \
+    to_torch
 
 PHI_TOL = dict(rtol=2e-6, atol=2e-5)
 PARTS_TOL = dict(rtol=2e-5, atol=0.5)
@@ -112,12 +113,12 @@ def test_wrappers_validate_arguments():
         banded_kernel.banded_chunk(x, x, 0.0, 0.0, pt, 8, unroll=3)
     with pytest.raises(ValueError, match="planes"):
         packed_kernel.packed_banded_chunk(x, x, 0.0, 0.0, pt, 4)
-    # the tile fits the 227 KB of shared memory for the driver's k, and
-    # a k too deep for any tile is refused before launch
-    th, tw, cap = tile_geometry(2160, 3840, 8)
-    assert (th, tw) == (64, 128) and 10 * cap <= 232448
-    with pytest.raises(ValueError, match="shared memory"):
-        tile_geometry(2160, 3840, 40)
+    # the band body's window fits a block's shared memory for the driver's
+    # k, and a k too deep for any tile is refused before launch
+    cap = band_geometry(2160, 3840, 8)[-1]
+    assert 8 * cap <= SMEM_LIMIT + 1024
+    with pytest.raises(ValueError, match="larger window"):
+        band_geometry(2160, 3840, 40)
 
 
 # On the card: each kernel against its plain version ----------------------
@@ -138,6 +139,15 @@ def _check_card(got, want):
     np.testing.assert_allclose(to_np(got[0]), to_np(want[0]), rtol=1e-5,
                                atol=1e-4)
     np.testing.assert_allclose(to_np(got[1]), to_np(want[1]), **PARTS_TOL)
+
+
+def _check_other_sums(got, want, flips):
+    """The partial sums but the flips (slot ``flips``, held bitwise by the
+    digest) at the plain version's bars: over 21 iterations the f32
+    trajectories of the kernel and PyTorch's ops part at a cell or two near
+    phi = 0, which moves the plain version's flips by one."""
+    np.testing.assert_allclose(np.delete(to_np(got[1]), flips),
+                               np.delete(to_np(want[1]), flips), **PARTS_TOL)
 
 
 @pytest.mark.cuda
@@ -175,46 +185,41 @@ def test_packed_banded_chunk_cuda_matches_plain():
 @pytest.mark.parametrize("k", [1, 3, 8, 21])
 @pytest.mark.parametrize("shape", [(200, 300), (1000, 1500)])
 def test_banded_chunk_cuda_is_bitwise_the_first_body(shape, k):
-    """K2 on csrc/band.cuh against the first body (redblack.cuh, the
-    `_v1` launcher): the level set bitwise, the flips exactly, the other
-    sums at the plain bars; a second launch bitwise the first."""
+    """K2 on csrc/band.cuh: the level set and the flips bitwise the first
+    body's recorded output, the other sums at the plain version's bars; a
+    second launch bitwise the first."""
     phi, u0, c1, c2 = _card_case(cuda_device(), shape, 5)
     _, pt = params()
     n = banded_kernel.banded_chunk.launches
     got = banded_kernel.banded_chunk(phi, u0, c1, c2, pt, k)
     again = banded_kernel.banded_chunk(phi, u0, c1, c2, pt, k)
-    old = _cuda.launch_chunk("cv_banded_chunk_v1", phi, u0, c1, c2, pt, k,
-                             *shape)
     torch.cuda.synchronize()
     assert banded_kernel.banded_chunk.launches == n + 2
-    assert torch.equal(got[0], old[0])
+    assert_digest(f"K2 {shape} k={k}", got[0], got[1][3:4])
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
-    assert float(got[1][3]) == float(old[1][3])
-    np.testing.assert_allclose(to_np(got[1]), to_np(old[1]), **PARTS_TOL)
-
+    want = banded_kernel.banded_chunk_reference(phi, u0, c1, c2, pt, k)
+    _check_other_sums(got, want, 3)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 8, 21])
 @pytest.mark.parametrize("shape", [(200, 300), (1000, 1500)])
 def test_packed_banded_chunk_cuda_is_bitwise_the_first_body(shape, k):
-    """K3 on csrc/band.cuh against the first body (the `_v1` launcher on
-    the planes): the level set bitwise, the flips exactly, the other sums
-    at the plain bars; a second launch bitwise the first."""
+    """K3 on csrc/band.cuh: the planes and the flips bitwise the first
+    body's recorded output, the other sums at the plain version's bars; a
+    second launch bitwise the first."""
     phi, u0, c1, c2 = _card_case(cuda_device(), shape, 7)
     _, pt = params()
     pp, up = packed_kernel.pack_planes(phi), packed_kernel.pack_planes(u0)
     n = packed_kernel.packed_banded_chunk.launches
     got = packed_kernel.packed_banded_chunk(pp, up, c1, c2, pt, k)
     again = packed_kernel.packed_banded_chunk(pp, up, c1, c2, pt, k)
-    old = _cuda.launch_chunk("cv_packed_banded_chunk_v1", pp, up, c1, c2,
-                             pt, k, *shape)
     torch.cuda.synchronize()
     assert packed_kernel.packed_banded_chunk.launches == n + 2
-    assert torch.equal(got[0], old[0])
+    assert_digest(f"K3 {shape} k={k}", got[0], got[1][3:4])
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
-    assert float(got[1][3]) == float(old[1][3])
-    np.testing.assert_allclose(to_np(got[1]), to_np(old[1]), **PARTS_TOL)
+    want = packed_kernel.packed_banded_chunk_reference(pp, up, c1, c2, pt, k)
+    _check_other_sums(got, want, 3)
 
 
 @pytest.mark.cuda

@@ -19,10 +19,11 @@ from chan_vese_tpu.models import banded as jbanded
 from chan_vese_tpu.ops import pallas_banded, pallas_packed, pallas_sweep_mc
 from chan_vese_tpu.ops.reductions import region_means as j_region_means
 from chan_vese_tpu_torch.models import banded as tbanded
-from chan_vese_tpu_torch.ops import (_cuda, banded_kernel, fused_kernel_mc,
+from chan_vese_tpu_torch.ops import (banded_kernel, fused_kernel_mc,
                                      packed_kernel)
 from chan_vese_tpu_torch.ops.reductions import region_means
-from torch_port_helpers import cuda_device, params, to_np, to_torch
+from torch_port_helpers import assert_digest, cuda_device, params, to_np, \
+    to_torch
 
 PHI_TOL = dict(rtol=2e-6, atol=2e-5)
 PARTS_TOL = dict(rtol=2e-5, atol=0.5)
@@ -219,6 +220,13 @@ def _check_card(got, want):
     np.testing.assert_allclose(to_np(got[1]), to_np(want[1]), **PARTS_TOL)
 
 
+def _check_other_sums(got, want, flips):
+    """As tests/test_torch_kernels.py: the partial sums but the flips (held
+    bitwise by the digest) at the plain version's bars."""
+    np.testing.assert_allclose(np.delete(to_np(got[1]), flips),
+                               np.delete(to_np(want[1]), flips), **PARTS_TOL)
+
+
 @pytest.mark.cuda
 def test_fused_iteration_mc_cuda_matches_plain():
     phi, u0, c1, c2 = _card_case(cuda_device(), (3, 200, 300), 2)
@@ -256,48 +264,43 @@ def test_packed_banded_chunk_mc_cuda_matches_plain(nchan):
 @pytest.mark.parametrize("k", [1, 8, 21])
 @pytest.mark.parametrize("nchan", [1, 3, 8])
 def test_banded_chunk_mc_cuda_is_bitwise_the_first_body(nchan, k):
-    """K5 on csrc/band.cuh against the first body (the `_v1` launcher):
-    the level set bitwise, the flips exactly, the other sums at the plain
-    bars; a second launch bitwise the first."""
+    """K5 on csrc/band.cuh: the level set and the flips bitwise the first
+    body's recorded output, the other sums at the plain version's bars; a
+    second launch bitwise the first."""
     phi, u0, c1, c2 = _card_case(cuda_device(), (nchan, 1000, 1500), 6)
     _, pt = params()
     got = banded_kernel.banded_chunk_mc(phi, u0, c1, c2, pt, k)
     again = banded_kernel.banded_chunk_mc(phi, u0, c1, c2, pt, k)
-    l1, l2 = pt.channel_lambdas(nchan)
-    old = _cuda.launch_chunk_mc("cv_banded_chunk_mc_v1", phi, u0, c1, c2,
-                                pt, k, 1000, 1500, l1, l2, 16)
     torch.cuda.synchronize()
-    assert torch.equal(got[0], old[0])
+    assert_digest(f"K5 C={nchan} k={k}", got[0],
+                  got[1][nchan + 2:nchan + 3])
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
-    assert float(got[1][nchan + 2]) == float(old[1][nchan + 2])
-    np.testing.assert_allclose(to_np(got[1]), to_np(old[1]), **PARTS_TOL)
-
+    want = banded_kernel.banded_chunk_mc_reference(phi, u0, c1, c2, pt, k)
+    _check_other_sums(got, want, nchan + 2)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 8, 21])
 @pytest.mark.parametrize("nchan", [1, 3, 8])
 def test_packed_banded_chunk_mc_cuda_is_bitwise_the_first_body(nchan, k):
-    """K6 on csrc/band.cuh against the first body (the `_v1` launcher on
-    the planes): the level set bitwise, the flips exactly, the other sums
-    at the plain bars; a second launch bitwise the first; and K5's band
-    launch on the unpacked image, packed, bitwise in phi and in every
-    partial slot."""
+    """K6 on csrc/band.cuh: the planes and the flips bitwise the first
+    body's recorded output, the other sums at the plain version's bars; a
+    second launch bitwise the first; and K5's band launch on the unpacked
+    image, packed, bitwise in phi and in every partial slot."""
     phi, u0, c1, c2 = _card_case(cuda_device(), (nchan, 1000, 1500), 9)
     _, pt = params()
     pp, up = packed_kernel.pack_planes(phi), packed_kernel.pack_planes(u0)
     n = packed_kernel.packed_banded_chunk_mc.launches
     got = packed_kernel.packed_banded_chunk_mc(pp, up, c1, c2, pt, k)
     again = packed_kernel.packed_banded_chunk_mc(pp, up, c1, c2, pt, k)
-    l1, l2 = pt.channel_lambdas(nchan)
-    old = _cuda.launch_chunk_mc("cv_packed_banded_chunk_mc_v1", pp, up, c1,
-                                c2, pt, k, 1000, 1500, l1, l2, 16)
     flat = banded_kernel.banded_chunk_mc(phi, u0, c1, c2, pt, k)
     torch.cuda.synchronize()
     assert packed_kernel.packed_banded_chunk_mc.launches == n + 2
-    assert torch.equal(got[0], old[0])
+    assert_digest(f"K6 C={nchan} k={k}", got[0],
+                  got[1][nchan + 2:nchan + 3])
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
-    assert float(got[1][nchan + 2]) == float(old[1][nchan + 2])
-    np.testing.assert_allclose(to_np(got[1]), to_np(old[1]), **PARTS_TOL)
+    want = packed_kernel.packed_banded_chunk_mc_reference(pp, up, c1, c2, pt,
+                                                          k)
+    _check_other_sums(got, want, nchan + 2)
     assert torch.equal(got[0], packed_kernel.pack_planes(flat[0]))
     assert torch.equal(got[1], flat[1])

@@ -1,8 +1,8 @@
 """R1 (csrc/reinit.cu), the redistance kernel, against its plain version
 ``ops.reinit.reinit_reference`` on the card: bitwise in f32 and f64, on a
 single level set and a stack (each frame its own), at odd shapes and at
-the steps the drivers use; the tile body also bitwise its first body
-(``_cuda.launch_reinit(..., v1=True)``) at the 4K pyramid's five level
+the steps the drivers use; the tile body also bitwise the first body's
+recorded output (tests/card_digests.json) at the 4K pyramid's five level
 shapes, a ragged shape and a stack, on a second launch and a second
 stream, its input left as it was. The tests are ``cuda``-marked and skip
 without a GPU; on the CPU ``reinit`` runs the plain version itself
@@ -16,6 +16,7 @@ import torch
 from chan_vese_tpu_torch.ops import _cuda
 from chan_vese_tpu_torch.ops import reinit as reinit_fn
 from chan_vese_tpu_torch.ops.reinit import reinit_reference
+from torch_port_helpers import assert_digest
 
 
 def _card():
@@ -98,10 +99,9 @@ def test_tile_body_is_its_first_body_and_plain_version(shape, steps, dtype):
     before = reinit_fn.launches
     got = reinit_fn(x, steps)
     assert reinit_fn.launches == before + _passes(x, steps)
-    v1 = _cuda.launch_reinit(x, steps, 0.5, 1.0, v1=True)
     want = reinit_reference(x, steps)
     torch.cuda.synchronize()
-    assert torch.equal(got, v1)
+    assert_digest(f"R1 {shape} steps={steps} {dtype}", got)
     assert torch.equal(got, want)
     assert torch.equal(x, kept)  # the input left as it was
 
@@ -127,7 +127,8 @@ def test_tile_body_second_launch_and_stream_are_the_first(dtype):
 @pytest.mark.parametrize("depth", list(_cuda.REINIT_DEPTHS))
 def test_tile_body_is_bitwise_at_every_depth(depth):
     """Each pass depth the geometry chooses among, under a small tile (so
-    every window is cut), against the first body."""
+    every window is cut), against the first body's recorded output and
+    the plain version."""
     dev = _card()
     x = torch.from_numpy(_level_sets(1, 257, 131, seed=depth)[0]).to(
         dev, torch.float32)
@@ -135,6 +136,7 @@ def test_tile_body_is_bitwise_at_every_depth(depth):
         k = min(depth, steps)
         geo = (k, 64 - 2 * k, 64 - 2 * k, 64, 8, 8)
         got = _cuda.launch_reinit(x, steps, 0.5, 1.0, geometry=geo)
-        want = _cuda.launch_reinit(x, steps, 0.5, 1.0, v1=True)
+        want = reinit_reference(x, steps)
         torch.cuda.synchronize()
+        assert_digest(f"R1 (257, 131) steps={steps} depth={depth}", got)
         assert torch.equal(got, want), (depth, steps)

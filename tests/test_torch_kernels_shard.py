@@ -29,12 +29,12 @@ from chan_vese_tpu.ops.reductions import region_means as j_region_means
 from chan_vese_tpu.parallel import mesh as jmesh
 from chan_vese_tpu.parallel import sharded as jsharded
 from chan_vese_tpu.utils.init_phi import init_phi as j_init_phi
-from chan_vese_tpu_torch.ops import _cuda, banded_kernel, fused_kernel, \
+from chan_vese_tpu_torch.ops import banded_kernel, fused_kernel, \
     packed_kernel
 from chan_vese_tpu_torch.parallel import make_grid_mesh, segment_sharded
 from fixtures import colored_squares, two_disks
-from torch_port_helpers import assert_rel, cuda_device, params, to_np, \
-    to_torch
+from torch_port_helpers import assert_digest, assert_rel, cuda_device, \
+    params, to_np, to_torch
 
 F32 = np.float32
 CPU = torch.device("cpu")
@@ -325,39 +325,34 @@ def test_shard_modes_cuda_match_plain(case):
 @pytest.mark.parametrize("case", ["K2", "K2 k=3 remainder", "K2 3x3 centre",
                                   "K5", "K5 k=1"])
 def test_band_shard_modes_cuda_are_bitwise_the_first_body(case):
-    """K2's and K5's shard modes on csrc/band.cuh against the first body's
-    shard launchers (`_v1`) on every shard's canvas: the canvas bitwise,
-    the flips exactly, the other sums at chip_smoke.py's bars."""
+    """K2's and K5's shard modes on csrc/band.cuh on every shard's canvas:
+    the canvas and the flips bitwise the first body's recorded output, the
+    partials at the plain version's bars."""
     dev = cuda_device()
     shape, (nx, ny), D, k, lane = CASES[case]
     rgb = case.startswith("K5")
     img, phi, c1, c2 = _inputs(shape, F32, rgb)
     _, pt = params()
     c1, c2 = to_torch(c1, F32).to(dev), to_torch(c2, F32).to(dev)
-    for _, canvas, ucanvas, par, edges, crop in _canvases(
+    for pos, canvas, ucanvas, par, edges, crop in _canvases(
             img, phi, nx, ny, D, lane):
         x = to_torch(canvas, F32).to(dev)
         u = to_torch(ucanvas, F32).to(dev)
-        shard = _cuda.shard_args(*x.shape, k, par, crop, edges)
         if rgb:
             got = banded_kernel.banded_chunk_mc_sharded(x, u, c1, c2, pt, k,
                                                         par, edges, crop)
-            l1, l2 = pt.channel_lambdas(u.shape[0])
-            old = _cuda.launch_chunk_mc("cv_banded_chunk_mc_shard_v1", x, u,
-                                        c1, c2, pt, k, *x.shape, l1, l2, 16,
-                                        shard=shard)
+            want = banded_kernel.banded_chunk_mc_sharded_reference(
+                x, u, c1, c2, pt, k, par, edges, crop)
         else:
             got = banded_kernel.banded_chunk_sharded(x, u, c1, c2, pt, k,
                                                      par, edges, crop)
-            old = _cuda.launch_chunk("cv_banded_chunk_shard_v1", x, u, c1,
-                                     c2, pt, k, *x.shape, shard=shard)
+            want = banded_kernel.banded_chunk_sharded_reference(
+                x, u, c1, c2, pt, k, par, edges, crop)
         torch.cuda.synchronize()
         flip = (u.shape[0] if rgb else 1) + 2
-        assert torch.equal(got[0], old[0])
-        assert float(got[1][flip]) == float(old[1][flip])
-        np.testing.assert_allclose(to_np(got[1]), to_np(old[1]),
+        assert_digest(f"{case} shard {pos}", got[0], got[1][flip:flip + 1])
+        np.testing.assert_allclose(to_np(got[1]), to_np(want[1]),
                                    **PARTS_BAR)
-
 
 
 # K3's shard mode on the card: (image shape, mesh, D, k, lane) as CASES,
@@ -369,34 +364,30 @@ K3_CARD = {"k=2": CASES["K3"], "k=3": ((48, 256), (2, 4), 16, 3, 128),
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(K3_CARD))
 def test_packed_shard_mode_cuda_is_bitwise_the_first_body(case):
-    """K3's shard mode on csrc/band.cuh against the first body's shard
-    launcher (`_v1`) on every shard's canvas: the planes bitwise, the flips
-    exactly, the other sums at chip_smoke.py's bars; and K2's shard mode
-    on the unpacked canvas, packed, bitwise in the planes and in every
-    partial slot."""
+    """K3's shard mode on csrc/band.cuh on every shard's canvas: the planes
+    and the flips bitwise the first body's recorded output, the partials at
+    the plain version's bars; and K2's shard mode on the unpacked canvas,
+    packed, bitwise in the planes and in every partial slot."""
     dev = cuda_device()
     shape, (nx, ny), D, k, lane = K3_CARD[case]
     img, phi, c1, c2 = _inputs(shape, F32)
     _, pt = params()
     c1, c2 = to_torch(c1, F32).to(dev), to_torch(c2, F32).to(dev)
     pack = packed_kernel.pack_planes
-    for _, canvas, ucanvas, par, edges, crop in _canvases(
+    for pos, canvas, ucanvas, par, edges, crop in _canvases(
             img, phi, nx, ny, D, lane):
         x = to_torch(canvas, F32).to(dev)
         u = to_torch(ucanvas, F32).to(dev)
         assert par == 0
-        shard = _cuda.shard_args(*x.shape, k, 0, crop, edges)
         got = packed_kernel.packed_banded_chunk_sharded(
             pack(x), pack(u), c1, c2, pt, k, edges, crop)
-        old = _cuda.launch_chunk("cv_packed_banded_chunk_shard_v1", pack(x),
-                                 pack(u), c1, c2, pt, k, *x.shape,
-                                 shard=shard)
+        want = packed_kernel.packed_banded_chunk_sharded_reference(
+            pack(x), pack(u), c1, c2, pt, k, edges, crop)
         flat = banded_kernel.banded_chunk_sharded(x, u, c1, c2, pt, k, 0,
                                                   edges, crop)
         torch.cuda.synchronize()
-        assert torch.equal(got[0], old[0])
-        assert float(got[1][3]) == float(old[1][3])
-        np.testing.assert_allclose(to_np(got[1]), to_np(old[1]),
+        assert_digest(f"K3 {case} shard {pos}", got[0], got[1][3:4])
+        np.testing.assert_allclose(to_np(got[1]), to_np(want[1]),
                                    **PARTS_BAR)
         assert torch.equal(got[0], pack(flat[0]))
         assert torch.equal(got[1], flat[1])

@@ -22,7 +22,8 @@ kinds (acwe_sh, gac_pre_sh) in the port against the JAX reference.
   and flags; the argument checks.
 - ``cuda``-marked tests hold each mode against its plain version on the
   card, with a second launch bitwise equal to the first, and K9's shard
-  mode on its band body against its first body (skipped without a GPU).
+  mode on its band body against the first body's recorded output
+  (skipped without a GPU).
 """
 
 import jax.numpy as jnp
@@ -41,7 +42,8 @@ from chan_vese_tpu_torch.parallel import (exchange_halo2d,
                                           shard_grid)
 from fixtures import four_regions
 from test_torch_mp2_band_tiling import twin as band_twin
-from torch_port_helpers import cuda_device, params, to_np, to_torch
+from torch_port_helpers import assert_digest, cuda_device, params, to_np, \
+    to_torch
 
 F32 = np.float32
 MU = 0.003 * 255.0 ** 2
@@ -297,32 +299,26 @@ def test_shard_modes_cuda_match_plain():
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,k", [(4, 1), (16, 2)])
 def test_mp2_shard_band_body_cuda_matches_the_first_body(D, k):
-    """K9's shard mode on its band body against the first body's `_v1`
-    launcher on every shard of a 2x2 grid, one launch on the D = 4 canvas
-    and two chained on a 16-deep one: phi bitwise, the flips equal, the
-    other partial sums equal after their f32 rounding; a second launch
-    bitwise the first."""
+    """K9's shard mode on its band body on every shard of a 2x2 grid, one
+    launch on the D = 4 canvas and two chained on a 16-deep one: phi and
+    every partial slot bitwise the first body's recorded output; a second
+    launch bitwise the first."""
     dev = cuda_device()
     _, pt = params(mu=MU)
     u, phis, cs = (to_torch(a, F32).to(dev)
                    for a in _mp_inputs((96, 256), F32, seed=3))
     n0 = mk.mp2_iteration_sharded.launches
-    for _, x, uc, par, edges, crop in _narrow_canvases(
+    for pos, x, uc, par, edges, crop in _narrow_canvases(
             phis.cpu(), u.cpu(), 2, 2, D):
         x, uc = x.to(dev).contiguous(), uc.to(dev).contiguous()
-        shard = _cuda.shard_args(*uc.shape, 1, par, crop, edges)
-        got = old = x
+        got = x
         for _ in range(k):
             got, parts = mk.mp2_iteration_sharded(got, uc, cs, pt, par,
                                                   edges, crop)
-            old, oparts = _cuda.launch_mp2(old, uc, cs, pt, shard=shard,
-                                           v1=True)
         again = mk.mp2_iteration_sharded(x, uc, cs, pt, par, edges, crop)
         first = mk.mp2_iteration_sharded(x, uc, cs, pt, par, edges, crop)
         torch.cuda.synchronize()
-        assert torch.equal(got, old), edges
-        assert float(parts[8]) == float(oparts[8])
-        assert torch.equal(parts, oparts)
+        assert_digest(f"K9 shard D={D} k={k} {pos}", got, parts)
         assert torch.equal(again[0], first[0])
         assert torch.equal(again[1], first[1])
     assert mk.mp2_iteration_sharded.launches == n0 + 4 * (k + 2)

@@ -1,7 +1,7 @@
 """The bit-packed morphological body (``csrc/morph_bits.cuh``: K11's kinds
 acwe, gac, gac_pre, acwe_sh, gac_pre_sh and K12) checked on the CPU
 through a plain PyTorch word-level twin of it, and on the card against
-its first body.
+its first body's recorded output.
 
 The kernel cuts the image (or a shard block's crop) into the tiles of
 ``_cuda.morph_geometry``; each tile's window (the tile plus the halo each
@@ -25,8 +25,9 @@ tile would show), and is held:
 The GAC sign-plane identity (four pairs' signs carry the nine products'
 rounded sums) is checked over special float32 values; ``morph_geometry``
 at the main path's shapes and on ragged ones. The ``cuda``-marked tests
-hold each kind bitwise against its first body (the ``_v1`` launchers), its
-plain version and a launch on a second stream.
+hold each kind bitwise against its first body's recorded output
+(tests/card_digests.json), its plain version and a launch on a second
+stream.
 """
 
 import itertools
@@ -40,7 +41,7 @@ from chan_vese_tpu.ops import pallas_morph as jpm
 from chan_vese_tpu_torch.ops import _cuda
 from chan_vese_tpu_torch.ops import morph_kernel as tmk
 from chan_vese_tpu_torch.ops.morph import binary_means
-from torch_port_helpers import cuda_device, to_np
+from torch_port_helpers import assert_digest, cuda_device, to_np
 
 F32 = np.float32
 M32 = 0xFFFFFFFF
@@ -442,8 +443,8 @@ def _special_f32():
 
 def test_gac_sign_planes_carry_the_attraction():
     """For every (dgx, dgy) of special float32 values and each of the nine
-    (dux, duy) in {-1/2, +0, 1/2}^2 (the first body's values: +0 where the
-    differences cancel), the rounded a = dgx dux + dgy duy is > 0 (< 0)
+    (dux, duy) in {-1/2, +0, 1/2}^2 (the plain version's values: +0 where
+    the differences cancel), the rounded a = dgx dux + dgy duy is > 0 (< 0)
     exactly where the word update's plane for that pair says so."""
     v = _special_f32()
     dgx, dgy = (a.ravel() for a in np.meshgrid(v, v))
@@ -576,8 +577,8 @@ def test_geometry_refuses_a_halo_without_room():
 
 
 def test_launchers_have_signatures():
-    """The bit body's and the first body's launchers, as the library binds
-    them: the sources declare each symbol with as many arguments."""
+    """The bit body's launchers, as the library binds them: the sources
+    declare each symbol with as many arguments."""
     import re
     from pathlib import Path
 
@@ -588,13 +589,12 @@ def test_launchers_have_signatures():
                            re.S))
     for name in ("cv_morph_chunk", "cv_morph_chunk_shard",
                  "cv_morph_fused_chunk", "cv_morph_bits_occupancy",
-                 "cv_morph_fused_bits_occupancy", "cv_morph_chunk_v1",
-                 "cv_morph_chunk_shard_v1", "cv_morph_fused_chunk_v1"):
+                 "cv_morph_fused_bits_occupancy"):
         assert len(decl[name].split(",")) == len(_build.SIGNATURES[name]), \
             name
 
 
-# on the card: the bit body against its first body ---------------------------
+# on the card: the bit body against its first body's output -----------------
 
 def _card(x):
     return x.to(cuda_device()).contiguous()
@@ -602,47 +602,42 @@ def _card(x):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2160, 3840), (1080, 1920), (1000, 1500)])
-def test_bits_cuda_is_bitwise_v1_and_plain(shape):
+def test_bits_cuda_is_bitwise_first_body_and_plain(shape):
     img, ls, f, g, c_in, c_out = (_card(t) if isinstance(t, torch.Tensor)
                                   else t for t in _inputs(shape, 4))
     for k, s, p0 in ((8, 1, 0), (3, 2, 1)):
         halo = tmk._reach("acwe", s) * k
         new = _cuda.launch_morph("acwe", ls, f, k, s, p0, 0, 0.0, halo)
-        old = _cuda.launch_morph("acwe", ls, f, k, s, p0, 0, 0.0, halo,
-                                 v1=True)
         want = tmk.morph_chunk_reference(ls, f, k, s, p0)
         torch.cuda.synchronize()
-        assert torch.equal(new, old) and torch.equal(new, want)
+        assert_digest(f"K11 acwe {shape} k={k} s={s} p0={p0}", new)
+        assert torch.equal(new, want)
     for pre_dg, b in itertools.product((False, True), (-1, 0, 1)):
         kind = "gac_pre" if pre_dg else "gac"
         thr = tmk._thr_b(b, 0.3)
         aux = tmk.gac_aux_stack(g, b, 0.3) if pre_dg else g
         halo = tmk._reach(kind, 1) * 4
         new = _cuda.launch_morph(kind, ls, aux, 4, 1, 1, b, thr, halo)
-        old = _cuda.launch_morph(kind, ls, aux, 4, 1, 1, b, thr, halo,
-                                 v1=True)
         want = tmk.gac_chunk_reference(ls, g, 4, 1, 1, b, 0.3, pre_dg)
         torch.cuda.synchronize()
-        assert torch.equal(new, old) and torch.equal(new, want), (kind, b)
+        assert_digest(f"K11 {kind} {shape} balloon={b}", new)
+        assert torch.equal(new, want), (kind, b)
     cc = torch.tensor([c_in, c_out, 1.0, 1.25], dtype=torch.float32,
                       device=ls.device)
     halo = tmk._reach("acwe_fused", 1) * 8
     new, parts = _cuda.launch_morph_fused(ls, img, cc, 8, 1, 0, halo)
-    old, oparts = _cuda.launch_morph_fused(ls, img, cc, 8, 1, 0, halo,
-                                           v1=True)
     want, wparts = tmk.morph_chunk_fused_reference(ls, img, c_in, c_out, 1.0,
                                                    1.25, 8, 1, 0)
     torch.cuda.synchronize()
-    assert torch.equal(new, old) and torch.equal(new, want)
-    assert float(parts[0]) == float(oparts[0]) == float(wparts[0])
-    for ref in (oparts, wparts):
-        np.testing.assert_allclose(float(parts[1]), float(ref[1]),
-                                   rtol=1e-6)
+    assert_digest(f"K12 {shape}", new, parts[0:1])
+    assert torch.equal(new, want)
+    assert float(parts[0]) == float(wparts[0])
+    np.testing.assert_allclose(float(parts[1]), float(wparts[1]), rtol=1e-6)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("grid", [(2, 2), (3, 3)])
-def test_bits_cuda_shard_kinds_are_bitwise_v1_and_plain(grid):
+def test_bits_cuda_shard_kinds_are_bitwise_first_body_and_plain(grid):
     _, ls, f, g, _, _ = _inputs((2160, 3840), 6)
     for gac in (False, True):
         kind = "gac_pre_sh" if gac else "acwe_sh"
@@ -658,7 +653,6 @@ def test_bits_cuda_shard_kinds_are_bitwise_v1_and_plain(grid):
             shard = (*pads, *(int(e) for e in edges))
             args = (kind, lsb, auxb, 8, 1, 0, 1 if gac else 0, 0.0, d)
             new = _cuda.launch_morph(*args, shard=shard)
-            old = _cuda.launch_morph(*args, shard=shard, v1=True)
             if gac:
                 want = tmk.gac_chunk_shard_reference(
                     lsb, auxb, list(edges), pads, 8, 1, 0, 1, 0.3)
@@ -667,7 +661,8 @@ def test_bits_cuda_shard_kinds_are_bitwise_v1_and_plain(grid):
                                                        list(edges), pads, 8,
                                                        1, 0)
             torch.cuda.synchronize()
-            assert torch.equal(new, old) and torch.equal(new, want), edges
+            assert_digest(f"K11 {kind} {grid} shard {i}", new)
+            assert torch.equal(new, want), edges
             ix, iy = divmod(i, grid[1])
             assert torch.equal(new[d:d + bh, d:d + bw],
                                whole[ix * bh:(ix + 1) * bh,

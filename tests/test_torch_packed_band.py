@@ -166,9 +166,7 @@ def test_every_packed_launcher_has_a_signature():
             found[name] = args
     assert {"cv_packed_banded_chunk", "cv_packed_banded_chunk_shard",
             "cv_packed_banded_chunk_mc", "cv_packed_band_occupancy",
-            "cv_packed_band_occupancy_mc", "cv_packed_banded_chunk_v1",
-            "cv_packed_banded_chunk_shard_v1",
-            "cv_packed_banded_chunk_mc_v1"} <= set(found)
+            "cv_packed_band_occupancy_mc"} <= set(found)
     for name, args in found.items():
         assert name in _build.SIGNATURES, name
         if not re.fullmatch(r"\s*[A-Z0-9_]+\s*", args):  # not an args macro

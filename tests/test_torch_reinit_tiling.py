@@ -214,6 +214,6 @@ def test_reinit_launchers_have_their_signatures():
     src = (Path(_build._SRC) / "reinit.cu").read_text()
     decl = dict(re.findall(r'extern "C" cudaError_t (\w+)\(([^)]*)\)', src,
                            re.S))
-    assert set(decl) == {"cv_reinit", "cv_reinit_v1", "cv_reinit_occupancy"}
+    assert set(decl) == {"cv_reinit", "cv_reinit_occupancy"}
     for name, args in decl.items():
         assert len(args.split(",")) == len(_build.SIGNATURES[name]), name

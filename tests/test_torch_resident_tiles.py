@@ -2,7 +2,7 @@
 K7, K8 in every mode, and K13, its frozen-means mode; ``csrc/mp2.cuh``
 ``mp2_tile_kernel``: K9's resident mode, K10) checked on the CPU through a
 plain PyTorch twin of their schedule, and on the card against their first
-bodies (the ``_v1`` launchers) and plain versions.
+bodies' recorded outputs and their plain versions.
 
 The kernel cuts the image into the tiles of
 ``_cuda.resident_tile_geometry``, one block each. A block keeps its tile,
@@ -35,8 +35,9 @@ one tile, the shared-memory budget at one block an SM, u0 out of shared
 memory exactly where the budget demands it; ``_cuda.frame_groups`` keeps a
 single image on one group and fits a stack's groups to the card. The
 ``cuda``-marked tests hold
-each body against its first body, its plain version, a second launch and a
-launch on a second stream.
+each body against its first body's recorded output
+(tests/card_digests.json), its plain version, a second launch and a launch
+on a second stream.
 """
 
 import itertools
@@ -57,7 +58,7 @@ from chan_vese_tpu_torch.ops.reductions import (data_term, means_from_sums,
                                                 phase_means, region_means)
 from chan_vese_tpu_torch.ops.sweep import _update_all
 from chan_vese_tpu_torch.utils.init_phi import init_phi
-from torch_port_helpers import cuda_device
+from torch_port_helpers import assert_digest, cuda_device
 
 SMS = _cuda.SMS
 
@@ -781,48 +782,26 @@ def test_launchers_signatures():
     from chan_vese_tpu_torch import _build
     for s in _build.RESIDENT_SYMBOLS:
         assert len(_build.SIGNATURES[s]) == 34
-        assert len(_build.SIGNATURES[f"{s}_v1"]) == 27
         assert len(_build.SIGNATURES[f"{s}_grid"]) == 3
-        assert len(_build.SIGNATURES[f"{s}_v1_grid"]) == 2
     for s in _build.MP2_RESIDENT_SYMBOLS:
         assert len(_build.SIGNATURES[s]) == 25
-        assert len(_build.SIGNATURES[f"{s}_v1"]) == 20
+        assert len(_build.SIGNATURES[f"{s}_grid"]) == 3
 
 
 def test_chunk_launchers_signatures():
     """K13's launchers on the tile body (8 pointers, 9 ints, 9 params, the
-    stream; `_grid` the tile bodies' query) and its first body's."""
+    stream; `_grid` the tile bodies' query)."""
     from chan_vese_tpu_torch import _build
     for s in _build.CHUNK_SYMBOLS:
         assert len(_build.SIGNATURES[s]) == 27
         assert _build.SIGNATURES[f"{s}_grid"] == _build.SIGNATURES[
             "cv_resident_iterations_grid"]
-        assert len(_build.SIGNATURES[f"{s}_v1"]) == 21
-        assert len(_build.SIGNATURES[f"{s}_v1_grid"]) == 2
 
 
-# on the card: the tile bodies against their first bodies --------------------
+# on the card: the tile bodies against their first bodies' outputs ----------
 
 def _card(x):
     return x.to(cuda_device()).contiguous()
-
-
-def _v1(fn):
-    """fn with the resident launches on the first body."""
-    def run(*a, **k):
-        saved = (_cuda.launch_resident, _cuda.launch_mp2_resident,
-                 _cuda.launch_resident_chunk)
-        _cuda.launch_resident = lambda *x, **y: saved[0](*x, v1=True, **y)
-        _cuda.launch_mp2_resident = lambda *x, **y: saved[1](*x, v1=True,
-                                                             **y)
-        _cuda.launch_resident_chunk = lambda *x, **y: saved[2](*x, v1=True,
-                                                               **y)
-        try:
-            return fn(*a, **k)
-        finally:
-            (_cuda.launch_resident, _cuda.launch_mp2_resident,
-             _cuda.launch_resident_chunk) = saved
-    return run
 
 
 MODES = {
@@ -848,61 +827,57 @@ def _mode_args(name, h, w, start):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(MODES))
 @pytest.mark.parametrize("shape", [(256, 256), (512, 512), (1024, 1024)])
-def test_tiles_cuda_two_phase_match_v1_and_plain(name, shape):
+def test_tiles_cuda_two_phase_match_first_body_and_plain(name, shape):
+    """phi and the flips bitwise their recorded output (the first body's
+    wherever the f32 means agreed: the f64 sums behind them are added in
+    another order); the plain version at its bars; a second launch
+    bitwise."""
     fn, _ = MODES[name]
     args = _mode_args(name, *shape, "checkerboard")
     new, parts = fn(*args, P, 1)
     again, parts2 = fn(*args, P, 1)
-    old, oparts = _v1(fn)(*args, P, 1)
     want, wparts = fn(*(a.cpu() for a in args), P, 1)
     torch.cuda.synchronize()
     assert torch.equal(new, again) and torch.equal(parts, parts2)
-    # bitwise the first body wherever the f32 means agree; the f64 sums
-    # behind them are added in another order
-    if not torch.equal(new, old):
-        torch.testing.assert_close(new, old, rtol=1e-4, atol=1e-4)
+    flips = 3 if "mc" not in name else 3 + 2  # [s_uH x C, s_H, d2, flips]
+    assert_digest(f"{name} tiles {shape}", new, parts[:, flips])
     torch.testing.assert_close(new.cpu(), want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(parts.cpu(), wparts, rtol=1e-4, atol=16.0)
-    flips = 3 if "mc" not in name else 3 + 2  # [s_uH x C, s_H, d2, flips]
-    assert torch.equal(parts[:, flips], oparts[:, flips]) or not \
-        torch.equal(new, old)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,shape", [
     ("K9", (512, 512)), ("K9", (1024, 1024)), ("K9", (512, 384)),
     ("K10", (256, 256)), ("K10", (512, 512))])
-def test_tiles_cuda_mp2_match_v1_and_plain(name, shape):
+def test_tiles_cuda_mp2_match_first_body_and_plain(name, shape):
+    """One iteration and 25 (rows every 5) bitwise their recorded outputs;
+    one iteration within the bars of the plain version; a second launch
+    bitwise."""
     fn = mk.mp2_resident_iterations if name == "K9" else \
         pk.packed_mp2_resident_iterations
     u = _card(_image(*shape))
     phis = _card(mpm.init_multiphase(shape, 2))
     new, parts = fn(phis, u, P, 1)
-    old, oparts = _v1(fn)(phis, u, P, 1)
     want, _ = fn(phis.cpu(), u.cpu(), P, 1)
     again, _ = fn(phis, u, P, 1)
     torch.cuda.synchronize()
     assert torch.equal(new, again)
-    if not torch.equal(new, old):
-        torch.testing.assert_close(new, old, rtol=3e-4, atol=2e-3)
+    assert_digest(f"{name} tiles {shape}", new, parts[:, 0])
     torch.testing.assert_close(new.cpu(), want, rtol=3e-4, atol=2e-3)
-    n25, _ = fn(phis, u, P, 25, unroll=5)
-    o25, _ = _v1(fn)(phis, u, P, 25, unroll=5)
+    n25, p25 = fn(phis, u, P, 25, unroll=5)
     torch.cuda.synchronize()
-    frac = float((mpm.labels_from_phis(n25) != mpm.labels_from_phis(o25))
-                 .double().mean())
-    assert frac <= 1e-3
+    assert_digest(f"{name} tiles {shape} 25", n25, p25[:, 0])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("shape", [(512, 512), (1024, 1024), (720, 1280)])
-def test_tiles_cuda_frozen_chunk_matches_v1_and_plain(shape, packed):
-    """K13 on the tile body: phi bitwise its first body at k = 1, 3, 8 (the
-    means are frozen) and the flips equal, the partials within phase 3's
-    bars of it and of the plain version (f64 sums in tile order), a second
-    launch and a launch on a second stream bitwise; one iteration's phi
-    within phase 3's bars of the plain version. Deeper chunks are held to
+def test_tiles_cuda_frozen_chunk_matches_first_body_and_plain(shape, packed):
+    """K13 on the tile body: phi and the flips bitwise its first body's
+    recorded output at k = 1, 3, 8 (the means are frozen), the partials
+    within phase 3's bars of the plain version (f64 sums in tile order), a
+    second launch and a launch on a second stream bitwise; one iteration's
+    phi within phase 3's bars of the plain version. Deeper chunks are held to
     the plain version on the smoke's images (phase 15) and by
     test_torch_layout.py: from this noisier image the f32 trajectory of
     either body leaves those bars at up to 2.4e-4 of the cells by k = 8
@@ -914,26 +889,23 @@ def test_tiles_cuda_frozen_chunk_matches_v1_and_plain(shape, packed):
     for k in (1, 3, 8):
         new = pk.packed_chunk(phi, u, c1, c2, P, k, packed=packed)
         again = pk.packed_chunk(phi, u, c1, c2, P, k, packed=packed)
-        old = _v1(pk.packed_chunk)(phi, u, c1, c2, P, k, packed=packed)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             second = pk.packed_chunk(phi, u, c1, c2, P, k, packed=packed)
         want = pk.packed_chunk_reference(phi, u, c1, c2, P, k)
         torch.cuda.synchronize()
-        assert torch.equal(new[0], old[0])
+        layout = "packed" if packed else "flat"
+        assert_digest(f"K13 {layout} {shape} k={k}", new[0], new[1][3:4])
         assert torch.equal(new[0], again[0]) and torch.equal(new[1],
                                                              again[1])
         assert torch.equal(new[0], second[0]) and torch.equal(new[1],
                                                               second[1])
-        assert torch.equal(new[1][3], old[1][3])  # the flips
-        torch.testing.assert_close(new[1], old[1], rtol=1e-4, atol=16.0)
         torch.testing.assert_close(new[1], want[1], rtol=1e-4, atol=16.0)
         if k == 1:
             torch.testing.assert_close(new[0], want[0], rtol=1e-4,
                                        atol=1e-4)
-    layout = "packed" if packed else "flat"
-    assert pk.packed_chunk.launches[layout] == n0[layout] + 3 * 4
+    assert pk.packed_chunk.launches[layout] == n0[layout] + 3 * 3
 
 
 @pytest.mark.cuda

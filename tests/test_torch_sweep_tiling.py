@@ -1,7 +1,8 @@
 """The single-sweep body (``csrc/sweep.cuh``: K1 on a whole image, a stack
 of frames, a shard canvas and in its force mode with and without a
 lattice parity; K4 with C channels) checked on the CPU through a plain
-windowed twin of its tiling, and on the card against its first body.
+windowed twin of its tiling, and on the card against its first body's
+recorded output.
 
 The kernel cuts the image (or a shard canvas's crop) into the tiles of
 ``_cuda.sweep_geometry`` and sweeps each tile's window, the tile plus 2
@@ -24,9 +25,10 @@ sweep, the depth-2 rim refreshed on a shard canvas) and is held:
 ``sweep_geometry`` is checked at the main path's shapes (the blocks an SM
 and the waves the design claims, windows that fit) and on ragged ones
 (every window inside its block). The ``cuda``-marked tests hold each mode
-of the kernel bitwise against its first body (the ``_v1`` launchers),
-against its plain version and against a launch on a second stream, and
-check that a launch whose block count is not its grid's is refused.
+of the kernel bitwise against its first body's recorded output
+(tests/card_digests.json), against its plain version and against a launch
+on a second stream, and check that a launch whose block count is not its
+grid's is refused.
 """
 
 import ctypes
@@ -47,8 +49,8 @@ from chan_vese_tpu_torch.ops.fused_kernel_mc import data_term_mc
 from chan_vese_tpu_torch.ops.numerics import heaviside
 from chan_vese_tpu_torch.ops.reductions import data_term
 from test_torch_band_tiling import _canvases, _window, sweep_window
-from torch_port_helpers import assert_rel, cuda_device, params, to_np, \
-    to_torch
+from torch_port_helpers import assert_digest, assert_rel, cuda_device, \
+    params, to_np, to_torch
 
 DTYPES = {"f32": np.float32, "f64": np.float64}
 LAM = dict(lambda1=(1.0, 1.2, 0.8), lambda2=(0.9, 1.0, 1.1))
@@ -404,16 +406,13 @@ def test_every_sweep_launcher_has_a_signature():
             "cv_fused_iteration_shard", "cv_fused_sweep",
             "cv_fused_sweep_shard", "cv_fused_iteration_mc",
             "cv_sweep_occupancy", "cv_sweep_occupancy_force",
-            "cv_sweep_occupancy_mc", "cv_fused_iteration_v1",
-            "cv_fused_iteration_batch_v1", "cv_fused_iteration_shard_v1",
-            "cv_fused_sweep_v1", "cv_fused_sweep_shard_v1",
-            "cv_fused_iteration_mc_v1"} <= set(found)
+            "cv_sweep_occupancy_mc"} <= set(found)
     for name, args in found.items():
         assert name in _build.SIGNATURES, name
         assert len(args.split(",")) == len(_build.SIGNATURES[name]), name
 
 
-# on the card: the single-sweep body against its first body -----------------
+# on the card: the single-sweep body against its first body's output --------
 
 def _card(dev, shape, seed, rgb=False):
     rng = np.random.default_rng(seed)
@@ -429,14 +428,11 @@ def _card(dev, shape, seed, rgb=False):
     return phi.to(dev), u.to(dev), c1.to(dev), c2.to(dev)
 
 
-def _same(got, old, again, flip):
-    """phi bitwise the first body's, the flips exactly, the other partials
-    within 1e-6 relative (summed in f64 in another order); a second launch
-    bitwise the first."""
+def _same(key, got, again, flip):
+    """phi and the flips (slot ``flip``) bitwise the first body's output
+    recorded under ``key``; a second launch bitwise the first."""
     torch.cuda.synchronize()
-    assert torch.equal(got[0], old[0])
-    assert float(got[1][flip]) == float(old[1][flip])
-    torch.testing.assert_close(got[1], old[1], rtol=1e-6, atol=0)
+    assert_digest(key, got[0], got[1][flip:flip + 1])
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
 
 
@@ -446,27 +442,17 @@ def test_whole_image_and_force_modes_are_bitwise_the_first_body(shape):
     dev = cuda_device()
     phi, u0, c1, c2 = _card(dev, shape, 1)
     _, p = params()
-    h, w = shape
     fk = fused_kernel
     n = fk.fused_iteration.launches
     got = fk.fused_iteration(phi, u0, c1, c2, p)
     again = fk.fused_iteration(phi, u0, c1, c2, p)
     assert fk.fused_iteration.launches == n + 2
-    old = _cuda.launch_chunk("cv_fused_iteration_v1", phi, u0, c1, c2, p,
-                             None, h, w)
-    _same(got, old, again, 3)
+    _same(f"K1 {shape}", got, again, 3)
     f = (u0 - 128.0) * 0.01
     for parity in (None, 1):
         got = fk.fused_sweep(phi, f, p, parity)
         again = fk.fused_sweep(phi, f, p, parity)
-        if parity is None:
-            old = _cuda.launch_chunk("cv_fused_sweep_v1", phi, f, 0.0, 0.0,
-                                     p, None, h, w)
-        else:
-            old = _cuda.launch_chunk(
-                "cv_fused_sweep_shard_v1", phi, f, 0.0, 0.0, p, None, h, w,
-                shard=_cuda.shard_args(h, w, 1, parity, None, None))
-        _same(got, old, again, 3)
+        _same(f"K1 force {shape} parity={parity}", got, again, 3)
         torch.testing.assert_close(
             got[0], fk.fused_sweep_reference(phi, f, p, parity)[0],
             rtol=1e-5, atol=1e-4)
@@ -486,11 +472,9 @@ def test_batch_frames_are_bitwise_their_single_launches_and_the_first_body():
     _, p = params()
     got = fused_kernel.fused_iteration_batch(phis, u0s, c1s, c2s, p)
     again = fused_kernel.fused_iteration_batch(phis, u0s, c1s, c2s, p)
-    old = _cuda.launch_chunk_batch("cv_fused_iteration_batch_v1", phis, u0s,
-                                   c1s, c2s, p, 256, 384)
     torch.cuda.synchronize()
     for i in range(3):
-        _same((got[0][i], got[1][i]), (old[0][i], old[1][i]),
+        _same(f"K1 batch frame {i}", (got[0][i], got[1][i]),
               (again[0][i], again[1][i]), 3)
         one = fused_kernel.fused_iteration(phis[i], u0s[i], c1s[i], c2s[i],
                                            p)
@@ -502,7 +486,8 @@ def test_batch_frames_are_bitwise_their_single_launches_and_the_first_body():
 @pytest.mark.cuda
 def test_shard_canvases_are_bitwise_the_first_body_and_the_whole_image():
     """Every shard canvas of 2x2 and 3x3 grids (D = 4): phi bitwise the
-    first body's, each crop bitwise the whole-image launch's window."""
+    first body's recorded output, each crop bitwise the whole-image
+    launch's window."""
     dev = cuda_device()
     phi, u0, c1, c2 = _card(dev, (258, 384), 3)
     _, p = params()
@@ -516,9 +501,7 @@ def test_shard_canvases_are_bitwise_the_first_body_and_the_whole_image():
             args = (x, ux, c1, c2, p, par, (r0, r1, c0, c1_), edges)
             got = fused_kernel.fused_iteration(*args)
             again = fused_kernel.fused_iteration(*args)
-            old = _cuda.launch_chunk("cv_fused_iteration_shard_v1", x, ux,
-                                     c1, c2, p, None, *x.shape, shard=shard)
-            _same(got, old, again, 3)
+            _same(f"K1 shard {nx}x{ny} {i}", got, again, 3)
             ix, iy = divmod(i, ny)
             assert torch.equal(got[0][r0:r1, c0:c1_],
                                whole[ix * h:(ix + 1) * h,
@@ -533,10 +516,7 @@ def test_mc_is_bitwise_the_first_body():
         _, p = params()
         got = fused_kernel_mc.fused_iteration_mc(phi, u, c1, c2, p, **LAM)
         again = fused_kernel_mc.fused_iteration_mc(phi, u, c1, c2, p, **LAM)
-        l1, l2 = p.channel_lambdas(3, LAM["lambda1"], LAM["lambda2"])
-        old = _cuda.launch_chunk_mc("cv_fused_iteration_mc_v1", phi, u, c1,
-                                    c2, p, None, *shape, l1, l2, 7)
-        _same(got, old, again, 5)
+        _same(f"K4 {shape}", got, again, 5)
         ref = fused_kernel_mc.fused_iteration_mc_reference(phi, u, c1, c2, p,
                                                            **LAM)
         torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-4)

@@ -1,9 +1,15 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
-reference: conversions through numpy and the comparison bars.
+reference: conversions through numpy, the comparison bars, and the digests
+that pin the card bodies' outputs (:func:`assert_digest`).
 
 Importing this module pins torch to one thread, since the suite runs
 several pytest workers on a few CPUs.
 """
+
+import functools
+import hashlib
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -47,3 +53,34 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
     return torch.device("cuda", 0)
+
+
+# sha256 digests of the card bodies' outputs on the cuda-marked cases that
+# hold a body bitwise, recorded on an NVIDIA H100 from the bodies that the
+# present ones replaced (CHANGES.md names the commit and the run)
+DIGESTS_FILE = Path(__file__).with_name("card_digests.json")
+
+
+@functools.lru_cache(maxsize=1)
+def _digests():
+    return json.loads(DIGESTS_FILE.read_text())
+
+
+def digest(*tensors) -> str:
+    """sha256 of the tensors' dtypes, shapes and bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().cpu().contiguous()
+        h.update(f"{t.dtype} {tuple(t.shape)};".encode())
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def assert_digest(key: str, *tensors):
+    """The tensors (a level set and its flips slot, say) are bitwise the
+    output recorded under ``key`` in card_digests.json; a key with no
+    recorded digest fails."""
+    want = _digests().get(key)
+    if want is None:
+        pytest.fail(f"no digest recorded for {key!r} in {DIGESTS_FILE.name}")
+    assert digest(*tensors) == want, f"{key}: not the recorded output"
