@@ -26,7 +26,7 @@
 // two 4-byte loads, each consecutive across a warp's q.
 //
 // Bound on the card: the update's arithmetic (4 rsqrt and a divide on the
-// MUFU pipe, ~55 FP32 operations) over every window cell, not DRAM (12
+// MUFU pipe, ~55 FP32 operations) over the swept window cells, not DRAM (12
 // B/pixel per k iterations for a gray image). What the design does about
 // it:
 // - A symmetric 2k halo. The wrong values that the clamped reads at a
@@ -37,15 +37,30 @@
 //   rim refreshed from the crop's edge cells stops them at a flagged side.
 //   tests/test_torch_band_tiling.py holds a plain windowed twin of this
 //   tiling bitwise equal to the whole-image plain run.
+// - The live cone (whole image). The same reach read backwards: after
+//   half-sweep s (1 .. 2k) a cell more than m = 2k - s from the tile can
+//   no longer reach it, so half-sweep s updates only the live rectangle,
+//   the tile plus m each way cut at the window (band_live; its row start
+//   rounded down to an even row, its columns to whole pairs: a cell
+//   computed just outside the cone is read only by cells outside it). The
+//   rectangle is mapped onto the first threads each half-sweep, so the
+//   threads beyond it make whole idle warps (1.32x fewer busy warp
+//   half-sweeps at 4K k = 8, tests/test_torch_band_tiling.py's count).
+//   Every cell of the cone is computed from the same neighbours as in a
+//   sweep of the whole window, so the owned cells and the partials are
+//   bitwise the same. A shard canvas sweeps the whole window: its rim
+//   refresh writes cells the cone would leave out.
 // - No half buffer. Thread t owns column pair q = t % PX (window columns
 //   2q, 2q + 1) over a strip of kBandRows rows starting at row
-//   (t / PX) kBandRows; in every row exactly one of its two cells has the
+//   (t / PX) kBandRows (in a cone half-sweep, of the live rectangle with
+//   its own PX); in every row exactly one of its two cells has the
 //   active colour. A half-sweep computes the strip's new values into
 //   registers, waits at a barrier until every thread has read the old
 //   window, writes them back and waits again. The strip start is even, so
 //   the colour pattern down the strip is the same in every thread of a
 //   block: one branch a half-sweep picks the unrolled body for it, and the
-//   sweep loops hold no division and no modulo.
+//   strip loops hold no division and no modulo (the live cone's thread map
+//   takes one of each a thread and half-sweep, before the strip).
 // - Fewer shared loads. Walking down its strip, a thread keeps three rows
 //   of its four columns (2q - 1 .. 2q + 2, clamped at the window) in
 //   registers and loads one new row a step (an 8-byte pair and two
@@ -111,17 +126,19 @@ struct BandWin {
 // BandCell; K9's band body in mp2_band.cu has its own). ODD0 is the active
 // cell's column offset (0: 2q, 1: 2q + 1) in the strip's first row; it
 // alternates down the strip.
+// Rows from r1 on are left alone (the live cone's end, or the window's
+// height B.wh); the reads stay clamped at the window.
 template <int ODD0, int ROWS, class Cell>
 __device__ __forceinline__ void band_rows(const float* cur, const BandWin& B,
                                           int r0s, int q, const Cell& cell,
-                                          float (&nv)[ROWS]) {
+                                          float (&nv)[ROWS], int r1) {
   Quad n = load_quad(cur, max(r0s - 1, 0), q, B.ww);
   Quad x = load_quad(cur, r0s, q, B.ww);
   Quad s = load_quad(cur, min(r0s + 1, B.wh - 1), q, B.ww);
 #pragma unroll
   for (int j = 0; j < ROWS; ++j) {
     const int r = r0s + j;
-    if (r < B.wh) {
+    if (r < r1) {
       const bool odd = ((ODD0 + j) & 1) != 0;  // folded once unrolled
       const float g9[9] = {odd ? n.a : n.l, odd ? n.b : n.a, odd ? n.r : n.b,
                            odd ? x.a : x.l, odd ? x.b : x.a, odd ? x.r : x.b,
@@ -152,15 +169,15 @@ struct BandCell {
   }
 };
 
-// Writes a strip's new values back (ODD0 as band_rows).
+// Writes a strip's new values back (ODD0 and r1 as band_rows).
 template <int ODD0, int ROWS>
 __device__ __forceinline__ void band_store(float* cur, const BandWin& B,
                                            int r0s, int q,
-                                           const float (&nv)[ROWS]) {
+                                           const float (&nv)[ROWS], int r1) {
 #pragma unroll
   for (int j = 0; j < ROWS; ++j) {
     const int r = r0s + j;
-    if (r < B.wh) cur[r * B.ww + 2 * q + ((ODD0 + j) & 1)] = nv[j];
+    if (r < r1) cur[r * B.ww + 2 * q + ((ODD0 + j) & 1)] = nv[j];
   }
 }
 
@@ -209,34 +226,69 @@ __device__ __forceinline__ bool band_needs_rim(const BandWin& B,
 }
 
 // One half-sweep of colour `color` over strips of ROWS rows, each cell
-// updated by cell (as band_rows): compute into registers, barrier, write
-// back, barrier, and on a shard canvas the rim refresh where the window
-// needs it.
+// updated by cell (as band_rows, rows from r1 on left alone): compute into
+// registers, barrier, write back, barrier, and on a shard canvas the rim
+// refresh where the window needs it.
 template <bool SHARD, int ROWS, class Cell>
 __device__ __forceinline__ void band_half_sweep(float* cur, const BandWin& B,
                                                 const Shard& S, int color,
                                                 bool busy, bool rim, int r0s,
-                                                int q, const Cell& cell) {
+                                                int q, const Cell& cell,
+                                                int r1) {
   float nv[ROWS];
   // r0s is even, so the strip's first row has the block's colour offset
   const bool odd0 = ((B.wr0 + color + B.par) & 1) != 0;
   if (busy) {
     if (odd0)
-      band_rows<1>(cur, B, r0s, q, cell, nv);
+      band_rows<1>(cur, B, r0s, q, cell, nv, r1);
     else
-      band_rows<0>(cur, B, r0s, q, cell, nv);
+      band_rows<0>(cur, B, r0s, q, cell, nv, r1);
   }
   __syncthreads();
   if (busy) {
     if (odd0)
-      band_store<1>(cur, B, r0s, q, nv);
+      band_store<1>(cur, B, r0s, q, nv, r1);
     else
-      band_store<0>(cur, B, r0s, q, nv);
+      band_store<0>(cur, B, r0s, q, nv, r1);
   }
   __syncthreads();
   if constexpr (SHARD) {
     if (rim) band_rim(cur, B, S);
   }
+}
+
+// The live rectangle of a half-sweep that leaves m more half-sweeps to
+// the chunk, in window rows [r0, r1) and pairs [q0, q1): the tile plus m
+// each way, cut at the window, the row start rounded down to an even row.
+struct BandLive {
+  int r0, r1, q0, q1;
+};
+
+__device__ __forceinline__ BandLive band_live(const BandWin& B, int m) {
+  BandLive L;
+  L.r0 = max(B.tr0 - B.wr0 - m, 0) & ~1;
+  L.r1 = min(B.tr1 - B.wr0 + m, B.wh);
+  L.q0 = max(B.tc0 - B.wc0 - m, 0) >> 1;
+  L.q1 = min((B.tc1 - B.wc0 + m + 1) >> 1, B.hw);
+  return L;
+}
+
+// band_kernel's half-sweep on a whole image over the live rectangle L:
+// thread t takes pair L.q0 + t % px and the strip of ROWS rows from L.r0 +
+// (t / px) ROWS (px = L.q1 - L.q0; L.r0 is even), so the threads past the
+// rectangle's make whole idle warps. fc: the colour's force plane.
+template <int ROWS>
+__device__ __forceinline__ void band_cone_half_sweep(float* cur, float* fc,
+                                                     const BandWin& B,
+                                                     int color,
+                                                     const BandLive& L,
+                                                     bool last,
+                                                     const Params& P) {
+  const int px = L.q1 - L.q0;
+  const int q = L.q0 + (int)threadIdx.x % px;
+  const int r0s = L.r0 + ((int)threadIdx.x / px) * ROWS;
+  band_half_sweep<false, ROWS>(cur, B, Shard{}, color, r0s < L.r1, false,
+                               r0s, q, BandCell{fc, B.hw, q, last, P}, L.r1);
 }
 
 // Every slot of acc reduced over the block at once: warp shuffles, one
@@ -336,14 +388,28 @@ band_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
   }
   __syncthreads();
 
-  const bool rim = SHARD && band_needs_rim(B, S);
-  for (int it = 0; it < k; ++it) {
-    const bool last = it == k - 1;
-    band_half_sweep<SHARD, kBandRows>(cur, B, S, 0, busy, rim, r0s, q,
-                                      BandCell{fpl, B.hw, q, last, P});
-    band_half_sweep<SHARD, kBandRows>(
-        cur, B, S, 1, busy, rim, r0s, q,
-        BandCell{fpl + B.wh * B.hw, B.hw, q, last, P});
+  if constexpr (SHARD) {
+    const bool rim = band_needs_rim(B, S);
+    for (int it = 0; it < k; ++it) {
+      const bool last = it == k - 1;
+      band_half_sweep<SHARD, kBandRows>(cur, B, S, 0, busy, rim, r0s, q,
+                                        BandCell{fpl, B.hw, q, last, P},
+                                        B.wh);
+      band_half_sweep<SHARD, kBandRows>(
+          cur, B, S, 1, busy, rim, r0s, q,
+          BandCell{fpl + B.wh * B.hw, B.hw, q, last, P}, B.wh);
+    }
+  } else {
+    // the live cone: the red half-sweep of iteration it leaves m = 2(k -
+    // it) - 1 half-sweeps after it, the black one m - 1
+    for (int it = 0; it < k; ++it) {
+      const bool last = it == k - 1;
+      const int m = 2 * (k - it) - 1;
+      band_cone_half_sweep<kBandRows>(cur, fpl, B, 0, band_live(B, m), last,
+                                      P);
+      band_cone_half_sweep<kBandRows>(cur, fpl + B.wh * B.hw, B, 1,
+                                      band_live(B, m - 1), last, P);
+    }
   }
 
   // the owned cells: stored, and their partials (the old value of a cell

@@ -208,16 +208,16 @@ __device__ __forceinline__ void coupled_half_sweep(
                                P};
     };
     if (odd0)
-      band_rows<1>(cur, B, r0s, q, cell(), nv);
+      band_rows<1>(cur, B, r0s, q, cell(), nv, B.wh);
     else
-      band_rows<0>(cur, B, r0s, q, cell(), nv);
+      band_rows<0>(cur, B, r0s, q, cell(), nv, B.wh);
   }
   __syncthreads();
   if (busy) {
     if (odd0)
-      band_store<1>(cur, B, r0s, q, nv);
+      band_store<1>(cur, B, r0s, q, nv, B.wh);
     else
-      band_store<0>(cur, B, r0s, q, nv);
+      band_store<0>(cur, B, r0s, q, nv, B.wh);
   }
   __syncthreads();
   if constexpr (SHARD) {

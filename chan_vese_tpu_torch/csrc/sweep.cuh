@@ -276,7 +276,7 @@ sweep_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
   // red: swept and written back, for the black half-sweep to read
   band_half_sweep<SHARD, kSweepRows>(
       cur, B, S, 0, busy, rim, r0s, q,
-      SweepCell<NC>{upl, old, s_cc, B.ww, B.hw, q, cap, P});
+      SweepCell<NC>{upl, old, s_cc, B.ww, B.hw, q, cap, P}, B.wh);
   // black: the last half-sweep; its new values stay in registers, where the
   // store and the partials below take them (no write-back, no rim refresh:
   // a replica cell is never stored or summed)
@@ -284,9 +284,9 @@ sweep_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
   if (busy) {
     const SweepCell<NC> cell{upl, old + half, s_cc, B.ww, B.hw, q, cap, P};
     if ((B.wr0 + 1 + B.par) & 1)
-      band_rows<1>(cur, B, r0s, q, cell, nb);
+      band_rows<1>(cur, B, r0s, q, cell, nb, B.wh);
     else
-      band_rows<0>(cur, B, r0s, q, cell, nb);
+      band_rows<0>(cur, B, r0s, q, cell, nb, B.wh);
   }
 
   // the owned cells: stored, and their partials (the old value of a cell

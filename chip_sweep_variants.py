@@ -212,14 +212,14 @@ persist_kernel(const float* __restrict__ phi, const float* __restrict__ u0,
     const int half = B.wh * B.hw;
     band_half_sweep<false, kSweepRows>(
         cur, B, S, 0, busy, false, r0s, q,
-        SweepCell<0>{upl, old, s_cc, B.ww, B.hw, q, cap, P});
+        SweepCell<0>{upl, old, s_cc, B.ww, B.hw, q, cap, P}, B.wh);
     float nb[kSweepRows];
     if (busy) {
       const SweepCell<0> cell{upl, old + half, s_cc, B.ww, B.hw, q, cap, P};
       if ((B.wr0 + 1) & 1)
-        band_rows<1>(cur, B, r0s, q, cell, nb);
+        band_rows<1>(cur, B, r0s, q, cell, nb, B.wh);
       else
-        band_rows<0>(cur, B, r0s, q, cell, nb);
+        band_rows<0>(cur, B, r0s, q, cell, nb, B.wh);
     }
     double acc[5] = {0.0, 0.0, 0.0, 0.0, 0.0};
     float* o = out + frame * chan;

@@ -15,10 +15,20 @@ and f64, gray and C = 3, on ragged tilings: the 2k reach is exact. A twin
 with 2k - 1 cells of halo is shown to differ, so the reach is also tight.
 One case holds the twin against the JAX package's red-black sweep.
 
+On a whole image the kernel sweeps only the live cone: half-sweep s of a
+chunk updates the tile plus m = 2k - s cells each way, cut at the window,
+its row start rounded down to an even row and its columns to whole pairs
+(``band_live``, the kernel's rule term by term). The cone twin does the
+same and is held bitwise equal to the whole-image plain run on the same
+tilings; a cone one cell tighter is shown to differ. ``band_cone`` counts
+the busy warp half-sweeps the cone saves on the kernel's thread map.
+
 The remaining cases check ``_cuda.band_geometry``: every window of its
 tiling fits the block it names, the main path's shapes fit the shared
 memory with two blocks an SM, and every k up to 21 is taken.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -112,6 +122,46 @@ def twin(phi, f, p, k, tile, shard=None, halo=None):
     return out
 
 
+def _live(tile, win, m):
+    """The live rectangle (r0, r1, c0, c1) in window coordinates of a
+    half-sweep that leaves m half-sweeps to the chunk: the tile plus m each
+    way, cut at the window, the row start rounded down to even and the
+    columns out to whole pairs (the kernel's rounding)."""
+    tr0, tr1, tc0, tc1 = tile
+    wr0, wr1, wc0, wc1 = win
+    r0 = max(tr0 - m, wr0) - wr0
+    c0 = max(tc0 - m, wc0) - wc0
+    c1 = min(tc1 + m, wc1) - wc0
+    return (r0 - r0 % 2, min(tr1 + m, wr1) - wr0, c0 - c0 % 2,
+            min(c1 + c1 % 2, wc1 - wc0))
+
+
+def twin_cone(phi, f, p, k, tile, slack=0):
+    """The band body's whole-image result with the live cone, tile by tile:
+    half-sweep s updates only the window's cells in ``_live`` for m = 2k -
+    s, less ``slack`` (at least 0)."""
+    h, w = phi.shape
+    th, tw = tile
+    out = phi.clone()
+    for tr0 in range(0, h, th):
+        for tc0 in range(0, w, tw):
+            t = (tr0, min(tr0 + th, h), tc0, min(tc0 + tw, w))
+            win = _window(*t, h, w, 2 * k)
+            wr0, wr1, wc0, wc1 = win
+            cur, fw = phi[wr0:wr1, wc0:wc1], f[wr0:wr1, wc0:wc1]
+            red = color_masks(cur.shape, (wr0 + wc0) % 2)
+            for s in range(1, 2 * k + 1):
+                r0, r1, c0, c1 = _live(t, win, max(2 * k - s - slack, 0))
+                live = torch.zeros_like(red)
+                live[r0:r1, c0:c1] = True
+                colour = red if s % 2 else ~red
+                cur = torch.where(colour & live, _update_all(
+                    cur, fw, p.mu, p.dt, p.eps, p.eta2), cur)
+            out[t[0]:t[1], t[2]:t[3]] = cur[t[0] - wr0:t[1] - wr0,
+                                            t[2] - wc0:t[3] - wc0]
+    return out
+
+
 def _field(shape, seed, dtype, channels):
     """A level set with structure at every scale and its force: phi from
     numpy noise (seeded), f from a noisy two-level image (gray) or three
@@ -196,6 +246,26 @@ def test_twin_is_bitwise_the_shard_canvas_run(grid, shape, k, channels,
     assert parities == {0, 1}
 
 
+# 58 x 90 under 8 x 16 tiles (2k beyond a tile at k = 8) and 24 x 32
+# tiles: partial last tiles, tiles on every image side, windows cut at it
+@pytest.mark.parametrize("tile", [(8, 16), (24, 32)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("channels", [0, 3])
+@pytest.mark.parametrize("k", [1, 2, 8])
+def test_cone_twin_is_bitwise_the_whole_image_run(k, channels, dtype, tile):
+    phi, f, p = _field((58, 90), 50 + k, DTYPES[dtype], channels)
+    want, _ = iterate(phi, f, p, k)
+    assert torch.equal(twin_cone(phi, f, p, k, tile), want)
+
+
+@pytest.mark.parametrize("k", [1, 2, 8])
+def test_a_cone_one_cell_tighter_is_not_enough(k):
+    phi, f, p = _field((58, 90), 60 + k, np.float64, 0)
+    want, _ = iterate(phi, f, p, k)
+    assert torch.equal(twin_cone(phi, f, p, k, (24, 32)), want)
+    assert not torch.equal(twin_cone(phi, f, p, k, (24, 32), slack=1), want)
+
+
 @pytest.mark.parametrize("k", [1, 2, 8])
 def test_a_halo_of_2k_minus_1_is_not_enough(k):
     phi, f, p = _field((58, 90), 30 + k, np.float64, 0)
@@ -277,3 +347,129 @@ def test_geometry_takes_every_k_up_to_21(shape, crop):
                 assert wc1 - wc0 <= 2 * px
                 assert (wr1 - wr0) * (wc1 - wc0) <= cap
                 assert wc0 % 2 == 0 and (wc1 - wc0) % 2 == 0
+
+
+def band_live(tile, window, m: int):
+    """The kernel's live rectangle (r0, r1, q0, q1), window rows [r0, r1)
+    by column pairs [q0, q1), of a whole-image half-sweep that leaves ``m``
+    half-sweeps to its chunk (csrc/band.cuh band_live, term by term)."""
+    tr0, tr1, tc0, tc1 = tile
+    wr0, wr1, wc0, wc1 = window
+    return (max(tr0 - wr0 - m, 0) & ~1, min(tr1 - wr0 + m, wr1 - wr0),
+            max(tc0 - wc0 - m, 0) >> 1,
+            min((tc1 - wc0 + m + 1) >> 1, (wc1 - wc0) >> 1))
+
+
+@functools.lru_cache(maxsize=64)
+def _whole_window_warps(wh: int, hw: int, px: int, threads: int) -> int:
+    """Warps of a block with a thread busy in a whole-window half-sweep:
+    thread t on pair t % px and the strip from row (t // px) BAND_ROWS,
+    busy where both lie in the (wh rows, hw pairs) window."""
+    return len({t // 32 for t in range(threads)
+                if t % px < hw and t // px * _cuda.BAND_ROWS < wh})
+
+
+def band_cone(h: int, w: int, k: int, geometry):
+    """(cone, whole): the busy warp half-sweeps of a whole-image band-body
+    launch on an (h, w) image for k iterations at ``geometry`` (TH, TW,
+    PX, PY, cap), the live cone's (each half-sweep's rectangle on the
+    first threads) and a whole-window sweep's (the fixed thread map the
+    load and the partials keep)."""
+    th, tw, px, py, _ = geometry
+    threads = -(-px * py // 32) * 32
+    cone = whole = 0
+    for tile in _tiles(h, w, th, tw):
+        win = _cuda.band_window(*tile, h, w, k)
+        whole += 2 * k * _whole_window_warps(
+            win[1] - win[0], (win[3] - win[2]) // 2, px, threads)
+        for m in range(2 * k):
+            r0, r1, q0, q1 = band_live(tile, win, m)
+            strips = -(-(r1 - r0) // _cuda.BAND_ROWS)
+            cone += -(-(q1 - q0) * strips // 32)
+    return cone, whole
+
+
+def _tiles(h, w, th, tw):
+    for tr0 in range(0, h, th):
+        for tc0 in range(0, w, tw):
+            yield tr0, min(tr0 + th, h), tc0, min(tc0 + tw, w)
+
+
+@pytest.mark.parametrize("h,w,k,tile", [(58, 90, 1, (8, 16)),
+                                        (58, 90, 8, (8, 16)),
+                                        (58, 90, 2, (24, 32)),
+                                        (2160, 3840, 8, (72, 80)),
+                                        (1000, 1500, 21, (32, 16))])
+def test_kernel_live_rectangle_is_the_twins(h, w, k, tile):
+    """The kernel's ``band_live`` (pairs) is ``_live`` (columns) on every
+    tile and half-sweep, holds the tile, lies in the window and fits the
+    launch's threads."""
+    th, tw, px, py, _ = _cuda.band_geometry(h, w, k)
+    for t in _tiles(h, w, *tile):
+        win = _cuda.band_window(*t, h, w, k)
+        for m in range(2 * k):
+            r0, r1, q0, q1 = band_live(t, win, m)
+            assert (r0, r1, 2 * q0, 2 * q1) == _live(t, win, m)
+            assert r0 % 2 == 0 and 0 <= r0 < r1 <= win[1] - win[0]
+            assert 0 <= q0 < q1 <= (win[3] - win[2]) // 2
+            assert r0 <= t[0] - win[0] and t[1] - win[0] <= r1
+            assert 2 * q0 <= t[2] - win[2] and t[3] - win[2] <= 2 * q1
+    for t in _tiles(h, w, th, tw):
+        win = _cuda.band_window(*t, h, w, k)
+        for m in range(2 * k):
+            r0, r1, q0, q1 = band_live(t, win, m)
+            assert (q1 - q0) * -(-(r1 - r0) // _cuda.BAND_ROWS) <= px * py
+
+
+def test_cone_counts_at_4k():
+    """4K k = 8 on its 72 x 80 tiles: an interior block runs 194 busy warp
+    half-sweeps against the whole window's 256 (16 warps, 16 half-sweeps),
+    the grid 277,056 against 365,568 (the right column's whole windows are
+    48 pairs on a 56-pair thread map, so every warp keeps a busy lane)."""
+    h, w, k = 2160, 3840, 8
+    geo = _cuda.band_geometry(h, w, k)
+    assert geo == (72, 80, 56, 9, 11648)
+    tile = (720, 792, 800, 880)  # an interior block
+    win = _cuda.band_window(*tile, h, w, k)
+    assert win == (704, 808, 784, 896)
+    assert 2 * k * _whole_window_warps(104, 56, 56, 512) == 256
+    busy = [-(-(q1 - q0) * -(-(r1 - r0) // 12) // 32) for r0, r1, q0, q1 in
+            (band_live(tile, win, m) for m in range(2 * k))]
+    # m = 0 (the last half-sweep) sweeps the tile: 40 pairs x 6 strips
+    assert sum(busy) == 194 and busy[0] == 8 and busy[-1] == 16
+    assert band_cone(h, w, k, geo) == (277056, 365568)
+
+
+def test_a_tile_on_an_image_side_shrinks_only_inside():
+    """The top-left 4K tile: its live rows and columns start at the image
+    side in every half-sweep; its bottom and right sides close in, one cell
+    a half-sweep, to the tile."""
+    h, w, k = 2160, 3840, 8
+    tile = (0, 72, 0, 80)
+    win = _cuda.band_window(*tile, h, w, k)
+    assert win == (0, 88, 0, 96)
+    for m in range(2 * k):
+        assert band_live(tile, win, m) == (0, 72 + m, 0,
+                                                 (80 + m + 1) // 2)
+    corner = (2088, 2160, 3760, 3840)  # the bottom-right tile
+    win = _cuda.band_window(*corner, h, w, k)
+    for m in range(2 * k):
+        r0, r1, q0, q1 = band_live(corner, win, m)
+        assert (r1, q1) == (win[1] - win[0], (win[3] - win[2]) // 2)
+        assert (r0, 2 * q0) == ((16 - m) & ~1, (16 - m) & ~1)
+
+
+def test_k1_cone():
+    """k = 1: two half-sweeps, the tile plus one then the tile; the count
+    still saves (and never adds) warps."""
+    h, w = 2160, 3840
+    geo = _cuda.band_geometry(h, w, 1)
+    th, tw = geo[:2]
+    tile = (th, 2 * th, tw, 2 * tw)
+    win = _cuda.band_window(*tile, h, w, 1)
+    assert win == (th - 2, 2 * th + 2, tw - 2, 2 * tw + 2)
+    assert band_live(tile, win, 1) == (0, th + 3, 0, tw // 2 + 2)
+    assert band_live(tile, win, 0) == (2, th + 2, 1, tw // 2 + 1)
+    cone, whole = band_cone(h, w, 1, geo)
+    assert 0 < cone < whole
+
